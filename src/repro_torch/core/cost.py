@@ -1,0 +1,118 @@
+"""Time/energy cost model for one HFL global round (paper Eqs. 3-5, 9-19).
+
+Vectorised over all clients and edge servers.  ``assoc`` (N, M) is the
+one-hot client-edge association, ``z`` (M,) the semi-synchronous
+edge-selection mask.  NOMA uplink rates come from the SIC kernel
+(``kernels.hfl_ops.sic_rates``); the OMA benchmark is plain torch.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import noma
+from repro_torch.kernels import hfl_ops
+
+
+class RoundCost(NamedTuple):
+    total_time_s: torch.Tensor        # T  (Eq. 18)
+    total_energy_j: torch.Tensor      # E  (Eq. 19)
+    cost: torch.Tensor                # λt·T + λe·E  (Eq. 23a)
+    per_edge_time_s: torch.Tensor     # (M,) T_m^cloud + T^edge_{N_m}
+    per_edge_energy_j: torch.Tensor   # (M,) E_m^cloud + E^edge_{N_m}
+    client_time_s: torch.Tensor       # (N,) per-edge-iteration t_cmp + t_com
+    rates_bps: torch.Tensor           # (N,) uplink rates
+    client_energy_j: torch.Tensor     # (N,) per-edge-iteration e_cmp + e_com
+
+
+def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
+    """The IEEE quotient c / x (``float / Tensor`` in torch multiplies by
+    the reciprocal instead)."""
+    return x.new_full((), c) / x
+
+
+def local_compute(cfg, f_hz: torch.Tensor, n_samples: torch.Tensor):
+    """Eqs. 4-5: per-client local training time and energy for τ₁
+    iterations, with the homogeneous ``cfg.capacitance``."""
+    tau1 = cfg.tau1
+    t_cmp = tau1 * cfg.cycles_per_sample * n_samples / f_hz
+    e_cmp = tau1 * (cfg.capacitance / 2.0) * (f_hz ** 2) \
+        * cfg.cycles_per_sample * n_samples
+    return t_cmp, e_cmp
+
+
+def uplink(cfg, power_w: torch.Tensor, gains: torch.Tensor,
+           assoc: torch.Tensor, *, noma_enabled: bool = True):
+    """Eqs. 7-10 per edge server: uplink rates, then t_com / e_com.
+
+    gains: (N, M) |h|² to every edge; assoc: (N, M) one-hot.  NOMA runs the
+    SIC kernel over all edges; ``noma_enabled=False`` models the OMA
+    benchmark, where each edge splits its band equally among its K_m
+    clients.  Returns (t_com (N,), e_com (N,), rates (N,)).
+    """
+    noise = noma.noise_power_w(cfg.noise_dbm_per_hz, cfg.bandwidth_hz)
+    if noma_enabled:
+        rates_nm = hfl_ops.sic_rates(power_w, gains, assoc > 0,
+                                     bandwidth_hz=cfg.bandwidth_hz,
+                                     noise_w=noise)
+        rates = torch.sum(rates_nm * assoc, dim=1)
+    else:
+        k_m = torch.clamp_min(torch.sum(assoc, dim=0), 1.0)          # (M,)
+        share = torch.sum(assoc / k_m[None, :], dim=1)               # (N,)
+        own_gain = torch.sum(gains * assoc, dim=1)
+        band = cfg.bandwidth_hz * share
+        snr = power_w * own_gain / torch.clamp_min(noise * share, 1e-30)
+        rates = band * torch.log2(1.0 + snr)
+    associated = torch.sum(assoc, dim=1) > 0
+    safe_rates = torch.where(associated, torch.clamp_min(rates, 1.0), 1.0)
+    t_com = torch.where(associated, _rdiv(cfg.model_size_bits, safe_rates),
+                        0.0)
+    e_com = power_w * t_com
+    return t_com, e_com, rates
+
+
+def apply_schedule(cfg, rc: RoundCost, z: torch.Tensor) -> RoundCost:
+    """Re-mask a ``round_cost`` evaluated at z = 1 with the actual edge
+    selection: Eqs. 18-19 + 23a are a masked reduction over the per-edge
+    totals, so the scheduler needs one cost evaluation."""
+    total_time = torch.max(z * rc.per_edge_time_s)
+    total_energy = torch.sum(z * rc.per_edge_energy_j)
+    c = cfg.lambda_t * total_time + cfg.lambda_e * total_energy
+    return rc._replace(total_time_s=total_time, total_energy_j=total_energy,
+                       cost=c)
+
+
+def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
+               gains: torch.Tensor, assoc: torch.Tensor, z: torch.Tensor,
+               n_samples: torch.Tensor, noma_enabled: bool = True
+               ) -> RoundCost:
+    """Full Eq. 23a cost for one global round."""
+    t_cmp, e_cmp = local_compute(cfg, f_hz, n_samples)
+    t_com, e_com, rates = uplink(cfg, power_w, gains, assoc,
+                                 noma_enabled=noma_enabled)
+    associated = torch.sum(assoc, dim=1) > 0
+    client_time = torch.where(associated, t_cmp + t_com, 0.0)
+    client_energy = torch.where(associated, e_cmp + e_com, 0.0)
+
+    tau2 = cfg.tau2
+    in_edge = assoc > 0
+    # Eq. 13: synchronous edge round = slowest associated client, × τ₂
+    per_edge_time = tau2 * torch.amax(
+        torch.where(in_edge, client_time[:, None], 0.0), dim=0)     # (M,)
+    # Eq. 14
+    per_edge_energy = tau2 * torch.sum(
+        torch.where(in_edge, client_energy[:, None], 0.0), dim=0)   # (M,)
+
+    # Eqs. 15-16: OFDMA edge->cloud
+    t_cloud = cfg.edge_model_size_bits / cfg.edge_rate_bps
+    e_cloud = cfg.edge_power_w * t_cloud
+    edge_total_time = per_edge_time + t_cloud
+    edge_total_energy = per_edge_energy + e_cloud
+
+    # Eqs. 18-19 with the semi-sync mask z
+    total_time = torch.max(z * edge_total_time)
+    total_energy = torch.sum(z * edge_total_energy)
+    c = cfg.lambda_t * total_time + cfg.lambda_e * total_energy
+    return RoundCost(total_time, total_energy, c, edge_total_time,
+                     edge_total_energy, client_time, rates, client_energy)

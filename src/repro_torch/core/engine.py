@@ -1,0 +1,456 @@
+"""The HFL global round as one function over explicit state (paper §II-§IV).
+
+    round_step(cfg, spec, state, bundle, draws) -> (state', RoundMetrics)
+
+chains the paper's semi-synchronous round: Gauss-Markov fading → fuzzy
+competency scoring (kernel) → deferred-acceptance association →
+allocation → one Eq. 23a cost evaluation with NOMA SIC rates (kernel) →
+the PDD edge schedule → τ₂ × τ₁ compact-cohort local SGD (kernel) with
+edge and cloud aggregation → the staleness update and evaluation.
+
+* ``RoundState``  -- what evolves across rounds: global and stacked client
+  params, channel gains, staleness, the round index.
+* ``RoundBundle`` -- what is fixed for one scenario: distances and data.
+* ``RoundDraws``  -- the round's random numbers, an explicit argument:
+  the ``Exp(1)`` fading field and the minibatch index lattice for all N
+  clients.  ``sample_draws`` makes them from a ``torch.Generator``; the
+  tests replay the reference's own draws through the same argument.
+
+The slice covers the dense sync round on the static scenario with fcea
+or gcea, the ``mid`` allocator, PDD or fastest scheduling, NOMA or OMA.
+Everything else raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import (aggregation, association, cost, noma, pdd,
+                              staleness)
+from repro_torch.data import federated
+from repro_torch.device import resolve_device
+from repro_torch.kernels import hfl_ops
+from repro_torch.models import mlp
+
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Spec + state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """Per-simulation switches, with the reference's defaults.  Options the
+    port does not have yet are accepted at their off value only."""
+    policy: str = "fcea"            # fcea | gcea
+    allocator: str = "mid"
+    scheduler: str = "pdd"          # pdd | fastest
+    noma_enabled: bool = True
+    fading_rho: float = 0.9
+    oma_quota_factor: float = 0.5
+    scenario: str = "static"
+    candidates_k: Optional[int] = None
+    telemetry: bool = False
+    engine_mode: str = "sync"
+    faults: Any = None
+    warm_start: bool = False
+
+    def __post_init__(self):
+        todo = []
+        if self.policy == "rcea":
+            todo.append("policy='rcea' (ROADMAP A13)")
+        elif self.policy not in association.POLICIES:
+            raise ValueError(f"unknown association policy {self.policy!r}")
+        if self.allocator == "rra":
+            todo.append("allocator='rra' (ROADMAP A13)")
+        elif self.allocator in ("fpa", "fca", "ddpg"):
+            todo.append(f"allocator={self.allocator!r} (ROADMAP A15)")
+        elif self.allocator != "mid":
+            raise ValueError(f"unknown allocator {self.allocator!r}")
+        if self.scheduler not in ("pdd", "fastest"):
+            raise ValueError(f"unknown scheduler {self.scheduler!r}")
+        if self.candidates_k is not None:
+            todo.append("candidates_k (ROADMAP A12)")
+        if self.scenario != "static":
+            todo.append("dynamic scenarios (ROADMAP A15)")
+        if self.telemetry:
+            todo.append("telemetry (ROADMAP A15)")
+        if self.engine_mode != "sync":
+            todo.append("engine_mode='buffered' (ROADMAP A15)")
+        if self.faults is not None:
+            todo.append("faults (ROADMAP A15)")
+        if self.warm_start:
+            todo.append("warm_start (ROADMAP A15)")
+        if todo:
+            raise NotImplementedError(
+                "not ported to repro_torch yet: " + ", ".join(todo))
+
+
+class RoundBundle(NamedTuple):
+    """Per-scenario constants."""
+    dist: torch.Tensor       # (N, M) float32 client-edge distances
+    x: torch.Tensor          # (N, cap, dim) float32 padded client data
+    y: torch.Tensor          # (N, cap) int32 labels
+    counts: torch.Tensor     # (N,) float32 — D_n
+    test_x: torch.Tensor     # (T, dim) float32
+    test_y: torch.Tensor     # (T,) int32
+
+
+class RoundState(NamedTuple):
+    """Everything that evolves across global rounds."""
+    global_params: Params    # cloud model
+    client_params: Params    # stacked (N, ...) client models
+    gains: torch.Tensor      # (N, M) float32 current |h|²
+    staleness: torch.Tensor  # (N,) int32 — A_n
+    round_idx: int
+
+
+class RoundDraws(NamedTuple):
+    """One round's random numbers."""
+    fading: torch.Tensor     # (N, M) float32 Exp(1) fading field
+    batch_idx: torch.Tensor  # (τ₂, τ₁, N, B) int32 in [0, max(D_n, 1))
+
+
+class RoundMetrics(NamedTuple):
+    """Per-round observables (0-d tensors, or stacked along rounds)."""
+    round: Any
+    accuracy: torch.Tensor
+    loss: torch.Tensor
+    avg_staleness: torch.Tensor
+    total_time_s: torch.Tensor
+    total_energy_j: torch.Tensor
+    cost: torch.Tensor
+    n_associated: torch.Tensor
+    n_available: Any
+    z: torch.Tensor          # (M,)
+    sweeps: Any              # deferred-acceptance sweeps the resolver ran
+
+
+# ---------------------------------------------------------------------------
+# Topology (paper §V: 500 m square, cloud at centre, 4 edges at midpoints
+# of the corner-to-centre lines, clients uniform)
+# ---------------------------------------------------------------------------
+
+def make_topology(rng: np.random.Generator, *, n_clients: int, n_edges: int,
+                  area_side_m: float) -> Dict[str, np.ndarray]:
+    half = area_side_m / 2.0
+    cloud = np.array([half, half])
+    corners = np.array([[0.0, 0.0], [0.0, area_side_m],
+                        [area_side_m, 0.0], [area_side_m, area_side_m]])
+    mids = (corners + cloud) / 2.0
+    if n_edges <= 4:
+        edges = mids[:n_edges]
+    else:  # extra edges uniformly placed
+        extra = rng.uniform(0.0, area_side_m, (n_edges - 4, 2))
+        edges = np.concatenate([mids, extra], axis=0)
+    clients = rng.uniform(0.0, area_side_m, (n_clients, 2))
+    dist = np.linalg.norm(clients[:, None, :] - edges[None, :, :], axis=-1)
+    return {"cloud": cloud, "edges": edges, "clients": clients, "dist": dist}
+
+
+def coverage_radius(cfg) -> float:
+    """Generous enough that every client can reach ≥ 1 edge."""
+    return cfg.area_side_m * 0.75
+
+
+def quota_for(cfg, spec: EngineSpec) -> int:
+    """OMA admits fewer clients per edge: each needs an orthogonal slice."""
+    if spec.noma_enabled:
+        return cfg.clients_per_edge
+    return max(1, int(cfg.clients_per_edge * spec.oma_quota_factor))
+
+
+# ---------------------------------------------------------------------------
+# Initialisation and draws
+# ---------------------------------------------------------------------------
+
+def _exp1(shape, generator: torch.Generator, device: torch.device
+          ) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32,
+                       device=device).exponential_(generator=generator)
+
+
+def init_simulation(cfg, *, seed: int = 0, iid: bool = True,
+                    device: "str | torch.device" = "cuda",
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[RoundState, RoundBundle, Dict[str, Any]]:
+    """Build one scenario: (state, bundle, aux).
+
+    Topology and data come from ``numpy.random.default_rng(seed)`` in the
+    reference's order, so ``dist``, ``x``, ``y``, ``counts``, ``test_x``
+    and ``test_y`` equal the reference's bit for bit.  The MLP init and
+    the first gains come from ``generator`` (default: a generator on
+    ``device`` seeded with ``seed``).  ``aux`` holds the topology, the
+    host data and the numpy rng.
+    """
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    topo = make_topology(rng, n_clients=cfg.n_clients, n_edges=cfg.n_edges,
+                         area_side_m=cfg.area_side_m)
+    data = federated.make_federated(
+        rng, n_clients=cfg.n_clients, dim=cfg.input_dim,
+        n_classes=cfg.n_classes, iid=iid,
+        min_samples=cfg.min_samples, max_samples=cfg.max_samples,
+        dirichlet_alpha=cfg.dirichlet_alpha,
+        noise=getattr(cfg, "data_noise", 1.2))
+    global_params = mlp.init_params(cfg.input_dim, cfg.hidden, cfg.n_classes,
+                                    generator=generator, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dist = torch.tensor(topo["dist"], **f32)
+    gains = noma.rayleigh_gains(_exp1(dist.shape, generator, dev), dist,
+                                path_loss_exponent=cfg.path_loss_exponent)
+    state = RoundState(
+        global_params=global_params,
+        client_params=aggregation.replicate(global_params, cfg.n_clients),
+        gains=gains,
+        staleness=staleness.init_staleness(cfg.n_clients, dev),
+        round_idx=0)
+    bundle = RoundBundle(
+        dist=dist,
+        x=torch.tensor(data.x, **f32),
+        y=torch.tensor(data.y, dtype=torch.int32, device=dev),
+        counts=torch.tensor(data.counts, **f32),
+        test_x=torch.tensor(data.test_x, **f32),
+        test_y=torch.tensor(data.test_y, dtype=torch.int32, device=dev))
+    aux = {"topo": topo, "data": data, "rng": rng, "generator": generator}
+    return state, bundle, aux
+
+
+def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator
+                 ) -> RoundDraws:
+    """One round's draws from ``generator`` (on the bundle's device): the
+    ``Exp(1)`` fading field and, for every client, τ₂ × τ₁ minibatches of
+    ``local_batch`` indices uniform over its D_n samples."""
+    dev = bundle.dist.device
+    fading = _exp1(bundle.dist.shape, generator, dev)
+    hi = torch.clamp_min(bundle.counts, 1.0)[None, None, :, None]
+    u = torch.rand((cfg.tau2, cfg.tau1, cfg.n_clients, cfg.local_batch),
+                   generator=generator, device=dev)
+    idx = torch.minimum(torch.floor(u * hi), hi - 1.0).to(torch.int32)
+    return RoundDraws(fading=fading, batch_idx=idx)
+
+
+# ---------------------------------------------------------------------------
+# Round pieces
+# ---------------------------------------------------------------------------
+
+def _allocate(cfg, device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p_w (N,), f_hz (N,)) of the ``mid`` allocator: the midpoints."""
+    n = cfg.n_clients
+    return (torch.full((n,), 0.5 * (cfg.p_min_w + cfg.p_max_w),
+                       device=device),
+            torch.full((n,), 0.5 * (cfg.f_min_hz + cfg.f_max_hz),
+                       device=device))
+
+
+def _schedule(cfg, spec: EngineSpec, rc_all: cost.RoundCost
+              ) -> torch.Tensor:
+    """Semi-synchronous edge-selection mask z (M,) from one cost eval.
+
+    PDD optimises exactly the billed Eq. 23a surface: per-edge time
+    ``t_cloud + U_m`` with ``U_m = τ₂ · max_{n∈N_m} t_n``."""
+    quota = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
+    if spec.scheduler == "pdd":
+        t_cloud = torch.full((cfg.n_edges,),
+                             cfg.edge_model_size_bits / cfg.edge_rate_bps,
+                             dtype=torch.float32,
+                             device=rc_all.per_edge_time_s.device)
+        U = rc_all.per_edge_time_s - t_cloud
+        return pdd.pdd_schedule(rc_all.per_edge_energy_j, t_cloud, U,
+                                lam_t=cfg.lambda_t, lam_e=cfg.lambda_e,
+                                quota=quota).z_binary
+    return pdd.semi_sync_fastest(rc_all.per_edge_time_s, quota)
+
+
+def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
+                  bundle: RoundBundle, assoc: torch.Tensor,
+                  batch_idx: torch.Tensor) -> Tuple[Params, Params]:
+    """τ₂ × (τ₁ local SGD + edge aggregation) (Eqs. 11, 13) on a compact
+    cohort.  Returns ``(client_params, edge_params)``.
+
+    At most K = min(N, quota·M) clients are admitted, so they are gathered
+    once into K lanes (ascending client index, then pad lanes), trained
+    and aggregated on the (K, …) stack, and scattered back once.  Pad
+    lanes repeat client N−1's data and draws, carry zero aggregation
+    weight and never scatter back; unadmitted clients keep their params.
+    The lane selection is sync-free: a stable sort of ``~selected``.
+    """
+    n = cfg.n_clients
+    k_sel = min(n, quota_for(cfg, spec) * cfg.n_edges)
+    selected = torch.sum(assoc, dim=1) > 0
+    first = torch.argsort((~selected).to(torch.int32), stable=True)[:k_sel]
+    sel_idx = torch.where(selected[first], first, n)           # pad -> n
+    safe = torch.clamp_max(sel_idx, n - 1)
+    lane_ok = (sel_idx < n).to(assoc.dtype)
+    sel_x, sel_y = bundle.x[safe], bundle.y[safe]
+    sel_counts = bundle.counts[safe]
+    sel_assoc = assoc[safe] * lane_ok[:, None]                 # (K, M)
+    # the lattice is a pure function of the global client id, so the
+    # lanes' draws are the full lattice gathered at ``safe``
+    idx = batch_idx[:, :, safe].long()                         # (τ₂,τ₁,K,B)
+    lanes = torch.arange(safe.shape[0], device=safe.device)[None, :, None]
+
+    # admitted lanes start from the global model
+    edge_params = aggregation.replicate(state.global_params, cfg.n_edges)
+    lane_params = {k: v[safe] for k, v in state.client_params.items()}
+    lane_params = aggregation.broadcast_to_clients(sel_assoc, edge_params,
+                                                   lane_params)
+    for t in range(cfg.tau2):
+        bx = sel_x[lanes, idx[t]]                              # (τ₁,K,B,D)
+        by = sel_y[lanes, idx[t]]                              # (τ₁,K,B)
+        lane_params = hfl_ops.local_sgd_step(lane_params, bx, by, lr=cfg.lr)
+        edge_params = aggregation.edge_aggregate(lane_params, sel_assoc,
+                                                 sel_counts)
+        lane_params = aggregation.broadcast_to_clients(sel_assoc, edge_params,
+                                                       lane_params)
+    # scatter back: pad lanes target row n of a scratch row that is dropped
+    client_params = {}
+    for k, old in state.client_params.items():
+        buf = torch.cat([old, old[:1]], dim=0)
+        buf.index_copy_(0, sel_idx, lane_params[k])
+        client_params[k] = buf[:n]
+    return client_params, edge_params
+
+
+def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
+           assoc: torch.Tensor, z: torch.Tensor, batch_idx: torch.Tensor
+           ) -> Tuple[Params, Params]:
+    """``_train_cohort`` followed by the semi-synchronous cloud aggregation
+    (Eq. 17).  Returns ``(global_params, client_params)``."""
+    client_params, edge_params = _train_cohort(cfg, spec, state, bundle,
+                                               assoc, batch_idx)
+    edge_data = torch.sum(assoc * bundle.counts[:, None], dim=0)   # (M,)
+    z_eff = z * (edge_data > 0).to(z.dtype)
+    agg = aggregation.cloud_aggregate(edge_params, z_eff, edge_data)
+    # keep the old global model when no selected edge has data
+    has_data = torch.sum(z_eff * edge_data) > 0
+    global_params = {k: torch.where(has_data, agg[k], g)
+                     for k, g in state.global_params.items()}
+    return global_params, client_params
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
+def round_step(cfg, spec: EngineSpec, state: RoundState,
+               bundle: RoundBundle, draws: RoundDraws, *, timer=None
+               ) -> Tuple[RoundState, RoundMetrics]:
+    """One global round.  ``timer``, if given, is called with each stage's
+    name (associate, allocate, schedule, train, eval) and must return a
+    context manager around that stage -- the hook stage timings use."""
+    stage = timer or _no_stage
+    dev = bundle.dist.device
+    n, m = cfg.n_clients, cfg.n_edges
+    # 1. channel fading
+    gains = noma.evolve_gains(draws.fading, state.gains, bundle.dist,
+                              path_loss_exponent=cfg.path_loss_exponent,
+                              rho=spec.fading_rho)
+    # 2. fuzzy scoring + association
+    with stage("associate"):
+        scores = None
+        if spec.policy == "fcea":
+            scores = hfl_ops.score_matrix(gains, bundle.counts,
+                                          state.staleness,
+                                          data_max=float(cfg.max_samples))
+        assoc, sweeps = association.associate(
+            spec.policy, scores=scores, gains=gains, dist=bundle.dist,
+            quota=quota_for(cfg, spec),
+            coverage_radius_m=coverage_radius(cfg), return_sweeps=True)
+        assoc = assoc.float()
+    # 3. resource allocation
+    with stage("allocate"):
+        p, f = _allocate(cfg, dev)
+    # 4. one cost evaluation at z = 1, reused by the scheduler and the
+    #    final masked round cost
+    with stage("schedule"):
+        rc_all = cost.round_cost(cfg, power_w=p, f_hz=f, gains=gains,
+                                 assoc=assoc,
+                                 z=torch.ones((m,), device=dev),
+                                 n_samples=bundle.counts,
+                                 noma_enabled=spec.noma_enabled)
+        z = _schedule(cfg, spec, rc_all)
+        rc = cost.apply_schedule(cfg, rc_all, z)
+    # 5. τ₂·τ₁ training + hierarchical aggregation
+    with stage("train"):
+        global_params, client_params = _train(cfg, spec, state, bundle,
+                                              assoc, z, draws.batch_idx)
+    # 6. staleness (Eq. 20): reset only for clients whose edge was selected
+    selected = torch.sum(assoc, dim=1) > 0
+    effective = selected & (z > 0)[torch.argmax(assoc, dim=1)]
+    new_stale = staleness.update_staleness(state.staleness, effective)
+    round_idx = state.round_idx + 1
+    with stage("eval"):
+        accuracy = mlp.accuracy(global_params, bundle.test_x, bundle.test_y)
+        loss = mlp.loss(global_params, bundle.test_x, bundle.test_y)
+    metrics = RoundMetrics(
+        round=round_idx,
+        accuracy=accuracy,
+        loss=loss,
+        avg_staleness=torch.mean(new_stale.float()),
+        total_time_s=rc.total_time_s,
+        total_energy_j=rc.total_energy_j,
+        cost=rc.cost,
+        n_associated=torch.sum(selected, dtype=torch.int32),
+        n_available=n,
+        z=z,
+        sweeps=sweeps)
+    new_state = RoundState(global_params, client_params, gains, new_stale,
+                           round_idx)
+    return new_state, metrics
+
+
+def stack_metrics(rows) -> RoundMetrics:
+    """Per-round metrics -> one ``RoundMetrics`` with a leading round axis."""
+    return RoundMetrics(*(
+        torch.stack(list(field)) if isinstance(field[0], torch.Tensor)
+        else torch.tensor(list(field)) for field in zip(*rows)))
+
+
+def run_scanned(cfg, spec: EngineSpec, state: RoundState,
+                bundle: RoundBundle, n_rounds: int,
+                generator: torch.Generator, *, timer=None
+                ) -> Tuple[RoundState, RoundMetrics]:
+    """``n_rounds`` rounds, each with fresh draws from ``generator``.
+    Metrics leaves gain a leading (n_rounds,) axis."""
+    rows = []
+    for _ in range(n_rounds):
+        draws = sample_draws(cfg, bundle, generator)
+        state, metrics = round_step(cfg, spec, state, bundle, draws,
+                                    timer=timer)
+        rows.append(metrics)
+    return state, stack_metrics(rows)
+
+
+def run_fleet(*args, **kwargs):
+    """The vmapped multi-seed driver of the reference."""
+    raise NotImplementedError("run_fleet is not ported to repro_torch yet "
+                              "(ROADMAP A14)")
+
+
+def metrics_row(metrics: RoundMetrics, i: Optional[int] = None
+                ) -> Dict[str, Any]:
+    """Host-side view: round ``i`` of stacked metrics (or one round)."""
+    pick = (lambda l: l[i]) if i is not None else (lambda l: l)
+    as_int = lambda v: int(pick(v))
+    return {
+        "round": as_int(metrics.round),
+        "accuracy": float(pick(metrics.accuracy)),
+        "loss": float(pick(metrics.loss)),
+        "avg_staleness": float(pick(metrics.avg_staleness)),
+        "total_time_s": float(pick(metrics.total_time_s)),
+        "total_energy_j": float(pick(metrics.total_energy_j)),
+        "cost": float(pick(metrics.cost)),
+        "n_associated": int(pick(metrics.n_associated)),
+        "n_available": as_int(metrics.n_available),
+        "z": pick(metrics.z).detach().cpu().numpy(),
+        "sweeps": as_int(metrics.sweeps),
+    }

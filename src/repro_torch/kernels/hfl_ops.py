@@ -1,0 +1,237 @@
+"""The HFL round's three kernels: wrappers, plain versions, launch counts.
+
+Each kernel is hand-written CUDA for ``sm_90a`` in ``csrc/hfl_ops.cu``
+(built by ``_build``), and replaces one Pallas kernel of the reference's
+``kernels/hfl_ops.py``:
+
+* ``score_rows`` / ``score_matrix`` -- fused fuzzy scoring (``_score_kernel``);
+* ``sic_rates`` -- NOMA SIC rates for every edge (``_sic_kernel``);
+* ``local_sgd_step`` -- τ₁ fused local-SGD steps per lane (``_sgd_kernel``).
+
+A wrapper given CPU tensors runs the kernel's plain PyTorch version
+(``score_rows_plain``, ``sic_rates_plain``, ``local_sgd_step_plain``); given
+CUDA tensors it launches the kernel or raises -- there is no fallback.
+``LAUNCHES`` counts, per wrapper, the kernel launches it made and nothing
+else, so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core import fuzzy, noma
+from repro_torch.kernels import _build
+from repro_torch.models.mlp import PARAM_KEYS
+
+LAUNCHES: Dict[str, int] = {"score_rows": 0, "sic_rates": 0,
+                            "local_sgd_step": 0}
+
+# the most dynamic shared memory one block may use on the H100
+MAX_SMEM_BYTES = 232_448
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _require(t: torch.Tensor, name: str, device: torch.device,
+             dtype: torch.dtype, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# Fused fuzzy scoring
+# ---------------------------------------------------------------------------
+
+score_rows_plain = fuzzy.score_rows
+
+
+@functools.cache
+def _score_tables(device: torch.device):
+    """[3 input triangles | 5 × 201 output memberships] float32 and the
+    flattened 27-rule table int32, on ``device``."""
+    tables = np.concatenate([fuzzy.IN_TRIS.reshape(-1),
+                             fuzzy.OUT_MU.reshape(-1)]).astype(np.float32)
+    rules = fuzzy.RULES.reshape(-1).astype(np.int32)
+    return (torch.from_numpy(tables).to(device),
+            torch.from_numpy(rules).to(device))
+
+
+def score_rows(cq: torch.Tensor, dq: torch.Tensor, ms: torch.Tensor
+               ) -> torch.Tensor:
+    """(R,) normalised cq/dq/ms -> (R,) NO* scores."""
+    if cq.device.type == "cpu":
+        return score_rows_plain(cq, dq, ms)
+    dev = cq.device
+    rows = cq.shape[0]
+    cq, dq, ms = (v.float().contiguous() for v in (cq, dq, ms))
+    for name, v in (("cq", cq), ("dq", dq), ("ms", ms)):
+        _require(v, name, dev, torch.float32, (rows,))
+    out = torch.empty_like(cq)
+    if rows == 0:
+        return out
+    tables, rules = _score_tables(dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.hfl_score_rows(_ptr(cq), _ptr(dq), _ptr(ms), _ptr(tables),
+                                  _ptr(rules), _ptr(out), rows, _stream(dev))
+    _build.check(code, "score_rows")
+    LAUNCHES["score_rows"] += 1
+    return out
+
+
+def score_matrix(gains: torch.Tensor, counts: torch.Tensor,
+                 staleness: torch.Tensor, *, data_max: float) -> torch.Tensor:
+    """(N, M) competency scores: the Eq. 21 normalisation in torch, the
+    per-row fuzzy pipeline through ``score_rows`` over the N·M rows."""
+    return fuzzy.score_matrix(gains, counts, staleness, data_max=data_max,
+                              rows=score_rows)
+
+
+# ---------------------------------------------------------------------------
+# NOMA SIC rates
+# ---------------------------------------------------------------------------
+
+def sic_rates_plain(power_w: torch.Tensor, gains: torch.Tensor,
+                    mask: torch.Tensor, *, bandwidth_hz: float,
+                    noise_w: float) -> torch.Tensor:
+    """The pairwise SIC of ``noma.achievable_rates``, one edge at a time:
+    (N,) power, (N, M) gains, (N, M) bool mask -> (N, M) rates."""
+    return torch.stack(
+        [noma.achievable_rates(power_w, gains[:, e], bandwidth_hz=bandwidth_hz,
+                               noise_w=noise_w, mask=mask[:, e])
+         for e in range(gains.shape[1])], dim=1)
+
+
+def sic_rates(power_w: torch.Tensor, gains: torch.Tensor, mask: torch.Tensor,
+              *, bandwidth_hz: float, noise_w: float) -> torch.Tensor:
+    """(N,) power, (N, M) gains, (N, M) mask -> (N, M) SIC rates; masked
+    entries are zero.  One launch covers every edge."""
+    if power_w.device.type == "cpu":
+        return sic_rates_plain(power_w, gains, mask.bool(),
+                               bandwidth_hz=bandwidth_hz, noise_w=noise_w)
+    dev = power_w.device
+    n, m = gains.shape
+    p = power_w.float().contiguous()
+    g_t = gains.float().t().contiguous()
+    mk_t = mask.float().t().contiguous()
+    _require(p, "power_w", dev, torch.float32, (n,))
+    _require(g_t, "gains", dev, torch.float32, (m, n))
+    _require(mk_t, "mask", dev, torch.float32, (m, n))
+    out_t = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if n == 0 or m == 0:
+        return out_t.t()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.hfl_sic_rates(_ptr(p), _ptr(g_t), _ptr(mk_t), _ptr(out_t),
+                                 n, m, float(bandwidth_hz), float(noise_w),
+                                 _stream(dev))
+    _build.check(code, "sic_rates")
+    LAUNCHES["sic_rates"] += 1
+    return out_t.t()
+
+
+# ---------------------------------------------------------------------------
+# Fused local SGD
+# ---------------------------------------------------------------------------
+
+def local_sgd_step_plain(params: Dict[str, torch.Tensor], bx: torch.Tensor,
+                         by: torch.Tensor, *, lr: float
+                         ) -> Dict[str, torch.Tensor]:
+    """τ₁ SGD steps of every lane by the hand chain: forward, dlogits =
+    (softmax − onehot)/B, two transposed batched GEMMs per layer, update."""
+    tau1, _, batch, _ = bx.shape
+    w1, b1, w2, b2, w3, b3 = (params[k].float() for k in PARAM_KEYS)
+    inv_b = 1.0 / float(batch)
+    for t in range(tau1):
+        x, y = bx[t].float(), by[t].long()
+        h1p = torch.bmm(x, w1) + b1[:, None, :]
+        h1 = torch.relu(h1p)
+        h2p = torch.bmm(h1, w2) + b2[:, None, :]
+        h2 = torch.relu(h2p)
+        logits = torch.bmm(h2, w3) + b3[:, None, :]             # (K, B, V)
+        zmax = torch.amax(logits, dim=-1, keepdim=True)
+        ez = torch.exp(logits - zmax)
+        probs = ez / torch.sum(ez, dim=-1, keepdim=True)
+        onehot = torch.nn.functional.one_hot(y, logits.shape[-1]).float()
+        dl = (probs - onehot) * inv_b
+        dw3 = torch.bmm(h2.transpose(1, 2), dl)
+        db3 = torch.sum(dl, dim=1)
+        dh2 = torch.bmm(dl, w3.transpose(1, 2)) * (h2p > 0.0)
+        dw2 = torch.bmm(h1.transpose(1, 2), dh2)
+        db2 = torch.sum(dh2, dim=1)
+        dh1 = torch.bmm(dh2, w2.transpose(1, 2)) * (h1p > 0.0)
+        dw1 = torch.bmm(x.transpose(1, 2), dh1)
+        db1 = torch.sum(dh1, dim=1)
+        w1, b1 = w1 - lr * dw1, b1 - lr * db1
+        w2, b2 = w2 - lr * dw2, b2 - lr * db2
+        w3, b3 = w3 - lr * dw3, b3 - lr * db3
+    return dict(zip(PARAM_KEYS, (w1, b1, w2, b2, w3, b3)))
+
+
+def sgd_smem_bytes(batch: int, hidden: int, n_classes: int) -> int:
+    """Dynamic shared memory of one lane's block: h1p, h2p, dh2, dh1
+    (B × H each) and the logits (B × V), float32."""
+    return 4 * (4 * batch * hidden + batch * n_classes)
+
+
+def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
+                   by: torch.Tensor, *, lr: float) -> Dict[str, torch.Tensor]:
+    """τ₁ minibatch-SGD steps for every lane of the stacked K-lane cohort.
+
+    params: leaves (K, …) over ``PARAM_KEYS``; bx (τ₁, K, B, D) gathered
+    minibatches; by (τ₁, K, B) int labels.  Returns the updated params.
+    """
+    if bx.device.type == "cpu":
+        return local_sgd_step_plain(params, bx, by, lr=lr)
+    dev = bx.device
+    tau1, k, batch, d_in = bx.shape
+    hidden, n_classes = params["w1"].shape[2], params["w3"].shape[2]
+    shapes = {"w1": (k, d_in, hidden), "b1": (k, hidden),
+              "w2": (k, hidden, hidden), "b2": (k, hidden),
+              "w3": (k, hidden, n_classes), "b3": (k, n_classes)}
+    out = {}
+    for name in PARAM_KEYS:
+        leaf = params[name].float().contiguous().clone()
+        _require(leaf, name, dev, torch.float32, shapes[name])
+        out[name] = leaf
+    bx = bx.float().contiguous()
+    by = by.to(torch.int32).contiguous()
+    _require(by, "by", dev, torch.int32, (tau1, k, batch))
+    smem = sgd_smem_bytes(batch, hidden, n_classes)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"local_sgd_step needs {smem} bytes of shared memory "
+                         f"a block (B={batch}, H={hidden}, V={n_classes}); "
+                         f"the H100 allows {MAX_SMEM_BYTES}")
+    if k == 0 or tau1 == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.hfl_local_sgd(
+            *(_ptr(out[n]) for n in PARAM_KEYS), _ptr(bx), _ptr(by),
+            k, tau1, batch, d_in, hidden, n_classes, float(lr),
+            1.0 / float(batch), smem, _stream(dev))
+    _build.check(code, "local_sgd_step")
+    LAUNCHES["local_sgd_step"] += 1
+    return out

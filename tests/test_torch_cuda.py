@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports neither JAX nor the reference package, so it also runs on a GPU
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import noma
+from repro_torch.kernels import hfl_ops
+from repro_torch.models.mlp import PARAM_KEYS
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, *arrays):
+    return [torch.tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("rows", [1, 256, 4096 * 32 + 37])
+def test_score_kernel_bit_equal_to_plain(cuda, rows):
+    rng = np.random.default_rng(rows)
+    v = rng.uniform(0.0, 100.0, (3, rows)).astype(np.float32)
+    v[:, ::7] = np.round(v[:, ::7] / 25.0) * 25.0       # set breakpoints
+    cq, dq, ms = _on(cuda, *v)
+    before = hfl_ops.LAUNCHES["score_rows"]
+    got = hfl_ops.score_rows(cq, dq, ms)
+    assert hfl_ops.LAUNCHES["score_rows"] == before + 1
+    torch.testing.assert_close(got, hfl_ops.score_rows_plain(cq, dq, ms),
+                               rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("n,m,dense", [(12, 3, True), (64, 4, False),
+                                       (4097, 32, True)])
+def test_sic_kernel_matches_plain(cuda, n, m, dense):
+    rng = np.random.default_rng(n + m)
+    p = rng.uniform(0.01, 0.1, n).astype(np.float32)
+    g = (rng.uniform(0.1, 10.0, (n, m)) * 1e-9).astype(np.float32)
+    p[1::3], g[1::3] = p[0::3][:len(p[1::3])], g[0::3][:len(g[1::3])]
+    mask = rng.random((n, m)) < (0.5 if dense else 0.1)
+    pt, gt, mt = _on(cuda, p, g, mask)
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    got = hfl_ops.sic_rates(pt, gt, mt, **kw)
+    want = hfl_ops.sic_rates_plain(pt, gt, mt, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=float(want.max()) * 1e-6)
+    assert bool((got[~mt] == 0.0).all())
+
+
+@pytest.mark.parametrize("k,tau1,batch,d_in,hidden", [
+    (16, 1, 32, 784, 128), (128, 3, 16, 32, 16), (3, 2, 5, 7, 6)])
+def test_sgd_kernel_matches_plain(cuda, k, tau1, batch, d_in, hidden):
+    rng = np.random.default_rng(k)
+    n_classes = 10
+    shapes = {"w1": (k, d_in, hidden), "b1": (k, hidden),
+              "w2": (k, hidden, hidden), "b2": (k, hidden),
+              "w3": (k, hidden, n_classes), "b3": (k, n_classes)}
+    params = {n: torch.tensor((0.3 * rng.normal(size=s)).astype(np.float32),
+                              device=cuda) for n, s in shapes.items()}
+    bx, by = _on(cuda, rng.uniform(0, 1, (tau1, k, batch, d_in))
+                 .astype(np.float32),
+                 rng.integers(0, n_classes, (tau1, k, batch)).astype(np.int32))
+    got = hfl_ops.local_sgd_step(params, bx, by, lr=0.05)
+    want = hfl_ops.local_sgd_step_plain(params, bx, by, lr=0.05)
+    for name in PARAM_KEYS:
+        torch.testing.assert_close(got[name], want[name], rtol=2e-5,
+                                   atol=2e-6, msg=name)
+
+
+def test_sgd_kernel_rejects_oversized_blocks(cuda):
+    k, batch, hidden = 1, 64, 256
+    params = {"w1": torch.zeros((k, 8, hidden), device=cuda),
+              "b1": torch.zeros((k, hidden), device=cuda),
+              "w2": torch.zeros((k, hidden, hidden), device=cuda),
+              "b2": torch.zeros((k, hidden), device=cuda),
+              "w3": torch.zeros((k, hidden, 10), device=cuda),
+              "b3": torch.zeros((k, 10), device=cuda)}
+    bx = torch.zeros((1, k, batch, 8), device=cuda)
+    by = torch.zeros((1, k, batch), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        hfl_ops.local_sgd_step(params, bx, by, lr=0.1)

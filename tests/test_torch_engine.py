@@ -1,0 +1,165 @@
+"""The port's round engine held to a live run of the JAX reference.
+
+Both sides start from the reference's ``init_simulation(SMALL, seed=0)``
+state (carried over by ``convert.state_from_numpy``).  Each round, the
+reference's own draws -- ``round_keys`` → the ``Exp(1)`` fading field and
+the full-N minibatch index lattice -- are replayed into the port through
+``RoundDraws``, and the round's metrics are compared: integers exactly,
+cost/time/energy to rtol 1e-5, loss to rtol 1e-4 (logsumexp vs softmax
+op order compounding over τ₂ training steps), accuracy to 2 test samples.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.hfl_mnist import CONFIG as JCONFIG
+from repro.core import engine as jengine
+from repro.models.mlp import MLPClassifier
+from repro_torch import convert
+from repro_torch.configs.hfl_mnist import CONFIG
+from repro_torch.core import engine
+from repro_torch.core.hfl import HFLSimulation
+from repro_torch.kernels import hfl_ops
+
+SMALL_KW = dict(n_clients=16, n_edges=2, clients_per_edge=3, min_samples=60,
+                max_samples=120, hidden=32, input_dim=64)
+SMALL = dataclasses.replace(CONFIG, **SMALL_KW)
+JSMALL = dataclasses.replace(JCONFIG, **SMALL_KW)
+ROUNDS = 4
+
+
+def _replayed_draws(jcfg, jspec, jstate, jbundle):
+    """The reference round's own random numbers, for all N clients."""
+    keys = jengine.round_keys(jspec, jstate.key)
+    fading = jax.random.exponential(keys[2], (jcfg.n_clients, jcfg.n_edges))
+    lattice = jengine._batch_index_lattice(
+        keys[5], jcfg.tau2, jcfg.tau1,
+        jnp.arange(jcfg.n_clients, dtype=jnp.int32), jbundle.counts,
+        jcfg.local_batch)
+    return engine.RoundDraws(torch.tensor(np.asarray(fading)),
+                             torch.tensor(np.asarray(lattice)))
+
+
+def _start(seed=0):
+    jstate, jbundle, _ = jengine.init_simulation(JSMALL, seed=seed)
+    snp = jax.tree.map(np.asarray, jstate._replace(key=None, scenario=None))
+    state, bundle = convert.state_from_numpy(
+        snp, jax.tree.map(np.asarray, jbundle), "cpu")
+    return jstate, jbundle, state, bundle
+
+
+@pytest.mark.parametrize("policy,scheduler,noma_enabled", [
+    ("fcea", "pdd", True), ("gcea", "fastest", True),
+    ("fcea", "pdd", False)])
+def test_round_trajectory_matches_reference(policy, scheduler, noma_enabled):
+    jspec = jengine.EngineSpec(policy=policy, scheduler=scheduler,
+                               noma_enabled=noma_enabled)
+    spec = engine.EngineSpec(policy=policy, scheduler=scheduler,
+                             noma_enabled=noma_enabled)
+    jstate, jbundle, state, bundle = _start()
+    n_test = int(jbundle.test_y.shape[0])
+    for r in range(ROUNDS):
+        draws = _replayed_draws(JSMALL, jspec, jstate, jbundle)
+        jstate, jm = jengine.round_step_jit(JSMALL, jspec, jstate, jbundle)
+        state, m = engine.round_step(SMALL, spec, state, bundle, draws)
+        want, got = jengine.metrics_row(jm), engine.metrics_row(m)
+        msg = f"{policy}-{scheduler} noma={noma_enabled} round {r}"
+        np.testing.assert_array_equal(got["z"], want["z"], msg)
+        for k in ("round", "n_associated", "n_available", "avg_staleness"):
+            assert got[k] == want[k], (msg, k)
+        np.testing.assert_array_equal(state.staleness.numpy(),
+                                      np.asarray(jstate.staleness), msg)
+        for k in ("cost", "total_time_s", "total_energy_j"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       err_msg=f"{msg} {k}")
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4,
+                                   err_msg=msg)
+        assert abs(got["accuracy"] - want["accuracy"]) <= 2.0 / n_test, msg
+    for k, leaf in state.global_params.items():
+        np.testing.assert_allclose(leaf.numpy(),
+                                   np.asarray(jstate.global_params[k]),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_train_cohort_with_pad_lanes_matches_reference():
+    """Fewer admitted clients than K lanes: pad lanes carry zero weight and
+    never scatter back; unadmitted clients keep their params."""
+    jspec = jengine.EngineSpec(policy="gcea", scheduler="fastest")
+    spec = engine.EngineSpec(policy="gcea", scheduler="fastest")
+    jstate, jbundle, state, bundle = _start(seed=2)
+    # perturb client params so "kept" and "overwritten" are distinguishable
+    noise = {k: np.random.default_rng(1).normal(
+        size=v.shape).astype(np.float32) * 0.01
+        for k, v in jstate.client_params.items()}
+    jstate = jstate._replace(client_params={
+        k: v + noise[k] for k, v in jstate.client_params.items()})
+    state = state._replace(client_params={
+        k: v + torch.tensor(noise[k]) for k, v in state.client_params.items()})
+    assoc = np.zeros((16, 2), np.float32)
+    assoc[[1, 4, 9], 0] = 1.0
+    assoc[[12], 1] = 1.0                            # 4 admitted of K = 6
+    key = jax.random.key(11)
+    model = MLPClassifier(JSMALL.input_dim, JSMALL.hidden, JSMALL.n_classes)
+    jclients, jedge = jengine._train_cohort(JSMALL, jspec, model, key,
+                                            jstate, jbundle,
+                                            jnp.asarray(assoc))
+    lattice = jengine._batch_index_lattice(
+        key, JSMALL.tau2, JSMALL.tau1, jnp.arange(16, dtype=jnp.int32),
+        jbundle.counts, JSMALL.local_batch)
+    clients, edge = engine._train_cohort(SMALL, spec, state, bundle,
+                                         torch.tensor(assoc),
+                                         torch.tensor(np.asarray(lattice)))
+    kept = assoc.sum(1) == 0
+    for k in clients:
+        np.testing.assert_allclose(clients[k].numpy(),
+                                   np.asarray(jclients[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(edge[k].numpy(), np.asarray(jedge[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(clients[k].numpy()[kept],
+                                      state.client_params[k].numpy()[kept])
+
+
+def test_run_and_run_scanned_give_one_trajectory():
+    a = HFLSimulation(SMALL, seed=5, device="cpu")
+    b = HFLSimulation(SMALL, seed=5, device="cpu")
+    ra, rb = a.run(3), b.run_scanned(3)
+    for x, y in zip(ra, rb):
+        np.testing.assert_array_equal(x.z, y.z)
+        assert (x.round, x.n_associated, x.sweeps, x.cost, x.loss) == \
+            (y.round, y.n_associated, y.sweeps, y.cost, y.loss)
+    assert a.round == b.round == 3
+    assert hfl_ops.LAUNCHES == {"score_rows": 0, "sic_rates": 0,
+                                "local_sgd_step": 0}     # CPU: plain only
+
+
+def test_sample_draws_shapes_and_ranges():
+    state, bundle, aux = engine.init_simulation(SMALL, seed=0, device="cpu")
+    draws = engine.sample_draws(SMALL, bundle, aux["generator"])
+    assert draws.fading.shape == (16, 2) and bool((draws.fading >= 0).all())
+    idx = draws.batch_idx
+    assert idx.dtype == torch.int32
+    assert idx.shape == (SMALL.tau2, SMALL.tau1, 16, SMALL.local_batch)
+    assert bool((idx >= 0).all())
+    assert bool((idx < bundle.counts[None, None, :, None]).all())
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(policy="rcea"), "A13"), (dict(allocator="rra"), "A13"),
+    (dict(allocator="fpa"), "A15"), (dict(allocator="fca"), "A15"),
+    (dict(allocator="ddpg"), "A15"), (dict(candidates_k=2), "A12"),
+    (dict(scenario="dynamic"), "A15"), (dict(telemetry=True), "A15"),
+    (dict(engine_mode="buffered"), "A15"), (dict(faults=object()), "A15"),
+    (dict(warm_start=True), "A15")])
+def test_out_of_slice_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        engine.EngineSpec(**kw)
+
+
+def test_run_fleet_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="A14"):
+        engine.run_fleet(SMALL, engine.EngineSpec(), None, None, 2)
