@@ -8,19 +8,33 @@ and prints no result):
 
 1. print the card's ``nvidia-smi`` name and power limit; TF32 off;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (``CONFIG``) and at the reference bench scale
+3. hold each HFL kernel against its plain PyTorch version on the card, at
+   the main path's shapes (``CONFIG``) and at the reference bench scale
    (4096 clients × 32 edges), with the tolerances the tests use, and time
    both;
-4. run the main path -- ``HFLSimulation(CONFIG, device="cuda")``: 5 rounds
-   of fcea + PDD, then 2 rounds of gcea + fastest -- with every launch
-   counter zeroed just before and read just after; check the counts, the
-   metrics and the per-stage times;
+4. run the HFL main path -- ``HFLSimulation(CONFIG, device="cuda")``: 5
+   rounds of fcea + PDD, then 2 rounds of gcea + fastest -- with every
+   launch counter zeroed just before and read just after; check the
+   counts, the metrics and the per-stage times;
 5. run one round on the card and the same state and draws through the
    plain versions on the CPU, and compare;
 6. with ``--profile``, profile one more steady fcea round (kernel count
    and the device's busy share);
-7. print the per-kernel JSON line and, last, the device line.
+7. hold the two sequence kernels (flash attention, linear recurrence)
+   against their plain versions at recurrentgemma-9b's prefill shapes
+   and at ragged and non-causal shapes, and time them beside their bound
+   and, for attention, PyTorch's ``scaled_dot_product_attention``;
+8. serve recurrentgemma-9b at full width and depth (random weights from
+   a seeded generator): one prefill of 2 × 4096 tokens with the launch
+   counters zeroed just before and read just after (12 flash, 26
+   recurrence launches), timed prefills, a token-by-token decode of 2
+   64-token prompts and 16 greedy tokens, and the prefill's last logits
+   against the decode's;
+9. the reduced recurrentgemma config on the card (kernels) against the
+   CPU (plain versions) from the same weights, and its prefill's logits
+   at every position of a 300-token prompt (several flash tiles, window
+   32) against a token-by-token decode on the card;
+10. print the per-kernel JSON line and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -38,8 +52,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
+# dense tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 TOL = {  # the CPU tests' tolerances (tests/test_torch_kernels.py)
@@ -47,12 +63,37 @@ TOL = {  # the CPU tests' tolerances (tests/test_torch_kernels.py)
     "sic_rates": dict(rtol=1e-5, atol_frac=1e-6),
     "local_sgd_step": dict(rtol=2e-5, atol=2e-6),
 }
-SOURCE = "src/repro_torch/kernels/csrc/hfl_ops.cu"
+SOURCE = {"score_rows": "src/repro_torch/kernels/csrc/hfl_ops.cu",
+          "sic_rates": "src/repro_torch/kernels/csrc/hfl_ops.cu",
+          "local_sgd_step": "src/repro_torch/kernels/csrc/hfl_ops.cu",
+          "flash_attention": "src/repro_torch/kernels/csrc/seq_ops.cu",
+          "linear_recurrence": "src/repro_torch/kernels/csrc/seq_ops.cu"}
 REPLACES = {
     "score_rows": "src/repro/kernels/hfl_ops.py:78",
     "sic_rates": "src/repro/kernels/hfl_ops.py:185",
     "local_sgd_step": "src/repro/kernels/hfl_ops.py:259",
+    "flash_attention": "src/repro/kernels/flash_attention.py:34",
+    "linear_recurrence": "src/repro/kernels/linear_recurrence.py:29",
 }
+# the sequence kernels against their plain versions (tests/test_torch_cuda.py):
+# float32 -- the kernel and the plain einsum sum in other orders; bfloat16
+# inputs -- the plain version in float32 rounded to bf16 once, as the
+# kernel computes in float32 and rounds only its output: one bf16 ulp
+# (2^-7 relative at most) apart where the two float32 results straddle a
+# rounding boundary
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+             "bfloat16": dict(atol=1e-3, rtol=8e-3)}
+LINREC_TOL = dict(atol=1e-5, rtol=1e-4)
+# prefill (kernels) against token-by-token decode (plain), full config:
+# bf16 activations round at 2^-8 in every op of 38 layers, at other places
+# on the two paths, so the logits agree to a few percent, not to ulps.
+# The 64-token prompt is one flash tile; the reduced config's check below
+# covers several tiles and the window skip at a float32 tolerance
+PREFILL_DECODE_REL_RMS = 5e-2
+# card (kernels) against CPU (plain), and prefill (kernels) against
+# token-by-token decode (plain) on the card, reduced config in float32: the
+# reference's decode-parity tolerance (tests/test_decode_parity.py)
+SUBSTRATE_TOL = dict(atol=2e-4, rtol=1e-3)
 
 
 def log(*a):
@@ -79,9 +120,10 @@ def time_ms(fn, *, min_iters=3, budget_s=0.5):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_FP32_FLOPS
+    t_ops = n_ops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -355,10 +397,11 @@ def phase_main_path(cfg, dev):
     return runs
 
 
-def profile_round(sim, steady_s):
-    """Device busy share of one steady round: the time of the CUDA kernels
-    ``torch.profiler`` records, over the profiled round's wall time and
-    over ``steady_s``, the unprofiled steady round time."""
+def profile_device(fn, label, steady_s):
+    """Device busy share of one call of ``fn``: the time of the CUDA
+    kernels ``torch.profiler`` records, over the profiled call's wall time
+    and over ``steady_s``, the unprofiled steady time of the same call;
+    and the kernels that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -366,7 +409,7 @@ def profile_round(sim, steady_s):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run_round()
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     rows = []
@@ -379,9 +422,9 @@ def profile_round(sim, steady_s):
         rows.append((us, ev.count, ev.key))
     busy_s = sum(us for us, _, _ in rows) / 1e6
     launches = sum(count for _, count, _ in rows)
-    log(f"[profile] one round: {launches} kernels, device busy "
+    log(f"[profile] {label}: {launches} kernels, device busy "
         f"{busy_s * 1e3:.3f} ms; profiled wall {wall_s * 1e3:.3f} ms "
-        f"(busy {100.0 * busy_s / wall_s:.2f}%); unprofiled steady round "
+        f"(busy {100.0 * busy_s / wall_s:.2f}%); unprofiled steady "
         f"{steady_s * 1e3:.3f} ms (busy {100.0 * busy_s / steady_s:.2f}%, "
         f"idle {100.0 * (1.0 - busy_s / steady_s):.2f}%)")
     for us, count, key in sorted(rows, reverse=True)[:12]:
@@ -449,6 +492,301 @@ def phase_card_vs_cpu(cfg, sim):
         "rtol 1e-5, loss rtol 1e-4, accuracy atol 2/T: ok")
 
 
+# ---------------------------------------------------------------------------
+# The substrate: sequence kernels and recurrentgemma-9b serving
+# ---------------------------------------------------------------------------
+
+def attention_mask(s, causal, window, dev):
+    """(S, S) bool: query p may see key j -- the function's own mask."""
+    import torch
+    pos = torch.arange(s, device=dev)
+    mask = torch.ones((s, s), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def flash_work(b, s, h, kv, d, itemsize, mask):
+    """Bytes (q, k, v read once, o written once) and flops (QK^T and PV,
+    4 · D per allowed (query, key) pair and head) the function needs --
+    counted from the mask, not from the kernel's tiles."""
+    pairs = int(mask.sum())
+    n_bytes = itemsize * b * s * d * (2 * h + 2 * kv)
+    return n_bytes, 4.0 * b * h * pairs * d
+
+
+def _seq_inputs(shape, dtype, seed, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                        device=dev).to(dtype)
+
+
+def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
+                  library=False):
+    """Kernel vs plain (and, with ``library``, the time of PyTorch's
+    scaled_dot_product_attention with the same boolean mask -- a yardstick
+    the port never calls).  Returns err, ms, plain ms, bound, library ms."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import seq_ops
+    q = _seq_inputs((b, s, h, d), dtype, seed, dev)
+    k = _seq_inputs((b, s, kv, d), dtype, seed + 1, dev)
+    v = _seq_inputs((b, s, kv, d), dtype, seed + 2, dev)
+    kw = dict(causal=causal, window=window)
+    got = seq_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    name = f"flash_attention B={b} S={s} H={h} KV={kv} D={d} " \
+           f"causal={causal} window={window} {str(dtype)[6:]}"
+    if dtype == torch.bfloat16:
+        # held to the plain version in fp32 on the same (bf16) inputs,
+        # rounded to bf16 once, as the kernel rounds only its output; the
+        # bf16 plain version, which rounds at every step, is printed only
+        info = _max_err(got, seq_ops.attention_plain(q, k, v, **kw))
+        log(f"[seq] {name}: bf16 plain vs kernel max abs {info:.3e} "
+            f"(information)")
+        want = seq_ops.attention_plain(q.float(), k.float(), v.float(),
+                                       **kw).to(dtype)
+    else:
+        want = seq_ops.attention_plain(q, k, v, **kw)
+    _check_close(name, got.float(), want.float(),
+                 **FLASH_TOL[str(dtype)[6:]])
+    err = _max_err(got, want)
+    del want
+    ms_k = time_ms(lambda: seq_ops.flash_attention(q, k, v, **kw))
+    ms_p = time_ms(lambda: seq_ops.attention_plain(q, k, v, **kw))
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    mask = attention_mask(s, causal, window, dev)
+    b_ms, b_by = bound_ms(*flash_work(b, s, h, kv, d, q.element_size(),
+                                      mask), peak)
+    lib_ms = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = _max_err(sdpa().transpose(1, 2), got)
+        lib_ms = time_ms(sdpa)
+        log(f"[seq] {name}: sdpa vs kernel max abs {lib_err:.3e}")
+    log(f"[seq] {name}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms  "
+        f"plain {ms_p:.4f} ms  bound {b_ms:.6f} ms ({b_by})"
+        + (f"  sdpa {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    return err, ms_k, ms_p, b_ms, b_by, lib_ms
+
+
+def compare_linrec(b, s, c, dtype, seed, dev):
+    import torch
+    from repro_torch.kernels import seq_ops
+    log_a = -_seq_inputs((b, s, c), torch.float32, seed, dev).abs() \
+        .mul_(0.1).to(dtype)
+    x = _seq_inputs((b, s, c), dtype, seed + 1, dev)
+    got = seq_ops.linear_recurrence(log_a, x)
+    want = seq_ops.linear_recurrence_plain(log_a, x)
+    torch.cuda.synchronize()
+    name = f"linear_recurrence B={b} S={s} C={c} {str(dtype)[6:]}"
+    _check_close(name, got, want, **LINREC_TOL)
+    err = _max_err(got, want)
+    ms_k = time_ms(lambda: seq_ops.linear_recurrence(log_a, x))
+    ms_p = time_ms(lambda: seq_ops.linear_recurrence_plain(log_a, x),
+                   min_iters=2, budget_s=0.2)
+    n = b * s * c
+    b_ms, b_by = bound_ms(2 * n * log_a.element_size() + 4 * n, 3 * n)
+    log(f"[seq] {name}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms  "
+        f"plain {ms_p:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+    return err, ms_k, ms_p, b_ms, b_by, None
+
+
+def phase_seq_compare(dev):
+    """The sequence kernels vs their plain versions: recurrentgemma-9b's
+    prefill shapes (returned for the JSON line), then ragged and
+    non-causal shapes (printed)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = {
+        "flash_attention": compare_flash(2, 4096, 16, 1, 256, True, 2048,
+                                         bf16, 11, dev, library=True),
+        "linear_recurrence": compare_linrec(2, 4096, 4096, f32, 14, dev),
+    }
+    compare_flash(1, 1000, 4, 2, 64, True, 300, f32, 21, dev)
+    compare_flash(1, 1000, 16, 1, 256, True, 300, bf16, 24, dev)
+    compare_flash(2, 512, 16, 1, 256, False, 0, bf16, 27, dev)
+    compare_linrec(1, 1000, 130, bf16, 31, dev)
+    torch.cuda.empty_cache()
+    return main
+
+
+def _launch_counts():
+    from repro_torch.kernels import hfl_ops, seq_ops
+    return {**hfl_ops.LAUNCHES, **seq_ops.LAUNCHES}
+
+
+def _reset_launches():
+    from repro_torch.kernels import hfl_ops, seq_ops
+    hfl_ops.reset_launches()
+    seq_ops.reset_launches()
+
+
+def _rel_rms(got, want):
+    d = (got.float() - want.float())
+    return float(d.square().mean().sqrt() / want.float().square().mean()
+                 .sqrt())
+
+
+def phase_serve(dev, profile=False, batch=2, seq=4096, prompt_len=64,
+                new_tokens=16):
+    """recurrentgemma-9b at full width and depth on the card; with
+    ``profile``, also the device busy share and top kernels of one
+    prefill and one decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    cfg = get_config("recurrentgemma-9b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    prefill, model = steps.make_prefill_step(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers {cfg.block_pattern}, "
+        f"{n_params} params ({n_params * 4 / 1e9:.2f} GB fp32) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev)
+
+    # the main path: one prefill with every launch counter zeroed
+    _reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = {"score_rows": 0, "sic_rates": 0, "local_sgd_step": 0,
+            "flash_attention": 12, "linear_recurrence": 26}
+    if launches != want:
+        raise AssertionError(f"prefill launches {launches} != {want}")
+    if tuple(logits.shape) != (batch, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pre_s = sum(walls) / len(walls)
+    peak_prefill = torch.cuda.max_memory_allocated(dev)
+    log(f"[serve] prefill {batch} x {seq}: launches {launches}; "
+        f"{pre_s * 1e3:.2f} ms ({batch * seq / pre_s:.1f} tokens/s; runs "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; first "
+        f"{first_s * 1e3:.2f} ms); peak memory {peak_prefill / 1e9:.2f} GB")
+
+    # the serve path: token-by-token prompt feed, then greedy decode
+    serve_step, _ = steps.make_serve_step(cfg, model=model)
+    prompt = tokens[:, :prompt_len]
+    cache = model.init_cache(batch, cfg.window)
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    feed_logits, cache = serve.prefill_into_cache(model, prompt, cache)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    tok = torch.argmax(feed_logits[:, -1, :], dim=-1,
+                       keepdim=True).to(torch.int32)
+    out, step_ms = [], []
+    for i in range(new_tokens):
+        t0 = time.perf_counter()
+        tok, cache = serve_step(tok, cache, prompt_len + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok[:, 0])
+    if _launch_counts() != before:
+        raise AssertionError("the decode path launched a kernel")
+    gen_tokens = torch.stack(out, dim=1)
+    if not bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()):
+        raise AssertionError("generated tokens outside the vocabulary")
+    steady = step_ms[1:]
+    decode_ms = sum(steady) / len(steady)
+    log(f"[serve] decode {batch} requests: prompt of {prompt_len} fed token "
+        f"by token in {feed_s * 1e3:.2f} ms ({feed_s * 1e3 / prompt_len:.2f} "
+        f"ms/token); {new_tokens} greedy tokens at {decode_ms:.3f} ms/token "
+        f"(steps 2..{new_tokens}; first {step_ms[0]:.3f}); "
+        f"sample {gen_tokens[0, :8].tolist()}")
+
+    if profile:
+        profile_device(lambda: prefill({"tokens": tokens}),
+                       f"one prefill {batch} x {seq}", pre_s)
+        index = prompt_len + new_tokens
+        profile_device(lambda: serve_step(tok, cache, index),
+                       "one decode step", decode_ms / 1e3)
+
+    # the kernel path against the token-by-token decode
+    pre_logits = prefill({"tokens": prompt})
+    rel = _rel_rms(pre_logits, feed_logits[:, 0])
+    err = _max_err(pre_logits, feed_logits[:, 0])
+    agree = float((pre_logits.argmax(-1) == feed_logits[:, 0].argmax(-1))
+                  .float().mean())
+    log(f"[serve] prefill vs decode, last logits of the {prompt_len}-token "
+        f"prompt: rel rms {rel:.3e} (limit {PREFILL_DECODE_REL_RMS}), max abs "
+        f"{err:.3e}, argmax agreement {agree:.2f}")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"prefill and decode logits disagree: rel rms "
+                             f"{rel:.3e}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[serve] peak device memory {peak / 1e9:.2f} GB")
+    del model, cache, prefill, serve_step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_substrate(dev, seq=300):
+    """The reduced config (float32, window 32) from the same weights: the
+    prefill's last logits and every position's logits on the card
+    (kernels) against the CPU (plain versions), and against a token-by-
+    token decode on the card through a ``window``-slot ring.  ``seq`` is
+    ragged and spans several flash q-tiles, so tiles left of the window
+    are skipped."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config("recurrentgemma-9b").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    cpu_model = Transformer(cfg, device="cpu", generator=gen)
+    card_model = Transformer(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
+    pre_cpu, _ = steps.make_prefill_step(cfg, model=cpu_model)
+    pre_card, _ = steps.make_prefill_step(cfg, model=card_model)
+    _reset_launches()
+    last_card = pre_card({"tokens": tokens.to(dev)})
+    full_card = card_model.apply(tokens.to(dev))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if (launches["flash_attention"], launches["linear_recurrence"]) != (2, 4):
+        raise AssertionError(f"reduced card launches {launches}")
+    cache = card_model.init_cache(2, cfg.window)
+    with torch.no_grad():
+        decoded = torch.cat([
+            card_model.decode_step(tokens[:, i:i + 1].to(dev), cache, i)[0]
+            for i in range(seq)], dim=1)
+    if _launch_counts() != launches:
+        raise AssertionError("the decode path launched a kernel")
+    for name, got, want in (
+            ("card vs cpu, last logits", last_card.cpu(),
+             pre_cpu({"tokens": tokens})),
+            ("card vs cpu, all logits", full_card.cpu(),
+             cpu_model.apply(tokens)),
+            ("card prefill vs card decode, all logits", full_card, decoded)):
+        _check_close(f"reduced {name}", got, want, **SUBSTRATE_TOL)
+        log(f"[substrate] {cfg.name} S={seq} window {cfg.window}: {name} "
+            f"max abs {_max_err(got, want):.3e} (atol "
+            f"{SUBSTRATE_TOL['atol']}, rtol {SUBSTRATE_TOL['rtol']}): ok")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the kernel results as JSON")
@@ -473,22 +811,40 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    phase_build()
-    main_cmp = phase_compare(CONFIG, dev)
-    runs = phase_main_path(CONFIG, dev)
-    phase_card_vs_cpu(CONFIG, runs["fcea"][0])
-    if args.profile:
-        profile_round(runs["fcea"][0], runs["fcea"][2])
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
 
-    launches = runs["fcea"][1]
+    phase("build", phase_build)
+    main_cmp = phase("hfl kernels vs plain", phase_compare, CONFIG, dev)
+    runs = phase("hfl main path", phase_main_path, CONFIG, dev)
+    phase("hfl card vs cpu", phase_card_vs_cpu, CONFIG, runs["fcea"][0])
+    if args.profile:
+        phase("hfl profile", profile_device, runs["fcea"][0].run_round,
+              "one steady fcea round", runs["fcea"][2])
+    seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
+    seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
+                         args.profile)
+    phase("substrate card vs cpu, prefill vs decode", phase_substrate, dev)
+
+    launches = {**runs["fcea"][1],
+                **{k: seq_launches[k] for k in seq_cmp}}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
+    for name, (err, ms_k, ms_p, b_ms, b_by, lib_ms) in seq_cmp.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name], "replaces": REPLACES[name],
+                        "launches": launches[name], "max_abs_err": err,
+                        "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     result = {"kernels": kernels}
     if args.out:

@@ -1,0 +1,26 @@
+"""Config registry of the port: ``get_config("<arch-id>")`` -> ArchConfig.
+
+It holds only the architectures whose layers are ported.  The paper's HFL
+config is ``repro_torch.configs.hfl_mnist.CONFIG`` (a different dataclass).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+_REGISTRY: Dict[str, str] = {
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+}
+
+
+def get_config(name: str):
+    if name not in _REGISTRY:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP A16: its mixers -- "
+            f"chunked/prefix attention, MoE, xLSTM, enc-dec -- come later); "
+            f"ported: {sorted(_REGISTRY)}")
+    return importlib.import_module(_REGISTRY[name]).CONFIG
+
+
+def list_archs() -> List[str]:
+    return list(_REGISTRY)

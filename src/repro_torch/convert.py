@@ -1,10 +1,11 @@
-"""Carry a reference simulation's state into the port.
+"""Carry reference state and weights into the port.
 
 ``state_from_numpy`` takes the reference's ``RoundState``/``RoundBundle``
 leaves as plain numpy arrays -- the caller converts them with
 ``np.asarray`` and drops the PRNG key and the scenario state -- and builds
 the port's ``RoundState``/``RoundBundle`` on ``device``, so both sides can
 start from the same params, gains, staleness and data.
+``params_from_numpy`` does the same for a substrate model's weights.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core.engine import RoundBundle, RoundState
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Transformer
 
 
 def _fields(obj: Any) -> Mapping[str, Any]:
@@ -47,3 +49,31 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
                          counts=f32(b["counts"]), test_x=f32(b["test_x"]),
                          test_y=i32(b["test_y"]))
     return state, bundle
+
+
+# the port's parameter names that differ from the reference pytree's keys
+_JAX_NAME = {"lam": "lambda"}
+
+
+def params_from_numpy(params_np: Mapping[str, Any], cfg,
+                      device: "str | torch.device" = "cuda") -> Transformer:
+    """A ``Transformer`` on ``device`` holding the weights of a reference
+    ``Transformer.init`` pytree with numpy leaves: ``embed/embedding``,
+    ``final_norm/scale`` and ``stage_<i>/<unit position>/<group>/<name>``
+    stacked over the stage's repetitions.  Every parameter of the port is
+    filled; a missing key or a shape mismatch raises."""
+    model = Transformer(cfg, device=device)
+    model.embedding.copy_(torch.tensor(
+        np.asarray(params_np["embed"]["embedding"])))
+    model.final_norm.scale.copy_(torch.tensor(
+        np.asarray(params_np["final_norm"]["scale"])))
+    for blk, (stage, r, pos) in zip(model.blocks, model.block_index):
+        tree = params_np[stage][pos]
+        for name, param in blk.named_parameters():
+            group, leaf = name.split(".")
+            src = np.asarray(tree[group][_JAX_NAME.get(leaf, leaf)])[r]
+            if tuple(src.shape) != tuple(param.shape):
+                raise ValueError(f"{stage}/{pos}/{group}/{leaf}[{r}]: shape "
+                                 f"{src.shape} != {tuple(param.shape)}")
+            param.copy_(torch.tensor(src))
+    return model

@@ -1,10 +1,18 @@
-"""Build ``csrc/hfl_ops.cu`` with nvcc and load it with ctypes.
+"""Build every ``csrc/*.cu`` with nvcc into one library; load it with ctypes.
 
-The library is compiled at first use into the checkout's ``build/``
-directory (which git ignores), named by a hash of the source and the
-flags so an edited source never loads a stale build.  The C entry points
+Each source is compiled to an object by its own nvcc process, all started
+together, and one more nvcc call links the objects into one shared
+library: the build takes as long as the slowest source rather than the
+sum of all, which keeps ``chip_smoke.py`` inside its time limit as
+sources are added (one nvcc given every source compiles them one after
+another).  The build goes at first use into the checkout's ``build/``
+directory (which git ignores), named by a hash of all the sources and the
+flags, so an edited source never loads a stale build.  The C entry points
 take raw device pointers and the CUDA stream as ``c_void_p``, sizes as
 ``c_int`` and scalars as ``c_float``; each returns ``cudaGetLastError()``.
+
+Also here, for the wrappers of every kernel module: ``ptr``, ``stream``,
+``require`` and the shared-memory limit ``MAX_SMEM_BYTES``.
 """
 from __future__ import annotations
 
@@ -18,10 +26,15 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "hfl_ops.cu"
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the most dynamic shared memory one block may use on the H100
+MAX_SMEM_BYTES = 232_448
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -29,6 +42,9 @@ _SIGNATURES = {
     "hfl_sic_rates": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
     "hfl_local_sgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _F, _F, _I, _P],
+    "seq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _P],
+    "seq_linear_recurrence": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -37,6 +53,10 @@ class BuildInfo:
     path: Path          # the shared library
     seconds: float      # nvcc wall time (0.0 when an existing build was used)
     log: str            # nvcc's output: ptxas registers / shared memory
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -51,24 +71,47 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise with the output of any that
+    fails, return all their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, out) for c, p, out in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"$ {' '.join(c)}\n(exit {rc})\n{out}" for c, rc, out in failed))
+    return "".join(outs)
+
+
 @functools.cache
 def build() -> BuildInfo:
     """Compile the kernels once per process (and once per source hash on
     disk).  Raises with nvcc's output if the build fails."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    target = BUILD_DIR / f"hfl_ops-{digest}.so"
+    srcs = sources()
+    digest = hashlib.sha256(
+        b"".join(s.name.encode() + s.read_bytes() for s in srcs)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"repro_kernels-{digest}.so"
     if target.exists():
         return BuildInfo(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in srcs]
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     os.replace(tmp, target)
     return BuildInfo(target, seconds, log)
 
@@ -91,3 +134,26 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         msg = library().hfl_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA error {code}: {msg}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(t: torch.Tensor, name: str, device: torch.device,
+            dtype: torch.dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this device, dtype and
+    shape -- what a kernel entry point takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,338 @@
+// Hand-written Hopper (sm_90a) kernels for the model substrate's sequence
+// mixers: sliding-window flash attention and the diagonal linear
+// recurrence of the RG-LRU.
+//
+// Each kernel sits behind a plain C entry point that launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError().  The
+// Python wrappers in kernels/seq_ops.py check devices, types, shapes and
+// shared memory, allocate the outputs and raise on a non-zero return.
+// dtype codes: 0 = float32, 1 = bfloat16.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// ---------------------------------------------------------------------------
+// Flash attention forward: causal / sliding-window / full, GQA.
+//
+// Replaces: src/repro/kernels/flash_attention.py::_attn_kernel (via
+// flash_attention / ops.flash_attention).
+// Bound on the H100: operations.  Per (b, h) the kernel does 4 * S * W * D
+// flops (W the keys a query sees, 2048 at recurrentgemma's window) on
+// O(S * D) bytes -- at D = 256 about 500 flops a byte, above the card's
+// ridge point.  This first version runs them as fp32 FMAs on the CUDA
+// cores (no tensor cores), so it stays far below the bf16 tensor-core
+// bound; it keeps the other half of flash right: the (S, S) scores never
+// reach device memory, and each K/V tile is read once per q-tile.
+// Layout: one block of 256 threads per (q-tile of 64 rows, head, batch).
+// Hopper blocks run in no order, so the TPU's sequential K grid axis is a
+// loop inside the block over the K/V tiles from the window's first tile to
+// the diagonal; tiles wholly above the diagonal or left of the window are
+// never loaded.  Q (scaled by D^-1/2 in fp32, as the TPU kernel does), K,
+// V and the probabilities are staged in fp32 dynamic shared memory: at
+// D = 256 that is 209 KB of the 227 KB a block can use (rows of Q and K
+// padded by one float so the two thread rows of a warp hit distinct
+// banks).  Thread (ty, tx) owns rows 4ty..4ty+3 of the tile and the score
+// columns tx + 16j; the row max and sum of the online softmax reduce over
+// the 16 lanes of a half-warp by shuffles.  The output accumulator (4 rows
+// x D/16 columns a thread) stays in registers.  GQA: head h reads KV head
+// h / (H / KV), so MQA needs no head broadcast.  Masking follows the TPU
+// kernel: NEG_INF scores, masked probabilities zeroed, denominator clamped
+// at 1e-30; a ragged S is masked (rows and keys past S).
+// ---------------------------------------------------------------------------
+
+constexpr int kFlashBQ = 64;
+constexpr int kFlashBK = 64;
+constexpr int kFlashThreads = 256;
+constexpr int kFlashMaxD = 256;
+constexpr int kRowsPerThread = kFlashBQ / 16;   // 4
+constexpr int kColsPerThread = kFlashBK / 16;   // 4
+constexpr int kOutCols = kFlashMaxD / 16;        // 16
+constexpr float kNegInf = -1.0e38f;
+
+__device__ __forceinline__ bool flash_allowed(int qpos, int kpos, int s_len,
+                                              int causal, int window) {
+  return kpos < s_len && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFlashThreads)
+    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int s_len,
+                 int n_heads, int n_kv, int d, int causal, int window,
+                 float scale) {
+  extern __shared__ float smem[];
+  const int ldq = d + 1;
+  const int ldp = kFlashBK + 1;
+  float* qs = smem;                      // BQ x (d + 1)
+  float* ks = qs + kFlashBQ * ldq;       // BK x (d + 1)
+  float* vs = ks + kFlashBK * ldq;       // BK x d
+  float* ps = vs + kFlashBK * d;         // BQ x (BK + 1)
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * kFlashBQ;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (n_heads / n_kv);
+  // (B, S, H, D) / (B, S, KV, D) row-major: position p of this head is at
+  // base + p * row
+  const size_t q_row = static_cast<size_t>(n_heads) * d;
+  const size_t kv_row = static_cast<size_t>(n_kv) * d;
+  const T* qb = q + (static_cast<size_t>(b) * s_len * n_heads + head) * d;
+  const T* kb = k + (static_cast<size_t>(b) * s_len * n_kv + kvh) * d;
+  const T* vb = v + (static_cast<size_t>(b) * s_len * n_kv + kvh) * d;
+  T* ob = o + (static_cast<size_t>(b) * s_len * n_heads + head) * d;
+
+  for (int idx = tid; idx < kFlashBQ * d; idx += kFlashThreads) {
+    const int r = idx / d, c = idx - r * d;
+    const int pos = q0 + r;
+    qs[r * ldq + c] =
+        pos < s_len ? to_f32(qb[pos * q_row + c]) * scale : 0.0f;
+  }
+
+  const int nd = d / 16;
+  float acc[kRowsPerThread][kOutCols];
+  float m_run[kRowsPerThread], l_run[kRowsPerThread];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kOutCols; ++j) acc[i][j] = 0.0f;
+  }
+
+  // K/V tiles that can hold an allowed key for some row of this q-tile
+  int kt_lo = 0;
+  int kt_hi = (s_len - 1) / kFlashBK;
+  if (causal) kt_hi = min(kt_hi, (q0 + kFlashBQ - 1) / kFlashBK);
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kFlashBK;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * kFlashBK;
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    for (int idx = tid; idx < kFlashBK * d; idx += kFlashThreads) {
+      const int r = idx / d, c = idx - r * d;
+      const int pos = k0 + r;
+      const bool in = pos < s_len;
+      ks[r * ldq + c] = in ? to_f32(kb[pos * kv_row + c]) : 0.0f;
+      vs[r * d + c] = in ? to_f32(vb[pos * kv_row + c]) : 0.0f;
+    }
+    __syncthreads();
+
+    float sc[kRowsPerThread][kColsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) sc[i][j] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < d; ++c) {
+      float qv[kRowsPerThread], kv[kColsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        qv[i] = qs[(ty * kRowsPerThread + i) * ldq + c];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j)
+        kv[j] = ks[(tx + 16 * j) * ldq + c];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j)
+          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    }
+
+    // online softmax, one row at a time over the half-warp that holds it
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = ty * kRowsPerThread + i;
+      const int qpos = q0 + r;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        if (!flash_allowed(qpos, kpos, s_len, causal, window))
+          sc[i][j] = kNegInf;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_cur = fmaxf(m_run[i], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const float p = flash_allowed(qpos, kpos, s_len, causal, window)
+                            ? expf(sc[i][j] - m_cur)
+                            : 0.0f;
+        ps[r * ldp + tx + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float alpha = expf(m_run[i] - m_cur);
+      l_run[i] = l_run[i] * alpha + sum;
+      m_run[i] = m_cur;
+#pragma unroll
+      for (int j = 0; j < kOutCols; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();  // P is complete
+
+#pragma unroll 4
+    for (int kk = 0; kk < kFlashBK; ++kk) {
+      float pv[kRowsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        pv[i] = ps[(ty * kRowsPerThread + i) * ldp + kk];
+#pragma unroll
+      for (int j = 0; j < kOutCols; ++j) {
+        if (j < nd) {
+          const float vv = vs[kk * d + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < kRowsPerThread; ++i)
+            acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int qpos = q0 + ty * kRowsPerThread + i;
+    if (qpos >= s_len) continue;
+    const float denom = fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kOutCols; ++j)
+      if (j < nd)
+        ob[qpos * q_row + tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
+  }
+}
+
+template <typename T>
+int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
+                 int s_len, int n_heads, int n_kv, int d, int causal,
+                 int window, float scale, int smem_bytes,
+                 cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s_len + kFlashBQ - 1) / kFlashBQ, n_heads, b);
+  flash_kernel<T><<<grid, kFlashThreads, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), s_len, n_heads, n_kv, d,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Diagonal linear recurrence h_t = exp(log_a_t) * h_{t-1} + x_t.
+//
+// Replaces: src/repro/kernels/linear_recurrence.py::_linrec_kernel (via
+// linear_recurrence / ops.linear_recurrence).
+// Bound on the H100: bytes.  Each element is read twice (log_a, x) and
+// written once (fp32 h): 12 bytes at fp32 inputs for 3 flops and an exp.
+// Layout: one thread per (b, c) channel walks t with the carry in a
+// register; adjacent threads take adjacent channels, so every load and
+// store of a time step coalesces.  The loads of 16 steps are issued before
+// the 16 dependent updates, so each thread keeps 16 loads in flight
+// instead of one; blocks of 64 threads spread B * C channels over the
+// SMs.  No carry crosses blocks.  The update is exp, then an IEEE multiply
+// and add without FMA contraction -- the plain version's arithmetic.
+// Not in this version: a chunked two-pass scan for more parallelism when
+// B * C is small.
+// ---------------------------------------------------------------------------
+
+constexpr int kLinrecThreads = 64;
+constexpr int kLinrecUnroll = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kLinrecThreads)
+    linrec_kernel(const T* __restrict__ log_a, const T* __restrict__ x,
+                  float* __restrict__ out, int s_len, int c,
+                  long long channels) {
+  const long long ch =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (ch >= channels) return;
+  const long long bi = ch / c;
+  const size_t base = static_cast<size_t>(bi) * s_len * c + (ch - bi * c);
+  float h = 0.0f;
+  for (int t0 = 0; t0 < s_len; t0 += kLinrecUnroll) {
+    float la[kLinrecUnroll], xv[kLinrecUnroll];
+#pragma unroll
+    for (int u = 0; u < kLinrecUnroll; ++u) {
+      const int t = t0 + u;
+      la[u] = 0.0f;
+      xv[u] = 0.0f;
+      if (t < s_len) {
+        const size_t off = base + static_cast<size_t>(t) * c;
+        la[u] = to_f32(log_a[off]);
+        xv[u] = to_f32(x[off]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLinrecUnroll; ++u) {
+      const int t = t0 + u;
+      if (t < s_len) {
+        h = __fadd_rn(__fmul_rn(expf(la[u]), h), xv[u]);
+        out[base + static_cast<size_t>(t) * c] = h;
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_linrec(const void* log_a, const void* x, float* out, int b,
+                  int s_len, int c, cudaStream_t stream) {
+  const long long channels = static_cast<long long>(b) * c;
+  const unsigned blocks = static_cast<unsigned>(
+      (channels + kLinrecThreads - 1) / kLinrecThreads);
+  linrec_kernel<T><<<blocks, kLinrecThreads, 0, stream>>>(
+      static_cast<const T*>(log_a), static_cast<const T*>(x), out, s_len, c,
+      channels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int seq_flash_attention(const void* q, const void* k, const void* v, void* o,
+                        int b, int s_len, int n_heads, int n_kv, int d,
+                        int causal, int window, float scale, int dtype,
+                        int smem_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_flash<__nv_bfloat16>(q, k, v, o, b, s_len, n_heads, n_kv, d,
+                                       causal, window, scale, smem_bytes, st);
+  return launch_flash<float>(q, k, v, o, b, s_len, n_heads, n_kv, d, causal,
+                             window, scale, smem_bytes, st);
+}
+
+int seq_linear_recurrence(const void* log_a, const void* x, float* out,
+                          int b, int s_len, int c, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_linrec<__nv_bfloat16>(log_a, x, out, b, s_len, c, st);
+  return launch_linrec<float>(log_a, x, out, b, s_len, c, st);
+}
+
+}  // extern "C"

@@ -16,7 +16,6 @@ else, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict
 
@@ -25,39 +24,19 @@ import torch
 
 from repro_torch.core import fuzzy, noma
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import MAX_SMEM_BYTES
+from repro_torch.kernels._build import ptr as _ptr
+from repro_torch.kernels._build import require as _require
+from repro_torch.kernels._build import stream as _stream
 from repro_torch.models.mlp import PARAM_KEYS
 
 LAUNCHES: Dict[str, int] = {"score_rows": 0, "sic_rates": 0,
                             "local_sgd_step": 0}
 
-# the most dynamic shared memory one block may use on the H100
-MAX_SMEM_BYTES = 232_448
-
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _require(t: torch.Tensor, name: str, device: torch.device,
-             dtype: torch.dtype, shape) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,144 @@
+"""Attention layer of the substrate: GQA / MQA with RoPE, the ``global``
+(causal) and ``sliding`` (causal, window) masks.
+
+The port of the reference's ``models/attention.py``.  The full-sequence
+path (``attention_apply``: training shapes and prefill) goes through the
+flash-attention kernel (``kernels.seq_ops.flash_attention``), which
+replaces both of the reference's XLA routes (``_sdpa`` and the
+query-chunked ``_chunked_sdpa``) -- they compute the same function.  The
+one-token decode path (``attention_decode``) keeps the plain ``_sdpa``
+against a ring-buffer KV cache.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import seq_ops
+from repro_torch.models import layers
+
+NEG_INF = -2.0e38
+MASK_KINDS = ("global", "sliding")
+
+
+def _unported_mask(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"attention mask {kind!r} is not ported yet (ROADMAP A16: chunked "
+        f"and prefix attention come with their architectures)")
+
+
+class Attention(nn.Module):
+    """wq (d, H, Dh), wk/wv (d, KV, Dh), wo (H, Dh, d) in ``param_dtype``;
+    drawn as the reference's ``attention_init`` draws them when a
+    generator is given, else left for a loader to fill."""
+
+    def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
+        super().__init__()
+        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        shapes = {"wq": ((d, h, dh), d), "wk": ((d, kv, dh), d),
+                  "wv": ((d, kv, dh), d), "wo": ((h, dh, d), h * dh)}
+        for name, (shape, fan_in) in shapes.items():
+            w = (layers.scaled_init(shape, generator, cfg.param_dtype,
+                                    fan_in=fan_in) if generator is not None
+                 else torch.empty(shape, dtype=cfg.param_dtype,
+                                  device=device))
+            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+
+
+def _qkv(p: Attention, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> q (B, S, H, Dh), k, v (B, S, KV, Dh)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          q_pos: torch.Tensor, k_pos: torch.Tensor,
+          k_valid: torch.Tensor) -> torch.Tensor:
+    """q (B, Q, H, Dh), k/v (B, K, KV, Dh) -> (B, Q, H, Dh), plain: the
+    scaled query in the activation dtype, fp32 logits and softmax over the
+    valid keys at or before each query position."""
+    b, qlen, h, dh = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, qlen, kv, h // kv, dh)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5, k).float()
+    allowed = (k_pos[None, :] <= q_pos[:, None]) & k_valid[None, :]
+    masked = torch.where(allowed, logits, NEG_INF)
+    probs = torch.softmax(masked, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
+    return out.reshape(b, qlen, h, dh)
+
+
+def _out(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(out.dtype))
+
+
+def attention_apply(p: Attention, x: torch.Tensor, cfg, *, mask_kind: str,
+                    positions: Optional[torch.Tensor] = None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence (training / prefill) attention through the flash
+    kernel.  x (B, S, d) -> (B, S, d)."""
+    if mask_kind not in MASK_KINDS:
+        raise _unported_mask(mask_kind)
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _qkv(p, x)
+    if use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.window if mask_kind == "sliding" else 0
+    out = seq_ops.flash_attention(q, k, v, causal=True, window=window)
+    return _out(p, out)
+
+
+def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
+               device) -> Dict[str, torch.Tensor]:
+    """A decode KV cache for one layer: a ring buffer of ``window`` slots
+    for ``sliding`` layers, ``cache_len`` slots for ``global`` ones."""
+    if mask_kind not in MASK_KINDS:
+        raise _unported_mask(mask_kind)
+    size = min(cfg.window, cache_len) if mask_kind == "sliding" \
+        else cache_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device)}
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cfg,
+                     cache: Dict[str, torch.Tensor], index: int, *,
+                     mask_kind: str, use_rope: bool = True
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode step.  x (B, 1, d); ``index`` the token's absolute
+    position.  Writes the token's K/V into its ring slot of ``cache`` in
+    place (saving a copy of the cache a step) and returns the cache."""
+    if mask_kind not in MASK_KINDS:
+        raise _unported_mask(mask_kind)
+    dev = x.device
+    q, k, v = _qkv(p, x)
+    pos = torch.full((1,), index, dtype=torch.int64, device=dev)
+    if use_rope:
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    size = cache["k"].shape[1]
+    slot = index % size
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    # keys are cached post-RoPE; each slot's absolute position
+    slots = torch.arange(size, device=dev)
+    k_valid = slots < min(index + 1, size)
+    if mask_kind == "sliding":
+        # slot holds the absolute position p with p % size == slot, p <= index
+        cand = (index // size) * size + slots
+        k_pos = torch.where(cand <= index, cand, cand - size)
+        k_valid = k_valid & (k_pos > index - cfg.window) & (k_pos >= 0)
+    else:
+        k_pos = slots
+    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), pos,
+                k_pos, k_valid)
+    return _out(p, out), cache

@@ -1,0 +1,98 @@
+"""Building blocks of the substrate's models, as plain tensor functions.
+
+The port of the reference's ``models/layers.py``: initialisers drawn from
+an explicit ``torch.Generator``, RMSNorm computed in fp32, split-half RoPE,
+the gated MLP and the (tied) embedding.  Parameters are held by the
+modules in ``attention``, ``rglru`` and ``transformer``; weights are cast
+to the activation dtype at each use, as the reference does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+def normal_init(shape: Sequence[int], generator: torch.Generator,
+                dtype: torch.dtype, stddev: float = 0.02) -> torch.Tensor:
+    """stddev · N(0, 1), drawn in fp32 on the generator's device."""
+    x = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return x.mul_(stddev).to(dtype)
+
+
+def scaled_init(shape: Sequence[int], generator: torch.Generator,
+                dtype: torch.dtype, fan_in: Optional[int] = None
+                ) -> torch.Tensor:
+    """N(0, 1) / sqrt(fan_in); fan_in defaults to shape[-2]."""
+    if fan_in is None:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return normal_init(shape, generator, dtype,
+                       stddev=1.0 / math.sqrt(max(fan_in, 1)))
+
+
+# ---------------------------------------------------------------------------
+# Normalisation, RoPE, MLP, embedding
+# ---------------------------------------------------------------------------
+
+def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
+    """Inverse frequencies, shape (d_head // 2,)."""
+    exponent = torch.arange(0, d_head, 2, dtype=torch.float32,
+                            device=device) / d_head
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate ``x`` (..., S, H, Dh) by absolute ``positions`` (S,): the
+    first and second halves of each head are the rotated pair."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions.float()[:, None] * freqs            # (S, Dh/2)
+    cos = torch.cos(angles)[:, None, :]
+    sin = torch.sin(angles)[:, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, ``jax.nn.gelu``'s default."""
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
+
+
+def mlp_apply(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
+              w_out: torch.Tensor, x: torch.Tensor, *,
+              activation: str = "silu") -> torch.Tensor:
+    """act(x @ w_gate) * (x @ w_in) @ w_out, or act(x @ w_in) @ w_out
+    without a gate; weights cast to x's dtype."""
+    act = _ACTIVATIONS[activation]
+    dt = x.dtype
+    h = x @ w_in.to(dt)
+    h = act(x @ w_gate.to(dt)) * h if w_gate is not None else act(h)
+    return h @ w_out.to(dt)
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    return table[tokens].to(compute_dtype)
+
+
+def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (..., d) against the (V, d) table -> (..., V) in x's dtype."""
+    return x @ table.to(x.dtype).t()

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import noma
-from repro_torch.kernels import hfl_ops
+from repro_torch.kernels import hfl_ops, seq_ops
 from repro_torch.models.mlp import PARAM_KEYS
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +91,70 @@ def test_sgd_kernel_rejects_oversized_blocks(cuda):
     by = torch.zeros((1, k, batch), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         hfl_ops.local_sgd_step(params, bx, by, lr=0.1)
+
+
+# -- the substrate's sequence kernels ------------------------------------------
+
+# float32: the kernel and the plain einsum sum in other orders.  bfloat16
+# inputs: the kernel computes in float32 and rounds only its output, so it
+# is held to the plain version in float32 rounded to bfloat16 once -- one
+# bf16 ulp (2^-7 relative at most) apart where the two float32 results
+# straddle a rounding boundary.
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=1e-3, rtol=8e-3)}
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,dtype", [
+    (1, 128, 2, 2, 32, True, 0, torch.float32),
+    (2, 200, 4, 2, 64, True, 16, torch.float32),      # ragged S, tiny window
+    (1, 1000, 4, 1, 64, True, 300, torch.float32),    # ragged S
+    (2, 256, 16, 1, 256, True, 128, torch.bfloat16),  # MQA, D = 256
+    (1, 190, 4, 1, 256, False, 0, torch.bfloat16),    # non-causal, ragged
+    (1, 130, 2, 1, 256, False, 40, torch.float32),    # non-causal window
+])
+def test_flash_kernel_matches_plain(cuda, b, s, h, kv, d, causal, window,
+                                    dtype):
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, n, d)).astype(np.float32),
+                            device=cuda).to(dtype) for n in (h, kv, kv))
+    before = seq_ops.LAUNCHES["flash_attention"]
+    got = seq_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = seq_ops.attention_plain(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window).to(dtype)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_kernel_rejects_unsupported_head_dims(cuda):
+    q = torch.zeros((1, 8, 2, 24), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        seq_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 272), device=cuda)
+    with pytest.raises(ValueError, match="at most 256"):
+        seq_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("b,s,c,dtype", [
+    (2, 4096, 256, torch.float32), (1, 77, 130, torch.float32),
+    (3, 64, 32, torch.bfloat16)])
+def test_linrec_kernel_matches_plain(cuda, b, s, c, dtype):
+    rng = np.random.default_rng(s + c)
+    log_a = torch.tensor(-rng.uniform(0.001, 1.0, (b, s, c))
+                         .astype(np.float32), device=cuda).to(dtype)
+    x = torch.tensor(rng.normal(size=(b, s, c)).astype(np.float32),
+                     device=cuda).to(dtype)
+    before = seq_ops.LAUNCHES["linear_recurrence"]
+    got = seq_ops.linear_recurrence(log_a, x)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["linear_recurrence"] == before + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, seq_ops.linear_recurrence_plain(log_a, x),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_linrec_kernel_rejects_mixed_dtypes(cuda):
+    log_a = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(TypeError, match="must match"):
+        seq_ops.linear_recurrence(log_a, log_a.to(torch.bfloat16))

@@ -26,8 +26,9 @@ def _is_forbidden(name: str) -> bool:
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.core.engine" in mods and \
-        "repro_torch.kernels.hfl_ops" in mods
+    assert {"repro_torch.core.engine", "repro_torch.kernels.hfl_ops",
+            "repro_torch.kernels.seq_ops", "repro_torch.launch.serve",
+            "repro_torch.models.transformer"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -82,6 +83,21 @@ def test_engine_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_substrate_entry_points_default_to_cuda(no_cuda):
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config("recurrentgemma-9b").reduced()
+    for make in (lambda: Transformer(cfg),
+                 lambda: steps.make_prefill_step(cfg),
+                 lambda: steps.make_serve_step(cfg),
+                 lambda: convert.params_from_numpy({}, cfg),
+                 lambda: serve.main(["--arch", "recurrentgemma-9b"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,0 +1,139 @@
+"""The port's two sequence kernels, held to the JAX reference on the CPU.
+
+On CPU tensors ``repro_torch.kernels.seq_ops.flash_attention`` and
+``linear_recurrence`` run their plain versions; these tests hold those to
+the reference's Pallas kernels in interpret mode
+(``ops.flash_attention`` / ``ops.linear_recurrence``) and to its jnp
+oracles (``ref.attention_ref``, ``rglru_scan``), on the same numpy inputs.
+Tolerances are those of the reference's ``tests/test_kernels.py``: float32
+attention atol = rtol = 2e-5; the recurrence atol 1e-5, rtol 1e-4 (the
+associative scan sums in another order); bfloat16 attention 0.05 against
+the float32 oracle.  The CUDA kernels are held to the plain versions on
+the card by ``test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro.models.rglru import rglru_scan
+from repro_torch.kernels import _build, seq_ops
+
+ATTN_TOL = dict(atol=2e-5, rtol=2e-5)
+LINREC_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _qkv(seed, b, s, h, kv, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, d)).astype(np.float32),
+            rng.normal(size=(b, s, kv, d)).astype(np.float32),
+            rng.normal(size=(b, s, kv, d)).astype(np.float32))
+
+
+def _ref_bshd(q, k, v, **kw):
+    """The reference's oracle on (B, S, H, D) inputs."""
+    t = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)     # noqa: E731
+    return np.asarray(ref.attention_ref(t(q), t(k), t(v), **kw)
+                      .transpose(0, 2, 1, 3), np.float32)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (1, 128, 2, 2, 32, True, 0),       # MHA, causal
+    (2, 128, 4, 2, 64, True, 16),      # GQA, window smaller than a tile
+    (1, 128, 4, 1, 64, True, 64),      # MQA, window 64
+    (1, 128, 4, 1, 32, False, 0),      # MQA, non-causal
+    (2, 128, 4, 2, 32, False, 48),     # GQA, non-causal window
+])
+def test_flash_plain_matches_pallas_and_oracle(b, s, h, kv, d, causal,
+                                               window):
+    q, k, v = _qkv(s + d + window, b, s, h, kv, d)
+    got = seq_ops.flash_attention(torch.tensor(q), torch.tensor(k),
+                                  torch.tensor(v), causal=causal,
+                                  window=window).numpy()
+    want_pallas = ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want_pallas), **ATTN_TOL)
+    np.testing.assert_allclose(got, _ref_bshd(q, k, v, causal=causal,
+                                              window=window), **ATTN_TOL)
+    assert seq_ops.LAUNCHES["flash_attention"] == 0     # CPU: no launch
+
+
+def test_flash_plain_ragged_length():
+    """S not a multiple of any tile (the CUDA kernel masks it; the Pallas
+    kernel requires multiples, so the oracle is the reference)."""
+    q, k, v = _qkv(3, 1, 100, 4, 1, 32)
+    got = seq_ops.flash_attention(torch.tensor(q), torch.tensor(k),
+                                  torch.tensor(v), causal=True, window=30)
+    np.testing.assert_allclose(got.numpy(),
+                               _ref_bshd(q, k, v, causal=True, window=30),
+                               **ATTN_TOL)
+
+
+def test_flash_plain_bf16():
+    q, k, v = _qkv(4, 1, 128, 2, 2, 32)
+    bf = [torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = seq_ops.flash_attention(*bf, causal=True)
+    assert got.dtype == torch.bfloat16
+    want = _ref_bshd(*(t.float().numpy() for t in bf), causal=True)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.05,
+                               rtol=0.05)
+
+
+@pytest.mark.parametrize("b,s,c", [(1, 64, 128), (2, 128, 256)])
+def test_linear_recurrence_plain_matches_pallas_and_scan(b, s, c):
+    rng = np.random.default_rng(b * s + c)
+    log_a = -rng.uniform(0.001, 2.0, (b, s, c)).astype(np.float32)
+    x = rng.normal(size=(b, s, c)).astype(np.float32)
+    got = seq_ops.linear_recurrence(torch.tensor(log_a),
+                                    torch.tensor(x)).numpy()
+    want_pallas = ops.linear_recurrence(jnp.asarray(log_a), jnp.asarray(x),
+                                        block_t=64, interpret=True)
+    want_scan = jax.jit(rglru_scan)(jnp.asarray(log_a), jnp.asarray(x))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, np.asarray(want_pallas), **LINREC_TOL)
+    np.testing.assert_allclose(got, np.asarray(want_scan), **LINREC_TOL)
+    assert seq_ops.LAUNCHES["linear_recurrence"] == 0
+
+
+def test_linear_recurrence_plain_bf16_inputs():
+    rng = np.random.default_rng(7)
+    log_a = torch.tensor(-rng.uniform(0.01, 1.0, (1, 64, 32))
+                         .astype(np.float32)).to(torch.bfloat16)
+    x = torch.tensor(rng.normal(size=(1, 64, 32)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    got = seq_ops.linear_recurrence(log_a, x)
+    assert got.dtype == torch.float32                  # fp32 carry
+    want = jax.jit(ref.linear_recurrence_ref)(
+        jnp.asarray(log_a.float().numpy()), jnp.asarray(x.float().numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LINREC_TOL)
+
+
+@pytest.mark.parametrize("la_dtype,x_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_linear_recurrence_rejects_mixed_dtypes(la_dtype, x_dtype):
+    """No silent upcast: the two inputs come in one dtype."""
+    log_a = torch.zeros((1, 4, 8), dtype=la_dtype)
+    x = torch.zeros((1, 4, 8), dtype=x_dtype)
+    with pytest.raises(TypeError, match="must match"):
+        seq_ops.linear_recurrence(log_a, x)
+
+
+def test_flash_shared_memory_fits_d256():
+    """recurrentgemma's d_head = 256 fits one block's shared memory; the
+    wrapper's size check is the one the launch relies on."""
+    assert seq_ops.flash_smem_bytes(256) == 213_760
+    assert seq_ops.flash_smem_bytes(256) <= _build.MAX_SMEM_BYTES
+    assert seq_ops.flash_smem_bytes(288) > _build.MAX_SMEM_BYTES
+
+
+def test_build_covers_every_source():
+    """One library from every csrc/*.cu, and every entry point of the
+    sources has its ctypes signature."""
+    names = {p.name for p in _build.sources()}
+    assert {"hfl_ops.cu", "seq_ops.cu"} <= names
+    for name in ("seq_flash_attention", "seq_linear_recurrence"):
+        assert name in _build._SIGNATURES
+        assert any(f"int {name}(" in p.read_text() for p in _build.sources())
