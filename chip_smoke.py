@@ -20,20 +20,26 @@ and prints no result):
    plain versions on the CPU, and compare;
 6. with ``--profile``, profile one more steady fcea round (kernel count
    and the device's busy share);
-7. hold the two sequence kernels (flash attention, linear recurrence)
-   against their plain versions at recurrentgemma-9b's prefill shapes
-   and at ragged and non-causal shapes, and time them beside their bound
+7. hold the sequence kernels (flash attention: the tensor-core kernel for
+   bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
+   recurrence) against their plain versions at recurrentgemma-9b's
+   prefill shapes, at the tensor-core kernel's edge shapes (ragged S,
+   S below one q-tile, small and ragged windows, GQA groups 1/2/16,
+   d_head 64/128, non-causal, B = 2) and at fp32 shapes, checking which
+   kernel each call launched; time the main shapes beside their bound
    and, for attention, PyTorch's ``scaled_dot_product_attention``;
 8. serve recurrentgemma-9b at full width and depth (random weights from
    a seeded generator): one prefill of 2 × 4096 tokens with the launch
-   counters zeroed just before and read just after (12 flash, 26
-   recurrence launches), timed prefills, a token-by-token decode of 2
-   64-token prompts and 16 greedy tokens, and the prefill's last logits
-   against the decode's;
-9. the reduced recurrentgemma config on the card (kernels) against the
-   CPU (plain versions) from the same weights, and its prefill's logits
-   at every position of a 300-token prompt (several flash tiles, window
-   32) against a token-by-token decode on the card;
+   counters zeroed just before and read just after (12 flash launches,
+   all of them to the tensor-core kernel; 26 recurrence launches), timed
+   prefills, a token-by-token decode of 2 64-token prompts and 16 greedy
+   tokens, and the prefill's last logits against the decode's;
+9. the reduced recurrentgemma config (d_head 64, window 32) on the card
+   (kernels) against the CPU (plain versions) from the same weights, and
+   its prefill's logits at every position of a 300-token prompt (several
+   flash tiles, the window skip) against a token-by-token decode on the
+   card: in float32 (the CUDA-core flash kernel) and in bfloat16 (the
+   tensor-core one);
 10. print the per-kernel JSON line and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
@@ -66,7 +72,7 @@ TOL = {  # the CPU tests' tolerances (tests/test_torch_kernels.py)
 SOURCE = {"score_rows": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "sic_rates": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "local_sgd_step": "src/repro_torch/kernels/csrc/hfl_ops.cu",
-          "flash_attention": "src/repro_torch/kernels/csrc/seq_ops.cu",
+          "flash_attention": "src/repro_torch/kernels/csrc/flash_wgmma.cu",
           "linear_recurrence": "src/repro_torch/kernels/csrc/seq_ops.cu"}
 REPLACES = {
     "score_rows": "src/repro/kernels/hfl_ops.py:78",
@@ -78,17 +84,29 @@ REPLACES = {
 # the sequence kernels against their plain versions (tests/test_torch_cuda.py):
 # float32 -- the kernel and the plain einsum sum in other orders; bfloat16
 # inputs -- the plain version in float32 rounded to bf16 once, as the
-# kernel computes in float32 and rounds only its output: one bf16 ulp
-# (2^-7 relative at most) apart where the two float32 results straddle a
-# rounding boundary
+# kernels compute in float32 (the tensor-core kernel feeds P to its second
+# product as two bf16 terms, exact to 2^-17) and round only their output:
+# one bf16 ulp (2^-7 relative at most) apart where the two float32 results
+# straddle a rounding boundary
 FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
              "bfloat16": dict(atol=1e-3, rtol=8e-3)}
+# bf16 shapes at the tensor-core flash kernel's edges (128 query rows a
+# block, 64 keys a K/V tile): (B, S, H, KV, D, causal, window)
+WGMMA_EDGES = [
+    (1, 100, 4, 1, 256, True, 0),        # S below one q-tile
+    (1, 1000, 16, 1, 256, True, 300),    # S and window not multiples of 64
+    (2, 300, 4, 2, 128, True, 40),       # window below one tile, group 2
+    (1, 200, 4, 4, 64, True, 0),         # MHA (group 1), D = 64
+    (1, 333, 4, 2, 128, False, 100),     # non-causal with a window
+    (2, 512, 16, 1, 256, False, 0),      # non-causal, MQA (group 16)
+]
 LINREC_TOL = dict(atol=1e-5, rtol=1e-4)
-# prefill (kernels) against token-by-token decode (plain), full config:
-# bf16 activations round at 2^-8 in every op of 38 layers, at other places
-# on the two paths, so the logits agree to a few percent, not to ulps.
-# The 64-token prompt is one flash tile; the reduced config's check below
-# covers several tiles and the window skip at a float32 tolerance
+# prefill (kernels) against token-by-token decode (plain), full config and
+# the reduced config in bfloat16: bf16 activations round at 2^-8 in every
+# op, at other places on the two paths, so the logits agree to a few
+# percent, not to ulps.  The full config's 64-token prompt is one flash
+# tile; the reduced config's checks below cover several tiles and the
+# window skip, in float32 at a float32 tolerance and in bfloat16 at this one
 PREFILL_DECODE_REL_RMS = 5e-2
 # card (kernels) against CPU (plain), and prefill (kernels) against
 # token-by-token decode (plain) on the card, reduced config in float32: the
@@ -526,10 +544,12 @@ def _seq_inputs(shape, dtype, seed, dev):
 
 
 def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
-                  library=False):
-    """Kernel vs plain (and, with ``library``, the time of PyTorch's
+                  library=False, timed=True):
+    """Kernel vs plain, checking that the call launched the kernel
+    ``seq_ops.flash_route`` names; with ``timed``, the times of both
+    beside the bound and, with ``library``, the time of PyTorch's
     scaled_dot_product_attention with the same boolean mask -- a yardstick
-    the port never calls).  Returns err, ms, plain ms, bound, library ms."""
+    the port never calls.  Returns err, ms, plain ms, bound, library ms."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import seq_ops
@@ -537,10 +557,17 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
     k = _seq_inputs((b, s, kv, d), dtype, seed + 1, dev)
     v = _seq_inputs((b, s, kv, d), dtype, seed + 2, dev)
     kw = dict(causal=causal, window=window)
+    route = seq_ops.flash_route(dtype, d)
+    before = seq_ops.LAUNCHES["flash_attention_wgmma"]
     got = seq_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     name = f"flash_attention B={b} S={s} H={h} KV={kv} D={d} " \
-           f"causal={causal} window={window} {str(dtype)[6:]}"
+           f"causal={causal} window={window} {str(dtype)[6:]} ({route})"
+    wgmma = int(route == "seq_flash_attention_wgmma")
+    if seq_ops.LAUNCHES["flash_attention_wgmma"] - before != wgmma:
+        raise AssertionError(f"{name}: the tensor-core kernel was launched "
+                             f"{seq_ops.LAUNCHES['flash_attention_wgmma'] - before}"
+                             f" times, expected {wgmma}")
     if dtype == torch.bfloat16:
         # held to the plain version in fp32 on the same (bf16) inputs,
         # rounded to bf16 once, as the kernel rounds only its output; the
@@ -556,6 +583,9 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
                  **FLASH_TOL[str(dtype)[6:]])
     err = _max_err(got, want)
     del want
+    if not timed:
+        log(f"[seq] {name}: max_abs_err {err:.3e}")
+        return err
     ms_k = time_ms(lambda: seq_ops.flash_attention(q, k, v, **kw))
     ms_p = time_ms(lambda: seq_ops.attention_plain(q, k, v, **kw))
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
@@ -573,7 +603,8 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
         lib_ms = time_ms(sdpa)
         log(f"[seq] {name}: sdpa vs kernel max abs {lib_err:.3e}")
     log(f"[seq] {name}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms  "
-        f"plain {ms_p:.4f} ms  bound {b_ms:.6f} ms ({b_by})"
+        f"plain {ms_p:.4f} ms  bound {b_ms:.6f} ms ({b_by}; kernel "
+        f"{ms_k / b_ms:.2f}x)"
         + (f"  sdpa {lib_ms:.4f} ms" if lib_ms is not None else ""))
     return err, ms_k, ms_p, b_ms, b_by, lib_ms
 
@@ -611,9 +642,11 @@ def phase_seq_compare(dev):
                                          bf16, 11, dev, library=True),
         "linear_recurrence": compare_linrec(2, 4096, 4096, f32, 14, dev),
     }
+    for i, shape in enumerate(WGMMA_EDGES):
+        compare_flash(*shape, bf16, 40 + 3 * i, dev, timed=False)
+    compare_flash(1, 130, 2, 1, 80, True, 50, bf16, 24, dev, timed=False)
     compare_flash(1, 1000, 4, 2, 64, True, 300, f32, 21, dev)
-    compare_flash(1, 1000, 16, 1, 256, True, 300, bf16, 24, dev)
-    compare_flash(2, 512, 16, 1, 256, False, 0, bf16, 27, dev)
+    compare_flash(1, 300, 4, 1, 256, False, 100, f32, 27, dev, timed=False)
     compare_linrec(1, 1000, 130, bf16, 31, dev)
     torch.cuda.empty_cache()
     return main
@@ -665,7 +698,8 @@ def phase_serve(dev, profile=False, batch=2, seq=4096, prompt_len=64,
     first_s = time.perf_counter() - t0
     launches = _launch_counts()
     want = {"score_rows": 0, "sic_rates": 0, "local_sgd_step": 0,
-            "flash_attention": 12, "linear_recurrence": 26}
+            "flash_attention": 12, "flash_attention_wgmma": 12,
+            "linear_recurrence": 26}
     if launches != want:
         raise AssertionError(f"prefill launches {launches} != {want}")
     if tuple(logits.shape) != (batch, cfg.vocab_size) \
@@ -766,7 +800,8 @@ def phase_substrate(dev, seq=300):
     full_card = card_model.apply(tokens.to(dev))
     torch.cuda.synchronize()
     launches = _launch_counts()
-    if (launches["flash_attention"], launches["linear_recurrence"]) != (2, 4):
+    if (launches["flash_attention"], launches["flash_attention_wgmma"],
+            launches["linear_recurrence"]) != (2, 0, 4):
         raise AssertionError(f"reduced card launches {launches}")
     cache = card_model.init_cache(2, cfg.window)
     with torch.no_grad():
@@ -785,6 +820,46 @@ def phase_substrate(dev, seq=300):
         log(f"[substrate] {cfg.name} S={seq} window {cfg.window}: {name} "
             f"max abs {_max_err(got, want):.3e} (atol "
             f"{SUBSTRATE_TOL['atol']}, rtol {SUBSTRATE_TOL['rtol']}): ok")
+
+
+def phase_substrate_bf16(dev, seq=300):
+    """The reduced config in bfloat16 (d_head 64, window 32): the prefill's
+    logits at every position on the card (through the tensor-core flash
+    kernel, over several q-tiles and the window skip) against a token-by-
+    token decode on the card (plain attention)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config("recurrentgemma-9b").reduced().replace(
+        compute_dtype_str="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    model = Transformer(cfg, device=dev, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                           device=dev)
+    _reset_launches()
+    with torch.no_grad():
+        full = model.apply(tokens)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if (launches["flash_attention"], launches["flash_attention_wgmma"],
+            launches["linear_recurrence"]) != (1, 1, 2):
+        raise AssertionError(f"reduced bf16 card launches {launches}")
+    cache = model.init_cache(2, cfg.window)
+    with torch.no_grad():
+        decoded = torch.cat([model.decode_step(tokens[:, i:i + 1], cache, i)[0]
+                             for i in range(seq)], dim=1)
+    if _launch_counts() != launches:
+        raise AssertionError("the decode path launched a kernel")
+    rel = _rel_rms(full, decoded)
+    agree = float((full.argmax(-1) == decoded.argmax(-1)).float().mean())
+    log(f"[substrate] {cfg.name} bf16 S={seq} window {cfg.window}: card "
+        f"prefill (tensor-core flash, launches {launches['flash_attention_wgmma']}) "
+        f"vs card decode, all logits: rel rms {rel:.3e} (limit "
+        f"{PREFILL_DECODE_REL_RMS}), max abs {_max_err(full, decoded):.3e}, "
+        f"argmax agreement {agree:.3f}")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"reduced bf16 prefill and decode logits "
+                             f"disagree: rel rms {rel:.3e}")
 
 
 def main(argv=None) -> int:
@@ -828,9 +903,12 @@ def main(argv=None) -> int:
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
     phase("substrate card vs cpu, prefill vs decode", phase_substrate, dev)
+    phase("substrate bf16 prefill vs decode", phase_substrate_bf16, dev)
 
+    # flash_attention's entry is the tensor-core kernel
     launches = {**runs["fcea"][1],
-                **{k: seq_launches[k] for k in seq_cmp}}
+                "flash_attention": seq_launches["flash_attention_wgmma"],
+                "linear_recurrence": seq_launches["linear_recurrence"]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)

@@ -44,6 +44,8 @@ _SIGNATURES = {
                       _I, _F, _F, _I, _P],
     "seq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _P],
+    "seq_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _I, _P],
     "seq_linear_recurrence": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 

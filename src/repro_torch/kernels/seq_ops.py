@@ -1,13 +1,17 @@
 """The substrate's two sequence kernels: wrappers, plain versions, launch
 counts.
 
-Each kernel is hand-written CUDA for ``sm_90a`` in ``csrc/seq_ops.cu``
-(built by ``_build``) and replaces one Pallas kernel of the reference:
+Each kernel is hand-written CUDA for ``sm_90a`` (built by ``_build``) and
+replaces one Pallas kernel of the reference:
 
 * ``flash_attention`` -- causal / sliding-window GQA online-softmax
-  attention forward (``kernels/flash_attention.py::_attn_kernel``);
+  attention forward (``kernels/flash_attention.py::_attn_kernel``): for
+  bf16 at d_head 64, 128 and 256 a tensor-core kernel (``wgmma``, a TMA
+  K/V ring; ``csrc/flash_wgmma.cu``), otherwise a CUDA-core kernel
+  (``csrc/seq_ops.cu``); ``flash_route`` says which;
 * ``linear_recurrence`` -- the diagonal scan h_t = exp(log_a_t)·h_{t-1} +
-  x_t with an fp32 carry (``kernels/linear_recurrence.py::_linrec_kernel``).
+  x_t with an fp32 carry (``kernels/linear_recurrence.py::_linrec_kernel``,
+  ``csrc/seq_ops.cu``).
 
 The public layout is the reference's ``kernels/ops.py``: attention takes and
 returns (B, S, H, D), the recurrence (B, S, C).  A wrapper given CPU
@@ -15,7 +19,8 @@ tensors runs the kernel's plain PyTorch version (``attention_plain``,
 ``linear_recurrence_plain``, the reference's ``kernels/ref.py`` oracles);
 given CUDA tensors it launches the kernel or raises -- there is no
 fallback.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
-and nothing else.
+and nothing else; ``flash_attention_wgmma`` counts the flash launches that
+went to the tensor-core kernel (``flash_attention`` counts them all).
 """
 from __future__ import annotations
 
@@ -25,13 +30,22 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "linear_recurrence": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_wgmma": 0,
+                             "linear_recurrence": 0}
 
 NEG_INF = -2.0e38
-# the flash kernel's tiles (csrc/seq_ops.cu: kFlashBQ, kFlashBK, kFlashMaxD)
+# the CUDA-core flash kernel's tiles (csrc/seq_ops.cu: kFlashBQ, kFlashBK,
+# kFlashMaxD)
 FLASH_BQ = 64
 FLASH_BK = 64
 FLASH_MAX_D = 256
+# the tensor-core flash kernel (csrc/flash_wgmma.cu: kBQ, kBK, kStages, the
+# barriers and the 1024-byte alignment slack) and the head dims it is built
+# for
+WGMMA_BQ = 128
+WGMMA_BK = 64
+WGMMA_STAGES = 2
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,13 +88,33 @@ def flash_smem_bytes(d: int) -> int:
                 + FLASH_BQ * (FLASH_BK + 1))
 
 
+def flash_wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one tensor-core flash block: the bf16 Q
+    tile, ``WGMMA_STAGES`` K and V tiles, 128 bytes of barriers and 1024
+    bytes to align the tiles to the 128-byte swizzle's atom."""
+    return (2 * WGMMA_BQ * d + 2 * 2 * WGMMA_STAGES * WGMMA_BK * d
+            + 128 + 1024)
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The C entry point a CUDA call of ``flash_attention`` launches, from
+    the dtype and the head dim alone: the tensor-core kernel for bfloat16
+    at D in ``WGMMA_HEAD_DIMS``, the CUDA-core kernel otherwise (float32,
+    which it holds at an fp32 tolerance, and bfloat16 at other D)."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "seq_flash_attention_wgmma"
+    return "seq_flash_attention"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D) in q's dtype.
 
     ``window`` > 0 lets query p see keys in (p - window, p] (with
     ``causal``) or (p - window, S) (without).  Any S; D a multiple of 16
-    up to 256; float32 or bfloat16."""
+    up to 256; float32 or bfloat16.  On the card the kernel is chosen by
+    ``flash_route`` and never on failure: an error of either kernel
+    raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window)
     dev = q.device
@@ -95,11 +129,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d % 16 or d > FLASH_MAX_D:
         raise ValueError(f"flash_attention: head dim {d} must be a multiple "
                          f"of 16 and at most {FLASH_MAX_D}")
+    route = flash_route(q.dtype, d)
+    wgmma = route == "seq_flash_attention_wgmma"
     q, k, v = (t.contiguous() for t in (q, k, v))
+    if wgmma:   # TMA reads from 16-byte aligned addresses
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     _build.require(q, "q", dev, q.dtype, (b, s, h, d))
     _build.require(k, "k", dev, q.dtype, (b, s, kv, d))
     _build.require(v, "v", dev, q.dtype, (b, s, kv, d))
-    smem = flash_smem_bytes(d)
+    smem = flash_wgmma_smem_bytes(d) if wgmma else flash_smem_bytes(d)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"flash_attention needs {smem} bytes of shared "
                          f"memory a block (D={d}); the H100 allows "
@@ -108,13 +147,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = _build.library()
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            b, s, h, kv, d, int(causal), int(window), float(d ** -0.5))
     with torch.cuda.device(dev):
-        code = lib.seq_flash_attention(
-            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            b, s, h, kv, d, int(causal), int(window), float(d ** -0.5),
-            _DTYPE_CODE[q.dtype], smem, _build.stream(dev))
-    _build.check(code, "flash_attention")
+        if wgmma:
+            code = lib.seq_flash_attention_wgmma(*args, smem,
+                                                 _build.stream(dev))
+        else:
+            code = lib.seq_flash_attention(*args, _DTYPE_CODE[q.dtype], smem,
+                                           _build.stream(dev))
+    _build.check(code, route)
     LAUNCHES["flash_attention"] += 1
+    if wgmma:
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out
 
 

@@ -127,6 +127,60 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kv, d, causal, window,
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
 
 
+# The tensor-core kernel (csrc/flash_wgmma.cu: 128 query rows a block in two
+# warpgroups of 64, 64 keys a K/V tile) at its edges, bf16, held like the
+# bf16 cases above: it feeds P to its second product as two bf16 terms
+# (exact to 2^-17), so it too computes in float32 and rounds only its
+# output.
+WGMMA_EDGES = [
+    (1, 100, 4, 1, 256, True, 0),        # S below one q-tile
+    (1, 64, 2, 1, 64, True, 0),          # S of exactly one K/V tile
+    (1, 1000, 16, 1, 256, True, 300),    # S and window not multiples of 64
+    (2, 300, 4, 2, 128, True, 40),       # window below one tile, group 2
+    (1, 200, 4, 4, 64, True, 0),         # MHA (group 1), D = 64
+    (1, 333, 4, 2, 128, False, 100),     # non-causal with a window
+    (2, 512, 16, 1, 256, False, 0),      # non-causal, MQA (group 16)
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", WGMMA_EDGES)
+def test_flash_wgmma_kernel_matches_plain(cuda, b, s, h, kv, d, causal,
+                                          window):
+    rng = np.random.default_rng(s + d + window)
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, n, d)).astype(np.float32),
+                            device=cuda).to(torch.bfloat16) for n in (h, kv, kv))
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    assert seq_ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    want = seq_ops.attention_plain(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d,dtype", [(256, torch.float32),
+                                     (80, torch.bfloat16)])
+def test_flash_other_dtypes_and_dims_keep_the_cuda_core_kernel(cuda, d,
+                                                               dtype):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 130, 2, d)).astype(np.float32),
+                            device=cuda).to(dtype) for _ in range(3))
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(q, k, v, causal=True, window=50)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    assert seq_ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    want = seq_ops.attention_plain(q.float(), k.float(), v.float(),
+                                   causal=True, window=50).to(dtype)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
 def test_flash_kernel_rejects_unsupported_head_dims(cuda):
     q = torch.zeros((1, 8, 2, 24), device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):

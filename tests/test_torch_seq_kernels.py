@@ -11,6 +11,8 @@ associative scan sums in another order); bfloat16 attention 0.05 against
 the float32 oracle.  The CUDA kernels are held to the plain versions on
 the card by ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,7 +135,67 @@ def test_build_covers_every_source():
     """One library from every csrc/*.cu, and every entry point of the
     sources has its ctypes signature."""
     names = {p.name for p in _build.sources()}
-    assert {"hfl_ops.cu", "seq_ops.cu"} <= names
-    for name in ("seq_flash_attention", "seq_linear_recurrence"):
+    assert {"hfl_ops.cu", "seq_ops.cu", "flash_wgmma.cu"} <= names
+    for name in ("seq_flash_attention", "seq_flash_attention_wgmma",
+                 "seq_linear_recurrence"):
         assert name in _build._SIGNATURES
         assert any(f"int {name}(" in p.read_text() for p in _build.sources())
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 256, "seq_flash_attention_wgmma"),
+    (torch.bfloat16, 128, "seq_flash_attention_wgmma"),
+    (torch.bfloat16, 64, "seq_flash_attention_wgmma"),
+    (torch.float32, 256, "seq_flash_attention"),    # fp32 tolerance: no bf16 P
+    (torch.float32, 64, "seq_flash_attention"),
+    (torch.bfloat16, 80, "seq_flash_attention"),    # not a multiple of 64
+    (torch.bfloat16, 32, "seq_flash_attention"),
+])
+def test_flash_route_is_a_function_of_dtype_and_head_dim(dtype, d, route):
+    """The card's flash kernel is chosen by (dtype, D) alone, and each
+    choice is an entry point of the library."""
+    assert seq_ops.flash_route(dtype, d) == route
+    assert route in _build._SIGNATURES
+
+
+def test_flash_wgmma_shared_memory_fits_every_head_dim():
+    """The tensor-core kernel's block at D = 256: the bf16 Q tile (64 KB),
+    two stages of K and V (128 KB), barriers and alignment slack."""
+    assert seq_ops.flash_wgmma_smem_bytes(256) == 197_760
+    for d in seq_ops.WGMMA_HEAD_DIMS:
+        assert seq_ops.flash_wgmma_smem_bytes(d) <= _build.MAX_SMEM_BYTES
+
+
+def test_flash_wgmma_tiles_match_the_source():
+    """The wrapper's copy of the kernel's tile constants (from which it
+    sizes the shared memory it asks for) equals the source's."""
+    src = (_build.CSRC / "flash_wgmma.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kBQ"] == seq_ops.WGMMA_BQ
+    assert consts["kBK"] == seq_ops.WGMMA_BK
+    assert consts["kStages"] == seq_ops.WGMMA_STAGES
+    assert (consts["kBarBytes"], consts["kAlign"]) == (128, 1024)
+    for d in seq_ops.WGMMA_HEAD_DIMS:
+        assert f"case {d}:" in src
+
+
+@pytest.mark.parametrize("d,causal,window", [(64, True, 32),
+                                             (128, False, 48)])
+def test_flash_plain_bf16_at_tensor_core_head_dims(d, causal, window):
+    """bf16 at the head dims the card sends to the tensor-core kernel: the
+    CPU path (the plain version, no launch) against the reference's Pallas
+    kernel in interpret mode on the same bf16 values, at the bf16
+    tolerance above."""
+    q, k, v = _qkv(d + window, 1, 128, 4, 2, d)
+    bf = [torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)]
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(*bf, causal=causal, window=window)
+    assert seq_ops.LAUNCHES == before
+    want = ops.flash_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in bf),
+        causal=causal, window=window, block_q=64, block_k=64,
+        interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=0.05,
+                               rtol=0.05)
