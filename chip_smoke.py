@@ -11,7 +11,11 @@ and prints no result):
 3. hold each HFL kernel against its plain PyTorch version on the card, at
    the main path's shapes (``CONFIG``) and at the reference bench scale
    (4096 clients × 32 edges), with the tolerances the tests use, and time
-   both;
+   both; the SGD kernel (a thread-block cluster per lane) also at its
+   edge shapes (every cluster size, ragged tiles, the block-per-lane
+   route), with its cluster size, shared memory and the clusters the card
+   holds at once, and its time from a CUDA-graph replay (its wrapper's
+   host time exceeds the kernel's);
 4. run the HFL main path -- ``HFLSimulation(CONFIG, device="cuda")``: 5
    rounds of fcea + PDD, then 2 rounds of gcea + fastest -- with every
    launch counter zeroed just before and read just after; check the
@@ -26,8 +30,11 @@ and prints no result):
    prefill shapes, at the tensor-core kernel's edge shapes (ragged S,
    S below one q-tile, small and ragged windows, GQA groups 1/2/16,
    d_head 64/128, non-causal, B = 2) and at fp32 shapes, checking which
-   kernel each call launched; time the main shapes beside their bound
-   and, for attention, PyTorch's ``scaled_dot_product_attention``;
+   kernel each call launched, and the recurrence bit for bit at its main
+   shape in fp32 and bf16 and at its edge shapes (ragged S and C, B·C
+   below one block, S = 1, odd C in bf16); time the main shapes beside
+   their bound and, for attention, PyTorch's
+   ``scaled_dot_product_attention``;
 8. serve recurrentgemma-9b at full width and depth (random weights from
    a seeded generator): one prefill of 2 × 4096 tokens with the launch
    counters zeroed just before and read just after (12 flash launches,
@@ -100,7 +107,6 @@ WGMMA_EDGES = [
     (1, 333, 4, 2, 128, False, 100),     # non-causal with a window
     (2, 512, 16, 1, 256, False, 0),      # non-causal, MQA (group 16)
 ]
-LINREC_TOL = dict(atol=1e-5, rtol=1e-4)
 # prefill (kernels) against token-by-token decode (plain), full config and
 # the reduced config in bfloat16: bf16 activations round at 2^-8 in every
 # op, at other places on the two paths, so the logits agree to a few
@@ -136,6 +142,24 @@ def time_ms(fn, *, min_iters=3, budget_s=0.5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps=20):
+    """Device time of one ``fn()`` in ms with no host time in it: ``reps``
+    calls captured in one CUDA graph, replayed and timed by ``time_ms``.
+    For a kernel whose wrapper takes longer on the host than the kernel on
+    the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -279,23 +303,70 @@ def compare_sic(n, m, per_edge, seed, dev, ties):
     return _max_err(got, want), ms_k, ms_p, sic_work(n, m)
 
 
-def compare_sgd(k, tau1, batch, d_in, hidden, n_classes, seed, dev):
+def compare_sgd(k, tau1, batch, d_in, hidden, n_classes, seed, dev,
+                timed=True):
+    """Kernel vs plain through the wrapper, checking the route it took;
+    with ``timed``, the kernel's device time (CUDA-graph replay: the
+    wrapper's host time exceeds the kernel's), the wrapper call's time and
+    the plain version's."""
+    import ctypes
+    import torch
     from repro_torch.kernels import hfl_ops
+    from repro_torch.kernels._build import check as _build_check
+    from repro_torch.kernels._build import library as _build_lib
     from repro_torch.models.mlp import PARAM_KEYS
     params, bx, by = sgd_inputs(k, tau1, batch, d_in, hidden, n_classes,
                                 seed, dev)
+    shape = (k, batch, d_in, hidden, n_classes)
+    route = hfl_ops.sgd_route(*shape)
+    c = hfl_ops.sgd_cluster_size(*shape)
+    before = dict(hfl_ops.LAUNCHES)
     got = hfl_ops.local_sgd_step(params, bx, by, lr=0.01)
+    torch.cuda.synchronize()
+    cluster = int(route == "hfl_local_sgd_cluster")
+    if (hfl_ops.LAUNCHES["local_sgd_step_cluster"]
+            - before["local_sgd_step_cluster"]) != cluster:
+        raise AssertionError(f"local_sgd_step K={k}: expected {route}")
     want = hfl_ops.local_sgd_step_plain(params, bx, by, lr=0.01)
     err = 0.0
-    for name in PARAM_KEYS:
-        _check_close(f"local_sgd_step {name} K={k} tau1={tau1}", got[name],
-                     want[name], **TOL["local_sgd_step"])
-        err = max(err, _max_err(got[name], want[name]))
-    ms_k = time_ms(lambda: hfl_ops.local_sgd_step(params, bx, by, lr=0.01))
+    name = (f"local_sgd_step K={k} tau1={tau1} B={batch} D={d_in} "
+            f"H={hidden} ({route}, cluster {c})")
+    for leaf in PARAM_KEYS:
+        _check_close(f"{name} {leaf}", got[leaf], want[leaf],
+                     **TOL["local_sgd_step"])
+        err = max(err, _max_err(got[leaf], want[leaf]))
+    if not timed:
+        log(f"[compare] {name}: max_abs_err {err:.3e}")
+        return err
+
+    def call():
+        return hfl_ops.local_sgd_step(params, bx, by, lr=0.01)
+    ms_k = graph_ms(call)
+    ms_call = time_ms(call)
     ms_p = time_ms(lambda: hfl_ops.local_sgd_step_plain(params, bx, by,
                                                         lr=0.01))
+    smem = hfl_ops.sgd_smem_bytes(batch, d_in, hidden, n_classes, c)
+    active = hfl_ops.sgd_max_active_clusters(*shape)
+    # the same launch asking for more than half an SM's shared memory: one
+    # CTA an SM, the layout the kernel's 2-CTA budget avoids
+    alone = ctypes.c_int(0)
+    _build_check(_build_lib().hfl_sgd_max_active_clusters(
+        *shape, c, max(smem, 116_000), ctypes.byref(alone)), "occupancy")
+    log(f"[compare] {name}: kernel {ms_k:.4f} ms (graph replay), wrapper "
+        f"call {ms_call:.4f} ms; {k * c} CTAs, {smem} bytes of shared "
+        f"memory a CTA, {active} clusters active at once ({alone.value} at "
+        f"one CTA an SM)")
     return err, ms_k, ms_p, sgd_work(k, tau1, batch, d_in, hidden,
                                      n_classes)
+
+
+# the SGD kernels' edge shapes (tests/test_torch_cuda.py): (K, τ₁, B, D, H)
+# -- every cluster size, K = 1, τ₁ = 4, ragged tiles and W1 row slices, a
+# CTA without rows of W1, and a layer too wide for any cluster (the
+# block-per-lane kernel)
+SGD_EDGES = [(3, 2, 5, 7, 6), (2, 2, 6, 30, 12), (1, 4, 8, 30, 16),
+             (1, 1, 32, 783, 128), (40, 2, 9, 50, 20), (1, 2, 4, 7, 16),
+             (1, 1, 4, 70_000, 8)]
 
 
 def phase_compare(cfg, dev):
@@ -315,6 +386,9 @@ def phase_compare(cfg, dev):
         "sic_rates": compare_sic(4097, 32, 0, 5, dev, ties=True),
         "local_sgd_step": compare_sgd(4 * 32, 3, 16, 32, 16, 10, 6, dev),
     }
+    for i, (k, tau1, batch, d_in, hidden) in enumerate(SGD_EDGES):
+        compare_sgd(k, tau1, batch, d_in, hidden, 10, 20 + i, dev,
+                    timed=False)
     for label, res in (("CONFIG", main), ("bench 4096x32", bench)):
         for name, (err, ms_k, ms_p, work) in res.items():
             b_ms, b_by = bound_ms(*work)
@@ -392,7 +466,8 @@ def phase_main_path(cfg, dev):
         sim, rows, walls, stages, launches = _drive(cfg, policy, scheduler,
                                                     rounds, dev)
         want = {"score_rows": want_score * rounds, "sic_rates": rounds,
-                "local_sgd_step": cfg.tau2 * rounds}
+                "local_sgd_step": cfg.tau2 * rounds,
+                "local_sgd_step_cluster": cfg.tau2 * rounds}
         if launches != want:
             raise AssertionError(f"{policy}-{scheduler}: launches {launches} "
                                  f"!= expected {want}")
@@ -445,7 +520,7 @@ def profile_device(fn, label, steady_s):
         f"(busy {100.0 * busy_s / wall_s:.2f}%); unprofiled steady "
         f"{steady_s * 1e3:.3f} ms (busy {100.0 * busy_s / steady_s:.2f}%, "
         f"idle {100.0 * (1.0 - busy_s / steady_s):.2f}%)")
-    for us, count, key in sorted(rows, reverse=True)[:12]:
+    for us, count, key in sorted(rows, reverse=True)[:16]:
         log(f"[profile]   {us / 1e3:9.3f} ms  x{count:<6} {key[:90]}")
 
 
@@ -609,7 +684,10 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
     return err, ms_k, ms_p, b_ms, b_by, lib_ms
 
 
-def compare_linrec(b, s, c, dtype, seed, dev):
+def compare_linrec(b, s, c, dtype, seed, dev, timed=True):
+    """Kernel vs plain, bit for bit (the kernel does the plain version's
+    exp, IEEE multiply and add in the same order); with ``timed``, both
+    times beside the bound."""
     import torch
     from repro_torch.kernels import seq_ops
     log_a = -_seq_inputs((b, s, c), torch.float32, seed, dev).abs() \
@@ -618,17 +696,39 @@ def compare_linrec(b, s, c, dtype, seed, dev):
     got = seq_ops.linear_recurrence(log_a, x)
     want = seq_ops.linear_recurrence_plain(log_a, x)
     torch.cuda.synchronize()
-    name = f"linear_recurrence B={b} S={s} C={c} {str(dtype)[6:]}"
-    _check_close(name, got, want, **LINREC_TOL)
+    vec = seq_ops.linrec_vector_bytes(c, x.element_size(), log_a.data_ptr(),
+                                      x.data_ptr())
+    name = (f"linear_recurrence B={b} S={s} C={c} {str(dtype)[6:]} (ring "
+            f"{seq_ops.LINREC_STAGES} x {seq_ops.LINREC_TILE} steps x "
+            f"{seq_ops.LINREC_CHANNELS} channels, {vec}-byte copies)")
     err = _max_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal to its plain version "
+                             f"(max abs err {err:.3e})")
+    if not timed:
+        log(f"[seq] {name}: bit-equal")
+        return err
     ms_k = time_ms(lambda: seq_ops.linear_recurrence(log_a, x))
     ms_p = time_ms(lambda: seq_ops.linear_recurrence_plain(log_a, x),
                    min_iters=2, budget_s=0.2)
     n = b * s * c
     b_ms, b_by = bound_ms(2 * n * log_a.element_size() + 4 * n, 3 * n)
-    log(f"[seq] {name}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms  "
-        f"plain {ms_p:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+    # a yardstick of what the card streams: one elementwise pass that
+    # reads log_a and x and writes a float32 tensor of the same size
+    sink = torch.empty((b, s, c), dtype=torch.float32, device=dev)
+    ms_s = time_ms(lambda: torch.add(log_a, x, out=sink))
+    log(f"[seq] {name}: bit-equal  kernel {ms_k:.4f} ms  plain {ms_p:.4f} "
+        f"ms  bound {b_ms:.6f} ms ({b_by}; kernel at "
+        f"{100.0 * b_ms / ms_k:.1f}% of it; a streaming add over the same "
+        f"bytes {ms_s:.4f} ms, {100.0 * b_ms / ms_s:.1f}%)")
     return err, ms_k, ms_p, b_ms, b_by, None
+
+
+# the recurrence kernel's edge shapes (tests/test_torch_cuda.py): S not a
+# multiple of the ring's tile, C not a multiple of the block's channels,
+# B·C below one block, S = 1, bf16 rows of odd C (2-byte copies)
+LINREC_EDGES = [(1, 77, 130), (1, 300, 20), (2, 1, 96), (1, 33, 13),
+                (4, 129, 8)]
 
 
 def phase_seq_compare(dev):
@@ -648,6 +748,10 @@ def phase_seq_compare(dev):
     compare_flash(1, 1000, 4, 2, 64, True, 300, f32, 21, dev)
     compare_flash(1, 300, 4, 1, 256, False, 100, f32, 27, dev, timed=False)
     compare_linrec(1, 1000, 130, bf16, 31, dev)
+    compare_linrec(2, 4096, 4096, bf16, 33, dev)
+    for i, shape in enumerate(LINREC_EDGES):
+        for dtype in (f32, bf16):
+            compare_linrec(*shape, dtype, 50 + i, dev, timed=False)
     torch.cuda.empty_cache()
     return main
 
@@ -698,8 +802,8 @@ def phase_serve(dev, profile=False, batch=2, seq=4096, prompt_len=64,
     first_s = time.perf_counter() - t0
     launches = _launch_counts()
     want = {"score_rows": 0, "sic_rates": 0, "local_sgd_step": 0,
-            "flash_attention": 12, "flash_attention_wgmma": 12,
-            "linear_recurrence": 26}
+            "local_sgd_step_cluster": 0, "flash_attention": 12,
+            "flash_attention_wgmma": 12, "linear_recurrence": 26}
     if launches != want:
         raise AssertionError(f"prefill launches {launches} != {want}")
     if tuple(logits.shape) != (batch, cfg.vocab_size) \
@@ -905,8 +1009,10 @@ def main(argv=None) -> int:
     phase("substrate card vs cpu, prefill vs decode", phase_substrate, dev)
     phase("substrate bf16 prefill vs decode", phase_substrate_bf16, dev)
 
-    # flash_attention's entry is the tensor-core kernel
+    # the entries of local_sgd_step and flash_attention are the cluster
+    # kernel and the tensor-core kernel
     launches = {**runs["fcea"][1],
+                "local_sgd_step": runs["fcea"][1]["local_sgd_step_cluster"],
                 "flash_attention": seq_launches["flash_attention_wgmma"],
                 "linear_recurrence": seq_launches["linear_recurrence"]}
     kernels = []

@@ -9,7 +9,8 @@ another).  The build goes at first use into the checkout's ``build/``
 directory (which git ignores), named by a hash of all the sources and the
 flags, so an edited source never loads a stale build.  The C entry points
 take raw device pointers and the CUDA stream as ``c_void_p``, sizes as
-``c_int`` and scalars as ``c_float``; each returns ``cudaGetLastError()``.
+``c_int`` and scalars as ``c_float``; each returns a CUDA error code
+(``cudaGetLastError()`` after a launch).
 
 Also here, for the wrappers of every kernel module: ``ptr``, ``stream``,
 ``require`` and the shared-memory limit ``MAX_SMEM_BYTES``.
@@ -42,11 +43,13 @@ _SIGNATURES = {
     "hfl_sic_rates": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
     "hfl_local_sgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _F, _F, _I, _P],
+    "hfl_local_sgd_cluster": [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P],
+    "hfl_sgd_max_active_clusters": [_I] * 7 + [ctypes.POINTER(_I)],
     "seq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _P],
     "seq_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _P],
-    "seq_linear_recurrence": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "seq_linear_recurrence": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -249,66 +249,210 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
 // Replaces: src/repro/kernels/linear_recurrence.py::_linrec_kernel (via
 // linear_recurrence / ops.linear_recurrence).
 // Bound on the H100: bytes.  Each element is read twice (log_a, x) and
-// written once (fp32 h): 12 bytes at fp32 inputs for 3 flops and an exp.
-// Layout: one thread per (b, c) channel walks t with the carry in a
-// register; adjacent threads take adjacent channels, so every load and
-// store of a time step coalesces.  The loads of 16 steps are issued before
-// the 16 dependent updates, so each thread keeps 16 loads in flight
-// instead of one; blocks of 64 threads spread B * C channels over the
-// SMs.  No carry crosses blocks.  The update is exp, then an IEEE multiply
-// and add without FMA contraction -- the plain version's arithmetic.
-// Not in this version: a chunked two-pass scan for more parallelism when
-// B * C is small.
+// written once (fp32 h): 12 bytes at fp32 inputs for 3 flops and an exp;
+// at recurrentgemma-9b's prefill (B = 2, S = 4096, C = 4096) 403 MB, 0.120
+// ms at 3.35 TB/s.  To reach that rate HBM needs some 20-25 KB of loads in
+// flight on each SM (Little's law at ~0.8 us); a thread that issues the
+// loads of its own next steps keeps far less than that in flight.  So:
+//
+// * A block is one warp and takes 32 channels of one batch row, one lane a
+//   channel: 128 bytes of a time step in fp32.  B * C = 8192 channels make
+//   256 blocks, all resident at once (two or three an SM).
+// * The block keeps a ring of kLinrecStages tiles of kLinrecTile time
+//   steps x 32 channels of log_a and x in shared memory, filled by
+//   cp.async copies kLinrecStages - 1 tiles ahead of the scan (one commit
+//   group a tile): 56 KB of loads in flight a block in fp32.  A copy is
+//   16 bytes where the row (C * itemsize) and both pointers allow it, else
+//   8 or 4; bf16 with an odd C is copied 2 bytes at a time through
+//   registers (kernels/seq_ops.py::linrec_vector_bytes picks the width).
+// * The scan's arithmetic is unchanged: each lane walks its channel with
+//   the carry in a register, exp, then an IEEE multiply and add without
+//   FMA contraction -- the plain version's, so the kernel is bit-equal to
+//   it.  A block is a lone warp on its scheduler, so only its own
+//   instruction-level parallelism hides latency: the exps of a whole tile,
+//   which do not depend on the carry, come first, then the carry's chain.
+//   Outputs are stored straight from the scan, 128 bytes a warp a step.
+// * No carry crosses blocks.  Not in this version: a chunked two-pass scan
+//   for B * C too small to fill the card, which would reassociate the
+//   product and give up bit-equality.
+// Measured at the main shape (H100 80GB HBM3, 700 W): 0.227 ms, 53% of
+// the byte bound, below what one streaming elementwise pass over the same
+// bytes reaches (chip_smoke.py's [seq] line prints both): the 128-byte
+// row pieces, 16 KB apart, that each block reads and writes cost DRAM
+// efficiency that a wider layout would have to win back.
 // ---------------------------------------------------------------------------
 
-constexpr int kLinrecThreads = 64;
-constexpr int kLinrecUnroll = 16;
+constexpr int kLinrecChannels = 32;
+constexpr int kLinrecTile = 32;
+constexpr int kLinrecStages = 8;
 
-template <typename T>
-__global__ void __launch_bounds__(kLinrecThreads)
-    linrec_kernel(const T* __restrict__ log_a, const T* __restrict__ x,
-                  float* __restrict__ out, int s_len, int c,
-                  long long channels) {
-  const long long ch =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (ch >= channels) return;
-  const long long bi = ch / c;
-  const size_t base = static_cast<size_t>(bi) * s_len * c + (ch - bi * c);
-  float h = 0.0f;
-  for (int t0 = 0; t0 < s_len; t0 += kLinrecUnroll) {
-    float la[kLinrecUnroll], xv[kLinrecUnroll];
-#pragma unroll
-    for (int u = 0; u < kLinrecUnroll; ++u) {
-      const int t = t0 + u;
-      la[u] = 0.0f;
-      xv[u] = 0.0f;
-      if (t < s_len) {
-        const size_t off = base + static_cast<size_t>(t) * c;
-        la[u] = to_f32(log_a[off]);
-        xv[u] = to_f32(x[off]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLinrecUnroll; ++u) {
-      const int t = t0 + u;
-      if (t < s_len) {
-        h = __fadd_rn(__fmul_rn(expf(la[u]), h), xv[u]);
-        out[base + static_cast<size_t>(t) * c] = h;
-      }
-    }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy VEC bytes from global to shared: cp.async for 4, 8 and 16 (the last
+// bypassing L1), a load and a store through a register for 2.
+template <int VEC>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (VEC == 2) {
+    *static_cast<unsigned short*>(dst) =
+        *static_cast<const unsigned short*>(src);
+  } else {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (VEC == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                   "l"(src), "n"(VEC)
+                   : "memory");
   }
 }
 
 template <typename T>
-int launch_linrec(const void* log_a, const void* x, float* out, int b,
-                  int s_len, int c, cudaStream_t stream) {
-  const long long channels = static_cast<long long>(b) * c;
-  const unsigned blocks = static_cast<unsigned>(
-      (channels + kLinrecThreads - 1) / kLinrecThreads);
-  linrec_kernel<T><<<blocks, kLinrecThreads, 0, stream>>>(
-      static_cast<const T*>(log_a), static_cast<const T*>(x), out, s_len, c,
-      channels);
+constexpr int linrec_smem_bytes() {
+  return 2 * kLinrecStages * kLinrecTile * kLinrecChannels *
+         static_cast<int>(sizeof(T));
+}
+
+// One block's scan; kFull: all kLinrecChannels channels of the block exist,
+// so that the checks of the ragged last block fold away.
+template <typename T, int VEC, bool kFull>
+__device__ __forceinline__ void linrec_block(const T* __restrict__ log_a,
+                                             const T* __restrict__ x,
+                                             float* __restrict__ out,
+                                             int s_len, int c,
+                                             unsigned char* ring) {
+  constexpr int kTileElems = kLinrecTile * kLinrecChannels;
+  constexpr int kPerVec = VEC / static_cast<int>(sizeof(T));
+  constexpr int kVecsPerRow = kLinrecChannels / kPerVec;
+  T* s_la = reinterpret_cast<T*>(ring);
+  T* s_x = s_la + kLinrecStages * kTileElems;
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * kLinrecChannels;
+  const int n_ch = kFull ? kLinrecChannels : min(kLinrecChannels, c - c0);
+  // the row's channels in whole copies: exact, as VEC divides C * itemsize
+  const int row_vecs = (n_ch + kPerVec - 1) / kPerVec;
+  const size_t base = static_cast<size_t>(blockIdx.y) * s_len * c + c0;
+  const int n_tiles = (s_len + kLinrecTile - 1) / kLinrecTile;
+
+  // one commit group a tile, empty past the last, so that the count of
+  // groups in flight is the same in every iteration
+  auto load_tile = [&](int tile) {
+    if (tile < n_tiles) {
+      const int slot = tile % kLinrecStages;
+      const int t0 = tile * kLinrecTile;
+      for (int i = lane; i < kLinrecTile * kVecsPerRow;
+           i += kLinrecChannels) {
+        const int row = i / kVecsPerRow, vec = i - row * kVecsPerRow;
+        if (t0 + row < s_len && (kFull || vec < row_vecs)) {
+          const size_t g =
+              base + static_cast<size_t>(t0 + row) * c + vec * kPerVec;
+          const int sm = slot * kTileElems + row * kLinrecChannels +
+                         vec * kPerVec;
+          copy_async<VEC>(s_la + sm, log_a + g);
+          copy_async<VEC>(s_x + sm, x + g);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int tile = 0; tile < kLinrecStages - 1; ++tile) load_tile(tile);
+  float* o = out + base + lane;
+  const bool live = kFull || lane < n_ch;
+  float h = 0.0f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kLinrecStages - 2>();
+    // the tile is in, and every lane is done with the slot refilled next
+    __syncwarp();
+    load_tile(tile + kLinrecStages - 1);
+    const int slot = tile % kLinrecStages;
+    const T* la = s_la + slot * kTileElems + lane;
+    const T* xv = s_x + slot * kTileElems + lane;
+    const int t0 = tile * kLinrecTile;
+    float* ot = o + static_cast<size_t>(t0) * c;
+    const int steps = min(kLinrecTile, s_len - t0);
+    // the tile's exps first, independent of the carry, so that they
+    // overlap; then the carry's chain of multiply and add
+    float e[kLinrecTile], xs[kLinrecTile];
+#pragma unroll
+    for (int u = 0; u < kLinrecTile; ++u) {
+      e[u] = expf(to_f32(la[u * kLinrecChannels]));
+      xs[u] = to_f32(xv[u * kLinrecChannels]);
+    }
+    // lanes past the last channel run the chain without storing; the
+    // branch sits outside the unrolled chain so that it stays straight code
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < kLinrecTile; ++u) {
+        if (u < steps) {
+          h = __fadd_rn(__fmul_rn(e[u], h), xs[u]);
+          ot[static_cast<size_t>(u) * c] = h;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// kFull: C is a multiple of kLinrecChannels (the launcher's choice), so
+// every block is full; a branch between the two inside one kernel was
+// slower at the main shape.
+template <typename T, int VEC, bool kFull>
+__global__ void __launch_bounds__(kLinrecChannels)
+    linrec_kernel(const T* __restrict__ log_a, const T* __restrict__ x,
+                  float* __restrict__ out, int s_len, int c) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  linrec_block<T, VEC, kFull>(log_a, x, out, s_len, c, ring);
+}
+
+template <typename T, int VEC, bool kFull>
+int launch_linrec_grid(const void* log_a, const void* x, float* out, int b,
+                       int s_len, int c, cudaStream_t stream) {
+  constexpr int smem = linrec_smem_bytes<T>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      linrec_kernel<T, VEC, kFull>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((c + kLinrecChannels - 1) / kLinrecChannels, b);
+  linrec_kernel<T, VEC, kFull><<<grid, kLinrecChannels, smem, stream>>>(
+      static_cast<const T*>(log_a), static_cast<const T*>(x), out, s_len, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_linrec_vec(const void* log_a, const void* x, float* out, int b,
+                      int s_len, int c, cudaStream_t stream) {
+  if (c % kLinrecChannels == 0)
+    return launch_linrec_grid<T, VEC, true>(log_a, x, out, b, s_len, c,
+                                            stream);
+  return launch_linrec_grid<T, VEC, false>(log_a, x, out, b, s_len, c,
+                                           stream);
+}
+
+template <typename T>
+int launch_linrec(const void* log_a, const void* x, float* out, int b,
+                  int s_len, int c, int vec, cudaStream_t stream) {
+  switch (vec) {
+    case 16:
+      return launch_linrec_vec<T, 16>(log_a, x, out, b, s_len, c, stream);
+    case 8:
+      return launch_linrec_vec<T, 8>(log_a, x, out, b, s_len, c, stream);
+    case 4:
+      return launch_linrec_vec<T, 4>(log_a, x, out, b, s_len, c, stream);
+    default:
+      if constexpr (sizeof(T) == 2)
+        if (vec == 2)
+          return launch_linrec_vec<T, 2>(log_a, x, out, b, s_len, c, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -327,12 +471,16 @@ int seq_flash_attention(const void* q, const void* k, const void* v, void* o,
                              window, scale, smem_bytes, st);
 }
 
+// log_a, x (B, S, C) float32 or bfloat16 -> out (B, S, C) float32; ``vec``
+// the bytes of one ring copy (16, 8, 4, or 2 for bfloat16), which must
+// divide C * itemsize and both input pointers' alignment.
 int seq_linear_recurrence(const void* log_a, const void* x, float* out,
-                          int b, int s_len, int c, int dtype, void* stream) {
+                          int b, int s_len, int c, int dtype, int vec,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_linrec<__nv_bfloat16>(log_a, x, out, b, s_len, c, st);
-  return launch_linrec<float>(log_a, x, out, b, s_len, c, st);
+    return launch_linrec<__nv_bfloat16>(log_a, x, out, b, s_len, c, vec, st);
+  return launch_linrec<float>(log_a, x, out, b, s_len, c, vec, st);
 }
 
 }  // extern "C"

@@ -6,16 +6,21 @@ Each kernel is hand-written CUDA for ``sm_90a`` in ``csrc/hfl_ops.cu``
 
 * ``score_rows`` / ``score_matrix`` -- fused fuzzy scoring (``_score_kernel``);
 * ``sic_rates`` -- NOMA SIC rates for every edge (``_sic_kernel``);
-* ``local_sgd_step`` -- τ₁ fused local-SGD steps per lane (``_sgd_kernel``).
+* ``local_sgd_step`` -- τ₁ fused local-SGD steps per lane (``_sgd_kernel``):
+  one thread-block cluster per lane wherever its slices fit shared
+  memory, one block per lane otherwise; ``sgd_route`` says which.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
 (``score_rows_plain``, ``sic_rates_plain``, ``local_sgd_step_plain``); given
 CUDA tensors it launches the kernel or raises -- there is no fallback.
 ``LAUNCHES`` counts, per wrapper, the kernel launches it made and nothing
-else, so a run can show that its path went through the kernels.
+else, so a run can show that its path went through the kernels;
+``local_sgd_step_cluster`` counts the SGD launches that went to the cluster
+kernel (``local_sgd_step`` counts them all).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict
 
@@ -31,7 +36,7 @@ from repro_torch.kernels._build import stream as _stream
 from repro_torch.models.mlp import PARAM_KEYS
 
 LAUNCHES: Dict[str, int] = {"score_rows": 0, "sic_rates": 0,
-                            "local_sgd_step": 0}
+                            "local_sgd_step": 0, "local_sgd_step_cluster": 0}
 
 
 def reset_launches() -> None:
@@ -169,10 +174,83 @@ def local_sgd_step_plain(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     return dict(zip(PARAM_KEYS, (w1, b1, w2, b2, w3, b3)))
 
 
-def sgd_smem_bytes(batch: int, hidden: int, n_classes: int) -> int:
-    """Dynamic shared memory of one lane's block: h1p, h2p, dh2, dh1
-    (B × H each) and the logits (B × V), float32."""
+# the card's SMs (H100 SXM), which the lanes' clusters should not far
+# exceed, and the cluster sizes the kernel takes (csrc/hfl_ops.cu:
+# kMaxCluster, a power of two)
+N_SMS = 132
+SGD_CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def sgd_smem_bytes(batch: int, d_in: int, hidden: int, n_classes: int,
+                   cluster: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster kernel
+    (csrc/hfl_ops.cu: sgd_cluster_smem_floats), fp32, each buffer rounded
+    up to 16 bytes: one region for x's columns of the CTA's ⌈D/c⌉ rows of
+    W1 (transposed, ⌈D/c⌉ × B, stride rounded to 4), relu(h2) and the
+    partial dh1
+    (B × H); those W1 rows (⌈D/c⌉ × H); b1, b2 and W2's columns on its H/c
+    hidden units; the full W3 and b3; one B × H buffer (partial h1p,
+    relu(h1), dh1); its slices of h1p, h2p, dh2 and dh1 (B × H/c) and the
+    logits (B × V)."""
+    r4 = _round4
+    rows, hc = -(-d_in // cluster), hidden // cluster
+    region = r4(max(batch * hidden, r4(batch) * rows))
+    return 4 * (region + r4(rows * hidden) + 2 * r4(hc) + r4(hidden * hc)
+                + r4(hidden * n_classes) + r4(n_classes)
+                + r4(batch * hidden) + 4 * r4(batch * hc)
+                + r4(batch * n_classes))
+
+
+def sgd_block_smem_bytes(batch: int, hidden: int, n_classes: int) -> int:
+    """Dynamic shared memory of the block-per-lane kernel: h1p, h2p, dh2,
+    dh1 (B × H each) and the logits (B × V), float32."""
     return 4 * (4 * batch * hidden + batch * n_classes)
+
+
+@functools.lru_cache(maxsize=64)
+def sgd_cluster_size(k: int, batch: int, d_in: int, hidden: int,
+                     n_classes: int) -> int:
+    """CTAs a lane's cluster gets: of the sizes in ``SGD_CLUSTER_SIZES``
+    that divide ``hidden`` and whose CTA fits shared memory, the largest
+    with k·c ≤ ``N_SMS`` (the most SMs without a second wave), else the
+    smallest; 0 when none fits."""
+    fits = [c for c in SGD_CLUSTER_SIZES if hidden % c == 0
+            and sgd_smem_bytes(batch, d_in, hidden, n_classes, c)
+            <= MAX_SMEM_BYTES]
+    if not fits:
+        return 0
+    under = [c for c in fits if k * c <= N_SMS]
+    return max(under) if under else min(fits)
+
+
+def sgd_route(k: int, batch: int, d_in: int, hidden: int,
+              n_classes: int) -> str:
+    """The C entry point a CUDA call of ``local_sgd_step`` launches, from
+    the shape alone: the cluster kernel wherever a cluster size fits, the
+    block-per-lane kernel otherwise (a layer too wide for any CTA's
+    slice)."""
+    if sgd_cluster_size(k, batch, d_in, hidden, n_classes):
+        return "hfl_local_sgd_cluster"
+    return "hfl_local_sgd"
+
+
+def sgd_max_active_clusters(k: int, batch: int, d_in: int, hidden: int,
+                            n_classes: int) -> int:
+    """How many of the cluster kernel's clusters the current card holds at
+    once at this shape (``cudaOccupancyMaxActiveClusters``)."""
+    c = sgd_cluster_size(k, batch, d_in, hidden, n_classes)
+    if not c:
+        raise ValueError("local_sgd_step: no cluster size fits this shape")
+    out = ctypes.c_int(0)
+    code = _build.library().hfl_sgd_max_active_clusters(
+        k, batch, d_in, hidden, n_classes, c,
+        sgd_smem_bytes(batch, d_in, hidden, n_classes, c), ctypes.byref(out))
+    _build.check(code, "sgd_max_active_clusters")
+    return out.value
 
 
 def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
@@ -180,7 +258,9 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     """τ₁ minibatch-SGD steps for every lane of the stacked K-lane cohort.
 
     params: leaves (K, …) over ``PARAM_KEYS``; bx (τ₁, K, B, D) gathered
-    minibatches; by (τ₁, K, B) int labels.  Returns the updated params.
+    minibatches; by (τ₁, K, B) int labels.  Returns the updated params in
+    new tensors; ``params`` is left as it is.  On the card the kernel is
+    chosen by ``sgd_route`` and never on failure: an error raises.
     """
     if bx.device.type == "cpu":
         return local_sgd_step_plain(params, bx, by, lr=lr)
@@ -190,27 +270,46 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     shapes = {"w1": (k, d_in, hidden), "b1": (k, hidden),
               "w2": (k, hidden, hidden), "b2": (k, hidden),
               "w3": (k, hidden, n_classes), "b3": (k, n_classes)}
-    out = {}
+    route = sgd_route(k, batch, d_in, hidden, n_classes)
+    cluster = route == "hfl_local_sgd_cluster"
+    leaves = {}
     for name in PARAM_KEYS:
-        leaf = params[name].float().contiguous().clone()
+        leaf = params[name].float().contiguous()
         _require(leaf, name, dev, torch.float32, shapes[name])
-        out[name] = leaf
+        leaves[name] = leaf
     bx = bx.float().contiguous()
     by = by.to(torch.int32).contiguous()
     _require(by, "by", dev, torch.int32, (tau1, k, batch))
-    smem = sgd_smem_bytes(batch, hidden, n_classes)
+    if cluster:
+        c = sgd_cluster_size(k, batch, d_in, hidden, n_classes)
+        smem = sgd_smem_bytes(batch, d_in, hidden, n_classes, c)
+    else:
+        smem = sgd_block_smem_bytes(batch, hidden, n_classes)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"local_sgd_step needs {smem} bytes of shared memory "
-                         f"a block (B={batch}, H={hidden}, V={n_classes}); "
-                         f"the H100 allows {MAX_SMEM_BYTES}")
+                         f"a block at every cluster size (B={batch}, "
+                         f"D={d_in}, H={hidden}, V={n_classes}); the H100 "
+                         f"allows {MAX_SMEM_BYTES}")
     if k == 0 or tau1 == 0:
-        return out
+        return {n: leaves[n].clone() for n in PARAM_KEYS}
     lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.hfl_local_sgd(
-            *(_ptr(out[n]) for n in PARAM_KEYS), _ptr(bx), _ptr(by),
-            k, tau1, batch, d_in, hidden, n_classes, float(lr),
-            1.0 / float(batch), smem, _stream(dev))
-    _build.check(code, "local_sgd_step")
+    if cluster:
+        out = {n: torch.empty_like(leaves[n]) for n in PARAM_KEYS}
+        with torch.cuda.device(dev):
+            code = lib.hfl_local_sgd_cluster(
+                *(_ptr(leaves[n]) for n in PARAM_KEYS),
+                *(_ptr(out[n]) for n in PARAM_KEYS), _ptr(bx), _ptr(by),
+                k, tau1, batch, d_in, hidden, n_classes, c, float(lr),
+                1.0 / float(batch), smem, _stream(dev))
+    else:   # updates in place: the outputs start as copies of the inputs
+        out = {n: leaves[n].clone() for n in PARAM_KEYS}
+        with torch.cuda.device(dev):
+            code = lib.hfl_local_sgd(
+                *(_ptr(out[n]) for n in PARAM_KEYS), _ptr(bx), _ptr(by),
+                k, tau1, batch, d_in, hidden, n_classes, float(lr),
+                1.0 / float(batch), smem, _stream(dev))
+    _build.check(code, route)
     LAUNCHES["local_sgd_step"] += 1
+    if cluster:
+        LAUNCHES["local_sgd_step_cluster"] += 1
     return out

@@ -11,7 +11,8 @@ replaces one Pallas kernel of the reference:
   (``csrc/seq_ops.cu``); ``flash_route`` says which;
 * ``linear_recurrence`` -- the diagonal scan h_t = exp(log_a_t)·h_{t-1} +
   x_t with an fp32 carry (``kernels/linear_recurrence.py::_linrec_kernel``,
-  ``csrc/seq_ops.cu``).
+  ``csrc/seq_ops.cu``): a warp a 32-channel block, fed by a ring of
+  ``cp.async`` tiles in shared memory.
 
 The public layout is the reference's ``kernels/ops.py``: attention takes and
 returns (B, S, H, D), the recurrence (B, S, C).  A wrapper given CPU
@@ -46,6 +47,11 @@ WGMMA_BQ = 128
 WGMMA_BK = 64
 WGMMA_STAGES = 2
 WGMMA_HEAD_DIMS = (64, 128, 256)
+# the linear-recurrence kernel's ring (csrc/seq_ops.cu: kLinrecChannels,
+# kLinrecTile, kLinrecStages): channels a block, time steps a tile, tiles
+LINREC_CHANNELS = 32
+LINREC_TILE = 32
+LINREC_STAGES = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -180,6 +186,16 @@ def linear_recurrence_plain(log_a: torch.Tensor, x: torch.Tensor
     return out
 
 
+def linrec_vector_bytes(c: int, itemsize: int, *ptrs: int) -> int:
+    """Bytes of one copy into the recurrence kernel's ring: the widest of
+    16, 8 and 4 that divides a row of C channels and every pointer's
+    alignment, else the element itself (bfloat16 with an odd C)."""
+    for vec in (16, 8, 4):
+        if (c * itemsize) % vec == 0 and all(p % vec == 0 for p in ptrs):
+            return vec
+    return itemsize
+
+
 def linear_recurrence(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """log_a, x (B, S, C), both float32 or both bfloat16 -> h (B, S, C)
     float32."""
@@ -200,11 +216,13 @@ def linear_recurrence(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, s, c), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    vec = linrec_vector_bytes(c, x.element_size(), log_a.data_ptr(),
+                              x.data_ptr())
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.seq_linear_recurrence(
             _build.ptr(log_a), _build.ptr(x), _build.ptr(out), b, s, c,
-            _DTYPE_CODE[dtype], _build.stream(dev))
+            _DTYPE_CODE[dtype], vec, _build.stream(dev))
     _build.check(code, "linear_recurrence")
     LAUNCHES["linear_recurrence"] += 1
     return out

@@ -59,20 +59,63 @@ def test_sic_kernel_matches_plain(cuda, n, m, dense):
     assert bool((got[~mt] == 0.0).all())
 
 
-@pytest.mark.parametrize("k,tau1,batch,d_in,hidden", [
-    (16, 1, 32, 784, 128), (128, 3, 16, 32, 16), (3, 2, 5, 7, 6)])
-def test_sgd_kernel_matches_plain(cuda, k, tau1, batch, d_in, hidden):
-    rng = np.random.default_rng(k)
-    n_classes = 10
+def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):
+    """Weights 0.3·N(0, 1), or ``scale``/√fan-in for the matrices."""
+    rng = np.random.default_rng(k + d_in)
     shapes = {"w1": (k, d_in, hidden), "b1": (k, hidden),
               "w2": (k, hidden, hidden), "b2": (k, hidden),
               "w3": (k, hidden, n_classes), "b3": (k, n_classes)}
-    params = {n: torch.tensor((0.3 * rng.normal(size=s)).astype(np.float32),
-                              device=cuda) for n, s in shapes.items()}
-    bx, by = _on(cuda, rng.uniform(0, 1, (tau1, k, batch, d_in))
+    params = {n: torch.tensor(
+        ((0.3 if scale is None or len(s) == 2 else scale / np.sqrt(s[1]))
+         * rng.normal(size=s)).astype(np.float32), device=dev)
+        for n, s in shapes.items()}
+    bx, by = _on(dev, rng.uniform(0, 1, (tau1, k, batch, d_in))
                  .astype(np.float32),
                  rng.integers(0, n_classes, (tau1, k, batch)).astype(np.int32))
+    return params, bx, by
+
+
+# (K, τ₁, B, D, H) and the cluster size the wrapper gives it: the paper
+# config, the reference bench shape, every cluster size, K = 1, τ₁ = 4, D,
+# B, H not multiples of the kernel's 4 x 4 thread tile, D not a multiple of
+# c (the last CTA's rows of W1 ragged) and D = 7 over 8 CTAs (one without
+# rows)
+@pytest.mark.parametrize("k,tau1,batch,d_in,hidden,cluster", [
+    (16, 1, 32, 784, 128, 8), (128, 3, 16, 32, 16, 1), (3, 2, 5, 7, 6, 2),
+    (2, 2, 6, 30, 12, 4), (1, 4, 8, 30, 16, 8), (1, 1, 32, 783, 128, 8),
+    (40, 2, 9, 50, 20, 2), (1, 2, 4, 7, 16, 8)])
+def test_sgd_kernel_matches_plain(cuda, k, tau1, batch, d_in, hidden,
+                                  cluster):
+    assert hfl_ops.sgd_cluster_size(k, batch, d_in, hidden, 10) == cluster
+    params, bx, by = _sgd_case(k, tau1, batch, d_in, hidden, cuda)
+    before = {n: v.clone() for n, v in params.items()}
+    launches = dict(hfl_ops.LAUNCHES)
     got = hfl_ops.local_sgd_step(params, bx, by, lr=0.05)
+    torch.cuda.synchronize()
+    assert hfl_ops.LAUNCHES["local_sgd_step_cluster"] == \
+        launches["local_sgd_step_cluster"] + 1
+    want = hfl_ops.local_sgd_step_plain(params, bx, by, lr=0.05)
+    for name in PARAM_KEYS:
+        torch.testing.assert_close(got[name], want[name], rtol=2e-5,
+                                   atol=2e-6, msg=name)
+        assert torch.equal(params[name], before[name])
+
+
+def test_sgd_block_kernel_takes_layers_too_wide_for_a_cluster(cuda):
+    """A 70,000-wide input: W1's slice does not fit a CTA at any cluster
+    size, so the block-per-lane kernel runs it.  Weights at the usual
+    1/√fan-in init: at 0.3·N(0, 1) the 70,000-long sums reach ~50 and the
+    two summation orders part by more than the tolerance's 2e-6."""
+    k, tau1, batch, d_in, hidden = 1, 1, 4, 70_000, 8
+    assert hfl_ops.sgd_route(k, batch, d_in, hidden, 10) == "hfl_local_sgd"
+    params, bx, by = _sgd_case(k, tau1, batch, d_in, hidden, cuda, scale=1.0)
+    launches = dict(hfl_ops.LAUNCHES)
+    got = hfl_ops.local_sgd_step(params, bx, by, lr=0.05)
+    torch.cuda.synchronize()
+    assert hfl_ops.LAUNCHES["local_sgd_step"] == \
+        launches["local_sgd_step"] + 1
+    assert hfl_ops.LAUNCHES["local_sgd_step_cluster"] == \
+        launches["local_sgd_step_cluster"]
     want = hfl_ops.local_sgd_step_plain(params, bx, by, lr=0.05)
     for name in PARAM_KEYS:
         torch.testing.assert_close(got[name], want[name], rtol=2e-5,
@@ -80,7 +123,10 @@ def test_sgd_kernel_matches_plain(cuda, k, tau1, batch, d_in, hidden):
 
 
 def test_sgd_kernel_rejects_oversized_blocks(cuda):
-    k, batch, hidden = 1, 64, 256
+    """B = 128, H = 256: relu(h1) and relu(h2) alone (2 × B × H fp32) pass
+    the shared memory of a CTA at every cluster size, and the block kernel's
+    four B × H buffers too."""
+    k, batch, hidden = 1, 128, 256
     params = {"w1": torch.zeros((k, 8, hidden), device=cuda),
               "b1": torch.zeros((k, hidden), device=cuda),
               "w2": torch.zeros((k, hidden, hidden), device=cuda),
@@ -190,10 +236,16 @@ def test_flash_kernel_rejects_unsupported_head_dims(cuda):
         seq_ops.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("b,s,c,dtype", [
-    (2, 4096, 256, torch.float32), (1, 77, 130, torch.float32),
-    (3, 64, 32, torch.bfloat16)])
+# the main shape's channel count, S not a multiple of the ring's 32-step
+# tile, C not a multiple of the 32-channel block, B·C below one block,
+# S = 1, and bf16 rows of odd C (copied 2 bytes at a time)
+@pytest.mark.parametrize("b,s,c", [
+    (2, 4096, 256), (1, 77, 130), (3, 64, 32), (2, 1000, 4096),
+    (1, 300, 20), (2, 1, 96), (1, 33, 13), (4, 129, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linrec_kernel_matches_plain(cuda, b, s, c, dtype):
+    """Bit-equal: the kernel does the plain version's exp, IEEE multiply
+    and add in the same order."""
     rng = np.random.default_rng(s + c)
     log_a = torch.tensor(-rng.uniform(0.001, 1.0, (b, s, c))
                          .astype(np.float32), device=cuda).to(dtype)
@@ -204,8 +256,23 @@ def test_linrec_kernel_matches_plain(cuda, b, s, c, dtype):
     torch.cuda.synchronize()
     assert seq_ops.LAUNCHES["linear_recurrence"] == before + 1
     assert got.dtype == torch.float32
-    torch.testing.assert_close(got, seq_ops.linear_recurrence_plain(log_a, x),
-                               atol=1e-5, rtol=1e-4)
+    assert torch.equal(got, seq_ops.linear_recurrence_plain(log_a, x))
+
+
+def test_linrec_kernel_takes_unaligned_rows(cuda):
+    """Inputs that start 4 bytes past an allocation (a contiguous view at
+    an offset): the ring copies 4 bytes at a time, still bit-equal."""
+    rng = np.random.default_rng(7)
+    raw = torch.tensor(rng.normal(size=(2 * 50 * 64 + 1,)).astype(np.float32),
+                       device=cuda)
+    x = raw[1:].view(2, 50, 64)
+    log_a = -x.abs()
+    log_a = torch.cat([log_a.new_zeros(1), log_a.reshape(-1)])[1:] \
+        .view(2, 50, 64)
+    assert seq_ops.linrec_vector_bytes(64, 4, log_a.data_ptr(),
+                                       x.data_ptr()) == 4
+    got = seq_ops.linear_recurrence(log_a, x)
+    assert torch.equal(got, seq_ops.linear_recurrence_plain(log_a, x))
 
 
 def test_linrec_kernel_rejects_mixed_dtypes(cuda):

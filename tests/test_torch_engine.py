@@ -134,7 +134,8 @@ def test_run_and_run_scanned_give_one_trajectory():
             (y.round, y.n_associated, y.sweeps, y.cost, y.loss)
     assert a.round == b.round == 3
     assert hfl_ops.LAUNCHES == {"score_rows": 0, "sic_rates": 0,
-                                "local_sgd_step": 0}     # CPU: plain only
+                                "local_sgd_step": 0,
+                                "local_sgd_step_cluster": 0}  # CPU: plain
 
 
 def test_sample_draws_shapes_and_ranges():

@@ -188,8 +188,54 @@ def test_local_sgd_step_leaves_inputs_untouched():
 
 
 def test_sgd_shared_memory_fits_config():
-    """The paper config's activations fit one block's shared memory; the
-    wrapper's size check is the one the kernel launch relies on."""
-    assert hfl_ops.sgd_smem_bytes(32, 128, 10) == 66_816
-    assert hfl_ops.sgd_smem_bytes(32, 128, 10) <= hfl_ops.MAX_SMEM_BYTES
-    assert hfl_ops.sgd_smem_bytes(64, 256, 10) > hfl_ops.MAX_SMEM_BYTES
+    """A CTA of the paper config's cluster of 8 fits shared memory -- and
+    under half an SM's 228 KB, so two CTAs share an SM; the wrapper's size
+    check is the one the kernel launch relies on."""
+    assert hfl_ops.sgd_smem_bytes(32, 784, 128, 10, 8) == 105_904
+    assert hfl_ops.sgd_smem_bytes(32, 784, 128, 10, 8) \
+        <= hfl_ops.MAX_SMEM_BYTES
+    assert hfl_ops.sgd_smem_bytes(128, 8, 256, 10, 8) \
+        > hfl_ops.MAX_SMEM_BYTES
+
+
+# (K, B, D, H) -> the lanes' cluster size: the paper config (16 x 8 = 128
+# CTAs), the reference bench shape (128 lanes already fill the card), H = 6
+# and 12 (H % c), a lone lane of H = 16
+@pytest.mark.parametrize("k,batch,d_in,hidden,cluster", [
+    (16, 32, 784, 128, 8), (128, 16, 32, 16, 1), (3, 5, 7, 6, 2),
+    (2, 6, 30, 12, 4), (1, 8, 30, 16, 8), (40, 9, 50, 20, 2)])
+def test_sgd_cluster_size_is_a_function_of_the_shape(k, batch, d_in, hidden,
+                                                     cluster):
+    assert hfl_ops.sgd_cluster_size(k, batch, d_in, hidden, 10) == cluster
+    assert hfl_ops.sgd_route(k, batch, d_in, hidden, 10) == \
+        "hfl_local_sgd_cluster"
+    assert hfl_ops.sgd_smem_bytes(batch, d_in, hidden, 10, cluster) \
+        <= hfl_ops.MAX_SMEM_BYTES
+
+
+def test_sgd_route_keeps_the_block_kernel_for_layers_too_wide():
+    """A 70,000-wide input fits no CTA's rows of W1 at any cluster size:
+    the block-per-lane kernel (weights in global memory) takes it.  A shape
+    neither kernel fits raises on the card."""
+    assert hfl_ops.sgd_cluster_size(1, 4, 70_000, 8, 10) == 0
+    assert hfl_ops.sgd_route(1, 4, 70_000, 8, 10) == "hfl_local_sgd"
+    assert hfl_ops.sgd_block_smem_bytes(4, 8, 10) <= hfl_ops.MAX_SMEM_BYTES
+    assert hfl_ops.sgd_route(1, 128, 8, 256, 10) == "hfl_local_sgd"
+    assert hfl_ops.sgd_block_smem_bytes(128, 256, 10) \
+        > hfl_ops.MAX_SMEM_BYTES
+
+
+def test_sgd_cluster_constants_match_the_source():
+    """The wrapper's cluster sizes are the powers of two up to the kernel's
+    kMaxCluster, and both entry points have ctypes signatures."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "hfl_ops.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert hfl_ops.SGD_CLUSTER_SIZES == tuple(
+        2 ** i for i in range(consts["kMaxCluster"].bit_length()))
+    for name in ("hfl_local_sgd", "hfl_local_sgd_cluster",
+                 "hfl_sgd_max_active_clusters"):
+        assert name in _build._SIGNATURES
+        assert f"int {name}(" in src

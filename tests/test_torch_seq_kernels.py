@@ -137,7 +137,8 @@ def test_build_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"hfl_ops.cu", "seq_ops.cu", "flash_wgmma.cu"} <= names
     for name in ("seq_flash_attention", "seq_flash_attention_wgmma",
-                 "seq_linear_recurrence"):
+                 "seq_linear_recurrence", "hfl_local_sgd",
+                 "hfl_local_sgd_cluster", "hfl_sgd_max_active_clusters"):
         assert name in _build._SIGNATURES
         assert any(f"int {name}(" in p.read_text() for p in _build.sources())
 
@@ -199,3 +200,29 @@ def test_flash_plain_bf16_at_tensor_core_head_dims(d, causal, window):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=0.05,
                                rtol=0.05)
+
+
+def test_linrec_ring_matches_the_source():
+    """The wrapper's copy of the recurrence kernel's ring constants equals
+    the source's; the fp32 ring (log_a and x) is 64 KB a block."""
+    src = (_build.CSRC / "seq_ops.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kLinrecChannels"] == seq_ops.LINREC_CHANNELS
+    assert consts["kLinrecTile"] == seq_ops.LINREC_TILE
+    assert consts["kLinrecStages"] == seq_ops.LINREC_STAGES
+    ring = 2 * 4 * seq_ops.LINREC_STAGES * seq_ops.LINREC_TILE \
+        * seq_ops.LINREC_CHANNELS
+    assert ring == 65_536 <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("c,itemsize,ptrs,vec", [
+    (4096, 4, (0, 512), 16),    # the main shape
+    (130, 4, (0, 0), 8),        # 520-byte rows
+    (64, 4, (4, 0), 4),         # an input 4 bytes past a 16-byte boundary
+    (4096, 2, (0, 0), 16),
+    (130, 2, (0, 0), 4),        # 260-byte rows
+    (13, 2, (0, 0), 2),         # odd C in bf16: 2-byte copies
+])
+def test_linrec_copy_width(c, itemsize, ptrs, vec):
+    assert seq_ops.linrec_vector_bytes(c, itemsize, *ptrs) == vec
