@@ -24,6 +24,14 @@ and prints no result):
    plain versions on the CPU, and compare;
 6. with ``--profile``, profile one more steady fcea round (kernel count
    and the device's busy share);
+6b. the candidate path -- ``EngineSpec(candidates_k=k)`` through
+   ``engine.round_step``, each run with the launch counters zeroed just
+   before and read just after: at ``CONFIG``, K = M = 4 against the dense
+   round (same decisions), K = 2 on the card against the CPU, then gcea +
+   fastest and rcea + rra + fastest; at the reference bench scale (4096
+   clients × 32 edges), dense, K = 8 and K = 4 timed by stage and one K = 4
+   round card against CPU; the score kernel against its plain version at
+   the frontier's N·K rows;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -47,7 +55,9 @@ and prints no result):
    flash tiles, the window skip) against a token-by-token decode on the
    card: in float32 (the CUDA-core flash kernel) and in bfloat16 (the
    tensor-core one);
-10. print the per-kernel JSON line and, last, the device line.
+10. print the per-kernel JSON line (six kernels; ``score_candidates`` is
+    the score kernel reached through the candidate frontier) and, last,
+    the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -77,12 +87,14 @@ TOL = {  # the CPU tests' tolerances (tests/test_torch_kernels.py)
     "local_sgd_step": dict(rtol=2e-5, atol=2e-6),
 }
 SOURCE = {"score_rows": "src/repro_torch/kernels/csrc/hfl_ops.cu",
+          "score_candidates": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "sic_rates": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "local_sgd_step": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "flash_attention": "src/repro_torch/kernels/csrc/flash_wgmma.cu",
           "linear_recurrence": "src/repro_torch/kernels/csrc/seq_ops.cu"}
 REPLACES = {
     "score_rows": "src/repro/kernels/hfl_ops.py:78",
+    "score_candidates": "src/repro/kernels/hfl_ops.py:156",
     "sic_rates": "src/repro/kernels/hfl_ops.py:185",
     "local_sgd_step": "src/repro/kernels/hfl_ops.py:259",
     "flash_attention": "src/repro/kernels/flash_attention.py:34",
@@ -461,33 +473,40 @@ def phase_main_path(cfg, dev):
     m_c = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
     quota = cfg.clients_per_edge
     runs = {}
-    for policy, scheduler, rounds, want_score in (("fcea", "pdd", 5, 1),
-                                                  ("gcea", "fastest", 2, 0)):
+    for policy, scheduler, rounds in (("fcea", "pdd", 5),
+                                      ("gcea", "fastest", 2)):
         sim, rows, walls, stages, launches = _drive(cfg, policy, scheduler,
                                                     rounds, dev)
-        want = {"score_rows": want_score * rounds, "sic_rates": rounds,
-                "local_sgd_step": cfg.tau2 * rounds,
-                "local_sgd_step_cluster": cfg.tau2 * rounds}
+        want = _want_launches(cfg, sim.spec, rounds)
         if launches != want:
             raise AssertionError(f"{policy}-{scheduler}: launches {launches} "
                                  f"!= expected {want}")
         _check_metrics(cfg, quota, rows, m_c)
-        for r, w in zip(rows, walls):
-            log(f"[main] {policy}-{scheduler} round {r.round}: {w:.4f} s  "
-                f"acc {r.accuracy:.4f} loss {r.loss:.5f} cost {r.cost:.5f} "
-                f"n_assoc {r.n_associated} z {r.z.tolist()} "
-                f"sweeps {r.sweeps}")
-        steady = walls[1:] or walls
-        log(f"[main] {policy}-{scheduler}: launches {launches}; "
-            f"s/round {sum(steady) / len(steady):.4f} "
-            f"(rounds 2..{rounds}; round 1 {walls[0]:.4f})")
-        for name, spans in stages.items():
-            tail = spans[1:] or spans
-            log(f"[stage] {policy}-{scheduler} {name:<9} "
-                f"{sum(tail) / len(tail):.4f} ms/round "
-                f"(rounds 2..{rounds}; round 1 {spans[0]:.4f})")
-        runs[policy] = (sim, launches, sum(steady) / len(steady))
+        steady = _report("main", f"{policy}-{scheduler}", rows, walls,
+                         stages, launches)
+        runs[policy] = (sim, launches, steady)
     return runs
+
+
+def _report(tag, label, rows, walls, stages, launches):
+    """Print each round, the steady s/round and the stage spans; return
+    the steady s/round (rounds 2.., or round 1 alone)."""
+    rounds = len(rows)
+    for r, w in zip(rows, walls):
+        log(f"[{tag}] {label} round {r.round}: {w:.4f} s  "
+            f"acc {r.accuracy:.4f} loss {r.loss:.5f} cost {r.cost:.5f} "
+            f"n_assoc {r.n_associated} z {r.z.tolist()} "
+            f"sweeps {r.sweeps}")
+    steady = walls[1:] or walls
+    log(f"[{tag}] {label}: launches {launches}; "
+        f"s/round {sum(steady) / len(steady):.4f} "
+        f"(rounds 2..{rounds}; round 1 {walls[0]:.4f})")
+    for name, spans in stages.items():
+        tail = spans[1:] or spans
+        log(f"[stage] {label} {name:<9} "
+            f"{sum(tail) / len(tail):.4f} ms/round "
+            f"(rounds 2..{rounds}; round 1 {spans[0]:.4f})")
+    return sum(steady) / len(steady)
 
 
 def profile_device(fn, label, steady_s):
@@ -535,23 +554,27 @@ def _to(obj, device):
     return obj
 
 
-def phase_card_vs_cpu(cfg, sim):
-    """One round of the same state and draws on the card (kernels) and on
-    the CPU (plain versions)."""
+def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
+    """One round of ``spec`` from ``state`` with fresh draws from
+    ``generator``, on the card and, from the same state and draws, on the
+    CPU: ``z``, ``n_associated``, sweeps and staleness exact, the bill to
+    rtol 1e-5, the loss to rtol 1e-4, the accuracy to 2 test samples."""
     import torch
     from repro_torch.core import engine, noma
     from repro_torch.kernels import hfl_ops
     cpu = torch.device("cpu")
-    draws = engine.sample_draws(cfg, sim.bundle, sim.generator)
-    state, bundle = sim.state, sim.bundle
-    s_gpu, m_gpu = engine.round_step(cfg, sim.spec, state, bundle, draws)
-    s_cpu, m_cpu = engine.round_step(cfg, sim.spec, _to(state, cpu),
+    draws = engine.sample_draws(cfg, bundle, generator, spec)
+    s_gpu, m_gpu = engine.round_step(cfg, spec, state, bundle, draws)
+    s_cpu, m_cpu = engine.round_step(cfg, spec, _to(state, cpu),
                                      _to(bundle, cpu), _to(draws, cpu))
     g, c = engine.metrics_row(m_gpu), engine.metrics_row(m_cpu)
-    log(f"[card-vs-cpu] card {g}")
-    log(f"[card-vs-cpu] cpu  {c}")
+    tag = f"[card-vs-cpu]{' ' + label if label else ''}"
+    if cfg.n_clients <= 256:
+        log(f"{tag} card {g}")
+        log(f"{tag} cpu  {c}")
     exact_ok = (g["z"].tolist() == c["z"].tolist()
                 and g["n_associated"] == c["n_associated"]
+                and g["sweeps"] == c["sweeps"]
                 and torch.equal(s_gpu.staleness.cpu(), s_cpu.staleness))
     if not exact_ok:
         # print the competing scores: a gap below the score tolerance is a
@@ -559,7 +582,7 @@ def phase_card_vs_cpu(cfg, sim):
         gains = noma.evolve_gains(
             draws.fading, state.gains, bundle.dist,
             path_loss_exponent=cfg.path_loss_exponent,
-            rho=sim.spec.fading_rho)
+            rho=spec.fading_rho)
         sc_g = hfl_ops.score_matrix(gains, bundle.counts, state.staleness,
                                     data_max=float(cfg.max_samples)).cpu()
         sc_c = hfl_ops.score_matrix(_to(gains, cpu), _to(bundle.counts, cpu),
@@ -568,21 +591,231 @@ def phase_card_vs_cpu(cfg, sim):
         diff = (sc_g - sc_c).abs()
         srt = torch.sort(sc_c, dim=0, descending=True).values
         gaps = (srt[:-1] - srt[1:]).abs()
-        log(f"[card-vs-cpu] score max |card - cpu| {float(diff.max()):.3e}; "
+        log(f"{tag} score max |card - cpu| {float(diff.max()):.3e}; "
             f"smallest per-edge adjacent score gap "
             f"{float(gaps[gaps > 0].min()):.3e}; near-tie if below 2e-4")
-        raise AssertionError("card and CPU rounds disagree on z, "
-                             "n_associated or staleness")
+        raise AssertionError(f"{tag} card and CPU rounds disagree on z, "
+                             f"n_associated, sweeps or staleness: {g} {c}")
     for key, rtol in (("cost", 1e-5), ("total_time_s", 1e-5),
                       ("total_energy_j", 1e-5), ("loss", 1e-4)):
         if not math.isclose(g[key], c[key], rel_tol=rtol):
-            raise AssertionError(f"card-vs-cpu {key}: {g[key]} vs {c[key]} "
+            raise AssertionError(f"{tag} {key}: {g[key]} vs {c[key]} "
                                  f"(rtol {rtol})")
     if abs(g["accuracy"] - c["accuracy"]) > 2.0 / bundle.test_y.shape[0]:
-        raise AssertionError(f"card-vs-cpu accuracy: {g['accuracy']} vs "
+        raise AssertionError(f"{tag} accuracy: {g['accuracy']} vs "
                              f"{c['accuracy']}")
-    log("[card-vs-cpu] z, n_associated, staleness exact; cost/time/energy "
-        "rtol 1e-5, loss rtol 1e-4, accuracy atol 2/T: ok")
+    log(f"{tag} z, n_associated {g['n_associated']}, sweeps {g['sweeps']}, "
+        f"staleness exact; cost/time/energy rtol 1e-5, loss rtol 1e-4, "
+        f"accuracy atol 2/T: ok")
+
+
+# ---------------------------------------------------------------------------
+# The candidate path
+# ---------------------------------------------------------------------------
+
+# the dense SIC is the pairwise kernel; the candidate path bills with the
+# reference's sorted SIC (``noma.sic_rates_assigned``), whose interference
+# is a total minus a prefix sum: in float32 that loses up to ~2% of a weak
+# client's rate, and the two bills of one association part by up to
+# ~1e-3 (rtol, PERF.md)
+SORTED_SIC_RTOL = 2e-3
+# the Eq. 21 normalisation's elementwise operations per (client, edge)
+# pair: clamp, log10, ×10, the min and max, −lo, ÷, clamp, ×100
+SCORE_NORM_OPS_PER_PAIR = 9
+
+
+def bench_config(cfg):
+    """The reference's ``benchmarks/bench_rounds.py::_cfg(4096, 32)``."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_clients=4096, n_edges=32,
+                               clients_per_edge=4, min_samples=60,
+                               max_samples=120, hidden=16, input_dim=32,
+                               local_batch=16)
+
+
+def _drive_spec(cfg, spec, rounds, dev, seed=0):
+    """``rounds`` rounds of ``engine.round_step`` from
+    ``engine.init_simulation``, fresh draws each round, with every launch
+    counter zeroed just before and read just after.  Returns the host rows,
+    walls, stage spans, launches and the final (state, bundle, generator)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.hfl import RoundMetrics
+    from repro_torch.kernels import hfl_ops
+    state, bundle, aux = engine.init_simulation(cfg, seed=seed, device=dev)
+    gen = aux["generator"]
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    rows, walls = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        draws = engine.sample_draws(cfg, bundle, gen, spec)
+        state, m = engine.round_step(cfg, spec, state, bundle, draws,
+                                     timer=timer)
+        rows.append(RoundMetrics.from_engine(m))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(hfl_ops.LAUNCHES)
+    return rows, walls, timer.ms(), launches, (state, bundle, gen)
+
+
+def _want_launches(cfg, spec, rounds):
+    """The kernel launches ``rounds`` rounds of ``spec`` make."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    fcea = spec.policy == "fcea"
+    dense = spec.candidates_k is None
+    lanes = min(cfg.n_clients, engine.quota_for(cfg, spec) * cfg.n_edges)
+    cluster = hfl_ops.sgd_route(lanes, cfg.local_batch, cfg.input_dim,
+                                cfg.hidden, cfg.n_classes) \
+        == "hfl_local_sgd_cluster"
+    return {"score_rows": rounds * fcea,
+            "score_candidates": rounds * (fcea and not dense),
+            "sic_rates": rounds * (dense and spec.noma_enabled),
+            "local_sgd_step": cfg.tau2 * rounds,
+            "local_sgd_step_cluster": cfg.tau2 * rounds * cluster}
+
+
+def _run_spec(cfg, spec, rounds, dev, label, tag="cand"):
+    """Drive ``spec``, check its launches and metrics, print its rounds and
+    stages.  Returns (rows, steady s/round, stages, launches, final)."""
+    from repro_torch.core import engine
+    rows, walls, stages, launches, final = _drive_spec(cfg, spec, rounds,
+                                                       dev)
+    want = _want_launches(cfg, spec, rounds)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != expected "
+                             f"{want}")
+    m_c = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
+    _check_metrics(cfg, engine.quota_for(cfg, spec), rows, m_c)
+    steady = _report(tag, label, rows, walls, stages, launches)
+    return rows, steady, stages, launches, final
+
+
+def _same_decisions(label, dense_rows, cand_rows):
+    """K ≥ the maximum coverage degree loses nothing: the candidate round
+    makes the dense round's decisions (z, n_associated, sweeps, staleness;
+    the same training, so the same loss and accuracy); its bill differs
+    only by the sorted SIC's float32 rounding (``SORTED_SIC_RTOL``)."""
+    worst = {}
+    for d, c in zip(dense_rows, cand_rows):
+        same = (d.z.tolist() == c.z.tolist()
+                and (d.n_associated, d.sweeps, d.avg_staleness)
+                == (c.n_associated, c.sweeps, c.avg_staleness))
+        if not same:
+            raise AssertionError(f"{label} round {d.round}: candidate "
+                                 f"decisions differ from dense: {d} {c}")
+        if not (math.isclose(d.loss, c.loss, rel_tol=1e-6)
+                and d.accuracy == c.accuracy):
+            raise AssertionError(f"{label} round {d.round}: training "
+                                 f"differs: {d} {c}")
+        for key in ("cost", "total_time_s", "total_energy_j"):
+            a, b = getattr(d, key), getattr(c, key)
+            worst[key] = max(worst.get(key, 0.0), abs(a - b) / abs(a))
+            if not math.isclose(a, b, rel_tol=SORTED_SIC_RTOL):
+                raise AssertionError(f"{label} round {d.round} {key}: "
+                                     f"dense {a} vs candidate {b}")
+    log(f"[cand] {label}: z, n_associated, sweeps, staleness exact; loss "
+        f"rtol 1e-6, accuracy equal; bill max rel diff (pairwise vs sorted "
+        f"SIC) " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (limit {SORTED_SIC_RTOL}): ok")
+
+
+def score_candidates_work(n, m, k):
+    """Bytes (gains, counts, staleness, the frontier's indices read once,
+    the scores written once, the tables) and operations (the Eq. 21
+    normalisation over the N·M field, the fuzzy pipeline over N·K rows)."""
+    n_bytes = 4 * (n * m + 2 * n + 2 * n * k) + 4 * (9 + 5 * 201 + 27)
+    return n_bytes, n * m * SCORE_NORM_OPS_PER_PAIR + n * k * SCORE_OPS_PER_ROW
+
+
+def compare_score_candidates(state, bundle, cfg, k, n_rows=None):
+    """The score kernel through ``score_candidates`` against its plain
+    version on the frontier of the bench state's gains (the first
+    ``n_rows`` clients); timed with its bound."""
+    from repro_torch.core import candidates, engine, fuzzy
+    from repro_torch.kernels import hfl_ops
+    n = n_rows or cfg.n_clients
+    gains, counts, stale = (state.gains[:n], bundle.counts[:n],
+                            state.staleness[:n])
+    cand = candidates.build_candidates(
+        bundle.dist[:n], k, coverage_radius_m=engine.coverage_radius(cfg))
+    dm = float(cfg.max_samples)
+
+    def call():
+        return hfl_ops.score_candidates(gains, cand.idx, counts, stale,
+                                        data_max=dm)
+
+    def plain():
+        return fuzzy.score_candidates(gains, cand, counts, stale,
+                                      data_max=dm,
+                                      rows=hfl_ops.score_rows_plain)
+    got, want = call(), plain()
+    name = f"score_candidates N={n} M={cfg.n_edges} K={k} ({n * k} rows)"
+    _check_close(name, got, want, **TOL["score_rows"])
+    err = _max_err(got, want)
+    ms_k, ms_p = time_ms(call), time_ms(plain)
+    # the wrapper's device time (a CUDA-graph replay, no host time) and the
+    # score kernel alone on the gathered rows
+    ms_dev = graph_ms(call)
+    rows = fuzzy.candidate_inputs(gains, cand.idx, counts, stale,
+                                  data_max=dm)
+    ms_rows = time_ms(lambda: hfl_ops.score_rows(*rows))
+    b_ms, b_by = bound_ms(*score_candidates_work(n, cfg.n_edges, k))
+    log(f"[compare] {name}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms "
+        f"(device {ms_dev:.4f} ms by graph replay; score_rows alone "
+        f"{ms_rows:.4f} ms)  plain {ms_p:.4f} ms  bound {b_ms:.6f} ms "
+        f"({b_by})")
+    return err, ms_k, ms_p, b_ms, b_by, None
+
+
+def phase_candidates(cfg, dev):
+    """The candidate path at ``CONFIG`` and at the bench scale.  Returns
+    the ``score_candidates`` entry of the kernel line: its launches on the
+    bench K = 8 run and its comparison at 4096 × 8 rows."""
+    import dataclasses
+    from repro_torch.core import candidates, engine
+    # 1. CONFIG: K = M against dense, fcea + PDD
+    m = cfg.n_edges
+    deg = candidates.max_coverage_degree(
+        engine.init_simulation(cfg, seed=0, device=dev)[1].dist,
+        engine.coverage_radius(cfg))
+    if deg > m:
+        raise AssertionError(f"coverage degree {deg} > M")
+    dense = engine.EngineSpec()
+    rows_d = _run_spec(cfg, dense, 3, dev, "CONFIG dense fcea-pdd")[0]
+    rows_m = _run_spec(cfg, dataclasses.replace(dense, candidates_k=m), 3,
+                       dev, f"CONFIG K={m} fcea-pdd")[0]
+    _same_decisions(f"CONFIG K={m} vs dense", rows_d, rows_m)
+    # 2. CONFIG, K = 2: card against CPU, then gcea and rcea + rra
+    k2 = dataclasses.replace(dense, candidates_k=2)
+    state, bundle, gen = _run_spec(cfg, k2, 2, dev, "CONFIG K=2 fcea-pdd")[4]
+    card_vs_cpu(cfg, k2, state, bundle, gen, "CONFIG K=2")
+    for kw in (dict(policy="gcea", scheduler="fastest"),
+               dict(policy="rcea", allocator="rra", scheduler="fastest")):
+        spec = dataclasses.replace(k2, **kw)
+        _run_spec(cfg, spec, 2, dev, f"CONFIG K=2 {spec.policy}-"
+                  f"{spec.allocator}-{spec.scheduler}")
+    # 3. the bench scale: dense, K = 8, K = 4, by stage
+    big = bench_config(cfg)
+    runs = {}
+    for k in (None, 8, 4):
+        spec = dataclasses.replace(dense, candidates_k=k)
+        runs[k] = _run_spec(big, spec, 3, dev,
+                            f"4096x32 {'dense' if k is None else f'K={k}'} "
+                            f"fcea-pdd", tag="bench")
+    log("[bench] 4096x32 s/round (rounds 2..3): "
+        + ", ".join(f"{'dense' if k is None else f'K={k}'} {r[1]:.4f}"
+                    for k, r in runs.items()))
+    state, bundle, gen = runs[4][4]
+    card_vs_cpu(big, dataclasses.replace(dense, candidates_k=4), state,
+                bundle, gen, "4096x32 K=4")
+    # 4. the score kernel at the frontier's rows
+    out = compare_score_candidates(state, bundle, big, 8)
+    compare_score_candidates(state, bundle, big, 4)
+    compare_score_candidates(state, bundle, big, 3, n_rows=4095)
+    return {"score_candidates": (runs[8][3]["score_candidates"], out)}
 
 
 # ---------------------------------------------------------------------------
@@ -801,8 +1034,9 @@ def phase_serve(dev, profile=False, batch=2, seq=4096, prompt_len=64,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = _launch_counts()
-    want = {"score_rows": 0, "sic_rates": 0, "local_sgd_step": 0,
-            "local_sgd_step_cluster": 0, "flash_attention": 12,
+    want = {"score_rows": 0, "score_candidates": 0, "sic_rates": 0,
+            "local_sgd_step": 0, "local_sgd_step_cluster": 0,
+            "flash_attention": 12,
             "flash_attention_wgmma": 12, "linear_recurrence": 26}
     if launches != want:
         raise AssertionError(f"prefill launches {launches} != {want}")
@@ -999,10 +1233,13 @@ def main(argv=None) -> int:
     phase("build", phase_build)
     main_cmp = phase("hfl kernels vs plain", phase_compare, CONFIG, dev)
     runs = phase("hfl main path", phase_main_path, CONFIG, dev)
-    phase("hfl card vs cpu", phase_card_vs_cpu, CONFIG, runs["fcea"][0])
+    sim = runs["fcea"][0]
+    phase("hfl card vs cpu", card_vs_cpu, CONFIG, sim.spec, sim.state,
+          sim.bundle, sim.generator)
     if args.profile:
         phase("hfl profile", profile_device, runs["fcea"][0].run_round,
               "one steady fcea round", runs["fcea"][2])
+    cand = phase("hfl candidate path", phase_candidates, CONFIG, dev)
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -1027,6 +1264,13 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
+                        "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
+            cand.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name], "replaces": REPLACES[name],
+                        "launches": n_launch, "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")

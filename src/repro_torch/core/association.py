@@ -4,6 +4,8 @@
   and admits its top N_m; a client wanted by several edges goes to the
   nearest one and the losing edges take the next client in their queue.
 * GCEA -- the greedy benchmark: rank by channel gain alone.
+* RCEA -- the random benchmark: rank by a drawn Uniform[0, 1) (N, M)
+  preference (``RoundDraws.assoc_u``).
 
 The greedy admission is edge-proposing deferred acceptance (Gale–Shapley
 with quotas).  ``resolve_parallel`` plays it as batched sweeps: every
@@ -13,13 +15,16 @@ clients at once, every client keeps its best offer by the strict
 The loop ends at the first sweep with no proposal -- a data-dependent exit,
 so each sweep reads one flag back to the host.
 
-RCEA (uniform random preferences) is not ported yet (ROADMAP A13).
+``resolve_candidates`` plays the same sweeps on the (N, K) candidate
+frontier (``core.candidates``), with every per-sweep tensor O(N·K).
 """
 from __future__ import annotations
 
 import torch
 
-POLICIES = ("fcea", "gcea")
+from repro_torch.core import candidates
+
+POLICIES = ("fcea", "gcea", "rcea")
 
 
 def resolve_parallel(order: torch.Tensor, dist: torch.Tensor, quota: int,
@@ -74,19 +79,26 @@ def resolve_parallel(order: torch.Tensor, dist: torch.Tensor, quota: int,
     return assoc
 
 
+def _preference(policy: str, scores, gains, uniform):
+    if policy == "fcea":
+        return scores
+    if policy == "gcea":
+        return gains
+    if policy == "rcea":
+        if uniform is None:
+            raise ValueError("rcea ranks by a drawn (N, M) uniform: pass "
+                             "uniform= (RoundDraws.assoc_u)")
+        return uniform
+    raise ValueError(f"unknown association policy {policy!r}")
+
+
 def associate(policy: str, *, scores: torch.Tensor | None,
               gains: torch.Tensor, dist: torch.Tensor, quota: int,
-              coverage_radius_m: float, return_sweeps: bool = False):
-    """Dense (N, M) one-hot association for ``policy`` (fcea or gcea)."""
-    if policy == "fcea":
-        pref = scores
-    elif policy == "gcea":
-        pref = gains
-    elif policy == "rcea":
-        raise NotImplementedError(
-            "rcea draws uniform preferences; not ported yet (ROADMAP A13)")
-    else:
-        raise ValueError(f"unknown association policy {policy!r}")
+              coverage_radius_m: float, uniform: torch.Tensor | None = None,
+              return_sweeps: bool = False):
+    """Dense (N, M) one-hot association for ``policy``: fcea ranks by
+    ``scores``, gcea by ``gains``, rcea by ``uniform`` (N, M)."""
+    pref = _preference(policy, scores, gains, uniform)
     if pref.dim() == 1:
         pref = pref[:, None].expand(dist.shape)
     coverage = dist <= coverage_radius_m
@@ -95,3 +107,100 @@ def associate(policy: str, *, scores: torch.Tensor | None,
     order = torch.argsort(-pref, dim=0, stable=True).T          # (M, N)
     return resolve_parallel(order, dist, quota, coverage,
                             return_sweeps=return_sweeps)
+
+
+def resolve_candidates(pref: torch.Tensor, cand, quota: int, n_edges: int,
+                       return_sweeps: bool = False, seed=None):
+    """``resolve_parallel`` over the (N, K) candidate frontier ``cand``.
+
+    One rank order for the whole resolution -- the N·K pairs by (edge asc,
+    preference desc, client asc) -- and each sweep's proposals read off one
+    segmented cumulative count of the eligible pairs in that order: a
+    pair proposes when fewer than its edge's deficit eligible pairs rank
+    above it.  Each client keeps the first minimum of the offered slots'
+    distances, which the (distance, edge)-sorted rows make the dense
+    resolvers' (distance, edge) choice.  With K ≥ the maximum coverage
+    degree the sweeps equal the dense resolver's one for one.
+
+    pref: (N, K) preference, higher better (invalid slots may hold
+    anything).  Returns assigned (N,) int32 (edge or −1); with
+    ``return_sweeps`` also the number of sweeps run.  Cold start only.
+    """
+    if seed is not None:
+        raise NotImplementedError("warm-start seeding is not ported to "
+                                  "repro_torch yet (ROADMAP A15)")
+    idx, valid, dist = cand.idx, cand.valid, cand.dist
+    n, k = idx.shape
+    dev = idx.device
+    flat_e = idx.reshape(-1)
+    flat_s = torch.where(valid, pref, -torch.inf).reshape(-1)
+    # invalid pairs (−inf) sort last within their edge, flat (client-major)
+    # order breaking every tie
+    perm = candidates.lexsort(-flat_s, flat_e)                  # (NK,)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=dev)
+    sorted_e = flat_e[perm].long()
+    seg_start = candidates.segment_starts(sorted_e)
+    prev = torch.clamp_min(seg_start - 1, 0)
+    col_k = torch.arange(k, device=dev)
+    max_sweeps = n * k + 2
+
+    assigned = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    rejected = ~valid
+    sweeps = 0
+    while sweeps < max_sweeps:
+        matched = assigned >= 0
+        held = (assigned[:, None] == idx) & matched[:, None]
+        # per-edge held count: an exact int32 scatter-add
+        filled = torch.zeros((n_edges,), dtype=torch.int32, device=dev)
+        filled.index_add_(0, torch.clamp_min(assigned, 0).long(),
+                          matched.to(torch.int32))
+        deficit = quota - filled
+        elig = valid & (~rejected) & (~held)                    # (N, K)
+        es = elig.reshape(-1)[perm].to(torch.int32)             # rank order
+        c = torch.cumsum(es, dim=0)
+        before = torch.where(seg_start > 0, c[prev], 0)
+        n_better = c - es - before
+        prop_sorted = (es > 0) & (n_better < deficit[sorted_e])
+        propose = prop_sorted[inv].reshape(n, k)
+        offer = propose | held
+        # first minimum over (distance, edge)-sorted slots
+        ckey = torch.where(offer, dist, torch.inf)
+        best = torch.argmin(ckey, dim=1)
+        has = torch.any(offer, dim=1)
+        assigned = torch.where(
+            has, torch.gather(idx, 1, best[:, None])[:, 0], -1
+        ).to(torch.int32)
+        rejected = rejected | (offer & (col_k[None, :] != best[:, None]))
+        sweeps += 1
+        if not bool(torch.any(propose)):
+            break
+    if return_sweeps:
+        return assigned, sweeps
+    return assigned
+
+
+def associate_candidates(policy: str, *, scores: torch.Tensor | None,
+                         gains: torch.Tensor, cand, quota: int, n_edges: int,
+                         uniform: torch.Tensor | None = None,
+                         return_sweeps: bool = False):
+    """Association on the frontier: the compact assigned vector (N,).
+
+    ``scores``: fcea competency already on the frontier, (N, K) from
+    ``score_candidates``, or per client (N,).  gcea gathers the (N, M)
+    gains and rcea the (N, M) ``uniform``, so rcea ranks by the same
+    draw as on the dense path."""
+    if policy == "fcea":
+        pref = scores
+        if pref.dim() == 1:
+            pref = pref[:, None].expand(cand.idx.shape)
+        if pref.shape != cand.idx.shape:
+            raise ValueError(
+                f"fcea candidate scores must be (N, K) "
+                f"{tuple(cand.idx.shape)} (frontier layout), got "
+                f"{tuple(pref.shape)}")
+    else:
+        pref = torch.gather(_preference(policy, scores, gains, uniform), 1,
+                            cand.idx.long())
+    return resolve_candidates(pref, cand, quota, n_edges,
+                              return_sweeps=return_sweeps)

@@ -3,7 +3,10 @@
 Vectorised over all clients and edge servers.  ``assoc`` (N, M) is the
 one-hot client-edge association, ``z`` (M,) the semi-synchronous
 edge-selection mask.  NOMA uplink rates come from the SIC kernel
-(``kernels.hfl_ops.sic_rates``); the OMA benchmark is plain torch.
+(``kernels.hfl_ops.sic_rates``); the OMA benchmark is plain torch.  On the
+candidate path the uplink is billed from the compact assigned vector
+(``uplink_assigned``: the sorted SIC of ``noma.sic_rates_assigned``, plain
+torch on every device, as the reference has no kernel for it).
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import noma
+from repro_torch.core import candidates, noma
 from repro_torch.kernels import hfl_ops
 
 
@@ -72,6 +75,37 @@ def uplink(cfg, power_w: torch.Tensor, gains: torch.Tensor,
     return t_com, e_com, rates
 
 
+def uplink_assigned(cfg, power_w: torch.Tensor, own_gain: torch.Tensor,
+                    assigned: torch.Tensor, *, n_edges: int,
+                    max_per_edge: int, noma_enabled: bool = True):
+    """``uplink`` over the compact association: (N,) power, (N,) gain to
+    the assigned edge, (N,) assigned edge (−1 = unmatched).  NOMA rates
+    come from ``noma.sic_rates_assigned``; OMA reads each edge's
+    occupancy off one exact scatter-add.
+    Returns (t_com (N,), e_com (N,), rates (N,))."""
+    noise = noma.noise_power_w(cfg.noise_dbm_per_hz, cfg.bandwidth_hz)
+    matched = assigned >= 0
+    if noma_enabled:
+        rates = noma.sic_rates_assigned(
+            power_w, own_gain, assigned, n_edges=n_edges,
+            max_per_edge=max_per_edge, bandwidth_hz=cfg.bandwidth_hz,
+            noise_w=noise)
+    else:
+        safe = torch.clamp_min(assigned, 0).long()
+        k_m = torch.zeros((n_edges,), dtype=torch.float32,
+                          device=power_w.device)
+        k_m = torch.clamp_min(k_m.index_add(0, safe, matched.float()), 1.0)
+        share = torch.where(matched, _rdiv(1.0, k_m[safe]), 0.0)
+        band = cfg.bandwidth_hz * share
+        snr = power_w * torch.where(matched, own_gain, 0.0) \
+            / torch.clamp_min(noise * share, 1e-30)
+        rates = band * torch.log2(1.0 + snr)
+    safe_rates = torch.where(matched, torch.clamp_min(rates, 1.0), 1.0)
+    t_com = torch.where(matched, _rdiv(cfg.model_size_bits, safe_rates), 0.0)
+    e_com = power_w * t_com
+    return t_com, e_com, rates
+
+
 def apply_schedule(cfg, rc: RoundCost, z: torch.Tensor) -> RoundCost:
     """Re-mask a ``round_cost`` evaluated at z = 1 with the actual edge
     selection: Eqs. 18-19 + 23a are a masked reduction over the per-edge
@@ -85,12 +119,28 @@ def apply_schedule(cfg, rc: RoundCost, z: torch.Tensor) -> RoundCost:
 
 def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
                gains: torch.Tensor, assoc: torch.Tensor, z: torch.Tensor,
-               n_samples: torch.Tensor, noma_enabled: bool = True
-               ) -> RoundCost:
-    """Full Eq. 23a cost for one global round."""
+               n_samples: torch.Tensor, noma_enabled: bool = True,
+               sic_max_per_edge: int | None = None,
+               assigned: torch.Tensor | None = None) -> RoundCost:
+    """Full Eq. 23a cost for one global round.
+
+    ``assigned`` (N,): the candidate path's compact association.  The
+    uplink then runs on (N,) and (M, k) tensors (``uplink_assigned``),
+    with ``sic_max_per_edge`` (the admission quota) bounding each edge's
+    decode table; the per-edge reductions below still use the one-hot
+    ``assoc``."""
     t_cmp, e_cmp = local_compute(cfg, f_hz, n_samples)
-    t_com, e_com, rates = uplink(cfg, power_w, gains, assoc,
-                                 noma_enabled=noma_enabled)
+    if assigned is not None:
+        if sic_max_per_edge is None:
+            raise ValueError("round_cost(assigned=...) needs the "
+                             "sic_max_per_edge admission bound")
+        t_com, e_com, rates = uplink_assigned(
+            cfg, power_w, candidates.own_edge_gather(assigned, gains),
+            assigned, n_edges=assoc.shape[1],
+            max_per_edge=sic_max_per_edge, noma_enabled=noma_enabled)
+    else:
+        t_com, e_com, rates = uplink(cfg, power_w, gains, assoc,
+                                     noma_enabled=noma_enabled)
     associated = torch.sum(assoc, dim=1) > 0
     client_time = torch.where(associated, t_cmp + t_com, 0.0)
     client_energy = torch.where(associated, e_cmp + e_com, 0.0)

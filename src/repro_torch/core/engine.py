@@ -8,17 +8,25 @@ allocation → one Eq. 23a cost evaluation with NOMA SIC rates (kernel) →
 the PDD edge schedule → τ₂ × τ₁ compact-cohort local SGD (kernel) with
 edge and cloud aggregation → the staleness update and evaluation.
 
+With ``EngineSpec(candidates_k=k)`` the round runs on the (N, K)
+candidate frontier (``core.candidates``): scoring (the same kernel, over
+N·K rows), the resolver sweeps and the uplink bill (sorted SIC on the
+compact assignment) touch only the k nearest edges of each client, and
+the one-hot (N, M) association is rebuilt for training and aggregation.
+
 * ``RoundState``  -- what evolves across rounds: global and stacked client
   params, channel gains, staleness, the round index.
 * ``RoundBundle`` -- what is fixed for one scenario: distances and data.
 * ``RoundDraws``  -- the round's random numbers, an explicit argument:
-  the ``Exp(1)`` fading field and the minibatch index lattice for all N
-  clients.  ``sample_draws`` makes them from a ``torch.Generator``; the
-  tests replay the reference's own draws through the same argument.
+  the ``Exp(1)`` fading field, the minibatch index lattice for all N
+  clients and, where the spec needs them, rcea's and rra's uniforms.
+  ``sample_draws`` makes them from a ``torch.Generator``; the tests
+  replay the reference's own draws through the same argument.
 
-The slice covers the dense sync round on the static scenario with fcea
-or gcea, the ``mid`` allocator, PDD or fastest scheduling, NOMA or OMA.
-Everything else raises ``NotImplementedError`` naming its ROADMAP item.
+The port covers the sync round on the static scenario, dense or on the
+candidate frontier, with fcea, gcea or rcea, the ``mid`` or ``rra``
+allocator, PDD or fastest scheduling, NOMA or OMA.  Everything else
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,8 +37,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import (aggregation, association, cost, noma, pdd,
-                              staleness)
+from repro_torch.core import (aggregation, association, candidates, cost,
+                              noma, pdd, staleness)
 from repro_torch.data import federated
 from repro_torch.device import resolve_device
 from repro_torch.kernels import hfl_ops
@@ -47,8 +55,8 @@ Params = Dict[str, torch.Tensor]
 class EngineSpec:
     """Per-simulation switches, with the reference's defaults.  Options the
     port does not have yet are accepted at their off value only."""
-    policy: str = "fcea"            # fcea | gcea
-    allocator: str = "mid"
+    policy: str = "fcea"            # fcea | gcea | rcea
+    allocator: str = "mid"          # mid | rra
     scheduler: str = "pdd"          # pdd | fastest
     noma_enabled: bool = True
     fading_rho: float = 0.9
@@ -62,20 +70,14 @@ class EngineSpec:
 
     def __post_init__(self):
         todo = []
-        if self.policy == "rcea":
-            todo.append("policy='rcea' (ROADMAP A13)")
-        elif self.policy not in association.POLICIES:
+        if self.policy not in association.POLICIES:
             raise ValueError(f"unknown association policy {self.policy!r}")
-        if self.allocator == "rra":
-            todo.append("allocator='rra' (ROADMAP A13)")
-        elif self.allocator in ("fpa", "fca", "ddpg"):
+        if self.allocator in ("fpa", "fca", "ddpg"):
             todo.append(f"allocator={self.allocator!r} (ROADMAP A15)")
-        elif self.allocator != "mid":
+        elif self.allocator not in ("mid", "rra"):
             raise ValueError(f"unknown allocator {self.allocator!r}")
         if self.scheduler not in ("pdd", "fastest"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
-        if self.candidates_k is not None:
-            todo.append("candidates_k (ROADMAP A12)")
         if self.scenario != "static":
             todo.append("dynamic scenarios (ROADMAP A15)")
         if self.telemetry:
@@ -114,6 +116,8 @@ class RoundDraws(NamedTuple):
     """One round's random numbers."""
     fading: torch.Tensor     # (N, M) float32 Exp(1) fading field
     batch_idx: torch.Tensor  # (τ₂, τ₁, N, B) int32 in [0, max(D_n, 1))
+    assoc_u: Optional[torch.Tensor] = None  # (N, M) Uniform[0, 1), rcea
+    alloc_u: Optional[torch.Tensor] = None  # (2, N) Uniform[0, 1), rra
 
 
 class RoundMetrics(NamedTuple):
@@ -223,27 +227,43 @@ def init_simulation(cfg, *, seed: int = 0, iid: bool = True,
     return state, bundle, aux
 
 
-def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator
-                 ) -> RoundDraws:
+def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator,
+                 spec: EngineSpec = EngineSpec()) -> RoundDraws:
     """One round's draws from ``generator`` (on the bundle's device): the
-    ``Exp(1)`` fading field and, for every client, τ₂ × τ₁ minibatches of
-    ``local_batch`` indices uniform over its D_n samples."""
+    ``Exp(1)`` fading field; for every client, τ₂ × τ₁ minibatches of
+    ``local_batch`` indices uniform over its D_n samples; then, only when
+    ``spec`` needs them, rcea's (N, M) and rra's (2, N) uniforms -- so the
+    fcea/gcea + ``mid`` stream does not depend on them."""
     dev = bundle.dist.device
     fading = _exp1(bundle.dist.shape, generator, dev)
     hi = torch.clamp_min(bundle.counts, 1.0)[None, None, :, None]
     u = torch.rand((cfg.tau2, cfg.tau1, cfg.n_clients, cfg.local_batch),
                    generator=generator, device=dev)
     idx = torch.minimum(torch.floor(u * hi), hi - 1.0).to(torch.int32)
-    return RoundDraws(fading=fading, batch_idx=idx)
+    assoc_u = alloc_u = None
+    if spec.policy == "rcea":
+        assoc_u = torch.rand(bundle.dist.shape, generator=generator,
+                             device=dev)
+    if spec.allocator == "rra":
+        alloc_u = torch.rand((2, cfg.n_clients), generator=generator,
+                             device=dev)
+    return RoundDraws(fading=fading, batch_idx=idx, assoc_u=assoc_u,
+                      alloc_u=alloc_u)
 
 
 # ---------------------------------------------------------------------------
 # Round pieces
 # ---------------------------------------------------------------------------
 
-def _allocate(cfg, device: torch.device
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(p_w (N,), f_hz (N,)) of the ``mid`` allocator: the midpoints."""
+def _allocate(cfg, spec: EngineSpec, draws: RoundDraws,
+              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p_w (N,), f_hz (N,)): ``mid`` takes the midpoints, ``rra`` a
+    uniform point of each range from ``draws.alloc_u``."""
+    if spec.allocator == "rra":
+        a = draws.alloc_u
+        p = cfg.p_min_w + a[0] * (cfg.p_max_w - cfg.p_min_w)
+        f = cfg.f_min_hz + a[1] * (cfg.f_max_hz - cfg.f_min_hz)
+        return p, f
     n = cfg.n_clients
     return (torch.full((n,), 0.5 * (cfg.p_min_w + cfg.p_max_w),
                        device=device),
@@ -354,21 +374,39 @@ def round_step(cfg, spec: EngineSpec, state: RoundState,
     gains = noma.evolve_gains(draws.fading, state.gains, bundle.dist,
                               path_loss_exponent=cfg.path_loss_exponent,
                               rho=spec.fading_rho)
-    # 2. fuzzy scoring + association
+    # 2. fuzzy scoring + association, dense or on the (N, K) frontier
     with stage("associate"):
-        scores = None
-        if spec.policy == "fcea":
-            scores = hfl_ops.score_matrix(gains, bundle.counts,
-                                          state.staleness,
-                                          data_max=float(cfg.max_samples))
-        assoc, sweeps = association.associate(
-            spec.policy, scores=scores, gains=gains, dist=bundle.dist,
-            quota=quota_for(cfg, spec),
-            coverage_radius_m=coverage_radius(cfg), return_sweeps=True)
+        assigned, sweeps = None, 0
+        data_max = float(cfg.max_samples)
+        if spec.candidates_k is not None:
+            cand = candidates.build_candidates(
+                bundle.dist, spec.candidates_k,
+                coverage_radius_m=coverage_radius(cfg))
+            scores = None
+            if spec.policy == "fcea":
+                scores = hfl_ops.score_candidates(
+                    gains, cand.idx, bundle.counts, state.staleness,
+                    data_max=data_max)
+            assigned, sweeps = association.associate_candidates(
+                spec.policy, scores=scores, gains=gains, cand=cand,
+                quota=quota_for(cfg, spec), n_edges=m,
+                uniform=draws.assoc_u, return_sweeps=True)
+            assoc = candidates.assigned_one_hot(assigned, m)
+        else:
+            scores = None
+            if spec.policy == "fcea":
+                scores = hfl_ops.score_matrix(gains, bundle.counts,
+                                              state.staleness,
+                                              data_max=data_max)
+            assoc, sweeps = association.associate(
+                spec.policy, scores=scores, gains=gains, dist=bundle.dist,
+                quota=quota_for(cfg, spec),
+                coverage_radius_m=coverage_radius(cfg),
+                uniform=draws.assoc_u, return_sweeps=True)
         assoc = assoc.float()
     # 3. resource allocation
     with stage("allocate"):
-        p, f = _allocate(cfg, dev)
+        p, f = _allocate(cfg, spec, draws, dev)
     # 4. one cost evaluation at z = 1, reused by the scheduler and the
     #    final masked round cost
     with stage("schedule"):
@@ -376,7 +414,9 @@ def round_step(cfg, spec: EngineSpec, state: RoundState,
                                  assoc=assoc,
                                  z=torch.ones((m,), device=dev),
                                  n_samples=bundle.counts,
-                                 noma_enabled=spec.noma_enabled)
+                                 noma_enabled=spec.noma_enabled,
+                                 sic_max_per_edge=quota_for(cfg, spec),
+                                 assigned=assigned)
         z = _schedule(cfg, spec, rc_all)
         rc = cost.apply_schedule(cfg, rc_all, z)
     # 5. τ₂·τ₁ training + hierarchical aggregation
@@ -423,7 +463,7 @@ def run_scanned(cfg, spec: EngineSpec, state: RoundState,
     Metrics leaves gain a leading (n_rounds,) axis."""
     rows = []
     for _ in range(n_rounds):
-        draws = sample_draws(cfg, bundle, generator)
+        draws = sample_draws(cfg, bundle, generator, spec)
         state, metrics = round_step(cfg, spec, state, bundle, draws,
                                     timer=timer)
         rows.append(metrics)

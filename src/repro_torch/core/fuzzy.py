@@ -144,3 +144,30 @@ def score_matrix(gains: torch.Tensor, counts: torch.Tensor,
     n, m = cq.shape
     return rows(cq.reshape(-1), dq[:, None].expand(n, m).reshape(-1),
                 ms[:, None].expand(n, m).reshape(-1)).reshape(n, m)
+
+
+def candidate_inputs(gains: torch.Tensor, cand_idx: torch.Tensor,
+                     counts: torch.Tensor, staleness: torch.Tensor, *,
+                     data_max: float):
+    """The N·K frontier rows' (cq, dq, ms), flat (N·K,): the Eq. 21
+    normalisation over the full (N, M) field (its global dB min/max), then
+    cq gathered at ``cand_idx`` (N, K) -- so each row equals the dense
+    row of the same (client, edge) pair."""
+    cq, dq, ms = normalized_inputs(gains, counts, staleness,
+                                   data_max=data_max)
+    n, k = cand_idx.shape
+    cq_k = torch.gather(cq, 1, cand_idx.long())
+    return (cq_k.reshape(-1), dq[:, None].expand(n, k).reshape(-1),
+            ms[:, None].expand(n, k).reshape(-1))
+
+
+def score_candidates(gains: torch.Tensor, cand, counts: torch.Tensor,
+                     staleness: torch.Tensor, *, data_max: float,
+                     rows=score_rows) -> torch.Tensor:
+    """(N, K) competency scores on the frontier ``cand``
+    (``core.candidates.CandidateSet``): ``rows`` over the N·K rows of
+    ``candidate_inputs``; each score equals the dense matrix entry at the
+    same pair."""
+    return rows(*candidate_inputs(gains, cand.idx, counts, staleness,
+                                  data_max=data_max)
+                ).reshape(cand.idx.shape)

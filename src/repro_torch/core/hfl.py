@@ -80,7 +80,8 @@ class HFLSimulation:
         return self._state.round_idx
 
     def run_round(self, *, timer=None) -> RoundMetrics:
-        draws = engine.sample_draws(self.cfg, self.bundle, self.generator)
+        draws = engine.sample_draws(self.cfg, self.bundle, self.generator,
+                                    self.spec)
         self._state, m = engine.round_step(self.cfg, self.spec, self._state,
                                            self.bundle, draws, timer=timer)
         return RoundMetrics.from_engine(m)

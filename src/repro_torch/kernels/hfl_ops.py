@@ -4,7 +4,9 @@ Each kernel is hand-written CUDA for ``sm_90a`` in ``csrc/hfl_ops.cu``
 (built by ``_build``), and replaces one Pallas kernel of the reference's
 ``kernels/hfl_ops.py``:
 
-* ``score_rows`` / ``score_matrix`` -- fused fuzzy scoring (``_score_kernel``);
+* ``score_rows`` / ``score_matrix`` / ``score_candidates`` -- fused fuzzy
+  scoring (``_score_kernel``), over the dense N·M rows or the candidate
+  frontier's N·K rows;
 * ``sic_rates`` -- NOMA SIC rates for every edge (``_sic_kernel``);
 * ``local_sgd_step`` -- τ₁ fused local-SGD steps per lane (``_sgd_kernel``):
   one thread-block cluster per lane wherever its slices fit shared
@@ -16,7 +18,9 @@ CUDA tensors it launches the kernel or raises -- there is no fallback.
 ``LAUNCHES`` counts, per wrapper, the kernel launches it made and nothing
 else, so a run can show that its path went through the kernels;
 ``local_sgd_step_cluster`` counts the SGD launches that went to the cluster
-kernel (``local_sgd_step`` counts them all).
+kernel (``local_sgd_step`` counts them all), and ``score_candidates`` the
+score launches made for the candidate frontier (``score_rows`` counts them
+all).
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ from repro_torch.kernels._build import require as _require
 from repro_torch.kernels._build import stream as _stream
 from repro_torch.models.mlp import PARAM_KEYS
 
-LAUNCHES: Dict[str, int] = {"score_rows": 0, "sic_rates": 0,
-                            "local_sgd_step": 0, "local_sgd_step_cluster": 0}
+LAUNCHES: Dict[str, int] = {"score_rows": 0, "score_candidates": 0,
+                            "sic_rates": 0, "local_sgd_step": 0,
+                            "local_sgd_step_cluster": 0}
 
 
 def reset_launches() -> None:
@@ -91,6 +96,22 @@ def score_matrix(gains: torch.Tensor, counts: torch.Tensor,
     per-row fuzzy pipeline through ``score_rows`` over the N·M rows."""
     return fuzzy.score_matrix(gains, counts, staleness, data_max=data_max,
                               rows=score_rows)
+
+
+def score_candidates(gains: torch.Tensor, cand_idx: torch.Tensor,
+                     counts: torch.Tensor, staleness: torch.Tensor, *,
+                     data_max: float) -> torch.Tensor:
+    """(N, K) competency scores on the candidate frontier ``cand_idx``
+    (replaces the reference's ``hfl_ops.score_candidates``): the dense
+    Eq. 21 normalisation, then ``score_rows`` over the N·K gathered rows
+    only -- the kernel does not care about row shape.  Its launches are
+    counted under ``score_candidates`` as well as ``score_rows``."""
+    before = LAUNCHES["score_rows"]
+    n, k = cand_idx.shape
+    out = score_rows(*fuzzy.candidate_inputs(gains, cand_idx, counts,
+                                             staleness, data_max=data_max))
+    LAUNCHES["score_candidates"] += LAUNCHES["score_rows"] - before
+    return out.reshape(n, k)
 
 
 # ---------------------------------------------------------------------------

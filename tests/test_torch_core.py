@@ -186,25 +186,32 @@ def test_resolver_equals_numpy_oracle(seed, n, m, quota):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("policy", ["fcea", "gcea"])
+@pytest.mark.parametrize("policy", ["fcea", "gcea", "rcea"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_associate_matches_reference(policy, seed):
+    """rcea: the port ranks by the uniform the reference draws from its
+    key, handed over as ``uniform``."""
     dist, scores, _ = _market(seed, 48, 4)
     gains = np.random.default_rng(seed + 9).uniform(
         1e-12, 1e-8, (48, 4)).astype(np.float32)
+    key = jax.random.key(seed)
     want, want_sweeps = jassoc.associate_jax(
         policy, scores=jnp.asarray(scores), gains=jnp.asarray(gains),
         dist=jnp.asarray(dist), quota=4, coverage_radius_m=300.0,
-        key=jax.random.key(0), return_sweeps=True)
+        key=key, return_sweeps=True)
+    uniform = _t(jax.random.uniform(key, (48, 4)))
     got, sweeps = association.associate(
         policy, scores=_t(scores), gains=_t(gains), dist=_t(dist), quota=4,
-        coverage_radius_m=300.0, return_sweeps=True)
+        coverage_radius_m=300.0, uniform=uniform, return_sweeps=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert sweeps == int(want_sweeps)
 
 
 def test_rcea_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A13"):
+    """rcea is ported without a generator of its own: its uniform is a
+    drawn argument (``RoundDraws.assoc_u``), and a call without it
+    raises."""
+    with pytest.raises(ValueError, match="uniform"):
         association.associate("rcea", scores=None, gains=torch.ones(4, 2),
                               dist=torch.ones(4, 2), quota=1,
                               coverage_radius_m=10.0)

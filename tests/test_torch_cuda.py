@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import noma
+from repro_torch.configs.hfl_mnist import CONFIG
+from repro_torch.core import candidates, engine, fuzzy, noma
 from repro_torch.kernels import hfl_ops, seq_ops
 from repro_torch.models.mlp import PARAM_KEYS
 
@@ -57,6 +58,66 @@ def test_sic_kernel_matches_plain(cuda, n, m, dense):
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=float(want.max()) * 1e-6)
     assert bool((got[~mt] == 0.0).all())
+
+
+# the candidate frontier's rows: the reference bench scale at K = 4 and
+# K = 8, and a ragged N·K
+@pytest.mark.parametrize("n,m,k", [(4096, 32, 4), (4096, 32, 8),
+                                   (1001, 7, 3)])
+def test_score_candidates_kernel_bit_equal_to_plain(cuda, n, m, k):
+    rng = np.random.default_rng(n + k)
+    gains, counts, stale, dist = _on(
+        cuda, rng.uniform(1e-12, 1e-8, (n, m)).astype(np.float32),
+        rng.integers(60, 120, n).astype(np.float32),
+        rng.integers(1, 9, n).astype(np.int32),
+        rng.uniform(10.0, 400.0, (n, m)).astype(np.float32))
+    cand = candidates.build_candidates(dist, k, coverage_radius_m=300.0)
+    before = dict(hfl_ops.LAUNCHES)
+    got = hfl_ops.score_candidates(gains, cand.idx, counts, stale,
+                                   data_max=120.0)
+    for name in ("score_rows", "score_candidates"):
+        assert hfl_ops.LAUNCHES[name] == before[name] + 1
+    want = fuzzy.score_candidates(gains, cand, counts, stale, data_max=120.0,
+                                  rows=hfl_ops.score_rows_plain)
+    assert got.shape == (n, k)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+def _to(obj, dev):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: _to(v, dev) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to(v, dev) for v in obj))
+    return obj
+
+
+def test_candidate_round_card_matches_cpu(cuda):
+    """One ``CONFIG`` round on the K = 2 frontier on the card (kernels)
+    and from the same state and draws on the CPU (plain versions):
+    integers exact, the bill to rtol 1e-5, the loss to rtol 1e-4."""
+    cfg = CONFIG
+    spec = engine.EngineSpec(candidates_k=2)
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=cuda)
+    draws = engine.sample_draws(cfg, bundle, aux["generator"], spec)
+    before = dict(hfl_ops.LAUNCHES)
+    s_card, m_card = engine.round_step(cfg, spec, state, bundle, draws)
+    torch.cuda.synchronize()
+    assert hfl_ops.LAUNCHES["score_candidates"] == \
+        before["score_candidates"] + 1
+    assert hfl_ops.LAUNCHES["sic_rates"] == before["sic_rates"]
+    cpu = torch.device("cpu")
+    s_cpu, m_cpu = engine.round_step(cfg, spec, _to(state, cpu),
+                                     _to(bundle, cpu), _to(draws, cpu))
+    g, c = engine.metrics_row(m_card), engine.metrics_row(m_cpu)
+    assert g["z"].tolist() == c["z"].tolist()
+    assert (g["n_associated"], g["sweeps"]) == (c["n_associated"],
+                                                c["sweeps"])
+    assert torch.equal(s_card.staleness.cpu(), s_cpu.staleness)
+    for key in ("cost", "total_time_s", "total_energy_j"):
+        assert g[key] == pytest.approx(c[key], rel=1e-5), key
+    assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
 
 
 def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):

@@ -2,9 +2,10 @@
 
 Both sides start from the reference's ``init_simulation(SMALL, seed=0)``
 state (carried over by ``convert.state_from_numpy``).  Each round, the
-reference's own draws -- ``round_keys`` → the ``Exp(1)`` fading field and
-the full-N minibatch index lattice -- are replayed into the port through
-``RoundDraws``, and the round's metrics are compared: integers exactly,
+reference's own draws -- ``round_keys`` → the ``Exp(1)`` fading field,
+the full-N minibatch index lattice and, for rcea and rra, the uniforms
+drawn from the association and allocation keys -- are replayed into the
+port through ``RoundDraws``, and the round's metrics are compared: integers exactly,
 cost/time/energy to rtol 1e-5, loss to rtol 1e-4 (logsumexp vs softmax
 op order compounding over τ₂ training steps), accuracy to 2 test samples.
 """
@@ -33,33 +34,47 @@ ROUNDS = 4
 
 
 def _replayed_draws(jcfg, jspec, jstate, jbundle):
-    """The reference round's own random numbers, for all N clients."""
+    """The reference round's own random numbers, for all N clients: rcea's
+    uniform comes from the association key, rra's from the allocation key
+    (the reference's ``associate_jax`` / ``_allocate``)."""
     keys = jengine.round_keys(jspec, jstate.key)
-    fading = jax.random.exponential(keys[2], (jcfg.n_clients, jcfg.n_edges))
+    n, m = jcfg.n_clients, jcfg.n_edges
+    fading = jax.random.exponential(keys[2], (n, m))
     lattice = jengine._batch_index_lattice(
-        keys[5], jcfg.tau2, jcfg.tau1,
-        jnp.arange(jcfg.n_clients, dtype=jnp.int32), jbundle.counts,
-        jcfg.local_batch)
+        keys[5], jcfg.tau2, jcfg.tau1, jnp.arange(n, dtype=jnp.int32),
+        jbundle.counts, jcfg.local_batch)
+    assoc_u = alloc_u = None
+    if jspec.policy == "rcea":
+        assoc_u = torch.tensor(np.asarray(jax.random.uniform(keys[3],
+                                                             (n, m))))
+    if jspec.allocator == "rra":
+        alloc_u = torch.tensor(np.asarray(jax.random.uniform(keys[4],
+                                                             (2, n))))
     return engine.RoundDraws(torch.tensor(np.asarray(fading)),
-                             torch.tensor(np.asarray(lattice)))
+                             torch.tensor(np.asarray(lattice)),
+                             assoc_u, alloc_u)
 
 
-def _start(seed=0):
-    jstate, jbundle, _ = jengine.init_simulation(JSMALL, seed=seed)
+def _start(seed=0, jcfg=JSMALL):
+    jstate, jbundle, _ = jengine.init_simulation(jcfg, seed=seed)
     snp = jax.tree.map(np.asarray, jstate._replace(key=None, scenario=None))
     state, bundle = convert.state_from_numpy(
         snp, jax.tree.map(np.asarray, jbundle), "cpu")
     return jstate, jbundle, state, bundle
 
 
-@pytest.mark.parametrize("policy,scheduler,noma_enabled", [
-    ("fcea", "pdd", True), ("gcea", "fastest", True),
-    ("fcea", "pdd", False)])
-def test_round_trajectory_matches_reference(policy, scheduler, noma_enabled):
-    jspec = jengine.EngineSpec(policy=policy, scheduler=scheduler,
-                               noma_enabled=noma_enabled)
-    spec = engine.EngineSpec(policy=policy, scheduler=scheduler,
-                             noma_enabled=noma_enabled)
+@pytest.mark.parametrize("policy,scheduler,noma_enabled,allocator", [
+    pytest.param("fcea", "pdd", True, "mid", id="fcea-pdd-True"),
+    pytest.param("gcea", "fastest", True, "mid", id="gcea-fastest-True"),
+    pytest.param("fcea", "pdd", False, "mid", id="fcea-pdd-False"),
+    pytest.param("rcea", "fastest", True, "mid", id="rcea-fastest-True"),
+    pytest.param("fcea", "pdd", True, "rra", id="fcea-pdd-True-rra")])
+def test_round_trajectory_matches_reference(policy, scheduler, noma_enabled,
+                                            allocator):
+    kw = dict(policy=policy, scheduler=scheduler, noma_enabled=noma_enabled,
+              allocator=allocator)
+    jspec = jengine.EngineSpec(**kw)
+    spec = engine.EngineSpec(**kw)
     jstate, jbundle, state, bundle = _start()
     n_test = int(jbundle.test_y.shape[0])
     for r in range(ROUNDS):
@@ -133,8 +148,8 @@ def test_run_and_run_scanned_give_one_trajectory():
         assert (x.round, x.n_associated, x.sweeps, x.cost, x.loss) == \
             (y.round, y.n_associated, y.sweeps, y.cost, y.loss)
     assert a.round == b.round == 3
-    assert hfl_ops.LAUNCHES == {"score_rows": 0, "sic_rates": 0,
-                                "local_sgd_step": 0,
+    assert hfl_ops.LAUNCHES == {"score_rows": 0, "score_candidates": 0,
+                                "sic_rates": 0, "local_sgd_step": 0,
                                 "local_sgd_step_cluster": 0}  # CPU: plain
 
 
@@ -147,18 +162,41 @@ def test_sample_draws_shapes_and_ranges():
     assert idx.shape == (SMALL.tau2, SMALL.tau1, 16, SMALL.local_batch)
     assert bool((idx >= 0).all())
     assert bool((idx < bundle.counts[None, None, :, None]).all())
+    assert draws.assoc_u is None and draws.alloc_u is None
+
+
+def test_sample_draws_adds_uniforms_after_the_shared_stream():
+    """rcea and rra draw their uniforms after the fading field and the
+    lattice, so those stay the fcea + ``mid`` stream's."""
+    spec = engine.EngineSpec(policy="rcea", allocator="rra")
+    _, bundle, _ = engine.init_simulation(SMALL, seed=0, device="cpu")
+    base = engine.sample_draws(SMALL, bundle,
+                               torch.Generator().manual_seed(3))
+    both = engine.sample_draws(SMALL, bundle,
+                               torch.Generator().manual_seed(3), spec)
+    assert torch.equal(base.fading, both.fading)
+    assert torch.equal(base.batch_idx, both.batch_idx)
+    assert both.assoc_u.shape == (16, 2) and both.alloc_u.shape == (2, 16)
+    for u in (both.assoc_u, both.alloc_u):
+        assert bool(((u >= 0) & (u < 1)).all())
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(policy="rcea"), "A13"), (dict(allocator="rra"), "A13"),
     (dict(allocator="fpa"), "A15"), (dict(allocator="fca"), "A15"),
-    (dict(allocator="ddpg"), "A15"), (dict(candidates_k=2), "A12"),
-    (dict(scenario="dynamic"), "A15"), (dict(telemetry=True), "A15"),
-    (dict(engine_mode="buffered"), "A15"), (dict(faults=object()), "A15"),
-    (dict(warm_start=True), "A15")])
+    (dict(allocator="ddpg"), "A15"), (dict(scenario="dynamic"), "A15"),
+    (dict(telemetry=True), "A15"), (dict(engine_mode="buffered"), "A15"),
+    (dict(faults=object()), "A15"), (dict(warm_start=True), "A15"),
+    (dict(candidates_k=2, warm_start=True), "A15")])
 def test_out_of_slice_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         engine.EngineSpec(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(policy="rcea"), dict(allocator="rra"),
+                                dict(candidates_k=2)])
+def test_ported_options_are_accepted(kw):
+    spec = engine.EngineSpec(**kw)
+    assert all(getattr(spec, k) == v for k, v in kw.items())
 
 
 def test_run_fleet_is_not_ported_yet():
