@@ -11,11 +11,19 @@ and prints no result):
 3. hold each HFL kernel against its plain PyTorch version on the card, at
    the main path's shapes (``CONFIG``) and at the reference bench scale
    (4096 clients × 32 edges), with the tolerances the tests use, and time
-   both; the SGD kernel (a thread-block cluster per lane) also at its
-   edge shapes (every cluster size, ragged tiles, the block-per-lane
-   route), with its cluster size, shared memory and the clusters the card
-   holds at once, and its time from a CUDA-graph replay (its wrapper's
-   host time exceeds the kernel's);
+   both: the fused dense score (``score_matrix``: the Eq. 21
+   normalisation inside the launch) bit for bit, against the unfused
+   chain it replaced (the torch normalisation around the rows kernel) in
+   turns old, new, new, old, each with its wrapper and device time, and
+   on edge gains; the rows kernel; the SIC kernel (a thread-block cluster
+   per edge over the edge's own clients) at ``CONFIG``'s quota mask, a
+   4096 × 32 one-hot mask and a 4097 × 32 50% mask with exact ties, there
+   at every cluster size, each beside its bound counted from the mask;
+   the SGD kernel (a thread-block cluster per lane) also at its edge
+   shapes (every cluster size, ragged tiles, the block-per-lane route),
+   with its cluster size, shared memory and the clusters the card holds
+   at once, and its time from a CUDA-graph replay (its wrapper's host
+   time exceeds the kernel's);
 4. run the HFL main path -- ``HFLSimulation(CONFIG, device="cuda")``: 5
    rounds of fcea + PDD, then 2 rounds of gcea + fastest -- with every
    launch counter zeroed just before and read just after; check the
@@ -30,8 +38,9 @@ and prints no result):
    round (same decisions), K = 2 on the card against the CPU, then gcea +
    fastest and rcea + rra + fastest; at the reference bench scale (4096
    clients × 32 edges), dense, K = 8 and K = 4 timed by stage and one K = 4
-   round card against CPU; the score kernel against its plain version at
-   the frontier's N·K rows;
+   round card against CPU; the fused score on the frontier (4096 × 32 at
+   K = 8 and 4, 4095 clients at K = 3) bit for bit against its plain
+   version, old against new in turns;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -55,9 +64,11 @@ and prints no result):
    flash tiles, the window skip) against a token-by-token decode on the
    card: in float32 (the CUDA-core flash kernel) and in bfloat16 (the
    tensor-core one);
-10. print the per-kernel JSON line (six kernels; ``score_candidates`` is
-    the score kernel reached through the candidate frontier) and, last,
-    the device line.
+10. print the per-kernel JSON line (six entries, the kernels the paths
+    launch: ``score_matrix`` and ``score_candidates`` are the fused score
+    on the two paths; the rows-only ``score_rows``, which only the unfused
+    chain launches, has its ``[compare]`` lines alone) and, last, the
+    device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -86,14 +97,14 @@ TOL = {  # the CPU tests' tolerances (tests/test_torch_kernels.py)
     "sic_rates": dict(rtol=1e-5, atol_frac=1e-6),
     "local_sgd_step": dict(rtol=2e-5, atol=2e-6),
 }
-SOURCE = {"score_rows": "src/repro_torch/kernels/csrc/hfl_ops.cu",
+SOURCE = {"score_matrix": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "score_candidates": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "sic_rates": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "local_sgd_step": "src/repro_torch/kernels/csrc/hfl_ops.cu",
           "flash_attention": "src/repro_torch/kernels/csrc/flash_wgmma.cu",
           "linear_recurrence": "src/repro_torch/kernels/csrc/seq_ops.cu"}
 REPLACES = {
-    "score_rows": "src/repro/kernels/hfl_ops.py:78",
+    "score_matrix": "src/repro/kernels/hfl_ops.py:133",
     "score_candidates": "src/repro/kernels/hfl_ops.py:156",
     "sic_rates": "src/repro/kernels/hfl_ops.py:185",
     "local_sgd_step": "src/repro/kernels/hfl_ops.py:259",
@@ -187,6 +198,9 @@ def bound_ms(n_bytes: float, n_ops: float,
 # ---------------------------------------------------------------------------
 
 SCORE_OPS_PER_ROW = 9 * 7 + 27 * 3 + 201 * 12 + 2
+# the Eq. 21 normalisation's elementwise operations per (client, edge)
+# pair: clamp, log10, ×10, the min and max, −lo, ÷, clamp, ×100
+SCORE_NORM_OPS_PER_PAIR = 9
 
 
 def score_inputs(rows: int, seed: int, dev):
@@ -222,8 +236,17 @@ def sic_inputs(n: int, m: int, per_edge: int, seed: int, dev, ties: bool):
             torch.tensor(mask, device=dev))
 
 
-def sic_work(n: int, m: int):
-    return 4 * n + 3 * 4 * n * m, 2 * m * n * n + 8 * m * n
+def sic_work(mask):
+    """Bytes and operations the SIC rates need at this (N, M) bool
+    ``mask`` (numpy or torch): the N·M fp32 gains, the N·M one-byte mask
+    and the N powers read once, the N·M rates written once; the weaker-than
+    test over each edge's own n_e masked clients (a compare and an add a
+    pair, 2·Σₑ nₑ²) and 8 operations a (client, edge) for rx, the SINR and
+    the rate."""
+    n, m = mask.shape
+    per_edge = [int(v) for v in mask.sum(0).tolist()]
+    n_bytes = 4 * n * m + n * m + 4 * n + 4 * n * m
+    return n_bytes, 2 * sum(v * v for v in per_edge) + 8 * m * n
 
 
 def sgd_inputs(k, tau1, batch, d_in, hidden, n_classes, seed, dev):
@@ -300,19 +323,164 @@ def compare_score(rows, seed, dev):
     return _max_err(got, want), ms_k, ms_p, score_work(rows)
 
 
-def compare_sic(n, m, per_edge, seed, dev, ties):
+def score_fused_work(n, m, k=None):
+    """Bytes (the gains, counts and staleness read once, the frontier's
+    int32 indices where there are, the scores written once, the tables)
+    and operations (the Eq. 21 normalisation over the whole N·M field,
+    the fuzzy pipeline over the N·K or N·M rows) of one fused score."""
+    w = m if k is None else k
+    idx = 0 if k is None else n * k
+    n_bytes = 4 * (n * m + 2 * n + idx + n * w) + 4 * (9 + 5 * 201 + 27)
+    return n_bytes, n * m * SCORE_NORM_OPS_PER_PAIR + n * w * SCORE_OPS_PER_ROW
+
+
+def score_old_vs_new(name, new, old, plain, work):
+    """The fused score (``new``: one C call from the raw inputs) against
+    the unfused chain it replaced (``old``: the torch normalisation and
+    gather around the rows kernel), in turns old, new, new, old, each with
+    its wrapper time (CUDA events around the call, host time included)
+    and its device time (a CUDA-graph replay); ``new`` held to the plain
+    version bit for bit, and to exactly one launch of its own counter and
+    none of the rows kernel.  Returns err, new ms, plain ms, bound."""
+    import torch
+    from repro_torch.kernels import hfl_ops
+    counter = "score_matrix" if name.startswith("score_matrix") \
+        else "score_candidates"
+    before = dict(hfl_ops.LAUNCHES)
+    got = new()
+    torch.cuda.synchronize()
+    if (hfl_ops.LAUNCHES[counter] - before[counter],
+            hfl_ops.LAUNCHES["score_rows"] - before["score_rows"]) != (1, 0):
+        raise AssertionError(f"{name}: expected one {counter} call and no "
+                             f"score_rows launch")
+    want = plain()
+    err = _max_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: the fused score is not bit-equal to "
+                             f"its plain version (max abs err {err:.3e})")
+    if not torch.equal(old(), want):
+        raise AssertionError(f"{name}: the unfused chain is not bit-equal "
+                             f"to the plain version")
+    times = {"old": [], "new": []}
+    for who in ("old", "new", "new", "old"):
+        fn = new if who == "new" else old
+        times[who].append((time_ms(fn), graph_ms(fn)))
+    ms_p = time_ms(plain, min_iters=2, budget_s=0.2)
+    b_ms, b_by = bound_ms(*work)
+    fmt = "; ".join
+    log(f"[compare] {name}: bit-equal to plain; new (fused) "
+        + fmt(f"{c:.4f} ms (device {d:.4f})" for c, d in times["new"])
+        + "; old (torch normalisation + rows kernel) "
+        + fmt(f"{c:.4f} ms (device {d:.4f})" for c, d in times["old"])
+        + f"; plain {ms_p:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+    ms_new = sum(c for c, _ in times["new"]) / 2
+    return err, ms_new, ms_p, b_ms, b_by
+
+
+def edge_gains(n, m, seed):
+    """Gains with exact dB ties, values under the 1e-30 clamp and zeros."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(1e-12, 1e-8, (n, m)).astype(np.float32)
+    g[::5] = g[0]                       # exact ties across clients
+    g[1::7, 0] = 1e-35
+    g[2::11, -1] = 0.0
+    return g
+
+
+def compare_score_matrix(cfg, dev):
+    """The dense fused score at ``CONFIG`` on the engine's first-round
+    inputs with random staleness, old vs new in turns (the entry of the
+    JSON line), then untimed on edge gains and all-zero staleness; the
+    unfused chain's rows-kernel launch, logged."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine, fuzzy
+    from repro_torch.kernels import hfl_ops
+    state, bundle, _ = engine.init_simulation(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(8)
+    stale = torch.tensor(rng.integers(1, 9, cfg.n_clients).astype(np.int32),
+                         device=dev)
+    dm = float(cfg.max_samples)
+
+    def call(g, c, st):
+        return (lambda: hfl_ops.score_matrix(g, c, st, data_max=dm),
+                lambda: fuzzy.score_matrix(g, c, st, data_max=dm,
+                                           rows=hfl_ops.score_rows),
+                lambda: fuzzy.score_matrix(g, c, st, data_max=dm,
+                                           rows=hfl_ops.score_rows_plain))
+    n, m = cfg.n_clients, cfg.n_edges
+    res = score_old_vs_new(f"score_matrix N={n} M={m}",
+                           *call(state.gains, bundle.counts, stale),
+                           score_fused_work(n, m))
+    for g, st in ((edge_gains(n, m, 9), stale),
+                  (edge_gains(4097, 32, 10), None)):
+        gt = torch.tensor(g, device=dev)
+        nn = gt.shape[0]
+        counts = torch.tensor(rng.integers(60, 1200, nn).astype(np.float32),
+                              device=dev)
+        st = torch.zeros(nn, dtype=torch.int32, device=dev) \
+            if st is None else st
+        new, _, plain = call(gt, counts, st)
+        got, want = new(), plain()
+        if not torch.equal(got, want):
+            raise AssertionError(f"score_matrix N={nn}: edge gains not "
+                                 f"bit-equal (max abs err "
+                                 f"{_max_err(got, want):.3e})")
+        log(f"[compare] score_matrix N={nn} M={g.shape[1]} edge gains (ties, "
+            f"< 1e-30, zeros; staleness {'all 0' if nn > n else 'random'}):"
+            f" bit-equal")
+    # the unfused chain, which no engine path runs now, launches the rows
+    # kernel once (a log line; not the JSON line's)
+    before = hfl_ops.LAUNCHES["score_rows"]
+    call(state.gains, bundle.counts, stale)[1]()
+    torch.cuda.synchronize()
+    log(f"[compare] score_matrix N={n} M={m} unfused chain: "
+        f"{hfl_ops.LAUNCHES['score_rows'] - before} score_rows launch")
+    err, ms_new, ms_p, b_ms, b_by = res
+    return err, ms_new, ms_p, score_fused_work(n, m)
+
+
+def compare_sic(n, m, per_edge, seed, dev, ties, clusters=()):
+    """The SIC kernel against its plain version at the default cluster
+    size and, untimed, at each of ``clusters``; the wrapper call's time
+    (CUDA events, host time included) and its device time (graph
+    replay), beside the bound counted from the mask."""
+    import torch
     from repro_torch.core import noma
     from repro_torch.kernels import hfl_ops
     p, g, mask = sic_inputs(n, m, per_edge, seed, dev, ties)
     kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
-    got = hfl_ops.sic_rates(p, g, mask, **kw)
     want = hfl_ops.sic_rates_plain(p, g, mask, **kw)
     tol = TOL["sic_rates"]
-    _check_close(f"sic_rates N={n} M={m}", got, want, tol["rtol"],
-                 float(want.abs().max()) * tol["atol_frac"])
+    c0 = hfl_ops.sic_cluster_size(n)
+    name = (f"sic_rates N={n} M={m} "
+            f"{'one-hot ' + str(per_edge) if per_edge else '50% mask'}")
+    before = hfl_ops.LAUNCHES["sic_rates"]
+    got = hfl_ops.sic_rates(p, g, mask, **kw)
+    torch.cuda.synchronize()
+    if hfl_ops.LAUNCHES["sic_rates"] != before + 1:
+        raise AssertionError(f"{name}: expected one sic_rates launch")
+    for c in (c0, *clusters):
+        out = got if c == c0 else hfl_ops._sic_launch(p, g, mask, c, **kw)
+        _check_close(f"{name} cluster {c}", out, want, tol["rtol"],
+                     float(want.abs().max()) * tol["atol_frac"])
+        if c != c0:
+            ms_c = graph_ms(lambda: hfl_ops._sic_launch(p, g, mask, c,
+                                                        **kw))
+            log(f"[compare] {name} cluster {c}: max_abs_err "
+                f"{_max_err(out, want):.3e}  device {ms_c:.4f} ms")
     ms_k = time_ms(lambda: hfl_ops.sic_rates(p, g, mask, **kw))
+    ms_dev = graph_ms(lambda: hfl_ops.sic_rates(p, g, mask, **kw))
     ms_p = time_ms(lambda: hfl_ops.sic_rates_plain(p, g, mask, **kw))
-    return _max_err(got, want), ms_k, ms_p, sic_work(n, m)
+    work = sic_work(mask)
+    b_ms, b_by = bound_ms(*work)
+    log(f"[compare] {name} cluster {c0} (default): max_abs_err "
+        f"{_max_err(got, want):.3e}  kernel {ms_k:.4f} ms (device "
+        f"{ms_dev:.4f} ms by graph replay)  plain {ms_p:.4f} ms  bound "
+        f"{b_ms:.6f} ms ({b_by}; {work[1] - 8 * m * n} pair ops over "
+        f"{int(mask.sum())} masked pairs)")
+    return _max_err(got, want), ms_k, ms_p, work
 
 
 def compare_sgd(k, tau1, batch, d_in, hidden, n_classes, seed, dev,
@@ -385,26 +553,35 @@ def phase_compare(cfg, dev):
     """Kernel vs plain at the CONFIG shapes (returned for the JSON line)
     and at the reference bench scale (printed)."""
     quota = cfg.clients_per_edge
+    # the rows-only kernel, on no engine path now: printed, not in the
+    # JSON line
+    rows = {"score_rows": compare_score(cfg.n_clients * cfg.n_edges, 1, dev)}
     main = {
-        "score_rows": compare_score(cfg.n_clients * cfg.n_edges, 1, dev),
+        "score_matrix": compare_score_matrix(cfg, dev),
         "sic_rates": compare_sic(cfg.n_clients, cfg.n_edges, quota, 2, dev,
                                  ties=True),
         "local_sgd_step": compare_sgd(
             quota * cfg.n_edges, cfg.tau1, cfg.local_batch, cfg.input_dim,
             cfg.hidden, cfg.n_classes, 3, dev),
     }
+    # the reference bench scale: the engine's one-hot association (4
+    # clients an edge) and a dense 50% mask with exact ties, every cluster
+    # size
     bench = {
         "score_rows": compare_score(4096 * 32 + 37, 4, dev),
-        "sic_rates": compare_sic(4097, 32, 0, 5, dev, ties=True),
+        "sic_rates one-hot": compare_sic(4096, 32, 4, 7, dev, ties=True),
+        "sic_rates": compare_sic(4097, 32, 0, 5, dev, ties=True,
+                                 clusters=(1, 2, 4, 8)),
         "local_sgd_step": compare_sgd(4 * 32, 3, 16, 32, 16, 10, 6, dev),
     }
     for i, (k, tau1, batch, d_in, hidden) in enumerate(SGD_EDGES):
         compare_sgd(k, tau1, batch, d_in, hidden, 10, 20 + i, dev,
                     timed=False)
-    for label, res in (("CONFIG", main), ("bench 4096x32", bench)):
+    for label, res in (("CONFIG", {**rows, **main}),
+                       ("bench 4096x32", bench)):
         for name, (err, ms_k, ms_p, work) in res.items():
             b_ms, b_by = bound_ms(*work)
-            log(f"[compare] {label:>13} {name:<15} max_abs_err {err:.3e}  "
+            log(f"[compare] {label:>13} {name:<17} max_abs_err {err:.3e}  "
                 f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms  "
                 f"bound {b_ms:.6f} ms ({b_by})")
     return main
@@ -619,9 +796,6 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
 # client's rate, and the two bills of one association part by up to
 # ~1e-3 (rtol, PERF.md)
 SORTED_SIC_RTOL = 2e-3
-# the Eq. 21 normalisation's elementwise operations per (client, edge)
-# pair: clamp, log10, ×10, the min and max, −lo, ÷, clamp, ×100
-SCORE_NORM_OPS_PER_PAIR = 9
 
 
 def bench_config(cfg):
@@ -670,7 +844,8 @@ def _want_launches(cfg, spec, rounds):
     cluster = hfl_ops.sgd_route(lanes, cfg.local_batch, cfg.input_dim,
                                 cfg.hidden, cfg.n_classes) \
         == "hfl_local_sgd_cluster"
-    return {"score_rows": rounds * fcea,
+    return {"score_rows": 0,
+            "score_matrix": rounds * (fcea and dense),
             "score_candidates": rounds * (fcea and not dense),
             "sic_rates": rounds * (dense and spec.noma_enabled),
             "local_sgd_step": cfg.tau2 * rounds,
@@ -722,18 +897,9 @@ def _same_decisions(label, dense_rows, cand_rows):
         + f" (limit {SORTED_SIC_RTOL}): ok")
 
 
-def score_candidates_work(n, m, k):
-    """Bytes (gains, counts, staleness, the frontier's indices read once,
-    the scores written once, the tables) and operations (the Eq. 21
-    normalisation over the N·M field, the fuzzy pipeline over N·K rows)."""
-    n_bytes = 4 * (n * m + 2 * n + 2 * n * k) + 4 * (9 + 5 * 201 + 27)
-    return n_bytes, n * m * SCORE_NORM_OPS_PER_PAIR + n * k * SCORE_OPS_PER_ROW
-
-
 def compare_score_candidates(state, bundle, cfg, k, n_rows=None):
-    """The score kernel through ``score_candidates`` against its plain
-    version on the frontier of the bench state's gains (the first
-    ``n_rows`` clients); timed with its bound."""
+    """The fused score on the frontier of the bench state's gains (the
+    first ``n_rows`` clients), old vs new in turns, beside its bound."""
     from repro_torch.core import candidates, engine, fuzzy
     from repro_torch.kernels import hfl_ops
     n = n_rows or cfg.n_clients
@@ -743,31 +909,15 @@ def compare_score_candidates(state, bundle, cfg, k, n_rows=None):
         bundle.dist[:n], k, coverage_radius_m=engine.coverage_radius(cfg))
     dm = float(cfg.max_samples)
 
-    def call():
-        return hfl_ops.score_candidates(gains, cand.idx, counts, stale,
-                                        data_max=dm)
-
-    def plain():
-        return fuzzy.score_candidates(gains, cand, counts, stale,
-                                      data_max=dm,
-                                      rows=hfl_ops.score_rows_plain)
-    got, want = call(), plain()
-    name = f"score_candidates N={n} M={cfg.n_edges} K={k} ({n * k} rows)"
-    _check_close(name, got, want, **TOL["score_rows"])
-    err = _max_err(got, want)
-    ms_k, ms_p = time_ms(call), time_ms(plain)
-    # the wrapper's device time (a CUDA-graph replay, no host time) and the
-    # score kernel alone on the gathered rows
-    ms_dev = graph_ms(call)
-    rows = fuzzy.candidate_inputs(gains, cand.idx, counts, stale,
-                                  data_max=dm)
-    ms_rows = time_ms(lambda: hfl_ops.score_rows(*rows))
-    b_ms, b_by = bound_ms(*score_candidates_work(n, cfg.n_edges, k))
-    log(f"[compare] {name}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms "
-        f"(device {ms_dev:.4f} ms by graph replay; score_rows alone "
-        f"{ms_rows:.4f} ms)  plain {ms_p:.4f} ms  bound {b_ms:.6f} ms "
-        f"({b_by})")
-    return err, ms_k, ms_p, b_ms, b_by, None
+    def unfused(rows):
+        return lambda: fuzzy.score_candidates(gains, cand, counts, stale,
+                                              data_max=dm, rows=rows)
+    return score_old_vs_new(
+        f"score_candidates N={n} M={cfg.n_edges} K={k} ({n * k} rows)",
+        lambda: hfl_ops.score_candidates(gains, cand.idx, counts, stale,
+                                         data_max=dm),
+        unfused(hfl_ops.score_rows), unfused(hfl_ops.score_rows_plain),
+        score_fused_work(n, cfg.n_edges, k)) + (None,)
 
 
 def phase_candidates(cfg, dev):
@@ -1034,7 +1184,8 @@ def phase_serve(dev, profile=False, batch=2, seq=4096, prompt_len=64,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = _launch_counts()
-    want = {"score_rows": 0, "score_candidates": 0, "sic_rates": 0,
+    want = {"score_rows": 0, "score_matrix": 0, "score_candidates": 0,
+            "sic_rates": 0,
             "local_sgd_step": 0, "local_sgd_step_cluster": 0,
             "flash_attention": 12,
             "flash_attention_wgmma": 12, "linear_recurrence": 26}

@@ -16,7 +16,7 @@ _REGISTRY: Dict[str, str] = {
 def get_config(name: str):
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A16: its mixers -- "
+            f"arch {name!r} is not ported yet (ROADMAP A17: its mixers -- "
             f"chunked/prefix attention, MoE, xLSTM, enc-dec -- come later); "
             f"ported: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[name]).CONFIG

@@ -13,10 +13,11 @@ take raw device pointers and the CUDA stream as ``c_void_p``, sizes as
 (``cudaGetLastError()`` after a launch).
 
 Also here, for the wrappers of every kernel module: ``ptr``, ``stream``,
-``require`` and the shared-memory limit ``MAX_SMEM_BYTES``.
+``on``, ``require`` and the shared-memory limit ``MAX_SMEM_BYTES``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -40,7 +41,8 @@ MAX_SMEM_BYTES = 232_448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "hfl_score_rows": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "hfl_sic_rates": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "hfl_score_fused": [_P] * 7 + [_I, _P, _I, _I, _I, _F, _P],
+    "hfl_sic_rates": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "hfl_local_sgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _F, _F, _I, _P],
     "hfl_local_sgd_cluster": [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P],
@@ -145,8 +147,25 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def on(device: torch.device):
+    """Make ``device`` current for a launch: a no-op where it already is
+    (the usual case, and the cheaper one on the host), else
+    ``torch.cuda.device``."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of ``device`` as a raw handle -- what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a ``Stream`` object on the host each launch.  It reads the
+    private binding ``torch._C._cuda_getCurrentRawStream``, checked against
+    torch 2.11.0+cu128; ``tests/test_torch_cuda.py`` holds it to the public
+    handle on a side stream, so a torch that changes it fails there."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def require(t: torch.Tensor, name: str, device: torch.device,

@@ -1,42 +1,82 @@
 // Hand-written Hopper (sm_90a) kernels for the HFL round's hot path.
 //
-// Fuzzy scoring, SIC rates and local SGD (a thread-block cluster per lane,
-// and a block per lane for the shapes the cluster kernel refuses), each
-// behind a plain C entry point that launches on the caller's stream,
-// allocates nothing and returns cudaGetLastError().  The Python wrappers
+// Fuzzy scoring (the Eq. 21 normalisation and the frontier's gather fused
+// into the launch), SIC rates (a thread-block cluster per edge) and local
+// SGD (a thread-block cluster per lane, and a block per lane for the
+// shapes the cluster kernel refuses), each behind a plain C entry point
+// that launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError().  The Python wrappers
 // in kernels/hfl_ops.py check devices, types and shapes, allocate the
 // outputs and raise on a non-zero return.
 //
 // Build (no --use_fast_math: the ranking parity of the fuzzy scores and
-// the SIC rates depends on IEEE division, log2f and expf):
+// the SIC rates depends on IEEE division, log10f, log2f and expf):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o build/hfl_ops.so hfl_ops.cu
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
 // ---------------------------------------------------------------------------
 // Fused fuzzy scoring.
 //
-// Replaces: src/repro/kernels/hfl_ops.py::_score_kernel (via _score_rows).
-// Bound on the H100: operations.  Each row reads 12 bytes and writes 4, but
-// runs ~2.5k fp32 min/max/mul/add ops (9 memberships, the 27-rule Max-Min
-// table, 5 x 201 Mamdani clips and the CoG sums) -- far above the card's
-// ~20 ops/byte fp32 ridge point.
-// Layout: one thread per (client, edge) row, 256 rows a block.  The 5 x 201
-// output memberships (made once on the host in fp32), the 3 input
+// Replaces: src/repro/kernels/hfl_ops.py::_score_kernel (:78), reached
+// through _score_rows (:106) by score_matrix (:133) and score_candidates
+// (:156).  The reference runs the Eq. 21 normalisation beside its Pallas
+// call in plain XLA, which fuses it for free on a TPU; in eager PyTorch
+// those ~20 small ops (log10, the global min/max, the gather, the
+// broadcasts, the casts) cost far more host time than the kernel's device
+// time.  So the normalisation and the frontier's gather run inside the
+// launch here: score_norm_kernel then score_fused_kernel, behind one C
+// call (hfl_score_fused), from the raw (N, M) gains, the (N,) counts, the
+// (N,) int32 staleness and, on the frontier, the (N, K) int32 candidate
+// edges.
+//
+// Bound on the H100: operations.  Each row reads 12 bytes and writes 4,
+// but runs ~2.5k fp32 min/max/mul/add ops (9 memberships, the 27-rule
+// Max-Min table, 5 x 201 Mamdani clips and the CoG sums) -- far above the
+// card's ~20 ops/byte fp32 ridge point.  At the main path's sizes both
+// launches are latency-bound: 0.013-0.014 ms of device time for the pair
+// at CONFIG and at 4096 x 32 (H100 80GB HBM3, 700 W; chip_smoke.py, CUDA-
+// graph replay), against ~0.07 ms for the torch chain and rows kernel it
+// replaces; the rest of a call is the wrapper's host time.
+//
+// * score_norm_kernel (pass 1): a grid-stride reduction over the whole
+//   (N, M) field -- min and max of 10 log10(max(g, 1e-30)) -- and over
+//   staleness (its max), on the frontier too, as fuzzy.normalized_inputs
+//   does.  Each block writes its partial (min dB, max dB, max staleness)
+//   to a scratch buffer.
+// * score_fused_kernel (pass 2): each block folds those partials (at most
+//   kNormBlocksMax) -- min and max are exact in any order, so the result
+//   is deterministic with no atomics -- then scores one row a thread: the
+//   row's edge (its column, or cand_idx on the frontier), its Eq. 21
+//   inputs, then score_row, the Mamdani pipeline that score_kernel (the
+//   rows-only entry, kept as the counterpart of _score_rows) runs too.
+// * Bit-equality: the normalisation repeats the torch ops it replaces on
+//   the card in their order and float32 constants (clamp at 1e-30, log10f,
+//   x 10, - lo, clamp the span at 1e-9 then 1e-12, IEEE divide, clamp to
+//   [0, 1], x 100), with explicit __fmul_rn/__fdiv_rn/__fsub_rn so that no
+//   multiply and add fuse into an FMA that torch rounds twice.  The row
+//   pipeline keeps its fixed order: strengths use only min/max (exact in any
+//   order); num and den are summed in the fixed order g = 0..200 with
+//   explicit round-to-nearest mul/add, so the plain PyTorch version
+//   (core/fuzzy.py) matches bit for bit.
+// Layout: 256 threads a block, one (client, edge) row a thread.  The 5 x
+// 201 output memberships (made once on the host in fp32), the 3 input
 // triangles and the rule table are staged in shared memory per block; the
-// CoG grid is g * 0.5, exact in fp32.  Strengths use only min/max (exact in
-// any order); num and den are summed in the fixed order g = 0..200 with
-// explicit round-to-nearest mul/add (no FMA contraction), so the plain
-// PyTorch version (core/fuzzy.py::score_rows) matches bit for bit.
+// CoG grid is g * 0.5, exact in fp32.
 // ---------------------------------------------------------------------------
 
 constexpr int kGrid = 201;
 constexpr int kOut = 5;
 constexpr int kRules = 27;
 constexpr int kScoreBlock = 256;
+// pass 1: at most this many blocks (partials), each thread taking at least
+// kNormItems gains before another block is added
+constexpr int kNormBlocksMax = 256;
+constexpr int kNormItems = 4;
 
 __device__ __forceinline__ float tri(float x, float a, float b, float c) {
   float up = __fdiv_rn(__fsub_rn(x, a), fmaxf(__fsub_rn(b, a), 1e-9f));
@@ -44,35 +84,37 @@ __device__ __forceinline__ float tri(float x, float a, float b, float c) {
   return fminf(fmaxf(fminf(up, down), 0.0f), 1.0f);
 }
 
-__global__ void score_kernel(const float* __restrict__ cq,
-                             const float* __restrict__ dq,
-                             const float* __restrict__ ms,
-                             const float* __restrict__ tables,
-                             const int* __restrict__ rules,
-                             float* __restrict__ out, int rows) {
-  // tables = [3 input triangles (a, b, c) | 5 x 201 output memberships]
-  __shared__ float s_tri[9];
-  __shared__ float s_mu[kOut * kGrid];
-  __shared__ int s_rules[kRules];
-  for (int i = threadIdx.x; i < kOut * kGrid; i += blockDim.x)
-    s_mu[i] = tables[9 + i];
-  if (threadIdx.x < 9) s_tri[threadIdx.x] = tables[threadIdx.x];
-  if (threadIdx.x < kRules) s_rules[threadIdx.x] = rules[threadIdx.x];
-  __syncthreads();
+// The block's copy of the tables: tables = [3 input triangles (a, b, c) |
+// 5 x 201 output memberships], rules = the 27-rule table.
+struct ScoreSmem {
+  float tri[9];
+  float mu[kOut * kGrid];
+  int rules[kRules];
+};
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float v_cq = cq[r], v_dq = dq[r], v_ms = ms[r];
+__device__ __forceinline__ void stage_tables(ScoreSmem& s,
+                                             const float* __restrict__ tables,
+                                             const int* __restrict__ rules) {
+  for (int i = threadIdx.x; i < kOut * kGrid; i += blockDim.x)
+    s.mu[i] = tables[9 + i];
+  if (threadIdx.x < 9) s.tri[threadIdx.x] = tables[threadIdx.x];
+  if (threadIdx.x < kRules) s.rules[threadIdx.x] = rules[threadIdx.x];
+}
+
+// One row's NO* score from its normalised (cq, dq, ms): memberships, the
+// Max-Min inference folded straight into the 5 output strengths (the
+// output set is selected by value, so they stay in registers), the Mamdani
+// clip + max aggregate and the centre of gravity over the grid.
+__device__ __forceinline__ float score_row(const ScoreSmem& s, float v_cq,
+                                           float v_dq, float v_ms) {
   float m_cq[3], m_dq[3], m_ms[3];
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const float a = s_tri[3 * s], b = s_tri[3 * s + 1], c = s_tri[3 * s + 2];
-    m_cq[s] = tri(v_cq, a, b, c);
-    m_dq[s] = tri(v_dq, a, b, c);
-    m_ms[s] = tri(v_ms, a, b, c);
+  for (int q = 0; q < 3; ++q) {
+    const float a = s.tri[3 * q], b = s.tri[3 * q + 1], c = s.tri[3 * q + 2];
+    m_cq[q] = tri(v_cq, a, b, c);
+    m_dq[q] = tri(v_dq, a, b, c);
+    m_ms[q] = tri(v_ms, a, b, c);
   }
-  // Max-Min inference folded straight into the 5 output strengths; the
-  // output set is selected by value, so the strengths stay in registers
   float st[kOut];
 #pragma unroll
   for (int o = 0; o < kOut; ++o) st[o] = 0.0f;
@@ -83,76 +125,438 @@ __global__ void score_kernel(const float* __restrict__ cq,
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const float deg = fminf(fminf(m_cq[i], m_dq[j]), m_ms[k]);
-        const int set = s_rules[9 * i + 3 * j + k];
+        const int set = s.rules[9 * i + 3 * j + k];
 #pragma unroll
         for (int o = 0; o < kOut; ++o)
           st[o] = (set == o) ? fmaxf(st[o], deg) : st[o];
       }
-  // Mamdani clip + max aggregate + centre of gravity over the grid
   float num = 0.0f, den = 0.0f;
   for (int g = 0; g < kGrid; ++g) {
-    float agg = fminf(s_mu[g], st[0]);
+    float agg = fminf(s.mu[g], st[0]);
 #pragma unroll
     for (int o = 1; o < kOut; ++o)
-      agg = fmaxf(agg, fminf(s_mu[o * kGrid + g], st[o]));
+      agg = fmaxf(agg, fminf(s.mu[o * kGrid + g], st[o]));
     num = __fadd_rn(num, __fmul_rn(static_cast<float>(g) * 0.5f, agg));
     den = __fadd_rn(den, agg);
   }
-  out[r] = __fdiv_rn(num, fmaxf(den, 1e-9f));
+  return __fdiv_rn(num, fmaxf(den, 1e-9f));
+}
+
+// The rows-only entry: (R,) normalised cq/dq/ms -> (R,) scores.
+__global__ void score_kernel(const float* __restrict__ cq,
+                             const float* __restrict__ dq,
+                             const float* __restrict__ ms,
+                             const float* __restrict__ tables,
+                             const int* __restrict__ rules,
+                             float* __restrict__ out, int rows) {
+  __shared__ ScoreSmem s;
+  stage_tables(s, tables, rules);
+  __syncthreads();
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  out[r] = score_row(s, cq[r], dq[r], ms[r]);
+}
+
+// 10 log10(max(g, 1e-30)): torch's clamp_min, log10 (log10f for float) and
+// the multiply by 10, each rounded once.
+__device__ __forceinline__ float gain_db(float g) {
+  return __fmul_rn(10.0f, log10f(fmaxf(g, 1e-30f)));
+}
+
+// core/fuzzy.py::normalize with a float32 denominator (already clamped at
+// 1e-12): clamp(v / denom, 0, 1) * 100.
+__device__ __forceinline__ float eq21(float v, float denom) {
+  return __fmul_rn(fminf(fmaxf(__fdiv_rn(v, denom), 0.0f), 1.0f), 100.0f);
+}
+
+// Min (op 0) or max (op 1) of v over the block; every thread gets it.
+template <int kMax>
+__device__ __forceinline__ float block_fold(float v, float* s_warp) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, o) : fminf(v, o);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();   // s_warp may still be read from a previous fold
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  v = s_warp[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
+    v = kMax ? fmaxf(v, s_warp[w]) : fminf(v, s_warp[w]);
+  return v;
+}
+
+// Pass 1: partials[b], partials[P + b], partials[2P + b] = block b's min
+// dB, max dB and max staleness (as float: the conversion is monotone, so
+// the max of the floats is the float of the max).
+__global__ void score_norm_kernel(const float* __restrict__ gains,
+                                  const int* __restrict__ stale,
+                                  float* __restrict__ partials, int total,
+                                  int n) {
+  __shared__ float s_warp[kScoreBlock / 32];
+  float lo = CUDART_INF_F, hi = -CUDART_INF_F, smax = -CUDART_INF_F;
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const float d = gain_db(gains[i]);
+    lo = fminf(lo, d);
+    hi = fmaxf(hi, d);
+  }
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    smax = fmaxf(smax, static_cast<float>(stale[i]));
+  lo = block_fold<0>(lo, s_warp);
+  hi = block_fold<1>(hi, s_warp);
+  smax = block_fold<1>(smax, s_warp);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = lo;
+    partials[gridDim.x + blockIdx.x] = hi;
+    partials[2 * gridDim.x + blockIdx.x] = smax;
+  }
+}
+
+// Pass 2: fold the n_partials partials, then score rows r < n * w, w = k
+// (the frontier: edge cand_idx[r]) or m (dense: edge r % m).  data_denom is
+// max(data_max, 1e-12) in float32, as fuzzy.normalize makes it.  A
+// candidate edge outside [0, m) scores NaN.
+__global__ void score_fused_kernel(const float* __restrict__ gains,
+                                   const float* __restrict__ counts,
+                                   const int* __restrict__ stale,
+                                   const int* __restrict__ cand_idx,
+                                   const float* __restrict__ partials,
+                                   int n_partials,
+                                   const float* __restrict__ tables,
+                                   const int* __restrict__ rules,
+                                   float* __restrict__ out, int n, int m,
+                                   int w, float data_denom) {
+  __shared__ ScoreSmem s;
+  __shared__ float s_warp[kScoreBlock / 32];
+  stage_tables(s, tables, rules);
+  float lo = CUDART_INF_F, hi = -CUDART_INF_F, smax = -CUDART_INF_F;
+  for (int q = threadIdx.x; q < n_partials; q += blockDim.x) {
+    lo = fminf(lo, partials[q]);
+    hi = fmaxf(hi, partials[n_partials + q]);
+    smax = fmaxf(smax, partials[2 * n_partials + q]);
+  }
+  lo = block_fold<0>(lo, s_warp);   // its barriers also publish the tables
+  hi = block_fold<1>(hi, s_warp);
+  smax = block_fold<1>(smax, s_warp);
+  // clamp_min(hi - lo, 1e-9), then normalize's clamp_min(., 1e-12);
+  // clamp_min(max staleness, 1) as float, then the same 1e-12
+  const float span = fmaxf(fmaxf(__fsub_rn(hi, lo), 1e-9f), 1e-12f);
+  const float s_denom = fmaxf(fmaxf(smax, 1.0f), 1e-12f);
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n * w) return;
+  const int i = r / w;
+  const int e = cand_idx ? cand_idx[r] : r - i * w;
+  if (e < 0 || e >= m) {
+    out[r] = CUDART_NAN_F;
+    return;
+  }
+  const float db = gain_db(gains[static_cast<size_t>(i) * m + e]);
+  out[r] = score_row(s, eq21(__fsub_rn(db, lo), span),
+                     eq21(counts[i], data_denom),
+                     eq21(static_cast<float>(stale[i]), s_denom));
 }
 
 // ---------------------------------------------------------------------------
-// NOMA SIC rates.
+// NOMA SIC rates, each edge over its own clients.
 //
-// Replaces: src/repro/kernels/hfl_ops.py::_sic_kernel (via sic_rates).
-// Bound on the H100: operations.  For each edge the pairwise "decoded after
-// me" test is O(N^2) compare/select/add work on O(N) bytes.
-// Layout: grid (M, ceil(N / 128)), one thread per client i of one edge.  A
-// loop inside the block walks the j tiles through shared memory and keeps
-// the interference sum in a register -- it replaces the TPU kernel's
-// sequential j grid axis and its VMEM scratch, since blocks cannot carry
-// state between each other.  Gains and mask come transposed to contiguous
-// (M, N) rows; the ragged last tile is masked.  rx = p * g * mask in the
-// reference's order; j is strictly weaker than i when rx_j < rx_i, or on an
-// exact tie when j > i.
+// Replaces: src/repro/kernels/hfl_ops.py::_sic_kernel (:185, via sic_rates
+// :216).  The reference (and the port's first, all-pairs kernel) runs the
+// O(N^2) pairwise "decoded after me" test over all N clients of each edge;
+// on the main path the mask is a one-hot association, at most
+// clients_per_edge clients an edge, and every pair with an unmasked client
+// adds an exact +0.0.
+// Bound on the H100: the bytes of the (N, M) gains, mask and rates for a
+// one-hot mask; for a dense one the 2 sum_e n_e^2 compare/add operations
+// over each edge's n_e masked clients.
+//
+// The redesign:
+// * Reads the caller's layout: power (N,) fp32, gains (N, M) fp32 and mask
+//   (N, M) bool, both row-major, and writes the (N, M) rates in place --
+//   no host transposes, casts or copies (the all-pairs wrapper made three).
+// * One thread-block cluster of c CTAs per edge (c in {1, 2, 4, 8}, chosen
+//   by the wrapper from N: kernels/hfl_ops.py::sic_cluster_size, the most
+//   CTAs that keep a block's worth of clients each),
+//   launched through cudaLaunchKernelEx.  CTA r compacts its contiguous
+//   slice of the edge's clients, kSicItems per thread, with warp ballots
+//   into its shared-memory list of (rx, client) in ascending client order,
+//   and writes 0.0 for its unmasked clients.
+// * The CTAs exchange their counts through distributed shared memory; the
+//   edge's list is the concatenation of theirs in rank order, which is
+//   ascending client order.  CTA r takes an even share of the list's
+//   positions as its i's (wherever they live), G = 1, 2 or 4 consecutive
+//   ones a thread (as many as keep its threads busy: G independent sums
+//   hide the add's latency), and sums each one's interference over the
+//   whole list, staged kSicChunk entries at a time from the owners'
+//   shared memory into its own and read four at a time.
+// * The weaker-than rule is the all-pairs kernel's: rx_j < rx_i, or on an
+//   exact tie j > i -- in list positions, so the loop runs `<` before a
+//   thread's positions and `<=` after them.  Each test is a PTX set
+//   (1.0f or 0.0f into a register) and an fma adding x * that: a compare
+//   into a predicate instead left the loop waiting on the few predicate
+//   registers.
+//   rx = p * g, exactly the all-pairs (p * g) * mask for a set mask.
+//
+// Invariant: each client's interference is summed with __fadd_rn in
+// ascending j over the edge's masked clients only.  Every term the all-pairs
+// kernel adds that the compaction drops is an exact +0.0 (an unmasked j has
+// rx_j = +0.0; a j not weaker adds 0.0), and x + 0.0 == x for the
+// non-negative partial sums, so each sum -- and so each rate -- is the same
+// bits the all-pairs kernel gives, for finite inputs (the fma form too:
+// 1 * x and 0 * x are exact).  Work per edge: O(N) reads and n_e^2 tests (<= 16
+// at 4096 x 32 one-hot), against N^2 before.
+// What bounds it now (H100 80GB HBM3, 700 W; chip_smoke.py, CUDA-graph
+// replay): at the main path's one-hot mask, the launch and two cluster
+// barriers over a strided read of each edge's column -- ~4 us at CONFIG,
+// ~10 us at 4096 x 32, against the all-pairs kernel's ~0.2 ms there; at
+// a dense 50% mask (4097 x 32), the compare-and-add rate of the pair loop,
+// ~0.043 ms at 8 CTAs an edge, ~10x its operation bound.
 // ---------------------------------------------------------------------------
 
-constexpr int kSicBlock = 128;
+constexpr int kSicThreads = 256;
+constexpr int kSicWarps = kSicThreads / 32;
+constexpr int kSicItems = 4;
+constexpr int kSicChunk = 2048;
+constexpr int kSicMaxCluster = 8;
 
-__global__ void sic_kernel(const float* __restrict__ power,
-                           const float* __restrict__ gains_t,
-                           const float* __restrict__ mask_t,
-                           float* __restrict__ out_t, int n,
-                           float bandwidth_hz, float noise_w) {
-  __shared__ float s_rx[kSicBlock];
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const int i = blockIdx.y * kSicBlock + threadIdx.x;
-  float rx_i = 0.0f, m_i = 0.0f;
-  if (i < n) {
-    m_i = mask_t[row + i];
-    rx_i = __fmul_rn(__fmul_rn(power[i], gains_t[row + i]), m_i);
+// An edge's compacted list, spread over the cluster: rank q holds positions
+// [off[q], off[q + 1]) as (rx, client) in its shared memory.
+struct SicList {
+  float* rx;         // this CTA's entries (mapped to a peer's by rank)
+  int* idx;
+  const int* off;    // [c + 1]
+  float* chunk;      // this CTA's staging buffer, kSicChunk floats
+  int c, total, m, e;
+
+  __device__ int owner(int t) const {
+    int q = 0;
+    while (q + 1 < c && off[q + 1] <= t) ++q;
+    return q;
   }
-  float intf = 0.0f;
-  for (int j0 = 0; j0 < n; j0 += kSicBlock) {
-    const int j = j0 + threadIdx.x;
-    s_rx[threadIdx.x] =
-        (j < n) ? __fmul_rn(__fmul_rn(power[j], gains_t[row + j]),
-                            mask_t[row + j])
-                : 0.0f;
-    __syncthreads();
-    const int tile = min(kSicBlock, n - j0);
-    for (int t = 0; t < tile; ++t) {
-      const float rx_j = s_rx[t];
-      const bool weaker = (rx_j < rx_i) || (rx_j == rx_i && j0 + t > i);
-      intf = __fadd_rn(intf, weaker ? rx_j : 0.0f);
+};
+
+// 1.0f where a < b (a <= b), else 0.0f: PTX set, one instruction into a
+// register.  Comparing into predicates instead leaves a compare and the
+// add it guards waiting on one of a few predicate registers, which holds
+// the loop to about one instruction a cycle an SM.
+__device__ __forceinline__ float lt_one(float a, float b) {
+  float d;
+  asm("set.lt.f32.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float le_one(float a, float b) {
+  float d;
+  asm("set.le.f32.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// acc + x where take is 1.0f, acc where it is 0.0f, rounded once: take * x
+// is exact (x, or +0.0 for a finite x >= 0), so this is __fadd_rn(acc, x)
+// or acc + 0.0 == acc, the all-pairs kernel's bits.
+__device__ __forceinline__ float add_if(float take, float x, float acc) {
+  return __fmaf_rn(take, x, acc);
+}
+
+// Acc[u] += each list entry x at position t that is weaker than position
+// p0 + u: x < rx_u before it, x <= rx_u after it (an exact tie decodes the
+// lower client first).  Ascending t, one rounding an add: the all-pairs
+// kernel's order.
+template <int G>
+__device__ __forceinline__ void sic_weaker_sum(const float* chunk, int cs,
+                                               int ce, int p0,
+                                               const float (&rx)[G],
+                                               float (&acc)[G]) {
+  // before p0: strictly weaker, four entries a shared-memory read
+  const int ea = min(ce, p0);
+  int t = cs;
+  for (; t + 4 <= ea; t += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(chunk + (t - cs));
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        acc[u] = add_if(lt_one(x[k], rx[u]), x[k], acc[u]);
+  }
+  for (; t < ea; ++t) {
+    const float x = chunk[t - cs];
+#pragma unroll
+    for (int u = 0; u < G; ++u) acc[u] = add_if(lt_one(x, rx[u]), x, acc[u]);
+  }
+  // the thread's own G positions: the exact rule
+  for (t = max(cs, p0); t < min(ce, p0 + G); ++t) {
+    const float x = chunk[t - cs];
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      if (x < rx[u] || (x == rx[u] && t > p0 + u))
+        acc[u] = __fadd_rn(acc[u], x);
+  }
+  // after them: weaker or tied
+  t = max(cs, p0 + G);
+  for (; t < ce && ((t - cs) & 3); ++t) {
+    const float x = chunk[t - cs];
+#pragma unroll
+    for (int u = 0; u < G; ++u) acc[u] = add_if(le_one(x, rx[u]), x, acc[u]);
+  }
+  for (; t + 4 <= ce; t += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(chunk + (t - cs));
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        acc[u] = add_if(le_one(x[k], rx[u]), x[k], acc[u]);
+  }
+  for (; t < ce; ++t) {
+    const float x = chunk[t - cs];
+#pragma unroll
+    for (int u = 0; u < G; ++u) acc[u] = add_if(le_one(x, rx[u]), x, acc[u]);
+  }
+}
+
+// The rates of list positions [a, b), G consecutive positions a thread:
+// the whole list staged kSicChunk entries at a time from the owners'
+// shared memory, each position's interference summed over it.
+template <int G>
+__device__ __forceinline__ void sic_share(cooperative_groups::cluster_group& cl,
+                                          const SicList& l, int a, int b,
+                                          float bandwidth_hz, float noise_w,
+                                          float* __restrict__ out) {
+  for (int base = a; base < b; base += kSicThreads * G) {
+    const int p0 = base + threadIdx.x * G;
+    float rx[G], acc[G];
+    int idx[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      rx[u] = 0.0f;
+      acc[u] = 0.0f;
+      idx[u] = 0;
+      if (p0 + u < b) {
+        const int q = l.owner(p0 + u);
+        rx[u] = cl.map_shared_rank(l.rx, q)[p0 + u - l.off[q]];
+        idx[u] = cl.map_shared_rank(l.idx, q)[p0 + u - l.off[q]];
+      }
+    }
+    for (int cs = 0; cs < l.total; cs += kSicChunk) {
+      const int ce = min(l.total, cs + kSicChunk);
+      __syncthreads();   // the previous chunk has been read
+      for (int t = cs + threadIdx.x; t < ce; t += kSicThreads) {
+        const int q = l.owner(t);
+        l.chunk[t - cs] = cl.map_shared_rank(l.rx, q)[t - l.off[q]];
+      }
+      __syncthreads();
+      if (p0 < b) sic_weaker_sum<G>(l.chunk, cs, ce, p0, rx, acc);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      if (p0 + u < b) {
+        const float sinr = __fdiv_rn(rx[u], __fadd_rn(acc[u], noise_w));
+        out[static_cast<size_t>(idx[u]) * l.m + l.e] =
+            __fmul_rn(bandwidth_hz, log2f(__fadd_rn(1.0f, sinr)));
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kSicThreads)
+    sic_cluster_kernel(const float* __restrict__ power,
+                       const float* __restrict__ gains,
+                       const unsigned char* __restrict__ mask,
+                       float* __restrict__ out, int n, int m, int slice,
+                       float bandwidth_hz, float noise_w) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = static_cast<int>(cl.dim_blocks().x);
+  const int r = static_cast<int>(cl.block_rank());
+  const int e = blockIdx.x / c;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  extern __shared__ __align__(16) float sic_smem[];
+  float* s_rx = sic_smem;                                  // [slice]
+  int* s_idx = reinterpret_cast<int*>(sic_smem + slice);   // [slice]
+  __shared__ __align__(16) float s_chunk[kSicChunk];
+  __shared__ int s_warp[kSicItems * kSicWarps];
+  __shared__ int s_count;
+  __shared__ int s_off[kSicMaxCluster + 1];
+
+  // 1. compact this CTA's slice [i0, i1) of the edge's clients
+  const int i0 = min(n, r * slice), i1 = min(n, i0 + slice);
+  const unsigned lanes_below = (1u << lane) - 1u;
+  int count = 0;
+  for (int base = i0; base < i1; base += kSicThreads * kSicItems) {
+    bool on[kSicItems];
+    float rx[kSicItems];
+#pragma unroll
+    for (int u = 0; u < kSicItems; ++u) {
+      const int i = base + u * kSicThreads + threadIdx.x;
+      on[u] = false;
+      rx[u] = 0.0f;
+      if (i < i1) {
+        const size_t at = static_cast<size_t>(i) * m + e;
+        on[u] = mask[at] != 0;
+        rx[u] = __fmul_rn(power[i], gains[at]);
+        if (!on[u]) out[at] = 0.0f;
+      }
+    }
+    unsigned bal[kSicItems];
+#pragma unroll
+    for (int u = 0; u < kSicItems; ++u) {
+      bal[u] = __ballot_sync(0xffffffffu, on[u]);
+      if (lane == 0) s_warp[u * kSicWarps + warp] = __popc(bal[u]);
     }
     __syncthreads();
+    // list order is (u, warp, lane): ascending client index
+    int run = count;
+#pragma unroll
+    for (int u = 0; u < kSicItems; ++u) {
+      int pre = run;
+      for (int w = 0; w < kSicWarps; ++w) {
+        const int k = s_warp[u * kSicWarps + w];
+        pre += (w < warp) ? k : 0;
+        run += k;
+      }
+      if (on[u]) {
+        const int pos = pre + __popc(bal[u] & lanes_below);
+        s_rx[pos] = rx[u];
+        s_idx[pos] = base + u * kSicThreads + threadIdx.x;
+      }
+    }
+    count = run;
+    __syncthreads();   // s_warp is reused
   }
-  if (i < n) {
-    const float sinr = __fdiv_rn(rx_i, __fadd_rn(intf, noise_w));
-    out_t[row + i] = __fmul_rn(
-        __fmul_rn(bandwidth_hz, log2f(__fadd_rn(1.0f, sinr))), m_i);
+  if (threadIdx.x == 0) s_count = count;
+  cl.sync();   // every CTA's list and count are complete
+
+  // 2. the edge's list offsets: rank q's entries are positions
+  //    [s_off[q], s_off[q + 1])
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int q = 0; q < c; ++q) {
+      s_off[q] = acc;
+      acc += *cl.map_shared_rank(&s_count, q);
+    }
+    s_off[c] = acc;
   }
+  __syncthreads();
+  const int total = s_off[c];
+
+  // 3. this CTA's share of the positions, each summed over the whole list;
+  //    G consecutive positions a thread, as many as the share needs to
+  //    keep every thread busy
+  const int a = static_cast<int>(static_cast<long long>(total) * r / c);
+  const int b = static_cast<int>(static_cast<long long>(total) * (r + 1) / c);
+  const SicList list{s_rx, s_idx, s_off, s_chunk, c, total, m, e};
+  if (b - a > 2 * kSicThreads)
+    sic_share<4>(cl, list, a, b, bandwidth_hz, noise_w, out);
+  else if (b - a > kSicThreads)
+    sic_share<2>(cl, list, a, b, bandwidth_hz, noise_w, out);
+  else
+    sic_share<1>(cl, list, a, b, bandwidth_hz, noise_w, out);
+  // no CTA exits while a peer may still read its list
+  cl.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -904,12 +1308,63 @@ int hfl_score_rows(const float* cq, const float* dq, const float* ms,
   return static_cast<int>(cudaGetLastError());
 }
 
-int hfl_sic_rates(const float* power, const float* gains_t,
-                  const float* mask_t, float* out_t, int n, int m,
-                  float bandwidth_hz, float noise_w, void* stream) {
-  const dim3 grid(m, (n + kSicBlock - 1) / kSicBlock);
-  sic_kernel<<<grid, kSicBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      power, gains_t, mask_t, out_t, n, bandwidth_hz, noise_w);
+// The fused score: the Eq. 21 reduction into ``partials`` (3 x n_partials
+// floats, n_partials in [1, kNormBlocksMax]), then the scores of the n x w
+// rows into ``out``: w = k on the frontier (cand_idx (N, K) int32), w = m
+// dense (cand_idx null).
+int hfl_score_fused(const float* gains, const float* counts, const int* stale,
+                    const int* cand_idx, const float* tables,
+                    const int* rules, float* partials, int n_partials,
+                    float* out, int n, int m, int k, float data_denom,
+                    void* stream) {
+  if (n_partials < 1 || n_partials > kNormBlocksMax || n < 1 || m < 1 ||
+      (cand_idx != nullptr && k < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  score_norm_kernel<<<n_partials, kScoreBlock, 0, st>>>(gains, stale,
+                                                        partials, n * m, n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int w = cand_idx ? k : m;
+  const int blocks = (n * w + kScoreBlock - 1) / kScoreBlock;
+  score_fused_kernel<<<blocks, kScoreBlock, 0, st>>>(
+      gains, counts, stale, cand_idx, partials, n_partials, tables, rules,
+      out, n, m, w, data_denom);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// SIC rates of every edge: m clusters of ``cluster`` CTAs, each CTA holding
+// a slice of ceil(n / cluster) clients' (rx, index) in dynamic shared
+// memory.
+int hfl_sic_rates(const float* power, const float* gains,
+                  const unsigned char* mask, float* out, int n, int m,
+                  int cluster, float bandwidth_hz, float noise_w,
+                  void* stream) {
+  if (cluster < 1 || cluster > kSicMaxCluster || (cluster & (cluster - 1)) ||
+      n < 1 || m < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slice = (n + cluster - 1) / cluster;
+  const int smem = 8 * slice;
+  // opt in on every launch: without it the dynamic part may use only 48 KB
+  // less the static shared memory
+  cudaError_t err = cudaFuncSetAttribute(
+      sic_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(m * cluster);
+  cfg.blockDim = dim3(kSicThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sic_cluster_kernel, power, gains, mask, out,
+                           n, m, slice, bandwidth_hz, noise_w);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

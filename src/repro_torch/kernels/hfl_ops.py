@@ -1,26 +1,29 @@
-"""The HFL round's three kernels: wrappers, plain versions, launch counts.
+"""The HFL round's kernels: wrappers, plain versions, launch counts.
 
 Each kernel is hand-written CUDA for ``sm_90a`` in ``csrc/hfl_ops.cu``
 (built by ``_build``), and replaces one Pallas kernel of the reference's
 ``kernels/hfl_ops.py``:
 
-* ``score_rows`` / ``score_matrix`` / ``score_candidates`` -- fused fuzzy
-  scoring (``_score_kernel``), over the dense N·M rows or the candidate
-  frontier's N·K rows;
-* ``sic_rates`` -- NOMA SIC rates for every edge (``_sic_kernel``);
+* ``score_matrix`` / ``score_candidates`` -- the fused fuzzy score
+  (``_score_kernel``) from the raw gains: the Eq. 21 normalisation, the
+  frontier's gather and the Mamdani pipeline in one C call, over the dense
+  N·M rows or the candidate frontier's N·K rows; ``score_rows`` -- the
+  pipeline alone on normalised rows (the reference's ``_score_rows``);
+* ``sic_rates`` -- NOMA SIC rates for every edge (``_sic_kernel``), one
+  thread-block cluster an edge over the edge's own clients;
 * ``local_sgd_step`` -- τ₁ fused local-SGD steps per lane (``_sgd_kernel``):
   one thread-block cluster per lane wherever its slices fit shared
   memory, one block per lane otherwise; ``sgd_route`` says which.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
-(``score_rows_plain``, ``sic_rates_plain``, ``local_sgd_step_plain``); given
-CUDA tensors it launches the kernel or raises -- there is no fallback.
-``LAUNCHES`` counts, per wrapper, the kernel launches it made and nothing
-else, so a run can show that its path went through the kernels;
-``local_sgd_step_cluster`` counts the SGD launches that went to the cluster
-kernel (``local_sgd_step`` counts them all), and ``score_candidates`` the
-score launches made for the candidate frontier (``score_rows`` counts them
-all).
+(``fuzzy.score_matrix``/``score_candidates`` over ``score_rows_plain``,
+``sic_rates_plain``, ``local_sgd_step_plain``); given CUDA tensors it
+launches the kernel or raises -- there is no fallback.  ``LAUNCHES``
+counts, per entry point, the kernel calls it made and nothing else, so a
+run can show that its path went through the kernels: ``score_matrix`` and
+``score_candidates`` count the fused calls, ``score_rows`` the rows-only
+one; ``local_sgd_step_cluster`` counts the SGD launches that went to the
+cluster kernel (``local_sgd_step`` counts them all).
 """
 from __future__ import annotations
 
@@ -34,14 +37,21 @@ import torch
 from repro_torch.core import fuzzy, noma
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
+from repro_torch.kernels._build import on as _on
 from repro_torch.kernels._build import ptr as _ptr
 from repro_torch.kernels._build import require as _require
 from repro_torch.kernels._build import stream as _stream
 from repro_torch.models.mlp import PARAM_KEYS
 
-LAUNCHES: Dict[str, int] = {"score_rows": 0, "score_candidates": 0,
-                            "sic_rates": 0, "local_sgd_step": 0,
+LAUNCHES: Dict[str, int] = {"score_rows": 0, "score_matrix": 0,
+                            "score_candidates": 0, "sic_rates": 0,
+                            "local_sgd_step": 0,
                             "local_sgd_step_cluster": 0}
+
+
+# the card's SMs (H100 SXM), which the SGD lanes' clusters should not far
+# exceed
+N_SMS = 132
 
 
 def reset_launches() -> None:
@@ -82,7 +92,7 @@ def score_rows(cq: torch.Tensor, dq: torch.Tensor, ms: torch.Tensor
         return out
     tables, rules = _score_tables(dev)
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with _on(dev):
         code = lib.hfl_score_rows(_ptr(cq), _ptr(dq), _ptr(ms), _ptr(tables),
                                   _ptr(rules), _ptr(out), rows, _stream(dev))
     _build.check(code, "score_rows")
@@ -90,12 +100,71 @@ def score_rows(cq: torch.Tensor, dq: torch.Tensor, ms: torch.Tensor
     return out
 
 
+# the fused score's pass 1 (csrc/hfl_ops.cu: kNormBlocksMax, kNormItems,
+# kScoreBlock): at most this many partials, a thread taking at least
+# SCORE_NORM_ITEMS gains before another block is added
+SCORE_NORM_BLOCKS_MAX = 256
+SCORE_NORM_ITEMS = 4
+SCORE_BLOCK = 256
+
+
+def score_partials(n: int, m: int) -> int:
+    """Blocks of the fused score's reduction over the (N, M) field, and so
+    the (min dB, max dB, max staleness) partials its scratch holds."""
+    per_block = SCORE_BLOCK * SCORE_NORM_ITEMS
+    return max(1, min(SCORE_NORM_BLOCKS_MAX, -(-n * m // per_block)))
+
+
+def _score_fused(gains: torch.Tensor, counts: torch.Tensor,
+                 staleness: torch.Tensor, cand_idx, data_max: float,
+                 counter: str) -> torch.Tensor:
+    """One C call, two launches: the Eq. 21 reduction over the raw (N, M)
+    gains and the staleness into a scratch of partials, then the rows --
+    (N, K) on the frontier ``cand_idx``, (N, M) dense when it is None --
+    normalised, gathered and scored.  The inputs are taken as the engine
+    keeps them (gains and counts float32, staleness and ``cand_idx``
+    int32), with no cast or copy: one ``torch.empty`` for the output, one
+    for the scratch."""
+    dev = gains.device
+    n, m = gains.shape
+    k = 0 if cand_idx is None else cand_idx.shape[1]
+    _require(gains, "gains", dev, torch.float32, (n, m))
+    _require(counts, "counts", dev, torch.float32, (n,))
+    _require(staleness, "staleness", dev, torch.int32, (n,))
+    if cand_idx is not None:
+        _require(cand_idx, "cand_idx", dev, torch.int32, (n, k))
+    if n * m >= 2 ** 31:
+        raise ValueError(f"score: {n} x {m} gains exceed the kernel's int32 "
+                         f"row index")
+    out = torch.empty((n, k if cand_idx is not None else m),
+                      dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    parts = score_partials(n, m)
+    scratch = torch.empty((3 * parts,), dtype=torch.float32, device=dev)
+    tables, rules = _score_tables(dev)
+    lib = _build.library()
+    with _on(dev):
+        code = lib.hfl_score_fused(
+            _ptr(gains), _ptr(counts), _ptr(staleness),
+            None if cand_idx is None else _ptr(cand_idx), _ptr(tables),
+            _ptr(rules), _ptr(scratch), parts, _ptr(out), n, m, k,
+            max(float(data_max), 1e-12), _stream(dev))
+    _build.check(code, counter)
+    LAUNCHES[counter] += 1
+    return out
+
+
 def score_matrix(gains: torch.Tensor, counts: torch.Tensor,
                  staleness: torch.Tensor, *, data_max: float) -> torch.Tensor:
-    """(N, M) competency scores: the Eq. 21 normalisation in torch, the
-    per-row fuzzy pipeline through ``score_rows`` over the N·M rows."""
-    return fuzzy.score_matrix(gains, counts, staleness, data_max=data_max,
-                              rows=score_rows)
+    """(N, M) competency scores (replaces the reference's
+    ``hfl_ops.score_matrix``): on the card one fused call from the raw
+    gains (``_score_fused``); on the CPU the plain ``fuzzy.score_matrix``."""
+    if gains.device.type == "cpu":
+        return fuzzy.score_matrix(gains, counts, staleness, data_max=data_max,
+                                  rows=score_rows_plain)
+    return _score_fused(gains, counts, staleness, None, data_max,
+                        "score_matrix")
 
 
 def score_candidates(gains: torch.Tensor, cand_idx: torch.Tensor,
@@ -103,15 +172,16 @@ def score_candidates(gains: torch.Tensor, cand_idx: torch.Tensor,
                      data_max: float) -> torch.Tensor:
     """(N, K) competency scores on the candidate frontier ``cand_idx``
     (replaces the reference's ``hfl_ops.score_candidates``): the dense
-    Eq. 21 normalisation, then ``score_rows`` over the N·K gathered rows
-    only -- the kernel does not care about row shape.  Its launches are
-    counted under ``score_candidates`` as well as ``score_rows``."""
-    before = LAUNCHES["score_rows"]
-    n, k = cand_idx.shape
-    out = score_rows(*fuzzy.candidate_inputs(gains, cand_idx, counts,
-                                             staleness, data_max=data_max))
-    LAUNCHES["score_candidates"] += LAUNCHES["score_rows"] - before
-    return out.reshape(n, k)
+    Eq. 21 normalisation over the whole (N, M) field, then the N·K gathered
+    rows only -- on the card in one fused call (``_score_fused``), on the
+    CPU through the plain ``fuzzy.candidate_inputs`` and rows."""
+    if gains.device.type == "cpu":
+        n, k = cand_idx.shape
+        return score_rows_plain(*fuzzy.candidate_inputs(
+            gains, cand_idx, counts, staleness, data_max=data_max)
+        ).reshape(n, k)
+    return _score_fused(gains, counts, staleness, cand_idx, data_max,
+                        "score_candidates")
 
 
 # ---------------------------------------------------------------------------
@@ -129,32 +199,79 @@ def sic_rates_plain(power_w: torch.Tensor, gains: torch.Tensor,
          for e in range(gains.shape[1])], dim=1)
 
 
+# the SIC kernel's CTA (csrc/hfl_ops.cu: kSicThreads, kSicChunk), its
+# static shared memory (the j loop's staging chunk, the ballot counts and
+# the cluster's offsets, rounded up) and the cluster sizes it takes
+# (kSicMaxCluster, a power of two)
+SIC_THREADS = 256
+SIC_CHUNK = 2048
+SIC_STATIC_SMEM_BYTES = 4 * SIC_CHUNK + 256
+SIC_CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+def sic_smem_bytes(n: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA of the SIC kernel: its slice of
+    ⌈N/c⌉ clients' compacted (rx, client) pairs, 8 bytes each."""
+    return 8 * -(-n // cluster)
+
+
+def _sic_fits(n: int, cluster: int) -> bool:
+    return sic_smem_bytes(n, cluster) + SIC_STATIC_SMEM_BYTES \
+        <= MAX_SMEM_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def sic_cluster_size(n: int) -> int:
+    """CTAs an edge's cluster gets, from N: of the sizes in
+    ``SIC_CLUSTER_SIZES`` whose slice fits shared memory, the largest that
+    still gives each CTA at least a block's worth (``SIC_THREADS``) of
+    clients, else the smallest that fits; 0 when none fits (N beyond
+    what 8 CTAs hold)."""
+    fits = [c for c in SIC_CLUSTER_SIZES if _sic_fits(n, c)]
+    if not fits:
+        return 0
+    spread = [c for c in fits if -(-n // c) >= SIC_THREADS]
+    return max(spread) if spread else fits[0]
+
+
 def sic_rates(power_w: torch.Tensor, gains: torch.Tensor, mask: torch.Tensor,
               *, bandwidth_hz: float, noise_w: float) -> torch.Tensor:
-    """(N,) power, (N, M) gains, (N, M) mask -> (N, M) SIC rates; masked
-    entries are zero.  One launch covers every edge."""
+    """(N,) power, (N, M) gains, (N, M) bool mask -> (N, M) SIC rates;
+    masked entries are zero.  On the card one launch covers every edge,
+    one thread-block cluster an edge of ``sic_cluster_size(N)`` CTAs,
+    reading the caller's tensors as they are: no cast, transpose or copy;
+    the result is the kernel's own output."""
     if power_w.device.type == "cpu":
         return sic_rates_plain(power_w, gains, mask.bool(),
                                bandwidth_hz=bandwidth_hz, noise_w=noise_w)
+    return _sic_launch(power_w, gains, mask, sic_cluster_size(gains.shape[0]),
+                       bandwidth_hz=bandwidth_hz, noise_w=noise_w)
+
+
+def _sic_launch(power_w: torch.Tensor, gains: torch.Tensor,
+                mask: torch.Tensor, cluster: int, *, bandwidth_hz: float,
+                noise_w: float) -> torch.Tensor:
+    """The SIC kernel on the card with ``cluster`` CTAs an edge."""
     dev = power_w.device
     n, m = gains.shape
-    p = power_w.float().contiguous()
-    g_t = gains.float().t().contiguous()
-    mk_t = mask.float().t().contiguous()
-    _require(p, "power_w", dev, torch.float32, (n,))
-    _require(g_t, "gains", dev, torch.float32, (m, n))
-    _require(mk_t, "mask", dev, torch.float32, (m, n))
-    out_t = torch.empty((m, n), dtype=torch.float32, device=dev)
+    _require(power_w, "power_w", dev, torch.float32, (n,))
+    _require(gains, "gains", dev, torch.float32, (n, m))
+    _require(mask, "mask", dev, torch.bool, (n, m))
+    if cluster not in SIC_CLUSTER_SIZES or not _sic_fits(n, cluster):
+        raise ValueError(f"sic_rates: no cluster of {cluster} CTAs holds "
+                         f"N={n} (sizes {SIC_CLUSTER_SIZES}, "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory a CTA)")
+    out = torch.empty((n, m), dtype=torch.float32, device=dev)
     if n == 0 or m == 0:
-        return out_t.t()
+        return out
     lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.hfl_sic_rates(_ptr(p), _ptr(g_t), _ptr(mk_t), _ptr(out_t),
-                                 n, m, float(bandwidth_hz), float(noise_w),
-                                 _stream(dev))
+    with _on(dev):
+        code = lib.hfl_sic_rates(_ptr(power_w), _ptr(gains), _ptr(mask),
+                                 _ptr(out), n, m, cluster, float(bandwidth_hz),
+                                 float(noise_w), _stream(dev))
     _build.check(code, "sic_rates")
     LAUNCHES["sic_rates"] += 1
-    return out_t.t()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +312,8 @@ def local_sgd_step_plain(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     return dict(zip(PARAM_KEYS, (w1, b1, w2, b2, w3, b3)))
 
 
-# the card's SMs (H100 SXM), which the lanes' clusters should not far
-# exceed, and the cluster sizes the kernel takes (csrc/hfl_ops.cu:
-# kMaxCluster, a power of two)
-N_SMS = 132
+# the cluster sizes the SGD kernel takes (csrc/hfl_ops.cu: kMaxCluster, a
+# power of two)
 SGD_CLUSTER_SIZES = (1, 2, 4, 8)
 
 
@@ -316,7 +431,7 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     lib = _build.library()
     if cluster:
         out = {n: torch.empty_like(leaves[n]) for n in PARAM_KEYS}
-        with torch.cuda.device(dev):
+        with _on(dev):
             code = lib.hfl_local_sgd_cluster(
                 *(_ptr(leaves[n]) for n in PARAM_KEYS),
                 *(_ptr(out[n]) for n in PARAM_KEYS), _ptr(bx), _ptr(by),
@@ -324,7 +439,7 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
                 1.0 / float(batch), smem, _stream(dev))
     else:   # updates in place: the outputs start as copies of the inputs
         out = {n: leaves[n].clone() for n in PARAM_KEYS}
-        with torch.cuda.device(dev):
+        with _on(dev):
             code = lib.hfl_local_sgd(
                 *(_ptr(out[n]) for n in PARAM_KEYS), _ptr(bx), _ptr(by),
                 k, tau1, batch, d_in, hidden, n_classes, float(lr),

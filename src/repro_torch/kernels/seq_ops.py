@@ -155,7 +155,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.library()
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             b, s, h, kv, d, int(causal), int(window), float(d ** -0.5))
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         if wgmma:
             code = lib.seq_flash_attention_wgmma(*args, smem,
                                                  _build.stream(dev))
@@ -219,7 +219,7 @@ def linear_recurrence(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     vec = linrec_vector_bytes(c, x.element_size(), log_a.data_ptr(),
                               x.data_ptr())
     lib = _build.library()
-    with torch.cuda.device(dev):
+    with _build.on(dev):
         code = lib.seq_linear_recurrence(
             _build.ptr(log_a), _build.ptr(x), _build.ptr(out), b, s, c,
             _DTYPE_CODE[dtype], vec, _build.stream(dev))

@@ -3,7 +3,7 @@
 The port of the reference's ``launch/steps.py::make_prefill_step`` and
 ``make_serve_step``.  The model owns its weights, so a step closes over
 the model instead of taking a params pytree.  ``make_train_step`` waits
-for the training slice (ROADMAP A16).
+for the training slice (ROADMAP A18).
 """
 from __future__ import annotations
 

@@ -16,5 +16,5 @@ def build_model(cfg, *, device: "str | torch.device" = "cuda",
     if cfg.encoder_layers > 0:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP A16)")
+            f"(ROADMAP A17)")
     return Transformer(cfg, device=device, generator=generator)

@@ -25,7 +25,7 @@ MASK_KINDS = ("global", "sliding")
 
 def _unported_mask(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"attention mask {kind!r} is not ported yet (ROADMAP A16: chunked "
+        f"attention mask {kind!r} is not ported yet (ROADMAP A17: chunked "
         f"and prefix attention come with their architectures)")
 
 

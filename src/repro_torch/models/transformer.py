@@ -44,19 +44,19 @@ def _check_ported(cfg) -> None:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: sequence mixers {unported} are not ported yet "
-            f"(ROADMAP A16: chunked attention, xLSTM)")
+            f"(ROADMAP A17: chunked attention, xLSTM)")
     if any(f != "dense" for f in cfg.ffn_pattern):
         raise NotImplementedError(f"{cfg.name}: only dense FFNs are ported "
-                                  f"(ROADMAP A16: MoE)")
+                                  f"(ROADMAP A17: MoE)")
     if cfg.norm != "rmsnorm" or not cfg.tie_embeddings or cfg.mlp_bias \
             or not cfg.gated_mlp or cfg.qkv_bias or cfg.qk_norm:
         raise NotImplementedError(
             f"{cfg.name}: only RMSNorm, a tied embedding, a gated MLP "
             f"without bias and attention without QKV bias or q/k norm are "
-            f"ported (ROADMAP A16)")
+            f"ported (ROADMAP A17)")
     if cfg.prefix_tokens:
         raise NotImplementedError(f"{cfg.name}: prefix-LM models are not "
-                                  f"ported yet (ROADMAP A16)")
+                                  f"ported yet (ROADMAP A17)")
 
 
 def _param(shape, dtype, device, generator, init) -> nn.Parameter:

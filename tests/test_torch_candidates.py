@@ -31,6 +31,7 @@ from repro_torch.configs.hfl_mnist import CONFIG
 from repro_torch.core import association, candidates, cost, engine, fuzzy, noma
 from repro_torch.kernels import hfl_ops
 from test_torch_engine import _replayed_draws, _start
+from test_torch_kernels import edge_case_gains
 
 SCORE_TOL = dict(atol=2e-4, rtol=1e-5)
 
@@ -121,13 +122,20 @@ def test_max_coverage_degree_matches_reference():
 
 # -- scoring ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,m,k,block_r", [(20, 4, 2, 16), (33, 6, 3, 512),
-                                           (10, 3, 3, 8)])
-def test_score_candidates_matches_pallas_and_jnp(n, m, k, block_r):
+# ``edge``: exact dB ties, gains under the 1e-30 clamp and zeros, and
+# all-zero staleness (its max clamps to 1); the frontier's int32 indices
+@pytest.mark.parametrize("n,m,k,block_r,edge", [
+    pytest.param(20, 4, 2, 16, False, id="20-4-2-16"),
+    pytest.param(33, 6, 3, 512, False, id="33-6-3-512"),
+    pytest.param(10, 3, 3, 8, False, id="10-3-3-8"),
+    pytest.param(24, 5, 3, 32, True, id="24-5-3-32-edge")])
+def test_score_candidates_matches_pallas_and_jnp(n, m, k, block_r, edge):
     rng = np.random.default_rng(n + k)
     gains = rng.uniform(1e-12, 1e-8, (n, m)).astype(np.float32)
     counts = rng.integers(60, 120, n).astype(np.float32)
     stale = rng.integers(1, 9, n).astype(np.int32)
+    if edge:
+        gains, stale = edge_case_gains(gains), np.zeros(n, np.int32)
     dist, _, radius = _world(n, n, m, "random")
     cand, jc = _both_sets(dist, k, radius)
     got = hfl_ops.score_candidates(_t(gains), cand.idx, _t(counts),
@@ -141,7 +149,7 @@ def test_score_candidates_matches_pallas_and_jnp(n, m, k, block_r):
                                         jnp.asarray(counts),
                                         jnp.asarray(stale), data_max=120.0,
                                         block_r=block_r, interpret=True)
-    assert got.shape == (n, k)
+    assert got.shape == (n, k) and cand.idx.dtype == torch.int32
     np.testing.assert_allclose(got.numpy(), np.asarray(want_jnp), **SCORE_TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas),
                                **SCORE_TOL)

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.hfl_mnist import CONFIG
 from repro_torch.core import candidates, engine, fuzzy, noma
-from repro_torch.kernels import hfl_ops, seq_ops
+from repro_torch.kernels import _build, hfl_ops, seq_ops
 from repro_torch.models.mlp import PARAM_KEYS
 
 pytestmark = pytest.mark.cuda
@@ -43,6 +43,64 @@ def test_score_kernel_bit_equal_to_plain(cuda, rows):
                                rtol=0.0, atol=0.0)
 
 
+def _edge_gains(rng, n, m):
+    """Exact dB ties across clients, values under the 1e-30 clamp, zeros."""
+    g = rng.uniform(1e-12, 1e-8, (n, m)).astype(np.float32)
+    g[::5] = g[0]
+    g[1::7, 0] = 1e-35
+    g[2::11, -1] = 0.0
+    return g
+
+
+def _one_score_call(counter):
+    """Assert that the wrapped call made one ``counter`` launch and launched
+    the rows-only kernel no time."""
+    before = dict(hfl_ops.LAUNCHES)
+
+    def check():
+        torch.cuda.synchronize()
+        assert hfl_ops.LAUNCHES[counter] == before[counter] + 1
+        assert hfl_ops.LAUNCHES["score_rows"] == before["score_rows"]
+    return check
+
+
+# the fused dense score: CONFIG, the bench field, and edge gains (exact dB
+# ties, values under 1e-30, zeros) with all-zero staleness, whose max
+# clamps to 1
+@pytest.mark.parametrize("n,m,edge", [(64, 4, False), (4096, 32, False),
+                                      (64, 4, True), (1001, 7, True)])
+def test_score_matrix_fused_bit_equal_to_plain(cuda, n, m, edge):
+    rng = np.random.default_rng(n + m + edge)
+    g = _edge_gains(rng, n, m) if edge \
+        else rng.uniform(1e-12, 1e-8, (n, m)).astype(np.float32)
+    stale = np.zeros(n, np.int32) if edge \
+        else rng.integers(1, 9, n).astype(np.int32)
+    gains, counts, st = _on(cuda, g,
+                            rng.integers(60, 1200, n).astype(np.float32),
+                            stale)
+    check = _one_score_call("score_matrix")
+    got = hfl_ops.score_matrix(gains, counts, st, data_max=1200.0)
+    check()
+    want = fuzzy.score_matrix(gains, counts, st, data_max=1200.0,
+                              rows=hfl_ops.score_rows_plain)
+    assert got.shape == (n, m)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+def test_score_fused_rejects_casts_it_would_need(cuda):
+    """The fused score takes the engine's dtypes as they are: no host cast
+    of the staleness (int32) or the gains (float32)."""
+    gains = torch.ones((8, 2), device=cuda)
+    counts = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError, match="staleness"):
+        hfl_ops.score_matrix(gains, counts, torch.ones(8, device=cuda),
+                             data_max=1.0)
+    with pytest.raises(TypeError, match="gains"):
+        hfl_ops.score_matrix(gains.double(), counts,
+                             torch.ones(8, dtype=torch.int32, device=cuda),
+                             data_max=1.0)
+
+
 @pytest.mark.parametrize("n,m,dense", [(12, 3, True), (64, 4, False),
                                        (4097, 32, True)])
 def test_sic_kernel_matches_plain(cuda, n, m, dense):
@@ -60,10 +118,138 @@ def test_sic_kernel_matches_plain(cuda, n, m, dense):
     assert bool((got[~mt] == 0.0).all())
 
 
+def _sic_case(rng, n, m, kind):
+    """(N,) power, (N, M) gains with exact ties (every third client repeats
+    the one before it), and a mask: the engine's one-hot association (at
+    most 4 clients an edge, the last edge without a client where M > 1),
+    all true, all false, or 50% at random."""
+    p = rng.uniform(0.01, 0.1, n).astype(np.float32)
+    g = (rng.uniform(0.1, 10.0, (n, m)) * 1e-9).astype(np.float32)
+    p[1::3], g[1::3] = p[0::3][:len(p[1::3])], g[0::3][:len(g[1::3])]
+    if kind == "one-hot":
+        owner = rng.integers(0, max(m - 1, 1), n)
+        mask = np.zeros((n, m), bool)
+        for e in range(max(m - 1, 1)):
+            mask[np.flatnonzero(owner == e)[:4], e] = True
+    elif kind == "random":
+        mask = rng.random((n, m)) < 0.5
+    else:
+        mask = np.full((n, m), kind == "all")
+    return p, g, mask
+
+
+# every cluster size at each shape: N of one client, below and at one
+# CONFIG, and the ragged bench N; one edge, CONFIG's 4 and the bench's 32
+@pytest.mark.parametrize("kind", ["one-hot", "all", "none", "random"])
+@pytest.mark.parametrize("m", [1, 4, 32])
+@pytest.mark.parametrize("n", [1, 63, 64, 4097])
+def test_sic_kernel_every_cluster_size(cuda, n, m, kind):
+    rng = np.random.default_rng(n * 7 + m)
+    pt, gt, mt = _on(cuda, *_sic_case(rng, n, m, kind))
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    want = hfl_ops.sic_rates_plain(pt, gt, mt, **kw)
+    outs = []
+    for c in hfl_ops.SIC_CLUSTER_SIZES:
+        before = hfl_ops.LAUNCHES["sic_rates"]
+        got = hfl_ops._sic_launch(pt, gt, mt, c, **kw)
+        torch.cuda.synchronize()
+        assert hfl_ops.LAUNCHES["sic_rates"] == before + 1
+        assert got.shape == (n, m) and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=float(want.max()) * 1e-6,
+                                   msg=f"cluster {c}")
+        assert bool((got[~mt] == 0.0).all())
+        outs.append(got)
+    # the sums run over the same list in the same order at every size
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+
+
+def test_sic_kernel_exact_tie_order(cuda):
+    """Equal received powers: the lower client index decodes first, so it
+    still hears its equal-power twin and rates strictly lower."""
+    pt, gt, mt = _on(cuda, np.asarray([0.1, 0.1, 0.1], np.float32),
+                     np.asarray([[1e-9], [1e-9], [2e-9]], np.float32),
+                     np.ones((3, 1), bool))
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    want = hfl_ops.sic_rates_plain(pt, gt, mt, **kw)
+    for c in hfl_ops.SIC_CLUSTER_SIZES:
+        got = hfl_ops._sic_launch(pt, gt, mt, c, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+        assert float(got[0, 0]) < float(got[1, 0])
+
+
+def test_sic_kernel_takes_the_callers_tensors(cuda):
+    """No cast, transpose or copy: a float mask, a float64 power and a
+    non-contiguous gains view are refused, and an N beyond what any
+    cluster holds raises."""
+    n, m = 8, 2
+    p = torch.ones(n, device=cuda)
+    g = torch.ones((n, m), device=cuda)
+    mask = torch.ones((n, m), dtype=torch.bool, device=cuda)
+    kw = dict(bandwidth_hz=1e6, noise_w=1e-12)
+    with pytest.raises(TypeError, match="mask"):
+        hfl_ops.sic_rates(p, g, mask.float(), **kw)
+    with pytest.raises(TypeError, match="power_w"):
+        hfl_ops.sic_rates(p.double(), g, mask, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        hfl_ops.sic_rates(p, torch.ones((m, n), device=cuda).t(), mask, **kw)
+    with pytest.raises(ValueError, match="cluster"):
+        hfl_ops._sic_launch(p, g, mask, 3, **kw)
+    big = hfl_ops.SIC_CLUSTER_SIZES[-1] * (
+        (hfl_ops.MAX_SMEM_BYTES - hfl_ops.SIC_STATIC_SMEM_BYTES) // 8) + 1
+    assert hfl_ops.sic_cluster_size(big) == 0
+    with pytest.raises(ValueError, match="cluster"):
+        hfl_ops.sic_rates(torch.ones(big, device=cuda),
+                          torch.ones((big, 1), device=cuda),
+                          torch.ones((big, 1), dtype=torch.bool, device=cuda),
+                          **kw)
+
+
+def test_raw_stream_handle_is_the_current_stream(cuda):
+    """``_build.stream`` (a private torch binding) gives the handle of
+    ``torch.cuda.current_stream`` on the default stream and a side one."""
+    def handle(d):
+        return _build.stream(d).value or 0
+    devices = (cuda, torch.device("cuda", torch.cuda.current_device()))
+    for d in devices:
+        assert handle(d) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(device=cuda)
+    with torch.cuda.stream(side):
+        for d in devices:
+            assert handle(d) == side.cuda_stream != 0
+            assert handle(d) == torch.cuda.current_stream(cuda).cuda_stream
+
+
+# N whose slice needs more dynamic shared memory than a launch gets without
+# opting in (48 KB less the static part), yet no more than 48 KB: 45,000 at
+# the 8 CTAs ``sic_cluster_size`` gives it, 5,500 at one CTA
+@pytest.mark.parametrize("n,c", [(45_000, 8), (5_500, 1)])
+def test_sic_kernel_opts_in_to_its_shared_memory(cuda, n, c):
+    assert 48 * 1024 - hfl_ops.SIC_STATIC_SMEM_BYTES \
+        < hfl_ops.sic_smem_bytes(n, c) <= 48 * 1024
+    assert n < 40_000 or hfl_ops.sic_cluster_size(n) == c
+    rng = np.random.default_rng(n)
+    pt, gt, mt = _on(cuda, *_sic_case(rng, n, 2, "one-hot"))
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    got = hfl_ops._sic_launch(pt, gt, mt, c, **kw)
+    # the plain version over each edge's masked clients alone: every other
+    # client's term is an exact zero
+    want = torch.zeros_like(gt)
+    for e in range(gt.shape[1]):
+        idx = torch.nonzero(mt[:, e])[:, 0]
+        if idx.numel():
+            want[idx, e] = hfl_ops.sic_rates_plain(
+                pt[idx], gt[idx, e:e + 1], mt[idx, e:e + 1], **kw)[:, 0]
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=float(want.max()) * 1e-6)
+    assert int(mt.sum()) > 0 and bool((got[~mt] == 0.0).all())
+
+
 # the candidate frontier's rows: the reference bench scale at K = 4 and
-# K = 8, and a ragged N·K
+# K = 8, a ragged N·K, and N = 4095 at K = 3
 @pytest.mark.parametrize("n,m,k", [(4096, 32, 4), (4096, 32, 8),
-                                   (1001, 7, 3)])
+                                   (1001, 7, 3), (4095, 32, 3)])
 def test_score_candidates_kernel_bit_equal_to_plain(cuda, n, m, k):
     rng = np.random.default_rng(n + k)
     gains, counts, stale, dist = _on(
@@ -72,11 +258,10 @@ def test_score_candidates_kernel_bit_equal_to_plain(cuda, n, m, k):
         rng.integers(1, 9, n).astype(np.int32),
         rng.uniform(10.0, 400.0, (n, m)).astype(np.float32))
     cand = candidates.build_candidates(dist, k, coverage_radius_m=300.0)
-    before = dict(hfl_ops.LAUNCHES)
+    check = _one_score_call("score_candidates")
     got = hfl_ops.score_candidates(gains, cand.idx, counts, stale,
                                    data_max=120.0)
-    for name in ("score_rows", "score_candidates"):
-        assert hfl_ops.LAUNCHES[name] == before[name] + 1
+    check()
     want = fuzzy.score_candidates(gains, cand, counts, stale, data_max=120.0,
                                   rows=hfl_ops.score_rows_plain)
     assert got.shape == (n, k)
@@ -106,6 +291,7 @@ def test_candidate_round_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert hfl_ops.LAUNCHES["score_candidates"] == \
         before["score_candidates"] + 1
+    assert hfl_ops.LAUNCHES["score_rows"] == before["score_rows"]
     assert hfl_ops.LAUNCHES["sic_rates"] == before["sic_rates"]
     cpu = torch.device("cpu")
     s_cpu, m_cpu = engine.round_step(cfg, spec, _to(state, cpu),

@@ -100,6 +100,59 @@ def test_round_trajectory_matches_reference(policy, scheduler, noma_enabled,
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
+# the paper's CONFIG (N = 64): the reference's default ``sic_impl="auto"``
+# bills with the sorted SIC from N = 64 on (``repro.core.cost``), the port
+# with the pairwise SIC at every N.  Measured gap of the two bills: up to
+# 6.2e-5 in ``total_time_s``; the default-spec bill is held at 1e-3.
+DEFAULT_SIC_BILL_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("policy,scheduler", [("fcea", "pdd"),
+                                              ("gcea", "fastest")])
+def test_config_dense_round_matches_reference(policy, scheduler):
+    """Four dense ``CONFIG`` rounds against two live reference runs from
+    the same start and draws: the default spec (decisions, sweeps and
+    staleness exact; the bill at ``DEFAULT_SIC_BILL_RTOL``) and
+    ``sic_impl="pairwise"``, the port's form (the bill at rtol 1e-5)."""
+    kw = dict(policy=policy, scheduler=scheduler)
+    jspec = jengine.EngineSpec(**kw, telemetry=True)
+    jspec_pw = jengine.EngineSpec(**kw, sic_impl="pairwise")
+    spec = engine.EngineSpec(**kw)
+    jstate, jbundle, state, bundle = _start(seed=0, jcfg=JCONFIG)
+    jstate_pw = jstate
+    n_test = int(jbundle.test_y.shape[0])
+    for r in range(ROUNDS):
+        draws = _replayed_draws(JCONFIG, jspec, jstate, jbundle)
+        jstate, out = jengine.round_step_jit(JCONFIG, jspec, jstate, jbundle)
+        jm, trace = jengine.split_output(jspec, out)
+        jstate_pw, jm_pw = jengine.round_step_jit(JCONFIG, jspec_pw,
+                                                  jstate_pw, jbundle)
+        state, m = engine.round_step(CONFIG, spec, state, bundle, draws)
+        got = engine.metrics_row(m)
+        msg = f"CONFIG {policy}-{scheduler} round {r}"
+        for want in (jengine.metrics_row(jm), jengine.metrics_row(jm_pw)):
+            np.testing.assert_array_equal(got["z"], want["z"], msg)
+            for k in ("round", "n_associated", "n_available"):
+                assert got[k] == want[k], (msg, k)
+            np.testing.assert_allclose(got["avg_staleness"],
+                                       want["avg_staleness"], rtol=1e-6,
+                                       err_msg=msg)
+            assert abs(got["accuracy"] - want["accuracy"]) <= 2.0 / n_test
+        assert got["sweeps"] == int(trace.assoc_sweeps), msg
+        for ref in (jstate, jstate_pw):
+            np.testing.assert_array_equal(state.staleness.numpy(),
+                                          np.asarray(ref.staleness), msg)
+        want, want_pw = jengine.metrics_row(jm), jengine.metrics_row(jm_pw)
+        for k in ("cost", "total_time_s", "total_energy_j"):
+            np.testing.assert_allclose(got[k], want_pw[k], rtol=1e-5,
+                                       err_msg=f"{msg} {k} (pairwise)")
+            np.testing.assert_allclose(got[k], want[k],
+                                       rtol=DEFAULT_SIC_BILL_RTOL,
+                                       err_msg=f"{msg} {k} (default)")
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4,
+                                   err_msg=msg)
+
+
 def test_train_cohort_with_pad_lanes_matches_reference():
     """Fewer admitted clients than K lanes: pad lanes carry zero weight and
     never scatter back; unadmitted clients keep their params."""
@@ -148,8 +201,9 @@ def test_run_and_run_scanned_give_one_trajectory():
         assert (x.round, x.n_associated, x.sweeps, x.cost, x.loss) == \
             (y.round, y.n_associated, y.sweeps, y.cost, y.loss)
     assert a.round == b.round == 3
-    assert hfl_ops.LAUNCHES == {"score_rows": 0, "score_candidates": 0,
-                                "sic_rates": 0, "local_sgd_step": 0,
+    assert hfl_ops.LAUNCHES == {"score_rows": 0, "score_matrix": 0,
+                                "score_candidates": 0, "sic_rates": 0,
+                                "local_sgd_step": 0,
                                 "local_sgd_step_cluster": 0}  # CPU: plain
 
 

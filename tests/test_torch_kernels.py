@@ -46,13 +46,31 @@ def test_fuzzy_tables_match_reference():
     np.testing.assert_array_equal(fuzzy.OUT_MU, want_mu)
 
 
-@pytest.mark.parametrize("n,m,block_r", [
-    (10, 3, 8), (64, 8, 512), (33, 5, 32), (128, 4, 128)])
-def test_score_matrix_matches_pallas_and_jnp(n, m, block_r):
+def edge_case_gains(gains):
+    """Exact dB ties across clients, values under the 1e-30 clamp, zeros."""
+    gains = gains.copy()
+    gains[::5] = gains[0]
+    gains[1::7, 0] = 1e-35
+    gains[2::11, -1] = 0.0
+    return gains
+
+
+# ``edge``: the gains of ``edge_case_gains`` and all-zero staleness (its max
+# clamps to 1), int32 as the engine keeps it
+@pytest.mark.parametrize("n,m,block_r,edge", [
+    pytest.param(10, 3, 8, False, id="10-3-8"),
+    pytest.param(64, 8, 512, False, id="64-8-512"),
+    pytest.param(33, 5, 32, False, id="33-5-32"),
+    pytest.param(128, 4, 128, False, id="128-4-128"),
+    pytest.param(64, 4, 64, True, id="64-4-64-edge"),
+    pytest.param(37, 6, 32, True, id="37-6-32-edge")])
+def test_score_matrix_matches_pallas_and_jnp(n, m, block_r, edge):
     rng = np.random.default_rng(n * m)
     gains = rng.uniform(1e-12, 1e-8, (n, m)).astype(np.float32)
     counts = rng.integers(60, 120, n).astype(np.float32)
     stale = rng.integers(1, 9, n).astype(np.int32)
+    if edge:
+        gains, stale = edge_case_gains(gains), np.zeros(n, np.int32)
     got = hfl_ops.score_matrix(_t(gains), _t(counts), _t(stale),
                                data_max=120.0).numpy()
     want_jnp = jfuzzy.score_matrix(jnp.asarray(gains), jnp.asarray(counts),
@@ -63,6 +81,7 @@ def test_score_matrix_matches_pallas_and_jnp(n, m, block_r):
     np.testing.assert_allclose(got, np.asarray(want_jnp), **SCORE_TOL)
     np.testing.assert_allclose(got, np.asarray(want_pallas), **SCORE_TOL)
     assert hfl_ops.LAUNCHES["score_rows"] == 0      # CPU: no kernel launch
+    assert hfl_ops.LAUNCHES["score_matrix"] == 0
 
 
 @pytest.mark.parametrize("rows", [1, 37, 300])
@@ -106,13 +125,33 @@ def _pairwise_rates(p, g, mask, bandwidth_hz, noise_w):
          for j in range(g.shape[1])], axis=1)
 
 
-@pytest.mark.parametrize("n,m,block_n", [(12, 3, 8), (64, 4, 32),
-                                         (100, 7, 64)])
-def test_sic_rates_match_pallas_and_pairwise(n, m, block_n):
+def sic_mask(rng, n, m, kind):
+    """A random 50% mask; or the engine's one-hot association (at most 4
+    clients an edge) with the last edge left without a client."""
+    if kind == "random":
+        return rng.random((n, m)) < 0.5
+    owner = rng.integers(0, m - 1, n)
+    mask = np.zeros((n, m), bool)
+    for e in range(m - 1):
+        mask[np.flatnonzero(owner == e)[:4], e] = True
+    return mask
+
+
+# ``kind``: the mask of ``sic_mask``; ``ties``: every fifth client repeats
+# the received power of the one before it at every edge (exact ties)
+@pytest.mark.parametrize("n,m,block_n,kind,ties", [
+    pytest.param(12, 3, 8, "random", False, id="12-3-8"),
+    pytest.param(64, 4, 32, "random", False, id="64-4-32"),
+    pytest.param(100, 7, 64, "random", False, id="100-7-64"),
+    pytest.param(64, 4, 32, "one-hot", True, id="64-4-32-one-hot-ties"),
+    pytest.param(40, 5, 16, "random", True, id="40-5-16-ties")])
+def test_sic_rates_match_pallas_and_pairwise(n, m, block_n, kind, ties):
     rng = np.random.default_rng(n + m)
     p = rng.uniform(0.01, 0.1, n).astype(np.float32)
     g = (rng.uniform(0.1, 10.0, (n, m)) * 1e-9).astype(np.float32)
-    mask = rng.random((n, m)) < 0.5
+    if ties:
+        p[1::5], g[1::5] = p[0::5][:len(p[1::5])], g[0::5][:len(g[1::5])]
+    mask = sic_mask(rng, n, m, kind)
     noise = noma.noise_power_w(-174.0, 1e6)
     assert noise == jnoma.noise_power_w(-174.0, 1e6)
     got = hfl_ops.sic_rates(_t(p), _t(g), _t(mask), bandwidth_hz=1e6,
@@ -127,6 +166,7 @@ def test_sic_rates_match_pallas_and_pairwise(n, m, block_n):
     np.testing.assert_allclose(got, np.asarray(want_pallas), rtol=1e-5,
                                atol=want.max() * 1e-6)
     assert (got[~mask] == 0.0).all()
+    assert hfl_ops.LAUNCHES["sic_rates"] == 0          # CPU: no kernel
 
 
 def test_sic_rates_exact_tie_order():
@@ -143,6 +183,99 @@ def test_sic_rates_exact_tie_order():
                                      noise_w=noise, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert got[0, 0] < got[1, 0]
+
+
+# N -> the edges' cluster size: CONFIG, the reference bench's N (8 CTAs of
+# 512 clients), N = 1 and 63, 600 clients (2 CTAs of 300), and N large
+# enough that only 4 or 8 CTAs hold a slice
+@pytest.mark.parametrize("n,cluster", [
+    (64, 1), (4096, 8), (4097, 8), (1, 1), (63, 1), (600, 2), (1100, 4),
+    (100_000, 8), (200_000, 8)])
+def test_sic_cluster_size_is_a_function_of_n(n, cluster):
+    assert hfl_ops.sic_cluster_size(n) == cluster
+    assert hfl_ops.sic_smem_bytes(n, cluster) \
+        + hfl_ops.SIC_STATIC_SMEM_BYTES <= hfl_ops.MAX_SMEM_BYTES
+
+
+def test_sic_cluster_sizes_fit_shared_memory():
+    """Every size the helper returns fits a CTA's shared memory, at every
+    N up to what 8 CTAs hold; beyond that it returns 0 (the wrapper
+    raises)."""
+    for n in [1, 2, 31, 255, 256, 257, 1023, 4097, 27_000, 29_000, 60_000,
+              150_000, 224_000]:
+        c = hfl_ops.sic_cluster_size(n)
+        assert c in hfl_ops.SIC_CLUSTER_SIZES, n
+        assert hfl_ops.sic_smem_bytes(n, c) \
+            + hfl_ops.SIC_STATIC_SMEM_BYTES <= hfl_ops.MAX_SMEM_BYTES
+    assert hfl_ops.sic_cluster_size(224_001) == 0
+    assert hfl_ops.sic_cluster_size(300_000) == 0
+
+
+@pytest.mark.parametrize("n,m,parts", [(64, 4, 1), (4096, 32, 128),
+                                       (1, 1, 1), (100_000, 32, 256),
+                                       (1025, 1, 2)])
+def test_score_partials_are_a_function_of_the_shape(n, m, parts):
+    assert hfl_ops.score_partials(n, m) == parts
+
+
+def test_score_and_sic_constants_match_the_source():
+    """The wrappers' copies of the kernels' block, chunk and cluster
+    constants, the SIC kernel's static shared memory within the budget
+    the wrapper reserves, and both entry points' ctypes signatures."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "hfl_ops.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kScoreBlock"] == hfl_ops.SCORE_BLOCK
+    assert consts["kNormBlocksMax"] == hfl_ops.SCORE_NORM_BLOCKS_MAX
+    assert consts["kNormItems"] == hfl_ops.SCORE_NORM_ITEMS
+    assert consts["kSicThreads"] == hfl_ops.SIC_THREADS
+    assert consts["kSicChunk"] == hfl_ops.SIC_CHUNK
+    assert hfl_ops.SIC_CLUSTER_SIZES == tuple(
+        2 ** i for i in range(consts["kSicMaxCluster"].bit_length()))
+    static = 4 * (consts["kSicChunk"]
+                  + consts["kSicItems"] * consts["kSicThreads"] // 32
+                  + 1 + consts["kSicMaxCluster"] + 1)
+    assert static <= hfl_ops.SIC_STATIC_SMEM_BYTES
+    for name in ("hfl_score_rows", "hfl_score_fused", "hfl_sic_rates"):
+        assert name in _build._SIGNATURES
+        assert f"int {name}(" in src
+
+
+# -- the work counts behind chip_smoke.py's bounds ------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("as_torch", [False, True])
+def test_sic_work_counts_each_edges_own_clients(as_torch):
+    """5 clients, 3 edges with 3, 1 and 0 masked clients: 2·(9 + 1 + 0)
+    pair operations and 8 a (client, edge); the gains, the 1-byte mask and
+    the powers read once, the rates written once."""
+    mask = np.zeros((5, 3), bool)
+    mask[[0, 2, 4], 0] = True
+    mask[1, 1] = True
+    n_bytes, ops = _chip_smoke().sic_work(_t(mask) if as_torch else mask)
+    assert ops == 2 * (9 + 1 + 0) + 8 * 3 * 5
+    assert n_bytes == 4 * 15 + 15 + 4 * 5 + 4 * 15
+
+
+def test_score_work_counts_the_whole_field_and_the_scored_rows():
+    cs = _chip_smoke()
+    tables = 4 * (9 + 5 * 201 + 27)
+    norm, row = cs.SCORE_NORM_OPS_PER_PAIR, cs.SCORE_OPS_PER_ROW
+    assert cs.score_fused_work(10, 4) == (
+        4 * (40 + 20 + 40) + tables, 40 * norm + 40 * row)
+    assert cs.score_fused_work(10, 4, 2) == (
+        4 * (40 + 20 + 20 + 20) + tables, 40 * norm + 20 * row)
 
 
 # -- fused local SGD -----------------------------------------------------------

@@ -79,7 +79,7 @@ def test_config_matches_reference(reduce):
 
 
 def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         get_config("qwen3-8b")
 
 
@@ -144,7 +144,7 @@ def test_attention_apply_sliding_matches_reference(reduced):
 def test_unported_mask_kinds_raise(reduced, kind):
     _, _, model = reduced
     x = torch.zeros((1, 4, model.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         attention.attention_apply(model.blocks[2].attn, x, model.cfg,
                                   mask_kind=kind)
 
