@@ -41,6 +41,20 @@ and prints no result):
    round card against CPU; the fused score on the frontier (4096 × 32 at
    K = 8 and 4, 4095 clients at K = 3) bit for bit against its plain
    version, old against new in turns;
+6c. the fleet -- ``engine.run_fleet`` over seeds stacked by
+   ``stack_fleet``, one batched round for all seeds, with the launch
+   counters zeroed just before and read just after (one fused-score call,
+   one SIC call and τ₂ SGD launches a round, whatever the number of
+   seeds): ``CONFIG`` fcea + PDD, 5 rounds at S = 1 and at S = 8 (seeds
+   0-7) in turns S = 1, 8, 8, 1, each timed by round and stage with its
+   seed-rounds per second;
+   with ``--profile``, one steady S = 8 round profiled; every seed against
+   its own ``run_scanned`` (decisions exact, bill rtol 1e-5, loss rtol
+   1e-4); the fused score and the SIC at S = 8 against S = 1 in turns,
+   each seed of the fleet's call bit-equal to its own call, and the SGD
+   kernel at the fleet's 128 lanes against its plain version; one S = 2
+   round card against CPU; the bench scale (4096 × 32, K = 8) at S = 4, 3
+   rounds, seed 0 against its own run;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -731,6 +745,23 @@ def _to(obj, device):
     return obj
 
 
+def _check_bill(tag, g, c, n_test):
+    """A round's ``metrics_row`` ``g`` against ``c``: cost, time and energy
+    to rtol 1e-5, the loss to rtol 1e-4, the accuracy to 2 test samples.
+    Returns the largest relative difference of each."""
+    worst = {}
+    for key, rtol in (("cost", 1e-5), ("total_time_s", 1e-5),
+                      ("total_energy_j", 1e-5), ("loss", 1e-4)):
+        worst[key] = abs(g[key] - c[key]) / abs(c[key])
+        if not math.isclose(g[key], c[key], rel_tol=rtol):
+            raise AssertionError(f"{tag} {key}: {g[key]} vs {c[key]} "
+                                 f"(rtol {rtol})")
+    if abs(g["accuracy"] - c["accuracy"]) > 2.0 / n_test:
+        raise AssertionError(f"{tag} accuracy: {g['accuracy']} vs "
+                             f"{c['accuracy']}")
+    return worst
+
+
 def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
     """One round of ``spec`` from ``state`` with fresh draws from
     ``generator``, on the card and, from the same state and draws, on the
@@ -773,14 +804,7 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
             f"{float(gaps[gaps > 0].min()):.3e}; near-tie if below 2e-4")
         raise AssertionError(f"{tag} card and CPU rounds disagree on z, "
                              f"n_associated, sweeps or staleness: {g} {c}")
-    for key, rtol in (("cost", 1e-5), ("total_time_s", 1e-5),
-                      ("total_energy_j", 1e-5), ("loss", 1e-4)):
-        if not math.isclose(g[key], c[key], rel_tol=rtol):
-            raise AssertionError(f"{tag} {key}: {g[key]} vs {c[key]} "
-                                 f"(rtol {rtol})")
-    if abs(g["accuracy"] - c["accuracy"]) > 2.0 / bundle.test_y.shape[0]:
-        raise AssertionError(f"{tag} accuracy: {g['accuracy']} vs "
-                             f"{c['accuracy']}")
+    _check_bill(tag, g, c, bundle.test_y.shape[0])
     log(f"{tag} z, n_associated {g['n_associated']}, sweeps {g['sweeps']}, "
         f"staleness exact; cost/time/energy rtol 1e-5, loss rtol 1e-4, "
         f"accuracy atol 2/T: ok")
@@ -834,13 +858,16 @@ def _drive_spec(cfg, spec, rounds, dev, seed=0):
     return rows, walls, timer.ms(), launches, (state, bundle, gen)
 
 
-def _want_launches(cfg, spec, rounds):
-    """The kernel launches ``rounds`` rounds of ``spec`` make."""
+def _want_launches(cfg, spec, rounds, seeds=1):
+    """The kernel launches ``rounds`` rounds of ``spec`` make, of one
+    simulation or of a fleet of ``seeds``: one score call and one SIC call a
+    round whatever the fleet's size, τ₂ SGD launches over its S·K lanes."""
     from repro_torch.core import engine
     from repro_torch.kernels import hfl_ops
     fcea = spec.policy == "fcea"
     dense = spec.candidates_k is None
-    lanes = min(cfg.n_clients, engine.quota_for(cfg, spec) * cfg.n_edges)
+    lanes = seeds * min(cfg.n_clients,
+                        engine.quota_for(cfg, spec) * cfg.n_edges)
     cluster = hfl_ops.sgd_route(lanes, cfg.local_batch, cfg.input_dim,
                                 cfg.hidden, cfg.n_classes) \
         == "hfl_local_sgd_cluster"
@@ -966,6 +993,329 @@ def phase_candidates(cfg, dev):
     compare_score_candidates(state, bundle, big, 4)
     compare_score_candidates(state, bundle, big, 3, n_rows=4095)
     return {"score_candidates": (runs[8][3]["score_candidates"], out)}
+
+
+# ---------------------------------------------------------------------------
+# The fleet: run_fleet, one batched round over a leading seed axis
+# ---------------------------------------------------------------------------
+
+# the fleets the reference runs: 4 seeds below N = 1024 and 2 from there
+# on (benchmarks/bench_rounds.py:467; 4 in benchmarks/bench_sweeps.py:102,
+# 2 in src/repro/sweeps/grid.py:372,385); and S = 8, twice the largest,
+# at CONFIG, at which one round's 128 SGD lanes take a smaller cluster,
+# and 4 at the bench scale: the CONFIG and bench-scale sizes driven
+REF_FLEET_SEEDS = (4, 2)
+FLEET_SEEDS = (8, 4)
+
+
+def _fleet(cfg, seeds, dev):
+    """``stack_fleet`` of ``init_simulation`` at each seed, and the seeds'
+    generators."""
+    from repro_torch.core import engine
+    pairs, gens = [], []
+    for s in seeds:
+        state, bundle, aux = engine.init_simulation(cfg, seed=s, device=dev)
+        pairs.append((state, bundle))
+        gens.append(aux["generator"])
+    return (*engine.stack_fleet(pairs), gens)
+
+
+def _drive_fleet(cfg, spec, seeds, rounds, dev, label):
+    """``run_fleet`` of ``seeds`` for ``rounds`` rounds, one round a call
+    (the trajectory of one call of ``rounds``) so that each round's wall is
+    read, with every launch counter zeroed just before and read just after;
+    check the launches and each seed's metrics, print the rounds and the
+    stage spans.  Returns the fleet metrics (S, rounds, …), the steady s a
+    round, the final (states, bundles, generators) and the stage spans."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.hfl import RoundMetrics
+    from repro_torch.kernels import hfl_ops
+    states, bundles, gens = _fleet(cfg, seeds, dev)
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    rows, walls = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        states, m = engine.run_fleet(cfg, spec, states, bundles, 1, gens,
+                                     timer=timer)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rows.append(m)
+    launches = dict(hfl_ops.LAUNCHES)
+    fm = engine.RoundMetrics(*(torch.cat([f.cpu() for f in field], dim=1)
+                               for field in zip(*rows)))
+    want = _want_launches(cfg, spec, rounds, len(seeds))
+    if launches != want:
+        raise AssertionError(f"[fleet] {label}: launches {launches} != "
+                             f"expected {want}")
+    m_c = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
+    for s in range(len(seeds)):
+        sm = engine.select_seed(fm, s)
+        _check_metrics(cfg, engine.quota_for(cfg, spec),
+                       [RoundMetrics.from_engine(sm, i)
+                        for i in range(rounds)], m_c)
+    stages = timer.ms()
+    for r, w in enumerate(walls):
+        log(f"[fleet] {label} round {r + 1}: {w:.4f} s; sweeps "
+            f"{fm.sweeps[:, r].tolist()}; n_assoc "
+            f"{fm.n_associated[:, r].tolist()}; cost "
+            + " ".join(f"{v:.5f}" for v in fm.cost[:, r].tolist()))
+    steady = walls[1:] or walls
+    steady_s = sum(steady) / len(steady)
+    log(f"[fleet] {label}: launches {launches}; s/round {steady_s:.4f} "
+        f"(rounds 2..{rounds}; round 1 {walls[0]:.4f}); "
+        f"{len(seeds) / steady_s:.2f} seed-rounds/s")
+    for name, spans in stages.items():
+        tail = spans[1:] or spans
+        log(f"[stage] fleet {label} {name:<9} "
+            f"{sum(tail) / len(tail):.4f} ms/round "
+            f"(rounds 2..{rounds}; round 1 {spans[0]:.4f})")
+    return fm, steady_s, (states, bundles, gens), stages
+
+
+def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
+                  own=None):
+    """Each of ``members`` (indices into ``seeds``) against its own
+    ``run_scanned`` from ``init_simulation(seed)`` and its generator, on
+    the card: z, n_associated, sweeps, the mean staleness each round and
+    the final staleness exactly; cost, time and energy to rtol 1e-5; the
+    loss to rtol 1e-4 (the fleet's S·K lanes may take another SGD cluster
+    size, whose sums are not bit-equal); the accuracy to 2 test samples.
+    The own runs are kept in ``own`` (by seed) for a later fleet of the
+    same seeds."""
+    import torch
+    from repro_torch.core import engine
+    rounds = fm.accuracy.shape[1]
+    own = {} if own is None else own
+    worst = {}
+    for s in members:
+        if seeds[s] not in own:
+            state, bundle, aux = engine.init_simulation(cfg, seed=seeds[s],
+                                                        device=dev)
+            o_state, om = engine.run_scanned(cfg, spec, state, bundle,
+                                             rounds, aux["generator"])
+            own[seeds[s]] = (o_state, engine.RoundMetrics(
+                *(v.cpu() for v in om)), bundle.test_y.shape[0])
+        o_state, om, n_test = own[seeds[s]]
+        sm = engine.select_seed(fm, s)
+        for i in range(rounds):
+            g, w = engine.metrics_row(sm, i), engine.metrics_row(om, i)
+            msg = f"[fleet] {label} seed {seeds[s]} round {i + 1}"
+            if not (g["z"].tolist() == w["z"].tolist()
+                    and all(g[k] == w[k] for k in (
+                        "n_associated", "sweeps", "avg_staleness"))):
+                raise AssertionError(f"{msg}: decisions differ from its own "
+                                     f"run: {g} {w}")
+            for key, v in _check_bill(msg, g, w, n_test).items():
+                worst[key] = max(worst.get(key, 0.0), v)
+        if not torch.equal(final.staleness[s].cpu(), o_state.staleness.cpu()):
+            raise AssertionError(f"[fleet] {label} seed {seeds[s]}: final "
+                                 f"staleness differs from its own run")
+    log(f"[fleet] {label}: seeds {[seeds[s] for s in members]} each equal "
+        f"their own run_scanned: z, n_associated, sweeps, staleness exact; "
+        f"max rel diff " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + " (limits cost/time/energy 1e-5, loss 1e-4): ok")
+
+
+def _fleet_card_vs_cpu(cfg, spec, states, bundles, gens, label):
+    """One fleet round from ``states`` with fresh draws, on the card and,
+    from the same states and draws, on the CPU, to ``card_vs_cpu``'s
+    tolerances for every seed."""
+    import torch
+    from repro_torch.core import engine
+    cpu = torch.device("cpu")
+    draws = engine.fleet_draws(cfg, bundles, gens, spec)
+    s_gpu, m_gpu = engine.fleet_step(cfg, spec, states, bundles, draws)
+    s_cpu, m_cpu = engine.fleet_step(cfg, spec, _to(states, cpu),
+                                     _to(bundles, cpu), _to(draws, cpu))
+    n_test = bundles.test_y.shape[1]
+    for s in range(bundles.dist.shape[0]):
+        g = engine.metrics_row(_to(engine.select_seed(m_gpu, s), cpu))
+        c = engine.metrics_row(engine.select_seed(m_cpu, s))
+        tag = f"[card-vs-cpu] fleet {label} seed {s}"
+        if not (g["z"].tolist() == c["z"].tolist()
+                and (g["n_associated"], g["sweeps"])
+                == (c["n_associated"], c["sweeps"])
+                and torch.equal(s_gpu.staleness[s].cpu(), s_cpu.staleness[s])):
+            raise AssertionError(f"{tag}: decisions differ: {g} {c}")
+        _check_bill(tag, g, c, n_test)
+    log(f"[card-vs-cpu] fleet {label}: every seed's z, n_associated, sweeps, "
+        f"staleness exact; cost/time/energy rtol 1e-5, loss rtol 1e-4, "
+        f"accuracy atol 2/T: ok")
+
+
+def _seed_axis_call(label, call, seeds, plain, work):
+    """A seed-axis kernel call ``call(sl)`` over the seeds ``sl`` of a
+    fleet: the whole fleet's call held to its plain version on the same
+    inputs (``plain(got)`` raises on a disagreement and returns the max abs
+    error), each seed's rows bit-equal to its own single-seed call; then
+    S = 1 and S in turns S = 1, S, S, S = 1, wrapper and device time (graph
+    replay) of one call, beside the fleet's bound (``work``)."""
+    import torch
+    fleet = call(slice(None))
+    err = plain(fleet)
+    for s in range(seeds):
+        if not torch.equal(fleet[s], call(slice(s, s + 1))[0]):
+            raise AssertionError(f"[fleet] {label}: seed {s} of the fleet's "
+                                 f"call differs from its own")
+    times = {1: [], seeds: []}
+    for size in (1, seeds, seeds, 1):
+        sl = slice(0, size)
+        times[size].append((time_ms(lambda: call(sl)),
+                            graph_ms(lambda: call(sl))))
+    b_ms, b_by = bound_ms(*work)
+    log(f"[fleet] {label}: S={seeds} against plain max_abs_err {err:.3e}; "
+        f"each seed bit-equal to its own call; " + "; ".join(
+            f"S={size} " + ", ".join(f"{c:.4f} ms (device {d:.4f})"
+                                     for c, d in t)
+            for size, t in times.items())
+        + f"; bound at S={seeds} {b_ms:.6f} ms ({b_by})")
+
+
+def _fleet_kernel_times(cfg, states, bundles, dev):
+    """The fused score (on the fleet's own gains, counts and staleness)
+    and the SIC over a ``CONFIG`` fleet of S seeds: the score bit-equal to
+    the plain torch chain, the SIC to ``sic_rates_plain`` at
+    ``TOL["sic_rates"]``, each seed to its own call, timed against S = 1
+    (``_seed_axis_call``).  Then the SGD kernel at the fleet's S·K lanes
+    against its plain version, beside its bound."""
+    import torch
+    from repro_torch.core import fuzzy, noma
+    from repro_torch.kernels import hfl_ops
+    seeds = bundles.dist.shape[0]
+    dm = float(cfg.max_samples)
+    n, m = cfg.n_clients, cfg.n_edges
+
+    def score(sl):
+        return hfl_ops.score_matrix(states.gains[sl], bundles.counts[sl],
+                                    states.staleness[sl], data_max=dm)
+
+    def score_plain(got):
+        want = fuzzy.score_matrix(states.gains, bundles.counts,
+                                  states.staleness, data_max=dm,
+                                  rows=hfl_ops.score_rows_plain)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[fleet] score_matrix S={seeds}: not "
+                                 f"bit-equal to the plain chain (max abs "
+                                 f"err {_max_err(got, want):.3e})")
+        return _max_err(got, want)
+    _seed_axis_call("score_matrix CONFIG", score, seeds, score_plain,
+                    [seeds * v for v in score_fused_work(n, m)])
+    sic_in = [sic_inputs(n, m, cfg.clients_per_edge, 20 + s, dev, False)
+              for s in range(seeds)]
+    p, g, mask = (torch.stack(f) for f in zip(*sic_in))
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    tol = TOL["sic_rates"]
+
+    def sic_plain(got):
+        want = hfl_ops.sic_rates_plain(p, g, mask, **kw)
+        for s in range(seeds):
+            _check_close(f"[fleet] sic_rates S={seeds} seed {s}", got[s],
+                         want[s], tol["rtol"],
+                         float(want[s].abs().max()) * tol["atol_frac"])
+        return _max_err(got, want)
+    _seed_axis_call("sic_rates CONFIG", lambda sl: hfl_ops.sic_rates(
+        p[sl], g[sl], mask[sl], **kw), seeds, sic_plain,
+        [sum(v) for v in zip(*(sic_work(mask[s]) for s in range(seeds)))])
+    lanes = seeds * min(n, cfg.clients_per_edge * m)
+    _, ms_k, _, work = compare_sgd(lanes, cfg.tau1, cfg.local_batch,
+                                   cfg.input_dim, cfg.hidden, cfg.n_classes,
+                                   31, dev)
+    b_ms, b_by = bound_ms(*work)
+    log(f"[fleet] local_sgd_step CONFIG S={seeds} ({lanes} lanes, one "
+        f"launch): {ms_k:.4f} ms (graph replay), bound {b_ms:.6f} ms "
+        f"({b_by})")
+
+
+def _fleet_frontier_score(cfg, states, bundles, k):
+    """The fused score on a fleet's own frontier (its gains, K nearest
+    candidates, counts and staleness): bit-equal to the plain chain
+    (``fuzzy.candidate_inputs`` + ``score_rows_plain``), each seed to its
+    own call, timed against S = 1 (``_seed_axis_call``)."""
+    import torch
+    from repro_torch.core import candidates, engine, fuzzy
+    from repro_torch.kernels import hfl_ops
+    seeds = bundles.dist.shape[0]
+    n, m = cfg.n_clients, cfg.n_edges
+    dm = float(cfg.max_samples)
+    idx = candidates.build_candidates(
+        bundles.dist, k, coverage_radius_m=engine.coverage_radius(cfg)).idx
+
+    def call(sl):
+        return hfl_ops.score_candidates(states.gains[sl], idx[sl],
+                                        bundles.counts[sl],
+                                        states.staleness[sl], data_max=dm)
+
+    def plain(got):
+        want = hfl_ops.score_rows_plain(*fuzzy.candidate_inputs(
+            states.gains, idx, bundles.counts, states.staleness,
+            data_max=dm)).reshape(idx.shape)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[fleet] score_candidates S={seeds}: not "
+                                 f"bit-equal to the plain chain (max abs "
+                                 f"err {_max_err(got, want):.3e})")
+        return _max_err(got, want)
+    _seed_axis_call(f"score_candidates {n}x{m} K={k}", call, seeds, plain,
+                    [seeds * v for v in score_fused_work(n, m, k)])
+
+
+def phase_fleet(cfg, dev, profile=False):
+    """The fleet path.  ``CONFIG`` fcea + PDD, 5 rounds of ``run_fleet``
+    at S = 1, the reference's S = 4 and S = 8 (seeds 0-7) in turns 1, 4,
+    8, 8, 4, 1; every seed of the S = 8 and S = 4 fleets against its own
+    ``run_scanned``; the score and SIC calls at S = 8 against their plain
+    versions and S = 1; a round at S = 2 card against CPU.  Then the bench
+    scale (4096 × 32, K = 8), 3 rounds at the reference's S = 2 and at
+    S = 4, a seed of each against its own run, and the frontier score at
+    S = 4 against its plain version and S = 1."""
+    import dataclasses
+    from repro_torch.core import engine
+    spec = engine.EngineSpec()
+    seeds = tuple(range(max(FLEET_SEEDS)))
+    sizes = (1, REF_FLEET_SEEDS[0], FLEET_SEEDS[0])
+    # the sizes in turns (the host's pace drifts within a run)
+    runs = {size: [] for size in sizes}
+    for size in sizes + sizes[::-1]:
+        runs[size].append(_drive_fleet(cfg, spec, seeds[:size], 5, dev,
+                                       f"CONFIG S={size}"))
+    steady = {size: [r[1] for r in rs] for size, rs in runs.items()}
+    log("[fleet] CONFIG fcea-pdd s/round in turns "
+        + ", ".join(f"S={z}" for z in sizes + sizes[::-1]) + ": "
+        + "; ".join(f"S={z} " + ", ".join(f"{v:.4f}" for v in steady[z])
+                    for z in sizes)
+        + "; seed-rounds/s " + ", ".join(
+            f"S={z} {2 * z / sum(steady[z]):.2f}" for z in sizes)
+        + f"; S={sizes[-1]}/S=1 "
+        f"{sum(steady[sizes[-1]]) / sum(steady[1]):.3f}x")
+    fm, steady_s, final, _ = runs[len(seeds)][0]
+    if profile:
+        states, bundles, gens = final
+        profile_device(lambda: engine.run_fleet(cfg, spec, states, bundles,
+                                                1, gens),
+                       f"one steady CONFIG fleet round S={len(seeds)}",
+                       steady_s)
+    own = {}
+    _fleet_vs_own(cfg, spec, seeds, range(len(seeds)), fm, final[0], dev,
+                  f"CONFIG S={len(seeds)}", own)
+    fm4, _, final4, _ = runs[REF_FLEET_SEEDS[0]][0]
+    _fleet_vs_own(cfg, spec, seeds, range(REF_FLEET_SEEDS[0]), fm4,
+                  final4[0], dev, f"CONFIG S={REF_FLEET_SEEDS[0]}", own)
+    states, bundles, gens = final
+    _fleet_kernel_times(cfg, states, bundles, dev)
+    two = slice(0, 2)
+    _fleet_card_vs_cpu(cfg, spec, engine.select_seed(states, two),
+                       engine.select_seed(bundles, two), gens[:2],
+                       "CONFIG S=2")
+    big = bench_config(cfg)
+    k8 = dataclasses.replace(spec, candidates_k=8)
+    for size, member in ((REF_FLEET_SEEDS[1], 1), (FLEET_SEEDS[1], 0)):
+        label = f"4096x32 K=8 S={size}"
+        fm, _, final, _ = _drive_fleet(big, k8, seeds[:size], 3, dev, label)
+        _fleet_vs_own(big, k8, seeds[:size], [member], fm, final[0], dev,
+                      label)
+    _fleet_frontier_score(big, final[0], final[1], 8)
 
 
 # ---------------------------------------------------------------------------
@@ -1391,6 +1741,7 @@ def main(argv=None) -> int:
         phase("hfl profile", profile_device, runs["fcea"][0].run_round,
               "one steady fcea round", runs["fcea"][2])
     cand = phase("hfl candidate path", phase_candidates, CONFIG, dev)
+    phase("hfl fleet", phase_fleet, CONFIG, dev, args.profile)
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)

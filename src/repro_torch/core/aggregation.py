@@ -15,28 +15,35 @@ Params = Dict[str, torch.Tensor]
 
 
 def _col(w: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """(L,) weights shaped to broadcast over an (L, ...) leaf."""
-    return w.reshape((-1,) + (1,) * (leaf.dim() - 1)).to(leaf.dtype)
+    """(…, L) weights shaped to broadcast over an (…, L, ...) leaf."""
+    return w.reshape(w.shape + (1,) * (leaf.dim() - w.dim())).to(leaf.dtype)
 
 
 def weighted_mean(stacked: Params, weights: torch.Tensor) -> Params:
-    """Σ w_i · leaf_i / Σ w_i over the leading axis."""
-    total = torch.clamp_min(torch.sum(weights), 1e-12)
-    return {k: torch.sum(leaf * _col(weights, leaf), dim=0)
-            / total.to(leaf.dtype) for k, leaf in stacked.items()}
+    """Σ w_i · leaf_i / Σ w_i over the stacked axis: weights (L,) over
+    leaves (L, ...), or (S, L) over (S, L, ...) for a fleet."""
+    ax = weights.dim() - 1
+    total = torch.clamp_min(torch.sum(weights, dim=-1), 1e-12)
+    out = {}
+    for k, leaf in stacked.items():
+        agg = torch.sum(leaf * _col(weights, leaf), dim=ax)
+        out[k] = agg / _col(total, agg)
+    return out
 
 
 def edge_aggregate(client_params: Params, assoc: torch.Tensor,
                    n_samples: torch.Tensor) -> Params:
     """Eq. 11 for every edge at once: leaves (N, ...), assoc (N, M),
-    n_samples (N,) -> leaves (M, ...), each edge's data-weighted average."""
-    w = assoc * n_samples[:, None]                     # (N, M)
-    denom = torch.clamp_min(torch.sum(w, dim=0), 1e-12)
+    n_samples (N,) -> leaves (M, ...), each edge's data-weighted average.
+    Over a fleet each argument has a leading axis S."""
+    lead = assoc.dim() - 2
+    w = assoc * n_samples[..., None]                   # (N, M)
+    denom = torch.clamp_min(torch.sum(w, dim=-2), 1e-12)
     out = {}
     for k, leaf in client_params.items():
-        flat = leaf.reshape(leaf.shape[0], -1)
-        agg = (w.to(leaf.dtype).T @ flat).reshape((w.shape[1],)
-                                                  + leaf.shape[1:])
+        flat = leaf.reshape(leaf.shape[:lead + 1] + (-1,))
+        agg = (w.to(leaf.dtype).transpose(-1, -2) @ flat).reshape(
+            w.shape[:lead] + (w.shape[-1],) + leaf.shape[lead + 1:])
         out[k] = agg / _col(denom, agg)
     return out
 
@@ -50,19 +57,23 @@ def cloud_aggregate(edge_params: Params, z: torch.Tensor,
 def broadcast_to_clients(assoc: torch.Tensor, edge_params: Params,
                          client_params: Params) -> Params:
     """Edge model broadcast: associated clients adopt their edge's model,
-    the others keep their own params."""
-    is_assoc = torch.sum(assoc, dim=1) > 0             # (N,)
+    the others keep their own params.  Over a fleet each argument has a
+    leading axis S."""
+    lead = assoc.dim() - 2
+    is_assoc = torch.sum(assoc, dim=-1) > 0            # (N,)
     out = {}
     for k, edge_leaf in edge_params.items():
-        flat = edge_leaf.reshape(edge_leaf.shape[0], -1)
+        flat = edge_leaf.reshape(edge_leaf.shape[:lead + 1] + (-1,))
         from_edge = (assoc.to(edge_leaf.dtype) @ flat).reshape(
-            (assoc.shape[0],) + edge_leaf.shape[1:])
+            assoc.shape[:-1] + edge_leaf.shape[lead + 1:])
         out[k] = torch.where(_col(is_assoc, from_edge).bool(), from_edge,
                              client_params[k])
     return out
 
 
-def replicate(params: Params, n: int) -> Params:
-    """Tile a single model into a stacked (n, ...) dict (a copy)."""
-    return {k: leaf[None].expand((n,) + leaf.shape).clone()
-            for k, leaf in params.items()}
+def replicate(params: Params, n: int, lead: int = 0) -> Params:
+    """Tile a single model into a stacked (n, ...) dict (a copy); with
+    ``lead`` leading fleet axes, (S, ...) leaves become (S, n, ...)."""
+    return {k: leaf.unsqueeze(lead).expand(
+        leaf.shape[:lead] + (n,) + leaf.shape[lead:]).clone()
+        for k, leaf in params.items()}

@@ -36,36 +36,38 @@ class CandidateSet(NamedTuple):
 
 def build_candidates(dist: torch.Tensor, k: int, *,
                      coverage_radius_m: float) -> CandidateSet:
-    """The ``k`` nearest edges per client from the (N, M) distance field.
+    """The ``k`` nearest edges per client from the (N, M) distance field
+    (or a fleet's (S, N, M): every step is per row).
 
     A stable ascending sort keeps exact distance ties in edge-index order,
     as the reference's ``top_k`` of the negated distances does
     (``torch.topk`` promises no order among ties)."""
-    k = min(int(k), dist.shape[1])
-    dk, idx = torch.sort(dist, dim=1, stable=True)
-    dk, idx = dk[:, :k], idx[:, :k]
+    k = min(int(k), dist.shape[-1])
+    dk, idx = torch.sort(dist, dim=-1, stable=True)
+    dk, idx = dk[..., :k], idx[..., :k]
     return CandidateSet(idx=idx.to(torch.int32),
                         valid=dk <= coverage_radius_m, dist=dk)
 
 
 def gather(cand: CandidateSet, field: torch.Tensor) -> torch.Tensor:
-    """An (N, M) per-pair field gathered down to the (N, K) frontier."""
-    return torch.gather(field, 1, cand.idx.long())
+    """An (N, M) per-pair field gathered down to the (N, K) frontier
+    (each with a leading fleet axis, or none)."""
+    return torch.gather(field, -1, cand.idx.long())
 
 
 def assigned_one_hot(assigned: torch.Tensor, n_edges: int) -> torch.Tensor:
-    """(N,) assigned edge (−1 = unmatched) -> (N, M) one-hot int32."""
+    """(…, N) assigned edge (−1 = unmatched) -> (…, N, M) one-hot int32."""
     col = torch.arange(n_edges, dtype=assigned.dtype, device=assigned.device)
-    return ((assigned[:, None] == col[None, :])
-            & (assigned[:, None] >= 0)).to(torch.int32)
+    return ((assigned[..., None] == col)
+            & (assigned[..., None] >= 0)).to(torch.int32)
 
 
 def own_edge_gather(assigned: torch.Tensor, field: torch.Tensor
                     ) -> torch.Tensor:
-    """(N,) values of an (N, M) field at each client's assigned edge, 0.0
-    for unmatched clients."""
+    """(…, N) values of an (…, N, M) field at each client's assigned edge,
+    0.0 for unmatched clients."""
     safe = torch.clamp_min(assigned, 0).long()
-    got = torch.gather(field, 1, safe[:, None])[:, 0]
+    got = torch.gather(field, -1, safe[..., None])[..., 0]
     return torch.where(assigned >= 0, got, 0.0)
 
 
@@ -89,4 +91,4 @@ def max_coverage_degree(dist, coverage_radius_m: float) -> int:
     """The smallest K that loses nothing: the most in-coverage edges of
     any client (host-side)."""
     cov = np.asarray(torch.as_tensor(dist).cpu()) <= coverage_radius_m
-    return int(cov.sum(axis=1).max()) if cov.size else 0
+    return int(cov.sum(axis=-1).max()) if cov.size else 0

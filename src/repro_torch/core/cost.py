@@ -2,7 +2,9 @@
 
 Vectorised over all clients and edge servers.  ``assoc`` (N, M) is the
 one-hot client-edge association, ``z`` (M,) the semi-synchronous
-edge-selection mask.  NOMA uplink rates come from the SIC kernel
+edge-selection mask.  Every input may carry a leading fleet axis S
+(``assoc`` (S, N, M), ``z`` (S, M), …): each reduction is over its own
+seed's clients or edges.  NOMA uplink rates come from the SIC kernel
 (``kernels.hfl_ops.sic_rates``); the OMA benchmark is plain torch.  On the
 candidate path the uplink is billed from the compact assigned vector
 (``uplink_assigned``: the sorted SIC of ``noma.sic_rates_assigned``, plain
@@ -59,15 +61,15 @@ def uplink(cfg, power_w: torch.Tensor, gains: torch.Tensor,
         rates_nm = hfl_ops.sic_rates(power_w, gains, assoc > 0,
                                      bandwidth_hz=cfg.bandwidth_hz,
                                      noise_w=noise)
-        rates = torch.sum(rates_nm * assoc, dim=1)
+        rates = torch.sum(rates_nm * assoc, dim=-1)
     else:
-        k_m = torch.clamp_min(torch.sum(assoc, dim=0), 1.0)          # (M,)
-        share = torch.sum(assoc / k_m[None, :], dim=1)               # (N,)
-        own_gain = torch.sum(gains * assoc, dim=1)
+        k_m = torch.clamp_min(torch.sum(assoc, dim=-2), 1.0)         # (M,)
+        share = torch.sum(assoc / k_m[..., None, :], dim=-1)         # (N,)
+        own_gain = torch.sum(gains * assoc, dim=-1)
         band = cfg.bandwidth_hz * share
         snr = power_w * own_gain / torch.clamp_min(noise * share, 1e-30)
         rates = band * torch.log2(1.0 + snr)
-    associated = torch.sum(assoc, dim=1) > 0
+    associated = torch.sum(assoc, dim=-1) > 0
     safe_rates = torch.where(associated, torch.clamp_min(rates, 1.0), 1.0)
     t_com = torch.where(associated, _rdiv(cfg.model_size_bits, safe_rates),
                         0.0)
@@ -81,8 +83,8 @@ def uplink_assigned(cfg, power_w: torch.Tensor, own_gain: torch.Tensor,
     """``uplink`` over the compact association: (N,) power, (N,) gain to
     the assigned edge, (N,) assigned edge (−1 = unmatched).  NOMA rates
     come from ``noma.sic_rates_assigned``; OMA reads each edge's
-    occupancy off one exact scatter-add.
-    Returns (t_com (N,), e_com (N,), rates (N,))."""
+    occupancy off one exact scatter-add (a fleet's seeds folded into its
+    index).  Returns (t_com (N,), e_com (N,), rates (N,))."""
     noise = noma.noise_power_w(cfg.noise_dbm_per_hz, cfg.bandwidth_hz)
     matched = assigned >= 0
     if noma_enabled:
@@ -91,10 +93,16 @@ def uplink_assigned(cfg, power_w: torch.Tensor, own_gain: torch.Tensor,
             max_per_edge=max_per_edge, bandwidth_hz=cfg.bandwidth_hz,
             noise_w=noise)
     else:
-        safe = torch.clamp_min(assigned, 0).long()
-        k_m = torch.zeros((n_edges,), dtype=torch.float32,
+        n = assigned.shape[-1]
+        seeds = assigned.numel() // max(n, 1)
+        base = torch.arange(seeds, device=assigned.device)[:, None] * n_edges
+        safe = (torch.clamp_min(assigned, 0).reshape(seeds, n) + base
+                ).reshape(assigned.shape).long()
+        k_m = torch.zeros((seeds * n_edges,), dtype=torch.float32,
                           device=power_w.device)
-        k_m = torch.clamp_min(k_m.index_add(0, safe, matched.float()), 1.0)
+        k_m = torch.clamp_min(k_m.index_add(0, safe.reshape(-1),
+                                            matched.float().reshape(-1)),
+                              1.0)
         share = torch.where(matched, _rdiv(1.0, k_m[safe]), 0.0)
         band = cfg.bandwidth_hz * share
         snr = power_w * torch.where(matched, own_gain, 0.0) \
@@ -110,8 +118,8 @@ def apply_schedule(cfg, rc: RoundCost, z: torch.Tensor) -> RoundCost:
     """Re-mask a ``round_cost`` evaluated at z = 1 with the actual edge
     selection: Eqs. 18-19 + 23a are a masked reduction over the per-edge
     totals, so the scheduler needs one cost evaluation."""
-    total_time = torch.max(z * rc.per_edge_time_s)
-    total_energy = torch.sum(z * rc.per_edge_energy_j)
+    total_time = torch.amax(z * rc.per_edge_time_s, dim=-1)
+    total_energy = torch.sum(z * rc.per_edge_energy_j, dim=-1)
     c = cfg.lambda_t * total_time + cfg.lambda_e * total_energy
     return rc._replace(total_time_s=total_time, total_energy_j=total_energy,
                        cost=c)
@@ -136,12 +144,12 @@ def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
                              "sic_max_per_edge admission bound")
         t_com, e_com, rates = uplink_assigned(
             cfg, power_w, candidates.own_edge_gather(assigned, gains),
-            assigned, n_edges=assoc.shape[1],
+            assigned, n_edges=assoc.shape[-1],
             max_per_edge=sic_max_per_edge, noma_enabled=noma_enabled)
     else:
         t_com, e_com, rates = uplink(cfg, power_w, gains, assoc,
                                      noma_enabled=noma_enabled)
-    associated = torch.sum(assoc, dim=1) > 0
+    associated = torch.sum(assoc, dim=-1) > 0
     client_time = torch.where(associated, t_cmp + t_com, 0.0)
     client_energy = torch.where(associated, e_cmp + e_com, 0.0)
 
@@ -149,10 +157,10 @@ def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
     in_edge = assoc > 0
     # Eq. 13: synchronous edge round = slowest associated client, × τ₂
     per_edge_time = tau2 * torch.amax(
-        torch.where(in_edge, client_time[:, None], 0.0), dim=0)     # (M,)
+        torch.where(in_edge, client_time[..., None], 0.0), dim=-2)  # (M,)
     # Eq. 14
     per_edge_energy = tau2 * torch.sum(
-        torch.where(in_edge, client_energy[:, None], 0.0), dim=0)   # (M,)
+        torch.where(in_edge, client_energy[..., None], 0.0), dim=-2)
 
     # Eqs. 15-16: OFDMA edge->cloud
     t_cloud = cfg.edge_model_size_bits / cfg.edge_rate_bps
@@ -161,8 +169,8 @@ def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
     edge_total_energy = per_edge_energy + e_cloud
 
     # Eqs. 18-19 with the semi-sync mask z
-    total_time = torch.max(z * edge_total_time)
-    total_energy = torch.sum(z * edge_total_energy)
+    total_time = torch.amax(z * edge_total_time, dim=-1)
+    total_energy = torch.sum(z * edge_total_energy, dim=-1)
     c = cfg.lambda_t * total_time + cfg.lambda_e * total_energy
     return RoundCost(total_time, total_energy, c, edge_total_time,
                      edge_total_energy, client_time, rates, client_energy)

@@ -23,6 +23,12 @@ the one-hot (N, M) association is rebuilt for training and aggregation.
   ``sample_draws`` makes them from a ``torch.Generator``; the tests
   replay the reference's own draws through the same argument.
 
+Two drivers run it, as in the reference: ``run_scanned`` over rounds,
+and ``run_fleet`` over a fleet of seeds stacked along a leading axis
+(``stack_fleet``).  Every stage is written once, over that leading axis:
+``fleet_step`` runs one round of all S simulations in one batched pass,
+and ``round_step`` is ``fleet_step`` of a fleet of one.
+
 The port covers the sync round on the static scenario, dense or on the
 candidate frontier, with fcea, gcea or rcea, the ``mid`` or ``rra``
 allocator, PDD or fastest scheduling, NOMA or OMA.  Everything else
@@ -94,7 +100,8 @@ class EngineSpec:
 
 
 class RoundBundle(NamedTuple):
-    """Per-scenario constants."""
+    """Per-scenario constants.  In a fleet (``stack_fleet``) each of the
+    state's, bundle's and draws' tensors has a leading seed axis S."""
     dist: torch.Tensor       # (N, M) float32 client-edge distances
     x: torch.Tensor          # (N, cap, dim) float32 padded client data
     y: torch.Tensor          # (N, cap) int32 labels
@@ -121,7 +128,9 @@ class RoundDraws(NamedTuple):
 
 
 class RoundMetrics(NamedTuple):
-    """Per-round observables (0-d tensors, or stacked along rounds)."""
+    """Per-round observables (0-d tensors, or stacked along rounds); a
+    fleet's have a leading seed axis: (S,) a round, (S, rounds, …) from
+    ``run_fleet``."""
     round: Any
     accuracy: torch.Tensor
     loss: torch.Tensor
@@ -251,32 +260,86 @@ def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator,
                       alloc_u=alloc_u)
 
 
+def _map(fn, *trees):
+    """``fn`` over the tensor leaves of trees of one structure (dicts and
+    named tuples: states, bundles, draws, metrics), leaf by leaf.  Other
+    leaves (``round_idx``, a missing draw) must be equal across the trees,
+    and are kept."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple):
+        return type(first)(*(_map(fn, *leaves) for leaves in zip(*trees)))
+    if any(t != first for t in trees[1:]):
+        raise ValueError(f"the fleet's members differ in a shared field "
+                         f"(round_idx): {list(trees)}")
+    return first
+
+
+def _lift(tree):
+    """One simulation's state, bundle or draws as a fleet of one (views)."""
+    return _map(lambda t: t[None], tree)
+
+
+def select_seed(tree, s):
+    """Seed ``s`` (an index, or a slice for a smaller fleet) of a fleet's
+    state, bundle, draws or metrics: every tensor leaf indexed on its
+    leading axis.  Of ``run_fleet``'s metrics, seed s's are shaped as
+    ``run_scanned``'s: (n_rounds, …)."""
+    return _map(lambda t: t[s], tree)
+
+
+def stack_fleet(pairs) -> Tuple[RoundState, RoundBundle]:
+    """Stack per-seed ``(state, bundle)`` pairs along a new leading fleet
+    axis (the reference's ``stack_fleet``): every tensor leaf gains dim 0
+    of size S; ``round_idx`` stays one int, which the seeds must share."""
+    stack = lambda *leaves: torch.stack(leaves)
+    return (_map(stack, *(st for st, _ in pairs)),
+            _map(stack, *(b for _, b in pairs)))
+
+
+def fleet_draws(cfg, bundles: RoundBundle, generators,
+                spec: EngineSpec = EngineSpec()) -> RoundDraws:
+    """One round's draws for a fleet: seed s's ``sample_draws`` from its
+    own ``generators[s]``, stacked along a leading axis -- so each seed
+    draws the numbers its own ``run_scanned`` would."""
+    if len(generators) != bundles.dist.shape[0]:
+        raise ValueError(f"fleet_draws: {len(generators)} generators for "
+                         f"{bundles.dist.shape[0]} seeds")
+    return _map(lambda *leaves: torch.stack(leaves),
+                *(sample_draws(cfg, select_seed(bundles, s), gen, spec)
+                  for s, gen in enumerate(generators)))
+
+
 # ---------------------------------------------------------------------------
-# Round pieces
+# Round pieces, each over a leading fleet axis S
 # ---------------------------------------------------------------------------
 
-def _allocate(cfg, spec: EngineSpec, draws: RoundDraws,
-              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(p_w (N,), f_hz (N,)): ``mid`` takes the midpoints, ``rra`` a
-    uniform point of each range from ``draws.alloc_u``."""
+def _allocate(cfg, spec: EngineSpec, draws: RoundDraws
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p_w (S, N), f_hz (S, N)): ``mid`` takes the midpoints, ``rra`` a
+    uniform point of each range from ``draws.alloc_u`` (S, 2, N)."""
     if spec.allocator == "rra":
         a = draws.alloc_u
-        p = cfg.p_min_w + a[0] * (cfg.p_max_w - cfg.p_min_w)
-        f = cfg.f_min_hz + a[1] * (cfg.f_max_hz - cfg.f_min_hz)
+        p = cfg.p_min_w + a[:, 0] * (cfg.p_max_w - cfg.p_min_w)
+        f = cfg.f_min_hz + a[:, 1] * (cfg.f_max_hz - cfg.f_min_hz)
         return p, f
-    n = cfg.n_clients
-    return (torch.full((n,), 0.5 * (cfg.p_min_w + cfg.p_max_w),
-                       device=device),
-            torch.full((n,), 0.5 * (cfg.f_min_hz + cfg.f_max_hz),
-                       device=device))
+    shape, dev = draws.fading.shape[:-1], draws.fading.device   # (S, N)
+    return (torch.full(shape, 0.5 * (cfg.p_min_w + cfg.p_max_w),
+                       device=dev),
+            torch.full(shape, 0.5 * (cfg.f_min_hz + cfg.f_max_hz),
+                       device=dev))
 
 
 def _schedule(cfg, spec: EngineSpec, rc_all: cost.RoundCost
               ) -> torch.Tensor:
-    """Semi-synchronous edge-selection mask z (M,) from one cost eval.
+    """Semi-synchronous edge-selection mask z (S, M) from one cost eval.
 
     PDD optimises exactly the billed Eq. 23a surface: per-edge time
-    ``t_cloud + U_m`` with ``U_m = τ₂ · max_{n∈N_m} t_n``."""
+    ``t_cloud + U_m`` with ``U_m = τ₂ · max_{n∈N_m} t_n``.  All seeds run
+    one PDD loop, whose launches do not grow with S."""
     quota = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
     if spec.scheduler == "pdd":
         t_cloud = torch.full((cfg.n_edges,),
@@ -294,49 +357,70 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
                   bundle: RoundBundle, assoc: torch.Tensor,
                   batch_idx: torch.Tensor) -> Tuple[Params, Params]:
     """τ₂ × (τ₁ local SGD + edge aggregation) (Eqs. 11, 13) on a compact
-    cohort.  Returns ``(client_params, edge_params)``.
+    cohort, for every seed of the fleet.  Returns ``(client_params,
+    edge_params)``, (S, N, …) and (S, M, …).
 
-    At most K = min(N, quota·M) clients are admitted, so they are gathered
-    once into K lanes (ascending client index, then pad lanes), trained
-    and aggregated on the (K, …) stack, and scattered back once.  Pad
-    lanes repeat client N−1's data and draws, carry zero aggregation
-    weight and never scatter back; unadmitted clients keep their params.
-    The lane selection is sync-free: a stable sort of ``~selected``.
+    At most K = min(N, quota·M) clients of each seed are admitted, so they
+    are gathered once into K lanes (ascending client index, then pad
+    lanes), trained and aggregated on the (S, K, …) stack, and scattered
+    back once.  Pad lanes repeat client N−1's data and draws, carry zero
+    aggregation weight and never scatter back; unadmitted clients keep
+    their params.  The lane selection is sync-free: a stable sort of
+    ``~selected``.  The S·K lanes are independent, so each τ₂ step trains
+    them all in one ``local_sgd_step`` call.
+
+    ``assoc`` (S, N, M); ``batch_idx`` (S, τ₂, τ₁, N, B).
     """
-    n = cfg.n_clients
+    seeds, n = assoc.shape[:2]
     k_sel = min(n, quota_for(cfg, spec) * cfg.n_edges)
-    selected = torch.sum(assoc, dim=1) > 0
-    first = torch.argsort((~selected).to(torch.int32), stable=True)[:k_sel]
-    sel_idx = torch.where(selected[first], first, n)           # pad -> n
-    safe = torch.clamp_max(sel_idx, n - 1)
+    dev = assoc.device
+    selected = torch.sum(assoc, dim=-1) > 0                        # (S, N)
+    first = torch.argsort((~selected).to(torch.int32), dim=-1,
+                          stable=True)[:, :k_sel]
+    sel_idx = torch.where(torch.gather(selected, 1, first), first, n)
+    safe = torch.clamp_max(sel_idx, n - 1)                         # (S, K)
     lane_ok = (sel_idx < n).to(assoc.dtype)
-    sel_x, sel_y = bundle.x[safe], bundle.y[safe]
-    sel_counts = bundle.counts[safe]
-    sel_assoc = assoc[safe] * lane_ok[:, None]                 # (K, M)
+    sd = torch.arange(seeds, device=dev)[:, None]                  # (S, 1)
+    sel_x, sel_y = bundle.x[sd, safe], bundle.y[sd, safe]          # (S,K,…)
+    sel_counts = torch.gather(bundle.counts, 1, safe)
+    sel_assoc = assoc[sd, safe] * lane_ok[..., None]               # (S,K,M)
     # the lattice is a pure function of the global client id, so the
-    # lanes' draws are the full lattice gathered at ``safe``
-    idx = batch_idx[:, :, safe].long()                         # (τ₂,τ₁,K,B)
-    lanes = torch.arange(safe.shape[0], device=safe.device)[None, :, None]
+    # lanes' draws are the full lattice gathered at ``safe``, laid out
+    # (τ₂, τ₁, S, K, B) for the folded S·K lanes
+    _, tau2, tau1, _, batch = batch_idx.shape
+    idx = torch.gather(batch_idx, 3, safe[:, None, None, :, None].expand(
+        seeds, tau2, tau1, k_sel, batch)).long().permute(1, 2, 0, 3, 4)
+    sd4 = sd[None, :, :, None]
+    lane = torch.arange(k_sel, device=dev)[None, None, :, None]
 
     # admitted lanes start from the global model
-    edge_params = aggregation.replicate(state.global_params, cfg.n_edges)
-    lane_params = {k: v[safe] for k, v in state.client_params.items()}
+    edge_params = aggregation.replicate(state.global_params, cfg.n_edges,
+                                        lead=1)
+    lane_params = {k: v[sd, safe] for k, v in state.client_params.items()}
     lane_params = aggregation.broadcast_to_clients(sel_assoc, edge_params,
                                                    lane_params)
     for t in range(cfg.tau2):
-        bx = sel_x[lanes, idx[t]]                              # (τ₁,K,B,D)
-        by = sel_y[lanes, idx[t]]                              # (τ₁,K,B)
-        lane_params = hfl_ops.local_sgd_step(lane_params, bx, by, lr=cfg.lr)
+        bx = sel_x[sd4, lane, idx[t]]                          # (τ₁,S,K,B,D)
+        by = sel_y[sd4, lane, idx[t]]                          # (τ₁,S,K,B)
+        folded = hfl_ops.local_sgd_step(
+            {k: v.reshape((seeds * k_sel,) + v.shape[2:])
+             for k, v in lane_params.items()},
+            bx.reshape((tau1, seeds * k_sel) + bx.shape[3:]),
+            by.reshape(tau1, seeds * k_sel, batch), lr=cfg.lr)
+        lane_params = {k: v.reshape((seeds, k_sel) + v.shape[1:])
+                       for k, v in folded.items()}
         edge_params = aggregation.edge_aggregate(lane_params, sel_assoc,
                                                  sel_counts)
         lane_params = aggregation.broadcast_to_clients(sel_assoc, edge_params,
                                                        lane_params)
-    # scatter back: pad lanes target row n of a scratch row that is dropped
+    # scatter back: pad lanes target each seed's scratch row n, dropped
+    rows = (sd * (n + 1) + sel_idx).reshape(-1)
     client_params = {}
     for k, old in state.client_params.items():
-        buf = torch.cat([old, old[:1]], dim=0)
-        buf.index_copy_(0, sel_idx, lane_params[k])
-        client_params[k] = buf[:n]
+        buf = torch.cat([old, old[:, :1]], dim=1)
+        buf.reshape((seeds * (n + 1),) + old.shape[2:]).index_copy_(
+            0, rows, lane_params[k].reshape((seeds * k_sel,) + old.shape[2:]))
+        client_params[k] = buf[:, :n]
     return client_params, edge_params
 
 
@@ -344,16 +428,19 @@ def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
            assoc: torch.Tensor, z: torch.Tensor, batch_idx: torch.Tensor
            ) -> Tuple[Params, Params]:
     """``_train_cohort`` followed by the semi-synchronous cloud aggregation
-    (Eq. 17).  Returns ``(global_params, client_params)``."""
+    (Eq. 17) of each seed.  Returns ``(global_params, client_params)``."""
     client_params, edge_params = _train_cohort(cfg, spec, state, bundle,
                                                assoc, batch_idx)
-    edge_data = torch.sum(assoc * bundle.counts[:, None], dim=0)   # (M,)
+    edge_data = torch.sum(assoc * bundle.counts[..., None], dim=-2)  # (S,M)
     z_eff = z * (edge_data > 0).to(z.dtype)
     agg = aggregation.cloud_aggregate(edge_params, z_eff, edge_data)
-    # keep the old global model when no selected edge has data
-    has_data = torch.sum(z_eff * edge_data) > 0
-    global_params = {k: torch.where(has_data, agg[k], g)
-                     for k, g in state.global_params.items()}
+    # keep a seed's old global model when none of its selected edges has
+    # data
+    has_data = torch.sum(z_eff * edge_data, dim=-1) > 0             # (S,)
+    global_params = {
+        k: torch.where(has_data.reshape((-1,) + (1,) * (g.dim() - 1)),
+                       agg[k], g)
+        for k, g in state.global_params.items()}
     return global_params, client_params
 
 
@@ -361,31 +448,41 @@ def _no_stage(name: str):
     return contextlib.nullcontext()
 
 
-def round_step(cfg, spec: EngineSpec, state: RoundState,
-               bundle: RoundBundle, draws: RoundDraws, *, timer=None
+def fleet_step(cfg, spec: EngineSpec, states: RoundState,
+               bundles: RoundBundle, draws: RoundDraws, *, timer=None
                ) -> Tuple[RoundState, RoundMetrics]:
-    """One global round.  ``timer``, if given, is called with each stage's
-    name (associate, allocate, schedule, train, eval) and must return a
-    context manager around that stage -- the hook stage timings use."""
+    """One global round of S simulations at once: every leaf of
+    ``states``, ``bundles`` and ``draws`` has a leading fleet axis S
+    (``stack_fleet``, ``fleet_draws``); ``round_idx`` is shared.  Each
+    stage runs once for the whole fleet -- one fused-score call, one
+    resolver loop (each seed stopping at its own last sweep), one SIC
+    call, one PDD loop, τ₂ SGD launches over the S·K lanes -- and each
+    seed's result is the one its own ``round_step`` gives.  Metrics have a
+    leading S axis (``round`` and ``n_available`` stay ints; ``sweeps`` is
+    an (S,) host tensor).  ``timer``, if given, is called with each
+    stage's name (associate, allocate, schedule, train, eval) and must
+    return a context manager around that stage -- the hook stage timings
+    use."""
     stage = timer or _no_stage
-    dev = bundle.dist.device
+    dev = bundles.dist.device
+    seeds = bundles.dist.shape[0]
     n, m = cfg.n_clients, cfg.n_edges
     # 1. channel fading
-    gains = noma.evolve_gains(draws.fading, state.gains, bundle.dist,
+    gains = noma.evolve_gains(draws.fading, states.gains, bundles.dist,
                               path_loss_exponent=cfg.path_loss_exponent,
                               rho=spec.fading_rho)
     # 2. fuzzy scoring + association, dense or on the (N, K) frontier
     with stage("associate"):
-        assigned, sweeps = None, 0
+        assigned = None
         data_max = float(cfg.max_samples)
         if spec.candidates_k is not None:
             cand = candidates.build_candidates(
-                bundle.dist, spec.candidates_k,
+                bundles.dist, spec.candidates_k,
                 coverage_radius_m=coverage_radius(cfg))
             scores = None
             if spec.policy == "fcea":
                 scores = hfl_ops.score_candidates(
-                    gains, cand.idx, bundle.counts, state.staleness,
+                    gains, cand.idx, bundles.counts, states.staleness,
                     data_max=data_max)
             assigned, sweeps = association.associate_candidates(
                 spec.policy, scores=scores, gains=gains, cand=cand,
@@ -395,25 +492,25 @@ def round_step(cfg, spec: EngineSpec, state: RoundState,
         else:
             scores = None
             if spec.policy == "fcea":
-                scores = hfl_ops.score_matrix(gains, bundle.counts,
-                                              state.staleness,
+                scores = hfl_ops.score_matrix(gains, bundles.counts,
+                                              states.staleness,
                                               data_max=data_max)
             assoc, sweeps = association.associate(
-                spec.policy, scores=scores, gains=gains, dist=bundle.dist,
+                spec.policy, scores=scores, gains=gains, dist=bundles.dist,
                 quota=quota_for(cfg, spec),
                 coverage_radius_m=coverage_radius(cfg),
                 uniform=draws.assoc_u, return_sweeps=True)
         assoc = assoc.float()
     # 3. resource allocation
     with stage("allocate"):
-        p, f = _allocate(cfg, spec, draws, dev)
+        p, f = _allocate(cfg, spec, draws)
     # 4. one cost evaluation at z = 1, reused by the scheduler and the
     #    final masked round cost
     with stage("schedule"):
         rc_all = cost.round_cost(cfg, power_w=p, f_hz=f, gains=gains,
                                  assoc=assoc,
-                                 z=torch.ones((m,), device=dev),
-                                 n_samples=bundle.counts,
+                                 z=torch.ones((seeds, m), device=dev),
+                                 n_samples=bundles.counts,
                                  noma_enabled=spec.noma_enabled,
                                  sic_max_per_edge=quota_for(cfg, spec),
                                  assigned=assigned)
@@ -421,38 +518,60 @@ def round_step(cfg, spec: EngineSpec, state: RoundState,
         rc = cost.apply_schedule(cfg, rc_all, z)
     # 5. τ₂·τ₁ training + hierarchical aggregation
     with stage("train"):
-        global_params, client_params = _train(cfg, spec, state, bundle,
-                                              assoc, z, draws.batch_idx)
+        global_params, client_params = _train(cfg, spec, states, bundles,
+                                               assoc, z, draws.batch_idx)
     # 6. staleness (Eq. 20): reset only for clients whose edge was selected
-    selected = torch.sum(assoc, dim=1) > 0
-    effective = selected & (z > 0)[torch.argmax(assoc, dim=1)]
-    new_stale = staleness.update_staleness(state.staleness, effective)
-    round_idx = state.round_idx + 1
+    selected = torch.sum(assoc, dim=-1) > 0
+    effective = selected & torch.gather(z > 0, -1,
+                                        torch.argmax(assoc, dim=-1))
+    new_stale = staleness.update_staleness(states.staleness, effective)
+    round_idx = states.round_idx + 1
     with stage("eval"):
-        accuracy = mlp.accuracy(global_params, bundle.test_x, bundle.test_y)
-        loss = mlp.loss(global_params, bundle.test_x, bundle.test_y)
+        accuracy = mlp.accuracy(global_params, bundles.test_x,
+                                bundles.test_y)
+        loss = mlp.loss(global_params, bundles.test_x, bundles.test_y)
     metrics = RoundMetrics(
         round=round_idx,
         accuracy=accuracy,
         loss=loss,
-        avg_staleness=torch.mean(new_stale.float()),
+        avg_staleness=torch.mean(new_stale.float(), dim=-1),
         total_time_s=rc.total_time_s,
         total_energy_j=rc.total_energy_j,
         cost=rc.cost,
-        n_associated=torch.sum(selected, dtype=torch.int32),
+        n_associated=torch.sum(selected, dim=-1, dtype=torch.int32),
         n_available=n,
         z=z,
-        sweeps=sweeps)
+        sweeps=torch.tensor(sweeps))
     new_state = RoundState(global_params, client_params, gains, new_stale,
                            round_idx)
     return new_state, metrics
 
 
+def round_step(cfg, spec: EngineSpec, state: RoundState,
+               bundle: RoundBundle, draws: RoundDraws, *, timer=None
+               ) -> Tuple[RoundState, RoundMetrics]:
+    """One global round of one simulation: ``fleet_step`` over a fleet of
+    one.  Its metrics are 0-d tensors, with ``sweeps`` an int."""
+    state, metrics = fleet_step(cfg, spec, _lift(state), _lift(bundle),
+                                _lift(draws), timer=timer)
+    metrics = select_seed(metrics, 0)
+    return select_seed(state, 0), metrics._replace(
+        sweeps=int(metrics.sweeps))
+
+
 def stack_metrics(rows) -> RoundMetrics:
-    """Per-round metrics -> one ``RoundMetrics`` with a leading round axis."""
-    return RoundMetrics(*(
-        torch.stack(list(field)) if isinstance(field[0], torch.Tensor)
-        else torch.tensor(list(field)) for field in zip(*rows)))
+    """Per-round metrics -> one ``RoundMetrics`` with a leading round axis
+    (after the fleet axis, for ``fleet_step``'s rows: (S, rounds, …))."""
+    fleet = rows[0].accuracy.dim() > 0
+    out = []
+    for field in zip(*rows):
+        if isinstance(field[0], torch.Tensor):
+            out.append(torch.stack(list(field), dim=1 if fleet else 0))
+        else:
+            v = torch.tensor(list(field))
+            out.append(v.expand(rows[0].accuracy.shape[0], len(field))
+                       if fleet else v)
+    return RoundMetrics(*out)
 
 
 def run_scanned(cfg, spec: EngineSpec, state: RoundState,
@@ -470,10 +589,22 @@ def run_scanned(cfg, spec: EngineSpec, state: RoundState,
     return state, stack_metrics(rows)
 
 
-def run_fleet(*args, **kwargs):
-    """The vmapped multi-seed driver of the reference."""
-    raise NotImplementedError("run_fleet is not ported to repro_torch yet "
-                              "(ROADMAP A14)")
+def run_fleet(cfg, spec: EngineSpec, states: RoundState,
+              bundles: RoundBundle, n_rounds: int, generators, *,
+              timer=None) -> Tuple[RoundState, RoundMetrics]:
+    """``n_rounds`` rounds of a fleet of S independent simulations
+    (``stack_fleet``), one batched ``fleet_step`` a round -- the
+    counterpart of the reference's ``vmap`` of its scanned driver.  Seed
+    s draws from ``generators[s]``, so it follows the trajectory of its
+    own ``run_scanned`` from that generator.  Metrics leaves have shape
+    (S, n_rounds, …)."""
+    rows = []
+    for _ in range(n_rounds):
+        draws = fleet_draws(cfg, bundles, generators, spec)
+        states, metrics = fleet_step(cfg, spec, states, bundles, draws,
+                                     timer=timer)
+        rows.append(metrics)
+    return states, stack_metrics(rows)
 
 
 def metrics_row(metrics: RoundMetrics, i: Optional[int] = None

@@ -93,15 +93,19 @@ def normalized_inputs(gains: torch.Tensor, counts: torch.Tensor,
                       staleness: torch.Tensor, *, data_max: float):
     """The Eq. 21 normalisation: (cq (N, M), dq (N,), ms (N,)) in [0, 100].
 
-    CQ is the per-edge channel quality normalised in dB over the global
-    min/max of the (N, M) gain field; DQ and MS are shared across edges.
+    CQ is the per-edge channel quality normalised in dB over the min/max
+    of the whole (N, M) gain field; DQ and MS are shared across edges.
+    With a leading fleet axis -- gains (S, N, M), counts and staleness
+    (S, N) -- the min/max of the gains and the max staleness are each seed's
+    own, as under the reference's ``vmap``.
     """
     db = 10.0 * torch.log10(torch.clamp_min(gains, 1e-30))
-    lo, hi = torch.min(db), torch.max(db)
+    lo = torch.amin(db, dim=(-2, -1), keepdim=True)
+    hi = torch.amax(db, dim=(-2, -1), keepdim=True)
     cq = normalize(db - lo, torch.clamp_min(hi - lo, 1e-9))
     dq = normalize(counts.float(), data_max)
-    ms = normalize(staleness.float(),
-                   torch.clamp_min(torch.max(staleness), 1).float())
+    ms = normalize(staleness.float(), torch.clamp_min(
+        torch.amax(staleness, dim=-1, keepdim=True), 1).float())
     return cq, dq, ms
 
 
@@ -136,29 +140,28 @@ def score_rows(cq: torch.Tensor, dq: torch.Tensor, ms: torch.Tensor
 def score_matrix(gains: torch.Tensor, counts: torch.Tensor,
                  staleness: torch.Tensor, *, data_max: float,
                  rows=score_rows) -> torch.Tensor:
-    """(N, M) competency matrix: the Eq. 21 normalisation, then ``rows``
-    (the plain pipeline, or the scoring kernel's wrapper) over the N·M
-    flattened (client, edge) rows."""
+    """(N, M) competency matrix -- (S, N, M) over a fleet: the Eq. 21
+    normalisation, then ``rows`` (the plain pipeline, or the scoring
+    kernel's wrapper) over the flattened (client, edge) rows."""
     cq, dq, ms = normalized_inputs(gains, counts, staleness,
                                    data_max=data_max)
-    n, m = cq.shape
-    return rows(cq.reshape(-1), dq[:, None].expand(n, m).reshape(-1),
-                ms[:, None].expand(n, m).reshape(-1)).reshape(n, m)
+    return rows(cq.reshape(-1), dq[..., None].expand(cq.shape).reshape(-1),
+                ms[..., None].expand(cq.shape).reshape(-1)
+                ).reshape(cq.shape)
 
 
 def candidate_inputs(gains: torch.Tensor, cand_idx: torch.Tensor,
                      counts: torch.Tensor, staleness: torch.Tensor, *,
                      data_max: float):
-    """The N·K frontier rows' (cq, dq, ms), flat (N·K,): the Eq. 21
-    normalisation over the full (N, M) field (its global dB min/max), then
-    cq gathered at ``cand_idx`` (N, K) -- so each row equals the dense
-    row of the same (client, edge) pair."""
+    """The N·K frontier rows' (cq, dq, ms), flat (N·K,) -- (S·N·K,) over
+    a fleet: the Eq. 21 normalisation over the full (N, M) field (its dB
+    min/max), then cq gathered at ``cand_idx`` (N, K) -- so each row
+    equals the dense row of the same (client, edge) pair."""
     cq, dq, ms = normalized_inputs(gains, counts, staleness,
                                    data_max=data_max)
-    n, k = cand_idx.shape
-    cq_k = torch.gather(cq, 1, cand_idx.long())
-    return (cq_k.reshape(-1), dq[:, None].expand(n, k).reshape(-1),
-            ms[:, None].expand(n, k).reshape(-1))
+    cq_k = torch.gather(cq, -1, cand_idx.long())
+    return (cq_k.reshape(-1), dq[..., None].expand(cq_k.shape).reshape(-1),
+            ms[..., None].expand(cq_k.shape).reshape(-1))
 
 
 def score_candidates(gains: torch.Tensor, cand, counts: torch.Tensor,

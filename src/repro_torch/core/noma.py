@@ -70,42 +70,52 @@ def sic_rates_assigned(power_w: torch.Tensor, own_gain: torch.Tensor,
                        noise_w: float) -> torch.Tensor:
     """SIC rates from the compact association: (N,) power, (N,) gain to
     the assigned edge, (N,) assigned edge (−1 = unmatched) -> (N,) rates
-    at each client's own edge, 0.0 for unmatched clients.
+    at each client's own edge, 0.0 for unmatched clients.  With a leading
+    fleet axis every argument is (S, N), and so is the result.
 
     The sorted form of Eqs. 7-8: the clients are sorted by (edge asc,
     received power desc, client asc) -- the pairwise form's decode order
     -- into an (M, k) per-edge decode table (k = ``max_per_edge``, which
     must bound every edge's occupancy), and each client's interference is
     its row's total minus its prefix sum, as in the reference.  No (N, M)
-    tensor is touched.  That difference cancels in float32: where a much
-    stronger client shares the edge, a weak client's rate parts from the
-    pairwise form's by up to a few percent (PERF.md).
+    tensor is touched.  A fleet sorts once, by the folded key
+    s·(M + 1) + edge, so each seed keeps its own sentinel segment M and
+    fills its own (M, k) table.  That difference cancels in float32:
+    where a much stronger client shares the edge, a weak client's rate
+    parts from the pairwise form's by up to a few percent (PERF.md).
     """
-    n = power_w.shape[0]
+    lead, n = power_w.shape[:-1], power_w.shape[-1]
+    seeds = power_w.numel() // max(n, 1)
     k = min(int(max_per_edge), n)
     dev = power_w.device
     matched = assigned >= 0
-    rx = torch.where(matched, power_w * own_gain, 0.0)            # (N,)
-    edge_key = torch.where(matched, assigned, n_edges).long()     # sentinel
-    perm = candidates.lexsort(-rx, edge_key)
-    se = edge_key[perm]
-    pos = torch.arange(n, device=dev) - candidates.segment_starts(se)
+    rx = torch.where(matched, power_w * own_gain, 0.0).reshape(-1)
+    rows = n_edges + 1                                   # + the sentinel
+    seed = torch.arange(seeds, device=dev)[:, None].expand(seeds, n)
+    key = (seed * rows + torch.where(matched, assigned, n_edges)
+           .reshape(seeds, n)).reshape(-1).long()
+    perm = candidates.lexsort(-rx, key)
+    sk = key[perm]
+    se, ss = sk % rows, sk // rows                       # edge, seed
+    pos = torch.arange(sk.shape[0], device=dev) - \
+        candidates.segment_starts(sk)
     in_tbl = (se < n_edges) & (pos < k)
-    # rows past the table go to a sentinel row M, which is dropped
-    tbl_e = torch.where(in_tbl, se, n_edges)
+    # rows past the table go to their seed's sentinel row M, dropped
+    tbl_r = torch.where(in_tbl, sk, ss * rows + n_edges)
     tbl_p = torch.clamp_max(pos, k - 1)
-    srx = torch.zeros((n_edges + 1, k), dtype=rx.dtype, device=dev)
-    srx[tbl_e, tbl_p] = rx[perm]
-    srx = srx[:n_edges]
-    csum = torch.cumsum(srx, dim=1)
-    interference = torch.clamp_min(csum[:, -1:] - csum, 0.0)
+    srx = torch.zeros((seeds * rows, k), dtype=rx.dtype, device=dev)
+    srx[tbl_r, tbl_p] = rx[perm]
+    srx = srx.reshape(seeds, rows, k)[:, :n_edges]
+    csum = torch.cumsum(srx, dim=-1)
+    interference = torch.clamp_min(csum[..., -1:] - csum, 0.0)
     sinr = srx / (interference + noise_w)
-    rate = bandwidth_hz * torch.log2(1.0 + sinr)                  # (M, k)
+    rate = (bandwidth_hz * torch.log2(1.0 + sinr)).reshape(-1, k)
     rate_sorted = torch.where(
-        in_tbl, rate[torch.clamp_max(se, n_edges - 1), tbl_p], 0.0)
+        in_tbl, rate[ss * n_edges + torch.clamp_max(se, n_edges - 1),
+                     tbl_p], 0.0)
     out = torch.empty_like(rate_sorted)
     out[perm] = rate_sorted
-    return torch.where(matched, out, 0.0)
+    return torch.where(matched, out.reshape(lead + (n,)), 0.0)
 
 
 def noise_power_w(noise_dbm_per_hz: float, bandwidth_hz: float) -> float:

@@ -41,8 +41,8 @@ MAX_SMEM_BYTES = 232_448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "hfl_score_rows": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "hfl_score_fused": [_P] * 7 + [_I, _P, _I, _I, _I, _F, _P],
-    "hfl_sic_rates": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "hfl_score_fused": [_P] * 7 + [_I, _P, _I, _I, _I, _I, _F, _P],
+    "hfl_sic_rates": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "hfl_local_sgd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _F, _F, _I, _P],
     "hfl_local_sgd_cluster": [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P],

@@ -63,6 +63,11 @@ namespace {
 //   order); num and den are summed in the fixed order g = 0..200 with
 //   explicit round-to-nearest mul/add, so the plain PyTorch version
 //   (core/fuzzy.py) matches bit for bit.
+// * A fleet: both launches take a grid row (blockIdx.y) a seed, each
+//   seed's (N, M) gains, counts, staleness, candidate edges and rows at a
+//   size_t seed stride, its own kNormBlocksMax-bounded partials.  A seed's
+//   blocks do exactly what one seed's launch does, so each seed's scores
+//   are the bits of its own call (no fleet-wide min/max).
 // Layout: 256 threads a block, one (client, edge) row a thread.  The 5 x
 // 201 output memberships (made once on the host in fp32), the 3 input
 // triangles and the rule table are staged in shared memory per block; the
@@ -189,12 +194,18 @@ __device__ __forceinline__ float block_fold(float v, float* s_warp) {
 
 // Pass 1: partials[b], partials[P + b], partials[2P + b] = block b's min
 // dB, max dB and max staleness (as float: the conversion is monotone, so
-// the max of the floats is the float of the max).
+// the max of the floats is the float of the max), P = gridDim.x, for the
+// seed blockIdx.y (its field of total = N * M gains, N staleness values
+// and 3P partials).
 __global__ void score_norm_kernel(const float* __restrict__ gains,
                                   const int* __restrict__ stale,
                                   float* __restrict__ partials, int total,
                                   int n) {
   __shared__ float s_warp[kScoreBlock / 32];
+  const size_t seed = blockIdx.y;
+  gains += seed * total;
+  stale += seed * n;
+  partials += seed * 3 * gridDim.x;
   float lo = CUDART_INF_F, hi = -CUDART_INF_F, smax = -CUDART_INF_F;
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -218,7 +229,8 @@ __global__ void score_norm_kernel(const float* __restrict__ gains,
 // Pass 2: fold the n_partials partials, then score rows r < n * w, w = k
 // (the frontier: edge cand_idx[r]) or m (dense: edge r % m).  data_denom is
 // max(data_max, 1e-12) in float32, as fuzzy.normalize makes it.  A
-// candidate edge outside [0, m) scores NaN.
+// candidate edge outside [0, m) scores NaN.  blockIdx.y is the seed, at
+// the strides pass 1 uses.
 __global__ void score_fused_kernel(const float* __restrict__ gains,
                                    const float* __restrict__ counts,
                                    const int* __restrict__ stale,
@@ -231,6 +243,13 @@ __global__ void score_fused_kernel(const float* __restrict__ gains,
                                    int w, float data_denom) {
   __shared__ ScoreSmem s;
   __shared__ float s_warp[kScoreBlock / 32];
+  const size_t seed = blockIdx.y;
+  gains += seed * n * m;
+  counts += seed * n;
+  stale += seed * n;
+  if (cand_idx) cand_idx += seed * n * w;
+  partials += seed * 3 * n_partials;
+  out += seed * n * w;
   stage_tables(s, tables, rules);
   float lo = CUDART_INF_F, hi = -CUDART_INF_F, smax = -CUDART_INF_F;
   for (int q = threadIdx.x; q < n_partials; q += blockDim.x) {
@@ -314,6 +333,10 @@ __global__ void score_fused_kernel(const float* __restrict__ gains,
 // ~10 us at 4096 x 32, against the all-pairs kernel's ~0.2 ms there; at
 // a dense 50% mask (4097 x 32), the compare-and-add rate of the pair loop,
 // ~0.043 ms at 8 CTAs an edge, ~10x its operation bound.
+// A fleet: the clusters of one seed form a grid row (blockIdx.y), each
+// reading its seed's (N,) power and (N, M) gains and mask and writing its
+// (N, M) rates at a size_t seed stride; the cluster size depends on N
+// alone, so each seed's rates are the bits of its own launch.
 // ---------------------------------------------------------------------------
 
 constexpr int kSicThreads = 256;
@@ -473,6 +496,11 @@ __global__ void __launch_bounds__(kSicThreads)
   const int r = static_cast<int>(cl.block_rank());
   const int e = blockIdx.x / c;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t seed = blockIdx.y;
+  power += seed * n;
+  gains += seed * n * m;
+  mask += seed * n * m;
+  out += seed * n * m;
 
   extern __shared__ __align__(16) float sic_smem[];
   float* s_rx = sic_smem;                                  // [slice]
@@ -1308,40 +1336,43 @@ int hfl_score_rows(const float* cq, const float* dq, const float* ms,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused score: the Eq. 21 reduction into ``partials`` (3 x n_partials
-// floats, n_partials in [1, kNormBlocksMax]), then the scores of the n x w
-// rows into ``out``: w = k on the frontier (cand_idx (N, K) int32), w = m
-// dense (cand_idx null).
+// The fused score of ``seeds`` seeds, each with its own (N, M) gains,
+// (N,) counts and staleness and, on the frontier, (N, K) cand_idx, stacked
+// along a leading axis: the Eq. 21 reduction into ``partials`` (3 x
+// n_partials floats a seed, n_partials in [1, kNormBlocksMax]), then the
+// scores of each seed's n x w rows into ``out``: w = k on the frontier
+// (cand_idx int32), w = m dense (cand_idx null).
 int hfl_score_fused(const float* gains, const float* counts, const int* stale,
                     const int* cand_idx, const float* tables,
                     const int* rules, float* partials, int n_partials,
-                    float* out, int n, int m, int k, float data_denom,
-                    void* stream) {
+                    float* out, int n, int m, int k, int seeds,
+                    float data_denom, void* stream) {
   if (n_partials < 1 || n_partials > kNormBlocksMax || n < 1 || m < 1 ||
-      (cand_idx != nullptr && k < 1))
+      seeds < 1 || seeds > 65535 || (cand_idx != nullptr && k < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  score_norm_kernel<<<n_partials, kScoreBlock, 0, st>>>(gains, stale,
-                                                        partials, n * m, n);
+  score_norm_kernel<<<dim3(n_partials, seeds), kScoreBlock, 0, st>>>(
+      gains, stale, partials, n * m, n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int w = cand_idx ? k : m;
   const int blocks = (n * w + kScoreBlock - 1) / kScoreBlock;
-  score_fused_kernel<<<blocks, kScoreBlock, 0, st>>>(
+  score_fused_kernel<<<dim3(blocks, seeds), kScoreBlock, 0, st>>>(
       gains, counts, stale, cand_idx, partials, n_partials, tables, rules,
       out, n, m, w, data_denom);
   return static_cast<int>(cudaGetLastError());
 }
 
-// SIC rates of every edge: m clusters of ``cluster`` CTAs, each CTA holding
-// a slice of ceil(n / cluster) clients' (rx, index) in dynamic shared
-// memory.
+// SIC rates of every edge of ``seeds`` seeds (power (S, N), gains and
+// mask (S, N, M)): m clusters of ``cluster`` CTAs a seed, a grid row a
+// seed, each CTA holding a slice of ceil(n / cluster) clients' (rx, index)
+// in dynamic shared memory.
 int hfl_sic_rates(const float* power, const float* gains,
                   const unsigned char* mask, float* out, int n, int m,
-                  int cluster, float bandwidth_hz, float noise_w,
+                  int seeds, int cluster, float bandwidth_hz, float noise_w,
                   void* stream) {
   if (cluster < 1 || cluster > kSicMaxCluster || (cluster & (cluster - 1)) ||
-      n < 1 || m < 1)
+      n < 1 || m < 1 || seeds < 1 || seeds > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slice = (n + cluster - 1) / cluster;
   const int smem = 8 * slice;
@@ -1356,7 +1387,7 @@ int hfl_sic_rates(const float* power, const float* gains,
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(m * cluster);
+  cfg.gridDim = dim3(m * cluster, seeds);
   cfg.blockDim = dim3(kSicThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -15,6 +15,10 @@ Each kernel is hand-written CUDA for ``sm_90a`` in ``csrc/hfl_ops.cu``
   one thread-block cluster per lane wherever its slices fit shared
   memory, one block per lane otherwise; ``sgd_route`` says which.
 
+The score and SIC wrappers also take a fleet's inputs, with a leading seed
+axis: one call for the fleet, a grid row a seed, and each seed's result
+the bits of its own call.  A fleet's SGD lanes are simply more lanes.
+
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
 (``fuzzy.score_matrix``/``score_candidates`` over ``score_rows_plain``,
 ``sic_rates_plain``, ``local_sgd_step_plain``); given CUDA tensors it
@@ -115,40 +119,58 @@ def score_partials(n: int, m: int) -> int:
     return max(1, min(SCORE_NORM_BLOCKS_MAX, -(-n * m // per_block)))
 
 
+# the fused score's and the SIC's grids take one seed a y index
+MAX_SEEDS = 65535
+
+
+def _seeds(lead) -> int:
+    """Seeds of a leading fleet shape (1 for none), checked against the
+    kernels' y grid dimension."""
+    seeds = int(np.prod(lead, dtype=np.int64))
+    if seeds > MAX_SEEDS:
+        raise ValueError(f"{seeds} seeds exceed the kernels' {MAX_SEEDS} "
+                         f"grid rows")
+    return seeds
+
+
 def _score_fused(gains: torch.Tensor, counts: torch.Tensor,
                  staleness: torch.Tensor, cand_idx, data_max: float,
                  counter: str) -> torch.Tensor:
     """One C call, two launches: the Eq. 21 reduction over the raw (N, M)
     gains and the staleness into a scratch of partials, then the rows --
     (N, K) on the frontier ``cand_idx``, (N, M) dense when it is None --
-    normalised, gathered and scored.  The inputs are taken as the engine
-    keeps them (gains and counts float32, staleness and ``cand_idx``
-    int32), with no cast or copy: one ``torch.empty`` for the output, one
-    for the scratch."""
+    normalised, gathered and scored.  Over a fleet every input has a
+    leading seed axis (or axes) and both launches a grid row a seed: each
+    seed's partials and its rows are its own.  The inputs are taken as the
+    engine keeps them (gains and counts float32, staleness and
+    ``cand_idx`` int32), with no cast or copy: one ``torch.empty`` for
+    the output, one for the scratch."""
     dev = gains.device
-    n, m = gains.shape
-    k = 0 if cand_idx is None else cand_idx.shape[1]
-    _require(gains, "gains", dev, torch.float32, (n, m))
-    _require(counts, "counts", dev, torch.float32, (n,))
-    _require(staleness, "staleness", dev, torch.int32, (n,))
+    lead, (n, m) = gains.shape[:-2], gains.shape[-2:]
+    k = 0 if cand_idx is None else cand_idx.shape[-1]
+    _require(gains, "gains", dev, torch.float32, lead + (n, m))
+    _require(counts, "counts", dev, torch.float32, lead + (n,))
+    _require(staleness, "staleness", dev, torch.int32, lead + (n,))
     if cand_idx is not None:
-        _require(cand_idx, "cand_idx", dev, torch.int32, (n, k))
+        _require(cand_idx, "cand_idx", dev, torch.int32, lead + (n, k))
     if n * m >= 2 ** 31:
         raise ValueError(f"score: {n} x {m} gains exceed the kernel's int32 "
                          f"row index")
-    out = torch.empty((n, k if cand_idx is not None else m),
+    seeds = _seeds(lead)
+    out = torch.empty(lead + (n, k if cand_idx is not None else m),
                       dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     parts = score_partials(n, m)
-    scratch = torch.empty((3 * parts,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((seeds * 3 * parts,), dtype=torch.float32,
+                          device=dev)
     tables, rules = _score_tables(dev)
     lib = _build.library()
     with _on(dev):
         code = lib.hfl_score_fused(
             _ptr(gains), _ptr(counts), _ptr(staleness),
             None if cand_idx is None else _ptr(cand_idx), _ptr(tables),
-            _ptr(rules), _ptr(scratch), parts, _ptr(out), n, m, k,
+            _ptr(rules), _ptr(scratch), parts, _ptr(out), n, m, k, seeds,
             max(float(data_max), 1e-12), _stream(dev))
     _build.check(code, counter)
     LAUNCHES[counter] += 1
@@ -158,8 +180,10 @@ def _score_fused(gains: torch.Tensor, counts: torch.Tensor,
 def score_matrix(gains: torch.Tensor, counts: torch.Tensor,
                  staleness: torch.Tensor, *, data_max: float) -> torch.Tensor:
     """(N, M) competency scores (replaces the reference's
-    ``hfl_ops.score_matrix``): on the card one fused call from the raw
-    gains (``_score_fused``); on the CPU the plain ``fuzzy.score_matrix``."""
+    ``hfl_ops.score_matrix``), or (S, N, M) over a fleet's (S, N, M)
+    gains and (S, N) counts and staleness: on the card one fused call
+    from the raw gains (``_score_fused``); on the CPU the plain
+    ``fuzzy.score_matrix``."""
     if gains.device.type == "cpu":
         return fuzzy.score_matrix(gains, counts, staleness, data_max=data_max,
                                   rows=score_rows_plain)
@@ -171,15 +195,15 @@ def score_candidates(gains: torch.Tensor, cand_idx: torch.Tensor,
                      counts: torch.Tensor, staleness: torch.Tensor, *,
                      data_max: float) -> torch.Tensor:
     """(N, K) competency scores on the candidate frontier ``cand_idx``
-    (replaces the reference's ``hfl_ops.score_candidates``): the dense
-    Eq. 21 normalisation over the whole (N, M) field, then the N·K gathered
-    rows only -- on the card in one fused call (``_score_fused``), on the
-    CPU through the plain ``fuzzy.candidate_inputs`` and rows."""
+    (replaces the reference's ``hfl_ops.score_candidates``), or (S, N, K)
+    over a fleet: the dense Eq. 21 normalisation over the whole (N, M)
+    field, then the N·K gathered rows only -- on the card in one fused
+    call (``_score_fused``), on the CPU through the plain
+    ``fuzzy.candidate_inputs`` and rows."""
     if gains.device.type == "cpu":
-        n, k = cand_idx.shape
         return score_rows_plain(*fuzzy.candidate_inputs(
             gains, cand_idx, counts, staleness, data_max=data_max)
-        ).reshape(n, k)
+        ).reshape(cand_idx.shape)
     return _score_fused(gains, counts, staleness, cand_idx, data_max,
                         "score_candidates")
 
@@ -192,11 +216,16 @@ def sic_rates_plain(power_w: torch.Tensor, gains: torch.Tensor,
                     mask: torch.Tensor, *, bandwidth_hz: float,
                     noise_w: float) -> torch.Tensor:
     """The pairwise SIC of ``noma.achievable_rates``, one edge at a time:
-    (N,) power, (N, M) gains, (N, M) bool mask -> (N, M) rates."""
+    (N,) power, (N, M) gains, (N, M) bool mask -> (N, M) rates; over a
+    fleet ((S, N), (S, N, M)), one (seed, edge) column at a time."""
+    lead, (n, m) = gains.shape[:-2], gains.shape[-2:]
+    p, g, msk = (power_w.reshape(-1, n), gains.reshape(-1, n, m),
+                 mask.reshape(-1, n, m))
     return torch.stack(
-        [noma.achievable_rates(power_w, gains[:, e], bandwidth_hz=bandwidth_hz,
-                               noise_w=noise_w, mask=mask[:, e])
-         for e in range(gains.shape[1])], dim=1)
+        [torch.stack([noma.achievable_rates(
+            p[s], g[s, :, e], bandwidth_hz=bandwidth_hz, noise_w=noise_w,
+            mask=msk[s, :, e]) for e in range(m)], dim=1)
+         for s in range(g.shape[0])]).reshape(lead + (n, m))
 
 
 # the SIC kernel's CTA (csrc/hfl_ops.cu: kSicThreads, kSicChunk), its
@@ -237,38 +266,43 @@ def sic_cluster_size(n: int) -> int:
 def sic_rates(power_w: torch.Tensor, gains: torch.Tensor, mask: torch.Tensor,
               *, bandwidth_hz: float, noise_w: float) -> torch.Tensor:
     """(N,) power, (N, M) gains, (N, M) bool mask -> (N, M) SIC rates;
-    masked entries are zero.  On the card one launch covers every edge,
-    one thread-block cluster an edge of ``sic_cluster_size(N)`` CTAs,
-    reading the caller's tensors as they are: no cast, transpose or copy;
-    the result is the kernel's own output."""
+    masked entries are zero.  Over a fleet: (S, N), (S, N, M) and
+    (S, N, M) -> (S, N, M).  On the card one launch covers every edge of
+    every seed, one thread-block cluster an edge of
+    ``sic_cluster_size(N)`` CTAs (so each seed's rates are the bits it
+    gets alone), reading the caller's tensors as they are: no cast,
+    transpose or copy; the result is the kernel's own output."""
     if power_w.device.type == "cpu":
         return sic_rates_plain(power_w, gains, mask.bool(),
                                bandwidth_hz=bandwidth_hz, noise_w=noise_w)
-    return _sic_launch(power_w, gains, mask, sic_cluster_size(gains.shape[0]),
+    return _sic_launch(power_w, gains, mask, sic_cluster_size(gains.shape[-2]),
                        bandwidth_hz=bandwidth_hz, noise_w=noise_w)
 
 
 def _sic_launch(power_w: torch.Tensor, gains: torch.Tensor,
                 mask: torch.Tensor, cluster: int, *, bandwidth_hz: float,
                 noise_w: float) -> torch.Tensor:
-    """The SIC kernel on the card with ``cluster`` CTAs an edge."""
+    """The SIC kernel on the card with ``cluster`` CTAs an edge, a grid
+    row a seed."""
     dev = power_w.device
-    n, m = gains.shape
-    _require(power_w, "power_w", dev, torch.float32, (n,))
-    _require(gains, "gains", dev, torch.float32, (n, m))
-    _require(mask, "mask", dev, torch.bool, (n, m))
+    lead, (n, m) = gains.shape[:-2], gains.shape[-2:]
+    _require(power_w, "power_w", dev, torch.float32, lead + (n,))
+    _require(gains, "gains", dev, torch.float32, lead + (n, m))
+    _require(mask, "mask", dev, torch.bool, lead + (n, m))
     if cluster not in SIC_CLUSTER_SIZES or not _sic_fits(n, cluster):
         raise ValueError(f"sic_rates: no cluster of {cluster} CTAs holds "
                          f"N={n} (sizes {SIC_CLUSTER_SIZES}, "
                          f"{MAX_SMEM_BYTES} bytes of shared memory a CTA)")
-    out = torch.empty((n, m), dtype=torch.float32, device=dev)
-    if n == 0 or m == 0:
+    seeds = _seeds(lead)
+    out = torch.empty(lead + (n, m), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
         return out
     lib = _build.library()
     with _on(dev):
         code = lib.hfl_sic_rates(_ptr(power_w), _ptr(gains), _ptr(mask),
-                                 _ptr(out), n, m, cluster, float(bandwidth_hz),
-                                 float(noise_w), _stream(dev))
+                                 _ptr(out), n, m, seeds, cluster,
+                                 float(bandwidth_hz), float(noise_w),
+                                 _stream(dev))
     _build.check(code, "sic_rates")
     LAUNCHES["sic_rates"] += 1
     return out

@@ -41,20 +41,29 @@ def init_params(input_dim: int, hidden: int, n_classes: int, *,
     }
 
 
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+           ) -> torch.Tensor:
+    """x @ w + b, batched over a leading fleet axis when w is (S, ...)."""
+    return x @ w + (b[..., None, :] if w.dim() == 3 else b)
+
+
 def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    h = torch.relu(x @ params["w1"] + params["b1"])
-    h = torch.relu(h @ params["w2"] + params["b2"])
-    return h @ params["w3"] + params["b3"]
+    """Logits of one model over x (T, D), or of a fleet's models -- leaves
+    with a leading axis S -- each over its own x (S, T, D)."""
+    h = torch.relu(_dense(x, params["w1"], params["b1"]))
+    h = torch.relu(_dense(h, params["w2"], params["b2"]))
+    return _dense(h, params["w3"], params["b3"])
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy as logsumexp minus the label logit -- the
-    reference's formulation (``models/layers.py`` there)."""
+    reference's formulation (``models/layers.py`` there); one mean for
+    each leading (fleet) index."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - ll)
+    return torch.mean(logz - ll, dim=-1)
 
 
 def loss(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -64,4 +73,4 @@ def loss(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def accuracy(params: Params, x: torch.Tensor, y: torch.Tensor
              ) -> torch.Tensor:
     pred = torch.argmax(apply(params, x), dim=-1)
-    return torch.mean((pred == y.long()).float())
+    return torch.mean((pred == y.long()).float(), dim=-1)

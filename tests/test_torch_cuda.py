@@ -268,6 +268,73 @@ def test_score_candidates_kernel_bit_equal_to_plain(cuda, n, m, k):
     torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
 
 
+# a fleet's fused score: seeds whose gain ranges (orders of magnitude
+# apart) and staleness differ, dense at CONFIG (S = 8, and S = 1 against
+# the single-seed call), on the bench frontier (K = 8, S = 4) and ragged
+@pytest.mark.parametrize("n,m,k,seeds", [(64, 4, None, 8), (64, 4, None, 1),
+                                         (4096, 32, 8, 4), (1001, 7, 3, 3),
+                                         (1001, 7, None, 3)])
+def test_score_fleet_equals_each_seeds_call(cuda, n, m, k, seeds):
+    rng = np.random.default_rng(n + seeds)
+    scale = 10.0 ** rng.integers(-6, 7, seeds).astype(np.float32)
+    g = (rng.uniform(1e-12, 1e-8, (seeds, n, m))
+         * scale[:, None, None]).astype(np.float32)
+    stale = (rng.integers(1, 9, (seeds, n))
+             * (1 + np.arange(seeds))[:, None]).astype(np.int32)
+    gains, counts, st, dist = _on(
+        cuda, g, rng.integers(60, 121, (seeds, n)).astype(np.float32), stale,
+        rng.uniform(10.0, 400.0, (seeds, n, m)).astype(np.float32))
+    if k is None:
+        call = lambda *a: hfl_ops.score_matrix(*a, data_max=120.0)
+        args = (gains, counts, st)
+        check = _one_score_call("score_matrix")
+    else:
+        idx = candidates.build_candidates(dist, k,
+                                          coverage_radius_m=300.0).idx
+        call = lambda g_, i_, c_, s_: hfl_ops.score_candidates(
+            g_, i_, c_, s_, data_max=120.0)
+        args = (gains, idx, counts, st)
+        check = _one_score_call("score_candidates")
+    got = call(*args)
+    check()
+    assert got.shape == (seeds, n, k or m)
+    for s in range(seeds):
+        assert torch.equal(got[s], call(*(a[s] for a in args))), s
+    if k is None:
+        want = fuzzy.score_matrix(gains, counts, st, data_max=120.0,
+                                  rows=hfl_ops.score_rows_plain)
+        assert torch.equal(got, want)
+
+
+# a fleet's SIC at every cluster size: CONFIG at S = 8, the ragged bench N
+# at S = 8, and 300 seeds of 63 clients over 32 edges -- at 8 CTAs an edge,
+# 76,800 CTAs, many waves of the card
+@pytest.mark.parametrize("n,m,seeds", [(64, 4, 8), (4097, 32, 8),
+                                       (63, 32, 300)])
+def test_sic_fleet_equals_each_seeds_call(cuda, n, m, seeds):
+    rng = np.random.default_rng(n * 3 + seeds)
+    kinds = ("one-hot", "random", "all", "none")
+    cases = [_sic_case(rng, n, m, kinds[s % len(kinds)])
+             for s in range(seeds)]
+    pt, gt, mt = _on(cuda, *(np.stack(f) for f in zip(*cases)))
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    before = hfl_ops.LAUNCHES["sic_rates"]
+    got = hfl_ops.sic_rates(pt, gt, mt, **kw)
+    torch.cuda.synchronize()
+    assert hfl_ops.LAUNCHES["sic_rates"] == before + 1
+    assert got.shape == (seeds, n, m)
+    for c in hfl_ops.SIC_CLUSTER_SIZES:
+        fleet = got if c == hfl_ops.sic_cluster_size(n) \
+            else hfl_ops._sic_launch(pt, gt, mt, c, **kw)
+        for s in range(seeds):
+            assert torch.equal(fleet[s], hfl_ops._sic_launch(
+                pt[s], gt[s], mt[s], c, **kw)), (c, s)
+    if seeds <= 8:
+        want = hfl_ops.sic_rates_plain(pt, gt, mt, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=float(want.max()) * 1e-6)
+
+
 def _to(obj, dev):
     if isinstance(obj, torch.Tensor):
         return obj.to(dev)
@@ -304,6 +371,42 @@ def test_candidate_round_card_matches_cpu(cuda):
     for key in ("cost", "total_time_s", "total_energy_j"):
         assert g[key] == pytest.approx(c[key], rel=1e-5), key
     assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
+
+
+def test_config_fleet_round_card_matches_cpu(cuda):
+    """One ``CONFIG`` round of a fleet of two seeds on the card (one fused
+    score call, one SIC call, τ₂ SGD launches) and from the same states and
+    draws on the CPU: integers exact, the bill to rtol 1e-5, the loss to
+    rtol 1e-4, the accuracy to 2 test samples, for each seed."""
+    cfg, spec = CONFIG, engine.EngineSpec()
+    pairs, gens = [], []
+    for s in (0, 1):
+        state, bundle, aux = engine.init_simulation(cfg, seed=s, device=cuda)
+        pairs.append((state, bundle))
+        gens.append(aux["generator"])
+    states, bundles = engine.stack_fleet(pairs)
+    draws = engine.fleet_draws(cfg, bundles, gens, spec)
+    before = dict(hfl_ops.LAUNCHES)
+    s_card, m_card = engine.fleet_step(cfg, spec, states, bundles, draws)
+    torch.cuda.synchronize()
+    grew = {k: hfl_ops.LAUNCHES[k] - before[k] for k in before}
+    assert (grew["score_matrix"], grew["sic_rates"], grew["local_sgd_step"],
+            grew["score_rows"]) == (1, 1, cfg.tau2, 0)
+    cpu = torch.device("cpu")
+    s_cpu, m_cpu = engine.fleet_step(cfg, spec, _to(states, cpu),
+                                     _to(bundles, cpu), _to(draws, cpu))
+    assert torch.equal(m_card.z.cpu(), m_cpu.z)
+    assert torch.equal(m_card.n_associated.cpu(), m_cpu.n_associated)
+    assert torch.equal(m_card.sweeps, m_cpu.sweeps)
+    assert torch.equal(s_card.staleness.cpu(), s_cpu.staleness)
+    for key in ("cost", "total_time_s", "total_energy_j"):
+        torch.testing.assert_close(getattr(m_card, key).cpu(),
+                                   getattr(m_cpu, key), rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(m_card.loss.cpu(), m_cpu.loss, rtol=1e-4,
+                               atol=0.0)
+    n_test = bundles.test_y.shape[1]
+    assert float((m_card.accuracy.cpu() - m_cpu.accuracy).abs().max()) \
+        <= 2.0 / n_test
 
 
 def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):

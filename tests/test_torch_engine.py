@@ -178,9 +178,10 @@ def test_train_cohort_with_pad_lanes_matches_reference():
     lattice = jengine._batch_index_lattice(
         key, JSMALL.tau2, JSMALL.tau1, jnp.arange(16, dtype=jnp.int32),
         jbundle.counts, JSMALL.local_batch)
-    clients, edge = engine._train_cohort(SMALL, spec, state, bundle,
-                                         torch.tensor(assoc),
-                                         torch.tensor(np.asarray(lattice)))
+    clients, edge = engine._train_cohort(
+        SMALL, spec, engine._lift(state), engine._lift(bundle),
+        torch.tensor(assoc)[None], torch.tensor(np.asarray(lattice))[None])
+    clients, edge = (engine.select_seed(t, 0) for t in (clients, edge))
     kept = assoc.sum(1) == 0
     for k in clients:
         np.testing.assert_allclose(clients[k].numpy(),
@@ -251,8 +252,3 @@ def test_out_of_slice_options_raise(kw, item):
 def test_ported_options_are_accepted(kw):
     spec = engine.EngineSpec(**kw)
     assert all(getattr(spec, k) == v for k, v in kw.items())
-
-
-def test_run_fleet_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A14"):
-        engine.run_fleet(SMALL, engine.EngineSpec(), None, None, 2)
