@@ -55,6 +55,28 @@ and prints no result):
    kernel at the fleet's 128 lanes against its plain version; one S = 2
    round card against CPU; the bench scale (4096 × 32, K = 8) at S = 4, 3
    rounds, seed 0 against its own run;
+6d. dynamic scenarios and the fpa/fca allocators (``[scenario]``), each
+   run with the launch counters zeroed just before and read just after:
+   ``HFLSimulation(CONFIG, scenario="full_dynamic")``, 5 rounds of fcea +
+   PDD beside the static ``[main]`` round, and one round card vs CPU
+   (availability, n_available and the decisions exact, the moved
+   positions and distances to rtol 1e-6 above 1e-6 of the area's side);
+   the reference's static against
+   ``full_dynamic`` overhead at 256 × 8 (gcea + fastest, 15 rounds a run,
+   in turns static, dynamic, dynamic, static twice over:
+   ``dynamic_overhead_pct`` from the medians); its
+   sweep fleet of mixed worlds (random_waypoint, markov_dropout,
+   hetero_devices × seeds 0-3, S = 12, one kind "dynamic") at 256 × 8, one
+   member of each world against its own run; the sync half of its
+   sync/buffered A/B at 1024 × 16 under flash_crowd and markov_dropout
+   (simulated rounds a second); the frontier under mobility (1024 × 16,
+   K = 4, some client's frontier changing every round, card vs CPU); fpa
+   and fca at ``CONFIG`` on hetero_devices (two SIC calls a round, the
+   grid's (16, N, M) call against its plain version, the action each
+   timed round's grid chose exact card vs CPU on that round's own inputs,
+   also with time weighted 100:1, and some pick inside the grid); and a
+   round with every client dropped (the global
+   model bit-equal, the bill finite);
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -81,8 +103,9 @@ and prints no result):
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
-    chain launches, has its ``[compare]`` lines alone) and, last, the
-    device line.
+    chain launches, has its ``[compare]`` lines alone; ``launches`` counts
+    the main path's run and ``scenario_launches`` the ``CONFIG``
+    full_dynamic run's) and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -92,6 +115,7 @@ import argparse
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -636,17 +660,20 @@ def _check_metrics(cfg, spec_quota, rows, m_c):
         if r.n_associated > spec_quota * cfg.n_edges:
             raise AssertionError(f"round {r.round}: {r.n_associated} "
                                  f"associated > quota·M")
+        if r.n_associated > r.n_available:
+            raise AssertionError(f"round {r.round}: {r.n_associated} "
+                                 f"associated > {r.n_available} available")
         if int(r.z.sum()) != m_c:
             raise AssertionError(f"round {r.round}: Σz = {r.z.sum()} != "
                                  f"M_c = {m_c}")
 
 
-def _drive(cfg, policy, scheduler, rounds, dev):
+def _drive(cfg, policy, scheduler, rounds, dev, **kw):
     import torch
     from repro_torch.core.hfl import HFLSimulation
     from repro_torch.kernels import hfl_ops
     sim = HFLSimulation(cfg, seed=0, policy=policy, scheduler=scheduler,
-                        device=dev)
+                        device=dev, **kw)
     timer = StageTimer()
     torch.cuda.synchronize()
     hfl_ops.reset_launches()
@@ -679,15 +706,16 @@ def phase_main_path(cfg, dev):
     return runs
 
 
-def _report(tag, label, rows, walls, stages, launches):
-    """Print each round, the steady s/round and the stage spans; return
-    the steady s/round (rounds 2.., or round 1 alone)."""
+def _report(tag, label, rows, walls, stages, launches, per_round=True):
+    """Print each round (unless ``per_round`` is off), the steady s/round
+    and the stage spans; return the steady s/round (rounds 2.., or round
+    1 alone)."""
     rounds = len(rows)
-    for r, w in zip(rows, walls):
+    for r, w in zip(rows, walls if per_round else ()):
         log(f"[{tag}] {label} round {r.round}: {w:.4f} s  "
             f"acc {r.accuracy:.4f} loss {r.loss:.5f} cost {r.cost:.5f} "
-            f"n_assoc {r.n_associated} z {r.z.tolist()} "
-            f"sweeps {r.sweeps}")
+            f"n_avail {r.n_available} n_assoc {r.n_associated} "
+            f"z {r.z.tolist()} sweeps {r.sweeps}")
     steady = walls[1:] or walls
     log(f"[{tag}] {label}: launches {launches}; "
         f"s/round {sum(steady) / len(steady):.4f} "
@@ -766,8 +794,11 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
     """One round of ``spec`` from ``state`` with fresh draws from
     ``generator``, on the card and, from the same state and draws, on the
     CPU: ``z``, ``n_associated``, sweeps and staleness exact, the bill to
-    rtol 1e-5, the loss to rtol 1e-4, the accuracy to 2 test samples."""
+    rtol 1e-5, the loss to rtol 1e-4, the accuracy to 2 test samples; on
+    a dynamic scenario also ``n_available`` and the availability exactly,
+    the moved positions and distances as ``_check_world`` holds them."""
     import torch
+    from repro_torch import scenarios
     from repro_torch.core import engine, noma
     from repro_torch.kernels import hfl_ops
     cpu = torch.device("cpu")
@@ -782,13 +813,21 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
         log(f"{tag} cpu  {c}")
     exact_ok = (g["z"].tolist() == c["z"].tolist()
                 and g["n_associated"] == c["n_associated"]
+                and g["n_available"] == c["n_available"]
                 and g["sweeps"] == c["sweeps"]
                 and torch.equal(s_gpu.staleness.cpu(), s_cpu.staleness))
+    dynamic = spec.scenario != "static"
+    if dynamic:
+        _check_world(tag, s_gpu.scenario, s_cpu.scenario, cfg.area_side_m)
     if not exact_ok:
         # print the competing scores: a gap below the score tolerance is a
         # near-tie (reported, and still a failure)
+        dist = bundle.dist
+        if dynamic:
+            dist = scenarios.advance(cfg, spec.scenario, draws.scenario,
+                                     state.scenario).dist
         gains = noma.evolve_gains(
-            draws.fading, state.gains, bundle.dist,
+            draws.fading, state.gains, dist,
             path_loss_exponent=cfg.path_loss_exponent,
             rho=spec.fading_rho)
         sc_g = hfl_ops.score_matrix(gains, bundle.counts, state.staleness,
@@ -805,9 +844,38 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
         raise AssertionError(f"{tag} card and CPU rounds disagree on z, "
                              f"n_associated, sweeps or staleness: {g} {c}")
     _check_bill(tag, g, c, bundle.test_y.shape[0])
-    log(f"{tag} z, n_associated {g['n_associated']}, sweeps {g['sweeps']}, "
-        f"staleness exact; cost/time/energy rtol 1e-5, loss rtol 1e-4, "
-        f"accuracy atol 2/T: ok")
+    world = ("availability exact; positions/distances rtol 1e-6, atol "
+             "1e-6 of the side; " if dynamic else "")
+    log(f"{tag} z, n_available {g['n_available']}, n_associated "
+        f"{g['n_associated']}, sweeps {g['sweeps']}, staleness exact; "
+        f"{world}cost/time/energy rtol 1e-5, loss rtol 1e-4, accuracy "
+        f"atol 2/T: ok")
+
+
+# a scenario's moved positions and distances, card against CPU: the card's
+# norm rounds the waypoint step an ulp apart, and a position an ulp off
+# (3e-5 m at 500 m) is more than 1e-6 of a distance of a few metres to an
+# edge; so rtol 1e-6 above a floor of 1e-6 of the area's side (0.5 mm of a
+# 500 m cell, ~16 ulps of a coordinate)
+WORLD_RTOL = 1e-6
+
+
+def _check_world(tag, got, want, area_side_m):
+    """A scenario state on the card against the CPU's: the availability
+    and the fixed leaves exactly, positions, waypoints and distances to
+    ``WORLD_RTOL`` above a floor of ``WORLD_RTOL`` of the area's side."""
+    import torch
+    for field in got._fields:
+        g, w = getattr(got, field).cpu(), getattr(want, field)
+        if field in ("pos", "waypoint", "dist"):
+            ok = torch.allclose(g, w, rtol=WORLD_RTOL,
+                                atol=WORLD_RTOL * area_side_m)
+        else:
+            ok = torch.equal(g, w)
+        if not ok:
+            raise AssertionError(f"{tag} scenario {field}: card and CPU "
+                                 f"disagree (max abs err "
+                                 f"{_max_err(g, w):.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -822,25 +890,32 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
 SORTED_SIC_RTOL = 2e-3
 
 
-def bench_config(cfg):
-    """The reference's ``benchmarks/bench_rounds.py::_cfg(4096, 32)``."""
+def bench_config(cfg, n=4096, m=32):
+    """The reference's ``benchmarks/bench_rounds.py::_cfg(n, m)`` (also
+    ``bench_sweeps.py::_cfg()`` at 256 × 8)."""
     import dataclasses
-    return dataclasses.replace(cfg, n_clients=4096, n_edges=32,
+    return dataclasses.replace(cfg, n_clients=n, n_edges=m,
                                clients_per_edge=4, min_samples=60,
                                max_samples=120, hidden=16, input_dim=32,
                                local_batch=16)
 
 
-def _drive_spec(cfg, spec, rounds, dev, seed=0):
+def _drive_spec(cfg, spec, rounds, dev, seed=0, scenario=None,
+                on_round=None):
     """``rounds`` rounds of ``engine.round_step`` from
-    ``engine.init_simulation``, fresh draws each round, with every launch
-    counter zeroed just before and read just after.  Returns the host rows,
-    walls, stage spans, launches and the final (state, bundle, generator)."""
+    ``engine.init_simulation`` (in ``scenario``), fresh draws each round,
+    with every launch counter zeroed just before and read just after;
+    ``on_round(state)``, if given, sees the state before the first round
+    and after each.  Returns the host rows, walls, stage spans, launches
+    and the final (state, bundle, generator)."""
     import torch
     from repro_torch.core import engine
     from repro_torch.core.hfl import RoundMetrics
     from repro_torch.kernels import hfl_ops
-    state, bundle, aux = engine.init_simulation(cfg, seed=seed, device=dev)
+    state, bundle, aux = engine.init_simulation(cfg, seed=seed, device=dev,
+                                                scenario=scenario)
+    if on_round:
+        on_round(state)
     gen = aux["generator"]
     timer = StageTimer()
     torch.cuda.synchronize()
@@ -854,6 +929,8 @@ def _drive_spec(cfg, spec, rounds, dev, seed=0):
         rows.append(RoundMetrics.from_engine(m))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        if on_round:
+            on_round(state)
     launches = dict(hfl_ops.LAUNCHES)
     return rows, walls, timer.ms(), launches, (state, bundle, gen)
 
@@ -861,11 +938,13 @@ def _drive_spec(cfg, spec, rounds, dev, seed=0):
 def _want_launches(cfg, spec, rounds, seeds=1):
     """The kernel launches ``rounds`` rounds of ``spec`` make, of one
     simulation or of a fleet of ``seeds``: one score call and one SIC call a
-    round whatever the fleet's size, τ₂ SGD launches over its S·K lanes."""
+    round whatever the fleet's size (and one more SIC call for the fpa/fca
+    grid), τ₂ SGD launches over its S·K lanes."""
     from repro_torch.core import engine
     from repro_torch.kernels import hfl_ops
     fcea = spec.policy == "fcea"
     dense = spec.candidates_k is None
+    grid = spec.allocator in ("fpa", "fca")
     lanes = seeds * min(cfg.n_clients,
                         engine.quota_for(cfg, spec) * cfg.n_edges)
     cluster = hfl_ops.sgd_route(lanes, cfg.local_batch, cfg.input_dim,
@@ -874,24 +953,26 @@ def _want_launches(cfg, spec, rounds, seeds=1):
     return {"score_rows": 0,
             "score_matrix": rounds * (fcea and dense),
             "score_candidates": rounds * (fcea and not dense),
-            "sic_rates": rounds * (dense and spec.noma_enabled),
+            "sic_rates": rounds * ((dense + grid) * spec.noma_enabled),
             "local_sgd_step": cfg.tau2 * rounds,
             "local_sgd_step_cluster": cfg.tau2 * rounds * cluster}
 
 
-def _run_spec(cfg, spec, rounds, dev, label, tag="cand"):
-    """Drive ``spec``, check its launches and metrics, print its rounds and
-    stages.  Returns (rows, steady s/round, stages, launches, final)."""
+def _run_spec(cfg, spec, rounds, dev, label, tag="cand", scenario=None,
+              per_round=True, on_round=None):
+    """Drive ``spec`` (in ``scenario``), check its launches and metrics,
+    print its rounds and stages.  Returns (rows, steady s/round, stages,
+    launches, final)."""
     from repro_torch.core import engine
-    rows, walls, stages, launches, final = _drive_spec(cfg, spec, rounds,
-                                                       dev)
+    rows, walls, stages, launches, final = _drive_spec(
+        cfg, spec, rounds, dev, scenario=scenario, on_round=on_round)
     want = _want_launches(cfg, spec, rounds)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != expected "
                              f"{want}")
     m_c = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
     _check_metrics(cfg, engine.quota_for(cfg, spec), rows, m_c)
-    steady = _report(tag, label, rows, walls, stages, launches)
+    steady = _report(tag, label, rows, walls, stages, launches, per_round)
     return rows, steady, stages, launches, final
 
 
@@ -1008,30 +1089,32 @@ REF_FLEET_SEEDS = (4, 2)
 FLEET_SEEDS = (8, 4)
 
 
-def _fleet(cfg, seeds, dev):
-    """``stack_fleet`` of ``init_simulation`` at each seed, and the seeds'
-    generators."""
+def _fleet(cfg, seeds, dev, worlds=None):
+    """``stack_fleet`` of ``init_simulation`` at each seed (in its scenario
+    of ``worlds``, if given), and the seeds' generators."""
     from repro_torch.core import engine
     pairs, gens = [], []
-    for s in seeds:
-        state, bundle, aux = engine.init_simulation(cfg, seed=s, device=dev)
+    for i, s in enumerate(seeds):
+        state, bundle, aux = engine.init_simulation(
+            cfg, seed=s, device=dev, scenario=worlds[i] if worlds else None)
         pairs.append((state, bundle))
         gens.append(aux["generator"])
     return (*engine.stack_fleet(pairs), gens)
 
 
-def _drive_fleet(cfg, spec, seeds, rounds, dev, label):
+def _drive_fleet(cfg, spec, seeds, rounds, dev, label, worlds=None):
     """``run_fleet`` of ``seeds`` for ``rounds`` rounds, one round a call
     (the trajectory of one call of ``rounds``) so that each round's wall is
     read, with every launch counter zeroed just before and read just after;
     check the launches and each seed's metrics, print the rounds and the
     stage spans.  Returns the fleet metrics (S, rounds, …), the steady s a
-    round, the final (states, bundles, generators) and the stage spans."""
+    round, the final (states, bundles, generators) and the stage spans.
+    ``worlds``: each seed's scenario, for a fleet of mixed worlds."""
     import torch
     from repro_torch.core import engine
     from repro_torch.core.hfl import RoundMetrics
     from repro_torch.kernels import hfl_ops
-    states, bundles, gens = _fleet(cfg, seeds, dev)
+    states, bundles, gens = _fleet(cfg, seeds, dev, worlds)
     timer = StageTimer()
     torch.cuda.synchronize()
     hfl_ops.reset_launches()
@@ -1059,7 +1142,8 @@ def _drive_fleet(cfg, spec, seeds, rounds, dev, label):
     stages = timer.ms()
     for r, w in enumerate(walls):
         log(f"[fleet] {label} round {r + 1}: {w:.4f} s; sweeps "
-            f"{fm.sweeps[:, r].tolist()}; n_assoc "
+            f"{fm.sweeps[:, r].tolist()}; n_avail "
+            f"{fm.n_available[:, r].tolist()}; n_assoc "
             f"{fm.n_associated[:, r].tolist()}; cost "
             + " ".join(f"{v:.5f}" for v in fm.cost[:, r].tolist()))
     steady = walls[1:] or walls
@@ -1076,36 +1160,39 @@ def _drive_fleet(cfg, spec, seeds, rounds, dev, label):
 
 
 def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
-                  own=None):
+                  own=None, worlds=None):
     """Each of ``members`` (indices into ``seeds``) against its own
-    ``run_scanned`` from ``init_simulation(seed)`` and its generator, on
-    the card: z, n_associated, sweeps, the mean staleness each round and
-    the final staleness exactly; cost, time and energy to rtol 1e-5; the
-    loss to rtol 1e-4 (the fleet's S·K lanes may take another SGD cluster
-    size, whose sums are not bit-equal); the accuracy to 2 test samples.
-    The own runs are kept in ``own`` (by seed) for a later fleet of the
-    same seeds."""
+    ``run_scanned`` from ``init_simulation(seed)`` (in its scenario of
+    ``worlds``) and its generator, on the card: z, n_available,
+    n_associated, sweeps, the mean staleness each round and the final
+    staleness exactly; cost, time and energy to rtol 1e-5; the loss to
+    rtol 1e-4 (the fleet's S·K lanes may take another SGD cluster size,
+    whose sums are not bit-equal); the accuracy to 2 test samples.  The
+    own runs are kept in ``own`` (by seed and world) for a later fleet of
+    the same seeds."""
     import torch
     from repro_torch.core import engine
     rounds = fm.accuracy.shape[1]
     own = {} if own is None else own
     worst = {}
     for s in members:
-        if seeds[s] not in own:
-            state, bundle, aux = engine.init_simulation(cfg, seed=seeds[s],
-                                                        device=dev)
+        world = worlds[s] if worlds else None
+        if (seeds[s], world) not in own:
+            state, bundle, aux = engine.init_simulation(
+                cfg, seed=seeds[s], device=dev, scenario=world)
             o_state, om = engine.run_scanned(cfg, spec, state, bundle,
                                              rounds, aux["generator"])
-            own[seeds[s]] = (o_state, engine.RoundMetrics(
+            own[seeds[s], world] = (o_state, engine.RoundMetrics(
                 *(v.cpu() for v in om)), bundle.test_y.shape[0])
-        o_state, om, n_test = own[seeds[s]]
+        o_state, om, n_test = own[seeds[s], world]
         sm = engine.select_seed(fm, s)
         for i in range(rounds):
             g, w = engine.metrics_row(sm, i), engine.metrics_row(om, i)
             msg = f"[fleet] {label} seed {seeds[s]} round {i + 1}"
             if not (g["z"].tolist() == w["z"].tolist()
                     and all(g[k] == w[k] for k in (
-                        "n_associated", "sweeps", "avg_staleness"))):
+                        "n_available", "n_associated", "sweeps",
+                        "avg_staleness"))):
                 raise AssertionError(f"{msg}: decisions differ from its own "
                                      f"run: {g} {w}")
             for key, v in _check_bill(msg, g, w, n_test).items():
@@ -1113,8 +1200,10 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
         if not torch.equal(final.staleness[s].cpu(), o_state.staleness.cpu()):
             raise AssertionError(f"[fleet] {label} seed {seeds[s]}: final "
                                  f"staleness differs from its own run")
-    log(f"[fleet] {label}: seeds {[seeds[s] for s in members]} each equal "
-        f"their own run_scanned: z, n_associated, sweeps, staleness exact; "
+    who = [seeds[s] if not worlds else f"{worlds[s]}/{seeds[s]}"
+           for s in members]
+    log(f"[fleet] {label}: seeds {who} each equal their own run_scanned: "
+        f"z, n_available, n_associated, sweeps, staleness exact; "
         f"max rel diff " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + " (limits cost/time/energy 1e-5, loss 1e-4): ok")
 
@@ -1316,6 +1405,295 @@ def phase_fleet(cfg, dev, profile=False):
         _fleet_vs_own(big, k8, seeds[:size], [member], fm, final[0], dev,
                       label)
     _fleet_frontier_score(big, final[0], final[1], 8)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic scenarios and the fpa/fca allocators
+# ---------------------------------------------------------------------------
+
+# the reference's sweep worlds (src/repro/sweeps/grid.py's defaults,
+# benchmarks/bench_sweeps.py::bench_sweep_fleet) and the churny worlds of
+# its sync/buffered A/B (benchmarks/bench_rounds.py::AB_SCENARIOS)
+SWEEP_WORLDS = ("random_waypoint", "markov_dropout", "hetero_devices")
+AB_WORLDS = ("flash_crowd", "markov_dropout")
+
+
+def _scenario_config_round(cfg, dev, static_steady):
+    """``HFLSimulation(CONFIG, scenario="full_dynamic")``, fcea + PDD, 5
+    rounds beside the static ``[main]`` round; one round card vs CPU.
+    Returns the run's launches (the scenario path's counts)."""
+    m_c = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
+    sim, rows, walls, stages, launches = _drive(
+        cfg, "fcea", "pdd", 5, dev, scenario="full_dynamic")
+    want = _want_launches(cfg, sim.spec, 5)
+    if launches != want:
+        raise AssertionError(f"[scenario] full_dynamic: launches {launches} "
+                             f"!= expected {want}")
+    _check_metrics(cfg, cfg.clients_per_edge, rows, m_c)
+    steady = _report("scenario", "CONFIG full_dynamic fcea-pdd", rows, walls,
+                     stages, launches)
+    log(f"[scenario] CONFIG full_dynamic s/round {steady:.4f} against the "
+        f"static [main] round {static_steady:.4f} in this run "
+        f"({steady / static_steady:.3f}x)")
+    card_vs_cpu(cfg, sim.spec, sim.state, sim.bundle, sim.generator,
+                "CONFIG full_dynamic")
+    return launches
+
+
+OVERHEAD_TURNS = ("static", "dynamic", "dynamic", "static") * 2
+
+
+def _scenario_overhead(cfg, dev):
+    """The reference's ``bench_sweeps.bench_engine_overhead``: 256 × 8,
+    gcea + fastest, static against ``full_dynamic``, 15 rounds a run, in
+    ``OVERHEAD_TURNS``; ``dynamic_overhead_pct`` from each label's median
+    steady s a round (the reference takes the median of 5 runs: its host
+    jitter once gave a negative overhead)."""
+    from repro_torch.core import engine
+    big = bench_config(cfg, 256, 8)
+    runs = {"static": (engine.EngineSpec(policy="gcea", scheduler="fastest"),
+                       None),
+            "dynamic": (engine.EngineSpec(policy="gcea", scheduler="fastest",
+                                          scenario="dynamic"),
+                        "full_dynamic")}
+    steady = {label: [] for label in runs}
+    for label in OVERHEAD_TURNS:
+        spec, world = runs[label]
+        steady[label].append(_run_spec(
+            big, spec, 15, dev, f"256x8 {label} gcea-fastest",
+            tag="scenario", scenario=world, per_round=False)[1])
+    med = {k: statistics.median(v) for k, v in steady.items()}
+    pct = 100.0 * (med["dynamic"] / med["static"] - 1.0)
+    log(f"[scenario] 256x8 gcea-fastest s/round (rounds 2..15) in turns "
+        f"{', '.join(OVERHEAD_TURNS)}: static "
+        + ", ".join(f"{v:.5f}" for v in steady["static"]) + "; dynamic "
+        + ", ".join(f"{v:.5f}" for v in steady["dynamic"])
+        + f"; medians {med['static']:.5f}, {med['dynamic']:.5f}; "
+        f"dynamic_overhead_pct {pct:.2f}")
+
+
+def _scenario_fleet(cfg, dev):
+    """The reference's sweep fleet: 256 × 8, fcea + PDD, kind "dynamic",
+    the three sweep worlds × seeds 0-3 (S = 12) for 5 rounds, beside one
+    seed's 5 rounds; one member of each world against its own run on the
+    card."""
+    from repro_torch.core import engine
+    big = bench_config(cfg, 256, 8)
+    spec = engine.EngineSpec(scenario="dynamic")
+    one = _run_spec(big, spec, 5, dev, "256x8 random_waypoint S=1 fcea-pdd",
+                    tag="scenario", scenario="random_waypoint",
+                    per_round=False)[1]
+    worlds = [w for w in SWEEP_WORLDS for _ in range(4)]
+    seeds = [s for _ in SWEEP_WORLDS for s in range(4)]
+    label = f"256x8 mixed worlds S={len(seeds)}"
+    fm, steady_s, final, _ = _drive_fleet(big, spec, seeds, 5, dev, label,
+                                          worlds)
+    _fleet_vs_own(big, spec, seeds, [0, 5, 10], fm, final[0], dev, label,
+                  worlds=worlds)
+    log(f"[scenario] {label}: {steady_s:.4f} s/round, "
+        f"{len(seeds) / steady_s:.2f} seed-rounds/s; one seed's round "
+        f"(random_waypoint S=1) {one:.4f} s, {1.0 / one:.2f} seed-rounds/s; "
+        f"S={len(seeds)}/S=1 round {steady_s / one:.3f}x")
+
+
+def _scenario_sync_ab(cfg, dev):
+    """The sync half of the reference's ``bench_rounds.async_ab``: 1024 ×
+    16, gcea + fastest, 8 rounds of each churny world: wall s a round,
+    simulated rounds a second (rounds / Σ total_time_s), n_available."""
+    from repro_torch.core import engine
+    big = bench_config(cfg, 1024, 16)
+    for world in AB_WORLDS:
+        spec = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                                 scenario="dynamic")
+        rows, steady, _, _, _ = _run_spec(
+            big, spec, 8, dev, f"1024x16 {world} gcea-fastest",
+            tag="scenario", scenario=world, per_round=False)
+        sim_s = sum(r.total_time_s for r in rows)
+        log(f"[scenario] 1024x16 {world} sync: wall {steady:.4f} s/round; "
+            f"{len(rows) / sim_s:.4f} simulated rounds/s "
+            f"({len(rows)} rounds / {sim_s:.4f} s of Eq. 18 time); "
+            f"n_available {[r.n_available for r in rows]}")
+
+
+def _scenario_frontier(cfg, dev):
+    """The frontier under mobility: 1024 × 16, K = 4, random_waypoint,
+    fcea + PDD, 3 rounds; some client's frontier must change between
+    rounds; one round card vs CPU."""
+    from repro_torch.core import candidates, engine
+    big = bench_config(cfg, 1024, 16)
+    spec = engine.EngineSpec(candidates_k=4, scenario="dynamic")
+    fronts = []
+
+    def frontier(state):
+        fronts.append(candidates.build_candidates(
+            state.scenario.dist, 4,
+            coverage_radius_m=engine.coverage_radius(big)).idx.cpu())
+    state, bundle, gen = _run_spec(big, spec, 3, dev,
+                                   "1024x16 K=4 random_waypoint fcea-pdd",
+                                   tag="scenario",
+                                   scenario="random_waypoint",
+                                   on_round=frontier)[4]
+    moved = [int((a != b).any(dim=-1).sum())
+             for a, b in zip(fronts, fronts[1:])]
+    if not all(moved):
+        raise AssertionError(f"[scenario] 1024x16 K=4: no client's frontier "
+                             f"changed in some round ({moved} changed)")
+    log(f"[scenario] 1024x16 K=4 random_waypoint: clients whose frontier "
+        f"changed, rounds 1..3: {moved}")
+    card_vs_cpu(big, spec, state, bundle, gen, "1024x16 K=4 random_waypoint")
+
+
+@contextlib.contextmanager
+def _recording_grid():
+    """Record every ``env.grid_best_action`` call the engine makes while
+    the block runs: its inputs and the action it chose (no copy, no
+    sync)."""
+    from repro_torch.core import env
+    calls, real = [], env.grid_best_action
+
+    def record(cfg, params, gains, **kw):
+        action = real(cfg, params, gains, **kw)
+        calls.append((params, gains, kw, action))
+        return action
+    env.grid_best_action = record
+    try:
+        yield calls
+    finally:
+        env.grid_best_action = real
+
+
+def _scenario_grid(cfg, dev):
+    """fpa and fca at ``CONFIG`` on hetero_devices, fcea + PDD, 3 rounds
+    each (two SIC calls a round: the grid's and the bill's).  The action
+    each timed round's grid chose is held against the same grid on the
+    CPU, on that round's own inputs, exactly; so are those inputs billed
+    with time weighted 100:1 over energy, where the best point lies inside
+    the grid.  The fca grid's (16, N, M) SIC call goes against its plain
+    version; one round card vs CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.core import engine, env, noma
+    from repro_torch.kernels import hfl_ops
+    cpu = torch.device("cpu")
+    timed = dataclasses.replace(cfg, lambda_t=1.0, lambda_e=0.01)
+    fracs = env.grid_fractions(16, cpu).tolist()
+    for allocator in ("fpa", "fca"):
+        spec = engine.EngineSpec(allocator=allocator, scenario="dynamic")
+        label = f"CONFIG hetero_devices {allocator} fcea-pdd"
+        with _recording_grid() as calls:
+            _, _, _, launches, final = _run_spec(cfg, spec, 3, dev, label,
+                                                 tag="scenario",
+                                                 scenario="hetero_devices")
+        log(f"[scenario] {label}: {launches['sic_rates'] / 3:.0f} sic_rates "
+            f"launches a round (the grid's G = 16 points folded into one "
+            f"call, and the bill's)")
+        if len(calls) != 3:
+            raise AssertionError(f"[scenario] {label}: {len(calls)} grid "
+                                 f"calls in 3 rounds")
+        axis = 0 if allocator == "fpa" else 1
+        picks = {}
+        for weights, c in (("paper", cfg), ("time 100:1", timed)):
+            idx = []
+            for r, (params, gains, kw, chosen) in enumerate(calls, 1):
+                a_gpu = chosen if c is cfg else env.grid_best_action(
+                    c, params, gains, **kw)
+                a_cpu = env.grid_best_action(c, _to(params, cpu),
+                                             _to(gains, cpu), **kw)
+                if not torch.equal(a_gpu.cpu(), a_cpu):
+                    raise AssertionError(
+                        f"[scenario] {label} round {r} ({weights} "
+                        f"weights): the grid's action differs on the card "
+                        f"and the CPU")
+                idx.append(fracs.index(float(a_cpu[0, 1 - axis, 0])))
+            picks[weights] = idx
+        if not any(i > 0 for v in picks.values() for i in v):
+            raise AssertionError(f"[scenario] {label}: every grid pick is "
+                                 f"point 0 ({picks}); the grid's fold and "
+                                 f"argmin are not exercised")
+        log(f"[card-vs-cpu] {label}: each timed round's grid action exact "
+            f"on its own inputs; grid point chosen, rounds 1..3: "
+            + "; ".join(f"{k} weights {v}" for k, v in picks.items()))
+        state, bundle, gen = final
+        card_vs_cpu(cfg, spec, state, bundle, gen, label)
+        if allocator == "fca":
+            # the last timed round's own grid SIC call: 16 power rows at
+            # the caps, on that round's association and gains
+            params, gains, _, _ = calls[-1]
+            g = env.grid_fractions(16, dev)
+            act = torch.ones((16, 2, cfg.n_clients), device=dev)
+            act[:, 0, :] = g[:, None]
+            p, _ = env.env_decode_action(cfg, params, act)
+            gains = gains.expand(16, -1, -1).contiguous()
+            mask = (params.assoc > 0).expand(16, -1, -1).contiguous()
+            kw = dict(bandwidth_hz=cfg.bandwidth_hz,
+                      noise_w=noma.noise_power_w(cfg.noise_dbm_per_hz,
+                                                 cfg.bandwidth_hz))
+            got = hfl_ops.sic_rates(p, gains, mask, **kw)
+            want = hfl_ops.sic_rates_plain(p, gains, mask, **kw)
+            tol = TOL["sic_rates"]
+            _check_close(f"[scenario] fca grid sic_rates (16, "
+                         f"{cfg.n_clients}, {cfg.n_edges})", got, want,
+                         tol["rtol"], float(want.abs().max())
+                         * tol["atol_frac"])
+            ms_k = time_ms(lambda: hfl_ops.sic_rates(p, gains, mask, **kw))
+            ms_dev = graph_ms(lambda: hfl_ops.sic_rates(p, gains, mask, **kw))
+            ms_p = time_ms(lambda: hfl_ops.sic_rates_plain(p, gains, mask,
+                                                           **kw))
+            work = [sum(v) for v in zip(*(sic_work(mask[i])
+                                          for i in range(16)))]
+            b_ms, b_by = bound_ms(*work)
+            log(f"[scenario] fca grid sic_rates (16, {cfg.n_clients}, "
+                f"{cfg.n_edges}) against plain: max_abs_err "
+                f"{_max_err(got, want):.3e}; kernel {ms_k:.4f} ms (device "
+                f"{ms_dev:.4f} ms by graph replay), plain {ms_p:.4f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by})")
+
+
+def _scenario_all_dropped(cfg, dev):
+    """Every client dropped (p_drop 1, p_return 0) at ``CONFIG``, gcea +
+    fastest, one round on the card: nothing available or associated, the
+    global model unchanged bit for bit, a finite bill."""
+    import torch
+    from repro_torch import scenarios
+    from repro_torch.core.hfl import HFLSimulation
+    from repro_torch.kernels import hfl_ops
+    sim = HFLSimulation(cfg, seed=0, policy="gcea", scheduler="fastest",
+                        scenario=scenarios.ScenarioSpec(
+                            kind="markov_dropout", p_drop=1.0,
+                            p_return=0.0), device=dev)
+    before = {k: v.clone() for k, v in sim.state.global_params.items()}
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    m = sim.run_round()
+    torch.cuda.synchronize()
+    launches = dict(hfl_ops.LAUNCHES)
+    want = _want_launches(cfg, sim.spec, 1)
+    if launches != want:
+        raise AssertionError(f"[scenario] all dropped: launches {launches} "
+                             f"!= expected {want}")
+    same = all(torch.equal(sim.state.global_params[k], v)
+               for k, v in before.items())
+    if not (m.n_available == m.n_associated == 0 and same
+            and math.isfinite(m.cost)):
+        raise AssertionError(f"[scenario] all dropped: {m}; global model "
+                             f"unchanged: {same}")
+    log(f"[scenario] CONFIG all clients dropped, gcea-fastest: n_available "
+        f"0, n_associated 0, global model bit-equal, cost {m.cost:.5f} "
+        f"finite; launches {launches}: ok")
+
+
+def phase_scenario(cfg, dev, static_steady):
+    """The dynamic-scenario path and the fpa/fca allocators, each run with
+    the launch counters zeroed just before and read just after.  Returns
+    the ``CONFIG`` full_dynamic run's launches."""
+    launches = _scenario_config_round(cfg, dev, static_steady)
+    _scenario_overhead(cfg, dev)
+    _scenario_fleet(cfg, dev)
+    _scenario_sync_ab(cfg, dev)
+    _scenario_frontier(cfg, dev)
+    _scenario_grid(cfg, dev)
+    _scenario_all_dropped(cfg, dev)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1742,6 +2120,8 @@ def main(argv=None) -> int:
               "one steady fcea round", runs["fcea"][2])
     cand = phase("hfl candidate path", phase_candidates, CONFIG, dev)
     phase("hfl fleet", phase_fleet, CONFIG, dev, args.profile)
+    scen_launches = phase("hfl scenarios and fpa/fca", phase_scenario,
+                          CONFIG, dev, runs["fcea"][2])
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -1754,6 +2134,9 @@ def main(argv=None) -> int:
                 "local_sgd_step": runs["fcea"][1]["local_sgd_step_cluster"],
                 "flash_attention": seq_launches["flash_attention_wgmma"],
                 "linear_recurrence": seq_launches["linear_recurrence"]}
+    # the dynamic-scenario path's own counts (CONFIG full_dynamic, 5 rounds)
+    scen_launches = {**scen_launches, "local_sgd_step":
+                     scen_launches["local_sgd_step_cluster"]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -1761,20 +2144,23 @@ def main(argv=None) -> int:
                         "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
+                        "bound_by": b_by, "library_ms": None,
+                        "scenario_launches": scen_launches.get(name, 0)})
     for name, (err, ms_k, ms_p, b_ms, b_by, lib_ms) in seq_cmp.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms})
+                        "bound_by": b_by, "library_ms": lib_ms,
+                        "scenario_launches": scen_launches.get(name, 0)})
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": n_launch, "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms})
+                        "bound_by": b_by, "library_ms": lib_ms,
+                        "scenario_launches": scen_launches.get(name, 0)})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     result = {"kernels": kernels}
     if args.out:

@@ -119,14 +119,19 @@ def _preference(policy: str, scores, gains, uniform):
 def associate(policy: str, *, scores: torch.Tensor | None,
               gains: torch.Tensor, dist: torch.Tensor, quota: int,
               coverage_radius_m: float, uniform: torch.Tensor | None = None,
+              avail: torch.Tensor | None = None,
               return_sweeps: bool = False):
     """Dense (N, M) one-hot association for ``policy``: fcea ranks by
-    ``scores``, gcea by ``gains``, rcea by ``uniform`` (N, M).  Every
-    argument may carry a leading fleet axis S."""
+    ``scores``, gcea by ``gains``, rcea by ``uniform`` (N, M).  ``avail``
+    (N,) is a scenario's availability mask: an unavailable client is out
+    of every edge's coverage, so no policy admits it.  Every argument may
+    carry a leading fleet axis S."""
     pref = _preference(policy, scores, gains, uniform)
     if pref.dim() == dist.dim() - 1:
         pref = pref[..., None].expand(dist.shape)
     coverage = dist <= coverage_radius_m
+    if avail is not None:
+        coverage = coverage & (avail > 0)[..., None]
     pref = torch.where(coverage, pref, -torch.inf)
     # stable: exact preference ties go to the lower client index
     order = torch.argsort(-pref, dim=-2, stable=True).transpose(-1, -2)
@@ -157,7 +162,7 @@ def resolve_candidates(pref: torch.Tensor, cand, quota: int, n_edges: int,
     """
     if seed is not None:
         raise NotImplementedError("warm-start seeding is not ported to "
-                                  "repro_torch yet (ROADMAP A15)")
+                                  "repro_torch yet (ROADMAP A15 g)")
     idx, valid, dist = cand.idx, cand.valid, cand.dist
     if idx.dim() == 2:
         assigned, sweeps = resolve_candidates(

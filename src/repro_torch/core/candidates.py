@@ -9,8 +9,9 @@ candidate round consumes instead:
   (distance ascending, edge index ascending).  The candidate resolver's
   first-minimum ``argmin`` over slots relies on that order: it is the
   dense resolvers' (distance, edge) tie-break.
-* ``valid`` (N, K) bool -- in coverage (dist ≤ radius).  Coverage is a
-  distance threshold, so the in-coverage edges are a prefix of the row;
+* ``valid`` (N, K) bool -- in coverage (dist ≤ radius) and, in a dynamic
+  scenario, available this round.  Coverage is a distance threshold, so
+  the in-coverage edges are a prefix of the row;
   K ≥ the maximum coverage degree loses nothing, and the candidate round
   then makes the dense round's decisions.
 * ``dist``  (N, K) float32 -- the gathered distances.
@@ -30,14 +31,17 @@ import torch
 class CandidateSet(NamedTuple):
     """Per-client pruned edge frontier."""
     idx: torch.Tensor     # (N, K) int32 edge indices, (dist, edge)-sorted
-    valid: torch.Tensor   # (N, K) bool -- in coverage
+    valid: torch.Tensor   # (N, K) bool -- in coverage (and available)
     dist: torch.Tensor    # (N, K) gathered client-edge distances
 
 
 def build_candidates(dist: torch.Tensor, k: int, *,
-                     coverage_radius_m: float) -> CandidateSet:
+                     coverage_radius_m: float,
+                     avail: torch.Tensor | None = None) -> CandidateSet:
     """The ``k`` nearest edges per client from the (N, M) distance field
-    (or a fleet's (S, N, M): every step is per row).
+    (or a fleet's (S, N, M): every step is per row).  ``avail`` (N,) marks
+    a dropped client's whole row invalid: it is out of every edge's
+    coverage this round.
 
     A stable ascending sort keeps exact distance ties in edge-index order,
     as the reference's ``top_k`` of the negated distances does
@@ -45,8 +49,10 @@ def build_candidates(dist: torch.Tensor, k: int, *,
     k = min(int(k), dist.shape[-1])
     dk, idx = torch.sort(dist, dim=-1, stable=True)
     dk, idx = dk[..., :k], idx[..., :k]
-    return CandidateSet(idx=idx.to(torch.int32),
-                        valid=dk <= coverage_radius_m, dist=dk)
+    valid = dk <= coverage_radius_m
+    if avail is not None:
+        valid = valid & (avail > 0)[..., None]
+    return CandidateSet(idx=idx.to(torch.int32), valid=valid, dist=dk)
 
 
 def gather(cand: CandidateSet, field: torch.Tensor) -> torch.Tensor:
@@ -87,8 +93,10 @@ def segment_starts(keys: torch.Tensor) -> torch.Tensor:
     return torch.cummax(torch.where(is_start, iota, 0), dim=0).values
 
 
-def max_coverage_degree(dist, coverage_radius_m: float) -> int:
+def max_coverage_degree(dist, coverage_radius_m: float, avail=None) -> int:
     """The smallest K that loses nothing: the most in-coverage edges of
-    any client (host-side)."""
+    any (available) client (host-side)."""
     cov = np.asarray(torch.as_tensor(dist).cpu()) <= coverage_radius_m
+    if avail is not None:
+        cov = cov & (np.asarray(torch.as_tensor(avail).cpu()) > 0)[..., None]
     return int(cov.sum(axis=-1).max()) if cov.size else 0

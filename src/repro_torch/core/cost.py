@@ -37,12 +37,15 @@ def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
     return x.new_full((), c) / x
 
 
-def local_compute(cfg, f_hz: torch.Tensor, n_samples: torch.Tensor):
+def local_compute(cfg, f_hz: torch.Tensor, n_samples: torch.Tensor,
+                  capacitance: torch.Tensor | None = None):
     """Eqs. 4-5: per-client local training time and energy for τ₁
-    iterations, with the homogeneous ``cfg.capacitance``."""
+    iterations.  ``capacitance`` (N,), or (S, N) over a fleet, replaces the
+    homogeneous ``cfg.capacitance`` with a scenario's per-device κ."""
     tau1 = cfg.tau1
+    kappa = cfg.capacitance if capacitance is None else capacitance
     t_cmp = tau1 * cfg.cycles_per_sample * n_samples / f_hz
-    e_cmp = tau1 * (cfg.capacitance / 2.0) * (f_hz ** 2) \
+    e_cmp = tau1 * (kappa / 2.0) * (f_hz ** 2) \
         * cfg.cycles_per_sample * n_samples
     return t_cmp, e_cmp
 
@@ -128,16 +131,18 @@ def apply_schedule(cfg, rc: RoundCost, z: torch.Tensor) -> RoundCost:
 def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
                gains: torch.Tensor, assoc: torch.Tensor, z: torch.Tensor,
                n_samples: torch.Tensor, noma_enabled: bool = True,
+               capacitance: torch.Tensor | None = None,
                sic_max_per_edge: int | None = None,
                assigned: torch.Tensor | None = None) -> RoundCost:
     """Full Eq. 23a cost for one global round.
 
+    ``capacitance``: a scenario's per-device κ (``local_compute``).
     ``assigned`` (N,): the candidate path's compact association.  The
     uplink then runs on (N,) and (M, k) tensors (``uplink_assigned``),
     with ``sic_max_per_edge`` (the admission quota) bounding each edge's
     decode table; the per-edge reductions below still use the one-hot
     ``assoc``."""
-    t_cmp, e_cmp = local_compute(cfg, f_hz, n_samples)
+    t_cmp, e_cmp = local_compute(cfg, f_hz, n_samples, capacitance)
     if assigned is not None:
         if sic_max_per_edge is None:
             raise ValueError("round_cost(assigned=...) needs the "

@@ -15,13 +15,21 @@ compact assignment) touch only the k nearest edges of each client, and
 the one-hot (N, M) association is rebuilt for training and aggregation.
 
 * ``RoundState``  -- what evolves across rounds: global and stacked client
-  params, channel gains, staleness, the round index.
-* ``RoundBundle`` -- what is fixed for one scenario: distances and data.
+  params, channel gains, staleness, the round index and the scenario's
+  world state (``scenarios.ScenarioState``).
+* ``RoundBundle`` -- what is fixed for one simulation: distances and data.
 * ``RoundDraws``  -- the round's random numbers, an explicit argument:
   the ``Exp(1)`` fading field, the minibatch index lattice for all N
-  clients and, where the spec needs them, rcea's and rra's uniforms.
-  ``sample_draws`` makes them from a ``torch.Generator``; the tests
-  replay the reference's own draws through the same argument.
+  clients and, where the spec needs them, rcea's and rra's uniforms and
+  the scenario transition's.  ``sample_draws`` makes them from a
+  ``torch.Generator``; the tests replay the reference's own draws through
+  the same argument.
+
+With a dynamic ``EngineSpec.scenario`` the round first advances the world
+(``scenarios.advance``): the moved distances feed fading, coverage and
+association, an unavailable client is out of every edge's coverage and
+the association, the allocation is clamped to each device's caps, and the
+bill charges each device's κ.
 
 Two drivers run it, as in the reference: ``run_scanned`` over rounds,
 and ``run_fleet`` over a fleet of seeds stacked along a leading axis
@@ -29,10 +37,10 @@ and ``run_fleet`` over a fleet of seeds stacked along a leading axis
 ``fleet_step`` runs one round of all S simulations in one batched pass,
 and ``round_step`` is ``fleet_step`` of a fleet of one.
 
-The port covers the sync round on the static scenario, dense or on the
-candidate frontier, with fcea, gcea or rcea, the ``mid`` or ``rra``
-allocator, PDD or fastest scheduling, NOMA or OMA.  Everything else
-raises ``NotImplementedError`` naming its ROADMAP item.
+The port covers the sync round on every scenario kind, dense or on the
+candidate frontier, with fcea, gcea or rcea, the ``mid``, ``rra``,
+``fpa`` or ``fca`` allocator, PDD or fastest scheduling, NOMA or OMA.
+Everything else raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -43,8 +51,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import scenarios
 from repro_torch.core import (aggregation, association, candidates, cost,
-                              noma, pdd, staleness)
+                              env, noma, pdd, staleness)
 from repro_torch.data import federated
 from repro_torch.device import resolve_device
 from repro_torch.kernels import hfl_ops
@@ -62,11 +71,13 @@ class EngineSpec:
     """Per-simulation switches, with the reference's defaults.  Options the
     port does not have yet are accepted at their off value only."""
     policy: str = "fcea"            # fcea | gcea | rcea
-    allocator: str = "mid"          # mid | rra
+    allocator: str = "mid"          # mid | rra | fpa | fca
     scheduler: str = "pdd"          # pdd | fastest
     noma_enabled: bool = True
     fading_rho: float = 0.9
     oma_quota_factor: float = 0.5
+    # the transition kind (a key of ``scenarios.TRANSITIONS``); the
+    # scenario's numbers live in ``RoundState.scenario``
     scenario: str = "static"
     candidates_k: Optional[int] = None
     telemetry: bool = False
@@ -78,31 +89,33 @@ class EngineSpec:
         todo = []
         if self.policy not in association.POLICIES:
             raise ValueError(f"unknown association policy {self.policy!r}")
-        if self.allocator in ("fpa", "fca", "ddpg"):
-            todo.append(f"allocator={self.allocator!r} (ROADMAP A15)")
-        elif self.allocator not in ("mid", "rra"):
+        if self.allocator == "ddpg":
+            todo.append("allocator='ddpg' (ROADMAP A15 c)")
+        elif self.allocator not in ("mid", "rra", "fpa", "fca"):
             raise ValueError(f"unknown allocator {self.allocator!r}")
         if self.scheduler not in ("pdd", "fastest"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
-        if self.scenario != "static":
-            todo.append("dynamic scenarios (ROADMAP A15)")
+        if self.scenario not in scenarios.TRANSITIONS:
+            raise ValueError(f"unknown scenario transition "
+                             f"{self.scenario!r}; registered: "
+                             f"{sorted(scenarios.TRANSITIONS)}")
         if self.telemetry:
-            todo.append("telemetry (ROADMAP A15)")
+            todo.append("telemetry (ROADMAP A15 d)")
         if self.engine_mode != "sync":
-            todo.append("engine_mode='buffered' (ROADMAP A15)")
+            todo.append("engine_mode='buffered' (ROADMAP A15 e)")
         if self.faults is not None:
-            todo.append("faults (ROADMAP A15)")
+            todo.append("faults (ROADMAP A15 f)")
         if self.warm_start:
-            todo.append("warm_start (ROADMAP A15)")
+            todo.append("warm_start (ROADMAP A15 g)")
         if todo:
             raise NotImplementedError(
                 "not ported to repro_torch yet: " + ", ".join(todo))
 
 
 class RoundBundle(NamedTuple):
-    """Per-scenario constants.  In a fleet (``stack_fleet``) each of the
+    """Per-simulation constants.  In a fleet (``stack_fleet``) each of the
     state's, bundle's and draws' tensors has a leading seed axis S."""
-    dist: torch.Tensor       # (N, M) float32 client-edge distances
+    dist: torch.Tensor       # (N, M) float32 client-edge distances at init
     x: torch.Tensor          # (N, cap, dim) float32 padded client data
     y: torch.Tensor          # (N, cap) int32 labels
     counts: torch.Tensor     # (N,) float32 — D_n
@@ -117,6 +130,7 @@ class RoundState(NamedTuple):
     gains: torch.Tensor      # (N, M) float32 current |h|²
     staleness: torch.Tensor  # (N,) int32 — A_n
     round_idx: int
+    scenario: Any = None     # scenarios.ScenarioState (None: static only)
 
 
 class RoundDraws(NamedTuple):
@@ -125,6 +139,9 @@ class RoundDraws(NamedTuple):
     batch_idx: torch.Tensor  # (τ₂, τ₁, N, B) int32 in [0, max(D_n, 1))
     assoc_u: Optional[torch.Tensor] = None  # (N, M) Uniform[0, 1), rcea
     alloc_u: Optional[torch.Tensor] = None  # (2, N) Uniform[0, 1), rra
+    # (U,) Uniform[0, 1): the scenario transition's uniforms, laid out as
+    # ``scenarios.draw_shapes`` names them; empty on the static kind
+    scenario: Optional[torch.Tensor] = None
 
 
 class RoundMetrics(NamedTuple):
@@ -139,7 +156,7 @@ class RoundMetrics(NamedTuple):
     total_energy_j: torch.Tensor
     cost: torch.Tensor
     n_associated: torch.Tensor
-    n_available: Any
+    n_available: Any         # int N (static), or an int32 count a seed
     z: torch.Tensor          # (M,)
     sweeps: Any              # deferred-acceptance sweeps the resolver ran
 
@@ -190,17 +207,21 @@ def _exp1(shape, generator: torch.Generator, device: torch.device
 
 def init_simulation(cfg, *, seed: int = 0, iid: bool = True,
                     device: "str | torch.device" = "cuda",
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    scenario: "scenarios.ScenarioSpec | str | None" = None
                     ) -> Tuple[RoundState, RoundBundle, Dict[str, Any]]:
-    """Build one scenario: (state, bundle, aux).
+    """Build one simulation: (state, bundle, aux).
 
     Topology and data come from ``numpy.random.default_rng(seed)`` in the
-    reference's order, so ``dist``, ``x``, ``y``, ``counts``, ``test_x``
-    and ``test_y`` equal the reference's bit for bit.  The MLP init and
-    the first gains come from ``generator`` (default: a generator on
+    reference's order, then the scenario's draws (``scenario``: a
+    ``ScenarioSpec``, preset name or kind string), so ``dist``, ``x``,
+    ``y``, ``counts``, ``test_x``, ``test_y`` and every leaf of
+    ``state.scenario`` equal the reference's bit for bit.  The MLP init
+    and the first gains come from ``generator`` (default: a generator on
     ``device`` seeded with ``seed``).  ``aux`` holds the topology, the
-    host data and the numpy rng.
+    host data, the numpy rng and the ``scenario_spec``.
     """
+    sspec = scenarios.preset(scenario)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -224,7 +245,8 @@ def init_simulation(cfg, *, seed: int = 0, iid: bool = True,
         client_params=aggregation.replicate(global_params, cfg.n_clients),
         gains=gains,
         staleness=staleness.init_staleness(cfg.n_clients, dev),
-        round_idx=0)
+        round_idx=0,
+        scenario=scenarios.init_scenario(cfg, sspec, rng, topo, dev))
     bundle = RoundBundle(
         dist=dist,
         x=torch.tensor(data.x, **f32),
@@ -232,7 +254,8 @@ def init_simulation(cfg, *, seed: int = 0, iid: bool = True,
         counts=torch.tensor(data.counts, **f32),
         test_x=torch.tensor(data.test_x, **f32),
         test_y=torch.tensor(data.test_y, dtype=torch.int32, device=dev))
-    aux = {"topo": topo, "data": data, "rng": rng, "generator": generator}
+    aux = {"topo": topo, "data": data, "rng": rng, "generator": generator,
+           "scenario_spec": sspec}
     return state, bundle, aux
 
 
@@ -241,8 +264,10 @@ def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator,
     """One round's draws from ``generator`` (on the bundle's device): the
     ``Exp(1)`` fading field; for every client, τ₂ × τ₁ minibatches of
     ``local_batch`` indices uniform over its D_n samples; then, only when
-    ``spec`` needs them, rcea's (N, M) and rra's (2, N) uniforms -- so the
-    fcea/gcea + ``mid`` stream does not depend on them."""
+    ``spec`` needs them, rcea's (N, M) and rra's (2, N) uniforms, and the
+    scenario transition's (U,) uniforms (none on the static kind) -- so
+    the static fcea/gcea + ``mid`` stream does not depend on any of
+    them."""
     dev = bundle.dist.device
     fading = _exp1(bundle.dist.shape, generator, dev)
     hi = torch.clamp_min(bundle.counts, 1.0)[None, None, :, None]
@@ -256,8 +281,11 @@ def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator,
     if spec.allocator == "rra":
         alloc_u = torch.rand((2, cfg.n_clients), generator=generator,
                              device=dev)
+    size = scenarios.draw_size(cfg, spec.scenario)
+    scen_u = (torch.rand((size,), generator=generator, device=dev) if size
+              else torch.empty((0,), device=dev))
     return RoundDraws(fading=fading, batch_idx=idx, assoc_u=assoc_u,
-                      alloc_u=alloc_u)
+                      alloc_u=alloc_u, scenario=scen_u)
 
 
 def _map(fn, *trees):
@@ -317,15 +345,35 @@ def fleet_draws(cfg, bundles: RoundBundle, generators,
 # Round pieces, each over a leading fleet axis S
 # ---------------------------------------------------------------------------
 
-def _allocate(cfg, spec: EngineSpec, draws: RoundDraws
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _grid_allocate(cfg, spec: EngineSpec, assoc, gains, counts, scen,
+                   fixed_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's FPA/FCA benchmarks (§V-D): one action axis pinned at its
+    maximum, the other grid-optimised (``env.grid_best_action``) against
+    the Eq. 23a bill at z = 1, with the scenario's κ and caps; ``assoc``
+    is already availability-masked."""
+    params = env.make_env_params(
+        cfg, assoc, torch.ones(assoc.shape[:-2] + (cfg.n_edges,),
+                               device=assoc.device), counts,
+        kappa=scen.kappa if scen is not None else None,
+        p_max_w=scen.p_max_w if scen is not None else None,
+        f_max_hz=scen.f_max_hz if scen is not None else None)
+    a = env.grid_best_action(cfg, params, gains, fixed_axis=fixed_axis,
+                             fixed_frac=1.0, noma_enabled=spec.noma_enabled)
+    return env.env_decode_action(cfg, params, a)
+
+
+def _allocate(cfg, spec: EngineSpec, draws: RoundDraws, assoc, gains,
+              counts, scen) -> Tuple[torch.Tensor, torch.Tensor]:
     """(p_w (S, N), f_hz (S, N)): ``mid`` takes the midpoints, ``rra`` a
-    uniform point of each range from ``draws.alloc_u`` (S, 2, N)."""
+    uniform point of each range from ``draws.alloc_u`` (S, 2, N), ``fpa``
+    (power at its maximum) and ``fca`` (frequency at its maximum) the
+    grid's best point of the other axis.  ``scen`` is the dynamic
+    scenario's state (None on the static path)."""
+    if spec.allocator in ("fpa", "fca"):
+        return _grid_allocate(cfg, spec, assoc, gains, counts, scen,
+                              fixed_axis=0 if spec.allocator == "fpa" else 1)
     if spec.allocator == "rra":
-        a = draws.alloc_u
-        p = cfg.p_min_w + a[:, 0] * (cfg.p_max_w - cfg.p_min_w)
-        f = cfg.f_min_hz + a[:, 1] * (cfg.f_max_hz - cfg.f_min_hz)
-        return p, f
+        return env.decode_action(cfg, draws.alloc_u)
     shape, dev = draws.fading.shape[:-1], draws.fading.device   # (S, N)
     return (torch.full(shape, 0.5 * (cfg.p_min_w + cfg.p_max_w),
                        device=dev),
@@ -458,27 +506,41 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     resolver loop (each seed stopping at its own last sweep), one SIC
     call, one PDD loop, τ₂ SGD launches over the S·K lanes -- and each
     seed's result is the one its own ``round_step`` gives.  Metrics have a
-    leading S axis (``round`` and ``n_available`` stay ints; ``sweeps`` is
-    an (S,) host tensor).  ``timer``, if given, is called with each
-    stage's name (associate, allocate, schedule, train, eval) and must
-    return a context manager around that stage -- the hook stage timings
-    use."""
+    leading S axis (``round`` stays an int, and so does ``n_available`` on
+    the static kind; ``sweeps`` is an (S,) host tensor).  On a dynamic
+    kind the scenario advances first, each seed from its own state and
+    uniforms, so a fleet of mixed worlds is one round.  ``timer``, if
+    given, is called with each stage's name (scenario, on a dynamic kind
+    only; associate, allocate, schedule, train, eval) and must return a
+    context manager around that stage -- the hook stage timings use."""
     stage = timer or _no_stage
     dev = bundles.dist.device
     seeds = bundles.dist.shape[0]
     n, m = cfg.n_clients, cfg.n_edges
-    # 1. channel fading
-    gains = noma.evolve_gains(draws.fading, states.gains, bundles.dist,
+    # 0. the scenario transition: the static kind keeps the bundle's
+    #    distances and every client available
+    dynamic = spec.scenario != "static"
+    if dynamic:
+        with stage("scenario"):
+            scen = scenarios.advance(cfg, spec.scenario, draws.scenario,
+                                     states.scenario)
+        dist, avail = scen.dist, scen.avail
+    else:
+        scen = states.scenario
+        dist, avail = bundles.dist, None
+    # 1. channel fading (distances may have just moved)
+    gains = noma.evolve_gains(draws.fading, states.gains, dist,
                               path_loss_exponent=cfg.path_loss_exponent,
                               rho=spec.fading_rho)
-    # 2. fuzzy scoring + association, dense or on the (N, K) frontier
+    # 2. fuzzy scoring + association, dense or on the (N, K) frontier;
+    #    unavailable clients are out of coverage this round
     with stage("associate"):
         assigned = None
         data_max = float(cfg.max_samples)
         if spec.candidates_k is not None:
             cand = candidates.build_candidates(
-                bundles.dist, spec.candidates_k,
-                coverage_radius_m=coverage_radius(cfg))
+                dist, spec.candidates_k,
+                coverage_radius_m=coverage_radius(cfg), avail=avail)
             scores = None
             if spec.policy == "fcea":
                 scores = hfl_ops.score_candidates(
@@ -496,14 +558,23 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
                                               states.staleness,
                                               data_max=data_max)
             assoc, sweeps = association.associate(
-                spec.policy, scores=scores, gains=gains, dist=bundles.dist,
+                spec.policy, scores=scores, gains=gains, dist=dist,
                 quota=quota_for(cfg, spec),
                 coverage_radius_m=coverage_radius(cfg),
-                uniform=draws.assoc_u, return_sweeps=True)
+                uniform=draws.assoc_u, avail=avail, return_sweeps=True)
         assoc = assoc.float()
-    # 3. resource allocation
+        if dynamic and assigned is None:
+            # the explicit Eq. 11/17/23a mask: no policy trains on,
+            # aggregates or bills a dropped client (the frontier's
+            # ``valid`` already excludes it)
+            assoc = assoc * avail[..., None]
+    # 3. resource allocation, clamped to the device classes' caps
     with stage("allocate"):
-        p, f = _allocate(cfg, spec, draws)
+        p, f = _allocate(cfg, spec, draws, assoc, gains, bundles.counts,
+                         scen if dynamic else None)
+        if dynamic:
+            p = torch.minimum(p, scen.p_max_w)
+            f = torch.minimum(f, scen.f_max_hz)
     # 4. one cost evaluation at z = 1, reused by the scheduler and the
     #    final masked round cost
     with stage("schedule"):
@@ -512,6 +583,7 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
                                  z=torch.ones((seeds, m), device=dev),
                                  n_samples=bundles.counts,
                                  noma_enabled=spec.noma_enabled,
+                                 capacitance=scen.kappa if dynamic else None,
                                  sic_max_per_edge=quota_for(cfg, spec),
                                  assigned=assigned)
         z = _schedule(cfg, spec, rc_all)
@@ -539,11 +611,12 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
         total_energy_j=rc.total_energy_j,
         cost=rc.cost,
         n_associated=torch.sum(selected, dim=-1, dtype=torch.int32),
-        n_available=n,
+        n_available=(torch.sum(avail > 0, dim=-1, dtype=torch.int32)
+                     if dynamic else n),
         z=z,
         sweeps=torch.tensor(sweeps))
     new_state = RoundState(global_params, client_params, gains, new_stale,
-                           round_idx)
+                           round_idx, scen)
     return new_state, metrics
 
 

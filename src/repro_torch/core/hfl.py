@@ -1,7 +1,8 @@
 """Stateful wrapper around the round engine: the paper's simulation object.
 
-``HFLSimulation`` holds one ``RoundState``, the scenario's ``RoundBundle``
-and the ``torch.Generator`` every round's draws come from:
+``HFLSimulation`` holds one ``RoundState``, its ``RoundBundle`` and the
+``torch.Generator`` every round's draws come from, in a static or dynamic
+scenario (``scenario``: a preset name, kind string or ``ScenarioSpec``):
 
 * ``run_round()``    -- one round,
 * ``run(n)``         -- n rounds, metrics read back every round,
@@ -18,6 +19,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch import scenarios
 from repro_torch.core import engine
 from repro_torch.core.engine import EngineSpec, RoundState
 from repro_torch.device import resolve_device
@@ -47,26 +49,29 @@ class RoundMetrics:
 
 class HFLSimulation:
     """The paper's simulation: 64 clients, 4 edges, NOMA uplink, MNIST-like
-    classification, on ``device`` (default: the GPU)."""
+    classification, on ``device`` (default: the GPU).  ``spec.scenario``
+    is the scenario's engine kind, ``scenario_spec`` its full spec."""
 
     def __init__(self, cfg, *, seed: int = 0, iid: bool = True,
                  policy: str = "fcea", noma_enabled: bool = True,
                  allocator: str = "mid", scheduler: str = "pdd",
                  fading_rho: float = 0.9, oma_quota_factor: float = 0.5,
-                 scenario: str = "static",
+                 scenario=None,
                  device: "str | torch.device" = "cuda"):
         self.cfg = cfg
+        sspec = scenarios.preset(scenario)
+        self.scenario_spec = sspec
         self.spec = EngineSpec(policy=policy, allocator=allocator,
                                scheduler=scheduler,
                                noma_enabled=noma_enabled,
                                fading_rho=fading_rho,
                                oma_quota_factor=oma_quota_factor,
-                               scenario=scenario)
+                               scenario=sspec.engine_kind())
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._state, self.bundle, aux = engine.init_simulation(
             cfg, seed=seed, iid=iid, device=self.device,
-            generator=self.generator)
+            generator=self.generator, scenario=sspec)
         self.topo = aux["topo"]
         self.data = aux["data"]
         self.coverage_m = engine.coverage_radius(cfg)

@@ -106,7 +106,7 @@ def sic_rates_assigned(power_w: torch.Tensor, own_gain: torch.Tensor,
     srx = torch.zeros((seeds * rows, k), dtype=rx.dtype, device=dev)
     srx[tbl_r, tbl_p] = rx[perm]
     srx = srx.reshape(seeds, rows, k)[:, :n_edges]
-    csum = torch.cumsum(srx, dim=-1)
+    csum = _running_sum(srx)
     interference = torch.clamp_min(csum[..., -1:] - csum, 0.0)
     sinr = srx / (interference + noise_w)
     rate = (bandwidth_hz * torch.log2(1.0 + sinr)).reshape(-1, k)
@@ -116,6 +116,17 @@ def sic_rates_assigned(power_w: torch.Tensor, own_gain: torch.Tensor,
     out = torch.empty_like(rate_sorted)
     out[perm] = rate_sorted
     return torch.where(matched, out.reshape(lead + (n,)), 0.0)
+
+
+def _running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Running sums along the last axis, one float32 add after another, as
+    the reference's ``jnp.cumsum`` adds them.  ``torch.cumsum`` on the CPU
+    accumulates float32 in float64, and the interference above is a
+    difference of these sums, which cancels: its rounding shows."""
+    sums = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        sums.append(sums[-1] + x[..., j])
+    return torch.stack(sums, dim=-1)
 
 
 def noise_power_w(noise_dbm_per_hz: float, bandwidth_hz: float) -> float:

@@ -409,6 +409,106 @@ def test_config_fleet_round_card_matches_cpu(cuda):
         <= 2.0 / n_test
 
 
+# the fpa/fca grid's SIC call: G = 16 power rows of each of S seeds folded
+# onto the leading axis (S·16), one-hot masks, one seed with every client
+# dropped (an all-false mask)
+@pytest.mark.parametrize("seeds", [1, 3])
+def test_sic_grid_lead_axis_matches_plain(cuda, seeds):
+    rng = np.random.default_rng(16 + seeds)
+    n, m, grid = 64, 4, 16
+    cases = [_sic_case(rng, n, m, "one-hot") for _ in range(seeds)]
+    if seeds > 1:
+        cases[-1] = (cases[-1][0], cases[-1][1], np.zeros((n, m), bool))
+    frac = np.arange(grid, dtype=np.float32)[:, None, None] / 15.0
+    p = np.stack([c[0] for c in cases])[None] * (0.1 + frac)   # (G, S, N)
+    g = np.broadcast_to(np.stack([c[1] for c in cases])[None],
+                        (grid, seeds, n, m))
+    mask = np.broadcast_to(np.stack([c[2] for c in cases])[None],
+                           (grid, seeds, n, m))
+    pt, gt, mt = _on(cuda, p.reshape(-1, n).astype(np.float32),
+                     np.ascontiguousarray(g).reshape(-1, n, m),
+                     np.ascontiguousarray(mask).reshape(-1, n, m))
+    kw = dict(bandwidth_hz=1e6, noise_w=noma.noise_power_w(-174.0, 1e6))
+    before = hfl_ops.LAUNCHES["sic_rates"]
+    got = hfl_ops.sic_rates(pt, gt, mt, **kw)
+    torch.cuda.synchronize()
+    assert hfl_ops.LAUNCHES["sic_rates"] == before + 1
+    want = hfl_ops.sic_rates_plain(pt, gt, mt, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=float(want.max()) * 1e-6)
+    for row in range(grid * seeds):
+        assert torch.equal(got[row], hfl_ops.sic_rates(pt[row], gt[row],
+                                                       mt[row], **kw)), row
+    if seeds > 1:
+        dropped = got.reshape(grid, seeds, n, m)[:, -1]
+        assert torch.equal(dropped, torch.zeros_like(dropped))
+
+
+@pytest.mark.parametrize("scenario,kw,sic_calls", [
+    ("full_dynamic", dict(), 1),
+    ("hetero_devices", dict(allocator="fca"), 2),
+    ("hetero_devices", dict(allocator="fpa", candidates_k=2), 1)])
+def test_scenario_round_card_matches_cpu(cuda, scenario, kw, sic_calls):
+    """One dynamic ``CONFIG`` round of fcea + PDD on the card and from the
+    same state and draws on the CPU: the availability, n_available and the
+    decisions exact, the moved positions and distances to rtol 1e-6 above
+    a floor of 1e-6 of the area's side (the card's norm rounds the
+    waypoint step an ulp apart, which is more than 1e-6 of a short
+    distance), the bill to rtol 1e-5, the loss to rtol 1e-4; the fpa/fca
+    grid's SIC call is one more launch."""
+    cfg = CONFIG
+    spec = engine.EngineSpec(scenario="dynamic", **kw)
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=cuda,
+                                                scenario=scenario)
+    draws = engine.sample_draws(cfg, bundle, aux["generator"], spec)
+    before = dict(hfl_ops.LAUNCHES)
+    s_card, m_card = engine.round_step(cfg, spec, state, bundle, draws)
+    torch.cuda.synchronize()
+    grew = {k: hfl_ops.LAUNCHES[k] - before[k] for k in before}
+    dense = spec.candidates_k is None
+    assert (grew["score_matrix"], grew["score_candidates"],
+            grew["sic_rates"], grew["local_sgd_step"]) == \
+        (int(dense), int(not dense), sic_calls, cfg.tau2)
+    cpu = torch.device("cpu")
+    s_cpu, m_cpu = engine.round_step(cfg, spec, _to(state, cpu),
+                                     _to(bundle, cpu), _to(draws, cpu))
+    g, c = engine.metrics_row(m_card), engine.metrics_row(m_cpu)
+    assert g["z"].tolist() == c["z"].tolist()
+    for key in ("n_available", "n_associated", "sweeps"):
+        assert g[key] == c[key], key
+    assert torch.equal(s_card.staleness.cpu(), s_cpu.staleness)
+    for field in s_cpu.scenario._fields:
+        got, want = getattr(s_card.scenario, field).cpu(), \
+            getattr(s_cpu.scenario, field)
+        if field in ("pos", "waypoint", "dist"):
+            torch.testing.assert_close(got, want, rtol=1e-6,
+                                       atol=1e-6 * cfg.area_side_m)
+        else:
+            assert torch.equal(got, want), field
+    for key in ("cost", "total_time_s", "total_energy_j"):
+        assert g[key] == pytest.approx(c[key], rel=1e-5), key
+    assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
+
+
+def test_all_dropped_round_on_the_card(cuda):
+    """Every client dropped: the SIC kernel sees an all-false mask, every
+    SGD lane is a pad lane, PDD's edges carry only the cloud hop; the
+    global model rides through bit for bit and the bill is finite."""
+    from repro_torch import scenarios
+    cfg = CONFIG
+    spec = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                             scenario="dynamic")
+    state, bundle, aux = engine.init_simulation(
+        cfg, seed=0, device=cuda, scenario=scenarios.ScenarioSpec(
+            kind="markov_dropout", p_drop=1.0, p_return=0.0))
+    draws = engine.sample_draws(cfg, bundle, aux["generator"], spec)
+    s1, m = engine.round_step(cfg, spec, state, bundle, draws)
+    assert int(m.n_available) == 0 and int(m.n_associated) == 0
+    for k, v in state.global_params.items():
+        assert torch.equal(s1.global_params[k], v), k
+    assert np.isfinite(float(m.cost))
+
+
 def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):
     """Weights 0.3·N(0, 1), or ``scale``/√fan-in for the matrices."""
     rng = np.random.default_rng(k + d_in)

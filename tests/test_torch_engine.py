@@ -237,8 +237,7 @@ def test_sample_draws_adds_uniforms_after_the_shared_stream():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(allocator="fpa"), "A15"), (dict(allocator="fca"), "A15"),
-    (dict(allocator="ddpg"), "A15"), (dict(scenario="dynamic"), "A15"),
+    (dict(allocator="ddpg"), "A15"),
     (dict(telemetry=True), "A15"), (dict(engine_mode="buffered"), "A15"),
     (dict(faults=object()), "A15"), (dict(warm_start=True), "A15"),
     (dict(candidates_k=2, warm_start=True), "A15")])
@@ -248,7 +247,16 @@ def test_out_of_slice_options_raise(kw, item):
 
 
 @pytest.mark.parametrize("kw", [dict(policy="rcea"), dict(allocator="rra"),
-                                dict(candidates_k=2)])
+                                dict(candidates_k=2),
+                                dict(scenario="dynamic"),
+                                dict(allocator="fpa"), dict(allocator="fca")])
 def test_ported_options_are_accepted(kw):
     spec = engine.EngineSpec(**kw)
     assert all(getattr(spec, k) == v for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kw", [dict(scenario="warp_drive"),
+                                dict(allocator="magic")])
+def test_unknown_options_raise_value_error(kw):
+    with pytest.raises(ValueError):
+        engine.EngineSpec(**kw)
