@@ -77,6 +77,25 @@ and prints no result):
    also with time weighted 100:1, and some pick inside the grid); and a
    round with every client dropped (the global
    model bit-equal, the bill finite);
+6e. the DDPG allocator (``[ddpg]``), each run with the launch counters
+   zeroed just before and read just after: ``HFLSimulation(CONFIG,
+   allocator="ddpg").train_ddpg()`` at the paper's defaults (20 × 50
+   slots, hidden 128, buffer 4096, batch 64, warmup 64; one SIC call a
+   slot, one fused-score call for the fcea association snapshot, no SGD
+   launch), then 3 deployed fcea + PDD rounds (a ``mid`` round's
+   launches) beside the ``[main]`` round and one deployed round card vs
+   CPU; the reference's ``bench_ddpg`` scale (64 × 4 full_dynamic, gcea,
+   the 192-wide observation, hidden 64, buffer 1024, 10 × 40 slots),
+   twice; training card vs CPU from the same weights and draws (``CONFIG``
+   static, gcea, 2 × 40 slots, warmup 16, hidden 64) at
+   ``DDPG_TRAIN_TOL``, each side's gap to a float64 CPU run printed; the
+   S = 4 fleet (seeds 0-3, ``CONFIG`` full_dynamic, 10 × 40 slots, one
+   SIC call a slot), member 0 against its own run, then
+   ``run_fleet_actors`` 3 rounds, each member against its own
+   ``run_scanned`` with its own actor; and the paper's comparison
+   (``benchmarks/fig_ddpg_cost.py``): the trained actor's mean Eq. 23a
+   cost beside rra's, fpa's and fca's on the same slots, printed; with
+   ``--profile``, the device's busy share over 20 updating slots;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -104,8 +123,9 @@ and prints no result):
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
     chain launches, has its ``[compare]`` lines alone; ``launches`` counts
-    the main path's run and ``scenario_launches`` the ``CONFIG``
-    full_dynamic run's) and, last, the device line.
+    the main path's run, ``scenario_launches`` the ``CONFIG``
+    full_dynamic run's and ``ddpg_launches`` the paper-default
+    ``train_ddpg()`` run's) and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -790,10 +810,10 @@ def _check_bill(tag, g, c, n_test):
     return worst
 
 
-def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
+def card_vs_cpu(cfg, spec, state, bundle, generator, label="", actor=None):
     """One round of ``spec`` from ``state`` with fresh draws from
-    ``generator``, on the card and, from the same state and draws, on the
-    CPU: ``z``, ``n_associated``, sweeps and staleness exact, the bill to
+    ``generator`` (billed by the DDPG ``actor``, if given), on the card
+    and, from the same state, draws and actor, on the CPU: ``z``, ``n_associated``, sweeps and staleness exact, the bill to
     rtol 1e-5, the loss to rtol 1e-4, the accuracy to 2 test samples; on
     a dynamic scenario also ``n_available`` and the availability exactly,
     the moved positions and distances as ``_check_world`` holds them."""
@@ -803,9 +823,10 @@ def card_vs_cpu(cfg, spec, state, bundle, generator, label=""):
     from repro_torch.kernels import hfl_ops
     cpu = torch.device("cpu")
     draws = engine.sample_draws(cfg, bundle, generator, spec)
-    s_gpu, m_gpu = engine.round_step(cfg, spec, state, bundle, draws)
+    s_gpu, m_gpu = engine.round_step(cfg, spec, state, bundle, draws, actor)
     s_cpu, m_cpu = engine.round_step(cfg, spec, _to(state, cpu),
-                                     _to(bundle, cpu), _to(draws, cpu))
+                                     _to(bundle, cpu), _to(draws, cpu),
+                                     _to(actor, cpu))
     g, c = engine.metrics_row(m_gpu), engine.metrics_row(m_cpu)
     tag = f"[card-vs-cpu]{' ' + label if label else ''}"
     if cfg.n_clients <= 256:
@@ -1102,14 +1123,16 @@ def _fleet(cfg, seeds, dev, worlds=None):
     return (*engine.stack_fleet(pairs), gens)
 
 
-def _drive_fleet(cfg, spec, seeds, rounds, dev, label, worlds=None):
+def _drive_fleet(cfg, spec, seeds, rounds, dev, label, worlds=None,
+                 actors=None):
     """``run_fleet`` of ``seeds`` for ``rounds`` rounds, one round a call
     (the trajectory of one call of ``rounds``) so that each round's wall is
     read, with every launch counter zeroed just before and read just after;
     check the launches and each seed's metrics, print the rounds and the
     stage spans.  Returns the fleet metrics (S, rounds, …), the steady s a
     round, the final (states, bundles, generators) and the stage spans.
-    ``worlds``: each seed's scenario, for a fleet of mixed worlds."""
+    ``worlds``: each seed's scenario, for a fleet of mixed worlds;
+    ``actors``: one DDPG actor a seed (``run_fleet_actors``)."""
     import torch
     from repro_torch.core import engine
     from repro_torch.core.hfl import RoundMetrics
@@ -1121,8 +1144,8 @@ def _drive_fleet(cfg, spec, seeds, rounds, dev, label, worlds=None):
     rows, walls = [], []
     for _ in range(rounds):
         t0 = time.perf_counter()
-        states, m = engine.run_fleet(cfg, spec, states, bundles, 1, gens,
-                                     timer=timer)
+        states, m = engine.run_fleet_actors(cfg, spec, states, bundles, 1,
+                                            gens, actors, timer=timer)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         rows.append(m)
@@ -1160,7 +1183,7 @@ def _drive_fleet(cfg, spec, seeds, rounds, dev, label, worlds=None):
 
 
 def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
-                  own=None, worlds=None):
+                  own=None, worlds=None, actors=None):
     """Each of ``members`` (indices into ``seeds``) against its own
     ``run_scanned`` from ``init_simulation(seed)`` (in its scenario of
     ``worlds``) and its generator, on the card: z, n_available,
@@ -1169,7 +1192,8 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
     rtol 1e-4 (the fleet's S·K lanes may take another SGD cluster size,
     whose sums are not bit-equal); the accuracy to 2 test samples.  The
     own runs are kept in ``own`` (by seed and world) for a later fleet of
-    the same seeds."""
+    the same seeds.  ``actors``: the fleet's DDPG actors, one a seed; each
+    own run deploys its seed's."""
     import torch
     from repro_torch.core import engine
     rounds = fm.accuracy.shape[1]
@@ -1180,8 +1204,9 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
         if (seeds[s], world) not in own:
             state, bundle, aux = engine.init_simulation(
                 cfg, seed=seeds[s], device=dev, scenario=world)
-            o_state, om = engine.run_scanned(cfg, spec, state, bundle,
-                                             rounds, aux["generator"])
+            o_state, om = engine.run_scanned(
+                cfg, spec, state, bundle, rounds, aux["generator"],
+                None if actors is None else engine.select_seed(actors, s))
             own[seeds[s], world] = (o_state, engine.RoundMetrics(
                 *(v.cpu() for v in om)), bundle.test_y.shape[0])
         o_state, om, n_test = own[seeds[s], world]
@@ -1697,6 +1722,334 @@ def phase_scenario(cfg, dev, static_steady):
 
 
 # ---------------------------------------------------------------------------
+# The DDPG allocator (paper §IV-C, Algorithm 2)
+# ---------------------------------------------------------------------------
+
+# card (kernels, cuBLAS) against CPU (plain versions) training from the
+# same weights and draws, CONFIG static, 2 × 40 slots, warmup 16, hidden
+# 64 (65 updates); each side's gap to a float64 CPU run is printed beside.
+# Measured on an H100 80GB HBM3: networks 7.5e-8 apart (abs), history
+# 1.3e-7 (rel), and each side 1.9e-7 from float64 -- ulp-level sums in
+# other orders, no near-zero gradient flipping sign under Adam
+DDPG_TRAIN_TOL = dict(rtol=1e-5, atol=1e-6)
+# a fleet member (S = 4 batched products) against its own train_allocator
+# (S = 1) on the card, 10 × 40 slots, 337 updates: cuBLAS takes other
+# kernels for a batch of 4 and of 1.  Measured on an H100 80GB HBM3:
+# networks 6.1e-6 apart (abs), history 9.3e-8 (rel)
+DDPG_MEMBER_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _ddpg_counts(label, launches, slots, score):
+    """Training makes one SIC call a slot (the env's bill, every seed in
+    one call), ``score`` fused-score calls (the fcea association snapshot
+    the MDP starts from) and no SGD launch."""
+    want = {"score_rows": 0, "score_matrix": score, "score_candidates": 0,
+            "sic_rates": slots, "local_sgd_step": 0,
+            "local_sgd_step_cluster": 0}
+    if launches != want:
+        raise AssertionError(f"[ddpg] {label}: launches {launches} != "
+                             f"expected {want}")
+
+
+def _finite_history(label, hist):
+    import torch
+    for k, v in hist.items():
+        if not bool(torch.isfinite(torch.as_tensor(v)).all()):
+            raise AssertionError(f"[ddpg] {label}: non-finite {k} {v}")
+
+
+def _ddpg_paper_default(cfg, dev, static_steady):
+    """``HFLSimulation(CONFIG, allocator="ddpg").train_ddpg()`` at the
+    paper's defaults with the launch counters zeroed just before and read
+    just after; 3 deployed fcea + PDD rounds (a ``mid`` round's launches);
+    one deployed round card vs CPU.  Returns (sim, launches)."""
+    import torch
+    from repro_torch.core.hfl import HFLSimulation
+    from repro_torch.kernels import hfl_ops
+    sim = HFLSimulation(cfg, seed=0, allocator="ddpg", device=dev)
+    slots = 20 * 50
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = sim.train_ddpg()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hfl_ops.LAUNCHES)
+    _ddpg_counts("paper default", launches, slots, 1)
+    _finite_history("paper default", hist)
+    r = hist["episode_reward"]
+    log(f"[ddpg] CONFIG train_ddpg() (20 x 50 slots, hidden 128, buffer "
+        f"4096, batch 64, warmup 64): {wall:.3f} s, {slots / wall:.1f} env "
+        f"steps/s; launches {launches}: {launches['sic_rates'] / slots:.0f} "
+        f"sic_rates a slot; episode reward first {r[0]:.5f}, last "
+        f"{r[-1]:.5f}, best {max(r):.5f} (episode {r.index(max(r)) + 1})")
+    m_c = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    rows, walls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rows.append(sim.run_round(timer=timer))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    deployed = dict(hfl_ops.LAUNCHES)
+    want = _want_launches(cfg, sim.spec, 3)
+    if deployed != want:
+        raise AssertionError(f"[ddpg] deployed rounds: launches {deployed} "
+                             f"!= a mid round's {want}")
+    _check_metrics(cfg, cfg.clients_per_edge, rows, m_c)
+    steady = _report("ddpg", "CONFIG deployed actor fcea-pdd", rows, walls,
+                     timer.ms(), deployed)
+    log(f"[ddpg] deployed round {steady:.4f} s against the mid [main] round "
+        f"{static_steady:.4f} s of this run ({steady / static_steady:.3f}x)")
+    card_vs_cpu(cfg, sim.spec, sim.state, sim.bundle, sim.generator,
+                "CONFIG ddpg actor", actor=sim.agent.actor)
+    return sim, launches
+
+
+def _ddpg_bench_scale(cfg, dev):
+    """The reference's ``benchmarks/bench_ddpg.py`` full run:
+    ``_setup(64, 4)`` (full_dynamic, gcea + fastest), hidden 64, buffer
+    1024, 10 × 40 slots, warmup 64, the (3N,) = 192 observation; twice
+    from the same agent and draws (the first run pays the first calls)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import ddpg, engine
+    from repro_torch.kernels import hfl_ops
+    big = dataclasses.replace(cfg, n_clients=64, n_edges=4,
+                              clients_per_edge=4, min_samples=60,
+                              max_samples=120, hidden=16, input_dim=32)
+    spec = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                             scenario="dynamic")
+    state, bundle, _ = engine.init_simulation(big, seed=0, device=dev,
+                                              scenario="full_dynamic")
+    dcfg = ddpg.allocator_config(big, spec, hidden=64, buffer_size=1024)
+    if dcfg.state_dim != 192:
+        raise AssertionError(f"[ddpg] bench_ddpg observation {dcfg}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    agent0 = ddpg.init_ddpg(gen, dcfg)
+    draws = ddpg.sample_ddpg_draws(big, dcfg, [gen], 10, 40).seed(0)
+    walls, hists = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        hfl_ops.reset_launches()
+        t0 = time.perf_counter()
+        _, hist = ddpg.train_allocator(big, spec, state, bundle, dcfg, agent0,
+                                       draws, warmup=64)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        _ddpg_counts("bench_ddpg scale", dict(hfl_ops.LAUNCHES), 400, 0)
+        _finite_history("bench_ddpg scale", hist)
+        hists.append(hist)
+    same = all(torch.equal(hists[0][k], hists[1][k]) for k in hists[0])
+    log(f"[ddpg] bench_ddpg scale (64 x 4 full_dynamic gcea, obs 192, "
+        f"hidden 64, buffer 1024, 10 x 40 slots, warmup 64): run 1 "
+        f"{walls[0]:.3f} s ({400 / walls[0]:.1f} env steps/s), run 2 "
+        f"{walls[1]:.3f} s ({400 / walls[1]:.1f} env steps/s); 1 sic_rates "
+        f"a slot; the two runs' histories bit-equal: {same}")
+
+
+def _tree_gap(got, want):
+    """Largest |got − want| over the tensor leaves of two trees (on the
+    CPU, in float64)."""
+    from repro_torch.core import engine
+    gaps = []
+    engine._map(lambda a, b: gaps.append(float(
+        (a.cpu().double() - b.cpu().double()).abs().max())), got, want)
+    return max(gaps)
+
+
+def _ddpg_card_vs_cpu(cfg, dev):
+    """Algorithm 2 on the card and on the CPU from the same weights and
+    ``DDPGDraws`` (``CONFIG`` static, gcea, 2 × 40 slots, warmup 16,
+    hidden 64): the history and the final networks at
+    ``DDPG_TRAIN_TOL``, each side's gap to a float64 CPU run printed."""
+    import torch
+    from repro_torch.core import ddpg, engine
+    cpu = torch.device("cpu")
+    spec = engine.EngineSpec(policy="gcea", allocator="ddpg")
+    state, bundle, _ = engine.init_simulation(cfg, seed=0, device=dev)
+    dcfg = ddpg.allocator_config(cfg, spec, hidden=64)
+    gen = torch.Generator().manual_seed(3)
+    agent0 = ddpg.init_ddpg(gen, dcfg)
+    draws = ddpg.sample_ddpg_draws(cfg, dcfg, [gen], 2, 40).seed(0)
+
+    def run(to, f64=False):
+        moved = lambda tree: engine._map(
+            lambda t: t.to(to, torch.float64) if f64 and t.is_floating_point()
+            else t.to(to), tree)
+        return ddpg.train_allocator(cfg, spec, moved(state), moved(bundle),
+                                    dcfg, moved(agent0), moved(draws),
+                                    warmup=16)
+
+    card, cpu32, cpu64 = run(dev), run(cpu), run(cpu, f64=True)
+    nets = ("actor", "critic")
+    gaps = {}
+    for label, (agent, hist) in (("card", card), ("cpu", cpu32)):
+        gaps[label] = (
+            max(_tree_gap(getattr(agent, n), getattr(cpu64[0], n))
+                for n in nets),
+            max(float(((hist[k].cpu().double() - cpu64[1][k]).abs()
+                       / cpu64[1][k].abs()).max()) for k in hist))
+    net_gap = max(_tree_gap(getattr(card[0], n), getattr(cpu32[0], n))
+                  for n in nets)
+    hist_gap = max(float(((card[1][k].cpu() - cpu32[1][k]).abs()
+                          / cpu32[1][k].abs()).max()) for k in cpu32[1])
+    log(f"[ddpg] card vs CPU training (CONFIG static gcea, 2 x 40 slots, "
+        f"warmup 16, hidden 64, 65 updates): networks max |card - cpu| "
+        f"{net_gap:.3e}, history max rel {hist_gap:.3e}; against a float64 "
+        f"CPU run: card networks {gaps['card'][0]:.3e} history "
+        f"{gaps['card'][1]:.3e}, cpu networks {gaps['cpu'][0]:.3e} history "
+        f"{gaps['cpu'][1]:.3e}")
+    for n in nets:
+        for k, want in getattr(cpu32[0], n).items():
+            torch.testing.assert_close(getattr(card[0], n)[k].cpu(), want,
+                                       **DDPG_TRAIN_TOL, msg=f"{n}/{k}")
+    for k, want in cpu32[1].items():
+        torch.testing.assert_close(card[1][k].cpu(), want, **DDPG_TRAIN_TOL,
+                                   msg=k)
+    if not torch.equal(card[0].step.cpu(), cpu32[0].step):
+        raise AssertionError("[ddpg] card vs CPU: update counts differ")
+    log(f"[ddpg] card vs CPU training within rtol "
+        f"{DDPG_TRAIN_TOL['rtol']}, atol {DDPG_TRAIN_TOL['atol']}: ok")
+
+
+def _ddpg_fleet(cfg, dev):
+    """``train_allocator_fleet`` at S = 4 (seeds 0-3, ``CONFIG``
+    full_dynamic, 10 × 40 slots, hidden 64): one SIC call a slot; member 0
+    against its own ``train_allocator`` on its own slice of the draws;
+    then ``run_fleet_actors`` 3 rounds, each member against its own
+    ``run_scanned`` with its own actor."""
+    import torch
+    from repro_torch.core import ddpg, engine
+    from repro_torch.kernels import hfl_ops
+    seeds, worlds = (0, 1, 2, 3), ["full_dynamic"] * 4
+    spec = engine.EngineSpec(scenario="dynamic", allocator="ddpg")
+    states, bundles, _ = _fleet(cfg, seeds, dev, worlds)
+    dcfg = ddpg.allocator_config(cfg, spec, hidden=64)
+    gens = [torch.Generator(device=dev).manual_seed(100 + s) for s in seeds]
+    agents0 = ddpg.stack_agents([ddpg.init_ddpg(g, dcfg) for g in gens])
+    draws = ddpg.sample_ddpg_draws(cfg, dcfg, gens, 10, 40)
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    t0 = time.perf_counter()
+    agents, hist = ddpg.train_allocator_fleet(cfg, spec, states, bundles,
+                                              dcfg, agents0, draws, warmup=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _ddpg_counts("fleet S=4", dict(hfl_ops.LAUNCHES), 400, 1)
+    _finite_history("fleet S=4", hist)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    own, own_h = ddpg.train_allocator(
+        cfg, spec, engine.select_seed(states, 0),
+        engine.select_seed(bundles, 0), dcfg,
+        engine.select_seed(agents0, 0), draws.seed(0), warmup=64)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    log(f"[ddpg] fleet S=4 (CONFIG full_dynamic fcea, 10 x 40 slots, hidden "
+        f"64): {wall:.3f} s, {4 * 400 / wall:.1f} seed-steps/s, 1 sic_rates "
+        f"a slot; member 0 alone {wall1:.3f} s, {400 / wall1:.1f} "
+        f"seed-steps/s; last episode rewards "
+        + " ".join(f"{v:.5f}" for v in hist["episode_reward"][:, -1].tolist()))
+    member = engine.select_seed(agents, 0)
+    net_gap = max(_tree_gap(getattr(member, n), getattr(own, n))
+                  for n in ("actor", "critic"))
+    hist_gap = max(float(((hist[k][0] - own_h[k]).abs()
+                          / own_h[k].abs()).max()) for k in own_h)
+    log(f"[ddpg] fleet member 0 vs its own train_allocator: networks max "
+        f"abs {net_gap:.3e}, history max rel {hist_gap:.3e}")
+    for n in ("actor", "critic"):
+        for k, want in getattr(own, n).items():
+            torch.testing.assert_close(getattr(member, n)[k], want,
+                                       **DDPG_MEMBER_TOL, msg=f"{n}/{k}")
+    for k, want in own_h.items():
+        torch.testing.assert_close(hist[k][0], want, **DDPG_MEMBER_TOL,
+                                   msg=k)
+    label = "CONFIG full_dynamic ddpg actors S=4"
+    fm, steady_s, final, _ = _drive_fleet(cfg, spec, seeds, 3, dev, label,
+                                          worlds, actors=agents.actor)
+    _fleet_vs_own(cfg, spec, seeds, range(len(seeds)), fm, final[0], dev,
+                  label, worlds=worlds, actors=agents.actor)
+
+
+def _ddpg_vs_baselines(cfg, sim, dev, slots=20):
+    """``benchmarks/fig_ddpg_cost.py``'s comparison, printed and not gated:
+    on the trained env's association, ``slots`` slots from the same fading
+    draws, the mean Eq. 23a cost of the noise-free actor beside rra's,
+    fpa's and fca's best actions."""
+    import torch
+    from repro_torch.core import ddpg, env
+    m = cfg.n_edges
+    e = env.NomaHflEnv(cfg, torch.tensor(sim._associate(), device=dev),
+                       torch.ones(m, device=dev), sim.bundle.dist,
+                       sim.bundle.counts)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    exp1 = lambda shape: torch.empty(shape, device=dev).exponential_(
+        generator=gen)
+    reset, fading = exp1(e.params.dist.shape), exp1(
+        (slots,) + e.params.dist.shape)
+    u = torch.rand((slots, e.action_dim), generator=gen, device=dev)
+    costs = {}
+    for name in ("ddpg", "rra", "fpa", "fca"):
+        st, obs = e.reset(reset)
+        bills = []
+        for t in range(slots):
+            act = {"ddpg": lambda: ddpg.actor_apply(sim.agent.actor, obs),
+                   "rra": lambda: env.rra_action(u[t]),
+                   "fpa": lambda: env.fpa_best_action(e, st.gains),
+                   "fca": lambda: env.fca_best_action(e, st.gains)}[name]()
+            st, obs, _, rc = e.step(st, act, fading[t])
+            bills.append(rc.cost)
+        costs[name] = float(torch.stack(bills).mean())
+    gain = {k: 100.0 * (1.0 - costs["ddpg"] / v) for k, v in costs.items()
+            if k != "ddpg"}
+    log(f"[ddpg] fig_ddpg_cost comparison on the trained env ({slots} "
+        f"slots, same fading): mean Eq. 23a cost "
+        + ", ".join(f"{k} {v:.5f}" for k, v in costs.items())
+        + "; ddpg gain % " + ", ".join(f"vs {k} {v:.2f}"
+                                        for k, v in gain.items()))
+
+
+def _ddpg_profile(cfg, sim, dev, slots=20):
+    """Device busy share of ``slots`` updating slots (warmup 1) at the
+    paper's widths, on the trained simulation's MDP."""
+    import torch
+    from repro_torch.core import ddpg
+    dcfg = sim.agent_cfg
+    gen = torch.Generator(device=dev).manual_seed(11)
+    agent0 = ddpg.init_ddpg(gen, dcfg)
+    draws = ddpg.sample_ddpg_draws(cfg, dcfg, [gen], 1, slots).seed(0)
+    run = lambda: ddpg.train_allocator(cfg, sim.spec, sim.state, sim.bundle,
+                                       dcfg, agent0, draws, warmup=1)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    profile_device(run, f"{slots} updating DDPG slots (CONFIG, hidden 128)",
+                   time.perf_counter() - t0)
+
+
+def phase_ddpg(cfg, dev, static_steady, profile=False):
+    """The DDPG allocator: Algorithm 2 at the paper's defaults and at the
+    reference's ``bench_ddpg`` scale, card vs CPU training, the S = 4 fleet
+    and its deployed rounds, and the paper's cost comparison; with
+    ``profile``, the device's busy share over updating slots.  Returns the
+    paper-default run's launches."""
+    sim, launches = _ddpg_paper_default(cfg, dev, static_steady)
+    if profile:
+        _ddpg_profile(cfg, sim, dev)
+    _ddpg_bench_scale(cfg, dev)
+    _ddpg_card_vs_cpu(cfg, dev)
+    _ddpg_fleet(cfg, dev)
+    _ddpg_vs_baselines(cfg, sim, dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The substrate: sequence kernels and recurrentgemma-9b serving
 # ---------------------------------------------------------------------------
 
@@ -2083,8 +2436,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the kernel results as JSON")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one steady fcea round (device idle "
-                         "share)")
+                    help="also profile one steady fcea round and a window "
+                         "of DDPG slots (device idle share)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2122,6 +2475,8 @@ def main(argv=None) -> int:
     phase("hfl fleet", phase_fleet, CONFIG, dev, args.profile)
     scen_launches = phase("hfl scenarios and fpa/fca", phase_scenario,
                           CONFIG, dev, runs["fcea"][2])
+    ddpg_launches = phase("hfl ddpg allocator", phase_ddpg, CONFIG, dev,
+                          runs["fcea"][2], args.profile)
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -2137,6 +2492,9 @@ def main(argv=None) -> int:
     # the dynamic-scenario path's own counts (CONFIG full_dynamic, 5 rounds)
     scen_launches = {**scen_launches, "local_sgd_step":
                      scen_launches["local_sgd_step_cluster"]}
+    # Algorithm 2 at the paper's defaults (CONFIG, 20 x 50 slots)
+    ddpg_launches = {**ddpg_launches, "local_sgd_step":
+                     ddpg_launches["local_sgd_step_cluster"]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -2145,14 +2503,16 @@ def main(argv=None) -> int:
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
-                        "scenario_launches": scen_launches.get(name, 0)})
+                        "scenario_launches": scen_launches.get(name, 0),
+                        "ddpg_launches": ddpg_launches.get(name, 0)})
     for name, (err, ms_k, ms_p, b_ms, b_by, lib_ms) in seq_cmp.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
-                        "scenario_launches": scen_launches.get(name, 0)})
+                        "scenario_launches": scen_launches.get(name, 0),
+                        "ddpg_launches": ddpg_launches.get(name, 0)})
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",
@@ -2160,7 +2520,8 @@ def main(argv=None) -> int:
                         "launches": n_launch, "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
-                        "scenario_launches": scen_launches.get(name, 0)})
+                        "scenario_launches": scen_launches.get(name, 0),
+                        "ddpg_launches": ddpg_launches.get(name, 0)})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     result = {"kernels": kernels}
     if args.out:

@@ -6,6 +6,9 @@ leaves as plain numpy arrays -- the caller converts them with
 ``RoundState``/``RoundBundle`` on ``device``, so both sides can start from
 the same params, gains, staleness, world (``scenario_from_numpy``) and
 data.
+``ddpg_from_numpy`` and ``actor_from_numpy`` carry a reference DDPG
+agent (networks, targets, Adam moments, replay ring and counters) or a
+bare actor, so both sides can train or deploy from the same networks.
 ``params_from_numpy`` does the same for a substrate model's weights.
 """
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Any, Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.ddpg import DDPGState
 from repro_torch.core.engine import RoundBundle, RoundState
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import ScenarioState
@@ -69,6 +73,33 @@ def scenario_from_numpy(scen_np: Any, device: "str | torch.device" = "cuda"
     return ScenarioState(*(torch.tensor(np.asarray(f[k], np.float32),
                                         device=dev)
                            for k in ScenarioState._fields))
+
+
+def _tensors(tree: Any, dev: torch.device) -> Any:
+    """Every array leaf of a mapping tree copied onto ``dev`` with its
+    dtype (float32, int32, bool)."""
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, dev) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=dev)
+
+
+def actor_from_numpy(actor_np: Mapping[str, Any],
+                     device: "str | torch.device" = "cuda"
+                     ) -> "dict[str, torch.Tensor]":
+    """A reference actor pytree (``w0``..``b2``, numpy leaves, with or
+    without a leading fleet axis) as the port's, on ``device``."""
+    return _tensors(actor_np, resolve_device(device))
+
+
+def ddpg_from_numpy(state_np: Any, device: "str | torch.device" = "cuda"
+                    ) -> DDPGState:
+    """A reference ``DDPGState`` with numpy leaves (one agent, or a fleet
+    with a leading axis on every leaf) as the port's, on ``device``:
+    the networks, targets, Adam moments and replay ring, ``buffer_idx``,
+    ``buffer_full``, ``noise_sigma`` and ``step`` with their dtypes."""
+    dev = resolve_device(device)
+    f = _fields(state_np)
+    return DDPGState(*(_tensors(f[k], dev) for k in DDPGState._fields))
 
 
 # the port's parameter names that differ from the reference pytree's keys

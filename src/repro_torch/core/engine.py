@@ -37,10 +37,17 @@ and ``run_fleet`` over a fleet of seeds stacked along a leading axis
 ``fleet_step`` runs one round of all S simulations in one batched pass,
 and ``round_step`` is ``fleet_step`` of a fleet of one.
 
+The ``ddpg`` allocator deploys a trained actor (``core.ddpg``): the
+drivers take ``actor_params``, one actor for every seed, or one per seed
+(``run_fleet_actors``); with none it takes the ``mid`` midpoints.  Its
+trainer's MDP starts from ``associate_snapshot``, the association the
+next round would make, taken without advancing the state.
+
 The port covers the sync round on every scenario kind, dense or on the
 candidate frontier, with fcea, gcea or rcea, the ``mid``, ``rra``,
-``fpa`` or ``fca`` allocator, PDD or fastest scheduling, NOMA or OMA.
-Everything else raises ``NotImplementedError`` naming its ROADMAP item.
+``fpa``, ``fca`` or ``ddpg`` allocator, PDD or fastest scheduling, NOMA
+or OMA.  Everything else raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -71,7 +78,7 @@ class EngineSpec:
     """Per-simulation switches, with the reference's defaults.  Options the
     port does not have yet are accepted at their off value only."""
     policy: str = "fcea"            # fcea | gcea | rcea
-    allocator: str = "mid"          # mid | rra | fpa | fca
+    allocator: str = "mid"          # mid | rra | fpa | fca | ddpg
     scheduler: str = "pdd"          # pdd | fastest
     noma_enabled: bool = True
     fading_rho: float = 0.9
@@ -89,9 +96,7 @@ class EngineSpec:
         todo = []
         if self.policy not in association.POLICIES:
             raise ValueError(f"unknown association policy {self.policy!r}")
-        if self.allocator == "ddpg":
-            todo.append("allocator='ddpg' (ROADMAP A15 c)")
-        elif self.allocator not in ("mid", "rra", "fpa", "fca"):
+        if self.allocator not in ("mid", "rra", "fpa", "fca", "ddpg"):
             raise ValueError(f"unknown allocator {self.allocator!r}")
         if self.scheduler not in ("pdd", "fastest"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
@@ -345,7 +350,7 @@ def fleet_draws(cfg, bundles: RoundBundle, generators,
 # Round pieces, each over a leading fleet axis S
 # ---------------------------------------------------------------------------
 
-def _grid_allocate(cfg, spec: EngineSpec, assoc, gains, counts, scen,
+def _grid_allocate(cfg, spec: EngineSpec, assoc, gains, counts, dist, scen,
                    fixed_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paper's FPA/FCA benchmarks (§V-D): one action axis pinned at its
     maximum, the other grid-optimised (``env.grid_best_action``) against
@@ -353,7 +358,7 @@ def _grid_allocate(cfg, spec: EngineSpec, assoc, gains, counts, scen,
     is already availability-masked."""
     params = env.make_env_params(
         cfg, assoc, torch.ones(assoc.shape[:-2] + (cfg.n_edges,),
-                               device=assoc.device), counts,
+                               device=assoc.device), dist, counts,
         kappa=scen.kappa if scen is not None else None,
         p_max_w=scen.p_max_w if scen is not None else None,
         f_max_hz=scen.f_max_hz if scen is not None else None)
@@ -363,14 +368,31 @@ def _grid_allocate(cfg, spec: EngineSpec, assoc, gains, counts, scen,
 
 
 def _allocate(cfg, spec: EngineSpec, draws: RoundDraws, assoc, gains,
-              counts, scen) -> Tuple[torch.Tensor, torch.Tensor]:
+              counts, dist, scen, actor_params: Optional[Params] = None,
+              assigned: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(p_w (S, N), f_hz (S, N)): ``mid`` takes the midpoints, ``rra`` a
     uniform point of each range from ``draws.alloc_u`` (S, 2, N), ``fpa``
     (power at its maximum) and ``fca`` (frequency at its maximum) the
-    grid's best point of the other axis.  ``scen`` is the dynamic
-    scenario's state (None on the static path)."""
+    grid's best point of the other axis, ``ddpg`` each seed's actor
+    (``actor_params`` leaves (S, …)) on the observation of its
+    association, or the midpoints with no actor.  ``scen`` is the dynamic
+    scenario's state (None on the static path; its availability is then
+    the observation's third block); on the frontier ``assigned`` (S, N)
+    lets the observation gather each client's own-edge gain."""
+    if spec.allocator == "ddpg" and actor_params is not None:
+        from repro_torch.core import ddpg      # ddpg imports this module
+        avail = None if scen is None else scen.avail
+        if assigned is not None:
+            obs = env.observe_assigned(
+                assigned, candidates.own_edge_gather(assigned, gains),
+                counts, avail=avail)
+        else:
+            obs = env.observe(assoc, gains, counts, avail=avail)
+        act = ddpg.actor_apply(actor_params, obs)
+        return env.decode_action(cfg, act.unflatten(-1, (2, cfg.n_clients)))
     if spec.allocator in ("fpa", "fca"):
-        return _grid_allocate(cfg, spec, assoc, gains, counts, scen,
+        return _grid_allocate(cfg, spec, assoc, gains, counts, dist, scen,
                               fixed_axis=0 if spec.allocator == "fpa" else 1)
     if spec.allocator == "rra":
         return env.decode_action(cfg, draws.alloc_u)
@@ -492,12 +514,58 @@ def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
     return global_params, client_params
 
 
+def _associate(cfg, spec: EngineSpec, states: RoundState,
+               bundles: RoundBundle, gains, dist, avail, assoc_u):
+    """Fuzzy scoring + association of every seed, dense or on the (N, K)
+    frontier, from ``gains``, ``dist`` and the availability ``avail``
+    (None on the static kind: every client available); an unavailable
+    client is out of coverage.  Returns the float (S, N, M) one-hot, the
+    frontier's (S, N) assigned edges (None when dense) and the sweeps.
+    The one definition of the association: ``fleet_step`` and
+    ``fleet_snapshot`` both call it."""
+    assigned = None
+    data_max = float(cfg.max_samples)
+    if spec.candidates_k is not None:
+        cand = candidates.build_candidates(
+            dist, spec.candidates_k,
+            coverage_radius_m=coverage_radius(cfg), avail=avail)
+        scores = None
+        if spec.policy == "fcea":
+            scores = hfl_ops.score_candidates(
+                gains, cand.idx, bundles.counts, states.staleness,
+                data_max=data_max)
+        assigned, sweeps = association.associate_candidates(
+            spec.policy, scores=scores, gains=gains, cand=cand,
+            quota=quota_for(cfg, spec), n_edges=cfg.n_edges,
+            uniform=assoc_u, return_sweeps=True)
+        assoc = candidates.assigned_one_hot(assigned, cfg.n_edges)
+    else:
+        scores = None
+        if spec.policy == "fcea":
+            scores = hfl_ops.score_matrix(gains, bundles.counts,
+                                          states.staleness,
+                                          data_max=data_max)
+        assoc, sweeps = association.associate(
+            spec.policy, scores=scores, gains=gains, dist=dist,
+            quota=quota_for(cfg, spec),
+            coverage_radius_m=coverage_radius(cfg),
+            uniform=assoc_u, avail=avail, return_sweeps=True)
+    assoc = assoc.float()
+    if avail is not None and assigned is None:
+        # the explicit Eq. 11/17/23a mask: no policy trains on,
+        # aggregates or bills a dropped client (the frontier's
+        # ``valid`` already excludes it)
+        assoc = assoc * avail[..., None]
+    return assoc, assigned, sweeps
+
+
 def _no_stage(name: str):
     return contextlib.nullcontext()
 
 
 def fleet_step(cfg, spec: EngineSpec, states: RoundState,
-               bundles: RoundBundle, draws: RoundDraws, *, timer=None
+               bundles: RoundBundle, draws: RoundDraws,
+               actor_params: Optional[Params] = None, *, timer=None
                ) -> Tuple[RoundState, RoundMetrics]:
     """One global round of S simulations at once: every leaf of
     ``states``, ``bundles`` and ``draws`` has a leading fleet axis S
@@ -509,8 +577,9 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     leading S axis (``round`` stays an int, and so does ``n_available`` on
     the static kind; ``sweeps`` is an (S,) host tensor).  On a dynamic
     kind the scenario advances first, each seed from its own state and
-    uniforms, so a fleet of mixed worlds is one round.  ``timer``, if
-    given, is called with each stage's name (scenario, on a dynamic kind
+    uniforms, so a fleet of mixed worlds is one round.  ``actor_params``:
+    the ``ddpg`` allocator's actors, leaves (S, …), one a seed.  ``timer``,
+    if given, is called with each stage's name (scenario, on a dynamic kind
     only; associate, allocate, schedule, train, eval) and must return a
     context manager around that stage -- the hook stage timings use."""
     stage = timer or _no_stage
@@ -535,43 +604,14 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     # 2. fuzzy scoring + association, dense or on the (N, K) frontier;
     #    unavailable clients are out of coverage this round
     with stage("associate"):
-        assigned = None
-        data_max = float(cfg.max_samples)
-        if spec.candidates_k is not None:
-            cand = candidates.build_candidates(
-                dist, spec.candidates_k,
-                coverage_radius_m=coverage_radius(cfg), avail=avail)
-            scores = None
-            if spec.policy == "fcea":
-                scores = hfl_ops.score_candidates(
-                    gains, cand.idx, bundles.counts, states.staleness,
-                    data_max=data_max)
-            assigned, sweeps = association.associate_candidates(
-                spec.policy, scores=scores, gains=gains, cand=cand,
-                quota=quota_for(cfg, spec), n_edges=m,
-                uniform=draws.assoc_u, return_sweeps=True)
-            assoc = candidates.assigned_one_hot(assigned, m)
-        else:
-            scores = None
-            if spec.policy == "fcea":
-                scores = hfl_ops.score_matrix(gains, bundles.counts,
-                                              states.staleness,
-                                              data_max=data_max)
-            assoc, sweeps = association.associate(
-                spec.policy, scores=scores, gains=gains, dist=dist,
-                quota=quota_for(cfg, spec),
-                coverage_radius_m=coverage_radius(cfg),
-                uniform=draws.assoc_u, avail=avail, return_sweeps=True)
-        assoc = assoc.float()
-        if dynamic and assigned is None:
-            # the explicit Eq. 11/17/23a mask: no policy trains on,
-            # aggregates or bills a dropped client (the frontier's
-            # ``valid`` already excludes it)
-            assoc = assoc * avail[..., None]
+        assoc, assigned, sweeps = _associate(cfg, spec, states, bundles,
+                                             gains, dist, avail,
+                                             draws.assoc_u)
     # 3. resource allocation, clamped to the device classes' caps
     with stage("allocate"):
         p, f = _allocate(cfg, spec, draws, assoc, gains, bundles.counts,
-                         scen if dynamic else None)
+                         dist, scen if dynamic else None, actor_params,
+                         assigned)
         if dynamic:
             p = torch.minimum(p, scen.p_max_w)
             f = torch.minimum(f, scen.f_max_hz)
@@ -621,15 +661,44 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
 
 
 def round_step(cfg, spec: EngineSpec, state: RoundState,
-               bundle: RoundBundle, draws: RoundDraws, *, timer=None
+               bundle: RoundBundle, draws: RoundDraws,
+               actor_params: Optional[Params] = None, *, timer=None
                ) -> Tuple[RoundState, RoundMetrics]:
     """One global round of one simulation: ``fleet_step`` over a fleet of
-    one.  Its metrics are 0-d tensors, with ``sweeps`` an int."""
+    one (``actor_params``: one actor, as ``init_ddpg`` shapes it).  Its
+    metrics are 0-d tensors, with ``sweeps`` an int."""
     state, metrics = fleet_step(cfg, spec, _lift(state), _lift(bundle),
-                                _lift(draws), timer=timer)
+                                _lift(draws), _lift(actor_params),
+                                timer=timer)
     metrics = select_seed(metrics, 0)
     return select_seed(state, 0), metrics._replace(
         sweeps=int(metrics.sweeps))
+
+
+def fleet_snapshot(cfg, spec: EngineSpec, states: RoundState,
+                   bundles: RoundBundle,
+                   assoc_u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (S, N, M) float one-hot association each seed's state gives
+    now, without advancing it: ``_associate`` on the current gains,
+    distances and availability (pre-transition: a dynamic round first
+    moves the world and fades the channel, so its association is one
+    world step ahead of this).  rcea ranks by ``assoc_u`` (S, N, M)."""
+    dynamic = spec.scenario != "static"
+    scen = states.scenario
+    assoc, _, _ = _associate(cfg, spec, states, bundles, states.gains,
+                             scen.dist if dynamic else bundles.dist,
+                             scen.avail if dynamic else None, assoc_u)
+    return assoc
+
+
+def associate_snapshot(cfg, spec: EngineSpec, state: RoundState,
+                       bundle: RoundBundle,
+                       assoc_u: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """One simulation's ``fleet_snapshot``: the (N, M) association the
+    DDPG trainer's MDP and ``HFLSimulation._associate`` read."""
+    return fleet_snapshot(cfg, spec, _lift(state), _lift(bundle),
+                          _lift(assoc_u))[0]
 
 
 def stack_metrics(rows) -> RoundMetrics:
@@ -649,7 +718,8 @@ def stack_metrics(rows) -> RoundMetrics:
 
 def run_scanned(cfg, spec: EngineSpec, state: RoundState,
                 bundle: RoundBundle, n_rounds: int,
-                generator: torch.Generator, *, timer=None
+                generator: torch.Generator,
+                actor_params: Optional[Params] = None, *, timer=None
                 ) -> Tuple[RoundState, RoundMetrics]:
     """``n_rounds`` rounds, each with fresh draws from ``generator``.
     Metrics leaves gain a leading (n_rounds,) axis."""
@@ -657,25 +727,42 @@ def run_scanned(cfg, spec: EngineSpec, state: RoundState,
     for _ in range(n_rounds):
         draws = sample_draws(cfg, bundle, generator, spec)
         state, metrics = round_step(cfg, spec, state, bundle, draws,
-                                    timer=timer)
+                                    actor_params, timer=timer)
         rows.append(metrics)
     return state, stack_metrics(rows)
 
 
 def run_fleet(cfg, spec: EngineSpec, states: RoundState,
-              bundles: RoundBundle, n_rounds: int, generators, *,
+              bundles: RoundBundle, n_rounds: int, generators,
+              actor_params: Optional[Params] = None, *,
               timer=None) -> Tuple[RoundState, RoundMetrics]:
     """``n_rounds`` rounds of a fleet of S independent simulations
     (``stack_fleet``), one batched ``fleet_step`` a round -- the
     counterpart of the reference's ``vmap`` of its scanned driver.  Seed
     s draws from ``generators[s]``, so it follows the trajectory of its
-    own ``run_scanned`` from that generator.  Metrics leaves have shape
-    (S, n_rounds, …)."""
+    own ``run_scanned`` from that generator.  ``actor_params``: one actor
+    that every seed deploys (expanded along the seed axis as a view).
+    Metrics leaves have shape (S, n_rounds, …)."""
+    seeds = bundles.dist.shape[0]
+    if actor_params is not None:
+        actor_params = _map(lambda t: t.expand((seeds,) + t.shape),
+                            actor_params)
+    return run_fleet_actors(cfg, spec, states, bundles, n_rounds, generators,
+                            actor_params, timer=timer)
+
+
+def run_fleet_actors(cfg, spec: EngineSpec, states: RoundState,
+                     bundles: RoundBundle, n_rounds: int, generators,
+                     actor_params: Optional[Params], *, timer=None
+                     ) -> Tuple[RoundState, RoundMetrics]:
+    """``run_fleet`` with one actor a seed: ``actor_params`` leaves (S, …),
+    seed s billed by the actor trained on its own world (as
+    ``ddpg.train_allocator_fleet`` returns them)."""
     rows = []
     for _ in range(n_rounds):
         draws = fleet_draws(cfg, bundles, generators, spec)
         states, metrics = fleet_step(cfg, spec, states, bundles, draws,
-                                     timer=timer)
+                                     actor_params, timer=timer)
         rows.append(metrics)
     return states, stack_metrics(rows)
 

@@ -6,7 +6,10 @@ scenario (``scenario``: a preset name, kind string or ``ScenarioSpec``):
 
 * ``run_round()``    -- one round,
 * ``run(n)``         -- n rounds, metrics read back every round,
-* ``run_scanned(n)`` -- n rounds, metrics read back once at the end.
+* ``run_scanned(n)`` -- n rounds, metrics read back once at the end,
+* ``train_ddpg(...)``-- the paper's Algorithm 2: train the DDPG allocator
+  on the MDP of the current association; with ``allocator="ddpg"`` the
+  rounds after it deploy the trained actor.
 
 Both drivers advance the same state through the same ``round_step`` with
 the same draws, so they give the same trajectory.
@@ -14,13 +17,13 @@ the same draws, so they give the same trajectory.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import scenarios
-from repro_torch.core import engine
+from repro_torch.core import ddpg, engine
 from repro_torch.core.engine import EngineSpec, RoundState
 from repro_torch.device import resolve_device
 
@@ -75,20 +78,76 @@ class HFLSimulation:
         self.topo = aux["topo"]
         self.data = aux["data"]
         self.coverage_m = engine.coverage_radius(cfg)
+        # the DDPG allocator, once ``train_ddpg`` has run
+        self.agent: Optional[ddpg.DDPGState] = None
+        self.agent_cfg: Optional[ddpg.DDPGConfig] = None
 
     @property
     def state(self) -> RoundState:
         return self._state
 
     @property
+    def policy(self) -> str:
+        return self.spec.policy
+
+    @property
+    def noma_enabled(self) -> bool:
+        return self.spec.noma_enabled
+
+    @property
+    def allocator(self) -> str:
+        return self.spec.allocator
+
+    @property
+    def scheduler(self) -> str:
+        return self.spec.scheduler
+
+    @property
+    def gains(self) -> torch.Tensor:
+        return self._state.gains
+
+    @property
+    def staleness(self) -> torch.Tensor:
+        return self._state.staleness
+
+    @property
+    def global_params(self):
+        return self._state.global_params
+
+    @property
+    def client_params(self):
+        return self._state.client_params
+
+    @property
     def round(self) -> int:
         return self._state.round_idx
+
+    def _actor_params(self):
+        return self.agent.actor if self.agent is not None else None
+
+    def _assoc_u(self, generator: torch.Generator
+                 ) -> Optional[torch.Tensor]:
+        """rcea's snapshot uniforms (None for the other policies)."""
+        if self.spec.policy != "rcea":
+            return None
+        return torch.rand(self.bundle.dist.shape, generator=generator,
+                          device=self.device)
+
+    def _associate(self) -> np.ndarray:
+        """The association the current state gives; neither the state nor
+        the generator is advanced (rcea draws from a copy)."""
+        peek = torch.Generator(device=self.device).set_state(
+            self.generator.get_state())
+        return engine.associate_snapshot(
+            self.cfg, self.spec, self._state, self.bundle,
+            self._assoc_u(peek)).cpu().numpy()
 
     def run_round(self, *, timer=None) -> RoundMetrics:
         draws = engine.sample_draws(self.cfg, self.bundle, self.generator,
                                     self.spec)
         self._state, m = engine.round_step(self.cfg, self.spec, self._state,
-                                           self.bundle, draws, timer=timer)
+                                           self.bundle, draws,
+                                           self._actor_params(), timer=timer)
         return RoundMetrics.from_engine(m)
 
     def run(self, n_rounds: int) -> List[RoundMetrics]:
@@ -99,7 +158,24 @@ class HFLSimulation:
         """Same trajectory as ``run``, with one read-back at the end."""
         self._state, ms = engine.run_scanned(
             self.cfg, self.spec, self._state, self.bundle, n_rounds,
-            self.generator, timer=timer)
+            self.generator, self._actor_params(), timer=timer)
         ms_host = engine.RoundMetrics(*(v.cpu() for v in ms))
         return [RoundMetrics.from_engine(ms_host, i)
                 for i in range(n_rounds)]
+
+    def train_ddpg(self, *, episodes: int = 20, steps_per_episode: int = 50,
+                   warmup: int = 64, hidden: int = 128
+                   ) -> Dict[str, List[float]]:
+        """Train the DDPG allocator (``ddpg.train_allocator``) on the MDP of
+        the current association, its weights and draws from the
+        simulation's generator.  Returns the per-episode mean reward and
+        losses as lists of floats."""
+        dcfg = ddpg.allocator_config(self.cfg, self.spec, hidden=hidden)
+        agent = ddpg.init_ddpg(self.generator, dcfg)
+        draws = ddpg.sample_ddpg_draws(self.cfg, dcfg, [self.generator],
+                                       episodes, steps_per_episode).seed(0)
+        agent, history = ddpg.train_allocator(
+            self.cfg, self.spec, self._state, self.bundle, dcfg, agent,
+            draws, warmup=warmup, assoc_u=self._assoc_u(self.generator))
+        self.agent, self.agent_cfg = agent, dcfg
+        return {k: v.tolist() for k, v in history.items()}

@@ -509,6 +509,94 @@ def test_all_dropped_round_on_the_card(cuda):
     assert np.isfinite(float(m.cost))
 
 
+# one DDPG update on the card against the CPU from the same state and
+# minibatch: the card's GEMMs and autograd sum in other orders, so the
+# networks and Adam moments agree to float32 rounding, not bit for bit
+DDPG_STEP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def test_ddpg_train_step_card_matches_cpu(cuda):
+    """One ``train_step`` at ``CONFIG``'s MDP widths (the (2N,)
+    observation, hidden 64, batch 64) on the card and from the same state
+    and minibatch on the CPU: every leaf of the new state and both losses
+    at ``DDPG_STEP_TOL``."""
+    from repro_torch.core import ddpg
+    n = CONFIG.n_clients
+    dcfg = ddpg.DDPGConfig(state_dim=2 * n, action_dim=2 * n, hidden=64,
+                           buffer_size=256, batch_size=64)
+    gen = torch.Generator().manual_seed(0)
+    agent = ddpg.stack_agents([ddpg.init_ddpg(gen, dcfg)])
+    for _ in range(100):
+        s = torch.rand((1, 2 * n), generator=gen)
+        a = torch.rand((1, 2 * n), generator=gen)
+        agent = ddpg.store(agent, dcfg, s, a, -torch.sum(a * a, dim=-1), s)
+    idx = torch.randint(0, 100, (1, 64), generator=gen)
+    cpu_agent, cpu_loss = ddpg.train_step(agent, dcfg, idx)
+    card_agent, card_loss = ddpg.train_step(_to(agent, cuda), dcfg,
+                                            idx.to(cuda))
+    for name, want in cpu_loss.items():
+        torch.testing.assert_close(card_loss[name].cpu(), want,
+                                   **DDPG_STEP_TOL)
+    for name in ("actor", "critic", "target_actor", "target_critic"):
+        for k, want in getattr(cpu_agent, name).items():
+            torch.testing.assert_close(getattr(card_agent, name)[k].cpu(),
+                                       want, **DDPG_STEP_TOL, msg=name + k)
+    assert torch.equal(card_agent.step.cpu(), cpu_agent.step)
+
+
+@pytest.mark.parametrize("seeds", [1, 4])
+def test_ddpg_makes_one_sic_launch_a_slot(cuda, seeds):
+    """Training S agents on S ``CONFIG`` full_dynamic worlds: one SIC call
+    a slot (the env's bill of every seed), whatever S; no SGD launch; one
+    score call, the fcea association snapshot the MDP starts from."""
+    from repro_torch.core import ddpg
+    pairs = []
+    for s in range(seeds):
+        state, bundle, _ = engine.init_simulation(
+            CONFIG, seed=s, device=cuda, scenario="full_dynamic")
+        pairs.append((state, bundle))
+    states, bundles = engine.stack_fleet(pairs)
+    spec = engine.EngineSpec(scenario="dynamic", allocator="ddpg")
+    dcfg = ddpg.allocator_config(CONFIG, spec, hidden=16, buffer_size=64,
+                                 batch_size=8)
+    gens = [torch.Generator(device=cuda).manual_seed(s)
+            for s in range(seeds)]
+    agents = ddpg.stack_agents([ddpg.init_ddpg(g, dcfg) for g in gens])
+    draws = ddpg.sample_ddpg_draws(CONFIG, dcfg, gens, 2, 3)
+    torch.cuda.synchronize()
+    before = dict(hfl_ops.LAUNCHES)
+    agents, hist = ddpg.train_allocator_fleet(CONFIG, spec, states, bundles,
+                                              dcfg, agents, draws, warmup=2)
+    torch.cuda.synchronize()
+    grew = {k: hfl_ops.LAUNCHES[k] - before[k] for k in before}
+    assert grew == {"score_rows": 0, "score_matrix": 1,
+                    "score_candidates": 0, "sic_rates": 6,
+                    "local_sgd_step": 0, "local_sgd_step_cluster": 0}
+    assert hist["episode_reward"].shape == (seeds, 2)
+    assert bool(torch.isfinite(hist["episode_reward"]).all())
+
+
+def test_ddpg_round_launches_as_a_mid_round(cuda):
+    """A round billed by an actor makes the launches of a ``mid`` round
+    from the same state and draws: the actor is plain products."""
+    from repro_torch.core import ddpg
+    state, bundle, aux = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    spec = engine.EngineSpec(allocator="ddpg")
+    actor = ddpg.init_ddpg(torch.Generator(device=cuda).manual_seed(1),
+                           ddpg.allocator_config(CONFIG, spec)).actor
+    draws = engine.sample_draws(CONFIG, bundle, aux["generator"], spec)
+    grew = []
+    for sp, a in ((engine.EngineSpec(), None), (spec, actor)):
+        torch.cuda.synchronize()
+        before = dict(hfl_ops.LAUNCHES)
+        _, m = engine.round_step(CONFIG, sp, state, bundle, draws, a)
+        torch.cuda.synchronize()
+        grew.append({k: hfl_ops.LAUNCHES[k] - before[k] for k in before})
+        assert np.isfinite(float(m.cost))
+    assert grew[0] == grew[1]
+    assert (grew[1]["score_matrix"], grew[1]["sic_rates"]) == (1, 1)
+
+
 def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):
     """Weights 0.3·N(0, 1), or ``scale``/√fan-in for the matrices."""
     rng = np.random.default_rng(k + d_in)

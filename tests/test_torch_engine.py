@@ -237,7 +237,6 @@ def test_sample_draws_adds_uniforms_after_the_shared_stream():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(allocator="ddpg"), "A15"),
     (dict(telemetry=True), "A15"), (dict(engine_mode="buffered"), "A15"),
     (dict(faults=object()), "A15"), (dict(warm_start=True), "A15"),
     (dict(candidates_k=2, warm_start=True), "A15")])
@@ -249,7 +248,8 @@ def test_out_of_slice_options_raise(kw, item):
 @pytest.mark.parametrize("kw", [dict(policy="rcea"), dict(allocator="rra"),
                                 dict(candidates_k=2),
                                 dict(scenario="dynamic"),
-                                dict(allocator="fpa"), dict(allocator="fca")])
+                                dict(allocator="fpa"), dict(allocator="fca"),
+                                dict(allocator="ddpg")])
 def test_ported_options_are_accepted(kw):
     spec = engine.EngineSpec(**kw)
     assert all(getattr(spec, k) == v for k, v in kw.items())

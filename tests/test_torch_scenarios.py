@@ -601,7 +601,8 @@ def _grid_case(jcfg, cfg, name, seeds, fixed_axis, p_cap=None):
             fixed_frac=1.0)))
         jrows.append(jparams)
         rows.append((env.make_env_params(
-            cfg, t(assoc), torch.ones(cfg.n_edges), t(jbundle.counts),
+            cfg, t(assoc), torch.ones(cfg.n_edges), t(jbundle.dist),
+            t(jbundle.counts),
             **{k: t(v) for k, v in caps.items()}), t(jstate.gains)))
     params = engine._map(lambda *a: torch.stack(a), *(p for p, _ in rows))
     gains = torch.stack([g for _, g in rows])
@@ -684,7 +685,8 @@ def test_grid_fleet_equals_each_seeds_own_grid():
         assoc[::5] = 0.0
         sc = state.scenario
         rows.append((env.make_env_params(
-            TIMED, assoc, torch.ones(TIMED.n_edges), bundle.counts,
+            TIMED, assoc, torch.ones(TIMED.n_edges), bundle.dist,
+            bundle.counts,
             kappa=sc.kappa, p_max_w=sc.p_max_w, f_max_hz=sc.f_max_hz),
             state.gains))
     fleet = engine._map(lambda *t: torch.stack(t), *(p for p, _ in rows))
