@@ -96,6 +96,31 @@ and prints no result):
    (``benchmarks/fig_ddpg_cost.py``): the trained actor's mean Eq. 23a
    cost beside rra's, fpa's and fca's on the same slots, printed; with
    ``--profile``, the device's busy share over 20 updating slots;
+6f. the in-round telemetry (``[telemetry]``), each run with the launch
+   counters zeroed just before and read just after: ``CONFIG`` fcea +
+   PDD, 5 rounds without and with ``EngineSpec(telemetry=True)`` from one
+   state and seed (the same launches, metrics and final state bit-equal,
+   the trace's invariants); ``telemetry_overhead_pct`` and the JSONL
+   tee's overhead at 1024 x 16 gcea + fastest, in turns off, on, tee,
+   tee, on, off, and the tee's file read back equal to the returned
+   trace; ``spans.profile_scanned``'s Chrome trace with the five
+   ``hfl/<stage>`` ranges and the CUDA kernels launched under them;
+6g. the buffered engine (``[buffered]``), each run with the launch
+   counters zeroed just before and read just after: ``CONFIG`` fcea dense,
+   64 micro-steps (a sync round's launches a micro-step), micro-steps a
+   second beside the ``[main]`` rounds a second, merges and virtual
+   seconds, and one more micro-step whose kernel calls are recorded (as
+   many calls of each wrapper as its kernel's launches in that step, and
+   no other launch) and held against their plain versions on its own
+   inputs; the same for
+   ``CONFIG`` K = 2 (the frontier's score), 8 micro-steps; card vs CPU
+   over 8 (and 4) micro-steps from one state and the same draws (the
+   buffer's integers and every decision exact, the clock and finish times
+   rtol 1e-5; a disagreement prints each client's values and their gap
+   in ulps); the reference's sync/buffered A/B
+   (``bench_rounds.async_ab``) at 1024 x 16 under flash_crowd and
+   markov_dropout: 8 sync rounds against 64 micro-steps, merges, virtual
+   seconds, virtual and wall rates;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -124,8 +149,10 @@ and prints no result):
     on the two paths; the rows-only ``score_rows``, which only the unfused
     chain launches, has its ``[compare]`` lines alone; ``launches`` counts
     the main path's run, ``scenario_launches`` the ``CONFIG``
-    full_dynamic run's and ``ddpg_launches`` the paper-default
-    ``train_ddpg()`` run's) and, last, the device line.
+    full_dynamic run's, ``ddpg_launches`` the paper-default
+    ``train_ddpg()`` run's and ``buffered_launches`` the ``CONFIG`` fcea
+    dense buffered run's, ``score_candidates`` its K = 2 run's) and, last,
+    the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -765,8 +792,11 @@ def profile_device(fn, label, steady_s):
         wall_s = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue          # host ops: their kernels are counted below
+        # host ops (their kernels are counted below), and the engine's
+        # ``hfl/<stage>`` ranges, which the profiler mirrors onto the
+        # device timeline as spans over their kernels: not kernels
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("hfl/"):
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -2050,6 +2080,577 @@ def phase_ddpg(cfg, dev, static_steady, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# Telemetry (RoundTrace, spans, JSONL sinks)
+# ---------------------------------------------------------------------------
+
+# 1024 x 16 gcea + fastest runs in turns: the engine without the trace, with
+# it, and with it teed to a JSONL file after every round
+TELEMETRY_TURNS = ("off", "on", "tee", "tee", "on", "off") * 2
+TELEMETRY_ROUNDS = 20
+
+
+def _same_tree(a, b) -> bool:
+    """Two engine outputs (named tuples of tensors and host values) equal
+    leaf for leaf, tensors bit for bit."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return all(_same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _check_trace(tag, cfg, spec, ms, tr):
+    """The reference's trace invariants on a stacked trace: the three
+    energy terms sum to the bill (rtol 1e-5), the time terms bound it, the
+    SIC depth is the largest edge load within the quota, the histogram
+    counts every client, PDD's iterations are its 1,200 (0 otherwise)."""
+    import torch
+    from repro_torch.core import engine
+    energy = tr.energy_local_j + tr.energy_uplink_j + tr.energy_cloud_j
+    tsum = tr.time_local_s + tr.time_uplink_s + tr.time_cloud_s
+    iters = 1200 if spec.scheduler == "pdd" and spec.engine_mode == "sync" \
+        else 0
+    ok = (torch.allclose(energy, ms.total_energy_j, rtol=1e-5, atol=0.0)
+          and bool(torch.all(tsum >= ms.total_time_s - 1e-5))
+          and torch.equal(tr.sic_depth, tr.edge_load.amax(dim=-1))
+          and bool(torch.all(tr.sic_depth <= engine.quota_for(cfg, spec)))
+          and bool(torch.all(tr.stale_hist.sum(dim=-1) == cfg.n_clients))
+          and bool(torch.all(tr.pdd_iters == iters)))
+    if not ok:
+        raise AssertionError(f"{tag}: the trace breaks an invariant: {tr}")
+
+
+def _telemetry_config(cfg, dev):
+    """``CONFIG`` fcea + PDD, 5 rounds without and with the trace from one
+    state and one generator seed, each run with the launch counters zeroed
+    just before and read just after: equal launches, metrics and final
+    state bit-equal; the trace's invariants.  Returns the traced run's
+    launches."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    state, bundle, _ = engine.init_simulation(cfg, seed=0, device=dev)
+    runs = {}
+    for on in (False, True):
+        spec = engine.EngineSpec(telemetry=on)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        hfl_ops.reset_launches()
+        t0 = time.perf_counter()
+        final, out = engine.run_scanned(cfg, spec, state, bundle, 5, gen)
+        torch.cuda.synchronize()
+        runs[on] = (final, out, dict(hfl_ops.LAUNCHES),
+                    time.perf_counter() - t0)
+    (f_off, m_off, l_off, w_off), (f_on, out, l_on, w_on) = \
+        runs[False], runs[True]
+    ms, tr = out
+    if l_on != l_off or l_on != _want_launches(cfg, engine.EngineSpec(), 5):
+        raise AssertionError(f"[telemetry] CONFIG launches with the trace "
+                             f"{l_on} != without {l_off}")
+    if not (_same_tree(ms, m_off) and _same_tree(f_on, f_off)):
+        raise AssertionError("[telemetry] CONFIG: metrics or state with the "
+                             "trace differ from the run without it")
+    _check_trace("[telemetry] CONFIG fcea-pdd", cfg, engine.EngineSpec(), ms,
+                 tr)
+    log(f"[telemetry] CONFIG fcea-pdd 5 rounds: launches {l_on} with and "
+        f"without the trace; metrics and final state bit-equal; wall "
+        f"{w_off:.4f} s off, {w_on:.4f} s on (round 1 included)")
+    for r in range(5):
+        log(f"[telemetry] CONFIG round {int(tr.round[r])}: time local "
+            f"{float(tr.time_local_s[r]):.5f} uplink "
+            f"{float(tr.time_uplink_s[r]):.5f} cloud "
+            f"{float(tr.time_cloud_s[r]):.5f} s; energy local "
+            f"{float(tr.energy_local_j[r]):.5f} uplink "
+            f"{float(tr.energy_uplink_j[r]):.5f} cloud "
+            f"{float(tr.energy_cloud_j[r]):.5f} J; sweeps "
+            f"{int(tr.assoc_sweeps[r])}; edge_load {tr.edge_load[r].tolist()}"
+            f"; pdd residual {float(tr.pdd_residual[r]):.3e}; z_relaxed "
+            f"{[round(v, 4) for v in tr.z_relaxed[r].tolist()]}; stale_hist "
+            f"{tr.stale_hist[r].tolist()}")
+    return l_on
+
+
+def _telemetry_overhead(cfg, dev):
+    """``telemetry_overhead_pct`` and the JSONL tee's at 1024 x 16 gcea +
+    fastest: ``TELEMETRY_ROUNDS`` rounds a run from one state and
+    generator seed, each mode warmed once, then in ``TELEMETRY_TURNS``;
+    s a round (host clock around the run, ending in ``synchronize``), the
+    overheads from each mode's median.  The last tee's file read back by
+    ``load_jsonl`` equals the returned trace exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.telemetry import sink
+    big = bench_config(cfg, 1024, 16)
+    state, bundle, _ = engine.init_simulation(big, seed=0, device=dev)
+    specs = {"off": engine.EngineSpec(policy="gcea", scheduler="fastest"),
+             "on": engine.EngineSpec(policy="gcea", scheduler="fastest",
+                                     telemetry=True)}
+    out_dir = ROOT / "build" / "telemetry"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "rounds.jsonl"
+    last = {}
+
+    def run(mode):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "tee":
+            path.unlink(missing_ok=True)
+            with sink.JsonlSink(str(path)) as js:
+                res = sink.stream_scanned(big, specs["on"], state, bundle,
+                                          TELEMETRY_ROUNDS, js, gen)
+        else:
+            res = engine.run_scanned(big, specs[mode], state, bundle,
+                                     TELEMETRY_ROUNDS, gen)
+        torch.cuda.synchronize()
+        last[mode] = res
+        return (time.perf_counter() - t0) / TELEMETRY_ROUNDS
+
+    for mode in ("off", "on", "tee"):
+        run(mode)
+    walls = {mode: [] for mode in specs}
+    walls["tee"] = []
+    for mode in TELEMETRY_TURNS:
+        walls[mode].append(run(mode))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    tel_pct = 100.0 * (med["on"] / med["off"] - 1.0)
+    tee_pct = 100.0 * (med["tee"] / med["off"] - 1.0)
+    log(f"[telemetry] 1024x16 gcea-fastest s/round ({TELEMETRY_ROUNDS} "
+        f"rounds a run) in turns {', '.join(TELEMETRY_TURNS)}: "
+        + "; ".join(f"{k} " + ", ".join(f"{v:.5f}" for v in vs)
+                    for k, vs in walls.items())
+        + f"; medians off {med['off']:.5f}, on {med['on']:.5f}, tee "
+        f"{med['tee']:.5f}; telemetry_overhead_pct {tel_pct:.2f}; "
+        f"jsonl_tee_overhead_pct {tee_pct:.2f}")
+    _, ms_off = last["off"]
+    _, (ms_on, tr) = last["on"]
+    _, ms_tee, tr_tee = last["tee"]
+    if not (_same_tree(ms_on, ms_off) and _same_tree(ms_tee, ms_off)
+            and _same_tree(tr_tee, tr)):
+        raise AssertionError("[telemetry] 1024x16: the three modes' metrics "
+                             "or traces differ")
+    _check_trace("[telemetry] 1024x16", big, specs["on"], ms_on, tr)
+    loaded = sink.load_jsonl(str(path))
+    host = sink.host_trace(tr)
+    for name in tr._fields:
+        if not np.array_equal(loaded[name], getattr(host, name)):
+            raise AssertionError(f"[telemetry] JSONL round trip: {name} "
+                                 f"differs")
+    log(f"[telemetry] JSONL round trip: {len(loaded['round'])} rounds, "
+        f"{path.stat().st_size} bytes; every field of load_jsonl equal to "
+        f"the returned trace: ok")
+
+
+def _kernels_by_stage(path):
+    """A Chrome trace's ``hfl/<stage>`` host ranges, and the CUDA kernels
+    each range launched: a kernel's launch (the runtime call of its
+    correlation id) lies inside the innermost range on the same thread."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    cat = lambda e: str(e.get("cat", "")).lower()          # noqa: E731
+    ranges = [(e.get("tid"), e["ts"], e["ts"] + e.get("dur", 0),
+               e["name"][len("hfl/"):]) for e in events
+              if e.get("ph") == "X" and cat(e) == "user_annotation"
+              and str(e.get("name", "")).startswith("hfl/")]
+    launch = {e["args"]["correlation"]: (e.get("tid"), e["ts"])
+              for e in events if cat(e) in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    by_stage = {}
+    for e in events:
+        if cat(e) != "kernel":
+            continue
+        tid, ts = launch.get(e.get("args", {}).get("correlation"),
+                             (None, None))
+        inner = [r for r in ranges if ts is not None and r[0] == tid
+                 and r[1] <= ts <= r[2] and r[3] != "run_scanned"]
+        if inner:
+            stage = min(inner, key=lambda r: r[2] - r[1])[3]
+            by_stage.setdefault(stage, []).append(e["name"])
+    cats = {}
+    for e in events:
+        cats[cat(e)] = cats.get(cat(e), 0) + 1
+    return {r[3] for r in ranges}, by_stage, cats
+
+
+def _telemetry_profile(cfg, dev):
+    """``spans.profile_scanned`` of 2 ``CONFIG`` fcea + fastest rounds: its
+    Chrome trace holds the five stage ranges, and under associate,
+    schedule and train the fused score, the SIC and the SGD kernels."""
+    from repro_torch.core import engine
+    from repro_torch.telemetry import spans
+    spec = engine.EngineSpec(policy="fcea", scheduler="fastest")
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    path = spans.profile_scanned(cfg, spec, state, bundle, 2,
+                                 str(ROOT / "build" / "profile"),
+                                 aux["generator"])
+    names, by_stage, cats = _kernels_by_stage(path)
+    want_kernels = {"associate": "score_fused_kernel",
+                    "schedule": "sic_cluster_kernel",
+                    "train": "sgd_cluster_kernel"}
+    missing = [s for s in spans.STAGES if s not in names]
+    absent = [s for s, k in want_kernels.items()
+              if not any(k in name for name in by_stage.get(s, ()))]
+    if missing or absent or not all(by_stage.get(s) for s in spans.STAGES):
+        raise AssertionError(f"[telemetry] profile: stage ranges missing "
+                             f"{missing}; expected kernels absent under "
+                             f"{absent}; kernels by stage "
+                             f"{ {k: len(v) for k, v in by_stage.items()} }; "
+                             f"event categories {cats}")
+    log(f"[telemetry] profile_scanned 2 CONFIG fcea-fastest rounds "
+        f"({time.perf_counter() - t0:.2f} s, {Path(path).stat().st_size} "
+        f"bytes): ranges {sorted(names)}; kernels under each stage "
+        + "; ".join(f"{s} {len(by_stage[s])} ("
+                    + ", ".join(sorted({k[:40] for k in by_stage[s]
+                                        if 'hfl' in k or 'kernel' in k})[:4])
+                    + ")" for s in spans.STAGES))
+
+
+def phase_telemetry(cfg, dev):
+    """The trace on the sync round: ``CONFIG`` on vs off, the overheads at
+    1024 x 16, the JSONL round trip and the profiler ranges.  Returns the
+    traced ``CONFIG`` run's launches."""
+    launches = _telemetry_config(cfg, dev)
+    _telemetry_overhead(cfg, dev)
+    _telemetry_profile(cfg, dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The buffered engine (FedBuff micro-steps with TiFL tiers)
+# ---------------------------------------------------------------------------
+
+BUFFER_INTS = ("in_flight", "tier", "pulled_ver", "fill", "version", "step")
+BUFFER_FLOATS = ("finish_s", "obs_s", "weight_sum", "clock_s", "last_agg_s")
+
+
+@contextlib.contextmanager
+def _recording_kernels():
+    """Record the arguments of every HFL kernel wrapper call the engine
+    makes while the block runs (no copy, no sync)."""
+    from repro_torch.kernels import hfl_ops
+    names = ("score_matrix", "score_candidates", "sic_rates",
+             "local_sgd_step")
+    calls = {name: [] for name in names}
+    real = {name: getattr(hfl_ops, name) for name in names}
+
+    def recorder(name):
+        def call(*a, **kw):
+            calls[name].append((a, kw))
+            return real[name](*a, **kw)
+        return call
+    for name in names:
+        setattr(hfl_ops, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(hfl_ops, name, fn)
+
+
+def _hold_recorded(label, calls, launches):
+    """Each recorded kernel call (the last of its kind) against its plain
+    version on the same inputs: the fused scores bit for bit, the SIC and
+    the SGD at the CPU tests' tolerances.  ``launches``: the counters of
+    the recorded run, zeroed just before it.  Every wrapper must have been
+    recorded exactly as often as its kernel launched, and no other kernel
+    may have launched (``local_sgd_step_cluster`` counts the cluster
+    route of ``local_sgd_step``'s launches), so no launch of the run goes
+    unheld."""
+    import torch
+    from repro_torch.core import fuzzy
+    from repro_torch.kernels import hfl_ops
+    from repro_torch.models.mlp import PARAM_KEYS
+    recorded = {name: len(rec) for name, rec in calls.items()}
+    launched = {name: launches[name] for name in calls}
+    unrecorded = {name: n for name, n in launches.items()
+                  if n and name not in calls
+                  and name != "local_sgd_step_cluster"}
+    if recorded != launched or unrecorded or not any(recorded.values()):
+        raise AssertionError(f"[buffered] {label}: recorded wrapper calls "
+                             f"{recorded} against launches {launches}: a "
+                             f"launch was made past the recorded wrappers")
+    held = []
+    for name, rec in calls.items():
+        if not rec:
+            continue
+        a, kw = rec[-1]
+        got = getattr(hfl_ops, name)(*a, **kw)
+        if name == "score_matrix":
+            want = fuzzy.score_matrix(*a, **kw, rows=hfl_ops.score_rows_plain)
+            ok, err = torch.equal(got, want), _max_err(got, want)
+        elif name == "score_candidates":
+            gains, idx, counts, stale = a
+            want = hfl_ops.score_rows_plain(*fuzzy.candidate_inputs(
+                gains, idx, counts, stale, **kw)).reshape(idx.shape)
+            ok, err = torch.equal(got, want), _max_err(got, want)
+        elif name == "sic_rates":
+            want = hfl_ops.sic_rates_plain(*a, **kw)
+            tol = TOL["sic_rates"]
+            err = _max_err(got, want)
+            ok = torch.allclose(got, want, rtol=tol["rtol"],
+                                atol=float(want.abs().max())
+                                * tol["atol_frac"])
+        else:
+            want = hfl_ops.local_sgd_step_plain(*a, **kw)
+            err = max(_max_err(got[k], want[k]) for k in PARAM_KEYS)
+            ok = all(torch.allclose(got[k], want[k], **TOL["local_sgd_step"])
+                     for k in PARAM_KEYS)
+        shape = tuple(a[1 if name in ("sic_rates", "local_sgd_step")
+                        else 0].shape)
+        if not ok:
+            raise AssertionError(f"[buffered] {label} {name} {shape}: kernel "
+                                 f"disagrees with its plain version on a "
+                                 f"micro-step's inputs (max abs err "
+                                 f"{err:.3e})")
+        held.append(f"{name} {shape} max_abs_err {err:.3e}")
+    log(f"[buffered] {label}: a micro-step's own kernel calls against "
+        f"their plain versions: " + "; ".join(held) + ": ok")
+
+
+def _drive_buffered(cfg, spec, steps, dev, label, scenario=None):
+    """``steps`` micro-steps of ``spec`` from ``init_simulation`` (in
+    ``scenario``), fresh draws each, with every launch counter zeroed just
+    before and read just after (one score call, one SIC call and τ₂ SGD
+    launches a micro-step, as a sync round); checks the metrics and the
+    buffer, prints the summary and the stage spans; then one more
+    micro-step with its kernel calls recorded and held against their
+    plain versions.  Returns (launches, steady s a micro-step, the final
+    state, bundle and generator)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.hfl import RoundMetrics
+    from repro_torch.kernels import hfl_ops
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev,
+                                                scenario=scenario)
+    gen = aux["generator"]
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    hfl_ops.reset_launches()
+    rows, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        draws = engine.sample_draws(cfg, bundle, gen, spec)
+        state, m = engine.round_step(cfg, spec, state, bundle, draws,
+                                     timer=timer)
+        rows.append(RoundMetrics.from_engine(m))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(hfl_ops.LAUNCHES)
+    want = _want_launches(cfg, spec, steps)
+    if launches != want:
+        raise AssertionError(f"[buffered] {label}: launches {launches} != "
+                             f"expected {want}")
+    buf = state.buffer
+    merges = sum(int(r.z[0] > 0) for r in rows)
+    cap = engine.quota_for(cfg, spec) * cfg.n_edges
+    for r in rows:
+        vals = [r.accuracy, r.loss, r.avg_staleness, r.total_time_s,
+                r.total_energy_j, r.cost]
+        if not (all(math.isfinite(v) for v in vals) and r.total_time_s >= 0
+                and r.n_associated <= min(cap, r.n_available)):
+            raise AssertionError(f"[buffered] {label} micro-step {r.round}: "
+                                 f"{r}")
+    if not (int(buf.step) == steps and int(buf.version) == merges
+            and bool(((buf.tier >= 0) & (buf.tier < spec.n_tiers)).all())):
+        raise AssertionError(f"[buffered] {label}: buffer step "
+                             f"{int(buf.step)}, version {int(buf.version)} "
+                             f"for {merges} merges, tiers "
+                             f"{buf.tier.tolist()}")
+    steady = walls[1:] or walls
+    steady_s = sum(steady) / len(steady)
+    clock = float(buf.clock_s)
+    log(f"[buffered] {label}: {steps} micro-steps, launches {launches}; "
+        f"s/micro-step {steady_s:.5f} (steps 2..{steps}; step 1 "
+        f"{walls[0]:.4f}), {1.0 / steady_s:.2f} micro-steps/s; {merges} "
+        f"merges in {clock:.4f} virtual s ({merges / clock:.4f} merges a "
+        f"virtual s); n_assoc a step "
+        f"{statistics.mean(r.n_associated for r in rows):.2f}, final "
+        f"accuracy {rows[-1].accuracy:.4f}")
+    for name, spans in timer.ms().items():
+        tail = spans[1:] or spans
+        log(f"[stage] buffered {label} {name:<9} "
+            f"{sum(tail) / len(tail):.4f} ms/micro-step (steps 2..{steps}; "
+            f"step 1 {spans[0]:.4f})")
+    with _recording_kernels() as calls:
+        draws = engine.sample_draws(cfg, bundle, gen, spec)
+        hfl_ops.reset_launches()
+        state, _ = engine.round_step(cfg, spec, state, bundle, draws)
+        recorded_launches = dict(hfl_ops.LAUNCHES)
+    _hold_recorded(label, calls, recorded_launches)
+    return launches, steady_s, (state, bundle, gen)
+
+
+def _ulps(a: float, b: float) -> float:
+    """|a - b| in float32 ulps of the larger magnitude."""
+    import numpy as np
+    return abs(a - b) / float(np.spacing(np.float32(max(abs(a), abs(b)))))
+
+
+def _near_ties(s_gpu, s_cpu):
+    """On a disagreement of the buffer's integers: for each client whose
+    landing or tier differs, its finish time beside the clock and its
+    duration EMA on both sides, with their gaps in ulps."""
+    import torch
+    lines = []
+    gpu, bc = _to(s_gpu.buffer, torch.device("cpu")), s_cpu.buffer
+    for i in torch.nonzero((gpu.in_flight != bc.in_flight)
+                           | (gpu.tier != bc.tier)).flatten().tolist():
+        fg, fc = float(gpu.finish_s[i]), float(bc.finish_s[i])
+        og, oc = float(gpu.obs_s[i]), float(bc.obs_s[i])
+        lines.append(f"client {i}: finish card {fg!r} cpu {fc!r} "
+                     f"({_ulps(fg, fc):.1f} ulp), clock card "
+                     f"{float(gpu.clock_s)!r} cpu {float(bc.clock_s)!r}; obs "
+                     f"card {og!r} cpu {oc!r} ({_ulps(og, oc):.1f} ulp); "
+                     f"in_flight {bool(gpu.in_flight[i])}/"
+                     f"{bool(bc.in_flight[i])}, tier {int(gpu.tier[i])}/"
+                     f"{int(bc.tier[i])}")
+    return lines
+
+
+def _buffered_card_vs_cpu(cfg, spec, state, bundle, gen, label, steps=8):
+    """``steps`` micro-steps from one state and the same draws on the card
+    and on the CPU (plain versions): the buffer's integers, z,
+    n_associated, n_available, sweeps and staleness exact each step; the
+    clock, finish times, EMA and weights rtol 1e-5; the bill rtol 1e-5
+    (time and cost also within 1e-5 of the clock: the time charge is a
+    difference of two clock readings); loss rtol 1e-4, accuracy 2 test
+    samples."""
+    import torch
+    from repro_torch.core import engine
+    cpu = torch.device("cpu")
+    s_g, s_c = state, _to(state, cpu)
+    n_test = bundle.test_y.shape[0]
+    worst = {}
+    for i in range(steps):
+        draws = engine.sample_draws(cfg, bundle, gen, spec)
+        s_g, m_g = engine.round_step(cfg, spec, s_g, bundle, draws)
+        s_c, m_c = engine.round_step(cfg, spec, s_c, _to(bundle, cpu),
+                                     _to(draws, cpu))
+        g, c = engine.metrics_row(m_g), engine.metrics_row(m_c)
+        bg, bc = _to(s_g.buffer, cpu), s_c.buffer
+        exact = (g["z"].tolist() == c["z"].tolist()
+                 and all(g[k] == c[k] for k in ("n_associated", "n_available",
+                                                "sweeps"))
+                 and torch.equal(s_g.staleness.cpu(), s_c.staleness)
+                 and all(torch.equal(getattr(bg, k), getattr(bc, k))
+                         for k in BUFFER_INTS))
+        if not exact:
+            for line in _near_ties(s_g, s_c):
+                log(f"[card-vs-cpu] buffered {label} step {i + 1}: {line}")
+            raise AssertionError(f"[card-vs-cpu] buffered {label} step "
+                                 f"{i + 1}: card and CPU disagree on a "
+                                 f"decision or the buffer's integers: {g} "
+                                 f"{c}")
+        clock = float(bc.clock_s)
+        for k in BUFFER_FLOATS:
+            a, b = getattr(bg, k), getattr(bc, k)
+            if not torch.allclose(a, b, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"[card-vs-cpu] buffered {label} step "
+                                     f"{i + 1} {k}: {a} vs {b}")
+        for key, rtol, atol in (
+                ("total_energy_j", 1e-5, 0.0), ("loss", 1e-4, 0.0),
+                ("total_time_s", 1e-5, 1e-5 * clock),
+                ("cost", 1e-5, 1e-5 * clock * cfg.lambda_t)):
+            gap = abs(g[key] - c[key])
+            worst[key] = max(worst.get(key, 0.0), gap / max(abs(c[key]),
+                                                            1e-30))
+            if gap > atol + rtol * abs(c[key]):
+                raise AssertionError(f"[card-vs-cpu] buffered {label} step "
+                                     f"{i + 1} {key}: {g[key]} vs {c[key]}")
+        if abs(g["accuracy"] - c["accuracy"]) > 2.0 / n_test:
+            raise AssertionError(f"[card-vs-cpu] buffered {label} step "
+                                 f"{i + 1} accuracy: {g['accuracy']} vs "
+                                 f"{c['accuracy']}")
+    log(f"[card-vs-cpu] buffered {label}, {steps} micro-steps: buffer "
+        f"integers ({', '.join(BUFFER_INTS)}), z, n_associated, "
+        f"n_available, sweeps and staleness exact every step; clock, "
+        f"finish, EMA and weights rtol 1e-5; largest relative bill gaps "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; final clock {float(s_g.buffer.clock_s):.6f} s, version "
+        f"{int(s_g.buffer.version)}: ok")
+
+
+def _buffered_async_ab(cfg, dev):
+    """The reference's ``bench_rounds.async_ab`` at 1024 x 16 (gcea +
+    fastest) under ``AB_WORLDS``: 8 sync rounds against 64 micro-steps
+    from one state, each warmed once and then timed twice, with the launch
+    counters zeroed just before each timed run and read just after;
+    virtual rates (sync: rounds / Σ Eq. 18 time; buffered: merges / the
+    final clock) and wall rates."""
+    import dataclasses
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    big = bench_config(cfg, 1024, 16)
+    for world in AB_WORLDS:
+        spec_s = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                                   scenario="dynamic")
+        spec_b = dataclasses.replace(spec_s, engine_mode="buffered")
+        state, bundle, _ = engine.init_simulation(big, seed=0, device=dev,
+                                                  scenario=world)
+        res = {}
+        for label, spec, n in (("sync", spec_s, 8), ("buffered", spec_b, 64)):
+            walls = []
+            for timed in (False, True, True):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                torch.cuda.synchronize()
+                hfl_ops.reset_launches()
+                t0 = time.perf_counter()
+                final, ms = engine.run_scanned(big, spec, state, bundle, n,
+                                               gen)
+                torch.cuda.synchronize()
+                if timed:
+                    walls.append(time.perf_counter() - t0)
+            launches = dict(hfl_ops.LAUNCHES)
+            if launches != _want_launches(big, spec, n):
+                raise AssertionError(f"[buffered] async_ab {world} {label}: "
+                                     f"launches {launches}")
+            res[label] = (final, ms, walls, launches)
+        _, ms_s, walls_s, _ = res["sync"]
+        fb, ms_b, walls_b, l_b = res["buffered"]
+        sync_virtual = float(ms_s.total_time_s.sum())
+        merges, virtual = int(fb.buffer.version), float(fb.buffer.clock_s)
+        sync_vrps, buf_vrps = 8 / sync_virtual, merges / virtual
+        log(f"[buffered] async_ab 1024x16 {world}: sync 8 rounds "
+            f"{sync_virtual:.4f} virtual s ({sync_vrps:.4f} rounds a virtual "
+            f"s), wall " + ", ".join(f"{8 / w:.2f}" for w in walls_s)
+            + f" rounds/s; buffered 64 micro-steps {merges} merges in "
+            f"{virtual:.4f} virtual s ({buf_vrps:.4f} merges a virtual s, "
+            f"{buf_vrps / sync_vrps:.3f}x sync), wall "
+            + ", ".join(f"{64 / w:.2f}" for w in walls_b)
+            + f" micro-steps/s; launches {l_b}; n_available a micro-step "
+            f"{float(ms_b.n_available.float().mean()):.1f}")
+
+
+def phase_buffered(cfg, dev, static_steady):
+    """The buffered engine: ``CONFIG`` fcea dense, 64 micro-steps beside
+    the sync ``[main]`` round; ``CONFIG`` K = 2, 8 micro-steps (the
+    frontier's score); each run's kernel calls held against their plain
+    versions; card vs CPU over 8 micro-steps; the reference's async A/B
+    at 1024 x 16.  Returns the launches of the two ``CONFIG`` runs."""
+    from repro_torch.core import engine
+    spec = engine.EngineSpec(engine_mode="buffered")
+    launches, steady, (state, bundle, gen) = _drive_buffered(
+        cfg, spec, 64, dev, "CONFIG fcea dense")
+    log(f"[buffered] CONFIG fcea dense {1.0 / steady:.2f} micro-steps/s "
+        f"against the sync [main] fcea-pdd {1.0 / static_steady:.3f} "
+        f"rounds/s in this run ({static_steady / steady:.1f}x)")
+    _buffered_card_vs_cpu(cfg, spec, state, bundle, gen, "CONFIG fcea dense")
+    spec_k = engine.EngineSpec(engine_mode="buffered", candidates_k=2)
+    launches_k, _, final_k = _drive_buffered(cfg, spec_k, 8, dev,
+                                             "CONFIG fcea K=2")
+    _buffered_card_vs_cpu(cfg, spec_k, *final_k, "CONFIG fcea K=2", steps=4)
+    _buffered_async_ab(cfg, dev)
+    return {**launches,
+            "score_candidates": launches_k["score_candidates"]}
+
+
+# ---------------------------------------------------------------------------
 # The substrate: sequence kernels and recurrentgemma-9b serving
 # ---------------------------------------------------------------------------
 
@@ -2477,6 +3078,9 @@ def main(argv=None) -> int:
                           CONFIG, dev, runs["fcea"][2])
     ddpg_launches = phase("hfl ddpg allocator", phase_ddpg, CONFIG, dev,
                           runs["fcea"][2], args.profile)
+    phase("hfl telemetry", phase_telemetry, CONFIG, dev)
+    buf_launches = phase("hfl buffered engine", phase_buffered, CONFIG, dev,
+                         runs["fcea"][2])
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -2495,6 +3099,10 @@ def main(argv=None) -> int:
     # Algorithm 2 at the paper's defaults (CONFIG, 20 x 50 slots)
     ddpg_launches = {**ddpg_launches, "local_sgd_step":
                      ddpg_launches["local_sgd_step_cluster"]}
+    # the buffered engine: CONFIG fcea dense, 64 micro-steps (and the
+    # frontier's score from its CONFIG K = 2 run, 8 micro-steps)
+    buf_launches = {**buf_launches, "local_sgd_step":
+                    buf_launches["local_sgd_step_cluster"]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -2504,7 +3112,8 @@ def main(argv=None) -> int:
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
                         "scenario_launches": scen_launches.get(name, 0),
-                        "ddpg_launches": ddpg_launches.get(name, 0)})
+                        "ddpg_launches": ddpg_launches.get(name, 0),
+                        "buffered_launches": buf_launches.get(name, 0)})
     for name, (err, ms_k, ms_p, b_ms, b_by, lib_ms) in seq_cmp.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
@@ -2512,7 +3121,8 @@ def main(argv=None) -> int:
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
                         "scenario_launches": scen_launches.get(name, 0),
-                        "ddpg_launches": ddpg_launches.get(name, 0)})
+                        "ddpg_launches": ddpg_launches.get(name, 0),
+                        "buffered_launches": buf_launches.get(name, 0)})
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",
@@ -2521,7 +3131,8 @@ def main(argv=None) -> int:
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
                         "scenario_launches": scen_launches.get(name, 0),
-                        "ddpg_launches": ddpg_launches.get(name, 0)})
+                        "ddpg_launches": ddpg_launches.get(name, 0),
+                        "buffered_launches": buf_launches.get(name, 0)})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     result = {"kernels": kernels}
     if args.out:

@@ -11,5 +11,8 @@ on CPU tensors every kernel wrapper runs its plain PyTorch version.
 
 Entry points: ``repro_torch.core.hfl.HFLSimulation`` and
 ``repro_torch.core.engine`` (``init_simulation``, ``sample_draws``,
-``round_step``, ``run_scanned``).  They default to ``device="cuda"``.
+``round_step``, ``run_scanned``, ``run_fleet``; the buffered engine with
+``EngineSpec(engine_mode="buffered")``), and ``repro_torch.telemetry``
+(the round trace, stage ranges and sinks).  They default to
+``device="cuda"``.
 """

@@ -5,7 +5,8 @@ leaves as plain numpy arrays -- the caller converts them with
 ``np.asarray`` and drops the PRNG key -- and builds the port's
 ``RoundState``/``RoundBundle`` on ``device``, so both sides can start from
 the same params, gains, staleness, world (``scenario_from_numpy``) and
-data.
+data; a reference buffered state mid-run carries its ``BufferState``
+over too (``buffer_from_numpy``).
 ``ddpg_from_numpy`` and ``actor_from_numpy`` carry a reference DDPG
 agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ddpg import DDPGState
-from repro_torch.core.engine import RoundBundle, RoundState
+from repro_torch.core.engine import BufferState, RoundBundle, RoundState
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import ScenarioState
 from repro_torch.models.transformer import Transformer
@@ -36,7 +37,8 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
     ``client_params`` (dicts of arrays), ``gains``, ``staleness``,
     ``round_idx`` and, optionally, ``scenario`` (a reference
     ``ScenarioState`` as numpy, or None: the state then carries none, and
-    runs the static kind only); bundle_np: one with ``dist``, ``x``,
+    runs the static kind only) and ``buffer`` (a reference
+    ``BufferState`` as numpy, or None); bundle_np: one with ``dist``, ``x``,
     ``y``, ``counts``, ``test_x`` and ``test_y``.  Every array is copied
     onto ``device``."""
     dev = resolve_device(device)
@@ -54,7 +56,8 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
         gains=f32(s["gains"]),
         staleness=i32(s["staleness"]),
         round_idx=int(np.asarray(s["round_idx"])),
-        scenario=scenario_from_numpy(s.get("scenario"), dev))
+        scenario=scenario_from_numpy(s.get("scenario"), dev),
+        buffer=buffer_from_numpy(s.get("buffer"), dev))
     bundle = RoundBundle(dist=f32(b["dist"]), x=f32(b["x"]), y=i32(b["y"]),
                          counts=f32(b["counts"]), test_x=f32(b["test_x"]),
                          test_y=i32(b["test_y"]))
@@ -73,6 +76,19 @@ def scenario_from_numpy(scen_np: Any, device: "str | torch.device" = "cuda"
     return ScenarioState(*(torch.tensor(np.asarray(f[k], np.float32),
                                         device=dev)
                            for k in ScenarioState._fields))
+
+
+def buffer_from_numpy(buf_np: Any, device: "str | torch.device" = "cuda"
+                      ) -> "BufferState | None":
+    """A reference ``BufferState`` (numpy leaves, or a mapping of its 13
+    fields; with or without a leading fleet axis) as the port's on
+    ``device``, each leaf with its dtype (float32, bool, int32); None
+    stays None."""
+    if buf_np is None:
+        return None
+    dev = resolve_device(device)
+    f = _fields(buf_np)
+    return BufferState(*(_tensors(f[k], dev) for k in BufferState._fields))
 
 
 def _tensors(tree: Any, dev: torch.device) -> Any:

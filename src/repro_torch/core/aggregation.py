@@ -77,3 +77,35 @@ def replicate(params: Params, n: int, lead: int = 0) -> Params:
     return {k: leaf.unsqueeze(lead).expand(
         leaf.shape[:lead] + (n,) + leaf.shape[lead:]).clone()
         for k, leaf in params.items()}
+
+
+def buffer_zeros(params: Params) -> Params:
+    """A zeroed delta accumulator shaped like ``params``."""
+    return {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def buffer_accumulate(delta_sum: Params, weight_sum: torch.Tensor,
+                      deltas: Params, weights: torch.Tensor):
+    """Fold per-client deltas into the buffer: deltas leaves (S, N, ...),
+    weights (S, N) (zero for a client that did not land), delta_sum
+    leaves (S, ...), weight_sum (S,).  Returns (delta_sum', weight_sum')."""
+    out = {k: acc + torch.sum(deltas[k] * _col(weights, deltas[k]), dim=1)
+           for k, acc in delta_sum.items()}
+    return out, weight_sum + torch.sum(weights, dim=-1)
+
+
+def buffer_apply(global_params: Params, delta_sum: Params,
+                 weight_sum: torch.Tensor, apply_mask: torch.Tensor
+                 ) -> Params:
+    """The merge: global + Σw·Δ / Σw (the reference's at its default
+    server step 1) for each seed whose ``apply_mask`` (S,) is set and
+    whose buffer is not empty, else its global model unchanged.  The
+    division makes the effective weights w_n / Σw sum to 1."""
+    ok = apply_mask & (weight_sum > 0)
+    denom = torch.clamp_min(weight_sum, 1e-12)
+    out = {}
+    for k, g in global_params.items():
+        d = delta_sum[k]
+        out[k] = torch.where(_col(ok, g).bool(),
+                             g + d / _col(denom, d), g)
+    return out

@@ -128,6 +128,22 @@ def apply_schedule(cfg, rc: RoundCost, z: torch.Tensor) -> RoundCost:
                        cost=c)
 
 
+def cohort_cost(cfg, rc: RoundCost, cohort: torch.Tensor,
+                dt_s: torch.Tensor, fired: torch.Tensor) -> RoundCost:
+    """The buffered engine's bill of one micro-step: no barrier, so the
+    time charge is the virtual clock's advance ``dt_s``; the energy is the
+    admitted ``cohort``'s τ₂-scaled per-client Eq. 5/10 energy plus one
+    Eq. 16 edge→cloud hop when the merge ``fired`` (the buffered merge is
+    one cloud exchange).  ``cohort`` (…, N) bool, ``dt_s`` and ``fired``
+    (…,), in float32."""
+    f32 = torch.float32
+    e_cloud = cfg.edge_power_w * cfg.edge_model_size_bits / cfg.edge_rate_bps
+    energy = cfg.tau2 * torch.sum(cohort.to(f32) * rc.client_energy_j,
+                                  dim=-1) + fired.to(f32) * e_cloud
+    c = cfg.lambda_t * dt_s + cfg.lambda_e * energy
+    return rc._replace(total_time_s=dt_s, total_energy_j=energy, cost=c)
+
+
 def round_cost(cfg, *, power_w: torch.Tensor, f_hz: torch.Tensor,
                gains: torch.Tensor, assoc: torch.Tensor, z: torch.Tensor,
                n_samples: torch.Tensor, noma_enabled: bool = True,

@@ -43,11 +43,25 @@ drivers take ``actor_params``, one actor for every seed, or one per seed
 trainer's MDP starts from ``associate_snapshot``, the association the
 next round would make, taken without advancing the state.
 
-The port covers the sync round on every scenario kind, dense or on the
-candidate frontier, with fcea, gcea or rcea, the ``mid``, ``rra``,
-``fpa``, ``fca`` or ``ddpg`` allocator, PDD or fastest scheduling, NOMA
-or OMA.  Everything else raises ``NotImplementedError`` naming its
-ROADMAP item.
+With ``EngineSpec(engine_mode="buffered")`` a step is the semi-async
+engine's micro-step (``fleet_buffered_step``): one TiFL speed tier's idle
+clients enter the unchanged association and allocation stages, train,
+and land their staleness-weighted deltas in a FedBuff buffer at their
+virtual finish times; the cloud merges on fill or timeout.  Its carry is
+``RoundState.buffer`` (a ``BufferState``), absent on the sync engine.
+
+With ``EngineSpec(telemetry=True)`` a step returns ``(state',
+(RoundMetrics, telemetry.RoundTrace))``; off, it returns today's
+``(state', RoundMetrics)`` and builds no trace (``split_output``
+normalises the two).  Every stage runs inside a ``telemetry.spans``
+range.
+
+The port covers the sync and the buffered engine on every scenario kind,
+dense or on the candidate frontier, with fcea, gcea or rcea, the
+``mid``, ``rra``, ``fpa``, ``fca`` or ``ddpg`` allocator, PDD or fastest
+scheduling (the sync engine's), NOMA or OMA, with or without telemetry.
+Faults and the warm-started association raise ``NotImplementedError``
+naming their ROADMAP items (A15 f, g).
 """
 from __future__ import annotations
 
@@ -65,6 +79,8 @@ from repro_torch.data import federated
 from repro_torch.device import resolve_device
 from repro_torch.kernels import hfl_ops
 from repro_torch.models import mlp
+from repro_torch.telemetry import spans
+from repro_torch.telemetry import trace as telemetry_trace
 
 Params = Dict[str, torch.Tensor]
 
@@ -75,8 +91,18 @@ Params = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """Per-simulation switches, with the reference's defaults.  Options the
-    port does not have yet are accepted at their off value only."""
+    """Per-simulation switches, with the reference's defaults.
+
+    ``engine_mode`` "sync" is the paper's semi-synchronous round,
+    "buffered" the semi-async micro-step, whose own switches follow it:
+    ``timeout_s`` (virtual seconds between forced merges), ``n_tiers``
+    (TiFL speed tiers) and ``retier_every`` (micro-steps between quantile
+    retiers).  The merge's fill target and server step are the
+    reference's defaults (its ``buffer_fill=0``, quota·M // 2 updates,
+    and ``buffer_lr=1``), not options here.
+    ``telemetry`` adds the ``RoundTrace`` to each step's output.
+    ``faults`` and ``warm_start`` are not ported yet: they are accepted
+    at their off value only."""
     policy: str = "fcea"            # fcea | gcea | rcea
     allocator: str = "mid"          # mid | rra | fpa | fca | ddpg
     scheduler: str = "pdd"          # pdd | fastest
@@ -88,7 +114,10 @@ class EngineSpec:
     scenario: str = "static"
     candidates_k: Optional[int] = None
     telemetry: bool = False
-    engine_mode: str = "sync"
+    engine_mode: str = "sync"       # sync | buffered
+    timeout_s: float = 10.0
+    n_tiers: int = 4
+    retier_every: int = 8
     faults: Any = None
     warm_start: bool = False
 
@@ -104,10 +133,9 @@ class EngineSpec:
             raise ValueError(f"unknown scenario transition "
                              f"{self.scenario!r}; registered: "
                              f"{sorted(scenarios.TRANSITIONS)}")
-        if self.telemetry:
-            todo.append("telemetry (ROADMAP A15 d)")
-        if self.engine_mode != "sync":
-            todo.append("engine_mode='buffered' (ROADMAP A15 e)")
+        if self.engine_mode not in ("sync", "buffered"):
+            raise ValueError(f"unknown engine_mode {self.engine_mode!r}; "
+                             f"choose 'sync' or 'buffered'")
         if self.faults is not None:
             todo.append("faults (ROADMAP A15 f)")
         if self.warm_start:
@@ -128,6 +156,26 @@ class RoundBundle(NamedTuple):
     test_y: torch.Tensor     # (T,) int32
 
 
+class BufferState(NamedTuple):
+    """The buffered engine's carry (the reference's ``BufferState``): the
+    FedBuff aggregation buffer, the per-client in-flight bookkeeping and
+    the TiFL tier table.  In a fleet every leaf has a leading seed axis
+    S, so the scalars below are (S,): seeds may be at different steps."""
+    pending_delta: Params    # (N, ...) trained-minus-pulled model deltas
+    finish_s: torch.Tensor   # (N,) float32 absolute virtual finish times
+    in_flight: torch.Tensor  # (N,) bool -- admitted, not yet landed
+    pulled_ver: torch.Tensor  # (N,) int32 global version at admission
+    obs_s: torch.Tensor      # (N,) float32 EMA of measured durations
+    tier: torch.Tensor       # (N,) int32 TiFL speed tier (0 = fastest)
+    delta_sum: Params        # global-shaped Σ w·Δ accumulator
+    weight_sum: torch.Tensor  # () float32 Σ w over buffered updates
+    fill: torch.Tensor       # () int32 updates landed since last trigger
+    version: torch.Tensor    # () int32 cloud aggregation count
+    clock_s: torch.Tensor    # () float32 virtual wall clock
+    last_agg_s: torch.Tensor  # () float32 clock at the last trigger
+    step: torch.Tensor       # () int32 micro-step counter
+
+
 class RoundState(NamedTuple):
     """Everything that evolves across global rounds."""
     global_params: Params    # cloud model
@@ -136,6 +184,7 @@ class RoundState(NamedTuple):
     staleness: torch.Tensor  # (N,) int32 — A_n
     round_idx: int
     scenario: Any = None     # scenarios.ScenarioState (None: static only)
+    buffer: Any = None       # BufferState (buffered engine) | None
 
 
 class RoundDraws(NamedTuple):
@@ -198,6 +247,55 @@ def quota_for(cfg, spec: EngineSpec) -> int:
     if spec.noma_enabled:
         return cfg.clients_per_edge
     return max(1, int(cfg.clients_per_edge * spec.oma_quota_factor))
+
+
+def buffer_fill_for(cfg, spec: EngineSpec) -> int:
+    """The fill half of the fill-or-timeout trigger: half the
+    per-micro-step admission capacity (quota · M), the reference's
+    ``buffer_fill=0`` default."""
+    return max(1, (quota_for(cfg, spec) * cfg.n_edges) // 2)
+
+
+def init_buffer(cfg, spec: EngineSpec, state: "RoundState") -> BufferState:
+    """An empty buffer shaped for ``state``'s models (one simulation, or a
+    fleet: the leading axes of ``state.staleness``).  Tiers start
+    round-robin over clients; the first retier replaces them with
+    measured-speed tiers."""
+    n = cfg.n_clients
+    lead = tuple(state.staleness.shape[:-1])
+    dev = state.staleness.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tier = torch.arange(n, **i32) % max(1, int(spec.n_tiers))
+    return BufferState(
+        pending_delta=aggregation.buffer_zeros(state.client_params),
+        finish_s=torch.zeros(lead + (n,), **f32),
+        in_flight=torch.zeros(lead + (n,), dtype=torch.bool, device=dev),
+        pulled_ver=torch.zeros(lead + (n,), **i32),
+        obs_s=torch.zeros(lead + (n,), **f32),
+        tier=tier.expand(lead + (n,)).clone(),
+        delta_sum=aggregation.buffer_zeros(state.global_params),
+        weight_sum=torch.zeros(lead, **f32),
+        fill=torch.zeros(lead, **i32),
+        version=torch.zeros(lead, **i32),
+        clock_s=torch.zeros(lead, **f32),
+        last_agg_s=torch.zeros(lead, **f32),
+        step=torch.zeros(lead, **i32))
+
+
+def ensure_buffer(cfg, spec: EngineSpec, state: "RoundState"
+                  ) -> "RoundState":
+    """``state.buffer`` normalised to the spec's engine: a fresh buffer
+    attached for "buffered" (one already there is kept, e.g. mid-run),
+    stripped for "sync" (whose carry is then today's).  A state that is
+    already normalised comes back as the same object."""
+    if spec.engine_mode == "buffered":
+        if state.buffer is None:
+            return state._replace(buffer=init_buffer(cfg, spec, state))
+        return state
+    if state.buffer is not None:
+        return state._replace(buffer=None)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +402,8 @@ def _map(fn, *trees):
     if isinstance(first, dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in first}
     if isinstance(first, tuple):
-        return type(first)(*(_map(fn, *leaves) for leaves in zip(*trees)))
+        out = [_map(fn, *leaves) for leaves in zip(*trees)]
+        return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
     if any(t != first for t in trees[1:]):
         raise ValueError(f"the fleet's members differ in a shared field "
                          f"(round_idx): {list(trees)}")
@@ -403,24 +502,48 @@ def _allocate(cfg, spec: EngineSpec, draws: RoundDraws, assoc, gains,
                        device=dev))
 
 
-def _schedule(cfg, spec: EngineSpec, rc_all: cost.RoundCost
-              ) -> torch.Tensor:
-    """Semi-synchronous edge-selection mask z (S, M) from one cost eval.
+def _m_c(cfg) -> int:
+    """M_c, the edges the semi-synchronous round selects."""
+    return max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
 
-    PDD optimises exactly the billed Eq. 23a surface: per-edge time
+
+def _pdd(cfg, rc_all: cost.RoundCost) -> pdd.PDDResult:
+    """PDD over exactly the billed Eq. 23a surface: per-edge time
     ``t_cloud + U_m`` with ``U_m = τ₂ · max_{n∈N_m} t_n``.  All seeds run
     one PDD loop, whose launches do not grow with S."""
-    quota = max(1, int(round(cfg.semi_sync_fraction * cfg.n_edges)))
+    t_cloud = torch.full((cfg.n_edges,),
+                         cfg.edge_model_size_bits / cfg.edge_rate_bps,
+                         dtype=torch.float32,
+                         device=rc_all.per_edge_time_s.device)
+    U = rc_all.per_edge_time_s - t_cloud
+    return pdd.pdd_schedule(rc_all.per_edge_energy_j, t_cloud, U,
+                            lam_t=cfg.lambda_t, lam_e=cfg.lambda_e,
+                            quota=_m_c(cfg))
+
+
+def _schedule(cfg, spec: EngineSpec, rc_all: cost.RoundCost
+              ) -> torch.Tensor:
+    """Semi-synchronous edge-selection mask z (S, M) from one cost eval:
+    PDD's rounded z, or the M_c fastest edges."""
     if spec.scheduler == "pdd":
-        t_cloud = torch.full((cfg.n_edges,),
-                             cfg.edge_model_size_bits / cfg.edge_rate_bps,
-                             dtype=torch.float32,
-                             device=rc_all.per_edge_time_s.device)
-        U = rc_all.per_edge_time_s - t_cloud
-        return pdd.pdd_schedule(rc_all.per_edge_energy_j, t_cloud, U,
-                                lam_t=cfg.lambda_t, lam_e=cfg.lambda_e,
-                                quota=quota).z_binary
-    return pdd.semi_sync_fastest(rc_all.per_edge_time_s, quota)
+        return _pdd(cfg, rc_all).z_binary
+    return pdd.semi_sync_fastest(rc_all.per_edge_time_s, _m_c(cfg))
+
+
+def _schedule_traced(cfg, spec: EngineSpec, rc_all: cost.RoundCost
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``_schedule``'s z and the scheduler internals the trace records:
+    (iterations (S,) int32, residual (S,), z_relaxed (S, M)); zeros and
+    the final z for "fastest"."""
+    if spec.scheduler == "pdd":
+        res = _pdd(cfg, rc_all)
+        iters = torch.full(res.residual.shape, res.iterations,
+                           dtype=torch.int32, device=res.residual.device)
+        return res.z_binary, (iters, res.residual, res.z)
+    z = _schedule(cfg, spec, rc_all)
+    seeds = z.shape[:-1]
+    return z, (torch.zeros(seeds, dtype=torch.int32, device=z.device),
+               torch.zeros(seeds, dtype=torch.float32, device=z.device), z)
 
 
 def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
@@ -520,10 +643,11 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
     frontier, from ``gains``, ``dist`` and the availability ``avail``
     (None on the static kind: every client available); an unavailable
     client is out of coverage.  Returns the float (S, N, M) one-hot, the
-    frontier's (S, N) assigned edges (None when dense) and the sweeps.
-    The one definition of the association: ``fleet_step`` and
-    ``fleet_snapshot`` both call it."""
-    assigned = None
+    frontier's (S, N) assigned edges and its ``CandidateSet`` (both None
+    when dense) and the sweeps (a list, one a seed).  The one definition
+    of the association: ``fleet_step``, ``fleet_buffered_step`` and
+    ``fleet_snapshot`` call it."""
+    assigned = cand = None
     data_max = float(cfg.max_samples)
     if spec.candidates_k is not None:
         cand = candidates.build_candidates(
@@ -556,11 +680,26 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
         # aggregates or bills a dropped client (the frontier's
         # ``valid`` already excludes it)
         assoc = assoc * avail[..., None]
-    return assoc, assigned, sweeps
+    return assoc, assigned, cand, sweeps
 
 
-def _no_stage(name: str):
-    return contextlib.nullcontext()
+def _device_sweeps(sweeps, dev: torch.device) -> torch.Tensor:
+    """The resolver's host sweep counts as the trace's (S,) int32 leaf on
+    ``dev``: an asynchronous copy (a blocking one would wait for the
+    round's queued kernels)."""
+    return torch.tensor(sweeps, dtype=torch.int32).to(dev, non_blocking=True)
+
+
+@contextlib.contextmanager
+def _stage(timer, name: str, device: torch.device):
+    """A stage's ``spans.stage`` range, and inside it the caller's
+    ``timer(name)`` span, if any."""
+    with spans.stage(name, device):
+        if timer is None:
+            yield
+        else:
+            with timer(name):
+                yield
 
 
 def fleet_step(cfg, spec: EngineSpec, states: RoundState,
@@ -578,12 +717,22 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     the static kind; ``sweeps`` is an (S,) host tensor).  On a dynamic
     kind the scenario advances first, each seed from its own state and
     uniforms, so a fleet of mixed worlds is one round.  ``actor_params``:
-    the ``ddpg`` allocator's actors, leaves (S, …), one a seed.  ``timer``,
-    if given, is called with each stage's name (scenario, on a dynamic kind
-    only; associate, allocate, schedule, train, eval) and must return a
-    context manager around that stage -- the hook stage timings use."""
-    stage = timer or _no_stage
+    the ``ddpg`` allocator's actors, leaves (S, …), one a seed.  Each
+    stage (scenario, on a dynamic kind only; associate, allocate,
+    schedule, train, eval) runs inside its ``spans.stage`` range and,
+    when ``timer`` is given, inside ``timer(name)``, a context manager
+    (the hook stage timings use).
+
+    The carry is first normalised to the spec (``ensure_buffer``); with
+    ``engine_mode="buffered"`` the step is ``fleet_buffered_step``.  With
+    ``telemetry`` the output is ``(metrics, trace)``, the trace's leaves
+    (S, …)."""
+    states = ensure_buffer(cfg, spec, states)
+    if spec.engine_mode == "buffered":
+        return fleet_buffered_step(cfg, spec, states, bundles, draws,
+                                   actor_params, timer=timer)
     dev = bundles.dist.device
+    stage = lambda name: _stage(timer, name, dev)        # noqa: E731
     seeds = bundles.dist.shape[0]
     n, m = cfg.n_clients, cfg.n_edges
     # 0. the scenario transition: the static kind keeps the bundle's
@@ -604,9 +753,8 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     # 2. fuzzy scoring + association, dense or on the (N, K) frontier;
     #    unavailable clients are out of coverage this round
     with stage("associate"):
-        assoc, assigned, sweeps = _associate(cfg, spec, states, bundles,
-                                             gains, dist, avail,
-                                             draws.assoc_u)
+        assoc, assigned, cand, sweeps = _associate(
+            cfg, spec, states, bundles, gains, dist, avail, draws.assoc_u)
     # 3. resource allocation, clamped to the device classes' caps
     with stage("allocate"):
         p, f = _allocate(cfg, spec, draws, assoc, gains, bundles.counts,
@@ -626,7 +774,10 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
                                  capacitance=scen.kappa if dynamic else None,
                                  sic_max_per_edge=quota_for(cfg, spec),
                                  assigned=assigned)
-        z = _schedule(cfg, spec, rc_all)
+        if spec.telemetry:
+            z, sched = _schedule_traced(cfg, spec, rc_all)
+        else:
+            z = _schedule(cfg, spec, rc_all)
         rc = cost.apply_schedule(cfg, rc_all, z)
     # 5. τ₂·τ₁ training + hierarchical aggregation
     with stage("train"):
@@ -657,6 +808,214 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
         sweeps=torch.tensor(sweeps))
     new_state = RoundState(global_params, client_params, gains, new_stale,
                            round_idx, scen)
+    if spec.telemetry:
+        tr = telemetry_trace.round_trace(
+            cfg, spec, round_idx=round_idx, rc_all=rc_all, z=z,
+            assoc=assoc, power_w=p, f_hz=f, counts=bundles.counts,
+            staleness=new_stale, capacitance=scen.kappa if dynamic else None,
+            sweeps=_device_sweeps(sweeps, dev), sched=sched, cand=cand,
+            assigned=assigned, dist=dist, avail=avail,
+            coverage_radius_m=coverage_radius(cfg))
+        return new_state, (metrics, tr)
+    return new_state, metrics
+
+
+def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
+                        bundles: RoundBundle, draws: RoundDraws,
+                        actor_params: Optional[Params] = None, *,
+                        timer=None):
+    """One buffered micro-step of S simulations (the reference's
+    ``_buffered_step``), from the same ``RoundDraws`` as a sync round;
+    ``states.buffer`` must be attached (``fleet_step`` does so):
+
+    1. gate the market to the idle clients of each seed's current TiFL
+       tier and run the unchanged association and allocation stages on
+       that cohort;
+    2. bill it at z = 1 (no edge scheduler), train it from the current
+       global model (``_train_cohort``) and park its deltas in flight with
+       their Eq. 13/15 virtual finish times;
+    3. advance the virtual clock to the next finish or the timeout
+       deadline, and land every finished update in the buffer with the
+       weight w(age) · D_n;
+    4. merge when the buffer holds ``buffer_fill_for`` updates or
+       ``timeout_s`` passed since the last trigger;
+    5. every ``retier_every`` micro-steps, re-tier by the quantiles of
+       the per-client duration EMA;
+    6. Eq. 20 on the landed clients, and the ``cohort_cost`` bill.
+
+    ``metrics.total_time_s`` is the clock's advance, ``metrics.z`` the
+    applied merge broadcast over the edges, ``metrics.round`` counts
+    micro-steps.  Every scalar of the step is a float32 (or int32) tensor
+    a seed: Python floats would compare in float64.  Nothing is read back
+    to the host but the resolver's sweeps, and no constant is copied to
+    the card (``torch.tensor(v, device=...)`` is a blocking copy: each
+    scalar is a fill)."""
+    dev = bundles.dist.device
+    stage = lambda name: _stage(timer, name, dev)        # noqa: E731
+    buf: BufferState = states.buffer
+    n = cfg.n_clients
+    f32, i32 = torch.float32, torch.int32
+    n_tiers = max(1, int(spec.n_tiers))
+
+    def scalar(v):
+        return torch.full((), v, dtype=f32, device=dev)
+
+    def col(mask, leaf):
+        return mask.reshape(mask.shape + (1,) * (leaf.dim() - mask.dim()))
+
+    # 0. the scenario transition and the fading, as in the sync round
+    dynamic = spec.scenario != "static"
+    if dynamic:
+        with stage("scenario"):
+            scen = scenarios.advance(cfg, spec.scenario, draws.scenario,
+                                     states.scenario)
+        dist, avail = scen.dist, scen.avail
+    else:
+        scen = states.scenario
+        dist = bundles.dist
+        avail = torch.ones(states.staleness.shape, dtype=f32, device=dev)
+    gains = noma.evolve_gains(draws.fading, states.gains, dist,
+                              path_loss_exponent=cfg.path_loss_exponent,
+                              rho=spec.fading_rho)
+
+    # 1. the TiFL cohort gate: only idle clients of the scheduled tier
+    #    enter this micro-step's market
+    cur_tier = torch.remainder(buf.step, n_tiers)                 # (S,)
+    eligible = ((~buf.in_flight) & (buf.tier == cur_tier[:, None])
+                ).to(f32) * avail
+    with stage("associate"):
+        assoc, assigned, cand, sweeps = _associate(
+            cfg, spec, states, bundles, gains, dist, eligible,
+            draws.assoc_u)
+    with stage("allocate"):
+        p, f = _allocate(cfg, spec, draws, assoc, gains, bundles.counts,
+                         dist, scen if dynamic else None, actor_params,
+                         assigned)
+        if dynamic:
+            p = torch.minimum(p, scen.p_max_w)
+            f = torch.minimum(f, scen.f_max_hz)
+
+    # 2. the per-client Eq. 13/15 surface at z = 1: finish times and the
+    #    cohort's bill (no edge is scheduled)
+    with stage("schedule"):
+        rc_all = cost.round_cost(cfg, power_w=p, f_hz=f, gains=gains,
+                                 assoc=assoc,
+                                 z=torch.ones(assoc.shape[:-2]
+                                              + (cfg.n_edges,), device=dev),
+                                 n_samples=bundles.counts,
+                                 noma_enabled=spec.noma_enabled,
+                                 capacitance=scen.kappa if dynamic else None,
+                                 sic_max_per_edge=quota_for(cfg, spec),
+                                 assigned=assigned)
+    admitted = torch.sum(assoc, dim=-1) > 0                       # (S, N)
+    flying = admitted
+
+    # 3. train the cohort from the current global model and park its
+    #    deltas (trained minus the pulled global) in flight
+    with stage("train"):
+        client_params, _ = _train_cohort(cfg, spec, states, bundles, assoc,
+                                         draws.batch_idx)
+    pending = {k: torch.where(col(flying, c), c - states.global_params[k][
+        :, None], buf.pending_delta[k]) for k, c in client_params.items()}
+    # modelled wall duration: τ₂ edge iterations + the edge→cloud hop
+    dur = cfg.tau2 * rc_all.client_time_s \
+        + scalar(cfg.edge_model_size_bits / cfg.edge_rate_bps)
+    finish = torch.where(flying, buf.clock_s[:, None] + dur, buf.finish_s)
+    in_flight = buf.in_flight | flying
+    pulled = torch.where(flying, buf.version[:, None], buf.pulled_ver)
+    obs = torch.where(flying,
+                      torch.where(buf.obs_s > 0.0,
+                                  0.5 * buf.obs_s + 0.5 * dur, dur),
+                      buf.obs_s)
+
+    # 4. the event clock: jump to the earliest in-flight finish or the
+    #    timeout deadline, whichever is sooner (never backwards)
+    big = scalar(torch.finfo(f32).max)
+    next_fin = torch.amin(torch.where(in_flight, finish, big), dim=-1)
+    deadline = buf.last_agg_s + scalar(spec.timeout_s)
+    target = torch.where(torch.any(in_flight, dim=-1),
+                         torch.minimum(next_fin, deadline), deadline)
+    clock = torch.maximum(buf.clock_s, target)
+    dt = clock - buf.clock_s
+
+    # 5. land every finished update with its staleness weight
+    eps = scalar(1e-5)
+    landed = in_flight & (finish <= (clock + eps)[:, None])
+    age = staleness.buffer_age(buf.version[:, None], pulled)
+    w = torch.where(landed, staleness.buffer_weight(age) * bundles.counts,
+                    0.0)
+    delta_sum, weight_sum = aggregation.buffer_accumulate(
+        buf.delta_sum, buf.weight_sum, pending, w)
+    fill = buf.fill + torch.sum(landed, dim=-1, dtype=i32)
+    in_flight = in_flight & ~landed
+
+    # 6. the fill-or-timeout trigger: ``applied`` (the merge changed the
+    #    model) bumps the version; ``fired`` alone resets the timer, so an
+    #    empty timeout does not freeze the clock
+    fill_target = buffer_fill_for(cfg, spec)
+    by_fill = fill >= fill_target
+    fired = by_fill | (clock >= deadline - eps)
+    applied = fired & (weight_sum > 0.0)
+    global_params = aggregation.buffer_apply(
+        states.global_params, delta_sum, weight_sum, fired)
+    delta_sum = {k: torch.where(col(fired, d), 0.0, d)
+                 for k, d in delta_sum.items()}
+    weight_sum = torch.where(fired, 0.0, weight_sum)
+    fill_after = torch.where(fired, 0, fill).to(i32)
+    version = buf.version + applied.to(i32)
+    last_agg = torch.where(fired, clock, buf.last_agg_s)
+
+    # 7. the TiFL retier: quantile tiers over the duration EMA (rank ·
+    #    n_tiers // N); unmeasured clients (obs 0) tie and sort first by
+    #    index, so both sorts are stable as the reference's
+    step1 = buf.step + 1
+    do_retier = torch.remainder(step1, max(1, int(spec.retier_every))) == 0
+    rank = torch.argsort(torch.argsort(obs, dim=-1, stable=True), dim=-1,
+                         stable=True)
+    tier = torch.where(do_retier[:, None], (rank * n_tiers) // n,
+                       buf.tier).to(i32)
+
+    # 8. Eq. 20 a micro-step: landing is this engine's orchestration, so
+    #    a drained client re-enters fresh
+    new_stale = staleness.update_staleness(states.staleness, landed)
+    rc = cost.cohort_cost(cfg, rc_all, admitted, dt, applied)
+    round_idx = states.round_idx + 1
+    with stage("eval"):
+        accuracy = mlp.accuracy(global_params, bundles.test_x,
+                                bundles.test_y)
+        loss = mlp.loss(global_params, bundles.test_x, bundles.test_y)
+    occupancy = torch.sum(eligible > 0, dim=-1, dtype=i32)
+    metrics = RoundMetrics(
+        round=round_idx,
+        accuracy=accuracy,
+        loss=loss,
+        avg_staleness=torch.mean(new_stale.float(), dim=-1),
+        total_time_s=dt,
+        total_energy_j=rc.total_energy_j,
+        cost=rc.cost,
+        n_associated=torch.sum(admitted, dim=-1, dtype=i32),
+        n_available=occupancy,
+        z=applied.to(f32)[:, None].expand(-1, cfg.n_edges).contiguous(),
+        sweeps=torch.tensor(sweeps))
+    new_buf = BufferState(
+        pending_delta=pending, finish_s=finish, in_flight=in_flight,
+        pulled_ver=pulled, obs_s=obs, tier=tier, delta_sum=delta_sum,
+        weight_sum=weight_sum, fill=fill_after, version=version,
+        clock_s=clock, last_agg_s=last_agg, step=step1)
+    new_state = RoundState(global_params, client_params, gains, new_stale,
+                           round_idx, scen, new_buf)
+    if spec.telemetry:
+        cause = torch.where(fired, torch.where(by_fill, 1, 2), 0).to(i32)
+        tr = telemetry_trace.round_trace(
+            cfg, spec, round_idx=round_idx, rc_all=rc_all, z=metrics.z,
+            assoc=assoc, power_w=p, f_hz=f, counts=bundles.counts,
+            staleness=new_stale, capacitance=scen.kappa if dynamic else None,
+            sweeps=_device_sweeps(sweeps, dev), sched=None,
+            cand=cand, assigned=assigned, dist=dist,
+            avail=avail if dynamic else None,
+            coverage_radius_m=coverage_radius(cfg),
+            buffer=(fill, cause, cur_tier.to(i32), occupancy))
+        return new_state, (metrics, tr)
     return new_state, metrics
 
 
@@ -664,15 +1023,16 @@ def round_step(cfg, spec: EngineSpec, state: RoundState,
                bundle: RoundBundle, draws: RoundDraws,
                actor_params: Optional[Params] = None, *, timer=None
                ) -> Tuple[RoundState, RoundMetrics]:
-    """One global round of one simulation: ``fleet_step`` over a fleet of
-    one (``actor_params``: one actor, as ``init_ddpg`` shapes it).  Its
-    metrics are 0-d tensors, with ``sweeps`` an int."""
-    state, metrics = fleet_step(cfg, spec, _lift(state), _lift(bundle),
-                                _lift(draws), _lift(actor_params),
-                                timer=timer)
-    metrics = select_seed(metrics, 0)
-    return select_seed(state, 0), metrics._replace(
-        sweeps=int(metrics.sweeps))
+    """One global round (or buffered micro-step) of one simulation:
+    ``fleet_step`` over a fleet of one (``actor_params``: one actor, as
+    ``init_ddpg`` shapes it).  Its metrics are 0-d tensors, with
+    ``sweeps`` an int; with ``spec.telemetry`` the output is the
+    ``(metrics, trace)`` pair, the trace's leaves without the seed axis."""
+    state, out = fleet_step(cfg, spec, _lift(state), _lift(bundle),
+                            _lift(draws), _lift(actor_params), timer=timer)
+    metrics, tr = split_output(spec, select_seed(out, 0))
+    metrics = metrics._replace(sweeps=int(metrics.sweeps))
+    return select_seed(state, 0), (metrics if tr is None else (metrics, tr))
 
 
 def fleet_snapshot(cfg, spec: EngineSpec, states: RoundState,
@@ -685,10 +1045,9 @@ def fleet_snapshot(cfg, spec: EngineSpec, states: RoundState,
     world step ahead of this).  rcea ranks by ``assoc_u`` (S, N, M)."""
     dynamic = spec.scenario != "static"
     scen = states.scenario
-    assoc, _, _ = _associate(cfg, spec, states, bundles, states.gains,
-                             scen.dist if dynamic else bundles.dist,
-                             scen.avail if dynamic else None, assoc_u)
-    return assoc
+    return _associate(cfg, spec, states, bundles, states.gains,
+                      scen.dist if dynamic else bundles.dist,
+                      scen.avail if dynamic else None, assoc_u)[0]
 
 
 def associate_snapshot(cfg, spec: EngineSpec, state: RoundState,
@@ -701,9 +1060,16 @@ def associate_snapshot(cfg, spec: EngineSpec, state: RoundState,
                           _lift(assoc_u))[0]
 
 
-def stack_metrics(rows) -> RoundMetrics:
+def stack_metrics(rows):
     """Per-round metrics -> one ``RoundMetrics`` with a leading round axis
-    (after the fleet axis, for ``fleet_step``'s rows: (S, rounds, …))."""
+    (after the fleet axis, for ``fleet_step``'s rows: (S, rounds, …)).
+    Rows of ``(metrics, trace)`` pairs stack to a pair, the trace's
+    leaves stacked the same way."""
+    if not isinstance(rows[0], RoundMetrics):
+        ms, trs = zip(*rows)
+        dim = 1 if ms[0].accuracy.dim() > 0 else 0
+        return stack_metrics(list(ms)), telemetry_trace.RoundTrace(
+            *(torch.stack(list(field), dim=dim) for field in zip(*trs)))
     fleet = rows[0].accuracy.dim() > 0
     out = []
     for field in zip(*rows):
@@ -716,20 +1082,38 @@ def stack_metrics(rows) -> RoundMetrics:
     return RoundMetrics(*out)
 
 
+def _drive(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
+           n_rounds: int, generators, actor_params: Optional[Params], *,
+           fleet: bool, timer=None, on_round=None):
+    """The drivers' loop: the carry normalised to the spec, then
+    ``n_rounds`` steps, each on fresh draws (``fleet_draws`` and
+    ``fleet_step`` for a fleet, else ``sample_draws`` and ``round_step``),
+    each step's output passed to ``on_round`` (if given) and stacked."""
+    draw, step = ((fleet_draws, fleet_step) if fleet
+                  else (sample_draws, round_step))
+    state = ensure_buffer(cfg, spec, state)
+    rows = []
+    for _ in range(n_rounds):
+        draws = draw(cfg, bundle, generators, spec)
+        state, out = step(cfg, spec, state, bundle, draws, actor_params,
+                          timer=timer)
+        if on_round is not None:
+            on_round(out)
+        rows.append(out)
+    return state, stack_metrics(rows)
+
+
 def run_scanned(cfg, spec: EngineSpec, state: RoundState,
                 bundle: RoundBundle, n_rounds: int,
                 generator: torch.Generator,
                 actor_params: Optional[Params] = None, *, timer=None
                 ) -> Tuple[RoundState, RoundMetrics]:
     """``n_rounds`` rounds, each with fresh draws from ``generator``.
-    Metrics leaves gain a leading (n_rounds,) axis."""
-    rows = []
-    for _ in range(n_rounds):
-        draws = sample_draws(cfg, bundle, generator, spec)
-        state, metrics = round_step(cfg, spec, state, bundle, draws,
-                                    actor_params, timer=timer)
-        rows.append(metrics)
-    return state, stack_metrics(rows)
+    Metrics leaves gain a leading (n_rounds,) axis (with ``telemetry``
+    the output is the ``(metrics, trace)`` pair, see ``split_output``).
+    The carry is normalised to the spec first (``ensure_buffer``)."""
+    return _drive(cfg, spec, state, bundle, n_rounds, generator,
+                  actor_params, fleet=False, timer=timer)
 
 
 def run_fleet(cfg, spec: EngineSpec, states: RoundState,
@@ -743,12 +1127,18 @@ def run_fleet(cfg, spec: EngineSpec, states: RoundState,
     own ``run_scanned`` from that generator.  ``actor_params``: one actor
     that every seed deploys (expanded along the seed axis as a view).
     Metrics leaves have shape (S, n_rounds, …)."""
-    seeds = bundles.dist.shape[0]
-    if actor_params is not None:
-        actor_params = _map(lambda t: t.expand((seeds,) + t.shape),
-                            actor_params)
     return run_fleet_actors(cfg, spec, states, bundles, n_rounds, generators,
-                            actor_params, timer=timer)
+                            every_seed(actor_params, bundles.dist.shape[0]),
+                            timer=timer)
+
+
+def every_seed(actor_params: Optional[Params], seeds: int
+               ) -> Optional[Params]:
+    """One actor as the actors of ``seeds`` seeds: each leaf expanded
+    along a new leading seed axis (a view); None stays None."""
+    if actor_params is None:
+        return None
+    return _map(lambda t: t.expand((seeds,) + t.shape), actor_params)
 
 
 def run_fleet_actors(cfg, spec: EngineSpec, states: RoundState,
@@ -758,13 +1148,17 @@ def run_fleet_actors(cfg, spec: EngineSpec, states: RoundState,
     """``run_fleet`` with one actor a seed: ``actor_params`` leaves (S, …),
     seed s billed by the actor trained on its own world (as
     ``ddpg.train_allocator_fleet`` returns them)."""
-    rows = []
-    for _ in range(n_rounds):
-        draws = fleet_draws(cfg, bundles, generators, spec)
-        states, metrics = fleet_step(cfg, spec, states, bundles, draws,
-                                     actor_params, timer=timer)
-        rows.append(metrics)
-    return states, stack_metrics(rows)
+    return _drive(cfg, spec, states, bundles, n_rounds, generators,
+                  actor_params, fleet=True, timer=timer)
+
+
+def split_output(spec: EngineSpec, out):
+    """A step's or driver's output as ``(metrics, trace)``: telemetry off,
+    ``out`` is the ``RoundMetrics`` and the trace ``None``; on, ``out`` is
+    already the pair."""
+    if spec.telemetry:
+        return out
+    return out, None
 
 
 def metrics_row(metrics: RoundMetrics, i: Optional[int] = None

@@ -597,6 +597,121 @@ def test_ddpg_round_launches_as_a_mid_round(cuda):
     assert (grew[1]["score_matrix"], grew[1]["sic_rates"]) == (1, 1)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(candidates_k=2)])
+def test_telemetry_changes_no_launch_and_no_metric(cuda, kw):
+    """Two ``CONFIG`` rounds with and without the trace from one state and
+    the same draws: the same kernel launches, the metrics and the state
+    bit-equal; the trace's leaves on the card."""
+    state, bundle, aux = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    off, on = engine.EngineSpec(**kw), engine.EngineSpec(telemetry=True,
+                                                         **kw)
+    draws = [engine.sample_draws(CONFIG, bundle, aux["generator"], off)
+             for _ in range(2)]
+    runs = []
+    for spec in (off, on):
+        torch.cuda.synchronize()
+        before = dict(hfl_ops.LAUNCHES)
+        st = state
+        for d in draws:
+            st, out = engine.round_step(CONFIG, spec, st, bundle, d)
+        torch.cuda.synchronize()
+        runs.append((st, out, {k: hfl_ops.LAUNCHES[k] - before[k]
+                               for k in before}))
+    (s_off, m_off, l_off), (s_on, (m_on, tr), l_on) = runs
+    assert l_off == l_on
+    for a, b in zip(m_off, m_on):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    for k, v in s_off.global_params.items():
+        assert torch.equal(s_on.global_params[k], v), k
+    assert torch.equal(s_off.staleness, s_on.staleness)
+    assert tr.edge_load.device == s_on.gains.device
+    assert int(tr.stale_hist.sum()) == CONFIG.n_clients
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(candidates_k=2)])
+def test_buffered_micro_step_card_matches_cpu(cuda, kw):
+    """One buffered ``CONFIG`` micro-step (a mid-run state: four steps
+    taken on the card first) on the card and from the same state and
+    draws on the CPU: the buffer's integers and the decisions exact, the
+    clock, finish times and EMA rtol 1e-5, the bill rtol 1e-5 (and 1e-5
+    of the clock), the deltas and params rtol 1e-4, atol 1e-5; one score
+    call, the dense SIC call and τ₂ SGD launches."""
+    spec = engine.EngineSpec(engine_mode="buffered", **kw)
+    state, bundle, aux = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    for _ in range(4):
+        state, _ = engine.round_step(
+            CONFIG, spec, state, bundle,
+            engine.sample_draws(CONFIG, bundle, aux["generator"], spec))
+    draws = engine.sample_draws(CONFIG, bundle, aux["generator"], spec)
+    torch.cuda.synchronize()
+    before = dict(hfl_ops.LAUNCHES)
+    s_card, m_card = engine.round_step(CONFIG, spec, state, bundle, draws)
+    torch.cuda.synchronize()
+    grew = {k: hfl_ops.LAUNCHES[k] - before[k] for k in before}
+    dense = "candidates_k" not in kw
+    assert (grew["score_matrix"], grew["score_candidates"],
+            grew["sic_rates"], grew["local_sgd_step"]) == (
+        int(dense), int(not dense), int(dense), CONFIG.tau2)
+    cpu = torch.device("cpu")
+    s_cpu, m_cpu = engine.round_step(CONFIG, spec, _to(state, cpu),
+                                     _to(bundle, cpu), _to(draws, cpu))
+    g, c = engine.metrics_row(m_card), engine.metrics_row(m_cpu)
+    assert g["z"].tolist() == c["z"].tolist()
+    for key in ("n_associated", "n_available", "sweeps", "round"):
+        assert g[key] == c[key], key
+    assert torch.equal(s_card.staleness.cpu(), s_cpu.staleness)
+    bg, bc = _to(s_card.buffer, cpu), s_cpu.buffer
+    for name in ("in_flight", "tier", "pulled_ver", "fill", "version",
+                 "step"):
+        assert torch.equal(getattr(bg, name), getattr(bc, name)), name
+    for name in ("finish_s", "obs_s", "clock_s", "last_agg_s", "weight_sum"):
+        torch.testing.assert_close(getattr(bg, name), getattr(bc, name),
+                                   rtol=1e-5, atol=0.0, msg=name)
+    clock = float(bc.clock_s)
+    assert g["total_energy_j"] == pytest.approx(c["total_energy_j"],
+                                                rel=1e-5)
+    assert abs(g["total_time_s"] - c["total_time_s"]) <= 1e-5 * clock
+    assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
+    for tree in ("pending_delta", "delta_sum"):
+        for k, v in getattr(bc, tree).items():
+            scale = max(float(bc.weight_sum), 1.0) if tree == "delta_sum" \
+                else 1.0
+            torch.testing.assert_close(getattr(bg, tree)[k], v, rtol=1e-4,
+                                       atol=1e-5 * scale, msg=tree + k)
+    for k, v in s_cpu.client_params.items():
+        torch.testing.assert_close(s_card.client_params[k].cpu(), v,
+                                   rtol=1e-4, atol=1e-5, msg=k)
+
+
+def test_buffered_all_pad_cohort_on_the_card(cuda):
+    """A micro-step whose tier holds no idle client: every SGD lane is a
+    pad lane, yet τ₂ SGD launches run; no client's params or pending delta
+    moves, and nothing is in flight."""
+    spec = engine.EngineSpec(engine_mode="buffered", n_tiers=2)
+    state, bundle, aux = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    state = engine.ensure_buffer(CONFIG, spec, state)
+    buf = state.buffer
+    noise = {k: torch.randn(v.shape, device=cuda,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(3))
+             for k, v in buf.pending_delta.items()}
+    state = state._replace(buffer=buf._replace(
+        tier=torch.ones_like(buf.tier), pending_delta=noise))
+    draws = engine.sample_draws(CONFIG, bundle, aux["generator"], spec)
+    torch.cuda.synchronize()
+    before = dict(hfl_ops.LAUNCHES)
+    new, m = engine.round_step(CONFIG, spec, state, bundle, draws)
+    torch.cuda.synchronize()
+    assert hfl_ops.LAUNCHES["local_sgd_step"] - \
+        before["local_sgd_step"] == CONFIG.tau2
+    assert int(m.n_associated) == 0 and int(m.n_available) == 0
+    for k, v in noise.items():
+        assert torch.equal(new.buffer.pending_delta[k], v), k
+        assert torch.equal(new.client_params[k], state.client_params[k]), k
+    assert not bool(new.buffer.in_flight.any())
+    assert np.isfinite(float(m.cost))
+
+
 def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):
     """Weights 0.3·N(0, 1), or ``scale``/√fan-in for the matrices."""
     rng = np.random.default_rng(k + d_in)
