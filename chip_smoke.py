@@ -121,6 +121,26 @@ and prints no result):
    (``bench_rounds.async_ab``) at 1024 x 16 under flash_crowd and
    markov_dropout: 8 sync rounds against 64 micro-steps, merges, virtual
    seconds, virtual and wall rates;
+6h. the fault layer and the resumable driver (``[faults]``), each run
+   with the launch counters zeroed just before and read just after and
+   every kernel call it makes on the card recorded and held against its
+   plain version (a faulted round launches as an unfaulted one), under
+   "chaos" (the reference's chaos sweep cell -- edge churn, SINR-tied
+   uplink loss -- plus crashes and NaN poisoning): ``CONFIG`` fcea + PDD
+   dense, 5 rounds card vs CPU from one state and the same draws (z,
+   n_associated, sweeps, staleness and every ``FaultState`` leaf exact;
+   the bill rtol 1e-5, the loss rtol 1e-4); ``CONFIG`` K = 2 with edge 0
+   dead and the churn frozen, 3 rounds (no client admitted there, one
+   dead edge in every trace); ``CONFIG`` fcea dense buffered, 16
+   micro-steps card vs CPU (the buffer's and the fault state's integers
+   exact, the clock and finish times rtol 1e-5); the fault layer's cost,
+   chaos against off in turns off, on, on, off (1024 x 16 gcea + fastest,
+   10 rounds a run, each mode's kernels in a profiled round; ``CONFIG``
+   fcea + PDD, 4 rounds); ``faults.run_scanned_resumable`` (``CONFIG``
+   buffered chaos with telemetry, 6 micro-steps in segments of 2, a CUDA
+   generator) stopped after one segment and resumed: metrics, trace,
+   final carry and generator state bit-identical to an uninterrupted
+   ``run_scanned``;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -150,9 +170,11 @@ and prints no result):
     chain launches, has its ``[compare]`` lines alone; ``launches`` counts
     the main path's run, ``scenario_launches`` the ``CONFIG``
     full_dynamic run's, ``ddpg_launches`` the paper-default
-    ``train_ddpg()`` run's and ``buffered_launches`` the ``CONFIG`` fcea
-    dense buffered run's, ``score_candidates`` its K = 2 run's) and, last,
-    the device line.
+    ``train_ddpg()`` run's, ``buffered_launches`` the ``CONFIG`` fcea
+    dense buffered run's, ``score_candidates`` its K = 2 run's, and
+    ``faults_launches`` the ``CONFIG`` fcea + PDD chaos run's, 5 rounds,
+    ``score_candidates`` its K = 2 dead-edge run's) and, last, the device
+    line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -2328,10 +2350,23 @@ BUFFER_INTS = ("in_flight", "tier", "pulled_ver", "fill", "version", "step")
 BUFFER_FLOATS = ("finish_s", "obs_s", "weight_sum", "clock_s", "last_agg_s")
 
 
+def _first_tensor(obj):
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj
+    for item in (obj.values() if isinstance(obj, dict)
+                 else obj if isinstance(obj, (tuple, list)) else ()):
+        found = _first_tensor(item)
+        if found is not None:
+            return found
+    return None
+
+
 @contextlib.contextmanager
 def _recording_kernels():
     """Record the arguments of every HFL kernel wrapper call the engine
-    makes while the block runs (no copy, no sync)."""
+    makes on the card while the block runs (no copy, no sync); a call on
+    CPU tensors (the plain version, no launch) is not recorded."""
     from repro_torch.kernels import hfl_ops
     names = ("score_matrix", "score_candidates", "sic_rates",
              "local_sgd_step")
@@ -2340,7 +2375,8 @@ def _recording_kernels():
 
     def recorder(name):
         def call(*a, **kw):
-            calls[name].append((a, kw))
+            if _first_tensor(a).is_cuda:
+                calls[name].append((a, kw))
             return real[name](*a, **kw)
         return call
     for name in names:
@@ -2353,13 +2389,14 @@ def _recording_kernels():
 
 
 def _hold_recorded(label, calls, launches):
-    """Each recorded kernel call (the last of its kind) against its plain
-    version on the same inputs: the fused scores bit for bit, the SIC and
-    the SGD at the CPU tests' tolerances.  ``launches``: the counters of
-    the recorded run, zeroed just before it.  Every wrapper must have been
-    recorded exactly as often as its kernel launched, and no other kernel
-    may have launched (``local_sgd_step_cluster`` counts the cluster
-    route of ``local_sgd_step``'s launches), so no launch of the run goes
+    """Every recorded kernel call against its plain version on the same
+    inputs: the fused scores bit for bit, the SIC and the SGD at the CPU
+    tests' tolerances.  ``label`` opens each line (``"[phase] run"``).
+    ``launches``: the counters of the recorded run, zeroed just before
+    it.  Every wrapper must have been recorded exactly as often as its
+    kernel launched, and no other kernel may have launched
+    (``local_sgd_step_cluster`` counts the cluster route of
+    ``local_sgd_step``'s launches), so no launch of the run goes
     unheld."""
     import torch
     from repro_torch.core import fuzzy
@@ -2371,14 +2408,12 @@ def _hold_recorded(label, calls, launches):
                   if n and name not in calls
                   and name != "local_sgd_step_cluster"}
     if recorded != launched or unrecorded or not any(recorded.values()):
-        raise AssertionError(f"[buffered] {label}: recorded wrapper calls "
+        raise AssertionError(f"{label}: recorded wrapper calls "
                              f"{recorded} against launches {launches}: a "
                              f"launch was made past the recorded wrappers")
-    held = []
-    for name, rec in calls.items():
-        if not rec:
-            continue
-        a, kw = rec[-1]
+    worst = {}
+    for name, call, (a, kw) in [(name, i, rec) for name, recs in
+                                calls.items() for i, rec in enumerate(recs)]:
         got = getattr(hfl_ops, name)(*a, **kw)
         if name == "score_matrix":
             want = fuzzy.score_matrix(*a, **kw, rows=hfl_ops.score_rows_plain)
@@ -2403,13 +2438,16 @@ def _hold_recorded(label, calls, launches):
         shape = tuple(a[1 if name in ("sic_rates", "local_sgd_step")
                         else 0].shape)
         if not ok:
-            raise AssertionError(f"[buffered] {label} {name} {shape}: kernel "
-                                 f"disagrees with its plain version on a "
-                                 f"micro-step's inputs (max abs err "
+            raise AssertionError(f"{label} {name} call {call} {shape}: "
+                                 f"kernel disagrees with its plain version "
+                                 f"on the run's own inputs (max abs err "
                                  f"{err:.3e})")
-        held.append(f"{name} {shape} max_abs_err {err:.3e}")
-    log(f"[buffered] {label}: a micro-step's own kernel calls against "
-        f"their plain versions: " + "; ".join(held) + ": ok")
+        n, e, _ = worst.get(name, (0, 0.0, shape))
+        worst[name] = (n + 1, max(e, err), shape)
+    log(f"{label}: every kernel call of the run against its plain version "
+        f"on its own inputs: " + "; ".join(
+            f"{name} {shape} x{n} max_abs_err {e:.3e}"
+            for name, (n, e, shape) in worst.items()) + ": ok")
 
 
 def _drive_buffered(cfg, spec, steps, dev, label, scenario=None):
@@ -2481,7 +2519,7 @@ def _drive_buffered(cfg, spec, steps, dev, label, scenario=None):
         hfl_ops.reset_launches()
         state, _ = engine.round_step(cfg, spec, state, bundle, draws)
         recorded_launches = dict(hfl_ops.LAUNCHES)
-    _hold_recorded(label, calls, recorded_launches)
+    _hold_recorded(f"[buffered] {label}", calls, recorded_launches)
     return launches, steady_s, (state, bundle, gen)
 
 
@@ -2515,7 +2553,8 @@ def _near_ties(s_gpu, s_cpu):
 def _buffered_card_vs_cpu(cfg, spec, state, bundle, gen, label, steps=8):
     """``steps`` micro-steps from one state and the same draws on the card
     and on the CPU (plain versions): the buffer's integers, z,
-    n_associated, n_available, sweeps and staleness exact each step; the
+    n_associated, n_available, sweeps and staleness (and, under faults,
+    every ``FaultState`` leaf) exact each step; the
     clock, finish times, EMA and weights rtol 1e-5; the bill rtol 1e-5
     (time and cost also within 1e-5 of the clock: the time charge is a
     difference of two clock readings); loss rtol 1e-4, accuracy 2 test
@@ -2538,14 +2577,16 @@ def _buffered_card_vs_cpu(cfg, spec, state, bundle, gen, label, steps=8):
                                                 "sweeps"))
                  and torch.equal(s_g.staleness.cpu(), s_c.staleness)
                  and all(torch.equal(getattr(bg, k), getattr(bc, k))
-                         for k in BUFFER_INTS))
+                         for k in BUFFER_INTS)
+                 and _same_faults(s_g.faults, s_c.faults))
         if not exact:
             for line in _near_ties(s_g, s_c):
                 log(f"[card-vs-cpu] buffered {label} step {i + 1}: {line}")
             raise AssertionError(f"[card-vs-cpu] buffered {label} step "
                                  f"{i + 1}: card and CPU disagree on a "
-                                 f"decision or the buffer's integers: {g} "
-                                 f"{c}")
+                                 f"decision, the buffer's integers or the "
+                                 f"fault state: {g} {c} {s_g.faults} "
+                                 f"{s_c.faults}")
         clock = float(bc.clock_s)
         for k in BUFFER_FLOATS:
             a, b = getattr(bg, k), getattr(bc, k)
@@ -2566,8 +2607,11 @@ def _buffered_card_vs_cpu(cfg, spec, state, bundle, gen, label, steps=8):
             raise AssertionError(f"[card-vs-cpu] buffered {label} step "
                                  f"{i + 1} accuracy: {g['accuracy']} vs "
                                  f"{c['accuracy']}")
+    faults = ("" if s_g.faults is None else
+              f"fault state ({', '.join(FAULT_LEAVES)}: final "
+              f"{_fault_summary(s_g.faults)}), ")
     log(f"[card-vs-cpu] buffered {label}, {steps} micro-steps: buffer "
-        f"integers ({', '.join(BUFFER_INTS)}), z, n_associated, "
+        f"integers ({', '.join(BUFFER_INTS)}), {faults}z, n_associated, "
         f"n_available, sweeps and staleness exact every step; clock, "
         f"finish, EMA and weights rtol 1e-5; largest relative bill gaps "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
@@ -2648,6 +2692,314 @@ def phase_buffered(cfg, dev, static_steady):
     _buffered_async_ab(cfg, dev)
     return {**launches,
             "score_candidates": launches_k["score_candidates"]}
+
+
+# ---------------------------------------------------------------------------
+# The fault layer (edge churn, SINR-tied uplink loss with retry/backoff,
+# crashes, poisoning, quarantine) and the resumable driver
+# ---------------------------------------------------------------------------
+
+# the reference's chaos sweep cell (``sweeps/grid.py``'s fault cell) plus
+# crashes and NaN poisoning
+FAULT_CHAOS = dict(edge_p_kill=0.2, edge_p_respawn=0.5, uplink_p_loss=0.1,
+                   uplink_loss_slope=0.2, client_p_crash=0.05, p_poison=0.1,
+                   poison_nan=True)
+FAULT_LEAVES = ("edge_up", "attempts", "n_retries", "n_dropped",
+                "n_quarantined", "n_crashed")
+FAULT_TURNS = ("off", "on", "on", "off")
+FAULT_COST_ROUNDS = 10
+
+
+def _same_faults(got, want):
+    """Two ``FaultState``s (card, CPU) leaf for leaf, or both None."""
+    import torch
+    if got is None or want is None:
+        return got is None and want is None
+    return all(torch.equal(getattr(got, k).cpu(), getattr(want, k))
+               for k in FAULT_LEAVES)
+
+
+def _bit_equal(a, b):
+    """Two tensors bit for bit, NaN payloads included (a poisoned delta in
+    the carry is NaN, and NaN != NaN)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.cpu(), b.cpu()
+    if a.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(bits[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def _fault_summary(flt):
+    return (f"dead {int((flt.edge_up <= 0).sum())}, retries "
+            f"{int(flt.n_retries)}, dropped {int(flt.n_dropped)}, "
+            f"quarantined {int(flt.n_quarantined)}, crashed "
+            f"{int(flt.n_crashed)}")
+
+
+def _faults_sync_card_vs_cpu(cfg, spec, rounds, dev, label):
+    """``rounds`` sync rounds of ``spec`` from ``init_simulation`` on the
+    card and, from the same state and draws, on the CPU, with the launch
+    counters zeroed just before and read just after and the card's kernel
+    calls recorded: z, n_associated, sweeps, staleness and every
+    ``FaultState`` leaf exact each round; cost, time and energy rtol 1e-5,
+    the loss rtol 1e-4, the accuracy 2 test samples.  Then every recorded
+    kernel call against its plain version.  Returns the launches."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    cpu = torch.device("cpu")
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev)
+    gen = aux["generator"]
+    s_g, s_c, b_c = state, _to(state, cpu), _to(bundle, cpu)
+    n_test = bundle.test_y.shape[0]
+    tag = f"[faults] {label}"
+    worst, zs = {}, []
+    with _recording_kernels() as calls:
+        torch.cuda.synchronize()
+        hfl_ops.reset_launches()
+        for r in range(rounds):
+            draws = engine.sample_draws(cfg, bundle, gen, spec)
+            s_g, m_g = engine.round_step(cfg, spec, s_g, bundle, draws)
+            s_c, m_c = engine.round_step(cfg, spec, s_c, b_c,
+                                         _to(draws, cpu))
+            g, c = engine.metrics_row(m_g), engine.metrics_row(m_c)
+            if not (g["z"].tolist() == c["z"].tolist()
+                    and all(g[k] == c[k] for k in ("n_associated",
+                                                   "sweeps"))
+                    and torch.equal(s_g.staleness.cpu(), s_c.staleness)
+                    and _same_faults(s_g.faults, s_c.faults)):
+                raise AssertionError(f"{tag} round {r + 1}: card and CPU "
+                                     f"disagree: {g} {c} {s_g.faults} "
+                                     f"{s_c.faults}")
+            for key, rtol in (("cost", 1e-5), ("total_time_s", 1e-5),
+                              ("total_energy_j", 1e-5), ("loss", 1e-4)):
+                gap = abs(g[key] - c[key])
+                worst[key] = max(worst.get(key, 0.0),
+                                 gap / max(abs(c[key]), 1e-30))
+                if gap > rtol * abs(c[key]):
+                    raise AssertionError(f"{tag} round {r + 1} {key}: "
+                                         f"{g[key]} vs {c[key]}")
+            if abs(g["accuracy"] - c["accuracy"]) > 2.0 / n_test:
+                raise AssertionError(f"{tag} round {r + 1} accuracy: "
+                                     f"{g['accuracy']} vs {c['accuracy']}")
+            zs.append(g["z"].tolist())
+        torch.cuda.synchronize()
+        launches = dict(hfl_ops.LAUNCHES)
+    want = _want_launches(cfg, spec, rounds)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != expected "
+                             f"{want}")
+    log(f"{tag}, {rounds} rounds card vs CPU: z {zs}, n_associated, "
+        f"sweeps, staleness and the fault state ({', '.join(FAULT_LEAVES)})"
+        f" exact every round, final {_fault_summary(s_g.faults)}; largest "
+        f"relative gaps " + ", ".join(f"{k} {v:.2e}"
+                                      for k, v in worst.items())
+        + f"; launches {launches}: ok")
+    _hold_recorded(tag, calls, launches)
+    return launches
+
+
+def _faults_dead_edge_frontier(cfg, dev):
+    """``CONFIG`` K = 2, fcea + PDD, 3 rounds with the churn frozen and
+    edge 0 dead from the start: no client is admitted there and the trace
+    counts one dead edge every round; every kernel call against its plain
+    version.  Returns the launches."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.faults import FaultSpec
+    from repro_torch.kernels import hfl_ops
+    spec = engine.EngineSpec(candidates_k=2, telemetry=True,
+                             faults=FaultSpec(edge_p_kill=0.0,
+                                              edge_p_respawn=0.0))
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev)
+    state = engine.ensure_carry(cfg, spec, state)
+    up = torch.ones_like(state.faults.edge_up)
+    up[0] = 0.0
+    state = state._replace(faults=state.faults._replace(edge_up=up))
+    with _recording_kernels() as calls:
+        torch.cuda.synchronize()
+        hfl_ops.reset_launches()
+        state, (ms, tr) = engine.run_scanned(cfg, spec, state, bundle, 3,
+                                             aux["generator"])
+        torch.cuda.synchronize()
+        launches = dict(hfl_ops.LAUNCHES)
+    want = _want_launches(cfg, spec, 3)
+    load, dead = tr.edge_load.cpu(), tr.dead_edges.cpu()
+    if launches != want or not (bool((load[:, 0] == 0).all())
+                                and bool((dead == 1).all())
+                                and bool((ms.n_associated > 0).all())):
+        raise AssertionError(f"[faults] K=2 dead edge 0: launches "
+                             f"{launches} (expected {want}), edge_load "
+                             f"{load.tolist()}, dead_edges {dead.tolist()}")
+    log(f"[faults] CONFIG fcea-pdd K=2, edge 0 dead, churn frozen, 3 rounds:"
+        f" edge_load {load.tolist()}, dead_edges {dead.tolist()}, orphaned "
+        f"{tr.orphaned_clients.tolist()}, valid share "
+        f"{[round(v, 4) for v in tr.frontier_valid_frac.tolist()]}, z "
+        f"{ms.z.tolist()}; launches {launches}: ok")
+    _hold_recorded("[faults] CONFIG K=2 dead edge", calls, launches)
+    return launches
+
+
+def _faults_buffered(cfg, spec, steps, dev):
+    """``steps`` buffered micro-steps under ``spec`` card vs CPU
+    (``_buffered_card_vs_cpu``, the fault state exact), with the card's
+    kernel calls recorded and each held against its plain version."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev)
+    with _recording_kernels() as calls:
+        torch.cuda.synchronize()
+        hfl_ops.reset_launches()
+        _buffered_card_vs_cpu(cfg, spec, state, bundle, aux["generator"],
+                              "CONFIG fcea dense chaos", steps=steps)
+        torch.cuda.synchronize()
+        launches = dict(hfl_ops.LAUNCHES)
+    want = _want_launches(cfg, spec, steps)
+    if launches != want:
+        raise AssertionError(f"[faults] buffered chaos: launches "
+                             f"{launches} != expected {want}")
+    _hold_recorded("[faults] CONFIG buffered chaos", calls, launches)
+    return launches
+
+
+def _faults_cost(cfg, off, rounds, dev, label, profile=False):
+    """The fault layer's cost on ``cfg``: seconds a round of ``off`` and
+    of ``off`` under chaos in turns ``FAULT_TURNS`` after one warm run
+    each, ``rounds`` rounds a run of ``_drive_spec`` (launches equal a
+    round in both modes); the medians of rounds 2.. of each run, and of
+    the runs.  With ``profile``, each mode's kernels in one profiled
+    steady round."""
+    import dataclasses
+    from repro_torch.core import engine
+    from repro_torch.faults import FaultSpec
+    specs = {"off": off,
+             "on": dataclasses.replace(off, faults=FaultSpec(**FAULT_CHAOS))}
+    walls = {"off": [], "on": []}
+    finals = {}
+    for turn in ("off", "on") + FAULT_TURNS:     # one warm run each first
+        _, per_round, _, launches, finals[turn] = _drive_spec(
+            cfg, specs[turn], rounds, dev)
+        if launches != _want_launches(cfg, specs[turn], rounds):
+            raise AssertionError(f"[faults] cost {label} {turn}: launches "
+                                 f"{launches}")
+        walls[turn].append(statistics.median(per_round[1:]))
+    med = {k: statistics.median(v[1:]) for k, v in walls.items()}
+    pct = 100.0 * (med["on"] - med["off"]) / med["off"]
+    log(f"[faults] cost {label}, {rounds} rounds a run in turns "
+        f"{' '.join(FAULT_TURNS)}: s/round medians (rounds 2..) off "
+        + ", ".join(f"{w:.6f}" for w in walls["off"][1:]) + "; on "
+        + ", ".join(f"{w:.6f}" for w in walls["on"][1:])
+        + f"; median off {med['off']:.6f} s, on {med['on']:.6f} s, fault "
+        f"layer {1e3 * (med['on'] - med['off']):.4f} ms a round "
+        f"({pct:.2f}%); launches a run {launches}; chaos final "
+        f"{_fault_summary(finals['on'][0].faults)}")
+    if profile:
+        for turn in ("off", "on"):
+            spec = specs[turn]
+            s, bundle, gen = finals[turn]
+            draws = engine.sample_draws(cfg, bundle, gen, spec)
+            profile_device(lambda: engine.round_step(cfg, spec, s, bundle,
+                                                     draws),
+                           f"faults {turn} {label} round", med[turn])
+
+
+def _faults_resume(cfg, dev):
+    """``run_scanned_resumable`` on the card: ``CONFIG`` buffered, chaos,
+    telemetry, 6 micro-steps in segments of 2 with a CUDA generator,
+    stopped after one segment in a fresh directory under ``build/`` and
+    resumed with a fresh generator; metrics, trace, the final carry and
+    the generator's state bit-identical to an uninterrupted
+    ``run_scanned``."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core import engine
+    from repro_torch.faults import FaultSpec, run_scanned_resumable
+    spec = engine.EngineSpec(engine_mode="buffered", telemetry=True,
+                             faults=FaultSpec(**FAULT_CHAOS))
+    state, bundle, _ = engine.init_simulation(cfg, seed=0, device=dev)
+    state = engine.ensure_carry(cfg, spec, state)
+    gen_ref = torch.Generator(device=dev).manual_seed(21)
+    t0 = time.perf_counter()
+    ref, (ms, tr) = engine.run_scanned(cfg, spec, state, bundle, 6, gen_ref)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="faults_resume_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        first = run_scanned_resumable(
+            cfg, spec, state, bundle, 6,
+            torch.Generator(device=dev).manual_seed(21),
+            directory=directory, segment_rounds=2, max_segments=1)
+        t_first = time.perf_counter() - t0
+        if first.completed_rounds != 2 or store.latest_step(directory) != 2:
+            raise AssertionError(f"[faults] resume: the first call ran "
+                                 f"{first.completed_rounds} micro-steps")
+        gen = torch.Generator(device=dev).manual_seed(999)
+        t0 = time.perf_counter()
+        res = run_scanned_resumable(cfg, spec, state, bundle, 6, gen,
+                                    directory=directory, segment_rounds=2)
+        t_rest = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in Path(directory).iterdir())
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    diverged = []
+
+    def same(tag):
+        def eq(a, b):
+            if not _bit_equal(a, b):
+                diverged.append(tag)
+            return a
+        return eq
+    engine._map(same("metrics"), res.metrics, ms)
+    engine._map(same("trace"), res.trace, tr)
+    engine._map(same("carry"), res.state, ref)
+    if not torch.equal(gen.get_state(), gen_ref.get_state()):
+        diverged.append("generator")
+    if diverged or not res.done or res.state.gains.device.type != "cuda":
+        raise AssertionError(f"[faults] resume: the resumed run diverged "
+                             f"from the uninterrupted one in "
+                             f"{sorted(set(diverged))}")
+    log(f"[faults] resume CONFIG buffered chaos telemetry, 6 micro-steps in "
+        f"segments of 2 (CUDA generator): stopped after one segment, "
+        f"resumed; metrics, trace, final carry and generator state "
+        f"bit-identical to the uninterrupted run_scanned: ok; "
+        f"uninterrupted {t_ref:.3f} s, first segment {t_first:.3f} s, "
+        f"resume {t_rest:.3f} s, checkpoint files {size} bytes; final "
+        f"{_fault_summary(res.state.faults)}")
+
+
+def phase_faults(cfg, dev):
+    """The fault layer on the card: ``CONFIG`` fcea + PDD dense under
+    chaos, 5 rounds card vs CPU; ``CONFIG`` K = 2 with a dead edge, 3
+    rounds; ``CONFIG`` fcea dense buffered under chaos, 16 micro-steps card
+    vs CPU; every kernel call of the three held against its plain version;
+    the fault layer's cost at 1024 x 16 gcea + fastest and at ``CONFIG``
+    fcea + PDD; a resumed run bit-identical to an uninterrupted one.  Returns the launches of the faulted ``CONFIG``
+    runs (the K = 2 run's for ``score_candidates``)."""
+    from repro_torch.core import engine
+    from repro_torch.faults import FaultSpec
+    chaos = FaultSpec(**FAULT_CHAOS)
+    launches = _faults_sync_card_vs_cpu(
+        cfg, engine.EngineSpec(faults=chaos), 5, dev,
+        "CONFIG fcea-pdd dense chaos")
+    launches_k = _faults_dead_edge_frontier(cfg, dev)
+    _faults_buffered(cfg, engine.EngineSpec(engine_mode="buffered",
+                                            faults=chaos), 16, dev)
+    _faults_cost(bench_config(cfg, 1024, 16),
+                 engine.EngineSpec(policy="gcea", scheduler="fastest"),
+                 FAULT_COST_ROUNDS, dev, "1024x16 gcea-fastest",
+                 profile=True)
+    _faults_cost(cfg, engine.EngineSpec(), 4, dev, "CONFIG fcea-pdd")
+    _faults_resume(cfg, dev)
+    return {**launches, "score_candidates": launches_k["score_candidates"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3081,6 +3433,8 @@ def main(argv=None) -> int:
     phase("hfl telemetry", phase_telemetry, CONFIG, dev)
     buf_launches = phase("hfl buffered engine", phase_buffered, CONFIG, dev,
                          runs["fcea"][2])
+    fault_launches = phase("hfl faults and resume", phase_faults, CONFIG,
+                           dev)
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -3103,6 +3457,10 @@ def main(argv=None) -> int:
     # frontier's score from its CONFIG K = 2 run, 8 micro-steps)
     buf_launches = {**buf_launches, "local_sgd_step":
                     buf_launches["local_sgd_step_cluster"]}
+    # the fault layer: CONFIG fcea + PDD dense under chaos, 5 rounds (and
+    # the frontier's score from its K = 2 dead-edge run, 3 rounds)
+    fault_launches = {**fault_launches, "local_sgd_step":
+                      fault_launches["local_sgd_step_cluster"]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -3113,7 +3471,8 @@ def main(argv=None) -> int:
                         "bound_by": b_by, "library_ms": None,
                         "scenario_launches": scen_launches.get(name, 0),
                         "ddpg_launches": ddpg_launches.get(name, 0),
-                        "buffered_launches": buf_launches.get(name, 0)})
+                        "buffered_launches": buf_launches.get(name, 0),
+                        "faults_launches": fault_launches.get(name, 0)})
     for name, (err, ms_k, ms_p, b_ms, b_by, lib_ms) in seq_cmp.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
@@ -3122,7 +3481,8 @@ def main(argv=None) -> int:
                         "bound_by": b_by, "library_ms": lib_ms,
                         "scenario_launches": scen_launches.get(name, 0),
                         "ddpg_launches": ddpg_launches.get(name, 0),
-                        "buffered_launches": buf_launches.get(name, 0)})
+                        "buffered_launches": buf_launches.get(name, 0),
+                        "faults_launches": fault_launches.get(name, 0)})
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",
@@ -3132,7 +3492,8 @@ def main(argv=None) -> int:
                         "bound_by": b_by, "library_ms": lib_ms,
                         "scenario_launches": scen_launches.get(name, 0),
                         "ddpg_launches": ddpg_launches.get(name, 0),
-                        "buffered_launches": buf_launches.get(name, 0)})
+                        "buffered_launches": buf_launches.get(name, 0),
+                        "faults_launches": fault_launches.get(name, 0)})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     result = {"kernels": kernels}
     if args.out:

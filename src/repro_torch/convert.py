@@ -6,7 +6,8 @@ leaves as plain numpy arrays -- the caller converts them with
 ``RoundState``/``RoundBundle`` on ``device``, so both sides can start from
 the same params, gains, staleness, world (``scenario_from_numpy``) and
 data; a reference buffered state mid-run carries its ``BufferState``
-over too (``buffer_from_numpy``).
+over too (``buffer_from_numpy``), and a faulted one its ``FaultState``
+(``faults_from_numpy``).
 ``ddpg_from_numpy`` and ``actor_from_numpy`` carry a reference DDPG
 agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core.ddpg import DDPGState
 from repro_torch.core.engine import BufferState, RoundBundle, RoundState
 from repro_torch.device import resolve_device
+from repro_torch.faults.spec import FaultState
 from repro_torch.scenarios import ScenarioState
 from repro_torch.models.transformer import Transformer
 
@@ -38,7 +40,8 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
     ``round_idx`` and, optionally, ``scenario`` (a reference
     ``ScenarioState`` as numpy, or None: the state then carries none, and
     runs the static kind only) and ``buffer`` (a reference
-    ``BufferState`` as numpy, or None); bundle_np: one with ``dist``, ``x``,
+    ``BufferState`` as numpy, or None) and ``faults`` (a reference
+    ``FaultState`` as numpy, or None); bundle_np: one with ``dist``, ``x``,
     ``y``, ``counts``, ``test_x`` and ``test_y``.  Every array is copied
     onto ``device``."""
     dev = resolve_device(device)
@@ -57,7 +60,8 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
         staleness=i32(s["staleness"]),
         round_idx=int(np.asarray(s["round_idx"])),
         scenario=scenario_from_numpy(s.get("scenario"), dev),
-        buffer=buffer_from_numpy(s.get("buffer"), dev))
+        buffer=buffer_from_numpy(s.get("buffer"), dev),
+        faults=faults_from_numpy(s.get("faults"), dev))
     bundle = RoundBundle(dist=f32(b["dist"]), x=f32(b["x"]), y=i32(b["y"]),
                          counts=f32(b["counts"]), test_x=f32(b["test_x"]),
                          test_y=i32(b["test_y"]))
@@ -89,6 +93,18 @@ def buffer_from_numpy(buf_np: Any, device: "str | torch.device" = "cuda"
     dev = resolve_device(device)
     f = _fields(buf_np)
     return BufferState(*(_tensors(f[k], dev) for k in BufferState._fields))
+
+
+def faults_from_numpy(flt_np: Any, device: "str | torch.device" = "cuda"
+                      ) -> "FaultState | None":
+    """A reference ``FaultState`` (numpy leaves, or a mapping of its 6
+    fields; with or without a leading fleet axis) as the port's on
+    ``device``: ``edge_up`` float32, the rest int32; None stays None."""
+    if flt_np is None:
+        return None
+    dev = resolve_device(device)
+    f = _fields(flt_np)
+    return FaultState(*(_tensors(f[k], dev) for k in FaultState._fields))
 
 
 def _tensors(tree: Any, dev: torch.device) -> Any:

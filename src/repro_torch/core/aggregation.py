@@ -54,6 +54,25 @@ def cloud_aggregate(edge_params: Params, z: torch.Tensor,
     return weighted_mean(edge_params, z * edge_data)
 
 
+def faulted_cloud_aggregate(global_params: Params, client_deltas: Params,
+                            assoc_eff: torch.Tensor, n_samples: torch.Tensor,
+                            z: torch.Tensor) -> Params:
+    """The sync round's cloud epilogue under faults, in delta space: Eq. 11
+    over the guard-cleaned client deltas (leaves (S, N, ...)) of the
+    surviving clients (``assoc_eff`` (S, N, M), the association masked to
+    them), Eq. 17 over the selected edges that kept data (``z_eff``), and
+    the global model plus that mean delta.  A seed with no surviving data
+    on a selected edge keeps its global model bit for bit."""
+    edge_delta = edge_aggregate(client_deltas, assoc_eff, n_samples)
+    edge_data = torch.sum(assoc_eff * n_samples[..., None], dim=-2)  # (S, M)
+    z_eff = z * (edge_data > 0).to(z.dtype)
+    agg = cloud_aggregate(edge_delta, z_eff, edge_data)
+    has_data = torch.sum(z_eff * edge_data, dim=-1) > 0              # (S,)
+    return {k: torch.where(_col(has_data, g).bool(), g + agg[k].to(g.dtype),
+                           g)
+            for k, g in global_params.items()}
+
+
 def broadcast_to_clients(assoc: torch.Tensor, edge_params: Params,
                          client_params: Params) -> Params:
     """Edge model broadcast: associated clients adopt their edge's model,

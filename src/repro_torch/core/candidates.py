@@ -37,11 +37,15 @@ class CandidateSet(NamedTuple):
 
 def build_candidates(dist: torch.Tensor, k: int, *,
                      coverage_radius_m: float,
-                     avail: torch.Tensor | None = None) -> CandidateSet:
+                     avail: torch.Tensor | None = None,
+                     edge_up: torch.Tensor | None = None) -> CandidateSet:
     """The ``k`` nearest edges per client from the (N, M) distance field
     (or a fleet's (S, N, M): every step is per row).  ``avail`` (N,) marks
     a dropped client's whole row invalid: it is out of every edge's
-    coverage this round.
+    coverage this round.  ``edge_up`` (M,) marks the slots of dead edges
+    (the fault layer's churn) invalid in every row while the distances
+    stay physical: dead edges still rank by true distance, they cannot be
+    selected, so the frontier re-forms around the survivors.
 
     A stable ascending sort keeps exact distance ties in edge-index order,
     as the reference's ``top_k`` of the negated distances does
@@ -52,6 +56,10 @@ def build_candidates(dist: torch.Tensor, k: int, *,
     valid = dk <= coverage_radius_m
     if avail is not None:
         valid = valid & (avail > 0)[..., None]
+    if edge_up is not None:
+        live = (edge_up > 0)[..., None, :].expand(idx.shape[:-1]
+                                                  + edge_up.shape[-1:])
+        valid = valid & torch.gather(live, -1, idx)
     return CandidateSet(idx=idx.to(torch.int32), valid=valid, dist=dk)
 
 

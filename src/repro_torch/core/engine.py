@@ -56,12 +56,23 @@ With ``EngineSpec(telemetry=True)`` a step returns ``(state',
 normalises the two).  Every stage runs inside a ``telemetry.spans``
 range.
 
+With ``EngineSpec(faults=FaultSpec(...))`` (``repro_torch.faults``) the
+round runs under injected faults: edge churn (dead edges leave the
+association's view of the distance field, or the frontier's valid slots,
+and the schedule), mid-round crashes, SINR-tied uplink loss (dropped on
+the sync engine, retried with exponential backoff on the buffered one),
+poisoned deltas and the quarantine every delta passes before it is
+merged; the buffered merge waits for ``min_participation`` updates.  Its
+carry is ``RoundState.faults`` (a ``FaultState``) and its random numbers
+are ``RoundDraws.faults`` (a ``FaultDraws``), both absent with faults
+off, when the round is today's.
+
 The port covers the sync and the buffered engine on every scenario kind,
 dense or on the candidate frontier, with fcea, gcea or rcea, the
 ``mid``, ``rra``, ``fpa``, ``fca`` or ``ddpg`` allocator, PDD or fastest
-scheduling (the sync engine's), NOMA or OMA, with or without telemetry.
-Faults and the warm-started association raise ``NotImplementedError``
-naming their ROADMAP items (A15 f, g).
+scheduling (the sync engine's), NOMA or OMA, with or without telemetry
+and faults.  The warm-started association raises ``NotImplementedError``
+naming its ROADMAP item (A15 g).
 """
 from __future__ import annotations
 
@@ -77,6 +88,9 @@ from repro_torch.core import (aggregation, association, candidates, cost,
                               env, noma, pdd, staleness)
 from repro_torch.data import federated
 from repro_torch.device import resolve_device
+from repro_torch.faults import guard as fault_guard
+from repro_torch.faults import inject as fault_inject
+from repro_torch.faults.spec import FaultSpec, FaultState, init_faults
 from repro_torch.kernels import hfl_ops
 from repro_torch.models import mlp
 from repro_torch.telemetry import spans
@@ -101,8 +115,9 @@ class EngineSpec:
     reference's defaults (its ``buffer_fill=0``, quota·M // 2 updates,
     and ``buffer_lr=1``), not options here.
     ``telemetry`` adds the ``RoundTrace`` to each step's output.
-    ``faults`` and ``warm_start`` are not ported yet: they are accepted
-    at their off value only."""
+    ``faults`` (a ``FaultSpec``, or None for none) turns on the fault
+    layer.  ``warm_start`` is not ported yet: it is accepted at its off
+    value only."""
     policy: str = "fcea"            # fcea | gcea | rcea
     allocator: str = "mid"          # mid | rra | fpa | fca | ddpg
     scheduler: str = "pdd"          # pdd | fastest
@@ -118,11 +133,10 @@ class EngineSpec:
     timeout_s: float = 10.0
     n_tiers: int = 4
     retier_every: int = 8
-    faults: Any = None
+    faults: Optional[FaultSpec] = None
     warm_start: bool = False
 
     def __post_init__(self):
-        todo = []
         if self.policy not in association.POLICIES:
             raise ValueError(f"unknown association policy {self.policy!r}")
         if self.allocator not in ("mid", "rra", "fpa", "fca", "ddpg"):
@@ -136,13 +150,13 @@ class EngineSpec:
         if self.engine_mode not in ("sync", "buffered"):
             raise ValueError(f"unknown engine_mode {self.engine_mode!r}; "
                              f"choose 'sync' or 'buffered'")
-        if self.faults is not None:
-            todo.append("faults (ROADMAP A15 f)")
+        if self.faults is not None and not isinstance(self.faults,
+                                                      FaultSpec):
+            raise TypeError(f"faults must be a FaultSpec or None, not "
+                            f"{type(self.faults).__name__}")
         if self.warm_start:
-            todo.append("warm_start (ROADMAP A15 g)")
-        if todo:
             raise NotImplementedError(
-                "not ported to repro_torch yet: " + ", ".join(todo))
+                "not ported to repro_torch yet: warm_start (ROADMAP A15 g)")
 
 
 class RoundBundle(NamedTuple):
@@ -185,6 +199,16 @@ class RoundState(NamedTuple):
     round_idx: int
     scenario: Any = None     # scenarios.ScenarioState (None: static only)
     buffer: Any = None       # BufferState (buffered engine) | None
+    faults: Any = None       # FaultState (EngineSpec.faults set) | None
+
+
+class FaultDraws(NamedTuple):
+    """The fault layer's uniforms of one round, Uniform[0, 1) (the
+    reference's four ``split(fault_key(k_fade), 4)`` streams)."""
+    edge_u: torch.Tensor     # (M,) the churn step
+    loss_u: torch.Tensor     # (N,) uplink loss
+    crash_u: torch.Tensor    # (N,) mid-round crashes
+    poison_u: torch.Tensor   # (N,) delta poisoning
 
 
 class RoundDraws(NamedTuple):
@@ -196,6 +220,7 @@ class RoundDraws(NamedTuple):
     # (U,) Uniform[0, 1): the scenario transition's uniforms, laid out as
     # ``scenarios.draw_shapes`` names them; empty on the static kind
     scenario: Optional[torch.Tensor] = None
+    faults: Optional[FaultDraws] = None      # with EngineSpec.faults only
 
 
 class RoundMetrics(NamedTuple):
@@ -298,6 +323,31 @@ def ensure_buffer(cfg, spec: EngineSpec, state: "RoundState"
     return state
 
 
+def ensure_faults(cfg, spec: EngineSpec, state: "RoundState"
+                  ) -> "RoundState":
+    """``state.faults`` normalised to the spec: a fresh ``FaultState``
+    (shaped for the state's leading axes) attached when ``spec.faults`` is
+    set (one already there is kept, e.g. mid-run or restored from a
+    checkpoint), stripped when faults are off.  A state that is already
+    normalised comes back as the same object."""
+    if spec.faults is not None:
+        if state.faults is None:
+            return state._replace(faults=init_faults(
+                cfg, state.staleness.device, state.staleness.shape[:-1]))
+        return state
+    if state.faults is not None:
+        return state._replace(faults=None)
+    return state
+
+
+def ensure_carry(cfg, spec: EngineSpec, state: "RoundState"
+                 ) -> "RoundState":
+    """The whole carry normalised to the spec's optional parts (the
+    aggregation buffer and the fault state): the one normaliser the
+    drivers and ``fleet_step`` call."""
+    return ensure_faults(cfg, spec, ensure_buffer(cfg, spec, state))
+
+
 # ---------------------------------------------------------------------------
 # Initialisation and draws
 # ---------------------------------------------------------------------------
@@ -367,10 +417,14 @@ def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator,
     """One round's draws from ``generator`` (on the bundle's device): the
     ``Exp(1)`` fading field; for every client, τ₂ × τ₁ minibatches of
     ``local_batch`` indices uniform over its D_n samples; then, only when
-    ``spec`` needs them, rcea's (N, M) and rra's (2, N) uniforms, and the
-    scenario transition's (U,) uniforms (none on the static kind) -- so
-    the static fcea/gcea + ``mid`` stream does not depend on any of
-    them."""
+    ``spec`` needs them, rcea's (N, M) and rra's (2, N) uniforms, the
+    scenario transition's (U,) uniforms (none on the static kind) and,
+    last, with ``spec.faults`` set, the fault layer's (``FaultDraws``) --
+    so the static fcea/gcea + ``mid`` stream does not depend on any of
+    them, and from one generator state a faulted round's fading and
+    lattice are the unfaulted round's.  (The later rounds' draws of a run
+    then shift by the extra uniforms: a generator has no counterpart of
+    the reference's ``fold_in``, whose stream consumes no split.)"""
     dev = bundle.dist.device
     fading = _exp1(bundle.dist.shape, generator, dev)
     hi = torch.clamp_min(bundle.counts, 1.0)[None, None, :, None]
@@ -387,8 +441,13 @@ def sample_draws(cfg, bundle: RoundBundle, generator: torch.Generator,
     size = scenarios.draw_size(cfg, spec.scenario)
     scen_u = (torch.rand((size,), generator=generator, device=dev) if size
               else torch.empty((0,), device=dev))
+    fault_u = None
+    if spec.faults is not None:
+        n, m = cfg.n_clients, cfg.n_edges
+        fault_u = FaultDraws(*(torch.rand((k,), generator=generator,
+                                          device=dev) for k in (m, n, n, n)))
     return RoundDraws(fading=fading, batch_idx=idx, assoc_u=assoc_u,
-                      alloc_u=alloc_u, scenario=scen_u)
+                      alloc_u=alloc_u, scenario=scen_u, faults=fault_u)
 
 
 def _map(fn, *trees):
@@ -637,14 +696,63 @@ def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
     return global_params, client_params
 
 
+def _train_faulty(cfg, spec: EngineSpec, state: RoundState,
+                  bundle: RoundBundle, assoc: torch.Tensor, z: torch.Tensor,
+                  batch_idx: torch.Tensor, gains: torch.Tensor,
+                  edge_up: torch.Tensor, fd: FaultDraws):
+    """The sync training stage under faults (the reference's
+    ``_train_faulty``): ``_train_cohort`` unchanged, then the cloud
+    epilogue in delta space.  Each selected client's update (its trained
+    model minus the global it pulled) runs the gauntlet -- a mid-round
+    crash, SINR-tied uplink loss (the sync engine has no buffer to retry
+    from), poisoning of the transmitted copy, the quarantine -- and only
+    the surviving, guard-cleaned deltas reach
+    ``faulted_cloud_aggregate``.  Local params are never poisoned.
+    Returns ``(global', client_params, (ok, crashed, lost, n_rejected))``,
+    ``ok`` (S, N) the surviving clients."""
+    fsp = spec.faults
+    client_params, _ = _train_cohort(cfg, spec, state, bundle, assoc,
+                                     batch_idx)
+    selected = torch.sum(assoc, dim=-1) > 0
+    crashed = fault_inject.draw_crashes(fsp, fd.crash_u, selected)
+    lost = fault_inject.draw_losses(fsp, fd.loss_u, gains, edge_up,
+                                    selected & ~crashed)
+    delivered = selected & ~crashed & ~lost
+    deltas = {k: c - state.global_params[k][:, None]
+              for k, c in client_params.items()}
+    deltas, _ = fault_inject.poison_deltas(fsp, fd.poison_u, deltas,
+                                           delivered)
+    clean, ok, n_rej = fault_guard.quarantine(deltas, delivered,
+                                              fsp.quarantine_clip)
+    assoc_eff = assoc * ok.to(assoc.dtype)[..., None]
+    global_params = aggregation.faulted_cloud_aggregate(
+        state.global_params, clean, assoc_eff, bundle.counts, z)
+    return global_params, client_params, (ok, crashed, lost, n_rej)
+
+
+def _fault_trace(cfg, edge_up, dist, avail, retries, dropped, rejected):
+    """The trace's fault leaves (dead_edges, orphaned_clients,
+    uplink_retries, uplink_dropped, quarantined), each (S,) int32;
+    ``dist`` the physical field."""
+    return (torch.sum(edge_up <= 0, dim=-1, dtype=torch.int32),
+            fault_inject.orphan_count(dist, edge_up, coverage_radius(cfg),
+                                      avail),
+            retries, dropped, rejected)
+
+
 def _associate(cfg, spec: EngineSpec, states: RoundState,
-               bundles: RoundBundle, gains, dist, avail, assoc_u):
+               bundles: RoundBundle, gains, dist, avail, assoc_u,
+               edge_up=None):
     """Fuzzy scoring + association of every seed, dense or on the (N, K)
     frontier, from ``gains``, ``dist`` and the availability ``avail``
     (None on the static kind: every client available); an unavailable
-    client is out of coverage.  Returns the float (S, N, M) one-hot, the
-    frontier's (S, N) assigned edges and its ``CandidateSet`` (both None
-    when dense) and the sweeps (a list, one a seed).  The one definition
+    client is out of coverage.  ``edge_up`` (S, M), the fault layer's
+    live edges (None: all live), routes around the dead ones: the dense
+    path associates on ``fault_inject.masked_dist``, the frontier marks
+    their slots invalid and keeps its distances physical.  Returns the
+    float (S, N, M) one-hot, the frontier's (S, N) assigned edges and its
+    ``CandidateSet`` (both None when dense) and the sweeps (a list, one a
+    seed).  The one definition
     of the association: ``fleet_step``, ``fleet_buffered_step`` and
     ``fleet_snapshot`` call it."""
     assigned = cand = None
@@ -652,7 +760,8 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
     if spec.candidates_k is not None:
         cand = candidates.build_candidates(
             dist, spec.candidates_k,
-            coverage_radius_m=coverage_radius(cfg), avail=avail)
+            coverage_radius_m=coverage_radius(cfg), avail=avail,
+            edge_up=edge_up)
         scores = None
         if spec.policy == "fcea":
             scores = hfl_ops.score_candidates(
@@ -664,6 +773,8 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
             uniform=assoc_u, return_sweeps=True)
         assoc = candidates.assigned_one_hot(assigned, cfg.n_edges)
     else:
+        if edge_up is not None:
+            dist = fault_inject.masked_dist(dist, edge_up)
         scores = None
         if spec.policy == "fcea":
             scores = hfl_ops.score_matrix(gains, bundles.counts,
@@ -723,11 +834,18 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     when ``timer`` is given, inside ``timer(name)``, a context manager
     (the hook stage timings use).
 
-    The carry is first normalised to the spec (``ensure_buffer``); with
+    The carry is first normalised to the spec (``ensure_carry``); with
     ``engine_mode="buffered"`` the step is ``fleet_buffered_step``.  With
     ``telemetry`` the output is ``(metrics, trace)``, the trace's leaves
-    (S, …)."""
-    states = ensure_buffer(cfg, spec, states)
+    (S, …).
+
+    With ``spec.faults`` the churn advances after fading and association
+    routes around the dead edges (allocation and the bill keep the
+    physical distances); a dead edge is taken out of z after scheduling
+    (the trace's ``z_relaxed`` stays PDD's); training runs the fault
+    gauntlet (``_train_faulty``) and Eq. 20 resets only the surviving
+    clients."""
+    states = ensure_carry(cfg, spec, states)
     if spec.engine_mode == "buffered":
         return fleet_buffered_step(cfg, spec, states, bundles, draws,
                                    actor_params, timer=timer)
@@ -750,11 +868,17 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     gains = noma.evolve_gains(draws.fading, states.gains, dist,
                               path_loss_exponent=cfg.path_loss_exponent,
                               rho=spec.fading_rho)
+    # 1b. the fault layer: one churn step of the live-edge mask
+    fsp = spec.faults
+    edge_up = (fault_inject.advance_edges(fsp, draws.faults.edge_u,
+                                          states.faults.edge_up)
+               if fsp is not None else None)
     # 2. fuzzy scoring + association, dense or on the (N, K) frontier;
-    #    unavailable clients are out of coverage this round
+    #    unavailable clients and dead edges are out of coverage this round
     with stage("associate"):
         assoc, assigned, cand, sweeps = _associate(
-            cfg, spec, states, bundles, gains, dist, avail, draws.assoc_u)
+            cfg, spec, states, bundles, gains, dist, avail, draws.assoc_u,
+            edge_up)
     # 3. resource allocation, clamped to the device classes' caps
     with stage("allocate"):
         p, f = _allocate(cfg, spec, draws, assoc, gains, bundles.counts,
@@ -778,15 +902,24 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
             z, sched = _schedule_traced(cfg, spec, rc_all)
         else:
             z = _schedule(cfg, spec, rc_all)
+        if fsp is not None:
+            # a dead edge cannot be scheduled: out of the Eq. 18/19 bill
+            z = z * (edge_up > 0).to(z.dtype)
         rc = cost.apply_schedule(cfg, rc_all, z)
     # 5. τ₂·τ₁ training + hierarchical aggregation
     with stage("train"):
-        global_params, client_params = _train(cfg, spec, states, bundles,
-                                               assoc, z, draws.batch_idx)
+        if fsp is not None:
+            global_params, client_params, (ok, crashed, lost, n_rej) = \
+                _train_faulty(cfg, spec, states, bundles, assoc, z,
+                              draws.batch_idx, gains, edge_up, draws.faults)
+        else:
+            global_params, client_params = _train(
+                cfg, spec, states, bundles, assoc, z, draws.batch_idx)
     # 6. staleness (Eq. 20): reset only for clients whose edge was selected
+    #    (and, under faults, whose update survived to aggregation)
     selected = torch.sum(assoc, dim=-1) > 0
-    effective = selected & torch.gather(z > 0, -1,
-                                        torch.argmax(assoc, dim=-1))
+    effective = (ok if fsp is not None else selected) & torch.gather(
+        z > 0, -1, torch.argmax(assoc, dim=-1))
     new_stale = staleness.update_staleness(states.staleness, effective)
     round_idx = states.round_idx + 1
     with stage("eval"):
@@ -806,8 +939,22 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
                      if dynamic else n),
         z=z,
         sweeps=torch.tensor(sweeps))
+    new_faults = fault_tr = None
+    if fsp is not None:
+        flt: FaultState = states.faults
+        i32 = torch.int32
+        n_crash = torch.sum(crashed, dim=-1, dtype=i32)
+        n_drop = torch.sum(lost, dim=-1, dtype=i32) + n_crash
+        # the sync engine has no buffer to retry from
+        new_faults = FaultState(
+            edge_up=edge_up, attempts=flt.attempts, n_retries=flt.n_retries,
+            n_dropped=flt.n_dropped + n_drop,
+            n_quarantined=flt.n_quarantined + n_rej,
+            n_crashed=flt.n_crashed + n_crash)
+        fault_tr = _fault_trace(cfg, edge_up, dist, avail,
+                                torch.zeros_like(n_drop), n_drop, n_rej)
     new_state = RoundState(global_params, client_params, gains, new_stale,
-                           round_idx, scen)
+                           round_idx, scen, None, new_faults)
     if spec.telemetry:
         tr = telemetry_trace.round_trace(
             cfg, spec, round_idx=round_idx, rc_all=rc_all, z=z,
@@ -815,7 +962,7 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
             staleness=new_stale, capacitance=scen.kappa if dynamic else None,
             sweeps=_device_sweeps(sweeps, dev), sched=sched, cand=cand,
             assigned=assigned, dist=dist, avail=avail,
-            coverage_radius_m=coverage_radius(cfg))
+            coverage_radius_m=coverage_radius(cfg), faults=fault_tr)
         return new_state, (metrics, tr)
     return new_state, metrics
 
@@ -842,6 +989,14 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     5. every ``retier_every`` micro-steps, re-tier by the quantiles of
        the per-client duration EMA;
     6. Eq. 20 on the landed clients, and the ``cohort_cost`` bill.
+
+    With ``spec.faults`` the churn advances after fading and association
+    routes around the dead edges; an admitted client may crash (billed,
+    it does not fly); the in-flight copy of a delta may be poisoned; a
+    finished upload may be lost, then retried at ``clock +
+    backoff_s(attempts)`` or, out of attempts, dropped; only the
+    quarantined tree reaches the buffer; and a trigger merges only with
+    ``min_participation`` updates buffered (it still moves the timer).
 
     ``metrics.total_time_s`` is the clock's advance, ``metrics.z`` the
     applied merge broadcast over the edges, ``metrics.round`` counts
@@ -877,6 +1032,12 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     gains = noma.evolve_gains(draws.fading, states.gains, dist,
                               path_loss_exponent=cfg.path_loss_exponent,
                               rho=spec.fading_rho)
+    # 0b. the fault layer: one churn step of the live-edge mask
+    fsp = spec.faults
+    fd = draws.faults
+    edge_up = (fault_inject.advance_edges(fsp, fd.edge_u,
+                                          states.faults.edge_up)
+               if fsp is not None else None)
 
     # 1. the TiFL cohort gate: only idle clients of the scheduled tier
     #    enter this micro-step's market
@@ -886,7 +1047,7 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     with stage("associate"):
         assoc, assigned, cand, sweeps = _associate(
             cfg, spec, states, bundles, gains, dist, eligible,
-            draws.assoc_u)
+            draws.assoc_u, edge_up)
     with stage("allocate"):
         p, f = _allocate(cfg, spec, draws, assoc, gains, bundles.counts,
                          dist, scen if dynamic else None, actor_params,
@@ -908,7 +1069,13 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
                                  sic_max_per_edge=quota_for(cfg, spec),
                                  assigned=assigned)
     admitted = torch.sum(assoc, dim=-1) > 0                       # (S, N)
-    flying = admitted
+    if fsp is not None:
+        # a mid-round crash: the cohort's bill charges the admitted client,
+        # but its update never takes flight
+        crashed = fault_inject.draw_crashes(fsp, fd.crash_u, admitted)
+        flying = admitted & ~crashed
+    else:
+        flying = admitted
 
     # 3. train the cohort from the current global model and park its
     #    deltas (trained minus the pulled global) in flight
@@ -917,6 +1084,12 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
                                          draws.batch_idx)
     pending = {k: torch.where(col(flying, c), c - states.global_params[k][
         :, None], buf.pending_delta[k]) for k, c in client_params.items()}
+    if fsp is not None:
+        # poisoning corrupts the transmitted (in-flight) copy, never the
+        # local params; a new upload resets its retry ledger
+        pending, _ = fault_inject.poison_deltas(fsp, fd.poison_u, pending,
+                                                flying)
+        attempts0 = torch.where(flying, 0, states.faults.attempts).to(i32)
     # modelled wall duration: τ₂ edge iterations + the edge→cloud hop
     dur = cfg.tau2 * rc_all.client_time_s \
         + scalar(cfg.edge_model_size_bits / cfg.edge_rate_bps)
@@ -941,27 +1114,55 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     # 5. land every finished update with its staleness weight
     eps = scalar(1e-5)
     landed = in_flight & (finish <= (clock + eps)[:, None])
+    land_tree = pending
+    if fsp is not None:
+        # 5b. uplink loss and retry/backoff: a finished upload is lost with
+        #     its SINR-tied probability; with attempts left it re-enters
+        #     flight at a backed-off finish time, else it is dropped.  The
+        #     delivered updates pass the quarantine, and only the cleaned
+        #     tree reaches the buffer (the raw copy stays in the carry for
+        #     a retry to re-send)
+        landed_raw = landed
+        lost = fault_inject.draw_losses(fsp, fd.loss_u, gains, edge_up,
+                                        landed_raw)
+        can_retry = lost & (attempts0 < int(fsp.max_attempts))
+        dropped = lost & ~can_retry
+        finish = torch.where(can_retry,
+                             clock[:, None]
+                             + fault_inject.backoff_s(fsp, attempts0),
+                             finish)
+        attempts = torch.where(can_retry, attempts0 + 1, attempts0)
+        land_tree, landed, n_rej = fault_guard.quarantine(
+            pending, landed_raw & ~lost, fsp.quarantine_clip)
     age = staleness.buffer_age(buf.version[:, None], pulled)
     w = torch.where(landed, staleness.buffer_weight(age) * bundles.counts,
                     0.0)
     delta_sum, weight_sum = aggregation.buffer_accumulate(
-        buf.delta_sum, buf.weight_sum, pending, w)
+        buf.delta_sum, buf.weight_sum, land_tree, w)
     fill = buf.fill + torch.sum(landed, dim=-1, dtype=i32)
-    in_flight = in_flight & ~landed
+    if fsp is not None:
+        in_flight = (in_flight & ~landed_raw) | can_retry
+    else:
+        in_flight = in_flight & ~landed
 
     # 6. the fill-or-timeout trigger: ``applied`` (the merge changed the
     #    model) bumps the version; ``fired`` alone resets the timer, so an
-    #    empty timeout does not freeze the clock
+    #    empty timeout does not freeze the clock.  Under faults a trigger
+    #    merges only with ``min_participation`` updates buffered (at the
+    #    default 1 this is the trigger itself: fill 0 means an empty
+    #    buffer)
     fill_target = buffer_fill_for(cfg, spec)
     by_fill = fill >= fill_target
     fired = by_fill | (clock >= deadline - eps)
-    applied = fired & (weight_sum > 0.0)
+    do_merge = (fired & (fill >= max(1, int(fsp.min_participation)))
+                if fsp is not None else fired)
+    applied = do_merge & (weight_sum > 0.0)
     global_params = aggregation.buffer_apply(
-        states.global_params, delta_sum, weight_sum, fired)
-    delta_sum = {k: torch.where(col(fired, d), 0.0, d)
+        states.global_params, delta_sum, weight_sum, do_merge)
+    delta_sum = {k: torch.where(col(do_merge, d), 0.0, d)
                  for k, d in delta_sum.items()}
-    weight_sum = torch.where(fired, 0.0, weight_sum)
-    fill_after = torch.where(fired, 0, fill).to(i32)
+    weight_sum = torch.where(do_merge, 0.0, weight_sum)
+    fill_after = torch.where(do_merge, 0, fill).to(i32)
     version = buf.version + applied.to(i32)
     last_agg = torch.where(fired, clock, buf.last_agg_s)
 
@@ -1002,8 +1203,22 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
         pulled_ver=pulled, obs_s=obs, tier=tier, delta_sum=delta_sum,
         weight_sum=weight_sum, fill=fill_after, version=version,
         clock_s=clock, last_agg_s=last_agg, step=step1)
+    new_faults = fault_tr = None
+    if fsp is not None:
+        flt: FaultState = states.faults
+        n_retry = torch.sum(can_retry, dim=-1, dtype=i32)
+        n_crash = torch.sum(crashed, dim=-1, dtype=i32)
+        n_drop = torch.sum(dropped, dim=-1, dtype=i32) + n_crash
+        new_faults = FaultState(
+            edge_up=edge_up, attempts=attempts,
+            n_retries=flt.n_retries + n_retry,
+            n_dropped=flt.n_dropped + n_drop,
+            n_quarantined=flt.n_quarantined + n_rej,
+            n_crashed=flt.n_crashed + n_crash)
+        fault_tr = _fault_trace(cfg, edge_up, dist, avail, n_retry, n_drop,
+                                n_rej)
     new_state = RoundState(global_params, client_params, gains, new_stale,
-                           round_idx, scen, new_buf)
+                           round_idx, scen, new_buf, new_faults)
     if spec.telemetry:
         cause = torch.where(fired, torch.where(by_fill, 1, 2), 0).to(i32)
         tr = telemetry_trace.round_trace(
@@ -1014,7 +1229,8 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
             cand=cand, assigned=assigned, dist=dist,
             avail=avail if dynamic else None,
             coverage_radius_m=coverage_radius(cfg),
-            buffer=(fill, cause, cur_tier.to(i32), occupancy))
+            buffer=(fill, cause, cur_tier.to(i32), occupancy),
+            faults=fault_tr)
         return new_state, (metrics, tr)
     return new_state, metrics
 
@@ -1042,12 +1258,17 @@ def fleet_snapshot(cfg, spec: EngineSpec, states: RoundState,
     now, without advancing it: ``_associate`` on the current gains,
     distances and availability (pre-transition: a dynamic round first
     moves the world and fades the channel, so its association is one
-    world step ahead of this).  rcea ranks by ``assoc_u`` (S, N, M)."""
+    world step ahead of this).  rcea ranks by ``assoc_u`` (S, N, M).
+    With ``spec.faults`` and a ``FaultState`` in the carry, it routes
+    around the current dead edges as the round does."""
     dynamic = spec.scenario != "static"
     scen = states.scenario
+    edge_up = (states.faults.edge_up
+               if spec.faults is not None and states.faults is not None
+               else None)
     return _associate(cfg, spec, states, bundles, states.gains,
                       scen.dist if dynamic else bundles.dist,
-                      scen.avail if dynamic else None, assoc_u)[0]
+                      scen.avail if dynamic else None, assoc_u, edge_up)[0]
 
 
 def associate_snapshot(cfg, spec: EngineSpec, state: RoundState,
@@ -1091,7 +1312,7 @@ def _drive(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
     each step's output passed to ``on_round`` (if given) and stacked."""
     draw, step = ((fleet_draws, fleet_step) if fleet
                   else (sample_draws, round_step))
-    state = ensure_buffer(cfg, spec, state)
+    state = ensure_carry(cfg, spec, state)
     rows = []
     for _ in range(n_rounds):
         draws = draw(cfg, bundle, generators, spec)
@@ -1111,7 +1332,7 @@ def run_scanned(cfg, spec: EngineSpec, state: RoundState,
     """``n_rounds`` rounds, each with fresh draws from ``generator``.
     Metrics leaves gain a leading (n_rounds,) axis (with ``telemetry``
     the output is the ``(metrics, trace)`` pair, see ``split_output``).
-    The carry is normalised to the spec first (``ensure_buffer``)."""
+    The carry is normalised to the spec first (``ensure_carry``)."""
     return _drive(cfg, spec, state, bundle, n_rounds, generator,
                   actor_params, fleet=False, timer=timer)
 

@@ -55,9 +55,12 @@ class RoundTrace(NamedTuple):
     in the buffer at the trigger, before any reset), ``trigger_cause``
     (0 none, 1 fill, 2 timeout), ``tier_active``, ``tier_occupancy``.
 
-    Fault layer (zeros until it is ported): ``dead_edges``,
-    ``orphaned_clients``, ``uplink_retries``, ``uplink_dropped``,
-    ``quarantined``.
+    Fault layer (zeros with ``EngineSpec.faults`` off): ``dead_edges``
+    (edges down after the churn step), ``orphaned_clients`` (available
+    clients whose in-coverage edges are all dead), ``uplink_retries``
+    (lost uploads re-sent with backoff: buffered engine only),
+    ``uplink_dropped`` (updates lost for good, crashes included),
+    ``quarantined`` (deltas the guard rejected).
     """
     round: torch.Tensor               # () int32
     time_local_s: torch.Tensor        # () float32
@@ -124,7 +127,8 @@ def round_trace(cfg, spec, *, round_idx: int, rc_all: cost.RoundCost,
                 dist: torch.Tensor, avail: Optional[torch.Tensor],
                 coverage_radius_m: float,
                 buffer: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor, torch.Tensor]] = None
+                                       torch.Tensor, torch.Tensor]] = None,
+                faults: Optional[Tuple[torch.Tensor, ...]] = None
                 ) -> RoundTrace:
     """One round's trace of every seed (leading axis S on every input)
     from tensors the round already computed.
@@ -134,7 +138,10 @@ def round_trace(cfg, spec, *, round_idx: int, rc_all: cost.RoundCost,
     the buffered engine (the PDD leaves read 0); ``staleness`` the
     post-update A_n; ``sweeps`` (S,) int32; ``buffer`` the buffered
     engine's (fill, trigger_cause, tier_active, tier_occupancy), each (S,)
-    (``None`` on sync: those leaves read 0).  The fault leaves read 0."""
+    (``None`` on sync: those leaves read 0); ``faults`` the fault layer's
+    (dead_edges, orphaned_clients, uplink_retries, uplink_dropped,
+    quarantined), each (S,) (``None`` with faults off: those leaves read
+    0)."""
     f32, i32 = torch.float32, torch.int32
     seeds = assoc.shape[:-2]
     dev = assoc.device
@@ -180,6 +187,9 @@ def round_trace(cfg, spec, *, round_idx: int, rc_all: cost.RoundCost,
     if buffer is None:
         buffer = (zero_i,) * 4
     b_fill, b_cause, b_tier, b_occ = buffer
+    if faults is None:
+        faults = (zero_i,) * 5
+    f_dead, f_orph, f_retry, f_drop, f_quar = faults
     return RoundTrace(
         round=torch.full(seeds, round_idx, dtype=i32, device=dev),
         time_local_s=tau2 * torch.amax(bm * t_cmp, dim=-1),
@@ -201,5 +211,6 @@ def round_trace(cfg, spec, *, round_idx: int, rc_all: cost.RoundCost,
         trigger_cause=b_cause.to(i32),
         tier_active=b_tier.to(i32),
         tier_occupancy=b_occ.to(i32),
-        dead_edges=zero_i, orphaned_clients=zero_i, uplink_retries=zero_i,
-        uplink_dropped=zero_i, quarantined=zero_i)
+        dead_edges=f_dead.to(i32), orphaned_clients=f_orph.to(i32),
+        uplink_retries=f_retry.to(i32), uplink_dropped=f_drop.to(i32),
+        quarantined=f_quar.to(i32))

@@ -712,6 +712,93 @@ def test_buffered_all_pad_cohort_on_the_card(cuda):
     assert np.isfinite(float(m.cost))
 
 
+# the reference's chaos sweep cell plus crashes and NaN poisoning
+CHAOS = dict(edge_p_kill=0.2, edge_p_respawn=0.5, uplink_p_loss=0.1,
+             uplink_loss_slope=0.2, client_p_crash=0.05, p_poison=0.1,
+             poison_nan=True)
+
+
+@pytest.mark.parametrize("mode", ["sync", "buffered"])
+def test_faulted_round_card_matches_cpu(cuda, mode):
+    """A ``CONFIG`` round (or micro-step) under chaos, from a mid-run state
+    (three steps on the card first), on the card and from the same state
+    and draws on the CPU: every ``FaultState`` leaf, the decisions and the
+    staleness exact, the bill rtol 1e-5 (and 1e-5 of the clock on the
+    buffered engine), the loss rtol 1e-4; the kernels launch as in an
+    unfaulted step."""
+    from repro_torch.faults import FaultSpec
+    spec = engine.EngineSpec(engine_mode=mode, faults=FaultSpec(**CHAOS))
+    state, bundle, aux = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    for _ in range(3):
+        state, _ = engine.round_step(
+            CONFIG, spec, state, bundle,
+            engine.sample_draws(CONFIG, bundle, aux["generator"], spec))
+    draws = engine.sample_draws(CONFIG, bundle, aux["generator"], spec)
+    torch.cuda.synchronize()
+    before = dict(hfl_ops.LAUNCHES)
+    s_card, m_card = engine.round_step(CONFIG, spec, state, bundle, draws)
+    torch.cuda.synchronize()
+    grew = {k: hfl_ops.LAUNCHES[k] - before[k] for k in before}
+    assert (grew["score_matrix"], grew["sic_rates"],
+            grew["local_sgd_step"]) == (1, 1, CONFIG.tau2)
+    cpu = torch.device("cpu")
+    s_cpu, m_cpu = engine.round_step(CONFIG, spec, _to(state, cpu),
+                                     _to(bundle, cpu), _to(draws, cpu))
+    for name, leaf in s_cpu.faults._asdict().items():
+        assert torch.equal(getattr(s_card.faults, name).cpu(), leaf), name
+    g, c = engine.metrics_row(m_card), engine.metrics_row(m_cpu)
+    assert g["z"].tolist() == c["z"].tolist()
+    for key in ("n_associated", "n_available", "sweeps"):
+        assert g[key] == c[key], key
+    assert torch.equal(s_card.staleness.cpu(), s_cpu.staleness)
+    clock = float(s_cpu.buffer.clock_s) if mode == "buffered" else 0.0
+    for key in ("total_energy_j", "total_time_s"):
+        assert abs(g[key] - c[key]) <= 1e-5 * (abs(c[key]) + clock), key
+    assert g["loss"] == pytest.approx(c["loss"], rel=1e-4)
+
+
+def test_all_nan_poison_keeps_the_global_model_on_the_card(cuda):
+    """Every delivered delta NaN-poisoned: two sync ``CONFIG`` rounds on
+    the card leave the global model bit for bit unchanged."""
+    from repro_torch.faults import FaultSpec
+    spec = engine.EngineSpec(faults=FaultSpec(
+        edge_p_kill=0.0, edge_p_respawn=0.0, p_poison=1.0, poison_nan=True))
+    state, bundle, aux = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    final, ms = engine.run_scanned(CONFIG, spec, state, bundle, 2,
+                                   aux["generator"])
+    for k, v in state.global_params.items():
+        assert torch.equal(final.global_params[k], v), k
+    assert int(final.faults.n_quarantined) > 0
+    assert bool(torch.isfinite(ms.loss).all())
+
+
+def test_resumable_run_on_the_card_is_bit_identical(cuda, tmp_path):
+    from repro_torch.faults import FaultSpec, run_scanned_resumable
+    spec = engine.EngineSpec(engine_mode="buffered", telemetry=True,
+                             faults=FaultSpec(**CHAOS))
+    state, bundle, _ = engine.init_simulation(CONFIG, seed=0, device=cuda)
+    state = engine.ensure_carry(CONFIG, spec, state)
+    gen_ref = torch.Generator(device=cuda).manual_seed(4)
+    ref, (ms, tr) = engine.run_scanned(CONFIG, spec, state, bundle, 4,
+                                       gen_ref)
+    run_scanned_resumable(CONFIG, spec, state, bundle, 4,
+                          torch.Generator(device=cuda).manual_seed(4),
+                          directory=str(tmp_path), segment_rounds=2,
+                          max_segments=1)
+    gen = torch.Generator(device=cuda)
+    res = run_scanned_resumable(CONFIG, spec, state, bundle, 4, gen,
+                                directory=str(tmp_path), segment_rounds=2)
+    def bits(t):    # NaN-poisoned deltas ride the carry: compare bits
+        t = t.cpu()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    for got, want in ((res.metrics, ms), (res.trace, tr),
+                      (res.state, ref)):
+        engine._map(lambda a, b: torch.equal(bits(a), bits(b))
+                    or pytest.fail("resumed run diverged"), got, want)
+    assert torch.equal(gen.get_state(), gen_ref.get_state())
+    assert res.state.gains.device.type == "cuda"
+
+
 def _sgd_case(k, tau1, batch, d_in, hidden, dev, n_classes=10, scale=None):
     """Weights 0.3·N(0, 1), or ``scale``/√fan-in for the matrices."""
     rng = np.random.default_rng(k + d_in)

@@ -24,6 +24,7 @@ from repro_torch import convert
 from repro_torch.configs.hfl_mnist import CONFIG
 from repro_torch.core import engine
 from repro_torch.core.hfl import HFLSimulation
+from repro_torch.faults import FaultSpec
 from repro_torch.kernels import hfl_ops
 
 SMALL_KW = dict(n_clients=16, n_edges=2, clients_per_edge=3, min_samples=60,
@@ -237,7 +238,8 @@ def test_sample_draws_adds_uniforms_after_the_shared_stream():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(faults=object()), "A15 f"), (dict(warm_start=True), "A15 g"),
+    (dict(faults=FaultSpec(), warm_start=True), "A15 g"),
+    (dict(warm_start=True), "A15 g"),
     (dict(candidates_k=2, warm_start=True), "A15 g")])
 def test_out_of_slice_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -249,7 +251,8 @@ def test_out_of_slice_options_raise(kw, item):
                                 dict(scenario="dynamic"),
                                 dict(allocator="fpa"), dict(allocator="fca"),
                                 dict(allocator="ddpg"), dict(telemetry=True),
-                                dict(engine_mode="buffered")])
+                                dict(engine_mode="buffered"),
+                                dict(faults=FaultSpec())])
 def test_ported_options_are_accepted(kw):
     spec = engine.EngineSpec(**kw)
     assert all(getattr(spec, k) == v for k, v in kw.items())

@@ -25,6 +25,7 @@ import torch
 
 from repro.core import engine as jengine
 from repro_torch.core import association, engine, fuzzy
+from repro_torch.faults import FaultSpec
 from repro_torch.kernels import _build, hfl_ops
 from test_torch_engine import JSMALL, SMALL, _replayed_draws, _start
 
@@ -246,19 +247,26 @@ def test_fleet_associates_each_seed_as_alone():
 
 
 def test_fleet_draws_are_each_seeds_own():
-    spec = engine.EngineSpec(policy="rcea", allocator="rra")
+    """Every field of seed s's fleet draws (the fault uniforms, with
+    faults on, too; an absent field stays absent) is its own
+    ``sample_draws``'s."""
     pairs = [engine.init_simulation(SMALL, seed=s, device="cpu")[:2]
              for s in (0, 1)]
     _, bundles = engine.stack_fleet(pairs)
-    draws = engine.fleet_draws(SMALL, bundles, [
-        torch.Generator().manual_seed(5), torch.Generator().manual_seed(6)],
-        spec)
-    for s, gen_seed in enumerate((5, 6)):
-        want = engine.sample_draws(SMALL, pairs[s][1],
-                                   torch.Generator().manual_seed(gen_seed),
-                                   spec)
-        for got, w in zip(draws, want):
-            assert torch.equal(got[s], w)
+    for spec in (engine.EngineSpec(policy="rcea", allocator="rra"),
+                 engine.EngineSpec(faults=FaultSpec(edge_p_kill=0.1))):
+        draws = engine.fleet_draws(SMALL, bundles, [
+            torch.Generator().manual_seed(5),
+            torch.Generator().manual_seed(6)], spec)
+        assert (draws.faults is None) == (spec.faults is None)
+        for s, gen_seed in enumerate((5, 6)):
+            want = engine.sample_draws(
+                SMALL, pairs[s][1], torch.Generator().manual_seed(gen_seed),
+                spec)
+            engine._map(lambda got, w: torch.equal(got, w)
+                        or pytest.fail(f"seed {s}: {spec}"),
+                        engine.select_seed(draws, s), want)
+    spec = engine.EngineSpec(policy="rcea", allocator="rra")
     with pytest.raises(ValueError, match="generators"):
         engine.fleet_draws(SMALL, bundles, [torch.Generator()], spec)
 
