@@ -141,6 +141,32 @@ and prints no result):
    generator) stopped after one segment and resumed: metrics, trace,
    final carry and generator state bit-identical to an uninterrupted
    ``run_scanned``;
+6i. the warm-started association (``[warm]``), under random_waypoint,
+   each warm run with the launch counters zeroed just before and read
+   just after and every kernel call it makes recorded and held against
+   its plain version: ``CONFIG`` fcea + PDD dense 5 rounds, the same at
+   K = 2 and buffered fcea dense 16 micro-steps, each warm against cold
+   from one generator state (metrics, trace, params, staleness and the
+   carry bit-equal but for the sweeps and the seed; each round's sweeps
+   printed); the warm dense run card vs CPU over 3 rounds (integers and
+   the warm leaf exact); a warm ``run_scanned_resumable`` stopped after
+   one segment of 2 and resumed bit-identical, seed and generator state
+   included; the reference's ``warm_sweeps`` case (1024 x 16 gcea +
+   fastest, 16 rounds): median and mean sweeps cold and warm and the
+   associate stage's ms a round in turns cold, warm, warm, cold;
+6j. the sweep runner (``[sweep]``), with the launch counters zeroed just
+   before its three grids and read just after and every kernel call held
+   against its plain version: the reference's ``--quick`` demo grid at
+   its own config (32 x 4: 12 cells in 6 groups), its quick chaos grid
+   (buffered, telemetry, faults) and one ddpg group (fcea K = 2, 2 x 10
+   slots, an actor trained a cell), written to a temporary directory;
+   each group's wall time; every cell against its own ``run_scanned`` on
+   the card (decisions exact, every float bit-equal); the witness of why
+   a fleet computes a seed at a time (seed 0 of a fleet vs its own run on
+   the same inputs, per-seed vs batched: the DDPG networks' products, the
+   eval logits, the SGD's cluster size); a group's wall time against a
+   plain ``run_fleet`` of the same fleet, and that fleet's SGD launched
+   at the fleet-wide cluster size instead of one seed's, in turns;
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -173,8 +199,10 @@ and prints no result):
     ``train_ddpg()`` run's, ``buffered_launches`` the ``CONFIG`` fcea
     dense buffered run's, ``score_candidates`` its K = 2 run's, and
     ``faults_launches`` the ``CONFIG`` fcea + PDD chaos run's, 5 rounds,
-    ``score_candidates`` its K = 2 dead-edge run's) and, last, the device
-    line.
+    ``score_candidates`` its K = 2 dead-edge run's, ``warm_launches`` the
+    warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
+    run's, and ``sweep_launches`` the ``[sweep]`` phase's three grids)
+    and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -1156,8 +1184,9 @@ def phase_candidates(cfg, dev):
 # the fleets the reference runs: 4 seeds below N = 1024 and 2 from there
 # on (benchmarks/bench_rounds.py:467; 4 in benchmarks/bench_sweeps.py:102,
 # 2 in src/repro/sweeps/grid.py:372,385); and S = 8, twice the largest,
-# at CONFIG, at which one round's 128 SGD lanes take a smaller cluster,
-# and 4 at the bench scale: the CONFIG and bench-scale sizes driven
+# at CONFIG, at which one round's 128 SGD lanes launch 1024 CTAs (one
+# seed's cluster size, 8), and 4 at the bench scale: the CONFIG and
+# bench-scale sizes driven
 REF_FLEET_SEEDS = (4, 2)
 FLEET_SEEDS = (8, 4)
 
@@ -1241,16 +1270,15 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
     ``worlds``) and its generator, on the card: z, n_available,
     n_associated, sweeps, the mean staleness each round and the final
     staleness exactly; cost, time and energy to rtol 1e-5; the loss to
-    rtol 1e-4 (the fleet's S·K lanes may take another SGD cluster size,
-    whose sums are not bit-equal); the accuracy to 2 test samples.  The
-    own runs are kept in ``own`` (by seed and world) for a later fleet of
-    the same seeds.  ``actors``: the fleet's DDPG actors, one a seed; each
-    own run deploys its seed's."""
+    rtol 1e-4; the accuracy to 2 test samples; the rounds whose every
+    float is bit-equal are counted.  The own runs are kept in ``own`` (by
+    seed and world) for a later fleet of the same seeds.  ``actors``: the
+    fleet's DDPG actors, one a seed; each own run deploys its seed's."""
     import torch
     from repro_torch.core import engine
     rounds = fm.accuracy.shape[1]
     own = {} if own is None else own
-    worst = {}
+    worst, exact = {}, 0
     for s in members:
         world = worlds[s] if worlds else None
         if (seeds[s], world) not in own:
@@ -1274,6 +1302,9 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
                                      f"run: {g} {w}")
             for key, v in _check_bill(msg, g, w, n_test).items():
                 worst[key] = max(worst.get(key, 0.0), v)
+            exact += all(g[k] == w[k] for k in (
+                "cost", "total_time_s", "total_energy_j", "loss",
+                "accuracy"))
         if not torch.equal(final.staleness[s].cpu(), o_state.staleness.cpu()):
             raise AssertionError(f"[fleet] {label} seed {seeds[s]}: final "
                                  f"staleness differs from its own run")
@@ -1282,7 +1313,8 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
     log(f"[fleet] {label}: seeds {who} each equal their own run_scanned: "
         f"z, n_available, n_associated, sweeps, staleness exact; "
         f"max rel diff " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + " (limits cost/time/energy 1e-5, loss 1e-4): ok")
+        + f" (limits cost/time/energy 1e-5, loss 1e-4), every float "
+        f"bit-equal in {exact} of {rounds * len(members)} rounds: ok")
 
 
 def _fleet_card_vs_cpu(cfg, spec, states, bundles, gens, label):
@@ -1784,11 +1816,6 @@ def phase_scenario(cfg, dev, static_steady):
 # 1.3e-7 (rel), and each side 1.9e-7 from float64 -- ulp-level sums in
 # other orders, no near-zero gradient flipping sign under Adam
 DDPG_TRAIN_TOL = dict(rtol=1e-5, atol=1e-6)
-# a fleet member (S = 4 batched products) against its own train_allocator
-# (S = 1) on the card, 10 × 40 slots, 337 updates: cuBLAS takes other
-# kernels for a batch of 4 and of 1.  Measured on an H100 80GB HBM3:
-# networks 6.1e-6 apart (abs), history 9.3e-8 (rel)
-DDPG_MEMBER_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _ddpg_counts(label, launches, slots, score):
@@ -1971,8 +1998,10 @@ def _ddpg_card_vs_cpu(cfg, dev):
 def _ddpg_fleet(cfg, dev):
     """``train_allocator_fleet`` at S = 4 (seeds 0-3, ``CONFIG``
     full_dynamic, 10 × 40 slots, hidden 64): one SIC call a slot; member 0
-    against its own ``train_allocator`` on its own slice of the draws;
-    then ``run_fleet_actors`` 3 rounds, each member against its own
+    against its own ``train_allocator`` on its own slice of the draws, bit
+    for bit (the networks' products run a seed at a time: a batched
+    product's cuBLAS kernel depends on the batch's size); then
+    ``run_fleet_actors`` 3 rounds, each member against its own
     ``run_scanned`` with its own actor."""
     import torch
     from repro_torch.core import ddpg, engine
@@ -2013,13 +2042,13 @@ def _ddpg_fleet(cfg, dev):
                           / own_h[k].abs()).max()) for k in own_h)
     log(f"[ddpg] fleet member 0 vs its own train_allocator: networks max "
         f"abs {net_gap:.3e}, history max rel {hist_gap:.3e}")
-    for n in ("actor", "critic"):
-        for k, want in getattr(own, n).items():
-            torch.testing.assert_close(getattr(member, n)[k], want,
-                                       **DDPG_MEMBER_TOL, msg=f"{n}/{k}")
-    for k, want in own_h.items():
-        torch.testing.assert_close(hist[k][0], want, **DDPG_MEMBER_TOL,
-                                   msg=k)
+    if not (all(torch.equal(getattr(member, n)[k], want)
+                for n in ("actor", "critic")
+                for k, want in getattr(own, n).items())
+            and all(torch.equal(hist[k][0], want)
+                    for k, want in own_h.items())):
+        raise AssertionError("[ddpg] fleet member 0 is not bit-equal to its "
+                             "own train_allocator")
     label = "CONFIG full_dynamic ddpg actors S=4"
     fm, steady_s, final, _ = _drive_fleet(cfg, spec, seeds, 3, dev, label,
                                           worlds, actors=agents.actor)
@@ -2431,7 +2460,7 @@ def _hold_recorded(label, calls, launches):
                                 atol=float(want.abs().max())
                                 * tol["atol_frac"])
         else:
-            want = hfl_ops.local_sgd_step_plain(*a, **kw)
+            want = hfl_ops.local_sgd_step_plain(*a, lr=kw["lr"])
             err = max(_max_err(got[k], want[k]) for k in PARAM_KEYS)
             ok = all(torch.allclose(got[k], want[k], **TOL["local_sgd_step"])
                      for k in PARAM_KEYS)
@@ -3003,6 +3032,577 @@ def phase_faults(cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# The warm-started association and the sweep runner
+# ---------------------------------------------------------------------------
+
+WARM_WORLD = "random_waypoint"
+WARM_TURNS = ("cold", "warm", "warm", "cold")
+
+
+class _PieceClock:
+    """Host seconds of each piece of a phase, printed on one line."""
+
+    def __init__(self, tag):
+        self.tag, self.parts = tag, []
+
+    def __call__(self, name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        self.parts.append((name, time.perf_counter() - t0))
+        return out
+
+    def report(self):
+        log(f"[{self.tag}] piece s: " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in self.parts))
+
+
+def _warm_cold_pair(cfg, spec_kw, steps, dev, label):
+    """``steps`` rounds (micro-steps) of ``spec_kw`` under
+    ``random_waypoint``, cold then warm, from one state and one generator
+    state, telemetry on; the warm run with the launch counters zeroed just
+    before and read just after and its kernel calls recorded.  Metrics and
+    trace bit-equal but for the sweeps, the final carry bit-equal but for
+    the seed; each round's sweeps printed.  Returns the warm run's
+    launches and both runs' sweeps."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev,
+                                                scenario=WARM_WORLD)
+    start = aux["generator"].get_state()
+    out = {}
+    for warm in (False, True):
+        spec = engine.EngineSpec(scenario="dynamic", telemetry=True,
+                                 warm_start=warm, **spec_kw)
+        gen = torch.Generator(device=dev).set_state(start)
+        with (_recording_kernels() if warm
+              else contextlib.nullcontext()) as calls:
+            torch.cuda.synchronize()
+            hfl_ops.reset_launches()
+            final, (ms, tr) = engine.run_scanned(cfg, spec, state, bundle,
+                                                 steps, gen)
+            torch.cuda.synchronize()
+            launches = dict(hfl_ops.LAUNCHES)
+        out[warm] = (final, ms, tr, launches, calls, spec)
+    (cf, cm, ct, cl, _, _), (wf, wm, wt, wl, calls, spec) = \
+        out[False], out[True]
+    sweeps = {"cold": cm.sweeps.tolist(), "warm": wm.sweeps.tolist()}
+    diverged = [name for name in engine.RoundMetrics._fields
+                if name != "sweeps"
+                and not _same_tree(getattr(cm, name), getattr(wm, name))]
+    diverged += [f"trace.{name}" for name in ct._fields
+                 if name != "assoc_sweeps"
+                 and not _same_tree(getattr(ct, name), getattr(wt, name))]
+    diverged += [f"state.{name}" for name in engine.RoundState._fields
+                 if name != "warm"
+                 and not _same_tree(getattr(cf, name), getattr(wf, name))]
+    if not _same_tree(wt.assoc_sweeps.cpu(), wm.sweeps.to(torch.int32)):
+        diverged.append("trace.assoc_sweeps != metrics.sweeps")
+    want = _want_launches(cfg, spec, steps)
+    if diverged or wl != want or cl != want or cf.warm is not None \
+            or wf.warm is None or wf.warm.device.type != "cuda":
+        raise AssertionError(f"[warm] {label}: warm and cold runs differ "
+                             f"in {diverged}; launches warm {wl}, cold "
+                             f"{cl}, expected {want}")
+    log(f"[warm] {label}, {steps} steps warm vs cold from one generator "
+        f"state: metrics, trace, params, staleness and the rest of the "
+        f"carry bit-equal: ok; sweeps a step cold {sweeps['cold']}, warm "
+        f"{sweeps['warm']}; launches {wl}")
+    _hold_recorded(f"[warm] {label}", calls, wl)
+    return wl, sweeps
+
+
+def _warm_card_vs_cpu(cfg, rounds, dev):
+    """``CONFIG`` fcea + PDD dense warm under ``random_waypoint``,
+    ``rounds`` rounds on the card and, from the same state and draws, on
+    the CPU: z, n_associated, n_available, sweeps, staleness and the warm
+    leaf exact each round; the bill at ``_check_bill``'s tolerances."""
+    import torch
+    from repro_torch.core import engine
+    cpu = torch.device("cpu")
+    spec = engine.EngineSpec(scenario="dynamic", warm_start=True)
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev,
+                                                scenario=WARM_WORLD)
+    gen = aux["generator"]
+    s_g, s_c, b_c = state, _to(state, cpu), _to(bundle, cpu)
+    n_test = bundle.test_y.shape[0]
+    worst, sweeps = {}, []
+    for r in range(rounds):
+        draws = engine.sample_draws(cfg, bundle, gen, spec)
+        s_g, m_g = engine.round_step(cfg, spec, s_g, bundle, draws)
+        s_c, m_c = engine.round_step(cfg, spec, s_c, b_c, _to(draws, cpu))
+        g, c = engine.metrics_row(m_g), engine.metrics_row(m_c)
+        tag = f"[card-vs-cpu] warm round {r + 1}"
+        if not (g["z"].tolist() == c["z"].tolist()
+                and all(g[k] == c[k] for k in ("n_associated", "n_available",
+                                               "sweeps"))
+                and torch.equal(s_g.staleness.cpu(), s_c.staleness)
+                and torch.equal(s_g.warm.cpu(), s_c.warm)):
+            raise AssertionError(f"{tag}: card and CPU disagree: {g} {c}")
+        for key, v in _check_bill(tag, g, c, n_test).items():
+            worst[key] = max(worst.get(key, 0.0), v)
+        sweeps.append(g["sweeps"])
+    log(f"[card-vs-cpu] CONFIG fcea-pdd dense warm, {rounds} rounds: z, "
+        f"n_associated, n_available, sweeps {sweeps}, staleness and the "
+        f"warm leaf exact every round; largest relative gaps "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + ": ok")
+
+
+def _warm_resume(cfg, dev):
+    """``run_scanned_resumable`` warm (``CONFIG`` fcea + PDD dense under
+    ``random_waypoint``), 4 rounds in segments of 2 with a CUDA generator,
+    stopped after one segment in a temporary directory under ``build/``
+    and resumed with a fresh generator: metrics (sweeps included), the
+    final carry with its warm leaf and the generator state bit-identical
+    to an uninterrupted ``run_scanned``."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.faults import run_scanned_resumable
+    spec = engine.EngineSpec(scenario="dynamic", warm_start=True)
+    state, bundle, _ = engine.init_simulation(cfg, seed=0, device=dev,
+                                              scenario=WARM_WORLD)
+    gen_ref = torch.Generator(device=dev).manual_seed(22)
+    ref, ms = engine.run_scanned(cfg, spec, state, bundle, 4, gen_ref)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="warm_resume_", dir=build)
+    try:
+        first = run_scanned_resumable(
+            cfg, spec, state, bundle, 4,
+            torch.Generator(device=dev).manual_seed(22),
+            directory=directory, segment_rounds=2, max_segments=1)
+        gen = torch.Generator(device=dev).manual_seed(999)
+        res = run_scanned_resumable(cfg, spec, state, bundle, 4, gen,
+                                    directory=directory, segment_rounds=2)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    cpu = torch.device("cpu")
+    diverged = [tag for tag, a, b in (("metrics", res.metrics, ms),
+                                      ("carry", res.state, ref))
+                if not _same_tree(_to(a, cpu), _to(b, cpu))]
+    if not torch.equal(gen.get_state(), gen_ref.get_state()):
+        diverged.append("generator")
+    if diverged or first.completed_rounds != 2 or not res.done \
+            or res.state.warm.device.type != "cuda":
+        raise AssertionError(f"[warm] resume: the resumed run diverged from "
+                             f"the uninterrupted one in {diverged}")
+    log(f"[warm] resume CONFIG fcea-pdd dense warm, 4 rounds in segments of "
+        f"2 (CUDA generator): stopped after one segment, resumed; metrics "
+        f"(sweeps {res.metrics.sweeps.tolist()}), the final carry with its "
+        f"warm leaf and the generator state bit-identical to the "
+        f"uninterrupted run_scanned: ok")
+
+
+def _warm_bench(cfg, dev, rounds=16):
+    """The reference's ``bench_rounds.warm_sweeps_ab``: 1024 x 16
+    ``random_waypoint``, gcea + fastest, ``rounds`` rounds cold and warm
+    from one state and generator state, in turns cold, warm, warm, cold:
+    the median and mean sweeps of rounds 2..R (round 1 has no seed) and
+    the associate stage's ms a round (CUDA events, median over rounds
+    2..R, then over the turns of each mode); the two modes' decisions
+    equal."""
+    import torch
+    from repro_torch.core import engine
+    cfg = bench_config(cfg, 1024, 16)
+    state, bundle, aux = engine.init_simulation(cfg, seed=0, device=dev,
+                                                scenario=WARM_WORLD)
+    start = aux["generator"].get_state()
+    sweeps, assoc_ms, decisions = {}, {"cold": [], "warm": []}, {}
+    for mode in WARM_TURNS:
+        spec = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                                 scenario="dynamic",
+                                 warm_start=mode == "warm")
+        timer = StageTimer()
+        gen = torch.Generator(device=dev).set_state(start)
+        _, ms = engine.run_scanned(cfg, spec, state, bundle, rounds, gen,
+                                   timer=timer)
+        sweeps[mode] = ms.sweeps.tolist()
+        decisions.setdefault(mode, (ms.n_associated.cpu(), ms.z.cpu()))
+        assoc_ms[mode].append(statistics.median(timer.ms()["associate"][1:]))
+    if not (torch.equal(decisions["cold"][0], decisions["warm"][0])
+            and torch.equal(decisions["cold"][1], decisions["warm"][1])):
+        raise AssertionError("[warm] 1024x16: warm and cold decisions differ")
+    out = {}
+    for mode in ("cold", "warm"):
+        tail = sweeps[mode][1:]
+        out[mode] = (statistics.median(tail), statistics.mean(tail),
+                     statistics.median(assoc_ms[mode]))
+    log(f"[warm] 1024x16 random_waypoint gcea-fastest, {rounds} rounds: "
+        f"sweeps a round cold {sweeps['cold']}, warm {sweeps['warm']}; "
+        f"rounds 2..{rounds}: median sweeps cold {out['cold'][0]} warm "
+        f"{out['warm'][0]}, mean cold {out['cold'][1]:.2f} warm "
+        f"{out['warm'][1]:.2f}; associate stage ms a round (median, turns "
+        f"{'/'.join(WARM_TURNS)}) cold {out['cold'][2]:.4f} warm "
+        f"{out['warm'][2]:.4f} ({out['warm'][2] / out['cold'][2]:.2f}x); "
+        f"per turn cold {[round(v, 4) for v in assoc_ms['cold']]} warm "
+        f"{[round(v, 4) for v in assoc_ms['warm']]}; decisions equal: ok")
+
+
+def phase_warm(cfg, dev):
+    """The warm-started association on the card: ``CONFIG`` fcea + PDD
+    dense 5 rounds and K = 2, and buffered fcea dense 16 micro-steps, each
+    warm against cold from one generator state under ``random_waypoint``
+    (every kernel call of each warm run held against its plain version);
+    the warm dense run card vs CPU; a warm resumable run; the reference's
+    ``warm_sweeps`` case at 1024 x 16.  Returns the launches of the dense
+    warm run (the K = 2 run's for ``score_candidates``)."""
+    clock = _PieceClock("warm")
+    launches, _ = clock("dense", _warm_cold_pair, cfg, {}, 5, dev,
+                        "CONFIG fcea-pdd dense")
+    launches_k, _ = clock("K=2", _warm_cold_pair, cfg, {"candidates_k": 2},
+                          5, dev, "CONFIG fcea-pdd K=2")
+    clock("buffered", _warm_cold_pair, cfg, {"engine_mode": "buffered"}, 16,
+          dev, "CONFIG fcea dense buffered")
+    clock("card vs cpu", _warm_card_vs_cpu, cfg, 3, dev)
+    clock("resume", _warm_resume, cfg, dev)
+    clock("1024x16", _warm_bench, cfg, dev)
+    clock.report()
+    return {**launches, "score_candidates": launches_k["score_candidates"]}
+
+
+def _sweep_cfg(cfg):
+    """The reference's ``sweeps/grid.py`` demo config: 32 x 4, hidden 32,
+    input 64."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_clients=32, n_edges=4, min_samples=60,
+                               max_samples=120, hidden=32, input_dim=64)
+
+
+def _sweep_grids():
+    """The reference's ``--quick`` demo grid and quick chaos grid, and one
+    ddpg group (fcea at K = 2, 2 seeds, 2 episodes x 10 slots, each cell
+    trained on its own world)."""
+    from repro_torch.faults import FaultSpec
+    from repro_torch.sweeps import SweepGrid
+    return [
+        SweepGrid(name="demo",
+                  scenarios=("static", "random_waypoint", "markov_dropout",
+                             "hetero_devices", "full_dynamic",
+                             "flash_crowd"),
+                  policies=("fcea", "gcea"), seeds=(0,), n_rounds=3),
+        SweepGrid(name="chaos", scenarios=("static", "markov_dropout"),
+                  policies=("gcea",), seeds=(0,), n_rounds=3, telemetry=True,
+                  engine_modes=("buffered",),
+                  faults=FaultSpec(edge_p_kill=0.2, edge_p_respawn=0.5,
+                                   uplink_p_loss=0.1, uplink_loss_slope=0.2)),
+        SweepGrid(name="ddpg", scenarios=("full_dynamic",),
+                  policies=("fcea",), allocators=("ddpg",), seeds=(0, 1),
+                  n_rounds=3, candidates_k=2, ddpg_episodes=2, ddpg_steps=10,
+                  ddpg_warmup=8, ddpg_hidden=64)]
+
+
+def _sweep_cell_vs_own(cfg, grid, rows, dev):
+    """Each cell of ``grid`` against its own ``run_scanned`` from a fresh
+    ``init_simulation(seed)`` on the card (a ddpg cell billed by the actor
+    ``train_allocator`` trains alone from its own training generator): the
+    decisions (round, n_associated, n_available, z) exact and every float
+    bit-equal in every cell, whatever group it ran in.  Returns (cells,
+    the largest relative gaps, all 0)."""
+    import torch
+    from repro_torch.core import ddpg, engine
+    from repro_torch.sweeps import grid as sweep_grid
+    cells = sweep_grid.expand_grid(grid)
+    worst = {}
+    for cell in cells:
+        spec = sweep_grid._spec_for(cell, grid)
+        state, bundle, aux = engine.init_simulation(
+            cfg, seed=cell.seed, iid=grid.iid, device=dev,
+            scenario=cell.sspec)
+        actor = None
+        if cell.allocator == "ddpg":
+            g = torch.Generator(device=dev).manual_seed(
+                sweep_grid.TRAIN_SEED_BASE + cell.seed)
+            dcfg = ddpg.allocator_config(cfg, spec, hidden=grid.ddpg_hidden)
+            agent = ddpg.init_ddpg(g, dcfg)
+            draws = ddpg.sample_ddpg_draws(cfg, dcfg, [g],
+                                           grid.ddpg_episodes,
+                                           grid.ddpg_steps).seed(0)
+            assoc_u = (torch.rand(bundle.dist.shape, generator=g, device=dev)
+                       if spec.policy == "rcea" else None)
+            agent, _ = ddpg.train_allocator(cfg, spec, state, bundle, dcfg,
+                                            agent, draws,
+                                            warmup=grid.ddpg_warmup,
+                                            assoc_u=assoc_u)
+            actor = agent.actor
+        _, out = engine.run_scanned(cfg, spec, state, bundle, grid.n_rounds,
+                                    aux["generator"], actor)
+        ms, _ = engine.split_output(spec, out)
+        got = rows[cell.cell_id]
+        tag = f"[sweep] {cell.cell_id}"
+        if not all(got[k] == getattr(ms, k).tolist()
+                   for k in ("round", "n_associated", "n_available", "z")):
+            raise AssertionError(f"{tag}: decisions differ from its own "
+                                 f"run_scanned")
+        for i in range(grid.n_rounds):
+            g = {k: v[i] for k, v in got.items()}
+            w = engine.metrics_row(ms, i)
+            diff = [k for k in ("cost", "total_time_s", "total_energy_j",
+                                "avg_staleness", "loss", "accuracy")
+                    if g[k] != w[k]]
+            if diff:
+                raise AssertionError(f"{tag} round {i + 1}: {diff} not "
+                                     f"bit-equal to its own run: {g} {w}")
+            for key, v in _check_bill(f"{tag} round {i + 1}", g, w,
+                                      bundle.test_y.shape[0]).items():
+                worst[key] = max(worst.get(key, 0.0), v)
+    return len(cells), worst
+
+
+def _batched_mlp_apply(params, x, n_layers):
+    """The DDPG networks as one batched product over the seed axis (the
+    form ``ddpg._mlp_apply`` avoids), for ``_fleet_witness``."""
+    import torch
+    one = x.dim() == params["w0"].dim() - 1
+    if one:
+        x = x.unsqueeze(-2)
+    for i in range(n_layers):
+        x = x @ params[f"w{i}"] + params[f"b{i}"].unsqueeze(-2)
+        if i < n_layers - 1:
+            x = torch.relu(x)
+    return x.squeeze(-2) if one else x
+
+
+def _fleet_witness(cfg, config8, dev):
+    """Why a fleet computes a seed at a time: seed 0 of a fleet against
+    its own single run on the same inputs, in the port's per-seed form and
+    in the batched form it replaces -- the ddpg group's first cell's actor
+    trained alone and in a fleet of 2 (``_mlp_apply``'s products); the
+    eval logits of ``CONFIG``'s 8 initial models on their test sets
+    (``config8``, ``_fleet_inputs``; ``mlp._dense``); 4 × 16 SGD lanes at the sweep config's shape at one
+    seed's cluster size and at the fleet-wide one.  Fails unless every
+    per-seed form is bit-equal; returns the batched forms' max abs gaps."""
+    import torch
+    from repro_torch.core import ddpg, engine
+    from repro_torch.kernels import hfl_ops
+    from repro_torch.models import mlp
+    from repro_torch.models.mlp import PARAM_KEYS
+    from repro_torch.sweeps import grid as sweep_grid
+    gap = lambda a, b: max(float((a[k] - b[k]).abs().max()) for k in a)
+    grid = _sweep_grids()[2]
+    cells = sweep_grid.expand_grid(grid)[:2]
+    spec = sweep_grid._spec_for(cells[0], grid)
+
+    def actor0(members):
+        built = [engine.init_simulation(cfg, seed=c.seed, device=dev,
+                                        scenario=c.sspec)[:2]
+                 for c in members]
+        states, bundles = engine.stack_fleet(built)
+        return {k: v[0] for k, v in sweep_grid._train_actors(
+            cfg, spec, grid, members, states, bundles, dev).items()}
+    per_seed = ddpg._mlp_apply
+    out = {}
+    for form in ("per_seed", "batched"):
+        ddpg._mlp_apply = per_seed if form == "per_seed" else \
+            _batched_mlp_apply
+        try:
+            out[form, "ddpg"] = gap(actor0(cells[:2]), actor0(cells[:1]))
+        finally:
+            ddpg._mlp_apply = per_seed
+    params, x = config8[0].global_params, config8[1].test_x
+
+    def batched(p, xs):
+        h = torch.relu(xs @ p["w1"] + p["b1"][:, None])
+        h = torch.relu(h @ p["w2"] + p["b2"][:, None])
+        return h @ p["w3"] + p["b3"][:, None]
+    one = {k: v[:1] for k, v in params.items()}
+    out["per_seed", "eval"] = float(
+        (mlp.apply(params, x)[0] - mlp.apply(one, x[:1])[0]).abs().max())
+    out["batched", "eval"] = float(
+        (batched(params, x)[0] - batched(one, x[:1])[0]).abs().max())
+    k, seeds = 16, 4
+    shape = (cfg.local_batch, cfg.input_dim, cfg.hidden, cfg.n_classes)
+    p, bx, by = sgd_inputs(seeds * k, 1, *shape, 7, dev)
+    own = hfl_ops.local_sgd_step({n: v[:k] for n, v in p.items()},
+                                 bx[:, :k], by[:, :k], lr=0.01)
+    for form, n in (("per_seed", seeds), ("batched", 1)):
+        got = hfl_ops.local_sgd_step(p, bx, by, lr=0.01, seeds=n)
+        out[form, "sgd"] = gap({n_: got[n_][:k] for n_ in PARAM_KEYS}, own)
+    torch.cuda.synchronize()
+    if any(out["per_seed", part] for part in ("ddpg", "eval", "sgd")):
+        raise AssertionError(f"[sweep] a fleet's seed 0 is not bit-equal to "
+                             f"its own run in the per-seed form: {out}")
+    sizes = [hfl_ops.sgd_cluster_size(n * k, *shape) for n in (1, seeds)]
+    log(f"[sweep] fleet seed 0 vs its own single run on the same inputs, "
+        f"max abs gap per-seed form / batched form: ddpg actor trained in "
+        f"a fleet of 2 {out['per_seed', 'ddpg']} / {out['batched', 'ddpg']}"
+        f"; CONFIG eval logits, 8 seeds {out['per_seed', 'eval']} / "
+        f"{out['batched', 'eval']}; SGD 4 x 16 lanes at one seed's cluster "
+        f"size ({sizes[0]}) {out['per_seed', 'sgd']} / at the fleet-wide "
+        f"({sizes[1]}) {out['batched', 'sgd']}: ok")
+
+
+def _fleet_inputs(cfg, worlds, seeds, dev):
+    """A fleet of ``worlds`` at seed 0, or of the static ``seeds``: its
+    stacked states and bundles and each world's generator state."""
+    from repro_torch.core import engine
+    built = ([engine.init_simulation(cfg, seed=0, device=dev, scenario=w)
+              for w in worlds] if worlds else
+             [engine.init_simulation(cfg, seed=s, device=dev)
+              for s in seeds])
+    states, bundles = engine.stack_fleet([(st, b) for st, b, _ in built])
+    return states, bundles, [aux["generator"].get_state()
+                             for _, _, aux in built]
+
+
+def _plain_fleet_s(cfg, spec, inputs, dev, rounds=3):
+    """Seconds of one plain ``run_fleet`` from ``_fleet_inputs``, with
+    fresh generators, from a synchronised start to its metrics on the
+    host."""
+    import torch
+    from repro_torch.core import engine
+    states, bundles, gen_states = inputs
+    gens = [torch.Generator(device=dev).set_state(g) for g in gen_states]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ms = engine.run_fleet(cfg, spec, states, bundles, rounds, gens)
+    [v.cpu() for v in ms if isinstance(v, torch.Tensor)]
+    return time.perf_counter() - t0
+
+
+def _sweep_vs_run_fleet(cfg, config8, dev):
+    """A sweep group's wall time against a plain ``run_fleet`` of the same
+    fleet (gcea + fastest, so no PDD loop hides the runner;
+    random_waypoint, markov_dropout, hetero_devices and full_dynamic, seed
+    0, 3 rounds), each ending with its metrics on the host, in turns
+    sweep, plain, plain, sweep, twice.  Then the SGD's launch geometry: a
+    plain fleet with its S·K lanes at one seed's cluster size (the port's
+    rule, which keeps each seed bit-equal to its own run) against the
+    fleet-wide size (the largest with S·K·c within the SMs), in turns
+    per-seed, fleet-wide, fleet-wide, per-seed, at those 4 worlds and at
+    ``CONFIG``'s 8 static seeds (``config8``)."""
+    from repro_torch.configs.hfl_mnist import CONFIG
+    from repro_torch.core import engine
+    from repro_torch.kernels import hfl_ops
+    from repro_torch.sweeps import SweepGrid, run_sweep
+    worlds = ("random_waypoint", "markov_dropout", "hetero_devices",
+              "full_dynamic")
+    grid = SweepGrid(name="ab", scenarios=worlds, policies=("gcea",),
+                     schedulers=("fastest",), seeds=(0,), n_rounds=3)
+    spec = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                             scenario="dynamic")
+    inputs = _fleet_inputs(cfg, worlds, None, dev)
+    walls = {"sweep": [], "plain": []}
+    for turn in ("sweep", "plain", "plain", "sweep") * 2:
+        walls[turn].append(
+            run_sweep(cfg, grid, write_json=False, device=dev)["groups"][0]
+            ["wall_s"] if turn == "sweep"
+            else _plain_fleet_s(cfg, spec, inputs, dev))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[sweep] group vs plain run_fleet, 4 worlds gcea-fastest 3 rounds, "
+        f"turns sweep/plain/plain/sweep x2: sweep {walls['sweep']} s, plain "
+        f"{walls['plain']} s; medians sweep {med['sweep']} plain "
+        f"{med['plain']} ({med['sweep'] / med['plain']:.3f}x)")
+    real = hfl_ops.local_sgd_step
+
+    def fleet_wide(*a, **kw):
+        kw.pop("seeds", None)
+        return real(*a, **kw)
+    static = engine.EngineSpec(policy="gcea", scheduler="fastest")
+    for label, c, sp, inputs in (
+            ("sweep config, 4 worlds", cfg, spec, inputs),
+            ("CONFIG, 8 static seeds", CONFIG, static, config8)):
+        lanes = min(c.n_clients, engine.quota_for(c, sp) * c.n_edges)
+        shape = (c.local_batch, c.input_dim, c.hidden, c.n_classes)
+        s = inputs[1].dist.shape[0]
+        sizes = {"per_seed": hfl_ops.sgd_cluster_size(lanes, *shape),
+                 "fleet_wide": hfl_ops.sgd_cluster_size(s * lanes, *shape)}
+        walls = {"per_seed": [], "fleet_wide": []}
+        try:
+            for turn in ("per_seed", "fleet_wide", "fleet_wide",
+                         "per_seed"):
+                hfl_ops.local_sgd_step = (fleet_wide if turn == "fleet_wide"
+                                          else real)
+                walls[turn].append(_plain_fleet_s(c, sp, inputs, dev))
+        finally:
+            hfl_ops.local_sgd_step = real
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        log(f"[sweep] SGD cluster size a fleet, {label} ({s} x {lanes} "
+            f"lanes), gcea-fastest 3 rounds, turns per-seed/fleet-wide/"
+            f"fleet-wide/per-seed: "
+            f"per-seed (cluster {sizes['per_seed']}) {walls['per_seed']} s, "
+            f"fleet-wide (cluster {sizes['fleet_wide']}) "
+            f"{walls['fleet_wide']} s; medians {med['per_seed']} vs "
+            f"{med['fleet_wide']} "
+            f"({med['per_seed'] / med['fleet_wide']:.3f}x)")
+
+
+def phase_sweep(cfg, dev):
+    """The sweep runner on the card, the launch counters zeroed just
+    before the three grids and read just after, every kernel call held
+    against its plain version: the reference's quick demo grid (12 cells
+    in 6 groups), its quick chaos grid (buffered, telemetry, faults) and
+    one ddpg group, written to a temporary directory; each group's wall
+    time; every cell against its own ``run_scanned``; the per-seed forms
+    against the batched ones (``_fleet_witness``); a group against a
+    plain ``run_fleet``.  Returns the phase's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import hfl_ops
+    from repro_torch.sweeps import run_sweep
+    cfg = _sweep_cfg(cfg)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="sweep_", dir=build)
+    grids, summaries = _sweep_grids(), []
+    try:
+        with _recording_kernels() as calls:
+            torch.cuda.synchronize()
+            hfl_ops.reset_launches()
+            for grid in grids:
+                summaries.append(run_sweep(cfg, grid, out_dir=directory,
+                                           device=dev))
+            torch.cuda.synchronize()
+            launches = dict(hfl_ops.LAUNCHES)
+        files = sorted(p.name for p in (Path(directory) / "sweep_demo")
+                       .iterdir())
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for grid, s in zip(grids, summaries):
+        if s["failed_cells"]:
+            raise AssertionError(f"[sweep] {grid.name}: failed cells "
+                                 f"{s['failed_cells']}")
+        log(f"[sweep] {grid.name}: {s['n_cells']} cells in "
+            f"{s['n_compiles']} groups; wall s a group "
+            + ", ".join(f"{g['spec']['policy']}/{g['spec']['scenario']}/"
+                        f"{g['spec']['engine_mode']} x{g['n_cells']} "
+                        f"{g['wall_s']}"
+                        + (f" (+{g['ddpg_train_s']} s training, "
+                           f"{g['ddpg_actors']} actors)"
+                           if 'ddpg_train_s' in g else "")
+                        for g in s["groups"]))
+    demo = summaries[0]
+    if (demo["n_cells"], demo["n_compiles"], len(files)) != (12, 6, 13):
+        raise AssertionError(f"[sweep] demo: {demo['n_cells']} cells, "
+                             f"{demo['n_compiles']} groups, {len(files)} "
+                             f"files")
+    if not all(launches[k] for k in ("score_matrix", "score_candidates",
+                                     "sic_rates", "local_sgd_step")):
+        raise AssertionError(f"[sweep] a kernel of the path never launched: "
+                             f"{launches}")
+    log(f"[sweep] launches of the phase (3 grids): {launches}")
+    _hold_recorded("[sweep] three grids", calls, launches)
+    clock = _PieceClock("sweep")
+    for grid, s in zip(grids, summaries):
+        n, worst = clock(f"{grid.name} cells vs own", _sweep_cell_vs_own,
+                         cfg, grid, s["cells"], dev)
+        log(f"[sweep] {grid.name}: each of {n} cells against its own "
+            f"run_scanned on the card: decisions exact, every float "
+            f"(cost, time, energy, staleness, loss, accuracy) bit-equal; "
+            f"largest relative gaps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + ": ok")
+    from repro_torch.configs.hfl_mnist import CONFIG
+    config8 = clock("CONFIG 8 seeds", _fleet_inputs, CONFIG, None, range(8),
+                    dev)
+    clock("fleet witness", _fleet_witness, cfg, config8, dev)
+    clock("group vs run_fleet", _sweep_vs_run_fleet, cfg, config8, dev)
+    clock.report()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The substrate: sequence kernels and recurrentgemma-9b serving
 # ---------------------------------------------------------------------------
 
@@ -3435,6 +4035,8 @@ def main(argv=None) -> int:
                          runs["fcea"][2])
     fault_launches = phase("hfl faults and resume", phase_faults, CONFIG,
                            dev)
+    warm_launches = phase("hfl warm start", phase_warm, CONFIG, dev)
+    sweep_launches = phase("hfl sweep runner", phase_sweep, CONFIG, dev)
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -3461,6 +4063,20 @@ def main(argv=None) -> int:
     # the frontier's score from its K = 2 dead-edge run, 3 rounds)
     fault_launches = {**fault_launches, "local_sgd_step":
                       fault_launches["local_sgd_step_cluster"]}
+    # the warm start: CONFIG fcea + PDD dense under random_waypoint, 5
+    # rounds (and the frontier's score from its K = 2 run, 5 rounds)
+    warm_launches = {**warm_launches, "local_sgd_step":
+                     warm_launches["local_sgd_step_cluster"]}
+    # the sweep runner's three grids at 32 x 4: local_sgd_step counts the
+    # wrapper's launches, whichever route the lane count takes
+
+    def phase_launches(name):
+        return {"scenario_launches": scen_launches.get(name, 0),
+                "ddpg_launches": ddpg_launches.get(name, 0),
+                "buffered_launches": buf_launches.get(name, 0),
+                "faults_launches": fault_launches.get(name, 0),
+                "warm_launches": warm_launches.get(name, 0),
+                "sweep_launches": sweep_launches.get(name, 0)}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -3469,20 +4085,14 @@ def main(argv=None) -> int:
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
-                        "scenario_launches": scen_launches.get(name, 0),
-                        "ddpg_launches": ddpg_launches.get(name, 0),
-                        "buffered_launches": buf_launches.get(name, 0),
-                        "faults_launches": fault_launches.get(name, 0)})
+                        **phase_launches(name)})
     for name, (err, ms_k, ms_p, b_ms, b_by, lib_ms) in seq_cmp.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
-                        "scenario_launches": scen_launches.get(name, 0),
-                        "ddpg_launches": ddpg_launches.get(name, 0),
-                        "buffered_launches": buf_launches.get(name, 0),
-                        "faults_launches": fault_launches.get(name, 0)})
+                        **phase_launches(name)})
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",
@@ -3490,10 +4100,7 @@ def main(argv=None) -> int:
                         "launches": n_launch, "max_abs_err": err,
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
-                        "scenario_launches": scen_launches.get(name, 0),
-                        "ddpg_launches": ddpg_launches.get(name, 0),
-                        "buffered_launches": buf_launches.get(name, 0),
-                        "faults_launches": fault_launches.get(name, 0)})
+                        **phase_launches(name)})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     result = {"kernels": kernels}
     if args.out:

@@ -3,7 +3,8 @@ and a JSON manifest (the reference's ``repro.checkpoint.store`` layout).
 
 A tree is what the engine's states and outputs are made of: dicts, named
 tuples, tuples and lists of tensors, with ``None`` for an absent part
-(``RoundState.buffer`` on the sync engine) and Python numbers
+(``RoundState.buffer`` on the sync engine, ``RoundState.warm`` with the
+warm start off) and Python numbers
 (``round_idx``).  It is flattened as ``engine._map`` walks it, to
 ``/``-joined key paths (dict keys, named-tuple field names, tuple
 indices).  The manifest records each path's dtype and shape, the step

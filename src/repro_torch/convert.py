@@ -6,8 +6,8 @@ leaves as plain numpy arrays -- the caller converts them with
 ``RoundState``/``RoundBundle`` on ``device``, so both sides can start from
 the same params, gains, staleness, world (``scenario_from_numpy``) and
 data; a reference buffered state mid-run carries its ``BufferState``
-over too (``buffer_from_numpy``), and a faulted one its ``FaultState``
-(``faults_from_numpy``).
+over too (``buffer_from_numpy``), a faulted one its ``FaultState``
+(``faults_from_numpy``) and a warm-started one its ``warm`` seed.
 ``ddpg_from_numpy`` and ``actor_from_numpy`` carry a reference DDPG
 agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
@@ -40,8 +40,9 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
     ``round_idx`` and, optionally, ``scenario`` (a reference
     ``ScenarioState`` as numpy, or None: the state then carries none, and
     runs the static kind only) and ``buffer`` (a reference
-    ``BufferState`` as numpy, or None) and ``faults`` (a reference
-    ``FaultState`` as numpy, or None); bundle_np: one with ``dist``, ``x``,
+    ``BufferState`` as numpy, or None), ``faults`` (a reference
+    ``FaultState`` as numpy, or None) and ``warm`` (the (N,) assigned
+    seed, or None); bundle_np: one with ``dist``, ``x``,
     ``y``, ``counts``, ``test_x`` and ``test_y``.  Every array is copied
     onto ``device``."""
     dev = resolve_device(device)
@@ -61,7 +62,8 @@ def state_from_numpy(state_np: Any, bundle_np: Any,
         round_idx=int(np.asarray(s["round_idx"])),
         scenario=scenario_from_numpy(s.get("scenario"), dev),
         buffer=buffer_from_numpy(s.get("buffer"), dev),
-        faults=faults_from_numpy(s.get("faults"), dev))
+        faults=faults_from_numpy(s.get("faults"), dev),
+        warm=None if s.get("warm") is None else i32(s["warm"]))
     bundle = RoundBundle(dist=f32(b["dist"]), x=f32(b["x"]), y=i32(b["y"]),
                          counts=f32(b["counts"]), test_x=f32(b["test_x"]),
                          test_y=i32(b["test_y"]))

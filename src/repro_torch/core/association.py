@@ -19,6 +19,16 @@ proposal, and one read a sweep brings back every seed's flag.
 
 ``resolve_candidates`` plays the same sweeps on the (N, K) candidate
 frontier (``core.candidates``), with every per-sweep tensor O(N·K).
+
+Both resolvers take a ``seed`` (N,) -- a previous round's assigned
+vector -- that warm-starts the sweeps: the seeds still valid today are
+the initial holds, the unchanged sweeps run to their fixed point, and a
+seed whose result admits a blocking pair (``_blocking_pair_dense``,
+``_blocking_pair_frontier``) is resolved cold as well, its sweep count
+billing both phases.  The warm result is therefore a stable matching of
+today's market, and over a fleet the fallback is decided seed by seed:
+one read brings back every seed's flag, and one cold resolution, run only
+if some seed blocks, is selected per seed.
 """
 from __future__ import annotations
 
@@ -45,8 +55,55 @@ def _sweep_done(propose: torch.Tensor, active: list, sweeps: list) -> None:
             active[s] = more[s]
 
 
+def _blocking_pair_dense(assigned: torch.Tensor, rank: torch.Tensor,
+                         dist: torch.Tensor, coverage: torch.Tensor,
+                         quota: int) -> torch.Tensor:
+    """(S,) bool: does each seed's ``assigned`` (S, N) admit a blocking
+    pair under today's market?  Pair (c, m) blocks when the edge wants c
+    -- in coverage, not held, and m has a free slot or ranks c above its
+    worst-held client -- and the client wants m: unmatched, or m beats its
+    current edge by the strict (distance, edge index) order.  The cold
+    resolver's matching never has one (deferred acceptance is stable), so
+    this is the warm start's acceptance test.  ``rank`` (S, M, N) is each
+    client's position in each edge's queue."""
+    m_edges = rank.shape[-2]
+    col = torch.arange(m_edges, dtype=torch.int32, device=rank.device)
+    held = assigned[:, None, :] == col[:, None]                  # (S, M, N)
+    deficit = quota - torch.sum(held, dim=-1)                    # (S, M)
+    worst = torch.amax(torch.where(held, rank, -1), dim=-1)      # (S, M)
+    edge_wants = (coverage.transpose(-1, -2) & ~held
+                  & ((deficit > 0)[..., None] | (rank < worst[..., None])))
+    cur_dist = torch.gather(dist, -1,
+                            torch.clamp_min(assigned, 0).long()[..., None])
+    nearer = (dist < cur_dist) | ((dist == cur_dist)
+                                  & (col < assigned[..., None]))
+    client_wants = (assigned < 0)[..., None] | nearer            # (S, N, M)
+    return torch.any((edge_wants & client_wants.transpose(-1, -2))
+                     .flatten(1), dim=1)
+
+
+def _warm_then_cold(run, seed_ok, seed, blocking, seeds: int, n: int,
+                    dev: torch.device):
+    """A seeded resolution over a fleet: ``run(assigned0)`` -> (assigned
+    (S, N), sweeps list) from the kept seeds, then ``blocking(assigned)``
+    (S,) read back in one transfer; if some seed blocks, one cold
+    ``run`` of the whole fleet, whose result replaces the blocking seeds'
+    (``torch.where``) and whose sweeps are billed on top of theirs."""
+    warm, sweeps = run(torch.where(seed_ok, seed.to(torch.int32), -1))
+    block = blocking(warm)
+    flags = block.tolist()
+    if not any(flags):
+        return warm, sweeps
+    cold, cold_sweeps = run(torch.full((seeds, n), -1, dtype=torch.int32,
+                                       device=dev))
+    return (torch.where(block[:, None], cold, warm),
+            [w + (c if f else 0)
+             for w, c, f in zip(sweeps, cold_sweeps, flags)])
+
+
 def resolve_parallel(order: torch.Tensor, dist: torch.Tensor, quota: int,
-                     coverage: torch.Tensor, return_sweeps: bool = False):
+                     coverage: torch.Tensor, return_sweeps: bool = False,
+                     seed: torch.Tensor | None = None):
     """Vectorised quota-round deferred acceptance.
 
     order: (M, N) -- per-edge client indices by descending preference;
@@ -56,10 +113,19 @@ def resolve_parallel(order: torch.Tensor, dist: torch.Tensor, quota: int,
     also the number of sweeps run (a list of S, one a seed, over a fleet):
     each seed's count runs up to and including its first sweep with no
     proposal.
+
+    ``seed`` (N,) int32 ((S, N)), a previous round's assigned vector,
+    warm-starts the sweeps: a seed that is ≥ 0 and whose edge is still in
+    ``coverage`` is an initial hold (a previous matching holds at most
+    ``quota`` an edge, and coverage loss only shrinks it), the unchanged
+    sweeps run to their fixed point, and where the result has a blocking
+    pair one cold resolution runs, its sweeps billed on top.  ``None``
+    resolves cold.
     """
     if order.dim() == 2:
-        assoc, sweeps = resolve_parallel(order[None], dist[None], quota,
-                                         coverage[None], True)
+        assoc, sweeps = resolve_parallel(
+            order[None], dist[None], quota, coverage[None], True,
+            None if seed is None else seed[None])
         return (assoc[0], sweeps[0]) if return_sweeps else assoc[0]
     seeds, m_edges, n_clients = order.shape
     dev = order.device
@@ -72,30 +138,42 @@ def resolve_parallel(order: torch.Tensor, dist: torch.Tensor, quota: int,
     k_top = min(quota, n_clients)
     max_sweeps = n_clients * m_edges + 2
 
-    assigned = torch.full((seeds, n_clients), -1, dtype=torch.int32,
-                          device=dev)
-    rejected = ~coverage
-    active, sweeps = [True] * seeds, [0] * seeds
-    while any(active) and max(sweeps) < max_sweeps:
-        held = assigned[:, None, :] == col[:, None]               # (S, M, N)
-        deficit = quota - torch.sum(held, dim=-1)                 # (S, M)
-        elig = (~rejected.transpose(-1, -2)) & (~held)
-        keys = torch.where(elig, rank, big)
-        # the deficit-th smallest eligible rank is the proposal cut-off;
-        # ranks are distinct, so exactly min(deficit, #eligible) propose
-        kth = torch.topk(keys, k_top, dim=-1, largest=False).values
-        thr_idx = torch.clamp(deficit - 1, 0, k_top - 1)
-        thr = torch.gather(kth, -1, thr_idx[..., None])           # (S, M, 1)
-        propose = elig & (keys <= thr) & (deficit > 0)[..., None]
-        # candidates per client: the incumbent plus incoming proposals
-        cand = propose.transpose(-1, -2) | (assigned[..., None] == col)
-        ckey = torch.where(cand, dist, torch.inf)
-        # argmin keeps the first minimum: the (distance, edge) tie-break
-        best = torch.argmin(ckey, dim=-1).to(torch.int32)
-        has = torch.any(cand, dim=-1)
-        assigned = torch.where(has, best, -1).to(torch.int32)
-        rejected = rejected | (cand & (col != best[..., None]))
-        _sweep_done(propose, active, sweeps)
+    def run(assigned):
+        rejected = ~coverage
+        active, sweeps = [True] * seeds, [0] * seeds
+        while any(active) and max(sweeps) < max_sweeps:
+            held = assigned[:, None, :] == col[:, None]           # (S, M, N)
+            deficit = quota - torch.sum(held, dim=-1)             # (S, M)
+            elig = (~rejected.transpose(-1, -2)) & (~held)
+            keys = torch.where(elig, rank, big)
+            # the deficit-th smallest eligible rank is the proposal
+            # cut-off; ranks are distinct, so exactly min(deficit,
+            # #eligible) propose
+            kth = torch.topk(keys, k_top, dim=-1, largest=False).values
+            thr_idx = torch.clamp(deficit - 1, 0, k_top - 1)
+            thr = torch.gather(kth, -1, thr_idx[..., None])       # (S, M, 1)
+            propose = elig & (keys <= thr) & (deficit > 0)[..., None]
+            # candidates per client: the incumbent plus incoming proposals
+            cand = propose.transpose(-1, -2) | (assigned[..., None] == col)
+            ckey = torch.where(cand, dist, torch.inf)
+            # argmin keeps the first minimum: the (distance, edge) tie-break
+            best = torch.argmin(ckey, dim=-1).to(torch.int32)
+            has = torch.any(cand, dim=-1)
+            assigned = torch.where(has, best, -1).to(torch.int32)
+            rejected = rejected | (cand & (col != best[..., None]))
+            _sweep_done(propose, active, sweeps)
+        return assigned, sweeps
+
+    if seed is None:
+        assigned, sweeps = run(torch.full((seeds, n_clients), -1,
+                                          dtype=torch.int32, device=dev))
+    else:
+        ok = (seed >= 0) & torch.gather(
+            coverage, -1, torch.clamp_min(seed, 0).long()[..., None])[..., 0]
+        assigned, sweeps = _warm_then_cold(
+            run, ok, seed,
+            lambda a: _blocking_pair_dense(a, rank, dist, coverage, quota),
+            seeds, n_clients, dev)
     assoc = ((assigned[..., None] == col)
              & (assigned[..., None] >= 0)).to(torch.int32)
     if return_sweeps:
@@ -120,12 +198,14 @@ def associate(policy: str, *, scores: torch.Tensor | None,
               gains: torch.Tensor, dist: torch.Tensor, quota: int,
               coverage_radius_m: float, uniform: torch.Tensor | None = None,
               avail: torch.Tensor | None = None,
-              return_sweeps: bool = False):
+              return_sweeps: bool = False,
+              seed: torch.Tensor | None = None):
     """Dense (N, M) one-hot association for ``policy``: fcea ranks by
     ``scores``, gcea by ``gains``, rcea by ``uniform`` (N, M).  ``avail``
     (N,) is a scenario's availability mask: an unavailable client is out
-    of every edge's coverage, so no policy admits it.  Every argument may
-    carry a leading fleet axis S."""
+    of every edge's coverage, so no policy admits it (nor keeps its warm
+    ``seed``, see ``resolve_parallel``).  Every argument may carry a
+    leading fleet axis S."""
     pref = _preference(policy, scores, gains, uniform)
     if pref.dim() == dist.dim() - 1:
         pref = pref[..., None].expand(dist.shape)
@@ -136,7 +216,7 @@ def associate(policy: str, *, scores: torch.Tensor | None,
     # stable: exact preference ties go to the lower client index
     order = torch.argsort(-pref, dim=-2, stable=True).transpose(-1, -2)
     return resolve_parallel(order, dist, quota, coverage,
-                            return_sweeps=return_sweeps)
+                            return_sweeps=return_sweeps, seed=seed)
 
 
 def resolve_candidates(pref: torch.Tensor, cand, quota: int, n_edges: int,
@@ -158,16 +238,18 @@ def resolve_candidates(pref: torch.Tensor, cand, quota: int, n_edges: int,
     and ``cand`` with a leading axis S) the S·N·K pairs are ranked at once
     by the folded segment key s·M + edge -- each seed's edges their own
     segments, client-major inside them as for one seed -- and the sweeps
-    are a list of S, as in ``resolve_parallel``.  Cold start only.
+    are a list of S, as in ``resolve_parallel``.
+
+    ``seed`` (N,) ((S, N)) warm-starts the sweeps as in
+    ``resolve_parallel``: a seed whose edge sits on one of the client's
+    valid slots is an initial hold, and ``_blocking_pair_frontier`` gates
+    the cold fallback.
     """
-    if seed is not None:
-        raise NotImplementedError("warm-start seeding is not ported to "
-                                  "repro_torch yet (ROADMAP A15 g)")
     idx, valid, dist = cand.idx, cand.valid, cand.dist
     if idx.dim() == 2:
         assigned, sweeps = resolve_candidates(
             pref[None], type(cand)(*(f[None] for f in cand)), quota,
-            n_edges, True)
+            n_edges, True, None if seed is None else seed[None])
         return (assigned[0], sweeps[0]) if return_sweeps else assigned[0]
     seeds, n, k = idx.shape
     dev = idx.device
@@ -185,46 +267,92 @@ def resolve_candidates(pref: torch.Tensor, cand, quota: int, n_edges: int,
     col_k = torch.arange(k, device=dev)
     max_sweeps = n * k + 2
 
-    assigned = torch.full((seeds, n), -1, dtype=torch.int32, device=dev)
-    rejected = ~valid
-    active, sweeps = [True] * seeds, [0] * seeds
-    while any(active) and max(sweeps) < max_sweeps:
-        matched = assigned >= 0
-        held = (assigned[..., None] == idx) & matched[..., None]
-        # per-(seed, edge) held count: an exact int32 scatter-add
-        filled = torch.zeros((seeds * n_edges,), dtype=torch.int32,
-                             device=dev)
-        filled.index_add_(0, (torch.clamp_min(assigned, 0) + base)
-                          .reshape(-1).long(),
-                          matched.to(torch.int32).reshape(-1))
-        deficit = quota - filled
-        elig = valid & (~rejected) & (~held)                    # (S, N, K)
-        es = elig.reshape(-1)[perm].to(torch.int32)             # rank order
-        c = torch.cumsum(es, dim=0)
-        before = torch.where(seg_start > 0, c[prev], 0)
-        n_better = c - es - before
-        prop_sorted = (es > 0) & (n_better < deficit[sorted_e])
-        propose = prop_sorted[inv].reshape(seeds, n, k)
-        offer = propose | held
-        # first minimum over (distance, edge)-sorted slots
-        ckey = torch.where(offer, dist, torch.inf)
-        best = torch.argmin(ckey, dim=-1)
-        has = torch.any(offer, dim=-1)
-        assigned = torch.where(
-            has, torch.gather(idx, -1, best[..., None])[..., 0], -1
-        ).to(torch.int32)
-        rejected = rejected | (offer & (col_k != best[..., None]))
-        _sweep_done(propose, active, sweeps)
+    def run(assigned):
+        rejected = ~valid
+        active, sweeps = [True] * seeds, [0] * seeds
+        while any(active) and max(sweeps) < max_sweeps:
+            matched = assigned >= 0
+            held = (assigned[..., None] == idx) & matched[..., None]
+            # per-(seed, edge) held count: an exact int32 scatter-add
+            filled = torch.zeros((seeds * n_edges,), dtype=torch.int32,
+                                 device=dev)
+            filled.index_add_(0, (torch.clamp_min(assigned, 0) + base)
+                              .reshape(-1).long(),
+                              matched.to(torch.int32).reshape(-1))
+            deficit = quota - filled
+            elig = valid & (~rejected) & (~held)                # (S, N, K)
+            es = elig.reshape(-1)[perm].to(torch.int32)         # rank order
+            c = torch.cumsum(es, dim=0)
+            before = torch.where(seg_start > 0, c[prev], 0)
+            n_better = c - es - before
+            prop_sorted = (es > 0) & (n_better < deficit[sorted_e])
+            propose = prop_sorted[inv].reshape(seeds, n, k)
+            offer = propose | held
+            # first minimum over (distance, edge)-sorted slots
+            ckey = torch.where(offer, dist, torch.inf)
+            best = torch.argmin(ckey, dim=-1)
+            has = torch.any(offer, dim=-1)
+            assigned = torch.where(
+                has, torch.gather(idx, -1, best[..., None])[..., 0], -1
+            ).to(torch.int32)
+            rejected = rejected | (offer & (col_k != best[..., None]))
+            _sweep_done(propose, active, sweeps)
+        return assigned, sweeps
+
+    if seed is None:
+        assigned, sweeps = run(torch.full((seeds, n), -1, dtype=torch.int32,
+                                          device=dev))
+    else:
+        ok = (seed >= 0) & torch.any((idx == seed[..., None]) & valid,
+                                     dim=-1)
+        assigned, sweeps = _warm_then_cold(
+            run, ok, seed,
+            lambda a: _blocking_pair_frontier(a, idx, valid, inv, base,
+                                              quota, n_edges),
+            seeds, n, dev)
     if return_sweeps:
         return assigned, sweeps
     return assigned
 
 
+def _blocking_pair_frontier(assigned: torch.Tensor, idx: torch.Tensor,
+                            valid: torch.Tensor, inv: torch.Tensor,
+                            base: torch.Tensor, quota: int, n_edges: int
+                            ) -> torch.Tensor:
+    """``_blocking_pair_dense`` on the (S, N, K) frontier: the edge side
+    compares pair ranks from the resolver's one rank order ``inv`` (within
+    one (seed, edge) segment, at the folded key ``idx + base``), and the
+    client side is the slot order itself -- rows are (distance,
+    edge)-sorted, so a client strictly prefers slot j to its held slot hj
+    iff j < hj."""
+    seeds, n, k = idx.shape
+    dev = idx.device
+    flat_e = (idx.long() + base[..., None]).reshape(-1)
+    held = ((assigned[..., None] == idx) & (assigned >= 0)[..., None]
+            & valid)
+    held_f = held.reshape(-1)
+    filled = torch.zeros((seeds * n_edges,), dtype=torch.int32, device=dev)
+    filled.index_add_(0, flat_e, held_f.to(torch.int32))
+    pair_rank = inv.reshape(seeds, n, k)
+    worst = torch.full((seeds * n_edges,), -1, dtype=inv.dtype, device=dev)
+    worst.scatter_reduce_(0, flat_e, torch.where(held_f, inv, -1),
+                          reduce="amax")
+    edge_wants = valid & ~held & (
+        ((quota - filled) > 0)[flat_e].reshape(seeds, n, k)
+        | (pair_rank < worst[flat_e].reshape(seeds, n, k)))
+    col_k = torch.arange(k, device=dev)
+    held_slot = torch.amin(torch.where(held, col_k, k), dim=-1)
+    client_wants = col_k < held_slot[..., None]                  # (S, N, K)
+    return torch.any((edge_wants & client_wants).flatten(1), dim=1)
+
+
 def associate_candidates(policy: str, *, scores: torch.Tensor | None,
                          gains: torch.Tensor, cand, quota: int, n_edges: int,
                          uniform: torch.Tensor | None = None,
-                         return_sweeps: bool = False):
-    """Association on the frontier: the compact assigned vector (N,).
+                         return_sweeps: bool = False,
+                         seed: torch.Tensor | None = None):
+    """Association on the frontier: the compact assigned vector (N,),
+    warm-started from ``seed`` when given (``resolve_candidates``).
 
     ``scores``: fcea competency already on the frontier, (N, K) from
     ``score_candidates``, or per client (N,).  gcea gathers the (N, M)
@@ -244,4 +372,4 @@ def associate_candidates(policy: str, *, scores: torch.Tensor | None,
         pref = torch.gather(_preference(policy, scores, gains, uniform), -1,
                             cand.idx.long())
     return resolve_candidates(pref, cand, quota, n_edges,
-                              return_sweeps=return_sweeps)
+                              return_sweeps=return_sweeps, seed=seed)

@@ -100,17 +100,24 @@ def _mlp_init(generator: torch.Generator, sizes) -> Params:
 
 def _mlp_apply(params: Params, x: torch.Tensor, n_layers: int
                ) -> torch.Tensor:
-    """x (…, B, in) -> (…, B, out) through ``n_layers`` ReLU layers;
-    weights (S, in, out) apply to seed s's rows.  One input row a seed,
-    x (…, in), gives (…, out)."""
-    one = x.dim() == params["w0"].dim() - 1
+    """x (B, in) -> (B, out) through ``n_layers`` ReLU layers; one input
+    row, x (in,), gives (out,).  A fleet's weights (S, in, out) apply to
+    seed s's rows x (S, …) one seed at a time: a batched product's kernel,
+    and with it the order of its sums, depends on the batch's size, so a
+    seed's products (and their gradients) would differ from its own
+    single run's in the last bits."""
+    if params["w0"].dim() == 3:
+        return torch.stack([
+            _mlp_apply({k: v[s] for k, v in params.items()}, x[s], n_layers)
+            for s in range(x.shape[0])])
+    one = x.dim() == 1
     if one:
-        x = x.unsqueeze(-2)
+        x = x.unsqueeze(0)
     for i in range(n_layers):
-        x = x @ params[f"w{i}"] + params[f"b{i}"].unsqueeze(-2)
+        x = x @ params[f"w{i}"] + params[f"b{i}"]
         if i < n_layers - 1:
             x = torch.relu(x)
-    return x.squeeze(-2) if one else x
+    return x[0] if one else x
 
 
 def actor_apply(params: Params, state: torch.Tensor) -> torch.Tensor:
@@ -411,7 +418,9 @@ def train_allocator_fleet(cfg, spec, states, bundles, dcfg: DDPGConfig,
             aloss.append(losses["actor_loss"])
         for key, rows in (("episode_reward", rewards), ("critic_loss", closs),
                           ("actor_loss", aloss)):
-            history[key].append(torch.mean(torch.stack(rows), dim=0))
+            # a seed at a time, as the networks' products
+            history[key].append(torch.stack(
+                [torch.mean(r) for r in torch.stack(rows, dim=-1)]))
     return agent, {k: torch.stack(v, dim=-1) for k, v in history.items()}
 
 

@@ -67,12 +67,18 @@ carry is ``RoundState.faults`` (a ``FaultState``) and its random numbers
 are ``RoundDraws.faults`` (a ``FaultDraws``), both absent with faults
 off, when the round is today's.
 
+With ``EngineSpec(warm_start=True)`` the association is warm-started:
+``RoundState.warm`` carries the previous round's assigned vector (N,)
+int32 (−1 unassigned), and the resolver's sweeps start from the seeds
+still valid today, falling back to a cold resolution wherever the warm
+result admits a blocking pair (``core.association``).  The matching is
+the cold one; only the sweep counts differ.  Off, the leaf is absent.
+
 The port covers the sync and the buffered engine on every scenario kind,
 dense or on the candidate frontier, with fcea, gcea or rcea, the
 ``mid``, ``rra``, ``fpa``, ``fca`` or ``ddpg`` allocator, PDD or fastest
-scheduling (the sync engine's), NOMA or OMA, with or without telemetry
-and faults.  The warm-started association raises ``NotImplementedError``
-naming its ROADMAP item (A15 g).
+scheduling (the sync engine's), NOMA or OMA, with or without telemetry,
+faults and the warm start.
 """
 from __future__ import annotations
 
@@ -116,8 +122,8 @@ class EngineSpec:
     and ``buffer_lr=1``), not options here.
     ``telemetry`` adds the ``RoundTrace`` to each step's output.
     ``faults`` (a ``FaultSpec``, or None for none) turns on the fault
-    layer.  ``warm_start`` is not ported yet: it is accepted at its off
-    value only."""
+    layer.  ``warm_start`` carries the previous round's matching in
+    ``RoundState.warm`` and seeds the resolver with it."""
     policy: str = "fcea"            # fcea | gcea | rcea
     allocator: str = "mid"          # mid | rra | fpa | fca | ddpg
     scheduler: str = "pdd"          # pdd | fastest
@@ -154,9 +160,6 @@ class EngineSpec:
                                                       FaultSpec):
             raise TypeError(f"faults must be a FaultSpec or None, not "
                             f"{type(self.faults).__name__}")
-        if self.warm_start:
-            raise NotImplementedError(
-                "not ported to repro_torch yet: warm_start (ROADMAP A15 g)")
 
 
 class RoundBundle(NamedTuple):
@@ -200,6 +203,7 @@ class RoundState(NamedTuple):
     scenario: Any = None     # scenarios.ScenarioState (None: static only)
     buffer: Any = None       # BufferState (buffered engine) | None
     faults: Any = None       # FaultState (EngineSpec.faults set) | None
+    warm: Any = None         # (N,) int32 previous assigned | None
 
 
 class FaultDraws(NamedTuple):
@@ -340,12 +344,38 @@ def ensure_faults(cfg, spec: EngineSpec, state: "RoundState"
     return state
 
 
+def init_warm(cfg, device: "str | torch.device" = "cpu",
+              lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """A fresh warm-start seed, (*lead, N) int32: every client unassigned
+    (−1), so the first warm round starts as the cold resolver does."""
+    return torch.full(tuple(lead) + (cfg.n_clients,), -1, dtype=torch.int32,
+                      device=device)
+
+
+def ensure_warm(cfg, spec: EngineSpec, state: "RoundState"
+                ) -> "RoundState":
+    """``state.warm`` normalised to the spec: the unassigned seed attached
+    when ``spec.warm_start`` is on (one already there is kept, e.g. mid-run
+    or restored from a checkpoint), stripped when it is off.  A state that
+    is already normalised comes back as the same object."""
+    if spec.warm_start:
+        if state.warm is None:
+            return state._replace(warm=init_warm(
+                cfg, state.staleness.device, state.staleness.shape[:-1]))
+        return state
+    if state.warm is not None:
+        return state._replace(warm=None)
+    return state
+
+
 def ensure_carry(cfg, spec: EngineSpec, state: "RoundState"
                  ) -> "RoundState":
     """The whole carry normalised to the spec's optional parts (the
-    aggregation buffer and the fault state): the one normaliser the
-    drivers and ``fleet_step`` call."""
-    return ensure_faults(cfg, spec, ensure_buffer(cfg, spec, state))
+    aggregation buffer, the fault state and the warm-start seed): the one
+    normaliser the drivers and ``fleet_step`` call."""
+    return ensure_warm(cfg, spec,
+                       ensure_faults(cfg, spec, ensure_buffer(cfg, spec,
+                                                              state)))
 
 
 # ---------------------------------------------------------------------------
@@ -619,7 +649,9 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
     aggregation weight and never scatter back; unadmitted clients keep
     their params.  The lane selection is sync-free: a stable sort of
     ``~selected``.  The S·K lanes are independent, so each τ₂ step trains
-    them all in one ``local_sgd_step`` call.
+    them all in one ``local_sgd_step`` call, at the cluster size of one
+    seed's K lanes: each seed's result is its own single run's, bit for
+    bit.
 
     ``assoc`` (S, N, M); ``batch_idx`` (S, τ₂, τ₁, N, B).
     """
@@ -658,7 +690,8 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
             {k: v.reshape((seeds * k_sel,) + v.shape[2:])
              for k, v in lane_params.items()},
             bx.reshape((tau1, seeds * k_sel) + bx.shape[3:]),
-            by.reshape(tau1, seeds * k_sel, batch), lr=cfg.lr)
+            by.reshape(tau1, seeds * k_sel, batch), lr=cfg.lr,
+            seeds=seeds)
         lane_params = {k: v.reshape((seeds, k_sel) + v.shape[1:])
                        for k, v in folded.items()}
         edge_params = aggregation.edge_aggregate(lane_params, sel_assoc,
@@ -752,9 +785,9 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
     their slots invalid and keeps its distances physical.  Returns the
     float (S, N, M) one-hot, the frontier's (S, N) assigned edges and its
     ``CandidateSet`` (both None when dense) and the sweeps (a list, one a
-    seed).  The one definition
-    of the association: ``fleet_step``, ``fleet_buffered_step`` and
-    ``fleet_snapshot`` call it."""
+    seed; with a warm seed in ``states.warm``, warm plus any cold
+    fallback).  The one definition of the association: ``fleet_step``,
+    ``fleet_buffered_step`` and ``fleet_snapshot`` call it."""
     assigned = cand = None
     data_max = float(cfg.max_samples)
     if spec.candidates_k is not None:
@@ -770,7 +803,7 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
         assigned, sweeps = association.associate_candidates(
             spec.policy, scores=scores, gains=gains, cand=cand,
             quota=quota_for(cfg, spec), n_edges=cfg.n_edges,
-            uniform=assoc_u, return_sweeps=True)
+            uniform=assoc_u, return_sweeps=True, seed=states.warm)
         assoc = candidates.assigned_one_hot(assigned, cfg.n_edges)
     else:
         if edge_up is not None:
@@ -784,7 +817,8 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
             spec.policy, scores=scores, gains=gains, dist=dist,
             quota=quota_for(cfg, spec),
             coverage_radius_m=coverage_radius(cfg),
-            uniform=assoc_u, avail=avail, return_sweeps=True)
+            uniform=assoc_u, avail=avail, return_sweeps=True,
+            seed=states.warm)
     assoc = assoc.float()
     if avail is not None and assigned is None:
         # the explicit Eq. 11/17/23a mask: no policy trains on,
@@ -792,6 +826,21 @@ def _associate(cfg, spec: EngineSpec, states: RoundState,
         # ``valid`` already excludes it)
         assoc = assoc * avail[..., None]
     return assoc, assigned, cand, sweeps
+
+
+def _next_warm(spec: EngineSpec, assoc: torch.Tensor,
+               assigned: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The seed the next round's resolver starts from, (S, N) int32, or
+    None with the warm start off: the frontier's compact assigned vector,
+    or each dense row's edge (−1 for a row with no edge), read off the
+    one-hot after the availability or tier mask."""
+    if not spec.warm_start:
+        return None
+    if assigned is not None:
+        return assigned.to(torch.int32)
+    return torch.where(torch.sum(assoc, dim=-1) > 0,
+                       torch.argmax(assoc, dim=-1).to(torch.int32),
+                       -1).to(torch.int32)
 
 
 def _device_sweeps(sweeps, dev: torch.device) -> torch.Tensor:
@@ -954,7 +1003,8 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
         fault_tr = _fault_trace(cfg, edge_up, dist, avail,
                                 torch.zeros_like(n_drop), n_drop, n_rej)
     new_state = RoundState(global_params, client_params, gains, new_stale,
-                           round_idx, scen, None, new_faults)
+                           round_idx, scen, None, new_faults,
+                           _next_warm(spec, assoc, assigned))
     if spec.telemetry:
         tr = telemetry_trace.round_trace(
             cfg, spec, round_idx=round_idx, rc_all=rc_all, z=z,
@@ -1218,7 +1268,8 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
         fault_tr = _fault_trace(cfg, edge_up, dist, avail, n_retry, n_drop,
                                 n_rej)
     new_state = RoundState(global_params, client_params, gains, new_stale,
-                           round_idx, scen, new_buf, new_faults)
+                           round_idx, scen, new_buf, new_faults,
+                           _next_warm(spec, assoc, assigned))
     if spec.telemetry:
         cause = torch.where(fired, torch.where(by_fill, 1, 2), 0).to(i32)
         tr = telemetry_trace.round_trace(

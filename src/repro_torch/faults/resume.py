@@ -3,8 +3,8 @@ reference's ``repro.faults.resume``).
 
 ``run_scanned_resumable`` splits one ``run_scanned`` experiment into
 segments of ``segment_rounds`` rounds and, after every segment,
-checkpoints the whole carry (``RoundState`` with its ``BufferState`` and
-``FaultState``), the outputs so far and the random-number generator's
+checkpoints the whole carry (``RoundState`` with its ``BufferState``,
+``FaultState`` and warm-start seed), the outputs so far and the random-number generator's
 state (``checkpoint.store``).  A later call with the same ``directory``
 resumes from the newest snapshot, and its trajectory is bit-identical to
 the uninterrupted run's:

@@ -424,14 +424,24 @@ def sgd_max_active_clusters(k: int, batch: int, d_in: int, hidden: int,
 
 
 def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
-                   by: torch.Tensor, *, lr: float) -> Dict[str, torch.Tensor]:
+                   by: torch.Tensor, *, lr: float, seeds: int = 1
+                   ) -> Dict[str, torch.Tensor]:
     """τ₁ minibatch-SGD steps for every lane of the stacked K-lane cohort.
 
     params: leaves (K, …) over ``PARAM_KEYS``; bx (τ₁, K, B, D) gathered
     minibatches; by (τ₁, K, B) int labels.  Returns the updated params in
     new tensors; ``params`` is left as it is.  On the card the kernel is
     chosen by ``sgd_route`` and never on failure: an error raises.
+
+    ``seeds``: the K lanes are a fleet's, ``seeds`` cohorts of K / seeds
+    lanes.  The cluster kernel takes the cluster size that one cohort
+    takes alone: a lane's sums run in an order set by the cluster size, so
+    this keeps each seed's result bit-equal to its own single run,
+    whatever fleet shares the launch.
     """
+    if seeds < 1 or bx.shape[1] % seeds:
+        raise ValueError(f"local_sgd_step: {bx.shape[1]} lanes are not "
+                         f"{seeds} equal cohorts")
     if bx.device.type == "cpu":
         return local_sgd_step_plain(params, bx, by, lr=lr)
     dev = bx.device
@@ -451,7 +461,7 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     by = by.to(torch.int32).contiguous()
     _require(by, "by", dev, torch.int32, (tau1, k, batch))
     if cluster:
-        c = sgd_cluster_size(k, batch, d_in, hidden, n_classes)
+        c = sgd_cluster_size(k // seeds, batch, d_in, hidden, n_classes)
         smem = sgd_smem_bytes(batch, d_in, hidden, n_classes, c)
     else:
         smem = sgd_block_smem_bytes(batch, hidden, n_classes)

@@ -43,8 +43,14 @@ def init_params(input_dim: int, hidden: int, n_classes: int, *,
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
            ) -> torch.Tensor:
-    """x @ w + b, batched over a leading fleet axis when w is (S, ...)."""
-    return x @ w + (b[..., None, :] if w.dim() == 3 else b)
+    """x @ w + b.  A fleet's weights (S, …) apply to its x (S, T, in) a
+    seed at a time: a batched product's cuBLAS kernel, and with it the
+    order of its sums, depends on the batch's size, so a seed's logits
+    would differ from its own single run's in the last bits."""
+    if w.dim() == 3:
+        return (torch.stack([xs @ ws for xs, ws in zip(x, w)])
+                + b[..., None, :])
+    return x @ w + b
 
 
 def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -58,8 +64,14 @@ def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy as logsumexp minus the label logit -- the
-    reference's formulation (``models/layers.py`` there); one mean for
-    each leading (fleet) index."""
+    reference's formulation (``models/layers.py`` there).  A fleet's
+    logits (S, T, V) give one mean a seed, each reduced alone: how the
+    card splits a reduction over its blocks depends on how many rows it
+    reduces, so a seed's loss would differ from its own single run's in
+    the last bits."""
+    if logits.dim() == 3:
+        return torch.stack([softmax_cross_entropy(lg, lb)
+                            for lg, lb in zip(logits, labels)])
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

@@ -40,7 +40,8 @@ class RoundTrace(NamedTuple):
     edge→cloud hop, and the matching Σ-shaped ``energy_*_j``, which sum
     to ``RoundMetrics.total_energy_j``.
 
-    Association: ``assoc_sweeps`` (the resolver's sweeps), ``edge_load``
+    Association: ``assoc_sweeps`` (the resolver's sweeps; warm-started,
+    the warm sweeps plus any cold fallback's), ``edge_load``
     (M,) admitted clients per edge, ``frontier_valid_frac`` (valid share
     of the (N, K) frontier, or of the (N, M) coverage mask when dense),
     ``frontier_saturation`` (share of matched clients admitted through

@@ -207,14 +207,6 @@ def test_resolve_candidates_at_full_k_equals_dense(kind):
     assert sweeps == dense_sweeps
 
 
-def test_resolve_candidates_warm_start_is_not_ported_yet():
-    dist, pref, radius = _world(0, 8, 3, "random")
-    cand = candidates.build_candidates(_t(dist), 2, coverage_radius_m=radius)
-    with pytest.raises(NotImplementedError, match="A15"):
-        association.resolve_candidates(_t(pref[:, :2]), cand, 2, 3,
-                                       seed=torch.zeros(8, dtype=torch.int32))
-
-
 @pytest.mark.parametrize("policy", ["fcea", "gcea", "rcea"])
 def test_associate_candidates_matches_reference(policy):
     """rcea gathers the reference's dense (N, M) uniform at the frontier."""

@@ -209,3 +209,45 @@ def test_resumable_without_interruption_matches_scan(tmp_path):
                                   segment_rounds=3)
     assert again.done
     _equal(again.metrics, ref_ms, "metrics after a finished run")
+
+
+
+@pytest.mark.parametrize("candidates_k", [None, 2])
+def test_resumable_warm_run_resumes_bit_identical(tmp_path, candidates_k):
+    """A warm-started random_waypoint run stopped after one segment and
+    resumed: the ``warm`` leaf travels in the snapshot, so the resumed
+    rounds start from last round's matching, and the sweep counts, metrics,
+    final carry (seed included) and generator state equal the
+    uninterrupted run's.  Resumed from the same snapshot with the seed
+    reset, the run makes the same decisions in other sweep counts."""
+    spec = engine.EngineSpec(policy="gcea", scheduler="fastest",
+                             scenario="dynamic", warm_start=True,
+                             candidates_k=candidates_k)
+    state, bundle, _ = engine.init_simulation(SMALL, seed=0, device="cpu",
+                                              scenario="random_waypoint")
+    n_rounds = 6
+    gen_ref = torch.Generator().manual_seed(4)
+    ref_final, ref_ms = engine.run_scanned(SMALL, spec, state, bundle,
+                                           n_rounds, gen_ref)
+    gen_first = torch.Generator().manual_seed(4)
+    first = run_scanned_resumable(SMALL, spec, state, bundle, n_rounds,
+                                  gen_first, directory=str(tmp_path),
+                                  segment_rounds=2, max_segments=1)
+    assert first.completed_rounds == 2
+    gen = torch.Generator().manual_seed(999)
+    res = run_scanned_resumable(SMALL, spec, state, bundle, n_rounds, gen,
+                                directory=str(tmp_path), segment_rounds=2)
+    assert res.done
+    assert res.metrics.sweeps.tolist() == ref_ms.sweeps.tolist()
+    _equal(res.metrics, ref_ms, "metrics diverged across resume")
+    _equal(res.state, ref_final, "final carry diverged across resume")
+    assert res.state.warm.dtype == torch.int32
+    assert bool((res.state.warm >= 0).any())
+    assert torch.equal(gen.get_state(), gen_ref.get_state())
+    _, cold = engine.run_scanned(
+        SMALL, spec, first.state._replace(warm=engine.init_warm(SMALL)),
+        bundle, n_rounds - 2, gen_first)
+    for name in ("n_associated", "z", "cost"):
+        assert torch.equal(getattr(cold, name),
+                           getattr(res.metrics, name)[2:]), name
+    assert cold.sweeps.tolist() != res.metrics.sweeps[2:].tolist()

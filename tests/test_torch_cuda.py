@@ -841,6 +841,23 @@ def test_sgd_kernel_matches_plain(cuda, k, tau1, batch, d_in, hidden,
         assert torch.equal(params[name], before[name])
 
 
+def test_sgd_fleet_launch_is_each_cohorts_own(cuda):
+    """S = 4 cohorts of K = 16 lanes at the sweep grid's shape in one
+    launch with ``seeds=4``: one cohort's cluster size (8; the 64 lanes
+    alone would take 2), each cohort bit-equal to its own launch."""
+    k, seeds, tau1, batch, d_in, hidden = 16, 4, 2, 32, 64, 32
+    assert hfl_ops.sgd_cluster_size(k, batch, d_in, hidden, 10) == 8
+    assert hfl_ops.sgd_cluster_size(seeds * k, batch, d_in, hidden, 10) == 2
+    params, bx, by = _sgd_case(seeds * k, tau1, batch, d_in, hidden, cuda)
+    got = hfl_ops.local_sgd_step(params, bx, by, lr=0.05, seeds=seeds)
+    for i in range(seeds):
+        lanes = slice(i * k, (i + 1) * k)
+        own = hfl_ops.local_sgd_step({n: v[lanes] for n, v in params.items()},
+                                     bx[:, lanes], by[:, lanes], lr=0.05)
+        for name in PARAM_KEYS:
+            assert torch.equal(got[name][lanes], own[name]), (i, name)
+
+
 def test_sgd_block_kernel_takes_layers_too_wide_for_a_cluster(cuda):
     """A 70,000-wide input: W1's slice does not fit a CTA at any cluster
     size, so the block-per-lane kernel runs it.  Weights at the usual

@@ -237,22 +237,17 @@ def test_sample_draws_adds_uniforms_after_the_shared_stream():
         assert bool(((u >= 0) & (u < 1)).all())
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(faults=FaultSpec(), warm_start=True), "A15 g"),
-    (dict(warm_start=True), "A15 g"),
-    (dict(candidates_k=2, warm_start=True), "A15 g")])
-def test_out_of_slice_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        engine.EngineSpec(**kw)
-
-
 @pytest.mark.parametrize("kw", [dict(policy="rcea"), dict(allocator="rra"),
                                 dict(candidates_k=2),
                                 dict(scenario="dynamic"),
                                 dict(allocator="fpa"), dict(allocator="fca"),
                                 dict(allocator="ddpg"), dict(telemetry=True),
                                 dict(engine_mode="buffered"),
-                                dict(faults=FaultSpec())])
+                                dict(faults=FaultSpec()),
+                                dict(warm_start=True),
+                                dict(candidates_k=2, warm_start=True),
+                                dict(faults=FaultSpec(), warm_start=True),
+                                dict(engine_mode="buffered", warm_start=True)])
 def test_ported_options_are_accepted(kw):
     spec = engine.EngineSpec(**kw)
     assert all(getattr(spec, k) == v for k, v in kw.items())

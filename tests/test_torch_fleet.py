@@ -27,6 +27,7 @@ from repro.core import engine as jengine
 from repro_torch.core import association, engine, fuzzy
 from repro_torch.faults import FaultSpec
 from repro_torch.kernels import _build, hfl_ops
+from repro_torch.models import mlp
 from test_torch_engine import JSMALL, SMALL, _replayed_draws, _start
 
 SEEDS = (0, 1, 2)
@@ -269,6 +270,26 @@ def test_fleet_draws_are_each_seeds_own():
     spec = engine.EngineSpec(policy="rcea", allocator="rra")
     with pytest.raises(ValueError, match="generators"):
         engine.fleet_draws(SMALL, bundles, [torch.Generator()], spec)
+
+
+def test_fleet_loss_is_each_seeds_own():
+    """``mlp.loss`` over a fleet's models and test sets (S = 3) equals,
+    seed by seed and bit for bit, the loss of that seed's model alone and
+    in a fleet of one."""
+    rng = np.random.default_rng(5)
+    models = [mlp.init_params(20, 12, 10,
+                              generator=torch.Generator().manual_seed(s),
+                              device=torch.device("cpu")) for s in range(3)]
+    fleet = {k: torch.stack([m[k] for m in models]) for k in models[0]}
+    x = torch.tensor(rng.normal(size=(3, 500, 20)).astype(np.float32))
+    y = torch.tensor(rng.integers(0, 10, (3, 500)).astype(np.int32))
+    got = mlp.loss(fleet, x, y)
+    assert got.shape == (3,)
+    for s, m in enumerate(models):
+        assert torch.equal(got[s], mlp.loss(m, x[s], y[s]))
+        one = mlp.loss({k: v[None] for k, v in m.items()}, x[s:s + 1],
+                       y[s:s + 1])
+        assert torch.equal(got[s:s + 1], one)
 
 
 def test_stack_fleet_needs_one_round():

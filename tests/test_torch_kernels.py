@@ -320,6 +320,20 @@ def test_local_sgd_step_leaves_inputs_untouched():
         assert torch.equal(tp[k], before[k])
 
 
+def test_local_sgd_step_takes_a_fleet_of_equal_cohorts():
+    """``seeds`` splits the K lanes into equal cohorts (a fleet's); it
+    sets only the card's launch geometry, so on the CPU the result is the
+    one-cohort call's."""
+    _, params, bx, by = _sgd_problem(k=4, tau1=1)
+    tp = {k: _t(v) for k, v in params.items()}
+    with pytest.raises(ValueError, match="equal cohorts"):
+        hfl_ops.local_sgd_step(tp, _t(bx), _t(by), lr=0.1, seeds=3)
+    got = hfl_ops.local_sgd_step(tp, _t(bx), _t(by), lr=0.1, seeds=2)
+    want = hfl_ops.local_sgd_step(tp, _t(bx), _t(by), lr=0.1)
+    for k in PARAM_KEYS:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_sgd_shared_memory_fits_config():
     """A CTA of the paper config's cluster of 8 fits shared memory -- and
     under half an SM's 228 KB, so two CTAs share an SM; the wrapper's size
