@@ -171,7 +171,7 @@ and prints no result):
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
    prefill shapes, at the tensor-core kernel's edge shapes (ragged S,
-   S below one q-tile, small and ragged windows, GQA groups 1/2/16,
+   S below one q-tile, small and ragged windows, GQA groups 1/2/7/8/16,
    d_head 64/128, non-causal, B = 2) and at fp32 shapes, checking which
    kernel each call launched, and the recurrence bit for bit at its main
    shape in fp32 and bf16 and at its edge shapes (ragged S and C, B·C
@@ -190,6 +190,21 @@ and prints no result):
    flash tiles, the window skip) against a token-by-token decode on the
    card: in float32 (the CUDA-core flash kernel) and in bfloat16 (the
    tensor-core one);
+9b. the dense decoders (``[dense]``), one model at a time, each freed
+   before the next, weights drawn from a seeded generator (fp32, bf16
+   compute; the norm scales and the norm and QKV biases redrawn away from
+   ones and zeros): qwen3-8b and stablelm-1.6b at full width and depth,
+   yi-34b (12 of 60 layers), qwen1.5-110b (4 of 80) and qwen3-8b-sw4k (4
+   layers, one 8192-token sequence) at full width -- a prefill of 2 x
+   4096 tokens with the launch counters zeroed just before and read just
+   after (one tensor-core flash launch a layer and nothing else), timed
+   prefills, a token-by-token decode of a 64-token prompt and 16 greedy
+   tokens (no kernel launch), the prefill's last logits against the
+   decode's, the peak memory beside the card's name and power limit; each
+   config reduced, MHA and with 2 KV heads, card vs CPU in float32 and
+   prefill vs decode in bfloat16; the flash kernel at each run's prefill
+   shape (GQA groups 4, 7 and 8 at D = 128, MHA at D = 64, a 4096
+   window) timed beside its bound and SDPA;
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
@@ -201,8 +216,10 @@ and prints no result):
     ``faults_launches`` the ``CONFIG`` fcea + PDD chaos run's, 5 rounds,
     ``score_candidates`` its K = 2 dead-edge run's, ``warm_launches`` the
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
-    run's, and ``sweep_launches`` the ``[sweep]`` phase's three grids)
-    and, last, the device line.
+    run's, ``sweep_launches`` the ``[sweep]`` phase's three grids, and
+    ``dense_launches`` the five dense prefills'; the ``flash_attention``
+    entry's ``dense_shapes`` holds its readings at their shapes) and,
+    last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -264,7 +281,11 @@ WGMMA_EDGES = [
     (1, 200, 4, 4, 64, True, 0),         # MHA (group 1), D = 64
     (1, 333, 4, 2, 128, False, 100),     # non-causal with a window
     (2, 512, 16, 1, 256, False, 0),      # non-causal, MQA (group 16)
+    (1, 300, 14, 2, 128, True, 0),       # odd group 7 (yi-34b's), ragged S
+    (1, 257, 16, 2, 128, True, 100),     # group 8 (qwen1.5-110b's), window
 ]
+# (the dense decoders' prefill shapes, DENSE_FLASH below, are held and
+# timed in [dense])
 # prefill (kernels) against token-by-token decode (plain), full config and
 # the reduced config in bfloat16: bf16 activations round at 2^-8 in every
 # op, at other places on the two paths, so the logits agree to a few
@@ -3985,6 +4006,276 @@ def phase_substrate_bf16(dev, seq=300):
                              f"disagree: rel rms {rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# The dense decoders: yi-34b, qwen3-8b and -sw4k, qwen1.5-110b, stablelm-1.6b
+# ---------------------------------------------------------------------------
+
+# (arch, layers run -- None for the config's own --, batch, prefill length,
+# why the depth is cut).  At fp32 weights yi-34b's 60 layers take 137.56
+# GB and qwen1.5-110b's 80 take 444.84 GB; sw4k's window has to cut a
+# prefill, so it runs one sequence of twice the window
+DENSE_RUNS = [
+    ("qwen3-8b", None, 2, 4096, ""),
+    ("stablelm-1.6b", None, 2, 4096, ""),
+    ("yi-34b", 12, 2, 4096, "60 layers are 137.56 GB of fp32 weights"),
+    ("qwen1.5-110b", 4, 2, 4096, "80 layers are 444.84 GB of fp32 weights"),
+    ("qwen3-8b-sw4k", 4, 1, 8192, "the window (4096) has to cut the prefill"),
+]
+# the flash kernel at each dense run's prefill shape, bf16:
+# (B, S, H, KV, D, causal, window) -- GQA groups 4, 7 and 8 at D = 128,
+# MHA at D = 64, the sliding window at 4096
+DENSE_FLASH = [
+    (2, 4096, 32, 8, 128, True, 0),      # qwen3-8b
+    (2, 4096, 56, 8, 128, True, 0),      # yi-34b, group 7
+    (2, 4096, 64, 8, 128, True, 0),      # qwen1.5-110b, group 8
+    (2, 4096, 32, 32, 64, True, 0),      # stablelm-1.6b, MHA
+    (1, 8192, 32, 8, 128, True, 4096),   # qwen3-8b-sw4k
+]
+
+
+def _perturb_constants(model, gen):
+    """The leaves a config initialises to constants -- norm scales (ones),
+    norm and QKV biases (zeros) -- redrawn from ``gen``, so the norm and
+    bias paths are not held at their identity."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("scale", "bias", "bq", "bk", "bv"):
+                z = torch.randn(p.shape, generator=gen, device=gen.device)
+                p.copy_(1.0 + 0.2 * z if leaf == "scale" else 0.3 * z)
+
+
+def _dense_serve(cfg, why, batch, seq, dev, card, prompt_len=64,
+                 new_tokens=16):
+    """One dense config at full width on the card: a prefill of batch x
+    seq with every launch counter zeroed just before and read just after
+    (one tensor-core flash launch a layer, nothing else), timed prefills,
+    a token-by-token decode of a 64-token prompt and 16 greedy tokens
+    (no kernel launch), and the prefill's last logits against the
+    decode's."""
+    import torch
+    from repro_torch.launch import serve, steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    prefill, model = steps.make_prefill_step(cfg, device=dev, generator=gen)
+    _perturb_constants(model, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[dense] {cfg.name}: {cfg.n_layers} layers"
+        + (f" (depth cut: {why})" if why else " (full depth)")
+        + f", d {cfg.d_model}, {cfg.n_heads} H / {cfg.n_kv_heads} KV, D "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, norm "
+        f"{cfg.norm}, qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, tied "
+        f"{cfg.tie_embeddings}, window {cfg.window}: {n_params} params "
+        f"({n_params * 4 / 1e9:.2f} GB fp32) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=cfg.n_layers,
+                flash_attention_wgmma=cfg.n_layers)
+    if launches != want:
+        raise AssertionError(f"{cfg.name} prefill launches {launches} != "
+                             f"{want}")
+    if tuple(logits.shape) != (batch, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} prefill logits: shape "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pre_s = sum(walls) / len(walls)
+    log(f"[dense] {cfg.name} prefill {batch} x {seq}: flash launches "
+        f"{launches['flash_attention_wgmma']} (tensor-core) of "
+        f"{launches['flash_attention']}, linrec "
+        f"{launches['linear_recurrence']}; {pre_s * 1e3:.2f} ms "
+        f"({batch * seq / pre_s:.1f} tokens/s; runs "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; first "
+        f"{first_s * 1e3:.2f} ms)")
+
+    serve_step, _ = steps.make_serve_step(cfg, model=model)
+    prompt = tokens[:, :prompt_len]
+    cache = model.init_cache(batch, prompt_len + new_tokens)
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    feed_logits, cache = serve.prefill_into_cache(model, prompt, cache)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    tok = torch.argmax(feed_logits[:, -1, :], dim=-1,
+                       keepdim=True).to(torch.int32)
+    out, step_ms = [], []
+    for i in range(new_tokens):
+        t0 = time.perf_counter()
+        tok, cache = serve_step(tok, cache, prompt_len + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok[:, 0])
+    if _launch_counts() != before:
+        raise AssertionError(f"{cfg.name}: the decode path launched a kernel")
+    gen_tokens = torch.stack(out, dim=1)
+    if not bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: tokens outside the vocabulary")
+    decode_ms = statistics.mean(step_ms[1:])
+    log(f"[dense] {cfg.name} decode {batch} requests: prompt of {prompt_len} "
+        f"fed token by token in {feed_s * 1e3:.2f} ms; {new_tokens} greedy "
+        f"tokens at {decode_ms:.3f} ms/token (steps 2..{new_tokens}; first "
+        f"{step_ms[0]:.3f}); sample {gen_tokens[0, :8].tolist()}")
+
+    pre_logits = prefill({"tokens": prompt})
+    rel = _rel_rms(pre_logits, feed_logits[:, 0])
+    agree = float((pre_logits.argmax(-1) == feed_logits[:, 0].argmax(-1))
+                  .float().mean())
+    log(f"[dense] {cfg.name} prefill vs decode, last logits of the "
+        f"{prompt_len}-token prompt: rel rms {rel:.3e} (limit "
+        f"{PREFILL_DECODE_REL_RMS}), max abs "
+        f"{_max_err(pre_logits, feed_logits[:, 0]):.3e}, argmax agreement "
+        f"{agree:.2f}")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"{cfg.name}: prefill and decode logits "
+                             f"disagree: rel rms {rel:.3e}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[dense] {cfg.name} peak device memory {peak / 1e9:.2f} GB on "
+        f"{card}")
+    if peak >= 80e9:
+        raise AssertionError(f"{cfg.name}: peak memory {peak / 1e9:.2f} GB")
+    del model, cache, prefill, serve_step, logits, pre_logits, feed_logits
+    torch.cuda.empty_cache()
+    return dict(launches=launches["flash_attention_wgmma"],
+                prefill_ms=pre_s * 1e3, decode_ms=decode_ms,
+                peak_gb=peak / 1e9)
+
+
+def _dense_reduced(cfg, dev, seq=300):
+    """A reduced dense config in float32 from the same (perturbed) weights
+    on the card (kernels) and on the CPU (plain versions): the prefill's
+    last logits and every position's, and the card's prefill against its
+    own token-by-token decode, at ``SUBSTRATE_TOL``."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import Transformer
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    cpu_model = Transformer(cfg, device="cpu", generator=gen)
+    _perturb_constants(cpu_model, gen)
+    card_model = Transformer(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
+    pre_cpu, _ = steps.make_prefill_step(cfg, model=cpu_model)
+    pre_card, _ = steps.make_prefill_step(cfg, model=card_model)
+    _reset_launches()
+    last_card = pre_card({"tokens": tokens.to(dev)})
+    full_card = card_model.apply(tokens.to(dev))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if (launches["flash_attention"], launches["flash_attention_wgmma"],
+            launches["linear_recurrence"]) != (2 * cfg.n_layers, 0, 0):
+        raise AssertionError(f"{cfg.name} card launches {launches}")
+    cache = card_model.init_cache(2, seq)
+    with torch.no_grad():
+        decoded = torch.cat([
+            card_model.decode_step(tokens[:, i:i + 1].to(dev), cache, i)[0]
+            for i in range(seq)], dim=1)
+    if _launch_counts() != launches:
+        raise AssertionError(f"{cfg.name}: the decode path launched a kernel")
+    errs = []
+    for name, got, want in (
+            ("card vs cpu, last logits", last_card.cpu(),
+             pre_cpu({"tokens": tokens})),
+            ("card vs cpu, all logits", full_card.cpu(),
+             cpu_model.apply(tokens)),
+            ("card prefill vs card decode, all logits", full_card, decoded)):
+        _check_close(f"{cfg.name} {name}", got, want, **SUBSTRATE_TOL)
+        errs.append(f"{name} {_max_err(got, want):.3e}")
+    log(f"[dense] {cfg.name} (H {cfg.n_heads} / KV {cfg.n_kv_heads}, "
+        f"window {cfg.window}) S={seq} fp32, max abs: {'; '.join(errs)} "
+        f"(atol {SUBSTRATE_TOL['atol']}, rtol {SUBSTRATE_TOL['rtol']}): ok")
+
+
+def _dense_reduced_bf16(cfg, dev, seq=300):
+    """A reduced dense config in bfloat16 (d_head 64: the tensor-core
+    flash kernel): every position's prefill logits against a token-by-
+    token decode on the card at ``PREFILL_DECODE_REL_RMS``."""
+    import torch
+    from repro_torch.models.transformer import Transformer
+    cfg = cfg.replace(compute_dtype_str="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    model = Transformer(cfg, device=dev, generator=gen)
+    _perturb_constants(model, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                           device=dev)
+    _reset_launches()
+    with torch.no_grad():
+        full = model.apply(tokens)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if (launches["flash_attention"], launches["flash_attention_wgmma"]) != \
+            (cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"{cfg.name} bf16 card launches {launches}")
+    cache = model.init_cache(2, seq)
+    with torch.no_grad():
+        decoded = torch.cat([model.decode_step(tokens[:, i:i + 1], cache, i)[0]
+                             for i in range(seq)], dim=1)
+    rel = _rel_rms(full, decoded)
+    log(f"[dense] {cfg.name} (KV {cfg.n_kv_heads}, window {cfg.window}) "
+        f"bf16 S={seq}: card prefill (tensor-core flash) vs card decode, all "
+        f"logits: rel rms {rel:.3e} (limit {PREFILL_DECODE_REL_RMS}), "
+        f"argmax agreement "
+        f"{float((full.argmax(-1) == decoded.argmax(-1)).float().mean()):.3f}")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"{cfg.name} bf16 prefill and decode disagree: "
+                             f"rel rms {rel:.3e}")
+
+
+def phase_dense(dev, card):
+    """The five dense decoders: each at full width (full depth, or the
+    depth that fits 80 GB of fp32 weights) served on the card, one model
+    at a time; then each reduced config, MHA and GQA (2 KV heads), card
+    vs CPU in fp32 and prefill vs decode in bf16; then the flash kernel
+    at each run's prefill shape, timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.configs import get_config
+    runs = {}
+    for arch, depth, batch, seq, why in DENSE_RUNS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = cfg.replace(n_layers=depth)
+        runs[arch] = _dense_serve(cfg, why, batch, seq, dev, card)
+    for arch, *_ in DENSE_RUNS:
+        for kv in (None, 2):
+            cfg = get_config(arch).reduced()
+            if kv is not None:
+                cfg = cfg.replace(n_kv_heads=kv)
+            _dense_reduced(cfg, dev)
+        _dense_reduced_bf16(get_config(arch).reduced().replace(n_kv_heads=2),
+                            dev)
+    shapes = []
+    for i, shape in enumerate(DENSE_FLASH):
+        err, ms_k, ms_p, b_ms, b_by, lib_ms = compare_flash(
+            *shape, torch.bfloat16, 70 + 3 * i, dev, library=True)
+        shapes.append({"shape": list(shape), "max_abs_err": err, "ms": ms_k,
+                       "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_ms})
+        torch.cuda.empty_cache()
+    total = sum(r["launches"] for r in runs.values())
+    summary = "; ".join(
+        f"{a} prefill {r['prefill_ms']:.2f} ms, decode {r['decode_ms']:.3f} "
+        f"ms/token, peak {r['peak_gb']:.2f} GB" for a, r in runs.items())
+    log(f"[dense] flash launches over the five prefills: {total}; "
+        f"{summary}; card {card}")
+    return {"flash_attention": total}, shapes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the kernel results as JSON")
@@ -4042,6 +4333,8 @@ def main(argv=None) -> int:
                          args.profile)
     phase("substrate card vs cpu, prefill vs decode", phase_substrate, dev)
     phase("substrate bf16 prefill vs decode", phase_substrate_bf16, dev)
+    dense_launches, dense_flash = phase("dense decoders", phase_dense, dev,
+                                        card)
 
     # the entries of local_sgd_step and flash_attention are the cluster
     # kernel and the tensor-core kernel
@@ -4076,7 +4369,8 @@ def main(argv=None) -> int:
                 "buffered_launches": buf_launches.get(name, 0),
                 "faults_launches": fault_launches.get(name, 0),
                 "warm_launches": warm_launches.get(name, 0),
-                "sweep_launches": sweep_launches.get(name, 0)}
+                "sweep_launches": sweep_launches.get(name, 0),
+                "dense_launches": dense_launches.get(name, 0)}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -4093,6 +4387,9 @@ def main(argv=None) -> int:
                         "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms,
                         **phase_launches(name)})
+        if name == "flash_attention":
+            # the dense decoders' prefill shapes, each timed as the main one
+            kernels[-1]["dense_shapes"] = dense_flash
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",

@@ -10,6 +10,11 @@ from typing import Dict, List
 
 _REGISTRY: Dict[str, str] = {
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "qwen1.5-110b": "repro_torch.configs.qwen1_5_110b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "qwen3-8b-sw4k": "repro_torch.configs.qwen3_8b_sw4k",
+    "yi-34b": "repro_torch.configs.yi_34b",
 }
 
 
@@ -17,7 +22,8 @@ def get_config(name: str):
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ROADMAP A17: its mixers -- "
-            f"chunked/prefix attention, MoE, xLSTM, enc-dec -- come later); "
+            f"prefix-LM attention, MoE, chunked attention, xLSTM, enc-dec -- "
+            f"come later); "
             f"ported: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[name]).CONFIG
 

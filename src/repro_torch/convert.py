@@ -140,25 +140,46 @@ def ddpg_from_numpy(state_np: Any, device: "str | torch.device" = "cuda"
 _JAX_NAME = {"lam": "lambda"}
 
 
+def _leaf(tree: Mapping[str, Any], name: str, where: str) -> np.ndarray:
+    """The array at a dotted port parameter name (``attn.q_norm.scale``)
+    in a nested reference mapping, each level's key renamed by
+    ``_JAX_NAME``; a missing key raises naming the path."""
+    node = tree
+    for part in name.split("."):
+        key = _JAX_NAME.get(part, part)
+        if not isinstance(node, Mapping) or key not in node:
+            raise KeyError(f"{where}: the reference weights have no "
+                           f"{name!r} ({key!r} missing)")
+        node = node[key]
+    return np.asarray(node)
+
+
+def _fill(param: torch.Tensor, src: np.ndarray, where: str) -> None:
+    if tuple(src.shape) != tuple(param.shape):
+        raise ValueError(f"{where}: shape {src.shape} != "
+                         f"{tuple(param.shape)}")
+    param.copy_(torch.tensor(src))
+
+
 def params_from_numpy(params_np: Mapping[str, Any], cfg,
                       device: "str | torch.device" = "cuda") -> Transformer:
     """A ``Transformer`` on ``device`` holding the weights of a reference
-    ``Transformer.init`` pytree with numpy leaves: ``embed/embedding``,
-    ``final_norm/scale`` and ``stage_<i>/<unit position>/<group>/<name>``
-    stacked over the stage's repetitions.  Every parameter of the port is
-    filled; a missing key or a shape mismatch raises."""
+    ``Transformer.init`` pytree with numpy leaves: ``embed/embedding``
+    (and ``embed/unembedding`` when untied), ``final_norm/scale`` (and
+    ``bias`` for LayerNorm) and ``stage_<i>/<unit position>/<group>/...``
+    stacked over the stage's repetitions, nested names included
+    (``attn/q_norm/scale``).  Every parameter of the port is filled; a
+    missing key or a shape mismatch raises."""
     model = Transformer(cfg, device=device)
-    model.embedding.copy_(torch.tensor(
-        np.asarray(params_np["embed"]["embedding"])))
-    model.final_norm.scale.copy_(torch.tensor(
-        np.asarray(params_np["final_norm"]["scale"])))
-    for blk, (stage, r, pos) in zip(model.blocks, model.block_index):
-        tree = params_np[stage][pos]
-        for name, param in blk.named_parameters():
-            group, leaf = name.split(".")
-            src = np.asarray(tree[group][_JAX_NAME.get(leaf, leaf)])[r]
-            if tuple(src.shape) != tuple(param.shape):
-                raise ValueError(f"{stage}/{pos}/{group}/{leaf}[{r}]: shape "
-                                 f"{src.shape} != {tuple(param.shape)}")
-            param.copy_(torch.tensor(src))
+    top = {"embedding": "embed.embedding",
+           "unembedding": "embed.unembedding"}
+    for name, param in model.named_parameters():
+        if name.startswith("blocks."):
+            _, i, name = name.split(".", 2)
+            stage, r, pos = model.block_index[int(i)]
+            where = f"{stage}/{pos}/{name.replace('.', '/')}[{r}]"
+            _fill(param, _leaf(params_np[stage][pos], name, where)[r], where)
+        else:
+            path = top.get(name, name)
+            _fill(param, _leaf(params_np, path, path), path)
     return model

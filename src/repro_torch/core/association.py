@@ -29,6 +29,10 @@ billing both phases.  The warm result is therefore a stable matching of
 today's market, and over a fleet the fallback is decided seed by seed:
 one read brings back every seed's flag, and one cold resolution, run only
 if some seed blocks, is selected per seed.
+
+``resolve_serial`` is the reference's serial resolver (``resolve_jax``):
+one queue pop a step, the same matching, its pop count for a sweep
+count.  Nothing on the round's path calls it.
 """
 from __future__ import annotations
 
@@ -179,6 +183,58 @@ def resolve_parallel(order: torch.Tensor, dist: torch.Tensor, quota: int,
     if return_sweeps:
         return assoc, sweeps
     return assoc
+
+
+def resolve_serial(order: torch.Tensor, dist: torch.Tensor, quota: int,
+                   coverage: torch.Tensor, return_sweeps: bool = False):
+    """Serial deferred acceptance, one queue pop attempt a step: the
+    reference's ``resolve_jax``, step for step (the same bound of
+    N·M + M·(N·M + 2) + 2 steps, the same strict (distance, edge index)
+    preference of a client), so its matching is bit-identical to
+    ``resolve_parallel``'s; only the counter differs.
+
+    order: (M, N) per-edge client indices by descending preference; dist,
+    coverage: (N, M).  Returns assoc (N, M) one-hot int32 on ``order``'s
+    device; with ``return_sweeps`` also the pop-attempt count (an int).
+
+    Each step is integer bookkeeping with one data-dependent branch, so
+    the loop runs on the host over copies of ``order``, ``dist`` and
+    ``coverage`` taken once (one device-to-host copy each), not as a
+    device launch a step."""
+    m_edges, n_clients = order.shape
+    ords = order.cpu().tolist()
+    dists = dist.float().cpu().tolist()    # float32 values, exact as floats
+    cov = coverage.cpu().tolist()
+    max_iter = n_clients * m_edges + m_edges * (n_clients * m_edges + 2) + 2
+    taken = [-1] * n_clients
+    ptr, filled = [0] * m_edges, [0] * m_edges
+    m, progress, done, it = 0, False, False, 0
+    while not done and it < max_iter:
+        can_pop = filled[m] < quota and ptr[m] < n_clients
+        c = ords[m][min(ptr[m], n_clients - 1)]
+        t = taken[c]
+        vacant = t < 0
+        here, there = dists[c][m], dists[c][max(t, 0)]
+        nearer = here < there or (here == there and m < t)
+        admit = can_pop and cov[c][m] and (vacant or (t != m and nearer))
+        if can_pop:
+            ptr[m] += 1
+        if admit:
+            taken[c] = m
+            filled[m] += 1
+            if not vacant:
+                filled[t] -= 1
+        progress = progress or admit
+        m += 1 if (not can_pop) or admit else 0     # the inner loop ends
+        if m >= m_edges:                            # a pass ends
+            done = not progress
+            m, progress = 0, False
+        it += 1
+    assigned = torch.tensor(taken, dtype=torch.int32, device=order.device)
+    col = torch.arange(m_edges, dtype=torch.int32, device=order.device)
+    assoc = ((assigned[:, None] == col) & (assigned[:, None] >= 0)) \
+        .to(torch.int32)
+    return (assoc, it) if return_sweeps else assoc
 
 
 def _preference(policy: str, scores, gains, uniform):

@@ -344,12 +344,13 @@ def ensure_faults(cfg, spec: EngineSpec, state: "RoundState"
     return state
 
 
-def init_warm(cfg, device: "str | torch.device" = "cpu",
+def init_warm(cfg, device: "str | torch.device" = "cuda",
               lead: Tuple[int, ...] = ()) -> torch.Tensor:
     """A fresh warm-start seed, (*lead, N) int32: every client unassigned
-    (−1), so the first warm round starts as the cold resolver does."""
+    (−1), so the first warm round starts as the cold resolver does.  On
+    the card unless ``device`` says otherwise."""
     return torch.full(tuple(lead) + (cfg.n_clients,), -1, dtype=torch.int32,
-                      device=device)
+                      device=resolve_device(device))
 
 
 def ensure_warm(cfg, spec: EngineSpec, state: "RoundState"

@@ -9,6 +9,8 @@ inference, and centre-of-gravity defuzzification (Eq. 22).
 path of the scoring kernel's wrapper (``kernels.hfl_ops.score_rows``) and
 the version the kernel is held to on the card.  Its CoG sums run in the
 kernel's fixed order g = 0..200, so the two agree bit for bit.
+``score_clients`` scores raw per-client criteria end to end through the
+kernel's wrapper.
 """
 from __future__ import annotations
 
@@ -174,3 +176,17 @@ def score_candidates(gains: torch.Tensor, cand, counts: torch.Tensor,
     return rows(*candidate_inputs(gains, cand.idx, counts, staleness,
                                   data_max=data_max)
                 ).reshape(cand.idx.shape)
+
+
+def score_clients(channel_gain: torch.Tensor, data_quantity: torch.Tensor,
+                  staleness: torch.Tensor, *, gain_max, data_max,
+                  staleness_max) -> torch.Tensor:
+    """End to end: raw per-client criteria (N,) -> NO* scores (N,), each
+    normalised by its own maximum (Eq. 21, a float or a 0-d tensor).  The
+    rows go through ``kernels.hfl_ops.score_rows``: its kernel on a CUDA
+    tensor, ``score_rows`` above on the CPU."""
+    from repro_torch.kernels import hfl_ops    # hfl_ops imports this module
+    cq = normalize(channel_gain.float(), gain_max)
+    dq = normalize(data_quantity.float(), data_max)
+    ms = normalize(staleness.float(), staleness_max)
+    return hfl_ops.score_rows(cq, dq, ms)

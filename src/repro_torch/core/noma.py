@@ -132,3 +132,11 @@ def _running_sum(x: torch.Tensor) -> torch.Tensor:
 def noise_power_w(noise_dbm_per_hz: float, bandwidth_hz: float) -> float:
     """AWGN power over the band: σ² = N0 · B."""
     return 10.0 ** (noise_dbm_per_hz / 10.0) / 1000.0 * bandwidth_hz
+
+
+def sum_rate_upper_bound(power_w: torch.Tensor, gain: torch.Tensor, *,
+                         bandwidth_hz: float, noise_w: float) -> torch.Tensor:
+    """Multiple-access capacity, a 0-d tensor: B log2(1 + Σ p g / σ²).
+    SIC achieves it: the sum of ``achievable_rates`` equals it."""
+    total = torch.sum(power_w * gain)
+    return bandwidth_hz * torch.log2(1.0 + total / total.new_full((), noise_w))

@@ -6,7 +6,11 @@ the reference's ``launch/serve.py``.  Weights and prompts come from a
 seeded ``torch.Generator`` on the chosen device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
+
+``--arch`` takes any ported architecture (``configs.list_archs()``):
+recurrentgemma-9b, yi-34b, qwen3-8b, qwen3-8b-sw4k, qwen1.5-110b,
+stablelm-1.6b.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Attention layer of the substrate: GQA / MQA with RoPE, the ``global``
+"""Attention layer of the substrate: GQA / MQA / MHA with RoPE, optional
+QKV bias (qwen1.5) and per-head q/k RMSNorm (qwen3), the ``global``
 (causal) and ``sliding`` (causal, window) masks.
 
 The port of the reference's ``models/attention.py``.  The full-sequence
@@ -32,7 +33,10 @@ def _unported_mask(kind: str) -> NotImplementedError:
 class Attention(nn.Module):
     """wq (d, H, Dh), wk/wv (d, KV, Dh), wo (H, Dh, d) in ``param_dtype``;
     drawn as the reference's ``attention_init`` draws them when a
-    generator is given, else left for a loader to fill."""
+    generator is given, else left for a loader to fill.  With
+    ``cfg.qkv_bias`` also bq (H, Dh), bk and bv (KV, Dh), zeros; with
+    ``cfg.qk_norm`` also ``q_norm`` and ``k_norm``, RMSNorms over Dh with
+    a scale of ones -- none of them drawn, as in the reference."""
 
     def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
         super().__init__()
@@ -40,20 +44,40 @@ class Attention(nn.Module):
         shapes = {"wq": ((d, h, dh), d), "wk": ((d, kv, dh), d),
                   "wv": ((d, kv, dh), d), "wo": ((h, dh, d), h * dh)}
         for name, (shape, fan_in) in shapes.items():
-            w = (layers.scaled_init(shape, generator, cfg.param_dtype,
-                                    fan_in=fan_in) if generator is not None
-                 else torch.empty(shape, dtype=cfg.param_dtype,
-                                  device=device))
-            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+            self.register_parameter(name, layers.param(
+                shape, cfg.param_dtype, device, generator,
+                lambda shape=shape, fan_in=fan_in: layers.scaled_init(
+                    shape, generator, cfg.param_dtype, fan_in=fan_in)))
+        self.qkv_bias, self.qk_norm = cfg.qkv_bias, cfg.qk_norm
+        if cfg.qkv_bias:
+            for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
+                self.register_parameter(name, layers.param(
+                    (n, dh), cfg.param_dtype, device, generator,
+                    lambda n=n: torch.zeros((n, dh), dtype=cfg.param_dtype,
+                                            device=generator.device)))
+        if cfg.qk_norm:
+            self.q_norm = layers.Norm("rmsnorm", dh, cfg.param_dtype, device,
+                                      generator)
+            self.k_norm = layers.Norm("rmsnorm", dh, cfg.param_dtype, device,
+                                      generator)
 
 
 def _qkv(p: Attention, x: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> q (B, S, H, Dh), k, v (B, S, KV, Dh)."""
+    """x (B, S, d) -> q (B, S, H, Dh), k, v (B, S, KV, Dh): the
+    projections, then the bias, then the q/k norm, as the reference's
+    ``_qkv`` (RoPE comes after, in the caller)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    if p.qkv_bias:
+        q = q + p.bq.to(dt)
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    if p.qk_norm:
+        q = p.q_norm(q)
+        k = p.k_norm(k)
     return q, k, v
 
 

@@ -1,9 +1,11 @@
 """Building blocks of the substrate's models, as plain tensor functions.
 
 The port of the reference's ``models/layers.py``: initialisers drawn from
-an explicit ``torch.Generator``, RMSNorm computed in fp32, split-half RoPE,
-the gated MLP and the (tied) embedding.  Parameters are held by the
-modules in ``attention``, ``rglru`` and ``transformer``; weights are cast
+an explicit ``torch.Generator``, RMSNorm and LayerNorm computed in fp32,
+split-half RoPE, the gated MLP and the (tied or untied) embedding.
+Parameters are held by the modules in ``attention``, ``rglru`` and
+``transformer``, and by ``Norm`` here (a norm's scale and bias; the
+blocks' norms and attention's q/k norms are each one); weights are cast
 to the activation dtype at each use, as the reference does.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 # ---------------------------------------------------------------------------
@@ -37,6 +40,15 @@ def scaled_init(shape: Sequence[int], generator: torch.Generator,
                        stddev=1.0 / math.sqrt(max(fan_in, 1)))
 
 
+def param(shape: Sequence[int], dtype: torch.dtype, device,
+          generator: Optional[torch.Generator], init) -> nn.Parameter:
+    """A frozen parameter: ``init()`` (on the generator's device) when a
+    generator is given, else left unset on ``device`` for a loader."""
+    w = init() if generator is not None else \
+        torch.empty(tuple(shape), dtype=dtype, device=device)
+    return nn.Parameter(w, requires_grad=False)
+
+
 # ---------------------------------------------------------------------------
 # Normalisation, RoPE, MLP, embedding
 # ---------------------------------------------------------------------------
@@ -46,6 +58,55 @@ def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor,
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layernorm_apply(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The reference's order in fp32: the mean, then the mean of
+    (x - mean)², then rsqrt; scale and bias applied in fp32."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+NORM_KINDS = ("rmsnorm", "layernorm")
+
+
+def norm_apply(kind: str, scale: torch.Tensor, bias: Optional[torch.Tensor],
+               x: torch.Tensor) -> torch.Tensor:
+    """``rmsnorm`` (``bias`` unused, None) or ``layernorm``, each at the
+    reference's epsilon."""
+    if kind == "rmsnorm":
+        return rmsnorm_apply(scale, x)
+    if kind == "layernorm":
+        return layernorm_apply(scale, bias, x)
+    raise ValueError(f"unknown norm kind {kind!r}")
+
+
+class Norm(nn.Module):
+    """``scale`` (d,) -- ones -- and, for LayerNorm, ``bias`` (d,) --
+    zeros -- as the reference's ``norm_init``: nothing is drawn, so the
+    generator only says that the weights are to be set (on its device);
+    ``None`` leaves them for a loader."""
+
+    def __init__(self, kind: str, d: int, dtype: torch.dtype, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        if kind not in NORM_KINDS:
+            raise ValueError(f"unknown norm kind {kind!r}")
+        self.kind = kind
+
+        def const(fill):
+            return param((d,), dtype, device, generator,
+                         lambda: torch.full((d,), fill, dtype=dtype,
+                                            device=generator.device))
+        self.scale = const(1.0)
+        self.bias = const(0.0) if kind == "layernorm" else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return norm_apply(self.kind, self.scale, self.bias, x)
 
 
 def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:

@@ -3,11 +3,13 @@
 The port of the reference's ``models/transformer.py``: an architecture is a
 pattern unit of (sequence mixer, ffn) pairs repeated over the layers
 (``compute_stages``).  Ported mixers: ``attn`` (causal global), ``swa``
-(sliding window) and ``rec`` (RG-LRU), each with a ``dense`` gated MLP,
-RMSNorm and a tied embedding -- what recurrentgemma-9b runs.  The layers
-are ``nn.Module``s in layer order; the decode cache keeps the reference's
-dict layout (``stage_<i>`` → unit position → leaves stacked over the
-stage's repetitions).
+(sliding window) and ``rec`` (RG-LRU), each with a ``dense`` gated MLP;
+RMSNorm or LayerNorm; a tied or untied embedding; attention with or
+without QKV bias and per-head q/k RMSNorm -- what recurrentgemma-9b and
+the dense decoders (yi-34b, qwen3-8b and its sliding-window variant,
+qwen1.5-110b, stablelm-1.6b) run.  The layers are ``nn.Module``s in layer
+order; the decode cache keeps the reference's dict layout (``stage_<i>`` →
+unit position → leaves stacked over the stage's repetitions).
 """
 from __future__ import annotations
 
@@ -48,32 +50,13 @@ def _check_ported(cfg) -> None:
     if any(f != "dense" for f in cfg.ffn_pattern):
         raise NotImplementedError(f"{cfg.name}: only dense FFNs are ported "
                                   f"(ROADMAP A17: MoE)")
-    if cfg.norm != "rmsnorm" or not cfg.tie_embeddings or cfg.mlp_bias \
-            or not cfg.gated_mlp or cfg.qkv_bias or cfg.qk_norm:
+    if cfg.mlp_bias or not cfg.gated_mlp:
         raise NotImplementedError(
-            f"{cfg.name}: only RMSNorm, a tied embedding, a gated MLP "
-            f"without bias and attention without QKV bias or q/k norm are "
-            f"ported (ROADMAP A17)")
+            f"{cfg.name}: only a gated MLP without bias is ported "
+            f"(ROADMAP A17)")
     if cfg.prefix_tokens:
         raise NotImplementedError(f"{cfg.name}: prefix-LM models are not "
                                   f"ported yet (ROADMAP A17)")
-
-
-def _param(shape, dtype, device, generator, init) -> nn.Parameter:
-    w = init() if generator is not None else \
-        torch.empty(shape, dtype=dtype, device=device)
-    return nn.Parameter(w, requires_grad=False)
-
-
-class RMSNorm(nn.Module):
-    def __init__(self, d: int, dtype, device, generator):
-        super().__init__()
-        self.scale = _param((d,), dtype, device, generator,
-                            lambda: torch.ones(d, dtype=dtype,
-                                               device=generator.device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layers.rmsnorm_apply(self.scale, x)
 
 
 class MLP(nn.Module):
@@ -83,7 +66,7 @@ class MLP(nn.Module):
         for name, shape, fan_in in (("w_in", (d, ff), d),
                                     ("w_out", (ff, d), ff),
                                     ("w_gate", (d, ff), d)):
-            self.register_parameter(name, _param(
+            self.register_parameter(name, layers.param(
                 shape, dt, device, generator,
                 lambda shape=shape, fan_in=fan_in: layers.scaled_init(
                     shape, generator, dt, fan_in=fan_in)))
@@ -101,13 +84,15 @@ class Block(nn.Module):
     def __init__(self, cfg, kind: str, device, generator):
         super().__init__()
         self.kind = kind
-        self.norm1 = RMSNorm(cfg.d_model, cfg.param_dtype, device, generator)
+        self.norm1 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                 device, generator)
         if kind in ATTENTION_KINDS:
             self.attn = attention.Attention(cfg, device=device,
                                             generator=generator)
         else:
             self.rec = rglru.RGLRU(cfg, device=device, generator=generator)
-        self.norm2 = RMSNorm(cfg.d_model, cfg.param_dtype, device, generator)
+        self.norm2 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                 device, generator)
         self.mlp = MLP(cfg, device, generator)
 
 
@@ -131,12 +116,18 @@ class Transformer(nn.Module):
         self.device = dev
         pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
         self.stages = compute_stages(cfg.n_layers, pat)
-        self.embedding = _param(
+        self.embedding = layers.param(
             (cfg.vocab_size, cfg.d_model), cfg.param_dtype, dev, generator,
             lambda: layers.normal_init((cfg.vocab_size, cfg.d_model),
                                        generator, cfg.param_dtype))
-        self.final_norm = RMSNorm(cfg.d_model, cfg.param_dtype, dev,
-                                  generator)
+        # an untied output table, drawn after the input one (the reference
+        # draws it from the embedding key's second split)
+        self.unembedding = None if cfg.tie_embeddings else layers.param(
+            (cfg.vocab_size, cfg.d_model), cfg.param_dtype, dev, generator,
+            lambda: layers.normal_init((cfg.vocab_size, cfg.d_model),
+                                       generator, cfg.param_dtype))
+        self.final_norm = layers.Norm(cfg.norm, cfg.d_model,
+                                      cfg.param_dtype, dev, generator)
         blocks, where = [], []
         for si, (unit, reps) in enumerate(self.stages):
             for r in range(reps):
@@ -176,7 +167,9 @@ class Transformer(nn.Module):
         return self.final_norm(x)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        return layers.unembed_apply(self.embedding, x)
+        table = self.embedding if self.unembedding is None \
+            else self.unembedding
+        return layers.unembed_apply(table, x)
 
     def apply(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V).  (The reference also returns

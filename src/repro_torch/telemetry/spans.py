@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 STAGES = ("associate", "allocate", "schedule", "train", "eval")
 TRACE_FILE = "trace.json"
 
@@ -36,12 +38,13 @@ def stage(name: str, device: "torch.device | str | None" = None):
 
 
 @contextlib.contextmanager
-def trace_capture(out_dir: str, device: "torch.device | str" = "cpu"):
-    """A ``torch.profiler`` capture of host activity and, on CUDA, of the
-    card's kernels; on exit it writes a Chrome trace to
-    ``out_dir/trace.json``.  Yields the profiler."""
+def trace_capture(out_dir: str, device: "torch.device | str" = "cuda"):
+    """A ``torch.profiler`` capture of host activity and, on CUDA (the
+    default; ``device="cpu"`` for the host alone), of the card's kernels;
+    on exit it writes a Chrome trace to ``out_dir/trace.json``.  Yields
+    the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if resolve_device(device).type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:

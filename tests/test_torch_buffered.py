@@ -113,6 +113,9 @@ def _run_both(jcfg, cfg, jspec, spec, jstate, jbundle, state, bundle, steps,
     clock's advance each micro-step."""
     n_test = int(jbundle.test_y.shape[0])
     causes, advances = [], []
+    # the reference's carry normalised as ``run_scanned`` does first, so
+    # its one-step program compiles once (not again for the carried state)
+    jstate = jengine.ensure_carry(jcfg, jspec, jstate)
     for i in range(steps):
         draws = _round_draws(jcfg, jspec, jstate, jbundle)
         jstate, jout = jengine.run_scanned(jcfg, jspec, jstate, jbundle, 1)

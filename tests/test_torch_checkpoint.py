@@ -245,7 +245,8 @@ def test_resumable_warm_run_resumes_bit_identical(tmp_path, candidates_k):
     assert bool((res.state.warm >= 0).any())
     assert torch.equal(gen.get_state(), gen_ref.get_state())
     _, cold = engine.run_scanned(
-        SMALL, spec, first.state._replace(warm=engine.init_warm(SMALL)),
+        SMALL, spec,
+        first.state._replace(warm=engine.init_warm(SMALL, device="cpu")),
         bundle, n_rounds - 2, gen_first)
     for name in ("n_associated", "z", "cost"):
         assert torch.equal(getattr(cold, name),

@@ -943,6 +943,14 @@ WGMMA_EDGES = [
     (1, 200, 4, 4, 64, True, 0),         # MHA (group 1), D = 64
     (1, 333, 4, 2, 128, False, 100),     # non-causal with a window
     (2, 512, 16, 1, 256, False, 0),      # non-causal, MQA (group 16)
+    (1, 300, 14, 2, 128, True, 0),       # odd group 7 (yi-34b's), ragged S
+    (1, 257, 16, 2, 128, True, 100),     # group 8 (qwen1.5-110b's), window
+    # the dense decoders' prefill shapes
+    (2, 4096, 32, 8, 128, True, 0),      # qwen3-8b, group 4
+    (2, 4096, 56, 8, 128, True, 0),      # yi-34b, group 7
+    (2, 4096, 64, 8, 128, True, 0),      # qwen1.5-110b, group 8
+    (2, 4096, 32, 32, 64, True, 0),      # stablelm-1.6b, MHA at D = 64
+    (1, 8192, 32, 8, 128, True, 4096),   # qwen3-8b-sw4k, window 4096
 ]
 
 
@@ -1036,3 +1044,31 @@ def test_linrec_kernel_rejects_mixed_dtypes(cuda):
     log_a = torch.zeros((1, 4, 8), device=cuda)
     with pytest.raises(TypeError, match="must match"):
         seq_ops.linear_recurrence(log_a, log_a.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "qwen3-8b", "qwen3-8b-sw4k",
+                                  "qwen1.5-110b", "stablelm-1.6b"])
+def test_dense_reduced_card_matches_cpu(cuda, arch):
+    """A reduced dense decoder with 2 KV heads (GQA, the per-KV-head biases,
+    the q/k norm over a shared head) and its constant-initialised leaves
+    redrawn: the card's logits (flash kernel, one launch a layer) against
+    the CPU's (plain) from the same weights, at the reference's
+    decode-parity tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config(arch).reduced().replace(n_kv_heads=2)
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = Transformer(cfg, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("scale", "bias", "bq", "bk", "bv"):
+                p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    card_model = Transformer(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=gen)
+    before = seq_ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got = card_model.apply(tokens.to(cuda))
+        want = cpu_model.apply(tokens)
+    assert seq_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)

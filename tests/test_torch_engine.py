@@ -34,6 +34,11 @@ JSMALL = dataclasses.replace(JCONFIG, **SMALL_KW)
 ROUNDS = 4
 
 
+# the reference's minibatch lattice, compiled once a config (τ₂, τ₁, B):
+# eager, its vmapped fold_in/randint lattice dispatches op by op each round
+_lattice = jax.jit(jengine._batch_index_lattice, static_argnums=(1, 2, 5))
+
+
 def _replayed_draws(jcfg, jspec, jstate, jbundle):
     """The reference round's own random numbers, for all N clients: rcea's
     uniform comes from the association key, rra's from the allocation key
@@ -41,9 +46,9 @@ def _replayed_draws(jcfg, jspec, jstate, jbundle):
     keys = jengine.round_keys(jspec, jstate.key)
     n, m = jcfg.n_clients, jcfg.n_edges
     fading = jax.random.exponential(keys[2], (n, m))
-    lattice = jengine._batch_index_lattice(
-        keys[5], jcfg.tau2, jcfg.tau1, jnp.arange(n, dtype=jnp.int32),
-        jbundle.counts, jcfg.local_batch)
+    lattice = _lattice(keys[5], jcfg.tau2, jcfg.tau1,
+                       jnp.arange(n, dtype=jnp.int32), jbundle.counts,
+                       jcfg.local_batch)
     assoc_u = alloc_u = None
     if jspec.policy == "rcea":
         assoc_u = torch.tensor(np.asarray(jax.random.uniform(keys[3],

@@ -335,6 +335,9 @@ def _run_both(jspec, spec, jstate, jbundle, state, bundle, steps, label,
     step.  Returns both final states and the port's outputs."""
     n_test = int(jbundle.test_y.shape[0])
     outs = []
+    # the reference's carry normalised as its round does first thing, so
+    # ``round_step_jit`` compiles once (not again for the carried state)
+    jstate = jengine.ensure_carry(JSMALL, jspec, jstate)
     for i in range(steps):
         draws = _draws(jspec, jstate, jbundle)
         jstate, jout = jengine.round_step_jit(JSMALL, jspec, jstate, jbundle)

@@ -85,6 +85,18 @@ def test_engine_entry_points_default_to_cuda(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_warm_seed_and_trace_capture_default_to_cuda(no_cuda, tmp_path):
+    from repro_torch.configs.hfl_mnist import CONFIG
+    from repro_torch.core import engine
+    from repro_torch.telemetry import spans
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.init_warm(CONFIG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with spans.trace_capture(str(tmp_path)):
+            pass
+    assert engine.init_warm(CONFIG, device="cpu").device.type == "cpu"
+
+
 def test_substrate_entry_points_default_to_cuda(no_cuda):
     from repro_torch import convert
     from repro_torch.configs import get_config

@@ -22,6 +22,7 @@ the live JAX reference.
   ``jnp.linspace``, 4 engine rounds each, and a ``CONFIG`` round.
 """
 import dataclasses
+import functools
 from types import SimpleNamespace
 
 import jax
@@ -87,10 +88,18 @@ def _round_draws(jcfg, jspec, jstate, jbundle):
                                                  jcfg.n_clients))
 
 
-def _start(jcfg, seed, scenario):
-    """Both sides from the reference's ``init_simulation``."""
+@functools.lru_cache(maxsize=None)
+def _ref_start(jcfg, seed, scenario):
+    """The reference's ``init_simulation`` (immutable arrays, so one build
+    serves every test of a process that starts from it)."""
     jstate, jbundle, _ = jengine.init_simulation(jcfg, seed=seed,
                                                  scenario=scenario)
+    return jstate, jbundle
+
+
+def _start(jcfg, seed, scenario):
+    """Both sides from the reference's ``init_simulation``."""
+    jstate, jbundle = _ref_start(jcfg, seed, scenario)
     snp = jax.tree.map(np.asarray, jstate._replace(key=None))
     state, bundle = convert.state_from_numpy(
         snp, jax.tree.map(np.asarray, jbundle), "cpu")
@@ -565,13 +574,14 @@ JTIMED = dataclasses.replace(JSMALL, lambda_t=1.0, lambda_e=0.01)
 TIMED = dataclasses.replace(SMALL, lambda_t=1.0, lambda_e=0.01)
 
 
+@functools.lru_cache(maxsize=None)
 def _grid_inputs(jcfg, name, seed):
     """A reference round's grid inputs: its post-round gains, its
-    association snapshot and the scenario's caps and κ."""
+    association snapshot and the scenario's caps and κ (immutable, so
+    built once for both pinned axes)."""
     kind = jscen.preset(name).engine_kind()
     jspec = jengine.EngineSpec(scenario=kind)
-    jstate, jbundle, _ = jengine.init_simulation(jcfg, seed=seed,
-                                                 scenario=name)
+    jstate, jbundle = _ref_start(jcfg, seed, name)
     jstate, _ = jengine.round_step_jit(jcfg, jspec, jstate, jbundle)
     assoc = jengine.associate_snapshot(jcfg, jspec, jstate, jbundle)
     assoc = jnp.asarray(assoc, jnp.float32)

@@ -80,7 +80,7 @@ def test_config_matches_reference(reduce):
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        get_config("qwen3-8b")
+        get_config("grok-1-314b")
 
 
 # -- layers --------------------------------------------------------------------

@@ -339,6 +339,8 @@ def test_state_from_numpy_carries_the_warm_leaf():
     jspec, spec = jengine.EngineSpec(**kw), engine.EngineSpec(**kw)
     jstate, jbundle, _ = jengine.init_simulation(JSMALL, seed=1,
                                                  scenario=WORLD)
+    # normalised as the round does first thing: one compile, not two
+    jstate = jengine.ensure_carry(JSMALL, jspec, jstate)
     for _ in range(2):
         jstate, _ = jengine.round_step_jit(JSMALL, jspec, jstate, jbundle)
     snp = jax.tree.map(np.asarray, jstate._replace(key=None))

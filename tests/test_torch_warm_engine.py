@@ -43,6 +43,9 @@ def test_run_scanned_warm_matches_reference(kw):
     jspec = jengine.EngineSpec(**spec_kw)
     spec = engine.EngineSpec(**spec_kw)
     jstate, jbundle, state, bundle = _scenario_start(JSMALL, 0, WORLD)
+    # the reference's carry normalised as its round does first thing, so
+    # ``round_step_jit`` compiles once (not again for the carried state)
+    jstate = jengine.ensure_carry(JSMALL, jspec, jstate)
     n_test = int(jbundle.test_y.shape[0])
     sweeps = []
     for r in range(ROUNDS):
@@ -62,6 +65,9 @@ def test_buffered_warm_matches_reference():
     jspec = jengine.EngineSpec(**SPEC_KW, warm_start=True)
     spec = engine.EngineSpec(**SPEC_KW, warm_start=True)
     jstate, jbundle, state, bundle = _scenario_start(JSMALL, 0, None)
+    # the reference's carry normalised as its round does first thing, so
+    # ``round_step_jit`` compiles once (not again for the carried state)
+    jstate = jengine.ensure_carry(JSMALL, jspec, jstate)
     n_test = int(jbundle.test_y.shape[0])
     for i in range(12):
         draws = _round_draws(JSMALL, jspec, jstate, jbundle)
@@ -83,6 +89,9 @@ def test_faulted_warm_round_matches_reference(candidates_k):
     jspec, spec = _specs(SYNC_KW, CHAOS, telemetry=True, warm_start=True,
                          candidates_k=candidates_k)
     jstate, jbundle, state, bundle = _scenario_start(JSMALL, 0, None)
+    # the reference's carry normalised as its round does first thing, so
+    # ``round_step_jit`` compiles once (not again for the carried state)
+    jstate = jengine.ensure_carry(JSMALL, jspec, jstate)
     n_test = int(jbundle.test_y.shape[0])
     for r in range(4):
         draws = _draws(jspec, jstate, jbundle)
