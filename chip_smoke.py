@@ -45,7 +45,7 @@ and prints no result):
    ``stack_fleet``, one batched round for all seeds, with the launch
    counters zeroed just before and read just after (one fused-score call,
    one SIC call and τ₂ SGD launches a round, whatever the number of
-   seeds): ``CONFIG`` fcea + PDD, 5 rounds at S = 1 and at S = 8 (seeds
+   seeds): ``CONFIG`` fcea + PDD, 3 rounds at S = 1 and at S = 8 (seeds
    0-7) in turns S = 1, 8, 8, 1, each timed by round and stage with its
    seed-rounds per second;
    with ``--profile``, one steady S = 8 round profiled; every seed against
@@ -205,6 +205,31 @@ and prints no result):
    prefill vs decode in bfloat16; the flash kernel at each run's prefill
    shape (GQA groups 4, 7 and 8 at D = 128, MHA at D = 64, a 4096
    window) timed beside its bound and SDPA;
+9c. the prefix-LM and MoE decoders (``[vlm-moe]``), one model at a time,
+   weights drawn from a seeded generator on the card (norm scales
+   redrawn): paligemma-3b at full size (fp32 weights, 256 patch
+   embeddings in front of 4096 text tokens, the flash kernel's prefix
+   mask), grok-1-314b (4 of 64 layers, bf16 weights, 8 experts top-2) and
+   llama4-maverick (one pattern unit of 4 layers, bf16 weights, 128
+   experts top-1, 3 chunked layers and a NoPE global one, 1 x 16384
+   tokens: two chunks) at full width -- a prefill with the launch counters
+   zeroed just before and read just after (one tensor-core flash launch a
+   layer and nothing else), the (token, choice) pairs each MoE layer
+   dropped at the published capacity factor, timed prefills, paligemma's
+   ``prefill_prefix`` (one flash launch a layer), a token-by-token decode
+   of a 64-token prompt and 16 greedy tokens (no kernel launch), the
+   prefill's last logits against the decode's (the MoE prefill at a
+   capacity factor of experts / top-k, where nothing can drop; at the
+   model's own routers the share of routing decisions the two paths made
+   alike and the rel rms are printed, since bf16 rounding flips near ties
+   of the top-k, then the logits are held with the routers zeroed, which
+   pins every token to experts 0..k-1 on both paths), the peak
+   memory beside the card's name and power limit; each config reduced and
+   with 2 KV heads, card vs CPU in float32 (logits, the MoE aux) and
+   prefill vs decode in float32 and bfloat16; the flash kernel at the
+   four prefill shapes timed beside its bound and SDPA, and at the prefix
+   and chunk edges (prefix 1, ragged, = S; chunk 32, 100, 128, = S and
+   past S) in bf16 and fp32;
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
@@ -217,9 +242,10 @@ and prints no result):
     ``score_candidates`` its K = 2 dead-edge run's, ``warm_launches`` the
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
     run's, ``sweep_launches`` the ``[sweep]`` phase's three grids, and
-    ``dense_launches`` the five dense prefills'; the ``flash_attention``
-    entry's ``dense_shapes`` holds its readings at their shapes) and,
-    last, the device line.
+    ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
+    three prefix-LM and MoE prefills'; the ``flash_attention`` entry's
+    ``dense_shapes`` and ``vlm_moe_shapes`` hold its readings at their
+    shapes) and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -284,8 +310,21 @@ WGMMA_EDGES = [
     (1, 300, 14, 2, 128, True, 0),       # odd group 7 (yi-34b's), ragged S
     (1, 257, 16, 2, 128, True, 100),     # group 8 (qwen1.5-110b's), window
 ]
+# the prefix-LM and chunked masks at both flash kernels' edges, in bf16 (the
+# tensor-core kernel: 128 query rows a block, 64 keys a tile) and fp32 (the
+# CUDA-core one: 64 and 64): (B, S, H, KV, D, prefix_len, chunk)
+MASK_EDGES = [
+    (1, 300, 4, 1, 256, 1, 0),           # prefix 1 (= causal)
+    (2, 333, 8, 1, 256, 100, 0),         # ragged prefix, MQA, ragged S
+    (1, 200, 4, 2, 128, 200, 0),         # prefix = S: full attention
+    (1, 300, 4, 4, 64, 0, 32),           # chunk below a tile
+    (1, 333, 10, 2, 128, 0, 100),        # chunk not a tile multiple, group 5
+    (2, 400, 4, 2, 128, 0, 128),         # chunk = the q-tile
+    (1, 300, 12, 2, 128, 0, 1000),       # chunk past S (causal), group 6
+]
 # (the dense decoders' prefill shapes, DENSE_FLASH below, are held and
-# timed in [dense])
+# timed in [dense]; the prefix-LM and MoE decoders', VLM_MOE_FLASH, in
+# [vlm-moe])
 # prefill (kernels) against token-by-token decode (plain), full config and
 # the reduced config in bfloat16: bf16 activations round at 2^-8 in every
 # op, at other places on the two paths, so the logits agree to a few
@@ -450,7 +489,7 @@ def phase_build():
         f"load {time.perf_counter() - t0:.2f} s")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line \
-                or "spill" in line:
+                or "spill" in line or "Performance" in line:
             log("[build]   " + line.strip())
 
 
@@ -1210,6 +1249,10 @@ def phase_candidates(cfg, dev):
 # bench-scale sizes driven
 REF_FLEET_SEEDS = (4, 2)
 FLEET_SEEDS = (8, 4)
+# rounds of each CONFIG fleet run (in turns S = 1, 4, 8, 8, 4, 1) and of
+# each seed's own run: host-bound rounds, kept few so that the script stays
+# near half its time limit on a slow host
+FLEET_ROUNDS = 3
 
 
 def _fleet(cfg, seeds, dev, worlds=None):
@@ -1481,11 +1524,12 @@ def _fleet_frontier_score(cfg, states, bundles, k):
 
 
 def phase_fleet(cfg, dev, profile=False):
-    """The fleet path.  ``CONFIG`` fcea + PDD, 5 rounds of ``run_fleet``
-    at S = 1, the reference's S = 4 and S = 8 (seeds 0-7) in turns 1, 4,
-    8, 8, 4, 1; every seed of the S = 8 and S = 4 fleets against its own
-    ``run_scanned``; the score and SIC calls at S = 8 against their plain
-    versions and S = 1; a round at S = 2 card against CPU.  Then the bench
+    """The fleet path.  ``CONFIG`` fcea + PDD, ``FLEET_ROUNDS`` rounds of
+    ``run_fleet`` at S = 1, the reference's S = 4 and S = 8 (seeds 0-7) in
+    turns 1, 4, 8, 8, 4, 1; every seed of the S = 8 and S = 4 fleets
+    against its own ``run_scanned``; the score and SIC calls at S = 8
+    against their plain versions and S = 1; a round at S = 2 card against
+    CPU.  Then the bench
     scale (4096 × 32, K = 8), 3 rounds at the reference's S = 2 and at
     S = 4, a seed of each against its own run, and the frontier score at
     S = 4 against its plain version and S = 1."""
@@ -1497,8 +1541,8 @@ def phase_fleet(cfg, dev, profile=False):
     # the sizes in turns (the host's pace drifts within a run)
     runs = {size: [] for size in sizes}
     for size in sizes + sizes[::-1]:
-        runs[size].append(_drive_fleet(cfg, spec, seeds[:size], 5, dev,
-                                       f"CONFIG S={size}"))
+        runs[size].append(_drive_fleet(cfg, spec, seeds[:size],
+                                       FLEET_ROUNDS, dev, f"CONFIG S={size}"))
     steady = {size: [r[1] for r in rs] for size, rs in runs.items()}
     log("[fleet] CONFIG fcea-pdd s/round in turns "
         + ", ".join(f"S={z}" for z in sizes + sizes[::-1]) + ": "
@@ -3627,16 +3671,25 @@ def phase_sweep(cfg, dev):
 # The substrate: sequence kernels and recurrentgemma-9b serving
 # ---------------------------------------------------------------------------
 
-def attention_mask(s, causal, window, dev):
-    """(S, S) bool: query p may see key j -- the function's own mask."""
+# the most fp32 scores the plain flash version holds at once; above it the
+# comparison runs it one KV head (and its query heads) at a time
+PLAIN_SCORE_BYTES = 8e9
+
+
+def flash_plain(q, k, v, **mask):
+    """``seq_ops.attention_plain``, one KV head at a time where all heads'
+    (S, S) fp32 scores would pass ``PLAIN_SCORE_BYTES`` (llama4's 1 x
+    16384 at 40 heads: 43 GB): the same function."""
     import torch
-    pos = torch.arange(s, device=dev)
-    mask = torch.ones((s, s), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
-    return mask
+    from repro_torch.kernels import seq_ops
+    b, s, h, _ = q.shape
+    kv = k.shape[2]
+    if 4.0 * b * h * s * s <= PLAIN_SCORE_BYTES:
+        return seq_ops.attention_plain(q, k, v, **mask)
+    g = h // kv
+    return torch.cat([seq_ops.attention_plain(
+        q[:, :, i * g:(i + 1) * g], k[:, :, i:i + 1], v[:, :, i:i + 1],
+        **mask) for i in range(kv)], dim=2)
 
 
 def flash_work(b, s, h, kv, d, itemsize, mask):
@@ -3657,10 +3710,10 @@ def _seq_inputs(shape, dtype, seed, dev):
 
 
 def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
-                  library=False, timed=True):
-    """Kernel vs plain, checking that the call launched the kernel
-    ``seq_ops.flash_route`` names; with ``timed``, the times of both
-    beside the bound and, with ``library``, the time of PyTorch's
+                  library=False, timed=True, prefix_len=0, chunk=0):
+    """Kernel vs plain (``flash_plain``), checking that the call launched
+    the kernel ``seq_ops.flash_route`` names; with ``timed``, the times of
+    both beside the bound and, with ``library``, the time of PyTorch's
     scaled_dot_product_attention with the same boolean mask -- a yardstick
     the port never calls.  Returns err, ms, plain ms, bound, library ms."""
     import torch
@@ -3669,13 +3722,17 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
     q = _seq_inputs((b, s, h, d), dtype, seed, dev)
     k = _seq_inputs((b, s, kv, d), dtype, seed + 1, dev)
     v = _seq_inputs((b, s, kv, d), dtype, seed + 2, dev)
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len,
+              chunk=chunk)
     route = seq_ops.flash_route(dtype, d)
     before = seq_ops.LAUNCHES["flash_attention_wgmma"]
     got = seq_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    masks = (f" prefix={prefix_len}" if prefix_len else "") \
+        + (f" chunk={chunk}" if chunk else "")
     name = f"flash_attention B={b} S={s} H={h} KV={kv} D={d} " \
-           f"causal={causal} window={window} {str(dtype)[6:]} ({route})"
+           f"causal={causal} window={window}{masks} {str(dtype)[6:]} " \
+           f"({route})"
     wgmma = int(route == "seq_flash_attention_wgmma")
     if seq_ops.LAUNCHES["flash_attention_wgmma"] - before != wgmma:
         raise AssertionError(f"{name}: the tensor-core kernel was launched "
@@ -3685,13 +3742,12 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
         # held to the plain version in fp32 on the same (bf16) inputs,
         # rounded to bf16 once, as the kernel rounds only its output; the
         # bf16 plain version, which rounds at every step, is printed only
-        info = _max_err(got, seq_ops.attention_plain(q, k, v, **kw))
+        info = _max_err(got, flash_plain(q, k, v, **kw))
         log(f"[seq] {name}: bf16 plain vs kernel max abs {info:.3e} "
             f"(information)")
-        want = seq_ops.attention_plain(q.float(), k.float(), v.float(),
-                                       **kw).to(dtype)
+        want = flash_plain(q.float(), k.float(), v.float(), **kw).to(dtype)
     else:
-        want = seq_ops.attention_plain(q, k, v, **kw)
+        want = flash_plain(q, k, v, **kw)
     _check_close(name, got.float(), want.float(),
                  **FLASH_TOL[str(dtype)[6:]])
     err = _max_err(got, want)
@@ -3700,9 +3756,9 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
         log(f"[seq] {name}: max_abs_err {err:.3e}")
         return err
     ms_k = time_ms(lambda: seq_ops.flash_attention(q, k, v, **kw))
-    ms_p = time_ms(lambda: seq_ops.attention_plain(q, k, v, **kw))
+    ms_p = time_ms(lambda: flash_plain(q, k, v, **kw))
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    mask = attention_mask(s, causal, window, dev)
+    mask = seq_ops.attention_mask(s, dev, **kw)
     b_ms, b_by = bound_ms(*flash_work(b, s, h, kv, d, q.element_size(),
                                       mask), peak)
     lib_ms = None
@@ -3782,6 +3838,10 @@ def phase_seq_compare(dev):
     }
     for i, shape in enumerate(WGMMA_EDGES):
         compare_flash(*shape, bf16, 40 + 3 * i, dev, timed=False)
+    for i, (b, s, h, kv, d, prefix, chunk) in enumerate(MASK_EDGES):
+        for dtype in (bf16, f32):
+            compare_flash(b, s, h, kv, d, True, 0, dtype, 90 + 3 * i, dev,
+                          timed=False, prefix_len=prefix, chunk=chunk)
     compare_flash(1, 130, 2, 1, 80, True, 50, bf16, 24, dev, timed=False)
     compare_flash(1, 1000, 4, 2, 64, True, 300, f32, 21, dev)
     compare_flash(1, 300, 4, 1, 256, False, 100, f32, 27, dev, timed=False)
@@ -4046,14 +4106,167 @@ def _perturb_constants(model, gen):
                 p.copy_(1.0 + 0.2 * z if leaf == "scale" else 0.3 * z)
 
 
-def _dense_serve(cfg, why, batch, seq, dev, card, prompt_len=64,
-                 new_tokens=16):
-    """One dense config at full width on the card: a prefill of batch x
-    seq with every launch counter zeroed just before and read just after
-    (one tensor-core flash launch a layer, nothing else), timed prefills,
-    a token-by-token decode of a 64-token prompt and 16 greedy tokens
-    (no kernel launch), and the prefill's last logits against the
-    decode's."""
+def _no_drop(cfg):
+    """``cfg`` at a capacity factor of experts / top-k: every expert has a
+    slot for every (token, choice) of a group, so nothing drops, as the
+    reference's decode-parity test raises it (a dense config as it is)."""
+    if not cfg.moe_experts:
+        return cfg
+    return cfg.replace(moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+
+
+def _record_routing(model):
+    """Forward hooks on every MoE layer that keep the ``moe.route`` of each
+    call, in call order; returns the list they fill and the hooks'
+    handles (none for a dense model)."""
+    from repro_torch.models import moe
+    calls, handles = [], []
+    for blk in model.blocks:
+        if blk.ffn_kind == "moe":
+            handles.append(blk.moe.register_forward_hook(
+                lambda m, args, out: calls.append(
+                    moe.route(m.router, args[0], args[1]))))
+    return calls, handles
+
+
+def _routing_agreement(pre, fed, batch, steps):
+    """The share of (token, MoE layer) decisions -- the set of experts a
+    token went to -- that a forward over ``batch`` x ``steps`` tokens
+    (``pre``: one routing a layer) and a token-by-token decode of the same
+    tokens (``fed``: a step's layers in order) made alike."""
+    import torch
+    n = len(pre)
+    same = []
+    for layer in range(n):
+        a = pre[layer].idx.reshape(batch, steps, -1).sort(-1).values
+        b = torch.stack([fed[i * n + layer].idx.reshape(batch, -1)
+                         for i in range(steps)], 1).sort(-1).values
+        same.append((a == b).all(-1))
+    return float(torch.stack(same).float().mean())
+
+
+def _pin_routers(model):
+    """Zero every router: each token's probabilities are all 1 / E, the
+    stable top-k takes experts 0..k-1 and the gates are exactly 1 / k, on
+    any path -- routing can no longer flip between two paths."""
+    import torch
+    with torch.no_grad():
+        for blk in model.blocks:
+            if blk.ffn_kind == "moe":
+                blk.moe.router.zero_()
+
+
+def _prefix(cfg, batch, gen, dev):
+    """A VLM's stub patch embeddings (B, P, d) in the compute dtype, or
+    None."""
+    import torch
+    if not cfg.prefix_tokens:
+        return None
+    return torch.randn((batch, cfg.prefix_tokens, cfg.d_model), generator=gen,
+                       device=dev).to(cfg.compute_dtype)
+
+
+def _decode(model, tokens, patches, cache_len):
+    """A token-by-token decode of ``tokens`` on the model's device after
+    ``prefill_prefix`` of a VLM's ``patches``: every step's logits (B, S,
+    V), the routing of each MoE call, and the flash launches it made (the
+    prefix's: one a layer; the decode makes none)."""
+    import torch
+    p_len = model.cfg.prefix_tokens
+    calls, hooks = _record_routing(model)
+    cache = model.init_cache(tokens.shape[0], cache_len)
+    before = _launch_counts()["flash_attention"]
+    with torch.no_grad():
+        if patches is not None:
+            cache = model.prefill_prefix(cache, patches)
+        logits = torch.cat([
+            model.decode_step(tokens[:, i:i + 1], cache, p_len + i,
+                              prefix_len=p_len)[0]
+            for i in range(tokens.shape[1])], dim=1)
+    for h in hooks:
+        h.remove()
+    return logits, calls, _launch_counts()["flash_attention"] - before
+
+
+def _forward_no_drop(model, tokens, patches, last=False):
+    """Every text position's logits of one forward (the kernel path) at
+    ``_no_drop``'s capacity factor -- with ``last``, the last position's
+    alone, as the prefill step unembeds it -- and the routing of its MoE
+    calls."""
+    import torch
+    cfg = model.cfg
+    calls, hooks = _record_routing(model)
+    model.cfg = _no_drop(cfg)
+    try:
+        with torch.no_grad():
+            if last:
+                logits = model.unembed(model.hidden(tokens, patches)[:, -1])
+            else:
+                logits = model.apply(tokens, patches)
+    finally:
+        model.cfg = cfg
+    for h in hooks:
+        h.remove()
+    return logits, calls
+
+
+def _forward_vs_decode(tag, label, model, tokens, patches, cache_len,
+                       last=False, fed=None):
+    """A forward (``_forward_no_drop``) against a token-by-token decode of
+    the same tokens, at ``PREFILL_DECODE_REL_RMS`` (every position, or the
+    last with ``last``); ``fed``, a decode already made (its logits and
+    routing), stands for the first.  For a MoE model, first at its own
+    routers -- the
+    share of routing decisions the two paths made alike and the rel rms,
+    printed: bf16 rounding that differs between the flash kernel and the
+    decode's plain attention flips near ties of the top-k, and each flip
+    swaps an expert -- then held with the routers pinned
+    (``_pin_routers``)."""
+    cfg = model.cfg
+    batch, steps = tokens.shape
+
+    def both(made=None):
+        if made is None:
+            out, calls, flash = _decode(model, tokens, patches, cache_len)
+            if flash != (cfg.n_layers if patches is not None else 0):
+                raise AssertionError(f"{cfg.name}: the decode path made "
+                                     f"{flash} flash launches")
+            made = (out, calls)
+        full, pre_calls = _forward_no_drop(model, tokens, patches, last)
+        return full, made[0][:, -1] if last else made[0], pre_calls, made[1]
+
+    full, fed, pre_calls, fed_calls = both(fed)
+    rel = _rel_rms(full, fed)
+    if pre_calls:
+        agree = _routing_agreement(pre_calls, fed_calls, batch, steps)
+        log(f"[{tag}] {cfg.name} {label} own routers: forward (capacity "
+            f"factor {_no_drop(cfg).moe_capacity_factor}) and decode routed "
+            f"{100 * agree:.2f}% of (token, layer) decisions alike; rel rms "
+            f"{rel:.3e} (information)")
+        _pin_routers(model)
+        full, fed, _, _ = both()
+        rel = _rel_rms(full, fed)
+    agree = float((full.argmax(-1) == fed.argmax(-1)).float().mean())
+    log(f"[{tag}] {cfg.name} {label}: forward vs token-by-token decode"
+        f"{' (routers pinned)' if pre_calls else ''}, "
+        f"{'last' if last else 'all'} logits of {steps} tokens: rel rms "
+        f"{rel:.3e} (limit {PREFILL_DECODE_REL_RMS}), max abs "
+        f"{_max_err(full, fed):.3e}, argmax agreement {agree:.3f}")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"{cfg.name} {label}: forward and decode "
+                             f"disagree: rel rms {rel:.3e}")
+
+
+def _serve_full(tag, cfg, why, batch, seq, dev, card, prompt_len=64,
+                new_tokens=16):
+    """One config at full width on the card: a prefill of batch x seq text
+    tokens (after a VLM's patches) with every launch counter zeroed just
+    before and read just after (one tensor-core flash launch a layer,
+    nothing else) and each MoE layer's dropped (token, choice) pairs,
+    timed prefills, ``prefill_prefix`` of a VLM's patches (one flash launch
+    a layer), a token-by-token decode of a 64-token prompt and 16 greedy
+    tokens (no launch), and ``_forward_vs_decode`` on the prompt's last
+    logits."""
     import torch
     from repro_torch.launch import serve, steps
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4062,23 +4275,34 @@ def _dense_serve(cfg, why, batch, seq, dev, card, prompt_len=64,
     prefill, model = steps.make_prefill_step(cfg, device=dev, generator=gen)
     _perturb_constants(model, gen)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[dense] {cfg.name}: {cfg.n_layers} layers"
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers"
         + (f" (depth cut: {why})" if why else " (full depth)")
-        + f", d {cfg.d_model}, {cfg.n_heads} H / {cfg.n_kv_heads} KV, D "
-        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, norm "
-        f"{cfg.norm}, qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, tied "
-        f"{cfg.tie_embeddings}, window {cfg.window}: {n_params} params "
-        f"({n_params * 4 / 1e9:.2f} GB fp32) drawn in "
+        + f" {cfg.block_pattern} / {cfg.ffn_pattern}, d {cfg.d_model}, "
+        f"{cfg.n_heads} H / {cfg.n_kv_heads} KV, D {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, norm {cfg.norm}, qk_norm "
+        f"{cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, tied {cfg.tie_embeddings}, "
+        f"window {cfg.window}, chunk {cfg.attn_chunk}, prefix "
+        f"{cfg.prefix_tokens}, experts {cfg.moe_experts} top-"
+        f"{cfg.moe_top_k} (d_ff {cfg.moe_d_ff}, capacity factor "
+        f"{cfg.moe_capacity_factor}): {n_bytes / 1e9:.2f} GB of "
+        f"{cfg.param_dtype_str} weights drawn in "
         f"{time.perf_counter() - t0:.2f} s")
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=dev)
+    patches = _prefix(cfg, batch, gen, dev)
+    batch_in = {"tokens": tokens}
+    if patches is not None:
+        batch_in["embeddings"] = patches
+    routed, hooks = _record_routing(model)
     _reset_launches()
     t0 = time.perf_counter()
-    logits = prefill({"tokens": tokens})
+    logits = prefill(batch_in)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = _launch_counts()
+    for h in hooks:
+        h.remove()
     want = {k: 0 for k in launches}
     want.update(flash_attention=cfg.n_layers,
                 flash_attention_wgmma=cfg.n_layers)
@@ -4090,35 +4314,53 @@ def _dense_serve(cfg, why, batch, seq, dev, card, prompt_len=64,
         raise AssertionError(f"{cfg.name} prefill logits: shape "
                              f"{tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
+    if routed:
+        log(f"[{tag}] {cfg.name} prefill at capacity factor "
+            f"{cfg.moe_capacity_factor}: (token, choice) pairs dropped by "
+            f"each MoE layer {[int((~r.keep).sum()) for r in routed]} of "
+            f"{routed[0].keep.numel()} each")
     walls = []
     for _ in range(2):
         t0 = time.perf_counter()
-        prefill({"tokens": tokens})
+        prefill(batch_in)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     pre_s = sum(walls) / len(walls)
-    log(f"[dense] {cfg.name} prefill {batch} x {seq}: flash launches "
-        f"{launches['flash_attention_wgmma']} (tensor-core) of "
+    p_len = cfg.prefix_tokens
+    log(f"[{tag}] {cfg.name} prefill {batch} x ({p_len} + {seq}): flash "
+        f"launches {launches['flash_attention_wgmma']} (tensor-core) of "
         f"{launches['flash_attention']}, linrec "
         f"{launches['linear_recurrence']}; {pre_s * 1e3:.2f} ms "
-        f"({batch * seq / pre_s:.1f} tokens/s; runs "
+        f"({batch * (p_len + seq) / pre_s:.1f} tokens/s; runs "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; first "
         f"{first_s * 1e3:.2f} ms)")
 
     serve_step, _ = steps.make_serve_step(cfg, model=model)
     prompt = tokens[:, :prompt_len]
-    cache = model.init_cache(batch, prompt_len + new_tokens)
+    cache = model.init_cache(batch, p_len + prompt_len + new_tokens)
     before = _launch_counts()
+    if patches is not None:
+        with torch.no_grad():
+            cache = model.prefill_prefix(cache, patches)
+        made = _launch_counts()["flash_attention_wgmma"] \
+            - before["flash_attention_wgmma"]
+        if made != cfg.n_layers:
+            raise AssertionError(f"{cfg.name} prefill_prefix: {made} flash "
+                                 f"launches, not {cfg.n_layers}")
+        before = _launch_counts()
+    fed_calls, hooks = _record_routing(model)
     t0 = time.perf_counter()
-    feed_logits, cache = serve.prefill_into_cache(model, prompt, cache)
+    feed_logits, cache = serve.prefill_into_cache(model, prompt, cache, p_len)
     torch.cuda.synchronize()
     feed_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
     tok = torch.argmax(feed_logits[:, -1, :], dim=-1,
                        keepdim=True).to(torch.int32)
     out, step_ms = [], []
     for i in range(new_tokens):
         t0 = time.perf_counter()
-        tok, cache = serve_step(tok, cache, prompt_len + i)
+        tok, cache = serve_step(tok, cache, p_len + prompt_len + i)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         out.append(tok[:, 0])
@@ -4128,40 +4370,36 @@ def _dense_serve(cfg, why, batch, seq, dev, card, prompt_len=64,
     if not bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"{cfg.name}: tokens outside the vocabulary")
     decode_ms = statistics.mean(step_ms[1:])
-    log(f"[dense] {cfg.name} decode {batch} requests: prompt of {prompt_len} "
-        f"fed token by token in {feed_s * 1e3:.2f} ms; {new_tokens} greedy "
-        f"tokens at {decode_ms:.3f} ms/token (steps 2..{new_tokens}; first "
-        f"{step_ms[0]:.3f}); sample {gen_tokens[0, :8].tolist()}")
-
-    pre_logits = prefill({"tokens": prompt})
-    rel = _rel_rms(pre_logits, feed_logits[:, 0])
-    agree = float((pre_logits.argmax(-1) == feed_logits[:, 0].argmax(-1))
-                  .float().mean())
-    log(f"[dense] {cfg.name} prefill vs decode, last logits of the "
-        f"{prompt_len}-token prompt: rel rms {rel:.3e} (limit "
-        f"{PREFILL_DECODE_REL_RMS}), max abs "
-        f"{_max_err(pre_logits, feed_logits[:, 0]):.3e}, argmax agreement "
-        f"{agree:.2f}")
-    if not rel <= PREFILL_DECODE_REL_RMS:
-        raise AssertionError(f"{cfg.name}: prefill and decode logits "
-                             f"disagree: rel rms {rel:.3e}")
+    log(f"[{tag}] {cfg.name} decode {batch} requests: prompt of {prompt_len} "
+        f"fed token by token from index {p_len} in {feed_s * 1e3:.2f} ms; "
+        f"{new_tokens} greedy tokens at {decode_ms:.3f} ms/token (steps "
+        f"2..{new_tokens}; first {step_ms[0]:.3f}); sample "
+        f"{gen_tokens[0, :8].tolist()}")
+    del cache
+    _forward_vs_decode(tag, "full width", model, prompt, patches,
+                       p_len + prompt_len, last=True,
+                       fed=(feed_logits, fed_calls))
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"[dense] {cfg.name} peak device memory {peak / 1e9:.2f} GB on "
+    log(f"[{tag}] {cfg.name} peak device memory {peak / 1e9:.2f} GB on "
         f"{card}")
     if peak >= 80e9:
         raise AssertionError(f"{cfg.name}: peak memory {peak / 1e9:.2f} GB")
-    del model, cache, prefill, serve_step, logits, pre_logits, feed_logits
+    del model, prefill, serve_step, logits, feed_logits
     torch.cuda.empty_cache()
     return dict(launches=launches["flash_attention_wgmma"],
                 prefill_ms=pre_s * 1e3, decode_ms=decode_ms,
                 peak_gb=peak / 1e9)
 
 
-def _dense_reduced(cfg, dev, seq=300):
-    """A reduced dense config in float32 from the same (perturbed) weights
-    on the card (kernels) and on the CPU (plain versions): the prefill's
-    last logits and every position's, and the card's prefill against its
-    own token-by-token decode, at ``SUBSTRATE_TOL``."""
+def _reduced_card_vs_cpu(tag, cfg, dev, seq):
+    """A reduced config in float32 from the same (perturbed) weights on the
+    card (kernels) and on the CPU (plain versions): the prefill's last
+    logits, every position's logits and the MoE aux; then the card's
+    forward against its own token-by-token decode
+    (``_forward_vs_decode``'s path, held here at ``SUBSTRATE_TOL``: in
+    float32 no routing flips).  ``seq`` spans several flash tiles (the
+    window skip, several chunks of 32); B · seq stays within one MoE
+    routing group."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models.transformer import Transformer
@@ -4171,41 +4409,50 @@ def _dense_reduced(cfg, dev, seq=300):
     card_model = Transformer(cfg, device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
     tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
-    pre_cpu, _ = steps.make_prefill_step(cfg, model=cpu_model)
-    pre_card, _ = steps.make_prefill_step(cfg, model=card_model)
+    patches = _prefix(cfg, 2, gen, "cpu")
+    on_card = None if patches is None else patches.to(dev)
+    batch_cpu = {"tokens": tokens}
+    batch_card = {"tokens": tokens.to(dev)}
+    if patches is not None:
+        batch_cpu["embeddings"], batch_card["embeddings"] = patches, on_card
+    last_cpu = steps.make_prefill_step(cfg, model=cpu_model)[0](batch_cpu)
+    with torch.no_grad():
+        full_cpu, aux_cpu = cpu_model.apply(tokens, patches, with_aux=True)
     _reset_launches()
-    last_card = pre_card({"tokens": tokens.to(dev)})
-    full_card = card_model.apply(tokens.to(dev))
+    last_card = steps.make_prefill_step(cfg, model=card_model)[0](batch_card)
+    with torch.no_grad():
+        full_card, aux_card = card_model.apply(tokens.to(dev), on_card,
+                                               with_aux=True)
     torch.cuda.synchronize()
     launches = _launch_counts()
     if (launches["flash_attention"], launches["flash_attention_wgmma"],
             launches["linear_recurrence"]) != (2 * cfg.n_layers, 0, 0):
         raise AssertionError(f"{cfg.name} card launches {launches}")
-    cache = card_model.init_cache(2, seq)
-    with torch.no_grad():
-        decoded = torch.cat([
-            card_model.decode_step(tokens[:, i:i + 1].to(dev), cache, i)[0]
-            for i in range(seq)], dim=1)
-    if _launch_counts() != launches:
-        raise AssertionError(f"{cfg.name}: the decode path launched a kernel")
+    decoded, _, flash = _decode(card_model, tokens.to(dev), on_card,
+                                cfg.prefix_tokens + seq)
+    if flash != (cfg.n_layers if patches is not None else 0):
+        raise AssertionError(f"{cfg.name}: the decode path made {flash} "
+                             f"flash launches")
+    no_drop = full_card if not cfg.moe_experts else \
+        _forward_no_drop(card_model, tokens.to(dev), on_card)[0]
     errs = []
     for name, got, want in (
-            ("card vs cpu, last logits", last_card.cpu(),
-             pre_cpu({"tokens": tokens})),
-            ("card vs cpu, all logits", full_card.cpu(),
-             cpu_model.apply(tokens)),
-            ("card prefill vs card decode, all logits", full_card, decoded)):
+            ("card vs cpu, last logits", last_card.cpu(), last_cpu),
+            ("card vs cpu, all logits", full_card.cpu(), full_cpu),
+            ("card vs cpu, aux", aux_card.cpu(), aux_cpu),
+            ("card prefill vs card decode, all logits", no_drop, decoded)):
         _check_close(f"{cfg.name} {name}", got, want, **SUBSTRATE_TOL)
         errs.append(f"{name} {_max_err(got, want):.3e}")
-    log(f"[dense] {cfg.name} (H {cfg.n_heads} / KV {cfg.n_kv_heads}, "
-        f"window {cfg.window}) S={seq} fp32, max abs: {'; '.join(errs)} "
-        f"(atol {SUBSTRATE_TOL['atol']}, rtol {SUBSTRATE_TOL['rtol']}): ok")
+    log(f"[{tag}] {cfg.name} (H {cfg.n_heads} / KV {cfg.n_kv_heads}, window "
+        f"{cfg.window}, chunk {cfg.attn_chunk}, prefix {cfg.prefix_tokens}) "
+        f"S={seq} fp32, max abs: {'; '.join(errs)} (atol "
+        f"{SUBSTRATE_TOL['atol']}, rtol {SUBSTRATE_TOL['rtol']}): ok")
 
 
-def _dense_reduced_bf16(cfg, dev, seq=300):
-    """A reduced dense config in bfloat16 (d_head 64: the tensor-core
-    flash kernel): every position's prefill logits against a token-by-
-    token decode on the card at ``PREFILL_DECODE_REL_RMS``."""
+def _reduced_bf16(tag, cfg, dev, seq):
+    """A reduced config in bfloat16 (d_head 64: the tensor-core flash
+    kernel, one launch a layer): ``_forward_vs_decode`` over every
+    position."""
     import torch
     from repro_torch.models.transformer import Transformer
     cfg = cfg.replace(compute_dtype_str="bfloat16")
@@ -4214,27 +4461,17 @@ def _dense_reduced_bf16(cfg, dev, seq=300):
     _perturb_constants(model, gen)
     tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
                            device=dev)
+    patches = _prefix(cfg, 2, gen, dev)
     _reset_launches()
     with torch.no_grad():
-        full = model.apply(tokens)
+        model.apply(tokens, patches)
     torch.cuda.synchronize()
     launches = _launch_counts()
     if (launches["flash_attention"], launches["flash_attention_wgmma"]) != \
             (cfg.n_layers, cfg.n_layers):
         raise AssertionError(f"{cfg.name} bf16 card launches {launches}")
-    cache = model.init_cache(2, seq)
-    with torch.no_grad():
-        decoded = torch.cat([model.decode_step(tokens[:, i:i + 1], cache, i)[0]
-                             for i in range(seq)], dim=1)
-    rel = _rel_rms(full, decoded)
-    log(f"[dense] {cfg.name} (KV {cfg.n_kv_heads}, window {cfg.window}) "
-        f"bf16 S={seq}: card prefill (tensor-core flash) vs card decode, all "
-        f"logits: rel rms {rel:.3e} (limit {PREFILL_DECODE_REL_RMS}), "
-        f"argmax agreement "
-        f"{float((full.argmax(-1) == decoded.argmax(-1)).float().mean()):.3f}")
-    if not rel <= PREFILL_DECODE_REL_RMS:
-        raise AssertionError(f"{cfg.name} bf16 prefill and decode disagree: "
-                             f"rel rms {rel:.3e}")
+    _forward_vs_decode(tag, f"(KV {cfg.n_kv_heads}) bf16", model, tokens,
+                       patches, cfg.prefix_tokens + seq)
 
 
 def phase_dense(dev, card):
@@ -4250,15 +4487,15 @@ def phase_dense(dev, card):
         cfg = get_config(arch)
         if depth is not None:
             cfg = cfg.replace(n_layers=depth)
-        runs[arch] = _dense_serve(cfg, why, batch, seq, dev, card)
+        runs[arch] = _serve_full("dense", cfg, why, batch, seq, dev, card)
     for arch, *_ in DENSE_RUNS:
         for kv in (None, 2):
             cfg = get_config(arch).reduced()
             if kv is not None:
                 cfg = cfg.replace(n_kv_heads=kv)
-            _dense_reduced(cfg, dev)
-        _dense_reduced_bf16(get_config(arch).reduced().replace(n_kv_heads=2),
-                            dev)
+            _reduced_card_vs_cpu("dense", cfg, dev, 300)
+        _reduced_bf16("dense", get_config(arch).reduced().replace(
+            n_kv_heads=2), dev, 300)
     shapes = []
     for i, shape in enumerate(DENSE_FLASH):
         err, ms_k, ms_p, b_ms, b_by, lib_ms = compare_flash(
@@ -4272,6 +4509,78 @@ def phase_dense(dev, card):
         f"{a} prefill {r['prefill_ms']:.2f} ms, decode {r['decode_ms']:.3f} "
         f"ms/token, peak {r['peak_gb']:.2f} GB" for a, r in runs.items())
     log(f"[dense] flash launches over the five prefills: {total}; "
+        f"{summary}; card {card}")
+    return {"flash_attention": total}, shapes
+
+
+# ---------------------------------------------------------------------------
+# The prefix-LM and MoE decoders: paligemma-3b, grok-1-314b, llama4-maverick
+# ---------------------------------------------------------------------------
+
+# (arch, layers run -- None for the config's own --, batch, text length,
+# why the depth is cut).  paligemma's 18 layers are 10.0 GB of fp32
+# weights; grok's 64 would be ~633 GB of bf16 (9.84 GB a layer) and
+# llama4's 48 some 789 GB, so those two run at full width with 4 layers:
+# llama4's one pattern unit (3 chunked + 1 global NoPE; FFNs dense, MoE,
+# dense, MoE; 69.6 GB), on one sequence of two 8192-token chunks
+VLM_MOE_RUNS = [
+    ("paligemma-3b", None, 2, 4096, ""),
+    ("grok-1-314b", 4, 2, 4096,
+     "64 layers are ~633 GB of bf16 weights, 9.84 GB a layer"),
+    ("llama4-maverick-400b-a17b", 4, 1, 16384,
+     "one pattern unit of 48 layers; its two MoE layers are 32.2 GB each"),
+]
+# the flash kernel at each run's prefill shapes, bf16: (B, S, H, KV, D,
+# prefix_len, chunk) -- MQA at D = 256 with a 256-token prefix, GQA groups
+# 6 and 5, a chunk boundary inside the sequence
+VLM_MOE_FLASH = [
+    (2, 4352, 8, 1, 256, 256, 0),        # paligemma-3b
+    (2, 4096, 48, 8, 128, 0, 0),         # grok-1-314b
+    (1, 16384, 40, 8, 128, 0, 8192),     # llama4-maverick, chunked layers
+    (1, 16384, 40, 8, 128, 0, 0),        # llama4-maverick, the NoPE layer
+]
+
+
+def phase_vlm_moe(dev, card):
+    """paligemma-3b, grok-1-314b and llama4-maverick: each at full width
+    (paligemma at full depth, the MoE configs at 4 layers) served on the
+    card, one model at a time; each reduced config, as ``reduced()`` and
+    with 2 KV heads, card vs CPU in fp32 and prefill vs decode in fp32 and
+    bf16; then the flash kernel at the four prefill shapes, timed beside
+    its bound and SDPA."""
+    import torch
+    from repro_torch.configs import get_config
+    runs = {}
+    for arch, depth, batch, seq, why in VLM_MOE_RUNS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = cfg.replace(n_layers=depth)
+        runs[arch] = _serve_full("vlm-moe", cfg, why, batch, seq, dev, card)
+    for arch, *_ in VLM_MOE_RUNS:
+        # B · S within one routing group of 512 for the MoE configs
+        seq = 300 if arch == "paligemma-3b" else 250
+        for kv in (None, 2):
+            cfg = get_config(arch).reduced()
+            if kv is not None:
+                cfg = cfg.replace(n_kv_heads=kv)
+            _reduced_card_vs_cpu("vlm-moe", cfg, dev, seq)
+        _reduced_bf16("vlm-moe", get_config(arch).reduced().replace(
+            n_kv_heads=2), dev, seq)
+    shapes = []
+    for i, (b, s, h, kv, d, prefix, chunk) in enumerate(VLM_MOE_FLASH):
+        err, ms_k, ms_p, b_ms, b_by, lib_ms = compare_flash(
+            b, s, h, kv, d, True, 0, torch.bfloat16, 110 + 3 * i, dev,
+            library=True, prefix_len=prefix, chunk=chunk)
+        shapes.append({"shape": [b, s, h, kv, d], "prefix_len": prefix,
+                       "chunk": chunk, "max_abs_err": err, "ms": ms_k,
+                       "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_ms})
+        torch.cuda.empty_cache()
+    total = sum(r["launches"] for r in runs.values())
+    summary = "; ".join(
+        f"{a} prefill {r['prefill_ms']:.2f} ms, decode {r['decode_ms']:.3f} "
+        f"ms/token, peak {r['peak_gb']:.2f} GB" for a, r in runs.items())
+    log(f"[vlm-moe] flash launches over the three prefills: {total}; "
         f"{summary}; card {card}")
     return {"flash_attention": total}, shapes
 
@@ -4335,6 +4644,8 @@ def main(argv=None) -> int:
     phase("substrate bf16 prefill vs decode", phase_substrate_bf16, dev)
     dense_launches, dense_flash = phase("dense decoders", phase_dense, dev,
                                         card)
+    vlm_moe_launches, vlm_moe_flash = phase(
+        "prefix-LM and MoE decoders", phase_vlm_moe, dev, card)
 
     # the entries of local_sgd_step and flash_attention are the cluster
     # kernel and the tensor-core kernel
@@ -4370,7 +4681,8 @@ def main(argv=None) -> int:
                 "faults_launches": fault_launches.get(name, 0),
                 "warm_launches": warm_launches.get(name, 0),
                 "sweep_launches": sweep_launches.get(name, 0),
-                "dense_launches": dense_launches.get(name, 0)}
+                "dense_launches": dense_launches.get(name, 0),
+                "vlm_moe_launches": vlm_moe_launches.get(name, 0)}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -4388,8 +4700,10 @@ def main(argv=None) -> int:
                         "bound_by": b_by, "library_ms": lib_ms,
                         **phase_launches(name)})
         if name == "flash_attention":
-            # the dense decoders' prefill shapes, each timed as the main one
+            # the dense, prefix-LM and MoE decoders' prefill shapes, each
+            # timed as the main one
             kernels[-1]["dense_shapes"] = dense_flash
+            kernels[-1]["vlm_moe_shapes"] = vlm_moe_flash
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",

@@ -15,6 +15,10 @@ _REGISTRY: Dict[str, str] = {
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "qwen3-8b-sw4k": "repro_torch.configs.qwen3_8b_sw4k",
     "yi-34b": "repro_torch.configs.yi_34b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
 }
 
 
@@ -22,8 +26,7 @@ def get_config(name: str):
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ROADMAP A17: its mixers -- "
-            f"prefix-LM attention, MoE, chunked attention, xLSTM, enc-dec -- "
-            f"come later); "
+            f"xLSTM, enc-dec -- come later); "
             f"ported: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[name]).CONFIG
 

@@ -168,8 +168,10 @@ def params_from_numpy(params_np: Mapping[str, Any], cfg,
     (and ``embed/unembedding`` when untied), ``final_norm/scale`` (and
     ``bias`` for LayerNorm) and ``stage_<i>/<unit position>/<group>/...``
     stacked over the stage's repetitions, nested names included
-    (``attn/q_norm/scale``).  Every parameter of the port is filled; a
-    missing key or a shape mismatch raises."""
+    (``attn/q_norm/scale``), a MoE block's ``moe/{router, w_gate, w_in,
+    w_out}`` among them (the router stays float32 under any
+    ``param_dtype``, as the port's parameter is).  Every parameter of the
+    port is filled; a missing key or a shape mismatch raises."""
     model = Transformer(cfg, device=device)
     top = {"embedding": "embed.embedding",
            "unembedding": "embed.unembedding"}

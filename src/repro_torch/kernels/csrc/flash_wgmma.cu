@@ -1,10 +1,14 @@
 // Flash attention forward for bf16 inputs on Hopper's tensor cores
-// (sm_90a): causal / sliding-window / full, GQA.
+// (sm_90a): causal / sliding-window / prefix-LM / chunked / full, GQA.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_attn_kernel (via
 // flash_attention / ops.flash_attention) for bf16 q, k, v at d_head 64, 128
-// and 256.  kernels/seq_ops.py picks this kernel or seq_ops.cu's CUDA-core
-// flash_kernel by dtype and head dim alone (flash_route).
+// and 256, and computes the two mask kinds the reference leaves to XLA
+// (models/attention.py::mask_logits): prefix (causal, or key < prefix_len:
+// paligemma's patches) and chunked (causal, and key / chunk == query /
+// chunk: llama4's local layers).  kernels/seq_ops.py picks this kernel or
+// seq_ops.cu's CUDA-core flash_kernel by dtype and head dim alone
+// (flash_route).
 //
 // Bound on the H100: operations.  The function needs 4 * D flops for each
 // (query, key) pair the mask allows and head: at recurrentgemma-9b's
@@ -43,10 +47,22 @@
 //   transpose is materialised, and TMA fills zeros past S: a ragged S
 //   needs no guarded loads.
 // * Work skipped: a block loops over the K/V tiles from the window's first
-//   tile to the diagonal; each warpgroup skips the tiles that hold no
-//   allowed key for its own 64 rows.  Only tiles that straddle the
-//   diagonal, the window's edge or S are masked.  Blocks are numbered so
-//   that the q-tiles with the most K/V tiles start first.
+//   tile (or the chunk start of its first row) to the diagonal (or the
+//   prefix's last tile, if that is later); each warpgroup skips the tiles
+//   that hold no allowed key for its own 64 rows.  Only tiles that straddle
+//   the diagonal past the prefix, the window's edge, a chunk boundary or S
+//   are masked.  Blocks are numbered so that the q-tiles with the most K/V
+//   tiles under a causal mask start first; with chunks the later q-tiles of
+//   a chunk carry the most, which this order does not know (it only costs
+//   time).
+// * Masks: two instantiations a head dim.  Causal and window alone (every
+//   layer but paligemma's and llama4's local ones) keep the mask test this
+//   loop was tuned with; the prefix and chunked masks take kMasks, where
+//   each row's mask is reduced once to the bounds of the keys it may see
+//   and an element's test is three compares.  One loop for all four masks
+//   cost 5-7% at D = 128 and 256 on the causal and window shapes (ptxas
+//   allocates the loop otherwise), and a division an element for the chunk
+//   test 21-46% (both measured in turns on an H100 80GB HBM3 at 700 W).
 // * Numerics: scores in fp32, scaled by D^-1/2 * log2(e) and exponentiated
 //   with ex2.approx (D^-1/2 is a power of two at D = 64 and 256).  Masked
 //   scores are -inf and their probabilities exactly 0; the denominator
@@ -329,14 +345,16 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int s_len,
          (window <= 0 || kpos > qpos - window);
 }
 
-template <int D>
+// kMasks: the prefix or chunked mask (``prefix`` or ``chunk`` > 0);
+// without it both are 0 and unread.
+template <int D, bool kMasks>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int batch, int s_len,
                        int n_heads, int n_kv, int causal, int window,
-                       float scale_log2) {
+                       int prefix, int chunk, float scale_log2) {
   constexpr int kChunks = D / kBox;
   constexpr int kQBytes = kBQ * D * 2;
   constexpr int kTileBytes = kBK * D * 2;   // one K or one V tile
@@ -364,9 +382,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // the K/V tiles that can hold an allowed key for some row of the block
   int kt_hi = (s_len - 1) / kBK;
-  if (causal) kt_hi = min(kt_hi, (min(q0 + kBQ, s_len) - 1) / kBK);
+  if (causal)
+    kt_hi = min(kt_hi, (max(min(q0 + kBQ, s_len), kMasks ? prefix : 0) - 1) /
+                           kBK);
   int kt_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kBK;
+  if (kMasks && chunk > 0) kt_lo = q0 / chunk * chunk / kBK;
   const int n_tiles = kt_hi - kt_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -423,8 +444,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int col = 2 * (lane % 4);
   const int wq_lo = q0 + 64 * wg, wq_hi = wq_lo + 63;
   int w_lo = kt_lo, w_hi = kt_hi;
-  if (causal) w_hi = min(w_hi, wq_hi / kBK);
+  if (causal) w_hi = min(w_hi, max(wq_hi, kMasks ? prefix - 1 : 0) / kBK);
   if (window > 0) w_lo = max(w_lo, max(wq_lo - window + 1, 0) / kBK);
+  if (kMasks && chunk > 0) w_lo = max(w_lo, wq_lo / chunk * chunk / kBK);
+
+  // kMasks: the keys each of this thread's two rows may see, the mask
+  // reduced once to bounds: [k_lo, k_hi], and any key before the prefix.
+  // Causal caps k_hi at the row, a window raises k_lo, a chunk bounds both
+  // (check_mask lets at most one of window, prefix and chunk be set)
+  int k_lo[2], k_hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row + 8 * r;
+    k_lo[r] = window > 0 ? qpos - window + 1 : 0;
+    k_hi[r] = causal ? qpos : s_len - 1;
+    if (chunk > 0) {
+      k_lo[r] = qpos / chunk * chunk;
+      k_hi[r] = min(k_hi[r], k_lo[r] + chunk - 1);
+    }
+  }
+  // the largest k_lo of the warpgroup's rows (its last row's): a tile with a
+  // key below it needs the mask
+  const int wk_lo = window > 0  ? wq_hi - window + 1
+                    : chunk > 0 ? wq_hi / chunk * chunk
+                                : 0;
 
   float acc[D / 2];
 #pragma unroll
@@ -468,17 +511,27 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     if (tw == 0) mbar_arrive(k_empty(s));
 
-    // online softmax in the exp2 domain; masks only on edge tiles
-    const bool edge = k0 + kBK > s_len ||
-                      (causal && k0 + kBK - 1 > wq_lo) ||
-                      (window > 0 && k0 <= wq_hi - window);
+    // online softmax in the exp2 domain; masks only on edge tiles, those
+    // where some (row, key) pair of the warpgroup's rows is not allowed: a
+    // key past S, past the first row's diagonal but not in the prefix, or
+    // below the last row's window or chunk (a key past a row's chunk is
+    // past its diagonal)
+    const bool edge =
+        kMasks ? k0 + kBK > s_len ||
+                     (causal && k0 + kBK - 1 > max(wq_lo, prefix - 1)) ||
+                     k0 < wk_lo
+               : k0 + kBK > s_len || (causal && k0 + kBK - 1 > wq_lo) ||
+                     (window > 0 && k0 <= wq_hi - window);
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) {
       float x = sc[i] * scale_log2;
       if (edge) {
-        const int qpos = row + 8 * ((i / 2) % 2);
+        const int r = (i / 2) % 2;
         const int kpos = k0 + 8 * (i / 4) + col + i % 2;
-        if (!allowed(qpos, kpos, s_len, causal, window)) x = -INFINITY;
+        if (kMasks ? kpos >= s_len || kpos < k_lo[r] ||
+                         (kpos > k_hi[r] && kpos >= prefix)
+                   : !allowed(row + 8 * r, kpos, s_len, causal, window))
+          x = -INFINITY;
       }
       sc[i] = x;
     }
@@ -615,11 +668,29 @@ int encode_bshd(CUtensorMap* map, const void* ptr, int b, int s_len,
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int D, bool kMasks>
+int run_flash_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                    const CUtensorMap& tv, void* o, int b, int s_len,
+                    int n_heads, int n_kv, int causal, int window, int prefix,
+                    int chunk, float scale, int smem_bytes,
+                    cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D, kMasks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const unsigned blocks =
+      static_cast<unsigned>((s_len + kBQ - 1) / kBQ) * n_heads * b;
+  flash_wgmma_kernel<D, kMasks><<<blocks, kThreads, smem_bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), b, s_len, n_heads, n_kv,
+      causal, window, prefix, chunk, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                        int b, int s_len, int n_heads, int n_kv, int causal,
-                       int window, float scale, int smem_bytes,
-                       cudaStream_t stream) {
+                       int window, int prefix, int chunk, float scale,
+                       int smem_bytes, cudaStream_t stream) {
   if (smem_bytes < smem_bytes_for(D))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -627,16 +698,13 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err == 0) err = encode_bshd(&tk, k, b, s_len, n_kv, D, kBK);
   if (err == 0) err = encode_bshd(&tv, v, b, s_len, n_kv, D, kBK);
   if (err != 0) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned blocks =
-      static_cast<unsigned>((s_len + kBQ - 1) / kBQ) * n_heads * b;
-  flash_wgmma_kernel<D><<<blocks, kThreads, smem_bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), b, s_len, n_heads, n_kv,
-      causal, window, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  return prefix > 0 || chunk > 0
+             ? run_flash_wgmma<D, true>(tq, tk, tv, o, b, s_len, n_heads,
+                                        n_kv, causal, window, prefix, chunk,
+                                        scale, smem_bytes, stream)
+             : run_flash_wgmma<D, false>(tq, tk, tv, o, b, s_len, n_heads,
+                                         n_kv, causal, window, 0, 0, scale,
+                                         smem_bytes, stream);
 }
 
 }  // namespace
@@ -644,22 +712,28 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // bf16 q (B, S, H, D), k/v (B, S, KV, D) -> o (B, S, H, D); D in {64, 128,
-// 256}; 16-byte aligned pointers (TMA).
+// 256}; 16-byte aligned pointers (TMA).  ``prefix`` and ``chunk`` are 0 when
+// unused (kernels/seq_ops.py::check_mask: at most one of window, prefix and
+// chunk, the last two only with ``causal``).
 int seq_flash_attention_wgmma(const void* q, const void* k, const void* v,
                               void* o, int b, int s_len, int n_heads,
                               int n_kv, int d, int causal, int window,
-                              float scale, int smem_bytes, void* stream) {
+                              int prefix, int chunk, float scale,
+                              int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
       return launch_flash_wgmma<64>(q, k, v, o, b, s_len, n_heads, n_kv,
-                                    causal, window, scale, smem_bytes, st);
+                                    causal, window, prefix, chunk, scale,
+                                    smem_bytes, st);
     case 128:
       return launch_flash_wgmma<128>(q, k, v, o, b, s_len, n_heads, n_kv,
-                                     causal, window, scale, smem_bytes, st);
+                                     causal, window, prefix, chunk, scale,
+                                     smem_bytes, st);
     case 256:
       return launch_flash_wgmma<256>(q, k, v, o, b, s_len, n_heads, n_kv,
-                                     causal, window, scale, smem_bytes, st);
+                                     causal, window, prefix, chunk, scale,
+                                     smem_bytes, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -31,10 +31,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Flash attention forward: causal / sliding-window / full, GQA.
+// Flash attention forward: causal / sliding-window / prefix-LM / chunked /
+// full, GQA.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_attn_kernel (via
-// flash_attention / ops.flash_attention).
+// flash_attention / ops.flash_attention), and computes the two mask kinds
+// the reference leaves to XLA (models/attention.py::mask_logits): prefix
+// (causal, or key < prefix_len) and chunked (causal, and key / chunk ==
+// query / chunk).
 // Bound on the H100: operations.  Per (b, h) the kernel does 4 * S * W * D
 // flops (W the keys a query sees, 2048 at recurrentgemma's window) on
 // O(S * D) bytes -- at D = 256 about 500 flops a byte, above the card's
@@ -44,9 +48,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // reach device memory, and each K/V tile is read once per q-tile.
 // Layout: one block of 256 threads per (q-tile of 64 rows, head, batch).
 // Hopper blocks run in no order, so the TPU's sequential K grid axis is a
-// loop inside the block over the K/V tiles from the window's first tile to
-// the diagonal; tiles wholly above the diagonal or left of the window are
-// never loaded.  Q (scaled by D^-1/2 in fp32, as the TPU kernel does), K,
+// loop inside the block over the K/V tiles from the window's (or the first
+// row's chunk's) first tile to the diagonal (or the prefix's last tile, if
+// that is later); tiles that hold no allowed key for any row are never
+// loaded.  Q (scaled by D^-1/2 in fp32, as the TPU kernel does), K,
 // V and the probabilities are staged in fp32 dynamic shared memory: at
 // D = 256 that is 209 KB of the 227 KB a block can use (rows of Q and K
 // padded by one float so the two thread rows of a warp hit distinct
@@ -68,10 +73,24 @@ constexpr int kColsPerThread = kFlashBK / 16;   // 4
 constexpr int kOutCols = kFlashMaxD / 16;        // 16
 constexpr float kNegInf = -1.0e38f;
 
-__device__ __forceinline__ bool flash_allowed(int qpos, int kpos, int s_len,
-                                              int causal, int window) {
-  return kpos < s_len && (!causal || kpos <= qpos) &&
-         (window <= 0 || kpos > qpos - window);
+// The mask of a row, reduced to the bounds of the keys it may see: [lo,
+// hi], and any key before the prefix (flash_bounds sets them once a row).
+__device__ __forceinline__ bool flash_allowed(int kpos, int s_len, int lo,
+                                              int hi, int prefix) {
+  return kpos < s_len && kpos >= lo && (kpos <= hi || kpos < prefix);
+}
+
+// Causal caps hi at the row, a window raises lo, a chunk bounds both
+// (check_mask lets at most one of window, prefix and chunk be set).
+__device__ __forceinline__ void flash_bounds(int qpos, int s_len, int causal,
+                                             int window, int chunk, int& lo,
+                                             int& hi) {
+  lo = window > 0 ? qpos - window + 1 : 0;
+  hi = causal ? qpos : s_len - 1;
+  if (chunk > 0) {
+    lo = qpos / chunk * chunk;
+    hi = min(hi, lo + chunk - 1);
+  }
 }
 
 template <typename T>
@@ -79,7 +98,7 @@ __global__ void __launch_bounds__(kFlashThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int s_len,
                  int n_heads, int n_kv, int d, int causal, int window,
-                 float scale) {
+                 int prefix, int chunk, float scale) {
   extern __shared__ float smem[];
   const int ldq = d + 1;
   const int ldp = kFlashBK + 1;
@@ -111,8 +130,11 @@ __global__ void __launch_bounds__(kFlashThreads)
   const int nd = d / 16;
   float acc[kRowsPerThread][kOutCols];
   float m_run[kRowsPerThread], l_run[kRowsPerThread];
+  int k_lo[kRowsPerThread], k_hi[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
+    flash_bounds(q0 + ty * kRowsPerThread + i, s_len, causal, window, chunk,
+                 k_lo[i], k_hi[i]);
     m_run[i] = kNegInf;
     l_run[i] = 0.0f;
 #pragma unroll
@@ -122,8 +144,10 @@ __global__ void __launch_bounds__(kFlashThreads)
   // K/V tiles that can hold an allowed key for some row of this q-tile
   int kt_lo = 0;
   int kt_hi = (s_len - 1) / kFlashBK;
-  if (causal) kt_hi = min(kt_hi, (q0 + kFlashBQ - 1) / kFlashBK);
+  if (causal)
+    kt_hi = min(kt_hi, max(q0 + kFlashBQ - 1, prefix - 1) / kFlashBK);
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kFlashBK;
+  if (chunk > 0) kt_lo = q0 / chunk * chunk / kFlashBK;
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kFlashBK;
@@ -162,12 +186,11 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int r = ty * kRowsPerThread + i;
-      const int qpos = q0 + r;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        if (!flash_allowed(qpos, kpos, s_len, causal, window))
+        if (!flash_allowed(kpos, s_len, k_lo[i], k_hi[i], prefix))
           sc[i][j] = kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -179,7 +202,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const float p = flash_allowed(qpos, kpos, s_len, causal, window)
+        const float p = flash_allowed(kpos, s_len, k_lo[i], k_hi[i], prefix)
                             ? expf(sc[i][j] - m_cur)
                             : 0.0f;
         ps[r * ldp + tx + 16 * j] = p;
@@ -229,8 +252,8 @@ __global__ void __launch_bounds__(kFlashThreads)
 template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
                  int s_len, int n_heads, int n_kv, int d, int causal,
-                 int window, float scale, int smem_bytes,
-                 cudaStream_t stream) {
+                 int window, int prefix, int chunk, float scale,
+                 int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -239,7 +262,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
   flash_kernel<T><<<grid, kFlashThreads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s_len, n_heads, n_kv, d,
-      causal, window, scale);
+      causal, window, prefix, chunk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,16 +482,20 @@ int launch_linrec(const void* log_a, const void* x, float* out, int b,
 
 extern "C" {
 
+// ``prefix`` and ``chunk`` are 0 when unused; kernels/seq_ops.py::check_mask
+// lets at most one of window, prefix and chunk be set, and the last two only
+// with ``causal``.
 int seq_flash_attention(const void* q, const void* k, const void* v, void* o,
                         int b, int s_len, int n_heads, int n_kv, int d,
-                        int causal, int window, float scale, int dtype,
-                        int smem_bytes, void* stream) {
+                        int causal, int window, int prefix, int chunk,
+                        float scale, int dtype, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_flash<__nv_bfloat16>(q, k, v, o, b, s_len, n_heads, n_kv, d,
-                                       causal, window, scale, smem_bytes, st);
+                                       causal, window, prefix, chunk, scale,
+                                       smem_bytes, st);
   return launch_flash<float>(q, k, v, o, b, s_len, n_heads, n_kv, d, causal,
-                             window, scale, smem_bytes, st);
+                             window, prefix, chunk, scale, smem_bytes, st);
 }
 
 // log_a, x (B, S, C) float32 or bfloat16 -> out (B, S, C) float32; ``vec``

@@ -4,8 +4,11 @@ counts.
 Each kernel is hand-written CUDA for ``sm_90a`` (built by ``_build``) and
 replaces one Pallas kernel of the reference:
 
-* ``flash_attention`` -- causal / sliding-window GQA online-softmax
-  attention forward (``kernels/flash_attention.py::_attn_kernel``): for
+* ``flash_attention`` -- GQA online-softmax attention forward
+  (``kernels/flash_attention.py::_attn_kernel``) under every mask of the
+  reference's ``models/attention.py::mask_logits``: causal, sliding
+  window, prefix-LM and chunked (the Pallas kernel has only the first
+  two; the reference computes the others in XLA): for
   bf16 at d_head 64, 128 and 256 a tensor-core kernel (``wgmma``, a TMA
   K/V ring; ``csrc/flash_wgmma.cu``), otherwise a CUDA-core kernel
   (``csrc/seq_ops.cu``); ``flash_route`` says which;
@@ -64,23 +67,56 @@ def reset_launches() -> None:
 # Flash attention
 # ---------------------------------------------------------------------------
 
+def check_mask(causal: bool, window: int, prefix_len: int, chunk: int
+               ) -> None:
+    """The masks ``flash_attention`` computes are the reference's mask
+    kinds: causal (``global``), causal with a window (``sliding``), causal
+    or key < ``prefix_len`` (``prefix``), causal within a ``chunk``
+    (``chunked``), and without ``causal`` full or windowed.  Any other
+    combination raises rather than compute something untested."""
+    if min(window, prefix_len, chunk) < 0:
+        raise ValueError(f"flash_attention: window {window}, prefix_len "
+                         f"{prefix_len} and chunk {chunk} must be >= 0")
+    if sum(bool(x) for x in (window, prefix_len, chunk)) > 1:
+        raise ValueError(f"flash_attention: window {window}, prefix_len "
+                         f"{prefix_len} and chunk {chunk} do not combine "
+                         f"(no mask kind of the reference takes two)")
+    if (prefix_len or chunk) and not causal:
+        raise ValueError("flash_attention: the prefix and chunked masks are "
+                         "causal ones")
+
+
+def attention_mask(s: int, device, *, causal: bool = True, window: int = 0,
+                   prefix_len: int = 0, chunk: int = 0) -> torch.Tensor:
+    """(S, S) bool, query p may see key j: the reference's ``mask_logits``
+    over positions 0..S-1."""
+    pos = torch.arange(s, device=device)
+    qp, kp = pos[:, None], pos[None, :]
+    allowed = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        allowed &= (kp <= qp) | (kp < prefix_len)
+    if window:
+        allowed &= kp > qp - window
+    if chunk:
+        allowed &= (kp // chunk) == (qp // chunk)
+    return allowed
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, prefix_len: int = 0,
+                    chunk: int = 0) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D): the full score
     matrix, masked and soft-maxed, as the reference's ``attention_ref``
-    computes it (scores in q's dtype, then fp32; probabilities in v's)."""
+    computes it (scores in q's dtype, then fp32; probabilities in v's),
+    under ``attention_mask``."""
+    check_mask(causal, window, prefix_len, chunk)
     b, s, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg * d ** -0.5,
                           k.to(q.dtype)).float()
-    pos = torch.arange(s, device=q.device)
-    qp, kp = pos[:, None], pos[None, :]
-    allowed = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        allowed &= kp <= qp
-    if window:
-        allowed &= kp > qp - window
+    allowed = attention_mask(s, q.device, causal=causal, window=window,
+                             prefix_len=prefix_len, chunk=chunk)
     logits = torch.where(allowed, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
@@ -113,16 +149,23 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, prefix_len: int = 0,
+                    chunk: int = 0) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D) in q's dtype.
 
     ``window`` > 0 lets query p see keys in (p - window, p] (with
-    ``causal``) or (p - window, S) (without).  Any S; D a multiple of 16
-    up to 256; float32 or bfloat16.  On the card the kernel is chosen by
-    ``flash_route`` and never on failure: an error of either kernel
-    raises."""
+    ``causal``) or (p - window, S) (without); ``prefix_len`` > 0 also lets
+    every query see the keys before ``prefix_len`` (prefix-LM; a prefix of
+    S is full attention); ``chunk`` > 0 keeps a query to the keys of its
+    own chunk of ``chunk`` positions (``check_mask`` says which of these
+    combine).  Any S; D a multiple of 16 up to 256; float32 or bfloat16.
+    On the card the kernel is chosen by ``flash_route`` and never on
+    failure: an error of either kernel raises."""
+    mask = dict(causal=causal, window=window, prefix_len=prefix_len,
+                chunk=chunk)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window)
+        return attention_plain(q, k, v, **mask)
+    check_mask(causal, window, prefix_len, chunk)
     dev = q.device
     b, s, h, d = q.shape
     kv = k.shape[2]
@@ -154,7 +197,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     lib = _build.library()
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            b, s, h, kv, d, int(causal), int(window), float(d ** -0.5))
+            b, s, h, kv, d, int(causal), int(window), int(prefix_len),
+            int(chunk), float(d ** -0.5))
     with _build.on(dev):
         if wgmma:
             code = lib.seq_flash_attention_wgmma(*args, smem,

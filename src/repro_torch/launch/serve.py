@@ -2,15 +2,18 @@
 
 Prefill a batch of prompts token by token into the decode caches
 (reduced config), then decode greedily with ``serve_step`` -- the port of
-the reference's ``launch/serve.py``.  Weights and prompts come from a
-seeded ``torch.Generator`` on the chosen device.
+the reference's ``launch/serve.py``.  Weights, prompts and a VLM's stub
+patch embeddings come from a seeded ``torch.Generator`` on the chosen
+device.  A VLM (``prefix_tokens`` > 0) first runs its patch embeddings
+through ``Transformer.prefill_prefix`` and feeds the prompt from index P
+(the reference's server feeds the prompt from 0 with no prefix).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
 
 ``--arch`` takes any ported architecture (``configs.list_archs()``):
 recurrentgemma-9b, yi-34b, qwen3-8b, qwen3-8b-sw4k, qwen1.5-110b,
-stablelm-1.6b.
+stablelm-1.6b, paligemma-3b, grok-1-314b, llama4-maverick-400b-a17b.
 """
 from __future__ import annotations
 
@@ -27,12 +30,16 @@ from repro_torch.models.transformer import Cache, Transformer
 
 @torch.no_grad()
 def prefill_into_cache(model: Transformer, tokens: torch.Tensor,
-                       cache: Cache):
-    """Feed prompt tokens one decode step at a time (the functional
-    reference prefill).  Returns the last step's logits and the cache."""
+                       cache: Cache, start: int = 0):
+    """Feed prompt tokens one decode step at a time from index ``start``
+    (the functional reference prefill; a VLM's text starts after its
+    prefix), with ``prefix_len`` the config's ``prefix_tokens``.  Returns
+    the last step's logits and the cache."""
     logits = None
     for i in range(tokens.shape[1]):
-        logits, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        logits, cache = model.decode_step(
+            tokens[:, i:i + 1], cache, start + i,
+            prefix_len=model.cfg.prefix_tokens)
     return logits, cache
 
 
@@ -59,16 +66,22 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     serve_step, model = make_serve_step(cfg, device=dev, generator=gen)
     cache = model.init_cache(args.batch, args.cache_len)
+    start = cfg.prefix_tokens
+    if start:
+        patches = torch.randn((args.batch, start, cfg.d_model),
+                              generator=gen, device=dev)
+        with torch.no_grad():
+            cache = model.prefill_prefix(cache, patches)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
-    _, cache = prefill_into_cache(model, prompt, cache)
+    _, cache = prefill_into_cache(model, prompt, cache, start)
 
     tok = prompt[:, -1:]
     out = []
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(args.tokens):
-        tok, cache = serve_step(tok, cache, args.prompt_len + i)
+        tok, cache = serve_step(tok, cache, start + args.prompt_len + i)
         out.append(tok[:, 0])
     gen_tokens = torch.stack(out, dim=1).cpu()
     dt = time.perf_counter() - t0

@@ -24,14 +24,16 @@ def make_prefill_step(cfg, *, model: Optional[Transformer] = None,
                       device: "str | torch.device" = "cuda",
                       generator: Optional[torch.Generator] = None
                       ) -> Tuple[Callable, Transformer]:
-    """``prefill_step(batch)``: {"tokens": (B, S)} -> the last position's
-    logits (B, V), what a server samples from.  Only that position is
-    unembedded; the reference slices it from the full logits."""
+    """``prefill_step(batch)``: {"tokens": (B, S)[, "embeddings": a VLM's
+    prefix (B, P, d)]} -> the last position's logits (B, V), what a server
+    samples from.  Only that position is unembedded; the reference slices
+    it from the full logits."""
     model = _model(cfg, model, device, generator)
 
     @torch.no_grad()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        hidden = model.hidden(batch["tokens"])
+        hidden = model.hidden(batch["tokens"],
+                              extra_embeddings=batch.get("embeddings"))
         return model.unembed(hidden[:, -1, :])
 
     return prefill_step, model
@@ -42,13 +44,16 @@ def make_serve_step(cfg, *, model: Optional[Transformer] = None,
                     generator: Optional[torch.Generator] = None
                     ) -> Tuple[Callable, Transformer]:
     """``serve_step(token (B, 1), cache, index)`` -> (the greedy next token
-    (B, 1) int32, cache): one decode step and an argmax."""
+    (B, 1) int32, cache): one decode step, with ``prefix_len`` the config's
+    ``prefix_tokens`` as the reference's, and an argmax."""
     model = _model(cfg, model, device, generator)
+    prefix = cfg.prefix_tokens
 
     @torch.no_grad()
     def serve_step(token: torch.Tensor, cache: Cache, index: int
                    ) -> Tuple[torch.Tensor, Cache]:
-        logits, cache = model.decode_step(token, cache, index)
+        logits, cache = model.decode_step(token, cache, index,
+                                          prefix_len=prefix)
         next_token = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
         return next_token.to(torch.int32), cache
 

@@ -1,6 +1,8 @@
-"""Attention layer of the substrate: GQA / MQA / MHA with RoPE, optional
-QKV bias (qwen1.5) and per-head q/k RMSNorm (qwen3), the ``global``
-(causal) and ``sliding`` (causal, window) masks.
+"""Attention layer of the substrate: GQA / MQA / MHA with RoPE or NoPE,
+optional QKV bias (qwen1.5) and per-head q/k RMSNorm (qwen3), and the
+reference's four mask kinds: ``global`` (causal), ``sliding`` (causal,
+window), ``chunked`` (causal within llama4's chunks) and ``prefix``
+(paligemma's prefix-LM: causal, or key in the prefix).
 
 The port of the reference's ``models/attention.py``.  The full-sequence
 path (``attention_apply``: training shapes and prefill) goes through the
@@ -8,7 +10,9 @@ flash-attention kernel (``kernels.seq_ops.flash_attention``), which
 replaces both of the reference's XLA routes (``_sdpa`` and the
 query-chunked ``_chunked_sdpa``) -- they compute the same function.  The
 one-token decode path (``attention_decode``) keeps the plain ``_sdpa``
-against a ring-buffer KV cache.
+against a KV cache, a ring for ``sliding`` and ``chunked`` layers.
+``cfg.attn_seq_shard`` (the reference's context parallelism over a TPU
+mesh) has no meaning on one card and is ignored.
 """
 from __future__ import annotations
 
@@ -21,13 +25,12 @@ from repro_torch.kernels import seq_ops
 from repro_torch.models import layers
 
 NEG_INF = -2.0e38
-MASK_KINDS = ("global", "sliding")
+MASK_KINDS = ("global", "sliding", "chunked", "prefix")
 
 
-def _unported_mask(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"attention mask {kind!r} is not ported yet (ROADMAP A17: chunked "
-        f"and prefix attention come with their architectures)")
+def _check_kind(kind: str) -> None:
+    if kind not in MASK_KINDS:
+        raise ValueError(f"unknown mask kind {kind!r}")
 
 
 class Attention(nn.Module):
@@ -83,15 +86,17 @@ def _qkv(p: Attention, x: torch.Tensor
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           q_pos: torch.Tensor, k_pos: torch.Tensor,
-          k_valid: torch.Tensor) -> torch.Tensor:
+          k_valid: torch.Tensor, prefix_len: int = 0) -> torch.Tensor:
     """q (B, Q, H, Dh), k/v (B, K, KV, Dh) -> (B, Q, H, Dh), plain: the
     scaled query in the activation dtype, fp32 logits and softmax over the
-    valid keys at or before each query position."""
+    valid keys at or before each query position or before ``prefix_len``
+    (the reference's ``global`` mask, ``prefix`` with a prefix)."""
     b, qlen, h, dh = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, qlen, kv, h // kv, dh)
     logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5, k).float()
-    allowed = (k_pos[None, :] <= q_pos[:, None]) & k_valid[None, :]
+    kp = k_pos[None, :]
+    allowed = ((kp <= q_pos[:, None]) | (kp < prefix_len)) & k_valid[None, :]
     masked = torch.where(allowed, logits, NEG_INF)
     probs = torch.softmax(masked, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
@@ -102,33 +107,65 @@ def _out(p: Attention, out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", out, p.wo.to(out.dtype))
 
 
-def attention_apply(p: Attention, x: torch.Tensor, cfg, *, mask_kind: str,
-                    positions: Optional[torch.Tensor] = None,
-                    use_rope: bool = True) -> torch.Tensor:
-    """Full-sequence (training / prefill) attention through the flash
-    kernel.  x (B, S, d) -> (B, S, d)."""
-    if mask_kind not in MASK_KINDS:
-        raise _unported_mask(mask_kind)
-    s = x.shape[1]
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
+def _rotated_qkv(p: Attention, x: torch.Tensor, cfg,
+                 positions: Optional[torch.Tensor], use_rope: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_qkv``, then RoPE over ``positions`` (default 0..S-1) unless NoPE."""
     q, k, v = _qkv(p, x)
     if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    window = cfg.window if mask_kind == "sliding" else 0
-    out = seq_ops.flash_attention(q, k, v, causal=True, window=window)
+    return q, k, v
+
+
+def attention_apply(p: Attention, x: torch.Tensor, cfg, *, mask_kind: str,
+                    positions: Optional[torch.Tensor] = None,
+                    use_rope: bool = True, prefix_len: int = 0
+                    ) -> torch.Tensor:
+    """Full-sequence (training / prefill) attention through the flash
+    kernel.  x (B, S, d) -> (B, S, d); ``prefix_len`` is read by the
+    ``prefix`` mask only, ``cfg.window`` by ``sliding``, ``cfg.attn_chunk``
+    by ``chunked``."""
+    _check_kind(mask_kind)
+    q, k, v = _rotated_qkv(p, x, cfg, positions, use_rope)
+    out = seq_ops.flash_attention(
+        q, k, v, causal=True,
+        window=cfg.window if mask_kind == "sliding" else 0,
+        prefix_len=prefix_len if mask_kind == "prefix" else 0,
+        chunk=cfg.attn_chunk if mask_kind == "chunked" else 0)
+    return _out(p, out)
+
+
+def attention_prefill_cache(p: Attention, x: torch.Tensor, cfg,
+                            cache: Dict[str, torch.Tensor], *,
+                            use_rope: bool = True) -> torch.Tensor:
+    """A multimodal prefix x (B, P, d) through the ``prefix`` mask over
+    itself (full attention) in the flash kernel, its post-RoPE K/V written
+    into cache slots [0, P) in place: the attention of the reference's
+    ``Transformer.prefill_prefix``.  Returns (B, P, d)."""
+    p_len = x.shape[1]
+    q, k, v = _rotated_qkv(p, x, cfg, None, use_rope)
+    cache["k"][:, :p_len] = k.to(cache["k"].dtype)
+    cache["v"][:, :p_len] = v.to(cache["v"].dtype)
+    out = seq_ops.flash_attention(q, k, v, causal=True, prefix_len=p_len)
     return _out(p, out)
 
 
 def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
                device) -> Dict[str, torch.Tensor]:
     """A decode KV cache for one layer: a ring buffer of ``window`` slots
-    for ``sliding`` layers, ``cache_len`` slots for ``global`` ones."""
-    if mask_kind not in MASK_KINDS:
-        raise _unported_mask(mask_kind)
-    size = min(cfg.window, cache_len) if mask_kind == "sliding" \
-        else cache_len
+    for ``sliding`` layers and of ``attn_chunk`` for ``chunked`` ones (at
+    most ``cache_len``), ``cache_len`` slots for ``global`` and ``prefix``
+    ones."""
+    _check_kind(mask_kind)
+    if mask_kind == "sliding":
+        size = min(cfg.window, cache_len)
+    elif mask_kind == "chunked":
+        size = min(cfg.attn_chunk, cache_len)
+    else:
+        size = cache_len
     shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device)}
@@ -136,13 +173,14 @@ def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg,
                      cache: Dict[str, torch.Tensor], index: int, *,
-                     mask_kind: str, use_rope: bool = True
+                     mask_kind: str, use_rope: bool = True,
+                     prefix_len: int = 0
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode step.  x (B, 1, d); ``index`` the token's absolute
     position.  Writes the token's K/V into its ring slot of ``cache`` in
-    place (saving a copy of the cache a step) and returns the cache."""
-    if mask_kind not in MASK_KINDS:
-        raise _unported_mask(mask_kind)
+    place (saving a copy of the cache a step) and returns the cache.
+    ``prefix_len`` is read by the ``prefix`` mask only."""
+    _check_kind(mask_kind)
     dev = x.device
     q, k, v = _qkv(p, x)
     pos = torch.full((1,), index, dtype=torch.int64, device=dev)
@@ -156,7 +194,13 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg,
     # keys are cached post-RoPE; each slot's absolute position
     slots = torch.arange(size, device=dev)
     k_valid = slots < min(index + 1, size)
-    if mask_kind == "sliding":
+    if mask_kind == "chunked":
+        # a ring of the chunk's size: only the current chunk's slots are
+        # visible (the reference takes the ring's size as the chunk)
+        slot_pos = (index // size) * size + slots
+        k_valid = k_valid & (slot_pos <= index)
+        k_pos = slot_pos
+    elif mask_kind == "sliding":
         # slot holds the absolute position p with p % size == slot, p <= index
         cand = (index // size) * size + slots
         k_pos = torch.where(cand <= index, cand, cand - size)
@@ -164,5 +208,6 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg,
     else:
         k_pos = slots
     out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), pos,
-                k_pos, k_valid)
+                k_pos, k_valid,
+                prefix_len if mask_kind == "prefix" else 0)
     return _out(p, out), cache

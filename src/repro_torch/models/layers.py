@@ -22,12 +22,31 @@ from torch import nn
 # Initialisers
 # ---------------------------------------------------------------------------
 
+# the most float32 draws a leaf of another dtype makes at once
+DRAW_SLICE = 1 << 26
+
+
 def normal_init(shape: Sequence[int], generator: torch.Generator,
                 dtype: torch.dtype, stddev: float = 0.02) -> torch.Tensor:
-    """stddev · N(0, 1), drawn in fp32 on the generator's device."""
-    x = torch.randn(tuple(shape), generator=generator,
-                    device=generator.device, dtype=torch.float32)
-    return x.mul_(stddev).to(dtype)
+    """stddev · N(0, 1), drawn in fp32 on the generator's device.  A leaf
+    of another dtype above ``DRAW_SLICE`` elements is drawn in slices
+    along its leading axis into the destination dtype, so no fp32 copy of
+    it is ever whole (one llama4 expert stack would take 21.5 GB): the
+    same distribution, other draws than one whole draw."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    dev = generator.device
+    if dtype == torch.float32 or n <= DRAW_SLICE or len(shape) < 2:
+        x = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return x.mul_(stddev).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    rows = max(1, DRAW_SLICE // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        part = out[i:i + rows]
+        part.copy_(torch.randn(part.shape, generator=generator, device=dev,
+                               dtype=torch.float32).mul_(stddev))
+    return out
 
 
 def scaled_init(shape: Sequence[int], generator: torch.Generator,

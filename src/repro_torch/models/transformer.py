@@ -2,14 +2,18 @@
 
 The port of the reference's ``models/transformer.py``: an architecture is a
 pattern unit of (sequence mixer, ffn) pairs repeated over the layers
-(``compute_stages``).  Ported mixers: ``attn`` (causal global), ``swa``
-(sliding window) and ``rec`` (RG-LRU), each with a ``dense`` gated MLP;
-RMSNorm or LayerNorm; a tied or untied embedding; attention with or
-without QKV bias and per-head q/k RMSNorm -- what recurrentgemma-9b and
-the dense decoders (yi-34b, qwen3-8b and its sliding-window variant,
-qwen1.5-110b, stablelm-1.6b) run.  The layers are ``nn.Module``s in layer
-order; the decode cache keeps the reference's dict layout (``stage_<i>`` →
-unit position → leaves stacked over the stage's repetitions).
+(``compute_stages``).  Ported mixers: ``attn`` (causal global, NoPE where
+``rope_on_global`` is off, prefix-LM over a multimodal prefix), ``swa``
+(sliding window), ``chunked`` (llama4's chunked local attention) and
+``rec`` (RG-LRU); ported FFNs: ``dense`` (a gated MLP) and ``moe``
+(``models/moe.py``); RMSNorm or LayerNorm; a tied or untied embedding;
+attention with or without QKV bias and per-head q/k RMSNorm -- what
+recurrentgemma-9b, the dense decoders (yi-34b, qwen3-8b and its
+sliding-window variant, qwen1.5-110b, stablelm-1.6b), paligemma-3b,
+grok-1-314b and llama4-maverick run.  The layers are ``nn.Module``s in
+layer order; the decode cache keeps the reference's dict layout
+(``stage_<i>`` → unit position → leaves stacked over the stage's
+repetitions).
 """
 from __future__ import annotations
 
@@ -19,12 +23,13 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, rglru
+from repro_torch.models import attention, layers, moe, rglru
 
 Cache = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 
-ATTENTION_KINDS = ("attn", "swa")
-MASK_FOR_KIND = {"attn": "global", "swa": "sliding"}
+ATTENTION_KINDS = ("attn", "swa", "chunked")
+MASK_FOR_KIND = {"attn": "global", "swa": "sliding", "chunked": "chunked"}
+FFN_KINDS = ("dense", "moe")
 
 
 def compute_stages(n_layers: int, pattern: Tuple
@@ -43,20 +48,15 @@ def compute_stages(n_layers: int, pattern: Tuple
 def _check_ported(cfg) -> None:
     unported = [k for k in cfg.block_pattern
                 if k not in ATTENTION_KINDS + ("rec",)]
+    unported += [f for f in cfg.ffn_pattern if f not in FFN_KINDS]
     if unported:
         raise NotImplementedError(
-            f"{cfg.name}: sequence mixers {unported} are not ported yet "
-            f"(ROADMAP A17: chunked attention, xLSTM)")
-    if any(f != "dense" for f in cfg.ffn_pattern):
-        raise NotImplementedError(f"{cfg.name}: only dense FFNs are ported "
-                                  f"(ROADMAP A17: MoE)")
+            f"{cfg.name}: layers {unported} are not ported yet "
+            f"(ROADMAP A17: xLSTM)")
     if cfg.mlp_bias or not cfg.gated_mlp:
         raise NotImplementedError(
             f"{cfg.name}: only a gated MLP without bias is ported "
             f"(ROADMAP A17)")
-    if cfg.prefix_tokens:
-        raise NotImplementedError(f"{cfg.name}: prefix-LM models are not "
-                                  f"ported yet (ROADMAP A17)")
 
 
 class MLP(nn.Module):
@@ -78,12 +78,12 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """norm1 → mixer (``attn`` or ``rec``) → residual → norm2 → MLP →
-    residual."""
+    """norm1 → mixer (attention or ``rec``) → residual → norm2 → FFN
+    (the gated MLP, or the MoE for a ``moe`` ffn kind) → residual."""
 
-    def __init__(self, cfg, kind: str, device, generator):
+    def __init__(self, cfg, kind: str, ffn_kind: str, device, generator):
         super().__init__()
-        self.kind = kind
+        self.kind, self.ffn_kind = kind, ffn_kind
         self.norm1 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
         if kind in ATTENTION_KINDS:
@@ -93,7 +93,29 @@ class Block(nn.Module):
             self.rec = rglru.RGLRU(cfg, device=device, generator=generator)
         self.norm2 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
-        self.mlp = MLP(cfg, device, generator)
+        if ffn_kind == "moe":
+            self.moe = moe.MoE(cfg, device=device, generator=generator)
+        else:
+            self.mlp = MLP(cfg, device, generator)
+
+    def ffn(self, x: torch.Tensor, cfg
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x + FFN(norm2(x)), and the MoE aux (None for a dense FFN)."""
+        h = self.norm2(x)
+        if self.ffn_kind == "moe":
+            y, aux = self.moe(h, cfg)
+            return x + y, aux
+        return x + self.mlp(h), None
+
+    def mask_kind(self, prefix_len: int) -> str:
+        """The attention mask of this layer: a global layer takes the
+        prefix-LM mask while there is a prefix, as the reference's."""
+        if self.kind == "attn" and prefix_len > 0:
+            return "prefix"
+        return MASK_FOR_KIND[self.kind]
+
+    def use_rope(self, cfg) -> bool:
+        return cfg.rope_on_global if self.kind == "attn" else True
 
 
 class Transformer(nn.Module):
@@ -131,50 +153,78 @@ class Transformer(nn.Module):
         blocks, where = [], []
         for si, (unit, reps) in enumerate(self.stages):
             for r in range(reps):
-                for i, (kind, _) in enumerate(unit):
-                    blocks.append(Block(cfg, kind, dev, generator))
+                for i, (kind, ffn_kind) in enumerate(unit):
+                    blocks.append(Block(cfg, kind, ffn_kind, dev, generator))
                     where.append((f"stage_{si}", r, str(i)))
         self.blocks = nn.ModuleList(blocks)
         # (stage key, repetition, unit position) of each block, in order
         self.block_index = where
+        # sqrt(d) rounded to the compute dtype, as the reference's
+        # jnp.asarray(d ** 0.5, x.dtype): a product with it is bit-equal to
+        # one with that 0-d tensor, without a host-to-device copy a call
+        self.embed_scale = float(torch.tensor(
+            cfg.d_model ** 0.5, dtype=cfg.compute_dtype)) \
+            if cfg.embed_scale else None
 
     # -- forward (train / prefill) -------------------------------------------
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = layers.embed_apply(self.embedding, tokens, self.cfg.compute_dtype)
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
         return x
 
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> the final-normed hidden states (B, S, d)."""
+    def _forward(self, tokens: torch.Tensor,
+                 extra_embeddings: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed hidden states of the text positions and the sum
+        of the MoE layers' aux (0 without one)."""
         cfg = self.cfg
         x = self._embed(tokens)
+        prefix_len = 0
+        if extra_embeddings is not None:
+            # the (unscaled) prefix goes in front of the text
+            prefix_len = extra_embeddings.shape[1]
+            x = torch.cat([extra_embeddings.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             h = blk.norm1(x)
             if blk.kind in ATTENTION_KINDS:
                 y = attention.attention_apply(
-                    blk.attn, h, cfg, mask_kind=MASK_FOR_KIND[blk.kind],
-                    positions=positions,
-                    use_rope=cfg.rope_on_global if blk.kind == "attn"
-                    else True)
+                    blk.attn, h, cfg, mask_kind=blk.mask_kind(prefix_len),
+                    positions=positions, use_rope=blk.use_rope(cfg),
+                    prefix_len=prefix_len)
             else:
                 y = rglru.rglru_block_apply(blk.rec, h)
-            x = x + y
-            x = x + blk.mlp(blk.norm2(x))
-        return self.final_norm(x)
+            x, inc = blk.ffn(x + y, cfg)
+            if inc is not None:
+                aux = aux + inc
+        return self.final_norm(x)[:, prefix_len:], aux
+
+    def hidden(self, tokens: torch.Tensor,
+               extra_embeddings: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """tokens (B, S) [+ a prefix of embeddings (B, P, d)] -> the
+        final-normed hidden states of the text positions (B, S, d)."""
+        return self._forward(tokens, extra_embeddings)[0]
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         table = self.embedding if self.unembedding is None \
             else self.unembedding
         return layers.unembed_apply(table, x)
 
-    def apply(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V).  (The reference also returns
-        the MoE aux loss, which the ported mixers do not have.)"""
-        return self.unembed(self.hidden(tokens))
+    def apply(self, tokens: torch.Tensor,
+              extra_embeddings: Optional[torch.Tensor] = None, *,
+              with_aux: bool = False
+              ) -> "torch.Tensor | Tuple[torch.Tensor, torch.Tensor]":
+        """tokens (B, S) [+ prefix embeddings (B, P, d), attended with the
+        prefix-LM mask] -> logits (B, S, V) of the text positions; with
+        ``with_aux`` also the MoE aux loss (a 0-d float32), as the
+        reference's ``apply`` returns it."""
+        x, aux = self._forward(tokens, extra_embeddings)
+        logits = self.unembed(x)
+        return (logits, aux) if with_aux else logits
 
     # -- decode ---------------------------------------------------------------
 
@@ -194,12 +244,35 @@ class Transformer(nn.Module):
             cache[f"stage_{si}"] = unit_cache
         return cache
 
+    def prefill_prefix(self, cache: Cache, embeddings: torch.Tensor
+                       ) -> Cache:
+        """The multimodal prefix (B, P, d) through the stack with the
+        prefix-LM mask -- over the prefix alone, full attention, in the
+        flash kernel -- each attention layer's post-RoPE K/V written into
+        its cache slots [0, P) in place; decoding then starts at index P
+        with ``prefix_len=P``.  Attention mixers only, as the reference's
+        (the VLM config has no other)."""
+        cfg = self.cfg
+        x = embeddings.to(cfg.compute_dtype)
+        for blk, (stage, r, pos) in zip(self.blocks, self.block_index):
+            if blk.kind not in ATTENTION_KINDS:
+                raise ValueError(f"{cfg.name}: prefix prefill takes "
+                                 f"attention mixers only, not {blk.kind!r}")
+            leaves = cache[stage][pos]
+            y = attention.attention_prefill_cache(
+                blk.attn, blk.norm1(x), cfg,
+                {k: v[r] for k, v in leaves.items()},
+                use_rope=blk.use_rope(cfg))
+            x, _ = blk.ffn(x + y, cfg)
+        return cache
+
     def decode_step(self, token: torch.Tensor, cache: Cache,
-                    index: "int | torch.Tensor"
+                    index: "int | torch.Tensor", *, prefix_len: int = 0
                     ) -> Tuple[torch.Tensor, Cache]:
         """token (B, 1) + cache + the token's position -> (logits (B, 1, V),
-        cache).  The cache is updated in place (no copy a step) and
-        returned."""
+        cache); ``prefix_len`` the multimodal prefix's length (global layers
+        take the prefix-LM mask).  The cache is updated in place (no copy a
+        step) and returned."""
         cfg = self.cfg
         index = int(index)
         x = self._embed(token)
@@ -210,13 +283,11 @@ class Transformer(nn.Module):
             if blk.kind in ATTENTION_KINDS:
                 y, _ = attention.attention_decode(
                     blk.attn, h, cfg, layer_cache, index,
-                    mask_kind=MASK_FOR_KIND[blk.kind],
-                    use_rope=cfg.rope_on_global if blk.kind == "attn"
-                    else True)
+                    mask_kind=blk.mask_kind(prefix_len),
+                    use_rope=blk.use_rope(cfg), prefix_len=prefix_len)
             else:
                 y, new = rglru.rglru_block_decode(blk.rec, h, layer_cache)
                 for k, v in new.items():
                     leaves[k][r].copy_(v)
-            x = x + y
-            x = x + blk.mlp(blk.norm2(x))
+            x, _ = blk.ffn(x + y, cfg)
         return self.unembed(self.final_norm(x)), cache

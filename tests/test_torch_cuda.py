@@ -973,6 +973,84 @@ def test_flash_wgmma_kernel_matches_plain(cuda, b, s, h, kv, d, causal,
                                **FLASH_TOL[torch.bfloat16])
 
 
+def _plain_by_kv_head(q, k, v, **mask):
+    """The plain version one KV head (and its group of query heads) at a
+    time: the same function, with a (S, S) score matrix a head group
+    instead of all heads' (llama4's 1 × 16384 at 40 heads would take 43 GB
+    of fp32 scores at once)."""
+    group = q.shape[2] // k.shape[2]
+    return torch.cat([
+        seq_ops.attention_plain(q[:, :, i * group:(i + 1) * group],
+                                k[:, :, i:i + 1], v[:, :, i:i + 1], **mask)
+        for i in range(k.shape[2])], dim=2)
+
+
+# The prefix-LM and chunked masks at both kernels' edges (the tensor-core
+# kernel: 128 query rows a block, 64 keys a tile; the CUDA-core kernel: 64
+# and 64): (B, S, H, KV, D, prefix_len, chunk)
+MASK_EDGES = [
+    (1, 300, 4, 1, 256, 1, 0),           # prefix 1 (= causal)
+    (2, 333, 8, 1, 256, 100, 0),         # ragged prefix, MQA, ragged S
+    (1, 200, 4, 2, 128, 200, 0),         # prefix = S: full attention
+    (1, 100, 4, 2, 64, 300, 0),          # prefix past S, S below a q-tile
+    (1, 300, 4, 4, 64, 0, 32),           # chunk below a tile: a q-tile
+                                         # straddles four chunks
+    (1, 333, 10, 2, 128, 0, 100),        # chunk not a tile multiple, group 5
+    (2, 400, 4, 2, 128, 0, 128),         # chunk = the q-tile
+    (1, 300, 12, 2, 128, 0, 300),        # chunk = S (causal), group 6
+    (1, 130, 6, 1, 128, 0, 1000),        # chunk past S, MQA
+    # the full-width prefill shapes: paligemma-3b, llama4's chunked layers
+    (2, 4352, 8, 1, 256, 256, 0),
+    (1, 16384, 40, 8, 128, 0, 8192),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,prefix,chunk", MASK_EDGES)
+def test_flash_wgmma_prefix_and_chunk_match_plain(cuda, b, s, h, kv, d,
+                                                  prefix, chunk):
+    rng = np.random.default_rng(s + d + prefix + chunk)
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, n, d)).astype(np.float32),
+                            device=cuda).to(torch.bfloat16) for n in (h, kv, kv))
+    mask = dict(causal=True, prefix_len=prefix, chunk=chunk)
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    want = _plain_by_kv_head(q.float(), k.float(), v.float(), **mask)
+    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,prefix,chunk", [
+    e for e in MASK_EDGES if e[1] <= 400])
+def test_flash_cuda_core_prefix_and_chunk_match_plain(cuda, b, s, h, kv, d,
+                                                      prefix, chunk):
+    """The float32 route (the CUDA-core kernel) under the same masks."""
+    rng = np.random.default_rng(s + d + prefix + chunk + 1)
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, n, d)).astype(np.float32),
+                            device=cuda) for n in (h, kv, kv))
+    mask = dict(causal=True, prefix_len=prefix, chunk=chunk)
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert seq_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    torch.testing.assert_close(got, seq_ops.attention_plain(q, k, v, **mask),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_flash_rejects_mask_combinations_on_the_card(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    before = dict(seq_ops.LAUNCHES)
+    for kw in (dict(window=4, chunk=8), dict(causal=False, prefix_len=2)):
+        with pytest.raises(ValueError, match="flash_attention"):
+            seq_ops.flash_attention(q, q, q, **kw)
+    assert seq_ops.LAUNCHES == before
+
+
 @pytest.mark.parametrize("d,dtype", [(256, torch.float32),
                                      (80, torch.bfloat16)])
 def test_flash_other_dtypes_and_dims_keep_the_cuda_core_kernel(cuda, d,
@@ -1072,3 +1150,36 @@ def test_dense_reduced_card_matches_cpu(cuda, arch):
         want = cpu_model.apply(tokens)
     assert seq_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "grok-1-314b",
+                                  "llama4-maverick-400b-a17b"])
+def test_vlm_moe_reduced_card_matches_cpu(cuda, arch):
+    """A reduced prefix-LM or MoE decoder with 2 KV heads, its norm scales
+    redrawn: the card's logits (the flash kernel with the prefix or chunked
+    mask, one launch a layer) against the CPU's from the same weights, and
+    the MoE aux, at the reference's decode-parity tolerance.  paligemma
+    takes 8 patch embeddings; llama4's chunk of 32 cuts 2 × 150 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config(arch).reduced().replace(n_kv_heads=2)
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = Transformer(cfg, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.endswith("scale"):
+                p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    card_model = Transformer(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=gen)
+    extra = torch.randn((2, cfg.prefix_tokens, cfg.d_model), generator=gen) \
+        if cfg.prefix_tokens else None
+    before = seq_ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got, aux = card_model.apply(
+            tokens.to(cuda), None if extra is None else extra.to(cuda),
+            with_aux=True)
+        want, want_aux = cpu_model.apply(tokens, extra, with_aux=True)
+    assert seq_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=2e-4, rtol=1e-3)

@@ -80,7 +80,7 @@ def test_config_matches_reference(reduce):
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        get_config("grok-1-314b")
+        get_config("xlstm-125m")
 
 
 # -- layers --------------------------------------------------------------------
@@ -140,13 +140,25 @@ def test_attention_apply_sliding_matches_reference(reduced):
     assert seq_ops.LAUNCHES["flash_attention"] == 0     # CPU: plain version
 
 
-@pytest.mark.parametrize("kind", ["chunked", "prefix"])
-def test_unported_mask_kinds_raise(reduced, kind):
+@pytest.mark.parametrize("entry", ["apply", "init_cache", "decode"])
+def test_unknown_mask_kind_raises(reduced, entry):
+    """A mask kind the reference's ``mask_logits`` does not know raises
+    ``ValueError`` there and in each attention entry point of the port."""
     _, _, model = reduced
-    x = torch.zeros((1, 4, model.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        attention.attention_apply(model.blocks[2].attn, x, model.cfg,
-                                  mask_kind=kind)
+    cfg, attn = model.cfg, model.blocks[2].attn
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(ValueError, match="unknown mask kind"):
+        jattention.mask_logits(jnp.zeros((4, 4)), jnp.arange(4),
+                               jnp.arange(4), "bidirectional")
+    with pytest.raises(ValueError, match="unknown mask kind"):
+        if entry == "apply":
+            attention.attention_apply(attn, x, cfg, mask_kind="bidirectional")
+        elif entry == "init_cache":
+            attention.init_cache(cfg, 1, 8, "bidirectional", "cpu")
+        else:
+            cache = attention.init_cache(cfg, 1, 8, "global", "cpu")
+            attention.attention_decode(attn, x[:, :1], cfg, cache, 0,
+                                       mask_kind="bidirectional")
 
 
 def test_rglru_block_apply_matches_reference(reduced):
