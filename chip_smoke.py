@@ -230,6 +230,29 @@ and prints no result):
    four prefill shapes timed beside its bound and SDPA, and at the prefix
    and chunk edges (prefix 1, ragged, = S; chunk 32, 100, 128, = S and
    past S) in bf16 and fp32;
+9d. xLSTM and the encoder-decoder (``[xlstm-encdec]``), one model at a
+   time, weights drawn from a seeded generator on the card (fp32, bf16
+   compute; norm scales, LayerNorm, QKV and MLP biases redrawn):
+   xlstm-125m at full size -- a 2 x 1024 prefill with the launch counters
+   zeroed just before and read just after (no launch: its mLSTM and sLSTM
+   scans are plain, as the reference's are XLA), timed prefills, a
+   token-by-token decode of a 64-token prompt and 16 greedy tokens, the
+   prefill's last logits against the decode's, the peak memory;
+   whisper-large-v3 at full size (32 + 32 layers, 2 requests x 1500 stub
+   frames) -- ``prefill_cross`` (32 tensor-core flash launches, the
+   encoder) and a teacher-forced ``apply`` over 448 tokens (96: the
+   encoder's, the causal self-attention's and the cross-attention's, 448
+   queries over 1500 frames; nothing else), each with the counters zeroed
+   just before and read just after, timed prefill steps, a decode of a
+   64-token prompt from index 0 and 16 greedy tokens (no launch), the
+   apply's logits at the prompt's last position against the decode's, the
+   peak memory; each reduced config (whisper also with 2 KV heads) card vs
+   CPU in fp32 and prefill vs decode in fp32 and bf16; both flash kernels
+   with a key length of their own at their edges (one query, 448 over
+   1500, fewer keys than queries, ragged both ways with MQA, fewer keys
+   than a tile) in bf16 and fp32, a causal call with two lengths refused;
+   the flash kernel at whisper's encoder, self-attention and
+   cross-attention shapes timed beside its bound and SDPA;
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
@@ -243,9 +266,11 @@ and prints no result):
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
     run's, ``sweep_launches`` the ``[sweep]`` phase's three grids, and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
-    three prefix-LM and MoE prefills'; the ``flash_attention`` entry's
-    ``dense_shapes`` and ``vlm_moe_shapes`` hold its readings at their
-    shapes) and, last, the device line.
+    three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
+    teacher-forced ``apply`` (xLSTM's prefill launches none); the
+    ``flash_attention`` entry's ``dense_shapes``, ``vlm_moe_shapes`` and
+    ``encdec_shapes`` hold its readings at their shapes) and, last, the
+    device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -309,6 +334,8 @@ WGMMA_EDGES = [
     (2, 512, 16, 1, 256, False, 0),      # non-causal, MQA (group 16)
     (1, 300, 14, 2, 128, True, 0),       # odd group 7 (yi-34b's), ragged S
     (1, 257, 16, 2, 128, True, 100),     # group 8 (qwen1.5-110b's), window
+    (1, 333, 4, 4, 64, False, 0),        # non-causal MHA, D = 64 (whisper's
+                                         # encoder)
 ]
 # the prefix-LM and chunked masks at both flash kernels' edges, in bf16 (the
 # tensor-core kernel: 128 query rows a block, 64 keys a tile) and fp32 (the
@@ -3678,13 +3705,13 @@ PLAIN_SCORE_BYTES = 8e9
 
 def flash_plain(q, k, v, **mask):
     """``seq_ops.attention_plain``, one KV head at a time where all heads'
-    (S, S) fp32 scores would pass ``PLAIN_SCORE_BYTES`` (llama4's 1 x
+    (S, S_kv) fp32 scores would pass ``PLAIN_SCORE_BYTES`` (llama4's 1 x
     16384 at 40 heads: 43 GB): the same function."""
     import torch
     from repro_torch.kernels import seq_ops
     b, s, h, _ = q.shape
-    kv = k.shape[2]
-    if 4.0 * b * h * s * s <= PLAIN_SCORE_BYTES:
+    s_kv, kv = k.shape[1], k.shape[2]
+    if 4.0 * b * h * s * s_kv <= PLAIN_SCORE_BYTES:
         return seq_ops.attention_plain(q, k, v, **mask)
     g = h // kv
     return torch.cat([seq_ops.attention_plain(
@@ -3695,9 +3722,10 @@ def flash_plain(q, k, v, **mask):
 def flash_work(b, s, h, kv, d, itemsize, mask):
     """Bytes (q, k, v read once, o written once) and flops (QK^T and PV,
     4 · D per allowed (query, key) pair and head) the function needs --
-    counted from the mask, not from the kernel's tiles."""
+    counted from the (S, S_kv) mask, not from the kernel's tiles."""
     pairs = int(mask.sum())
-    n_bytes = itemsize * b * s * d * (2 * h + 2 * kv)
+    s_kv = mask.shape[1]
+    n_bytes = itemsize * b * d * (2 * h * s + 2 * kv * s_kv)
     return n_bytes, 4.0 * b * h * pairs * d
 
 
@@ -3710,18 +3738,21 @@ def _seq_inputs(shape, dtype, seed, dev):
 
 
 def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
-                  library=False, timed=True, prefix_len=0, chunk=0):
+                  library=False, timed=True, prefix_len=0, chunk=0,
+                  s_kv=None):
     """Kernel vs plain (``flash_plain``), checking that the call launched
     the kernel ``seq_ops.flash_route`` names; with ``timed``, the times of
     both beside the bound and, with ``library``, the time of PyTorch's
     scaled_dot_product_attention with the same boolean mask -- a yardstick
-    the port never calls.  Returns err, ms, plain ms, bound, library ms."""
+    the port never calls.  ``s_kv``: the keys' length (default S).
+    Returns err, ms, plain ms, bound, library ms."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import seq_ops
+    s_kv = s if s_kv is None else s_kv
     q = _seq_inputs((b, s, h, d), dtype, seed, dev)
-    k = _seq_inputs((b, s, kv, d), dtype, seed + 1, dev)
-    v = _seq_inputs((b, s, kv, d), dtype, seed + 2, dev)
+    k = _seq_inputs((b, s_kv, kv, d), dtype, seed + 1, dev)
+    v = _seq_inputs((b, s_kv, kv, d), dtype, seed + 2, dev)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len,
               chunk=chunk)
     route = seq_ops.flash_route(dtype, d)
@@ -3730,6 +3761,8 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
     torch.cuda.synchronize()
     masks = (f" prefix={prefix_len}" if prefix_len else "") \
         + (f" chunk={chunk}" if chunk else "")
+    if s_kv != s:
+        masks += f" S_kv={s_kv}"
     name = f"flash_attention B={b} S={s} H={h} KV={kv} D={d} " \
            f"causal={causal} window={window}{masks} {str(dtype)[6:]} " \
            f"({route})"
@@ -3758,7 +3791,7 @@ def compare_flash(b, s, h, kv, d, causal, window, dtype, seed, dev,
     ms_k = time_ms(lambda: seq_ops.flash_attention(q, k, v, **kw))
     ms_p = time_ms(lambda: flash_plain(q, k, v, **kw))
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    mask = seq_ops.attention_mask(s, dev, **kw)
+    mask = seq_ops.attention_mask(s, dev, s_kv=s_kv, **kw)
     b_ms, b_by = bound_ms(*flash_work(b, s, h, kv, d, q.element_size(),
                                       mask), peak)
     lib_ms = None
@@ -4094,16 +4127,18 @@ DENSE_FLASH = [
 
 
 def _perturb_constants(model, gen):
-    """The leaves a config initialises to constants -- norm scales (ones),
-    norm and QKV biases (zeros) -- redrawn from ``gen``, so the norm and
-    bias paths are not held at their identity."""
+    """The leaves a config initialises to constants -- norm scales (ones;
+    xLSTM's ``norm_scale`` too), norm, QKV and MLP biases (zeros) --
+    redrawn from ``gen``, so the norm and bias paths are not held at their
+    identity."""
     import torch
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("scale", "bias", "bq", "bk", "bv"):
+            if leaf in ("scale", "norm_scale", "bias", "bq", "bk", "bv",
+                        "b_in", "b_out"):
                 z = torch.randn(p.shape, generator=gen, device=gen.device)
-                p.copy_(1.0 + 0.2 * z if leaf == "scale" else 0.3 * z)
+                p.copy_(1.0 + 0.2 * z if leaf.endswith("scale") else 0.3 * z)
 
 
 def _no_drop(cfg):
@@ -4258,11 +4293,12 @@ def _forward_vs_decode(tag, label, model, tokens, patches, cache_len,
 
 
 def _serve_full(tag, cfg, why, batch, seq, dev, card, prompt_len=64,
-                new_tokens=16):
+                new_tokens=16, flash=None):
     """One config at full width on the card: a prefill of batch x seq text
     tokens (after a VLM's patches) with every launch counter zeroed just
-    before and read just after (one tensor-core flash launch a layer,
-    nothing else) and each MoE layer's dropped (token, choice) pairs,
+    before and read just after (``flash`` tensor-core flash launches --
+    default one a layer -- and nothing else) and each MoE layer's dropped
+    (token, choice) pairs,
     timed prefills, ``prefill_prefix`` of a VLM's patches (one flash launch
     a layer), a token-by-token decode of a 64-token prompt and 16 greedy
     tokens (no launch), and ``_forward_vs_decode`` on the prompt's last
@@ -4304,8 +4340,8 @@ def _serve_full(tag, cfg, why, batch, seq, dev, card, prompt_len=64,
     for h in hooks:
         h.remove()
     want = {k: 0 for k in launches}
-    want.update(flash_attention=cfg.n_layers,
-                flash_attention_wgmma=cfg.n_layers)
+    flash = cfg.n_layers if flash is None else flash
+    want.update(flash_attention=flash, flash_attention_wgmma=flash)
     if launches != want:
         raise AssertionError(f"{cfg.name} prefill launches {launches} != "
                              f"{want}")
@@ -4585,6 +4621,315 @@ def phase_vlm_moe(dev, card):
     return {"flash_attention": total}, shapes
 
 
+# ---------------------------------------------------------------------------
+# xLSTM and the encoder-decoder: xlstm-125m, whisper-large-v3
+# ---------------------------------------------------------------------------
+
+# whisper's text context: the decoder tokens of one teacher-forced apply
+WHISPER_TEXT = 448
+# the flash kernel at whisper-large-v3's three attention shapes, bf16 at 2
+# requests: (B, S_q, S_kv, H, KV, D, causal)
+ENCDEC_FLASH = [
+    (2, 1500, 1500, 20, 20, 64, False),  # the encoder over its frames
+    (2, 448, 448, 20, 20, 64, True),     # decoder self-attention
+    (2, 448, 1500, 20, 20, 64, False),   # cross-attention over the frames
+]
+# full attention over a key length of its own at both kernels' edges (128
+# query rows a block and 64 keys a tile; 64 and 64): (B, S_q, S_kv, H, KV,
+# D) -- one query; whisper's 448 tokens over 1500 frames (1500 = 23 · 64 +
+# 28); fewer keys than queries, group 2; ragged both ways, MQA at D = 256;
+# fewer keys than one tile
+KV_LENGTH_EDGES = [
+    (1, 1, 1500, 4, 4, 64),
+    (2, 448, 1500, 20, 20, 64),
+    (1, 100, 64, 4, 2, 128),
+    (1, 300, 333, 8, 1, 256),
+    (1, 1500, 7, 4, 4, 64),
+]
+
+
+def _frames(cfg, batch, gen, dev):
+    """Stub frame embeddings (B, F, d) in the compute dtype, or None."""
+    import torch
+    if not cfg.encoder_layers:
+        return None
+    return torch.randn((batch, cfg.stub_frames, cfg.d_model), generator=gen,
+                       device=gen.device).to(dev).to(cfg.compute_dtype)
+
+
+def _xe_decode(model, tokens, frames):
+    """Every step's logits (B, S, V) of a token-by-token decode of
+    ``tokens`` from index 0 (after ``prefill_cross`` of an encoder-decoder's
+    frames), and the launches of the decode steps alone (none expected)."""
+    import torch
+    with torch.no_grad():
+        if frames is None:
+            cache = model.init_cache(tokens.shape[0], tokens.shape[1])
+        else:
+            cache = model.prefill_cross(
+                model.init_cache(tokens.shape[0], tokens.shape[1],
+                                 frames.shape[1]), frames)
+        before = _launch_counts()
+        logits = torch.cat([model.decode_step(tokens[:, i:i + 1], cache,
+                                              i)[0]
+                            for i in range(tokens.shape[1])], dim=1)
+    after = _launch_counts()
+    return logits, {k: after[k] - before[k] for k in after}
+
+
+def _xe_want(cfg, wgmma):
+    """The launches of one ``apply``: for an encoder-decoder one flash a
+    layer of the encoder and two a decoder layer (its causal
+    self-attention and its cross-attention), ``wgmma`` of them on the
+    tensor-core kernel; none for xLSTM, whose scans are plain."""
+    from repro_torch.kernels import hfl_ops, seq_ops
+    want = {k: 0 for k in {**hfl_ops.LAUNCHES, **seq_ops.LAUNCHES}}
+    if cfg.encoder_layers:
+        n = cfg.encoder_layers + 2 * cfg.n_layers
+        want.update(flash_attention=n, flash_attention_wgmma=n if wgmma else 0)
+    return want
+
+
+def _xe_reduced(cfg, dev, seq):
+    """A reduced config from the same (perturbed) weights in float32 on
+    the card (kernels) and on the CPU (plain versions): every position's
+    logits; the card's forward against its own token-by-token decode; both
+    at ``SUBSTRATE_TOL``.  Then the same config in bfloat16 (D = 64: the
+    tensor-core flash kernel) forward vs decode at
+    ``PREFILL_DECODE_REL_RMS``."""
+    import torch
+    from repro_torch.models import build_model
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    cpu_model = build_model(cfg, device="cpu", generator=gen)
+    _perturb_constants(cpu_model, gen)
+    card_model = build_model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
+    frames = _frames(cfg, 2, gen, "cpu")
+    on_card = None if frames is None else frames.to(dev)
+    with torch.no_grad():
+        full_cpu = cpu_model.apply(tokens, frames)
+        _reset_launches()
+        full_card = card_model.apply(tokens.to(dev), on_card)
+    torch.cuda.synchronize()
+    if _launch_counts() != _xe_want(cfg, False):
+        raise AssertionError(f"{cfg.name} card launches {_launch_counts()}")
+    decoded, made = _xe_decode(card_model, tokens.to(dev), on_card)
+    if any(made.values()):
+        raise AssertionError(f"{cfg.name}: the decode path launched {made}")
+    errs = []
+    for name, got, want in (
+            ("card vs cpu, all logits", full_card.cpu(), full_cpu),
+            ("card prefill vs card decode, all logits", full_card, decoded)):
+        _check_close(f"{cfg.name} {name}", got, want, **SUBSTRATE_TOL)
+        errs.append(f"{name} {_max_err(got, want):.3e}")
+    del cpu_model, card_model
+    bf = cfg.replace(compute_dtype_str="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    model = build_model(bf, device=dev, generator=gen)
+    _perturb_constants(model, gen)
+    tokens = torch.randint(0, bf.vocab_size, (2, seq), generator=gen,
+                           device=dev)
+    frames = _frames(bf, 2, gen, dev)
+    with torch.no_grad():
+        _reset_launches()
+        full = model.apply(tokens, frames)
+    torch.cuda.synchronize()
+    if _launch_counts() != _xe_want(bf, True):
+        raise AssertionError(f"{cfg.name} bf16 launches {_launch_counts()}")
+    decoded, made = _xe_decode(model, tokens, frames)
+    if any(made.values()):
+        raise AssertionError(f"{cfg.name}: the decode path launched {made}")
+    rel = _rel_rms(full, decoded)
+    log(f"[xlstm-encdec] {cfg.name} (H {cfg.n_heads} / KV {cfg.n_kv_heads}, "
+        f"frames {cfg.stub_frames}) S={seq}: fp32 max abs: "
+        f"{'; '.join(errs)} (atol {SUBSTRATE_TOL['atol']}, rtol "
+        f"{SUBSTRATE_TOL['rtol']}); bf16 forward vs decode rel rms "
+        f"{rel:.3e} (limit {PREFILL_DECODE_REL_RMS}): ok")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"{cfg.name} bf16: forward and decode disagree: "
+                             f"rel rms {rel:.3e}")
+
+
+def _serve_whisper(dev, card, batch=2, prompt_len=64, new_tokens=16):
+    """whisper-large-v3 at full size on the card (fp32 weights drawn from a
+    seeded generator, bf16 compute, LayerNorm and every bias redrawn):
+    ``prefill_cross`` of 1500 stub frames (one tensor-core flash a
+    encoder layer), a teacher-forced ``apply`` over 448 tokens (an encoder
+    layer one, a decoder layer two: causal self-attention and
+    cross-attention of 448 queries over 1500 frames; nothing else), each
+    with every launch counter zeroed just before and read just after;
+    timed prefill steps; a token-by-token decode of a 64-token prompt from
+    index 0 and 16 greedy tokens (no launch); the apply's logits at the
+    prompt's last position against the decode's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    cfg = get_config("whisper-large-v3")
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    prefill, model = steps.make_prefill_step(cfg, device=dev, generator=gen)
+    _perturb_constants(model, gen)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"[xlstm-encdec] {cfg.name}: {cfg.encoder_layers} + {cfg.n_layers} "
+        f"layers (full depth), d {cfg.d_model}, {cfg.n_heads} H / "
+        f"{cfg.n_kv_heads} KV, D {cfg.d_head}, d_ff {cfg.d_ff} (gelu, "
+        f"biased), vocab {cfg.vocab_size}, {cfg.stub_frames} frames: "
+        f"{n_par / 1e9:.3f} B parameters, {4 * n_par / 1e9:.2f} GB of fp32 "
+        f"weights drawn in {time.perf_counter() - t0:.2f} s")
+    frames = _frames(cfg, batch, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, WHISPER_TEXT),
+                           generator=gen, device=dev)
+    want = _xe_want(cfg, True)
+    _reset_launches()
+    with torch.no_grad():
+        model.prefill_cross(model.init_cache(batch, prompt_len + new_tokens),
+                            frames)
+    torch.cuda.synchronize()
+    cross = _launch_counts()
+    if cross != {**want, "flash_attention": cfg.encoder_layers,
+                 "flash_attention_wgmma": cfg.encoder_layers}:
+        raise AssertionError(f"{cfg.name} prefill_cross launches {cross}")
+    _reset_launches()
+    with torch.no_grad():
+        logits = model.apply(tokens, frames)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if launches != want:
+        raise AssertionError(f"{cfg.name} apply launches {launches} != "
+                             f"{want}")
+    if tuple(logits.shape) != (batch, WHISPER_TEXT, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} apply logits: shape "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    batch_in = {"tokens": tokens, "embeddings": frames}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(batch_in)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pre_s = sum(walls[1:]) / 2
+    log(f"[xlstm-encdec] {cfg.name} prefill_cross: flash launches "
+        f"{cross['flash_attention_wgmma']} (tensor-core) of "
+        f"{cross['flash_attention']}; apply {batch} x ({cfg.stub_frames} "
+        f"frames + {WHISPER_TEXT} tokens): {launches['flash_attention_wgmma']}"
+        f" (tensor-core) of {launches['flash_attention']}, nothing else; "
+        f"prefill step {pre_s * 1e3:.2f} ms ({batch * WHISPER_TEXT / pre_s:.1f}"
+        f" tokens/s; runs {', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} "
+        f"ms; first {walls[0] * 1e3:.2f} ms)")
+
+    serve_step, _ = steps.make_serve_step(cfg, model=model)
+    prompt = tokens[:, :prompt_len]
+    with torch.no_grad():
+        cache = model.prefill_cross(
+            model.init_cache(batch, prompt_len + new_tokens), frames)
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    feed_logits, cache = serve.prefill_into_cache(model, prompt, cache)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    tok = torch.argmax(feed_logits[:, -1, :], dim=-1,
+                       keepdim=True).to(torch.int32)
+    out, step_ms = [], []
+    for i in range(new_tokens):
+        t0 = time.perf_counter()
+        tok, cache = serve_step(tok, cache, prompt_len + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok[:, 0])
+    if _launch_counts() != before:
+        raise AssertionError(f"{cfg.name}: the decode path launched a kernel")
+    gen_tokens = torch.stack(out, dim=1)
+    if not bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: tokens outside the vocabulary")
+    decode_ms = statistics.mean(step_ms[1:])
+    with torch.no_grad():
+        full = model.apply(prompt, frames)[:, -1]
+    rel = _rel_rms(full, feed_logits[:, -1])
+    agree = float((full.argmax(-1) == feed_logits[:, -1].argmax(-1))
+                  .float().mean())
+    log(f"[xlstm-encdec] {cfg.name} decode {batch} requests: prompt of "
+        f"{prompt_len} fed token by token from index 0 in "
+        f"{feed_s * 1e3:.2f} ms; {new_tokens} greedy tokens at "
+        f"{decode_ms:.3f} ms/token (steps 2..{new_tokens}; first "
+        f"{step_ms[0]:.3f}); sample {gen_tokens[0, :8].tolist()}; apply vs "
+        f"decode, last logits of {prompt_len} tokens: rel rms {rel:.3e} "
+        f"(limit {PREFILL_DECODE_REL_RMS}), argmax agreement {agree:.3f}")
+    if not rel <= PREFILL_DECODE_REL_RMS:
+        raise AssertionError(f"{cfg.name}: apply and decode disagree: rel rms "
+                             f"{rel:.3e}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[xlstm-encdec] {cfg.name} peak device memory {peak / 1e9:.2f} GB "
+        f"on {card}")
+    if peak >= 80e9:
+        raise AssertionError(f"{cfg.name}: peak memory {peak / 1e9:.2f} GB")
+    del model, prefill, serve_step, cache
+    torch.cuda.empty_cache()
+    return dict(launches=launches, cross=cross["flash_attention_wgmma"],
+                prefill_ms=pre_s * 1e3, decode_ms=decode_ms,
+                peak_gb=peak / 1e9)
+
+
+def phase_xlstm_encdec(dev, card):
+    """xlstm-125m and whisper-large-v3 at full size on the card, one at a
+    time: xLSTM's prefill (no kernel launch: its scans are plain),
+    decode and prefill vs decode (``_serve_full``); whisper
+    (``_serve_whisper``); each reduced config (whisper also with 2 KV
+    heads) card vs CPU in fp32 and prefill vs decode in fp32 and bf16
+    (``_xe_reduced``); the flash kernels with a key length of their own at
+    their edges in bf16 and fp32, and refusing a causal call with two
+    lengths; the flash kernel at whisper's three shapes, timed beside its
+    bound and SDPA.  Returns the launches of the two full-size prefills
+    (xLSTM's, whisper's ``apply``) and the three shapes' readings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import seq_ops
+    xl = _serve_full("xlstm-encdec", get_config("xlstm-125m"), "", 2, 1024,
+                     dev, card, flash=0)
+    wh = _serve_whisper(dev, card)
+    for arch, kv in (("xlstm-125m", None), ("whisper-large-v3", None),
+                     ("whisper-large-v3", 2)):
+        cfg = get_config(arch).reduced()
+        if kv is not None:
+            cfg = cfg.replace(n_kv_heads=kv)
+        _xe_reduced(cfg, dev, 300 if arch == "xlstm-125m" else 200)
+    for i, (b, s_q, s_kv, h, kv, d) in enumerate(KV_LENGTH_EDGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            compare_flash(b, s_q, h, kv, d, False, 0, dtype, 130 + 3 * i, dev,
+                          timed=False, s_kv=s_kv)
+    q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((1, 12, 2, 64), device=dev, dtype=torch.bfloat16)
+    try:
+        seq_ops.flash_attention(q, k, k, causal=True)
+    except ValueError as e:
+        log(f"[xlstm-encdec] a causal call with S_q 8 and S_kv 12 raises: {e}")
+    else:
+        raise AssertionError("a causal flash call with two lengths ran")
+    shapes = []
+    for i, (b, s_q, s_kv, h, kv, d, causal) in enumerate(ENCDEC_FLASH):
+        err, ms_k, ms_p, b_ms, b_by, lib_ms = compare_flash(
+            b, s_q, h, kv, d, causal, 0, torch.bfloat16, 150 + 3 * i, dev,
+            library=True, s_kv=s_kv)
+        shapes.append({"shape": [b, s_q, h, kv, d], "s_kv": s_kv,
+                       "causal": causal, "max_abs_err": err, "ms": ms_k,
+                       "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_ms})
+        torch.cuda.empty_cache()
+    log(f"[xlstm-encdec] xlstm-125m prefill {xl['prefill_ms']:.2f} ms, "
+        f"decode {xl['decode_ms']:.3f} ms/token, peak {xl['peak_gb']:.2f} "
+        f"GB, flash launches {xl['launches']}; whisper-large-v3 prefill "
+        f"{wh['prefill_ms']:.2f} ms, decode {wh['decode_ms']:.3f} ms/token, "
+        f"peak {wh['peak_gb']:.2f} GB, flash launches prefill_cross "
+        f"{wh['cross']}, apply {wh['launches']['flash_attention_wgmma']}; "
+        f"card {card}")
+    return wh["launches"], shapes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the kernel results as JSON")
@@ -4646,6 +4991,8 @@ def main(argv=None) -> int:
                                         card)
     vlm_moe_launches, vlm_moe_flash = phase(
         "prefix-LM and MoE decoders", phase_vlm_moe, dev, card)
+    encdec_launches, encdec_flash = phase(
+        "xLSTM and encoder-decoder", phase_xlstm_encdec, dev, card)
 
     # the entries of local_sgd_step and flash_attention are the cluster
     # kernel and the tensor-core kernel
@@ -4682,7 +5029,8 @@ def main(argv=None) -> int:
                 "warm_launches": warm_launches.get(name, 0),
                 "sweep_launches": sweep_launches.get(name, 0),
                 "dense_launches": dense_launches.get(name, 0),
-                "vlm_moe_launches": vlm_moe_launches.get(name, 0)}
+                "vlm_moe_launches": vlm_moe_launches.get(name, 0),
+                "encdec_launches": encdec_launches.get(name, 0)}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -4704,6 +5052,7 @@ def main(argv=None) -> int:
             # timed as the main one
             kernels[-1]["dense_shapes"] = dense_flash
             kernels[-1]["vlm_moe_shapes"] = vlm_moe_flash
+            kernels[-1]["encdec_shapes"] = encdec_flash
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",

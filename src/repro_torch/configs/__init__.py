@@ -1,6 +1,6 @@
 """Config registry of the port: ``get_config("<arch-id>")`` -> ArchConfig.
 
-It holds only the architectures whose layers are ported.  The paper's HFL
+It holds every architecture of the reference's registry; the paper's HFL
 config is ``repro_torch.configs.hfl_mnist.CONFIG`` (a different dataclass).
 """
 from __future__ import annotations
@@ -19,15 +19,14 @@ _REGISTRY: Dict[str, str] = {
     "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "llama4-maverick-400b-a17b":
         "repro_torch.configs.llama4_maverick_400b_a17b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
 
 def get_config(name: str):
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A17: its mixers -- "
-            f"xLSTM, enc-dec -- come later); "
-            f"ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[name]).CONFIG
 
 

@@ -11,7 +11,9 @@ over too (``buffer_from_numpy``), a faulted one its ``FaultState``
 ``ddpg_from_numpy`` and ``actor_from_numpy`` carry a reference DDPG
 agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
-``params_from_numpy`` does the same for a substrate model's weights.
+``params_from_numpy`` does the same for a substrate model's weights (a
+decoder or an encoder-decoder), ``cache_from_numpy`` for its decode
+cache, so both sides can decode from the same state.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from repro_torch.core.engine import BufferState, RoundBundle, RoundState
 from repro_torch.device import resolve_device
 from repro_torch.faults.spec import FaultState
 from repro_torch.scenarios import ScenarioState
+from repro_torch.models import build_model
+from repro_torch.models.encdec import EncDecTransformer
 from repro_torch.models.transformer import Transformer
 
 
@@ -162,26 +166,67 @@ def _fill(param: torch.Tensor, src: np.ndarray, where: str) -> None:
 
 
 def params_from_numpy(params_np: Mapping[str, Any], cfg,
-                      device: "str | torch.device" = "cuda") -> Transformer:
-    """A ``Transformer`` on ``device`` holding the weights of a reference
-    ``Transformer.init`` pytree with numpy leaves: ``embed/embedding``
-    (and ``embed/unembedding`` when untied), ``final_norm/scale`` (and
-    ``bias`` for LayerNorm) and ``stage_<i>/<unit position>/<group>/...``
+                      device: "str | torch.device" = "cuda"
+                      ) -> "Transformer | EncDecTransformer":
+    """The model ``build_model(cfg)`` on ``device`` holding the weights of
+    a reference ``init`` pytree with numpy leaves.  Both kinds have
+    ``embed/embedding`` (and ``embed/unembedding`` when untied) and
+    ``final_norm/scale`` (and ``bias`` for LayerNorm).  A decoder
+    (``Transformer.init``) has ``stage_<i>/<unit position>/<group>/...``
     stacked over the stage's repetitions, nested names included
     (``attn/q_norm/scale``), a MoE block's ``moe/{router, w_gate, w_in,
-    w_out}`` among them (the router stays float32 under any
-    ``param_dtype``, as the port's parameter is).  Every parameter of the
-    port is filled; a missing key or a shape mismatch raises."""
-    model = Transformer(cfg, device=device)
+    w_out}`` (the router stays float32 under any ``param_dtype``, as the
+    port's parameter is) and an xLSTM block's ``mlstm/...`` or
+    ``slstm/...`` among them.  An encoder-decoder
+    (``EncDecTransformer.init``) has ``encoder/...`` and ``decoder/...``
+    stacked over the layers and ``enc_norm``.  Every parameter of the port
+    is filled; a missing key or a shape mismatch raises."""
+    model = build_model(cfg, device=device)
     top = {"embedding": "embed.embedding",
            "unembedding": "embed.unembedding"}
     for name, param in model.named_parameters():
-        if name.startswith("blocks."):
-            _, i, name = name.split(".", 2)
+        group, _, rest = name.partition(".")
+        if group == "blocks":
+            i, name = rest.split(".", 1)
             stage, r, pos = model.block_index[int(i)]
-            where = f"{stage}/{pos}/{name.replace('.', '/')}[{r}]"
-            _fill(param, _leaf(params_np[stage][pos], name, where)[r], where)
+            tree, where = params_np[stage][pos], f"{stage}/{pos}"
+        elif group in ("encoder", "decoder"):
+            r, name = rest.split(".", 1)
+            r = int(r)
+            tree, where = params_np[group], group
         else:
             path = top.get(name, name)
             _fill(param, _leaf(params_np, path, path), path)
+            continue
+        where = f"{where}/{name.replace('.', '/')}[{r}]"
+        _fill(param, _leaf(tree, name, where)[r], where)
     return model
+
+
+# the leaves of the reference's tuple caches (models/xlstm.py), in order
+_TUPLE_CACHE = {"mlstm": ("c", "n", "m", "conv"),
+                "slstm": ("c", "n", "h", "m", "conv")}
+
+
+def cache_from_numpy(cache_np: Mapping[str, Any],
+                     model: "Transformer | EncDecTransformer"
+                     ) -> "dict[str, Any]":
+    """A reference decode cache with numpy leaves as ``model``'s, on the
+    model's device, each leaf with its numpy dtype.  An encoder-decoder's
+    ``{"decoder": {k, v, cross_k, cross_v}}`` keeps its layout; a
+    decoder's ``stage_<i>/<unit position>`` leaves are dicts (attention,
+    RG-LRU) or the xLSTM blocks' tuples, which become the port's named
+    leaves."""
+    dev = model.device
+    if isinstance(model, EncDecTransformer):
+        return {"decoder": _tensors(cache_np["decoder"], dev)}
+    cache = {}
+    for si, (unit, _) in enumerate(model.stages):
+        stage = {}
+        for i, (kind, _) in enumerate(unit):
+            leaves = cache_np[f"stage_{si}"][str(i)]
+            if kind in _TUPLE_CACHE:
+                leaves = dict(zip(_TUPLE_CACHE[kind], leaves))
+            stage[str(i)] = _tensors(leaves, dev)
+        cache[f"stage_{si}"] = stage
+    return cache

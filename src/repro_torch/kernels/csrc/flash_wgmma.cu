@@ -1,12 +1,15 @@
 // Flash attention forward for bf16 inputs on Hopper's tensor cores
-// (sm_90a): causal / sliding-window / prefix-LM / chunked / full, GQA.
+// (sm_90a): causal / sliding-window / prefix-LM / chunked / full, GQA;
+// full attention also over a key length of its own (cross-attention).
 //
 // Replaces: src/repro/kernels/flash_attention.py::_attn_kernel (via
 // flash_attention / ops.flash_attention) for bf16 q, k, v at d_head 64, 128
 // and 256, and computes the two mask kinds the reference leaves to XLA
 // (models/attention.py::mask_logits): prefix (causal, or key < prefix_len:
 // paligemma's patches) and chunked (causal, and key / chunk == query /
-// chunk: llama4's local layers).  kernels/seq_ops.py picks this kernel or
+// chunk: llama4's local layers), and full attention of S_q queries over
+// S_kv keys (whisper's cross-attention: 448 decoder tokens over 1500
+// encoder frames).  kernels/seq_ops.py picks this kernel or
 // seq_ops.cu's CUDA-core flash_kernel by dtype and head dim alone
 // (flash_route).
 //
@@ -45,7 +48,11 @@
 //   wide, so a row of D is D / 64 boxes, each a contiguous (rows x 64)
 //   slab.  The tensor maps are 4-D over the (B, S, H, D) layout, so no
 //   transpose is materialised, and TMA fills zeros past S: a ragged S
-//   needs no guarded loads.
+//   needs no guarded loads.  The Q map has S_q rows and the K and V maps
+//   S_kv: the grid covers ceil(S_q / 128) q-tiles, the loop ceil(S_kv / 64)
+//   K/V tiles, and the last K/V tile is masked by S_kv (1500 = 23 * 64 +
+//   28) by the test that already masked a ragged S, so neither mask
+//   instantiation gains an instruction in its loop.
 // * Work skipped: a block loops over the K/V tiles from the window's first
 //   tile (or the chunk start of its first row) to the diagonal (or the
 //   prefix's last tile, if that is later); each warpgroup skips the tiles
@@ -339,22 +346,23 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ bool allowed(int qpos, int kpos, int s_len,
+__device__ __forceinline__ bool allowed(int qpos, int kpos, int s_kv,
                                         int causal, int window) {
-  return kpos < s_len && (!causal || kpos <= qpos) &&
+  return kpos < s_kv && (!causal || kpos <= qpos) &&
          (window <= 0 || kpos > qpos - window);
 }
 
 // kMasks: the prefix or chunked mask (``prefix`` or ``chunk`` > 0);
-// without it both are 0 and unread.
+// without it both are 0 and unread.  s_len: the queries' length; s_kv: the
+// keys' (equal but for full attention).
 template <int D, bool kMasks>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int batch, int s_len,
-                       int n_heads, int n_kv, int causal, int window,
-                       int prefix, int chunk, float scale_log2) {
+                       int s_kv, int n_heads, int n_kv, int causal,
+                       int window, int prefix, int chunk, float scale_log2) {
   constexpr int kChunks = D / kBox;
   constexpr int kQBytes = kBQ * D * 2;
   constexpr int kTileBytes = kBK * D * 2;   // one K or one V tile
@@ -381,7 +389,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = qt * kBQ;
 
   // the K/V tiles that can hold an allowed key for some row of the block
-  int kt_hi = (s_len - 1) / kBK;
+  int kt_hi = (s_kv - 1) / kBK;
   if (causal)
     kt_hi = min(kt_hi, (max(min(q0 + kBQ, s_len), kMasks ? prefix : 0) - 1) /
                            kBK);
@@ -457,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int qpos = row + 8 * r;
     k_lo[r] = window > 0 ? qpos - window + 1 : 0;
-    k_hi[r] = causal ? qpos : s_len - 1;
+    k_hi[r] = causal ? qpos : s_kv - 1;
     if (chunk > 0) {
       k_lo[r] = qpos / chunk * chunk;
       k_hi[r] = min(k_hi[r], k_lo[r] + chunk - 1);
@@ -513,14 +521,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // online softmax in the exp2 domain; masks only on edge tiles, those
     // where some (row, key) pair of the warpgroup's rows is not allowed: a
-    // key past S, past the first row's diagonal but not in the prefix, or
+    // key past S_kv, past the first row's diagonal but not in the prefix, or
     // below the last row's window or chunk (a key past a row's chunk is
     // past its diagonal)
     const bool edge =
-        kMasks ? k0 + kBK > s_len ||
+        kMasks ? k0 + kBK > s_kv ||
                      (causal && k0 + kBK - 1 > max(wq_lo, prefix - 1)) ||
                      k0 < wk_lo
-               : k0 + kBK > s_len || (causal && k0 + kBK - 1 > wq_lo) ||
+               : k0 + kBK > s_kv || (causal && k0 + kBK - 1 > wq_lo) ||
                      (window > 0 && k0 <= wq_hi - window);
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) {
@@ -528,9 +536,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (edge) {
         const int r = (i / 2) % 2;
         const int kpos = k0 + 8 * (i / 4) + col + i % 2;
-        if (kMasks ? kpos >= s_len || kpos < k_lo[r] ||
+        if (kMasks ? kpos >= s_kv || kpos < k_lo[r] ||
                          (kpos > k_hi[r] && kpos >= prefix)
-                   : !allowed(row + 8 * r, kpos, s_len, causal, window))
+                   : !allowed(row + 8 * r, kpos, s_kv, causal, window))
           x = -INFINITY;
       }
       sc[i] = x;
@@ -671,8 +679,8 @@ int encode_bshd(CUtensorMap* map, const void* ptr, int b, int s_len,
 template <int D, bool kMasks>
 int run_flash_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                     const CUtensorMap& tv, void* o, int b, int s_len,
-                    int n_heads, int n_kv, int causal, int window, int prefix,
-                    int chunk, float scale, int smem_bytes,
+                    int s_kv, int n_heads, int n_kv, int causal, int window,
+                    int prefix, int chunk, float scale, int smem_bytes,
                     cudaStream_t stream) {
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma_kernel<D, kMasks>,
@@ -681,59 +689,60 @@ int run_flash_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
   const unsigned blocks =
       static_cast<unsigned>((s_len + kBQ - 1) / kBQ) * n_heads * b;
   flash_wgmma_kernel<D, kMasks><<<blocks, kThreads, smem_bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), b, s_len, n_heads, n_kv,
-      causal, window, prefix, chunk, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), b, s_len, s_kv, n_heads,
+      n_kv, causal, window, prefix, chunk, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
-                       int b, int s_len, int n_heads, int n_kv, int causal,
-                       int window, int prefix, int chunk, float scale,
-                       int smem_bytes, cudaStream_t stream) {
+                       int b, int s_len, int s_kv, int n_heads, int n_kv,
+                       int causal, int window, int prefix, int chunk,
+                       float scale, int smem_bytes, cudaStream_t stream) {
   if (smem_bytes < smem_bytes_for(D))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int err = encode_bshd(&tq, q, b, s_len, n_heads, D, kBQ);
-  if (err == 0) err = encode_bshd(&tk, k, b, s_len, n_kv, D, kBK);
-  if (err == 0) err = encode_bshd(&tv, v, b, s_len, n_kv, D, kBK);
+  if (err == 0) err = encode_bshd(&tk, k, b, s_kv, n_kv, D, kBK);
+  if (err == 0) err = encode_bshd(&tv, v, b, s_kv, n_kv, D, kBK);
   if (err != 0) return err;
   return prefix > 0 || chunk > 0
-             ? run_flash_wgmma<D, true>(tq, tk, tv, o, b, s_len, n_heads,
-                                        n_kv, causal, window, prefix, chunk,
-                                        scale, smem_bytes, stream)
-             : run_flash_wgmma<D, false>(tq, tk, tv, o, b, s_len, n_heads,
-                                         n_kv, causal, window, 0, 0, scale,
-                                         smem_bytes, stream);
+             ? run_flash_wgmma<D, true>(tq, tk, tv, o, b, s_len, s_kv,
+                                        n_heads, n_kv, causal, window, prefix,
+                                        chunk, scale, smem_bytes, stream)
+             : run_flash_wgmma<D, false>(tq, tk, tv, o, b, s_len, s_kv,
+                                         n_heads, n_kv, causal, window, 0, 0,
+                                         scale, smem_bytes, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 q (B, S, H, D), k/v (B, S, KV, D) -> o (B, S, H, D); D in {64, 128,
-// 256}; 16-byte aligned pointers (TMA).  ``prefix`` and ``chunk`` are 0 when
-// unused (kernels/seq_ops.py::check_mask: at most one of window, prefix and
-// chunk, the last two only with ``causal``).
+// bf16 q (B, S, H, D), k/v (B, S_kv, KV, D) -> o (B, S, H, D); D in {64,
+// 128, 256}; 16-byte aligned pointers (TMA).  ``prefix`` and ``chunk`` are 0
+// when unused (kernels/seq_ops.py::check_mask: at most one of window, prefix
+// and chunk, the last two only with ``causal``, and S_kv != S only without
+// any of them).
 int seq_flash_attention_wgmma(const void* q, const void* k, const void* v,
-                              void* o, int b, int s_len, int n_heads,
-                              int n_kv, int d, int causal, int window,
-                              int prefix, int chunk, float scale,
+                              void* o, int b, int s_len, int s_kv,
+                              int n_heads, int n_kv, int d, int causal,
+                              int window, int prefix, int chunk, float scale,
                               int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_flash_wgmma<64>(q, k, v, o, b, s_len, n_heads, n_kv,
-                                    causal, window, prefix, chunk, scale,
-                                    smem_bytes, st);
+      return launch_flash_wgmma<64>(q, k, v, o, b, s_len, s_kv, n_heads,
+                                    n_kv, causal, window, prefix, chunk,
+                                    scale, smem_bytes, st);
     case 128:
-      return launch_flash_wgmma<128>(q, k, v, o, b, s_len, n_heads, n_kv,
-                                     causal, window, prefix, chunk, scale,
-                                     smem_bytes, st);
+      return launch_flash_wgmma<128>(q, k, v, o, b, s_len, s_kv, n_heads,
+                                     n_kv, causal, window, prefix, chunk,
+                                     scale, smem_bytes, st);
     case 256:
-      return launch_flash_wgmma<256>(q, k, v, o, b, s_len, n_heads, n_kv,
-                                     causal, window, prefix, chunk, scale,
-                                     smem_bytes, st);
+      return launch_flash_wgmma<256>(q, k, v, o, b, s_len, s_kv, n_heads,
+                                     n_kv, causal, window, prefix, chunk,
+                                     scale, smem_bytes, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -32,7 +32,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 // ---------------------------------------------------------------------------
 // Flash attention forward: causal / sliding-window / prefix-LM / chunked /
-// full, GQA.
+// full, GQA; full attention also over a key length of its own
+// (cross-attention: S_q queries over S_kv keys).
 //
 // Replaces: src/repro/kernels/flash_attention.py::_attn_kernel (via
 // flash_attention / ops.flash_attention), and computes the two mask kinds
@@ -61,7 +62,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // x D/16 columns a thread) stays in registers.  GQA: head h reads KV head
 // h / (H / KV), so MQA needs no head broadcast.  Masking follows the TPU
 // kernel: NEG_INF scores, masked probabilities zeroed, denominator clamped
-// at 1e-30; a ragged S is masked (rows and keys past S).
+// at 1e-30; a ragged S is masked (rows past S_q, keys past S_kv).  The
+// queries and the keys each have their own length (s_len, s_kv): equal for
+// every mask but full attention (check_mask), where whisper's decoder
+// attends to 1500 encoder frames; the grid covers the queries, the loop
+// the keys, and the one test a key sees for being past S_kv is the one a
+// ragged S already had.
 // ---------------------------------------------------------------------------
 
 constexpr int kFlashBQ = 64;
@@ -75,18 +81,18 @@ constexpr float kNegInf = -1.0e38f;
 
 // The mask of a row, reduced to the bounds of the keys it may see: [lo,
 // hi], and any key before the prefix (flash_bounds sets them once a row).
-__device__ __forceinline__ bool flash_allowed(int kpos, int s_len, int lo,
+__device__ __forceinline__ bool flash_allowed(int kpos, int s_kv, int lo,
                                               int hi, int prefix) {
-  return kpos < s_len && kpos >= lo && (kpos <= hi || kpos < prefix);
+  return kpos < s_kv && kpos >= lo && (kpos <= hi || kpos < prefix);
 }
 
 // Causal caps hi at the row, a window raises lo, a chunk bounds both
 // (check_mask lets at most one of window, prefix and chunk be set).
-__device__ __forceinline__ void flash_bounds(int qpos, int s_len, int causal,
+__device__ __forceinline__ void flash_bounds(int qpos, int s_kv, int causal,
                                              int window, int chunk, int& lo,
                                              int& hi) {
   lo = window > 0 ? qpos - window + 1 : 0;
-  hi = causal ? qpos : s_len - 1;
+  hi = causal ? qpos : s_kv - 1;
   if (chunk > 0) {
     lo = qpos / chunk * chunk;
     hi = min(hi, lo + chunk - 1);
@@ -97,8 +103,8 @@ template <typename T>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int s_len,
-                 int n_heads, int n_kv, int d, int causal, int window,
-                 int prefix, int chunk, float scale) {
+                 int s_kv, int n_heads, int n_kv, int d, int causal,
+                 int window, int prefix, int chunk, float scale) {
   extern __shared__ float smem[];
   const int ldq = d + 1;
   const int ldp = kFlashBK + 1;
@@ -116,8 +122,8 @@ __global__ void __launch_bounds__(kFlashThreads)
   const size_t q_row = static_cast<size_t>(n_heads) * d;
   const size_t kv_row = static_cast<size_t>(n_kv) * d;
   const T* qb = q + (static_cast<size_t>(b) * s_len * n_heads + head) * d;
-  const T* kb = k + (static_cast<size_t>(b) * s_len * n_kv + kvh) * d;
-  const T* vb = v + (static_cast<size_t>(b) * s_len * n_kv + kvh) * d;
+  const T* kb = k + (static_cast<size_t>(b) * s_kv * n_kv + kvh) * d;
+  const T* vb = v + (static_cast<size_t>(b) * s_kv * n_kv + kvh) * d;
   T* ob = o + (static_cast<size_t>(b) * s_len * n_heads + head) * d;
 
   for (int idx = tid; idx < kFlashBQ * d; idx += kFlashThreads) {
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(kFlashThreads)
   int k_lo[kRowsPerThread], k_hi[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    flash_bounds(q0 + ty * kRowsPerThread + i, s_len, causal, window, chunk,
+    flash_bounds(q0 + ty * kRowsPerThread + i, s_kv, causal, window, chunk,
                  k_lo[i], k_hi[i]);
     m_run[i] = kNegInf;
     l_run[i] = 0.0f;
@@ -143,7 +149,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 
   // K/V tiles that can hold an allowed key for some row of this q-tile
   int kt_lo = 0;
-  int kt_hi = (s_len - 1) / kFlashBK;
+  int kt_hi = (s_kv - 1) / kFlashBK;
   if (causal)
     kt_hi = min(kt_hi, max(q0 + kFlashBQ - 1, prefix - 1) / kFlashBK);
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kFlashBK;
@@ -155,7 +161,7 @@ __global__ void __launch_bounds__(kFlashThreads)
     for (int idx = tid; idx < kFlashBK * d; idx += kFlashThreads) {
       const int r = idx / d, c = idx - r * d;
       const int pos = k0 + r;
-      const bool in = pos < s_len;
+      const bool in = pos < s_kv;
       ks[r * ldq + c] = in ? to_f32(kb[pos * kv_row + c]) : 0.0f;
       vs[r * d + c] = in ? to_f32(vb[pos * kv_row + c]) : 0.0f;
     }
@@ -190,7 +196,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        if (!flash_allowed(kpos, s_len, k_lo[i], k_hi[i], prefix))
+        if (!flash_allowed(kpos, s_kv, k_lo[i], k_hi[i], prefix))
           sc[i][j] = kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -202,7 +208,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
       for (int j = 0; j < kColsPerThread; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const float p = flash_allowed(kpos, s_len, k_lo[i], k_hi[i], prefix)
+        const float p = flash_allowed(kpos, s_kv, k_lo[i], k_hi[i], prefix)
                             ? expf(sc[i][j] - m_cur)
                             : 0.0f;
         ps[r * ldp + tx + 16 * j] = p;
@@ -251,8 +257,8 @@ __global__ void __launch_bounds__(kFlashThreads)
 
 template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
-                 int s_len, int n_heads, int n_kv, int d, int causal,
-                 int window, int prefix, int chunk, float scale,
+                 int s_len, int s_kv, int n_heads, int n_kv, int d,
+                 int causal, int window, int prefix, int chunk, float scale,
                  int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,8 +267,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((s_len + kFlashBQ - 1) / kFlashBQ, n_heads, b);
   flash_kernel<T><<<grid, kFlashThreads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s_len, n_heads, n_kv, d,
-      causal, window, prefix, chunk, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), s_len, s_kv, n_heads,
+      n_kv, d, causal, window, prefix, chunk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -482,20 +488,22 @@ int launch_linrec(const void* log_a, const void* x, float* out, int b,
 
 extern "C" {
 
-// ``prefix`` and ``chunk`` are 0 when unused; kernels/seq_ops.py::check_mask
-// lets at most one of window, prefix and chunk be set, and the last two only
-// with ``causal``.
+// q (B, S, H, D), k/v (B, S_kv, KV, D) -> o (B, S, H, D).  ``prefix`` and
+// ``chunk`` are 0 when unused; kernels/seq_ops.py::check_mask lets at most
+// one of window, prefix and chunk be set, the last two only with
+// ``causal``, and S_kv differ from S only without any of them.
 int seq_flash_attention(const void* q, const void* k, const void* v, void* o,
-                        int b, int s_len, int n_heads, int n_kv, int d,
-                        int causal, int window, int prefix, int chunk,
+                        int b, int s_len, int s_kv, int n_heads, int n_kv,
+                        int d, int causal, int window, int prefix, int chunk,
                         float scale, int dtype, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_flash<__nv_bfloat16>(q, k, v, o, b, s_len, n_heads, n_kv, d,
-                                       causal, window, prefix, chunk, scale,
-                                       smem_bytes, st);
-  return launch_flash<float>(q, k, v, o, b, s_len, n_heads, n_kv, d, causal,
-                             window, prefix, chunk, scale, smem_bytes, st);
+    return launch_flash<__nv_bfloat16>(q, k, v, o, b, s_len, s_kv, n_heads,
+                                       n_kv, d, causal, window, prefix, chunk,
+                                       scale, smem_bytes, st);
+  return launch_flash<float>(q, k, v, o, b, s_len, s_kv, n_heads, n_kv, d,
+                             causal, window, prefix, chunk, scale, smem_bytes,
+                             st);
 }
 
 // log_a, x (B, S, C) float32 or bfloat16 -> out (B, S, C) float32; ``vec``

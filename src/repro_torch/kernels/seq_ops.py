@@ -8,7 +8,8 @@ replaces one Pallas kernel of the reference:
   (``kernels/flash_attention.py::_attn_kernel``) under every mask of the
   reference's ``models/attention.py::mask_logits``: causal, sliding
   window, prefix-LM and chunked (the Pallas kernel has only the first
-  two; the reference computes the others in XLA): for
+  two; the reference computes the others in XLA), and full attention
+  over a key length of its own (whisper's cross-attention): for
   bf16 at d_head 64, 128 and 256 a tensor-core kernel (``wgmma``, a TMA
   K/V ring; ``csrc/flash_wgmma.cu``), otherwise a CUDA-core kernel
   (``csrc/seq_ops.cu``); ``flash_route`` says which;
@@ -67,13 +68,21 @@ def reset_launches() -> None:
 # Flash attention
 # ---------------------------------------------------------------------------
 
-def check_mask(causal: bool, window: int, prefix_len: int, chunk: int
-               ) -> None:
+def check_mask(causal: bool, window: int, prefix_len: int, chunk: int,
+               s_q: int = 0, s_kv: int = 0) -> None:
     """The masks ``flash_attention`` computes are the reference's mask
     kinds: causal (``global``), causal with a window (``sliding``), causal
     or key < ``prefix_len`` (``prefix``), causal within a ``chunk``
-    (``chunked``), and without ``causal`` full or windowed.  Any other
-    combination raises rather than compute something untested."""
+    (``chunked``), and without ``causal`` full or windowed.  Queries and
+    keys of two lengths (``s_q`` != ``s_kv``: cross-attention) take full
+    attention alone -- no mask kind of the reference pairs a mask with a
+    second length.  Any other combination raises rather than compute
+    something untested."""
+    if s_q != s_kv and (causal or window or prefix_len or chunk):
+        raise ValueError(f"flash_attention: {s_q} queries over {s_kv} keys "
+                         f"take full attention only (causal {causal}, "
+                         f"window {window}, prefix_len {prefix_len}, chunk "
+                         f"{chunk})")
     if min(window, prefix_len, chunk) < 0:
         raise ValueError(f"flash_attention: window {window}, prefix_len "
                          f"{prefix_len} and chunk {chunk} must be >= 0")
@@ -87,12 +96,16 @@ def check_mask(causal: bool, window: int, prefix_len: int, chunk: int
 
 
 def attention_mask(s: int, device, *, causal: bool = True, window: int = 0,
-                   prefix_len: int = 0, chunk: int = 0) -> torch.Tensor:
-    """(S, S) bool, query p may see key j: the reference's ``mask_logits``
-    over positions 0..S-1."""
-    pos = torch.arange(s, device=device)
-    qp, kp = pos[:, None], pos[None, :]
-    allowed = torch.ones((s, s), dtype=torch.bool, device=device)
+                   prefix_len: int = 0, chunk: int = 0,
+                   s_kv: "int | None" = None) -> torch.Tensor:
+    """(S, S_kv) bool, query p may see key j: the reference's
+    ``mask_logits`` over query positions 0..S-1 and key positions
+    0..S_kv-1 (``s_kv`` defaults to S)."""
+    s_kv = s if s_kv is None else s_kv
+    check_mask(causal, window, prefix_len, chunk, s, s_kv)
+    qp = torch.arange(s, device=device)[:, None]
+    kp = torch.arange(s_kv, device=device)[None, :]
+    allowed = torch.ones((s, s_kv), dtype=torch.bool, device=device)
     if causal:
         allowed &= (kp <= qp) | (kp < prefix_len)
     if window:
@@ -105,18 +118,18 @@ def attention_mask(s: int, device, *, causal: bool = True, window: int = 0,
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, prefix_len: int = 0,
                     chunk: int = 0) -> torch.Tensor:
-    """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D): the full score
-    matrix, masked and soft-maxed, as the reference's ``attention_ref``
-    computes it (scores in q's dtype, then fp32; probabilities in v's),
-    under ``attention_mask``."""
-    check_mask(causal, window, prefix_len, chunk)
+    """q (B, S, H, D), k/v (B, S_kv, KV, D) -> (B, S, H, D): the full
+    score matrix, masked and soft-maxed, as the reference's
+    ``attention_ref`` computes it (scores in q's dtype, then fp32;
+    probabilities in v's), under ``attention_mask``."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg * d ** -0.5,
                           k.to(q.dtype)).float()
     allowed = attention_mask(s, q.device, causal=causal, window=window,
-                             prefix_len=prefix_len, chunk=chunk)
+                             prefix_len=prefix_len, chunk=chunk,
+                             s_kv=k.shape[1])
     logits = torch.where(allowed, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
@@ -151,10 +164,12 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, prefix_len: int = 0,
                     chunk: int = 0) -> torch.Tensor:
-    """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D) in q's dtype.
+    """q (B, S, H, D), k/v (B, S_kv, KV, D) -> (B, S, H, D) in q's dtype.
 
-    ``window`` > 0 lets query p see keys in (p - window, p] (with
-    ``causal``) or (p - window, S) (without); ``prefix_len`` > 0 also lets
+    S_kv differs from S only under full attention (``causal=False``, no
+    window, prefix or chunk: whisper's cross-attention).  ``window`` > 0
+    lets query p see keys in (p - window, p] (with ``causal``) or
+    (p - window, S) (without); ``prefix_len`` > 0 also lets
     every query see the keys before ``prefix_len`` (prefix-LM; a prefix of
     S is full attention); ``chunk`` > 0 keeps a query to the keys of its
     own chunk of ``chunk`` positions (``check_mask`` says which of these
@@ -165,10 +180,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 chunk=chunk)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **mask)
-    check_mask(causal, window, prefix_len, chunk)
     dev = q.device
     b, s, h, d = q.shape
-    kv = k.shape[2]
+    s_kv, kv = k.shape[1], k.shape[2]
+    check_mask(causal, window, prefix_len, chunk, s, s_kv)
+    if s_kv == 0:
+        raise ValueError("flash_attention: no keys (S_kv = 0)")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -185,8 +202,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
     _build.require(q, "q", dev, q.dtype, (b, s, h, d))
-    _build.require(k, "k", dev, q.dtype, (b, s, kv, d))
-    _build.require(v, "v", dev, q.dtype, (b, s, kv, d))
+    _build.require(k, "k", dev, q.dtype, (b, s_kv, kv, d))
+    _build.require(v, "v", dev, q.dtype, (b, s_kv, kv, d))
     smem = flash_wgmma_smem_bytes(d) if wgmma else flash_smem_bytes(d)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"flash_attention needs {smem} bytes of shared "
@@ -197,7 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     lib = _build.library()
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            b, s, h, kv, d, int(causal), int(window), int(prefix_len),
+            b, s, s_kv, h, kv, d, int(causal), int(window), int(prefix_len),
             int(chunk), float(d ** -0.5))
     with _build.on(dev):
         if wgmma:

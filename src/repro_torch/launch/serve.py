@@ -6,14 +6,18 @@ the reference's ``launch/serve.py``.  Weights, prompts and a VLM's stub
 patch embeddings come from a seeded ``torch.Generator`` on the chosen
 device.  A VLM (``prefix_tokens`` > 0) first runs its patch embeddings
 through ``Transformer.prefill_prefix`` and feeds the prompt from index P
-(the reference's server feeds the prompt from 0 with no prefix).
+(the reference's server feeds the prompt from 0 with no prefix).  An
+encoder-decoder (whisper) does what the reference's server does: a cache
+for ``stub_frames`` frames, seeded stub frames through
+``EncDecTransformer.prefill_cross``, then the prompt from index 0.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
 
-``--arch`` takes any ported architecture (``configs.list_archs()``):
+``--arch`` takes any architecture of ``configs.list_archs()``:
 recurrentgemma-9b, yi-34b, qwen3-8b, qwen3-8b-sw4k, qwen1.5-110b,
-stablelm-1.6b, paligemma-3b, grok-1-314b, llama4-maverick-400b-a17b.
+stablelm-1.6b, paligemma-3b, grok-1-314b, llama4-maverick-400b-a17b,
+xlstm-125m, whisper-large-v3.
 """
 from __future__ import annotations
 
@@ -24,13 +28,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_serve_step
-from repro_torch.models.transformer import Cache, Transformer
+from repro_torch.launch.steps import Model, make_serve_step
 
 
 @torch.no_grad()
-def prefill_into_cache(model: Transformer, tokens: torch.Tensor,
-                       cache: Cache, start: int = 0):
+def prefill_into_cache(model: Model, tokens: torch.Tensor, cache: dict,
+                       start: int = 0):
     """Feed prompt tokens one decode step at a time from index ``start``
     (the functional reference prefill; a VLM's text starts after its
     prefix), with ``prefix_len`` the config's ``prefix_tokens``.  Returns
@@ -65,8 +68,15 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch).reduced()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     serve_step, model = make_serve_step(cfg, device=dev, generator=gen)
-    cache = model.init_cache(args.batch, args.cache_len)
     start = cfg.prefix_tokens
+    if cfg.encoder_layers:
+        cache = model.init_cache(args.batch, args.cache_len, cfg.stub_frames)
+        frames = torch.randn((args.batch, cfg.stub_frames, cfg.d_model),
+                             generator=gen, device=dev).to(cfg.compute_dtype)
+        with torch.no_grad():
+            cache = model.prefill_cross(cache, frames)
+    else:
+        cache = model.init_cache(args.batch, args.cache_len)
     if start:
         patches = torch.randn((args.batch, start, cfg.d_model),
                               generator=gen, device=dev)

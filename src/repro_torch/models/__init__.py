@@ -1,5 +1,5 @@
-"""Models of the port: the paper's MLP (``mlp``) and the substrate's
-decoder (``transformer``)."""
+"""Models of the port: the paper's MLP (``mlp``), the substrate's decoder
+(``transformer``) and encoder-decoder (``encdec``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,12 +9,12 @@ import torch
 
 def build_model(cfg, *, device: "str | torch.device" = "cuda",
                 generator: Optional[torch.Generator] = None):
-    """The model for an architecture config, with its weights on
-    ``device`` (drawn from ``generator``, or left for a loader)."""
+    """The model for an architecture config -- an ``EncDecTransformer``
+    when it has encoder layers, else a ``Transformer`` -- with its weights
+    on ``device`` (drawn from ``generator``, or left for a loader)."""
+    from repro_torch.models.encdec import EncDecTransformer
     from repro_torch.models.transformer import Transformer
 
     if cfg.encoder_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP A17)")
+        return EncDecTransformer(cfg, device=device, generator=generator)
     return Transformer(cfg, device=device, generator=generator)

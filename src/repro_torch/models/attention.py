@@ -1,8 +1,10 @@
 """Attention layer of the substrate: GQA / MQA / MHA with RoPE or NoPE,
-optional QKV bias (qwen1.5) and per-head q/k RMSNorm (qwen3), and the
-reference's four mask kinds: ``global`` (causal), ``sliding`` (causal,
+optional QKV bias (qwen1.5, whisper) and per-head q/k RMSNorm (qwen3), and
+the reference's four mask kinds: ``global`` (causal), ``sliding`` (causal,
 window), ``chunked`` (causal within llama4's chunks) and ``prefix``
-(paligemma's prefix-LM: causal, or key in the prefix).
+(paligemma's prefix-LM: causal, or key in the prefix); and whisper's two
+unmasked forms, bidirectional self-attention (the encoder) and
+cross-attention of decoder tokens over encoder frames.
 
 The port of the reference's ``models/attention.py``.  The full-sequence
 path (``attention_apply``: training shapes and prefill) goes through the
@@ -11,6 +13,9 @@ replaces both of the reference's XLA routes (``_sdpa`` and the
 query-chunked ``_chunked_sdpa``) -- they compute the same function.  The
 one-token decode path (``attention_decode``) keeps the plain ``_sdpa``
 against a KV cache, a ring for ``sliding`` and ``chunked`` layers.
+``bidirectional_attention_apply`` and ``cross_attention_apply`` go through
+the flash kernel without a mask, the latter with a key length of its own
+(the frames); ``cross_decode`` is plain, over the frames' cached K/V.
 ``cfg.attn_seq_shard`` (the reference's context parallelism over a TPU
 mesh) has no meaning on one card and is ignored.
 """
@@ -211,3 +216,59 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg,
                 k_pos, k_valid,
                 prefix_len if mask_kind == "prefix" else 0)
     return _out(p, out), cache
+
+
+def bidirectional_attention_apply(p: Attention, x: torch.Tensor, cfg, *,
+                                  use_rope: bool = True) -> torch.Tensor:
+    """Unmasked self-attention (whisper's encoder, which passes
+    ``use_rope=False``) through the flash kernel.  x (B, S, d) ->
+    (B, S, d)."""
+    q, k, v = _rotated_qkv(p, x, cfg, None, use_rope)
+    return _out(p, seq_ops.flash_attention(q, k, v, causal=False))
+
+
+def cross_kv(p: Attention, kv_src: torch.Tensor, dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, F, d), in ``dtype``, projected to k and v (B,
+    F, KV, Dh), each with its bias: what ``cross_attention_apply`` attends
+    to and what a decode cache holds."""
+    src = kv_src.to(dtype)
+    k = torch.einsum("bsd,dhk->bshk", src, p.wk.to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p.wv.to(dtype))
+    if p.qkv_bias:
+        k = k + p.bk.to(dtype)
+        v = v + p.bv.to(dtype)
+    return k, v
+
+
+def _cross_q(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    return q + p.bq.to(x.dtype) if p.qkv_bias else q
+
+
+def cross_attention_apply(p: Attention, x: torch.Tensor,
+                          kv_src: torch.Tensor, cfg) -> torch.Tensor:
+    """Encoder-decoder cross-attention (whisper): queries from x (B, S, d),
+    keys and values from the encoder output (B, F, d), no mask, no RoPE, no
+    q/k norm, through the flash kernel with F keys.  -> (B, S, d); the
+    output projection has no bias.  ``cfg`` is unread (the reference's
+    signature)."""
+    k, v = cross_kv(p, kv_src, x.dtype)
+    out = seq_ops.flash_attention(_cross_q(p, x), k, v, causal=False)
+    return _out(p, out)
+
+
+def cross_decode(p: Attention, x: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor) -> torch.Tensor:
+    """One decode step's cross-attention over the cached frames' K/V (B, F,
+    KV, Dh), plain, as the reference's ``encdec._cross_decode``: x (B, 1,
+    d) -> (B, 1, d)."""
+    q = _cross_q(p, x)
+    b, s, h, dh = q.shape
+    kvh = ck.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5,
+                          ck.to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, cv.to(x.dtype))
+    return _out(p, out.reshape(b, s, h, dh))

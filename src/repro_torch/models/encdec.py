@@ -1,0 +1,234 @@
+"""Encoder-decoder transformer backbone (whisper-large-v3).
+
+The port of the reference's ``models/encdec.py``.  The mel-spectrogram
+and conv frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, F, d_model).  Sinusoidal positions
+(length-agnostic) stand in for whisper's learned tables, in the encoder
+and the decoder.
+
+The encoder's bidirectional attention, the decoder's causal
+self-attention and its cross-attention over the encoder output all go
+through the flash kernel (the last with F keys); decode runs the plain
+attention against its caches: per decoder layer the self-attention K/V
+(``cache_len`` slots) and the cross-attention K/V, written once from the
+encoder output by ``prefill_cross``.  The cache keeps the reference's
+layout, ``{"decoder": {"k", "v", "cross_k", "cross_v"}}`` with each leaf
+stacked over the decoder layers, and is updated in place.  The layers are
+``nn.Module``s in order; the reference's stacked-scan options
+(``scan_layers``, ``remat``) and its context parallelism
+(``attn_seq_shard``) mean nothing on one card and are not read.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, layers
+from repro_torch.models.transformer import MLP
+
+Cache = Dict[str, Dict[str, torch.Tensor]]
+
+
+def sinusoid_positions(positions: torch.Tensor, d_model: int
+                       ) -> torch.Tensor:
+    """(S,) int positions -> (S, d_model) sinusoidal embeddings, fp32: sin
+    then cos of position · 10000^(-i / max(d/2 - 1, 1))."""
+    dev = positions.device
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10000.0, device=dev))
+    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
+                                               device=dev)
+                      / torch.tensor(float(max(half - 1, 1)), device=dev))
+    angles = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def _norm(cfg, device, generator) -> layers.Norm:
+    return layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype, device,
+                       generator)
+
+
+class EncoderLayer(nn.Module):
+    """norm1 → bidirectional attention → residual → norm2 → MLP →
+    residual."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.norm1 = _norm(cfg, device, generator)
+        self.attn = attention.Attention(cfg, device=device,
+                                        generator=generator)
+        self.norm2 = _norm(cfg, device, generator)
+        self.mlp = MLP(cfg, device, generator)
+
+    def forward(self, x: torch.Tensor, cfg) -> torch.Tensor:
+        x = x + attention.bidirectional_attention_apply(
+            self.attn, self.norm1(x), cfg, use_rope=False)
+        return x + self.mlp(self.norm2(x))
+
+
+class DecoderLayer(nn.Module):
+    """norm1 → causal self-attention (NoPE) → residual → norm2 →
+    cross-attention over the encoder output → residual → norm3 → MLP →
+    residual."""
+
+    def __init__(self, cfg, device, generator):
+        super().__init__()
+        self.norm1 = _norm(cfg, device, generator)
+        self.self_attn = attention.Attention(cfg, device=device,
+                                             generator=generator)
+        self.norm2 = _norm(cfg, device, generator)
+        self.cross_attn = attention.Attention(cfg, device=device,
+                                              generator=generator)
+        self.norm3 = _norm(cfg, device, generator)
+        self.mlp = MLP(cfg, device, generator)
+
+
+class EncDecTransformer(nn.Module):
+    """Encoder-decoder model with its weights on ``device``.
+
+    ``generator``: draw the weights from it (on its device, which must be
+    ``device``) with the reference's init distributions; ``None`` leaves
+    them unset for ``convert.params_from_numpy`` or ``load_state_dict``.
+    """
+
+    def __init__(self, cfg, *, device: "str | torch.device" = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is not None and generator.device.type != dev.type:
+            raise ValueError(f"generator is on {generator.device}, the model "
+                             f"on {dev}")
+        self.cfg = cfg
+        self.device = dev
+        shape = (cfg.vocab_size, cfg.d_model)
+        self.embedding = layers.param(
+            shape, cfg.param_dtype, dev, generator,
+            lambda: layers.normal_init(shape, generator, cfg.param_dtype))
+        self.unembedding = None if cfg.tie_embeddings else layers.param(
+            shape, cfg.param_dtype, dev, generator,
+            lambda: layers.normal_init(shape, generator, cfg.param_dtype))
+        self.encoder = nn.ModuleList(EncoderLayer(cfg, dev, generator)
+                                     for _ in range(cfg.encoder_layers))
+        self.enc_norm = _norm(cfg, dev, generator)
+        self.decoder = nn.ModuleList(DecoderLayer(cfg, dev, generator)
+                                     for _ in range(cfg.n_layers))
+        self.final_norm = _norm(cfg, dev, generator)
+
+    def _positions(self, x: torch.Tensor, positions: torch.Tensor
+                   ) -> torch.Tensor:
+        return x + sinusoid_positions(positions,
+                                      self.cfg.d_model)[None].to(x.dtype)
+
+    # -- encoder ---------------------------------------------------------------
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings (B, F, d) -> the encoder output (B, F, d) in the
+        compute dtype, after ``enc_norm``."""
+        cfg = self.cfg
+        x = frames.to(cfg.compute_dtype)
+        x = self._positions(x, torch.arange(x.shape[1], device=x.device))
+        for lyr in self.encoder:
+            x = lyr(x, cfg)
+        return self.enc_norm(x)
+
+    # -- decoder (teacher forcing) ---------------------------------------------
+
+    def hidden(self, tokens: torch.Tensor,
+               extra_embeddings: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """Decoder tokens (B, S) and the frames (B, F, d) -> the
+        final-normed decoder hidden states (B, S, d)."""
+        cfg = self.cfg
+        if extra_embeddings is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder model needs "
+                             f"the frames (extra_embeddings)")
+        enc = self.encode(extra_embeddings)
+        x = layers.embed_apply(self.embedding, tokens, cfg.compute_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._positions(x, positions)
+        for lyr in self.decoder:
+            x = x + attention.attention_apply(
+                lyr.self_attn, lyr.norm1(x), cfg, mask_kind="global",
+                positions=positions, use_rope=False)
+            x = x + attention.cross_attention_apply(
+                lyr.cross_attn, lyr.norm2(x), enc, cfg)
+            x = x + lyr.mlp(lyr.norm3(x))
+        return self.final_norm(x)
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        table = self.embedding if self.unembedding is None \
+            else self.unembedding
+        return layers.unembed_apply(table, x)
+
+    def apply(self, tokens: torch.Tensor,
+              extra_embeddings: Optional[torch.Tensor] = None, *,
+              with_aux: bool = False
+              ) -> "torch.Tensor | Tuple[torch.Tensor, torch.Tensor]":
+        """tokens (B, S) and frames (B, F, d) -> logits (B, S, V); with
+        ``with_aux`` also a 0-d float32 zero, as the reference's ``apply``
+        returns ``(logits, 0.0)``."""
+        logits = self.unembed(self.hidden(tokens, extra_embeddings))
+        if not with_aux:
+            return logits
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    # -- decode ---------------------------------------------------------------
+
+    def init_cache(self, batch: int, cache_len: int,
+                   n_frames: Optional[int] = None) -> Cache:
+        """Zero caches in the compute dtype, each stacked over the decoder
+        layers: self-attention ``k``/``v`` (L, B, cache_len, KV, Dh) and
+        ``cross_k``/``cross_v`` (L, B, n_frames, KV, Dh); ``n_frames``
+        defaults to the config's ``stub_frames``."""
+        cfg = self.cfg
+        n_frames = n_frames or cfg.stub_frames
+        lead = (cfg.n_layers, batch)
+        tail = (cfg.n_kv_heads, cfg.d_head)
+
+        def zeros(length):
+            return torch.zeros(lead + (length,) + tail,
+                               dtype=cfg.compute_dtype, device=self.device)
+        return {"decoder": {"k": zeros(cache_len), "v": zeros(cache_len),
+                            "cross_k": zeros(n_frames),
+                            "cross_v": zeros(n_frames)}}
+
+    def prefill_cross(self, cache: Cache, frames: torch.Tensor) -> Cache:
+        """Encode the frames (B, F, d) and write each decoder layer's
+        cross-attention K/V (with their biases) into the cache in place;
+        returns the cache."""
+        enc = self.encode(frames)
+        dc = cache["decoder"]
+        for i, lyr in enumerate(self.decoder):
+            k, v = attention.cross_kv(lyr.cross_attn, enc, enc.dtype)
+            dc["cross_k"][i].copy_(k)
+            dc["cross_v"][i].copy_(v)
+        return cache
+
+    def decode_step(self, token: torch.Tensor, cache: Cache,
+                    index: "int | torch.Tensor", *, prefix_len: int = 0
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """token (B, 1) at position ``index`` + cache -> (logits (B, 1, V),
+        cache): causal self-attention over the cached tokens (NoPE), then
+        cross-attention over the cached frames, both plain.  The cache is
+        updated in place and returned; ``prefix_len`` is unused (the
+        reference's signature)."""
+        cfg = self.cfg
+        index = int(index)
+        x = layers.embed_apply(self.embedding, token, cfg.compute_dtype)
+        x = self._positions(x, torch.full((1,), index, device=x.device))
+        dc = cache["decoder"]
+        for i, lyr in enumerate(self.decoder):
+            y, _ = attention.attention_decode(
+                lyr.self_attn, lyr.norm1(x), cfg,
+                {"k": dc["k"][i], "v": dc["v"][i]}, index,
+                mask_kind="global", use_rope=False)
+            x = x + y
+            x = x + attention.cross_decode(lyr.cross_attn, lyr.norm2(x),
+                                           dc["cross_k"][i],
+                                           dc["cross_v"][i])
+            x = x + lyr.mlp(lyr.norm3(x))
+        return self.unembed(self.final_norm(x)), cache

@@ -2,9 +2,10 @@
 
 The port of the reference's ``models/layers.py``: initialisers drawn from
 an explicit ``torch.Generator``, RMSNorm and LayerNorm computed in fp32,
-split-half RoPE, the gated MLP and the (tied or untied) embedding.
-Parameters are held by the modules in ``attention``, ``rglru`` and
-``transformer``, and by ``Norm`` here (a norm's scale and bias; the
+split-half RoPE, the MLP (gated or not, with or without biases) and the
+(tied or untied) embedding.  Parameters are held by the modules in
+``attention``, ``rglru``, ``xlstm``, ``moe``, ``transformer`` and
+``encdec``, and by ``Norm`` here (a norm's scale and bias; the
 blocks' norms and attention's q/k norms are each one); weights are cast
 to the activation dtype at each use, as the reference does.
 """
@@ -158,14 +159,19 @@ _ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
 
 def mlp_apply(w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
               w_out: torch.Tensor, x: torch.Tensor, *,
-              activation: str = "silu") -> torch.Tensor:
-    """act(x @ w_gate) * (x @ w_in) @ w_out, or act(x @ w_in) @ w_out
-    without a gate; weights cast to x's dtype."""
+              activation: str = "silu", b_in: Optional[torch.Tensor] = None,
+              b_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(x @ w_gate) * (x @ w_in + b_in) @ w_out + b_out, or
+    act(x @ w_in + b_in) @ w_out + b_out without a gate, each bias only
+    where given (the reference's order); weights cast to x's dtype."""
     act = _ACTIVATIONS[activation]
     dt = x.dtype
     h = x @ w_in.to(dt)
+    if b_in is not None:
+        h = h + b_in.to(dt)
     h = act(x @ w_gate.to(dt)) * h if w_gate is not None else act(h)
-    return h @ w_out.to(dt)
+    out = h @ w_out.to(dt)
+    return out + b_out.to(dt) if b_out is not None else out
 
 
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor,

@@ -1,19 +1,20 @@
-"""Block-assembly decoder of the substrate, as far as it is ported.
+"""Block-assembly decoder of the substrate.
 
 The port of the reference's ``models/transformer.py``: an architecture is a
 pattern unit of (sequence mixer, ffn) pairs repeated over the layers
-(``compute_stages``).  Ported mixers: ``attn`` (causal global, NoPE where
+(``compute_stages``).  Mixers: ``attn`` (causal global, NoPE where
 ``rope_on_global`` is off, prefix-LM over a multimodal prefix), ``swa``
-(sliding window), ``chunked`` (llama4's chunked local attention) and
-``rec`` (RG-LRU); ported FFNs: ``dense`` (a gated MLP) and ``moe``
-(``models/moe.py``); RMSNorm or LayerNorm; a tied or untied embedding;
-attention with or without QKV bias and per-head q/k RMSNorm -- what
-recurrentgemma-9b, the dense decoders (yi-34b, qwen3-8b and its
-sliding-window variant, qwen1.5-110b, stablelm-1.6b), paligemma-3b,
-grok-1-314b and llama4-maverick run.  The layers are ``nn.Module``s in
-layer order; the decode cache keeps the reference's dict layout
-(``stage_<i>`` → unit position → leaves stacked over the stage's
-repetitions).
+(sliding window), ``chunked`` (llama4's chunked local attention), ``rec``
+(RG-LRU), ``mlstm`` and ``slstm`` (xLSTM, ``models/xlstm.py``); FFNs:
+``dense`` (the MLP, gated or not, with or without biases), ``moe``
+(``models/moe.py``) and ``none`` (no norm2, no FFN: xLSTM's blocks carry
+their own projections); RMSNorm or LayerNorm; a tied or untied embedding;
+attention with or without QKV bias and per-head q/k RMSNorm -- what every
+decoder-only architecture of the reference runs.  The layers are
+``nn.Module``s in layer order; the decode cache keeps the reference's dict
+layout (``stage_<i>`` → unit position → leaves stacked over the stage's
+repetitions), the xLSTM blocks' tuples as named leaves
+(``models/xlstm.py``).
 """
 from __future__ import annotations
 
@@ -23,13 +24,19 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, moe, rglru
+from repro_torch.models import attention, layers, moe, rglru, xlstm
 
 Cache = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 
 ATTENTION_KINDS = ("attn", "swa", "chunked")
 MASK_FOR_KIND = {"attn": "global", "swa": "sliding", "chunked": "chunked"}
-FFN_KINDS = ("dense", "moe")
+RECURRENT = {"rec": (rglru.RGLRU, rglru.rglru_block_apply,
+                     rglru.rglru_block_decode, rglru.init_cache),
+             "mlstm": (xlstm.MLSTM, xlstm.mlstm_block_apply,
+                       xlstm.mlstm_block_decode, xlstm.mlstm_init_cache),
+             "slstm": (xlstm.SLSTM, xlstm.slstm_block_apply,
+                       xlstm.slstm_block_decode, xlstm.slstm_init_cache)}
+FFN_KINDS = ("dense", "moe", "none")
 
 
 def compute_stages(n_layers: int, pattern: Tuple
@@ -45,44 +52,49 @@ def compute_stages(n_layers: int, pattern: Tuple
     return stages
 
 
-def _check_ported(cfg) -> None:
-    unported = [k for k in cfg.block_pattern
-                if k not in ATTENTION_KINDS + ("rec",)]
-    unported += [f for f in cfg.ffn_pattern if f not in FFN_KINDS]
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: layers {unported} are not ported yet "
-            f"(ROADMAP A17: xLSTM)")
-    if cfg.mlp_bias or not cfg.gated_mlp:
-        raise NotImplementedError(
-            f"{cfg.name}: only a gated MLP without bias is ported "
-            f"(ROADMAP A17)")
-
-
 class MLP(nn.Module):
+    """w_in (d, d_ff), w_out (d_ff, d), with ``cfg.gated_mlp`` w_gate (d,
+    d_ff), and with ``cfg.mlp_bias`` the zero biases b_in (d_ff,) and b_out
+    (d,): drawn in the reference's ``mlp_init`` order."""
+
     def __init__(self, cfg, device, generator):
         super().__init__()
         d, ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-        for name, shape, fan_in in (("w_in", (d, ff), d),
-                                    ("w_out", (ff, d), ff),
-                                    ("w_gate", (d, ff), d)):
+        weights = [("w_in", (d, ff), d), ("w_out", (ff, d), ff)]
+        if cfg.gated_mlp:
+            weights.append(("w_gate", (d, ff), d))
+        for name, shape, fan_in in weights:
             self.register_parameter(name, layers.param(
                 shape, dt, device, generator,
                 lambda shape=shape, fan_in=fan_in: layers.scaled_init(
                     shape, generator, dt, fan_in=fan_in)))
+        if not cfg.gated_mlp:
+            self.w_gate = None
+        for name, n in (("b_in", ff), ("b_out", d)):
+            self.register_parameter(name, layers.param(
+                (n,), dt, device, generator,
+                lambda n=n: torch.zeros((n,), dtype=dt,
+                                        device=generator.device))
+                if cfg.mlp_bias else None)
         self.activation = cfg.activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layers.mlp_apply(self.w_in, self.w_gate, self.w_out, x,
-                                activation=self.activation)
+                                activation=self.activation, b_in=self.b_in,
+                                b_out=self.b_out)
 
 
 class Block(nn.Module):
-    """norm1 → mixer (attention or ``rec``) → residual → norm2 → FFN
-    (the gated MLP, or the MoE for a ``moe`` ffn kind) → residual."""
+    """norm1 → mixer (attention, ``rec``, ``mlstm`` or ``slstm``) →
+    residual → norm2 → FFN (the MLP, or the MoE for a ``moe`` ffn kind) →
+    residual; a ``none`` ffn kind has neither norm2 nor FFN."""
 
     def __init__(self, cfg, kind: str, ffn_kind: str, device, generator):
         super().__init__()
+        if kind not in ATTENTION_KINDS and kind not in RECURRENT:
+            raise ValueError(f"unknown sequence mixer {kind!r}")
+        if ffn_kind not in FFN_KINDS:
+            raise ValueError(f"unknown ffn kind {ffn_kind!r}")
         self.kind, self.ffn_kind = kind, ffn_kind
         self.norm1 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
@@ -90,7 +102,11 @@ class Block(nn.Module):
             self.attn = attention.Attention(cfg, device=device,
                                             generator=generator)
         else:
-            self.rec = rglru.RGLRU(cfg, device=device, generator=generator)
+            # named as the reference's pytree: rec, mlstm or slstm
+            self.add_module(kind, RECURRENT[kind][0](
+                cfg, device=device, generator=generator))
+        if ffn_kind == "none":
+            return
         self.norm2 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
         if ffn_kind == "moe":
@@ -98,9 +114,21 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg, device, generator)
 
+    def mixer(self, h: torch.Tensor) -> torch.Tensor:
+        """A recurrent mixer's full-sequence forward."""
+        return RECURRENT[self.kind][1](getattr(self, self.kind), h)
+
+    def mixer_decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """A recurrent mixer's decode step: (y, its new cache leaves)."""
+        return RECURRENT[self.kind][2](getattr(self, self.kind), h, cache)
+
     def ffn(self, x: torch.Tensor, cfg
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """x + FFN(norm2(x)), and the MoE aux (None for a dense FFN)."""
+        """x + FFN(norm2(x)), and the MoE aux (None for a dense FFN); x
+        itself for a ``none`` FFN."""
+        if self.ffn_kind == "none":
+            return x, None
         h = self.norm2(x)
         if self.ffn_kind == "moe":
             y, aux = self.moe(h, cfg)
@@ -130,7 +158,6 @@ class Transformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        _check_ported(cfg)
         if generator is not None and generator.device.type != dev.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {dev}")
@@ -196,7 +223,7 @@ class Transformer(nn.Module):
                     positions=positions, use_rope=blk.use_rope(cfg),
                     prefix_len=prefix_len)
             else:
-                y = rglru.rglru_block_apply(blk.rec, h)
+                y = blk.mixer(h)
             x, inc = blk.ffn(x + y, cfg)
             if inc is not None:
                 aux = aux + inc
@@ -237,7 +264,7 @@ class Transformer(nn.Module):
                 one = (attention.init_cache(cfg, batch, cache_len,
                                             MASK_FOR_KIND[kind], dev)
                        if kind in ATTENTION_KINDS
-                       else rglru.init_cache(cfg, batch, dev))
+                       else RECURRENT[kind][3](cfg, batch, dev))
                 unit_cache[str(i)] = {
                     k: torch.zeros((reps,) + v.shape, dtype=v.dtype,
                                    device=dev) for k, v in one.items()}
@@ -286,7 +313,7 @@ class Transformer(nn.Module):
                     mask_kind=blk.mask_kind(prefix_len),
                     use_rope=blk.use_rope(cfg), prefix_len=prefix_len)
             else:
-                y, new = rglru.rglru_block_decode(blk.rec, h, layer_cache)
+                y, new = blk.mixer_decode(h, layer_cache)
                 for k, v in new.items():
                     leaves[k][r].copy_(v)
             x, _ = blk.ffn(x + y, cfg)

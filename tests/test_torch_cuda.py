@@ -1051,6 +1051,58 @@ def test_flash_rejects_mask_combinations_on_the_card(cuda):
     assert seq_ops.LAUNCHES == before
 
 
+# Full attention over a key length of its own (whisper's cross-attention)
+# at both kernels' edges: (B, S_q, S_kv, H, KV, D) -- one query, whisper's
+# 448 decoder tokens over 1500 frames (1500 = 23 · 64 + 28), fewer keys than
+# queries, ragged both ways with MQA, fewer keys than one tile; and
+# whisper's encoder shape (non-causal MHA at D = 64, S = 1500)
+KV_LENGTH_EDGES = [
+    (1, 1, 1500, 4, 4, 64),
+    (2, 448, 1500, 20, 20, 64),
+    (1, 100, 64, 4, 2, 128),
+    (1, 300, 333, 8, 1, 256),
+    (1, 1500, 7, 4, 4, 64),
+    (2, 1500, 1500, 20, 20, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,s_q,s_kv,h,kv,d", KV_LENGTH_EDGES)
+def test_flash_own_key_length_matches_plain(cuda, b, s_q, s_kv, h, kv, d,
+                                            dtype):
+    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one; each
+    held to the plain version as the same-length cases are."""
+    rng = np.random.default_rng(s_q + s_kv + d)
+    q = torch.tensor(rng.normal(size=(b, s_q, h, d)).astype(np.float32),
+                     device=cuda).to(dtype)
+    k, v = (torch.tensor(rng.normal(size=(b, s_kv, kv, d)).astype(np.float32),
+                         device=cuda).to(dtype) for _ in range(2))
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert seq_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + int(dtype == torch.bfloat16)
+    assert got.shape == q.shape and got.dtype == dtype
+    want = seq_ops.attention_plain(q.float(), k.float(), v.float(),
+                                   causal=False).to(dtype)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_two_lengths_refuse_masks_on_the_card(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 12, 2, 64), device=cuda, dtype=torch.bfloat16)
+    before = dict(seq_ops.LAUNCHES)
+    for kw in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError, match="full attention only"):
+            seq_ops.flash_attention(q, k, k, **kw)
+    with pytest.raises(ValueError, match="no keys"):
+        seq_ops.flash_attention(q, k[:, :0], k[:, :0], causal=False)
+    assert seq_ops.LAUNCHES == before
+
+
 @pytest.mark.parametrize("d,dtype", [(256, torch.float32),
                                      (80, torch.bfloat16)])
 def test_flash_other_dtypes_and_dims_keep_the_cuda_core_kernel(cuda, d,
@@ -1183,3 +1235,42 @@ def test_vlm_moe_reduced_card_matches_cpu(cuda, arch):
     assert seq_ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
     torch.testing.assert_close(aux.cpu(), want_aux, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch,kv", [("xlstm-125m", None),
+                                     ("whisper-large-v3", None),
+                                     ("whisper-large-v3", 2)])
+def test_xlstm_encdec_reduced_card_matches_cpu(cuda, arch, kv):
+    """The reduced xLSTM (no kernel: its scans are plain) and whisper (MHA
+    and 2 KV heads; per layer one encoder, one causal and one
+    cross-attention flash launch, 16 frames under 40 tokens) with their
+    constant-initialised leaves redrawn: the card's logits against the
+    CPU's from the same weights, at the reference's decode-parity
+    tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    if kv is not None:
+        cfg = cfg.replace(n_kv_heads=kv)
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = build_model(cfg, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("scale", "bias", "bq", "bk", "bv",
+                                           "b_in", "b_out", "norm_scale",
+                                           "b_fgate", "b_gates"):
+                p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    card_model = build_model(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    frames = torch.randn((2, cfg.stub_frames, cfg.d_model), generator=gen) \
+        if cfg.encoder_layers else None
+    before = seq_ops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        got = card_model.apply(tokens.to(cuda),
+                               None if frames is None else frames.to(cuda))
+        want = cpu_model.apply(tokens, frames)
+    assert seq_ops.LAUNCHES["flash_attention"] == \
+        before + (cfg.encoder_layers + 2 * cfg.n_layers
+                  if cfg.encoder_layers else 0)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)

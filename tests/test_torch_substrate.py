@@ -78,9 +78,11 @@ def test_config_matches_reference(reduce):
     assert port.param_dtype == torch.float32
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        get_config("xlstm-125m")
+def test_unknown_arch_raises():
+    """Every architecture of the reference is ported; a name outside the
+    registry raises, as the reference's ``get_config`` does."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("xlstm-7b")
 
 
 # -- layers --------------------------------------------------------------------
