@@ -253,6 +253,27 @@ and prints no result):
    than a tile) in bf16 and fp32, a causal call with two lengths refused;
    the flash kernel at whisper's encoder, self-attention and
    cross-attention shapes timed beside its bound and SDPA;
+9e. the substrate's training path (``[train]``), one model at a time,
+   weights drawn from a seeded generator on the card (constant leaves
+   redrawn), ``launch.steps.make_train_step`` (AdamW at lr 1e-5,
+   clipping at 1.0):
+   stablelm-1.6b at full size (2 x 2048), recurrentgemma-9b at full width
+   and one (rec, rec, swa) unit (2 x 2048), xlstm-125m at full size (2 x
+   128) and whisper-large-v3 at full size (2 x (1500 frames + 448
+   tokens)) -- a ``loss_and_grads`` call (every parameter's gradient
+   present and finite) and 4 train steps on one batch, each with the
+   launch counters zeroed just before and read just after (exactly one
+   flash forward an attention layer, all on the tensor-core kernel, and
+   two recurrence launches a ``rec`` layer, forward and adjoint), the
+   loss falling, ms a step, steps/s, tokens/s and the peak memory (≤ 80
+   GB) beside the card's name and power limit; flash forward and
+   backward ms at each model's attention shapes beside their bounds (4·D
+   and 10·D flops an allowed pair and head); each mixer kind reduced in
+   float32, card vs CPU: the loss, every gradient leaf and one step's
+   weights; the recurrence's adjoint kernel and flash's Function against
+   autograd of their plain versions (the recurrence's edges and
+   recurrentgemma's shape, timed; every mask kind and two lengths, bf16
+   and fp32);
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
@@ -268,9 +289,12 @@ and prints no result):
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
-    ``flash_attention`` entry's ``dense_shapes``, ``vlm_moe_shapes`` and
-    ``encdec_shapes`` hold its readings at their shapes) and, last, the
-    device line.
+    ``train_launches`` the four models' train steps, one each, summed;
+    the ``flash_attention`` entry's ``dense_shapes``, ``vlm_moe_shapes``
+    and ``encdec_shapes`` hold its readings at their shapes,
+    ``train_shapes`` its forward and backward at the training shapes, and
+    the ``linear_recurrence`` entry's ``train_adjoint`` its backward at
+    recurrentgemma's) and, last, the device line.
 
 It needs one CUDA device and imports nothing of the JAX reference.
 """
@@ -4930,6 +4954,442 @@ def phase_xlstm_encdec(dev, card):
     return wh["launches"], shapes
 
 
+# ---------------------------------------------------------------------------
+# [train]: the substrate's training path
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept (None: all), batch, text tokens, why): full width, one
+# model at a time; recurrentgemma's depth cut to one (rec, rec, swa) unit
+# (its 256,000-token table alone is 1.05 B parameters, 16.8 GB with
+# gradients and Adam), whisper's 448 tokens after 1500 stub frames;
+# xLSTM's host-bound step loop at 2 x 128 (a 2 x 256 step takes 4.6-7.0 s
+# of host time, which would put the script past its earlier high)
+TRAIN_RUNS = [
+    ("stablelm-1.6b", None, 2, 2048, "full size"),
+    ("recurrentgemma-9b", 3, 2, 2048, "full width, one (rec, rec, swa) "
+                                      "unit of 38 layers"),
+    ("xlstm-125m", None, 2, 128, "full size"),
+    ("whisper-large-v3", None, 2, 448, "full size, 1500 frames"),
+]
+TRAIN_STEPS = 4
+# AdamW's learning rate at full width: at the default 3e-4 the first steps
+# from random weights overshoot (stablelm-1.6b: 12.12, 14.53, 16.05, 12.99
+# on one repeated batch), far below it Adam's ~lr·sign(g) moves descend
+TRAIN_LR = 1e-5
+# one reduced config per mixer kind, card (kernels, Functions) vs CPU
+# (plain versions), float32
+TRAIN_KINDS = {"attention": "stablelm-1.6b", "rec": "recurrentgemma-9b",
+               "xlstm": "xlstm-125m", "moe": "grok-1-314b",
+               "prefix-lm": "paligemma-3b", "encdec": "whisper-large-v3"}
+# the CPU tests' bounds against jax.grad (tests/test_torch_train.py): the
+# loss rtol 1e-5; a gradient leaf max|Δ| ≤ 1e-4·max|g_cpu| + 1e-6; after
+# one step at lr 1e-2 the weights within the reference's Adam-sign bound
+# (tests/test_arch_smoke.py: max 2.5e-2, a leaf's mean 2e-3)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LEAF_REL, TRAIN_LEAF_ABS = 1e-4, 1e-6
+TRAIN_STEP_ATOL, TRAIN_STEP_MEAN = 2.5e-2, 2e-3
+# the adjoint recurrence (the kernel, run backwards) against autograd
+# through the plain step loop: float32 rounds the product λ·a·h in
+# another order than autograd's (λ·h)·a; bfloat16 inputs at one bf16 ulp
+LINREC_GRAD_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+                   "bfloat16": dict(rtol=2.0 ** -7, atol=1e-6)}
+# (B, S, C, dtype): C odd and not a multiple of the 32-channel block, S
+# not a multiple of the 32-step tile, bf16 rows of odd C
+LINREC_GRAD_EDGES = [(1, 77, 130, "float32"), (2, 33, 13, "bfloat16"),
+                     (1, 300, 20, "float32"), (3, 45, 7, "float32")]
+# flash's Function against autograd of attention_plain, every mask kind
+# and the two lengths: (B, S, S_kv, H, KV, D, mask)
+FLASH_GRAD_CASES = [
+    (2, 300, 300, 8, 2, 64, dict(causal=True)),
+    (1, 333, 333, 4, 1, 256, dict(causal=True, window=100)),
+    (1, 200, 200, 4, 4, 64, dict(causal=False, window=50)),
+    (2, 300, 300, 8, 1, 128, dict(causal=True, prefix_len=77)),
+    (1, 333, 333, 10, 2, 128, dict(causal=True, chunk=100)),
+    (2, 448, 1500, 4, 4, 64, dict(causal=False)),
+]
+
+
+def _train_want(cfg):
+    """The exact launches of one train step: one flash forward an
+    attention layer (an encoder-decoder: an encoder layer's one, a decoder
+    layer's two), all on the tensor-core kernel in bf16 at its head dims,
+    and two recurrence launches a ``rec`` layer (forward and adjoint)."""
+    from repro_torch.kernels import seq_ops
+    from repro_torch.models.transformer import ATTENTION_KINDS
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+             for i in range(cfg.n_layers)]
+    flash = cfg.encoder_layers + 2 * cfg.n_layers if cfg.encoder_layers \
+        else sum(k in ATTENTION_KINDS for k in kinds)
+    wgmma = flash if seq_ops.flash_route(cfg.compute_dtype, cfg.d_head) \
+        == "seq_flash_attention_wgmma" else 0
+    return {"flash_attention": flash, "flash_attention_wgmma": wgmma,
+            "linear_recurrence": 2 * kinds.count("rec")}
+
+
+def _seq_launches():
+    counts = _launch_counts()
+    return {k: counts[k] for k in ("flash_attention", "flash_attention_wgmma",
+                                   "linear_recurrence")}
+
+
+def _train_batch(cfg, batch, seq, seed, gen, dev):
+    """A token batch (``data.tokens.token_batches``, seeded numpy) on the
+    card, with whisper's stub frames or a VLM's patches drawn from
+    ``gen``."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import token_batches
+    b = next(token_batches(np.random.default_rng(seed), vocab=cfg.vocab_size,
+                           batch=batch, seq_len=seq, n_batches=1))
+    out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    n = cfg.prefix_tokens or cfg.stub_frames
+    if n:
+        out["embeddings"] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                        device=dev).to(cfg.compute_dtype)
+    return out
+
+
+def _finite_grads(label, grads):
+    import torch
+    missing = [k for k, g in grads.items() if g is None]
+    if missing:
+        raise AssertionError(f"{label}: no gradient for {missing[:5]} "
+                             f"({len(missing)} parameters)")
+    finite = torch.stack([torch.isfinite(g).all() for g in grads.values()])
+    if not bool(finite.all()):
+        bad = [k for k, ok in zip(grads, finite.tolist()) if not ok]
+        raise AssertionError(f"{label}: non-finite gradients in {bad[:5]}")
+
+
+def _flash_train_ms(b, s, s_kv, h, kv, d, mask, dev):
+    """The flash Function at a training shape in bf16: forward (the
+    kernel) and backward (the recompute through ``attention_plain``) ms,
+    each beside its bound -- 4·D flops an allowed (query, key) pair and
+    head forward, 10·D backward, at the bf16 peak; bytes q, k, v read and
+    o written forward, q, k, v, do read and dq, dk, dv written
+    backward."""
+    import torch
+    from repro_torch.kernels import seq_ops
+    bf16 = torch.bfloat16
+    q = _seq_inputs((b, s, h, d), bf16, 1, dev).requires_grad_()
+    k = _seq_inputs((b, s_kv, kv, d), bf16, 2, dev).requires_grad_()
+    v = _seq_inputs((b, s_kv, kv, d), bf16, 3, dev).requires_grad_()
+    g = _seq_inputs((b, s, h, d), bf16, 4, dev)
+    out = seq_ops.flash_attention(q, k, v, **mask)
+    fwd = time_ms(lambda: seq_ops.flash_attention(q, k, v, **mask))
+    bwd = time_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                              retain_graph=True),
+                  min_iters=2, budget_s=0.3)
+    pairs = float(seq_ops.attention_mask(s, dev, s_kv=s_kv, **mask).sum())
+    qo = 2 * b * s * h * d
+    kvb = 2 * b * s_kv * kv * d
+    fwd_bound = bound_ms(2 * qo + 2 * kvb, 4.0 * b * h * pairs * d,
+                         PEAK_BF16_FLOPS)
+    bwd_bound = bound_ms(3 * qo + 4 * kvb, 10.0 * b * h * pairs * d,
+                         PEAK_BF16_FLOPS)
+    del out
+    torch.cuda.empty_cache()
+    return {"shape": [b, s, h, kv, d], "s_kv": s_kv,
+            "mask": {k_: v_ for k_, v_ in mask.items() if v_},
+            "fwd_ms": fwd, "fwd_bound_ms": fwd_bound[0],
+            "fwd_bound_by": fwd_bound[1], "bwd_ms": bwd,
+            "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1]}
+
+
+def _train_full(arch, layers, batch, seq, why, dev, card):
+    """One model at full width on the card: a ``loss_and_grads`` call and
+    ``TRAIN_STEPS`` train steps on one batch, each with the launch
+    counters zeroed just before and read just after (exactly
+    ``_train_want``); every parameter's gradient present and finite; the
+    loss falling; steps/s, tokens/s and the peak memory (≤ 80 GB)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=gen)
+    _perturb_constants(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn, model, opt = steps.make_train_step(cfg, lr=TRAIN_LR,
+                                                model=model)
+    opt_state = opt.init(dict(model.named_parameters()))
+    data = _train_batch(cfg, batch, seq, 7, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name} ({why}): {cfg.n_layers} layers, {n_params} "
+        f"params ({n_params * 16 / 1e9:.2f} GB of fp32 weights, gradients "
+        f"and Adam moments) built in {time.perf_counter() - t0:.2f} s; "
+        f"batch {batch} x {seq}")
+    want = _train_want(cfg)
+
+    _reset_launches()
+    loss0, grads = steps.loss_and_grads(model, data)
+    torch.cuda.synchronize()
+    got = _seq_launches()
+    if got != want:
+        raise AssertionError(f"{cfg.name}: loss_and_grads launched {got}, "
+                             f"expected {want}")
+    _finite_grads(cfg.name, grads)
+    del grads
+    losses, walls, step = [], [], 0
+    for i in range(TRAIN_STEPS):
+        _reset_launches()
+        t0 = time.perf_counter()
+        opt_state, step, m = step_fn(opt_state, step, data)
+        losses.append(float(m["loss"]))      # synchronises
+        walls.append(time.perf_counter() - t0)
+        got = _seq_launches()
+        if got != want:
+            raise AssertionError(f"{cfg.name}: train step {i} launched "
+                                 f"{got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses} (finite, falling "
+                             f"on one repeated batch expected)")
+    if abs(losses[0] - float(loss0)) > 1e-3 * abs(losses[0]):
+        raise AssertionError(f"{cfg.name}: the first step's loss "
+                             f"{losses[0]} is not loss_and_grads' {loss0}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if peak > 80.0:
+        raise AssertionError(f"{cfg.name}: peak {peak:.2f} GB > 80 GB")
+    steady = walls[1:]
+    step_s = sum(steady) / len(steady)
+    log(f"[train] {cfg.name}: launches a step {want}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {step_s * 1e3:.1f} ms a "
+        f"step (steps 2..{TRAIN_STEPS}: "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in steady)}; first "
+        f"{walls[0] * 1e3:.1f}), {1.0 / step_s:.3f} steps/s, "
+        f"{batch * seq / step_s:.1f} tokens/s"
+        f"{' (text; the frames besides)' if cfg.encoder_layers else ''}; "
+        f"peak {peak:.2f} GB; {card}")
+    del model, opt_state, step_fn, opt, data
+    torch.cuda.empty_cache()
+    return cfg, want, {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+                       "seq": seq, "step_ms": step_s * 1e3,
+                       "tokens_per_s": batch * seq / step_s,
+                       "peak_gb": peak, "losses": losses}
+
+
+def _train_reduced(kind, arch, dev):
+    """A reduced config in float32 from the same (perturbed) weights on the
+    card (kernels and their Functions) and the CPU (plain versions): the
+    loss and every gradient leaf, then one train step's weights (lr 1e-2),
+    at the CPU tests' bounds; the card's launches exactly
+    ``_train_want``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    cpu_model = build_model(cfg, device="cpu", generator=gen)
+    _perturb_constants(cpu_model, gen)
+    card_model = build_model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    batch = _train_batch(cfg, 2, 128, 9, gen, "cpu")
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    _reset_launches()
+    loss_card, g_card = steps.loss_and_grads(card_model, on_card)
+    torch.cuda.synchronize()
+    got, want = _seq_launches(), _train_want(cfg)
+    if got != want:
+        raise AssertionError(f"{cfg.name}: card launches {got} != {want}")
+    loss_cpu, g_cpu = steps.loss_and_grads(cpu_model, batch)
+    _finite_grads(f"{cfg.name} card", g_card)
+    if abs(float(loss_card) - float(loss_cpu)) > \
+            TRAIN_LOSS_RTOL * abs(float(loss_cpu)):
+        raise AssertionError(f"{cfg.name}: loss card {float(loss_card)} vs "
+                             f"cpu {float(loss_cpu)}")
+    worst = 0.0
+    for name, gc in g_cpu.items():
+        bound = TRAIN_LEAF_REL * float(gc.abs().max()) + TRAIN_LEAF_ABS
+        err = float((g_card[name].cpu() - gc).abs().max())
+        if err > bound:
+            raise AssertionError(f"{cfg.name}: gradient {name} card vs cpu "
+                                 f"max abs {err:.3e} > {bound:.3e}")
+        worst = max(worst, err / bound)
+    steps_ = []
+    for model, data in ((card_model, on_card), (cpu_model, batch)):
+        step_fn, _, opt = steps.make_train_step(cfg, lr=1e-2, model=model)
+        state, count, m = step_fn(opt.init(dict(model.named_parameters())),
+                                  0, data)
+        steps_.append((count, float(m["loss"])))
+    step_err = 0.0
+    for (name, pc), pg in zip(cpu_model.named_parameters(),
+                              card_model.parameters()):
+        d = (pg.detach().cpu() - pc.detach()).abs()
+        if float(d.max()) > TRAIN_STEP_ATOL or \
+                float(d.mean()) >= TRAIN_STEP_MEAN:
+            raise AssertionError(f"{cfg.name}: after one step {name} max "
+                                 f"{float(d.max()):.3e}, mean "
+                                 f"{float(d.mean()):.3e}")
+        step_err = max(step_err, float(d.max()))
+    if [count for count, _ in steps_] != [1, 1]:
+        raise AssertionError(f"{cfg.name}: step counts {steps_}")
+    log(f"[train] reduced {kind} ({cfg.name}) fp32 card vs cpu: loss "
+        f"{float(loss_card):.6f} vs {float(loss_cpu):.6f}; every gradient "
+        f"leaf within its bound (worst {100 * worst:.1f}% of 1e-4·max|g| + "
+        f"1e-6); one step at lr 1e-2: weights max abs {step_err:.3e} (limit "
+        f"{TRAIN_STEP_ATOL}); launches {got}: ok")
+    return worst
+
+
+def _linrec_grad_check(b, s, c, dtype_name, dev, timed=False):
+    """The recurrence's Function on the card (the kernel forward, the
+    kernel again over reversed time for the adjoint) against autograd
+    through ``linear_recurrence_plain``'s step loop, on the same inputs;
+    two launches, the second the adjoint's."""
+    import torch
+    from repro_torch.kernels import seq_ops
+    dtype = getattr(torch, dtype_name)
+    log_a = (-_seq_inputs((b, s, c), torch.float32, 61, dev).abs()
+             .mul_(0.1)).to(dtype)
+    x = _seq_inputs((b, s, c), dtype, 62, dev)
+    g = _seq_inputs((b, s, c), torch.float32, 63, dev)
+    leaves = [log_a.clone().requires_grad_(), x.clone().requires_grad_()]
+    before = seq_ops.LAUNCHES["linear_recurrence"]
+    out = seq_ops.linear_recurrence(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    if seq_ops.LAUNCHES["linear_recurrence"] - before != 2:
+        raise AssertionError("the recurrence's Function did not launch the "
+                             "kernel twice")
+    plain = [log_a.clone().requires_grad_(), x.clone().requires_grad_()]
+    want = torch.autograd.grad(seq_ops.linear_recurrence_plain(*plain),
+                               plain, g)
+    name = f"linear_recurrence backward B={b} S={s} C={c} {dtype_name}"
+    errs = []
+    for which, a, w in zip(("log_a", "x"), got, want):
+        if a.dtype != dtype:
+            raise AssertionError(f"{name}: d{which} is {a.dtype}")
+        _check_close(f"{name} d{which}", a.float(), w.float(),
+                     **LINREC_GRAD_TOL[dtype_name])
+        errs.append(_max_err(a, w))
+    if not timed:
+        log(f"[train] {name}: dlog_a max abs {errs[0]:.3e}, dx {errs[1]:.3e}"
+            f" vs autograd of the step loop: ok")
+        return max(errs)
+
+    def both():
+        o = seq_ops.linear_recurrence(*leaves)
+        return torch.autograd.grad(o, leaves, g)
+    ms_fb = time_ms(both)
+    ms_f = time_ms(lambda: seq_ops.linear_recurrence(*[t.detach()
+                                                       for t in leaves]))
+    n = b * s * c
+    # the adjoint's own work: log_a, g and h read, dlog_a and dx written
+    b_ms, b_by = bound_ms(5 * 4 * n, 6 * n)
+    log(f"[train] {name}: dlog_a max abs {errs[0]:.3e}, dx {errs[1]:.3e} vs "
+        f"autograd of the step loop: ok; forward {ms_f:.4f} ms, forward + "
+        f"backward {ms_fb:.4f} ms (backward {ms_fb - ms_f:.4f} ms, bound "
+        f"{b_ms:.6f} ms, {b_by})")
+    return {"shape": [b, s, c], "max_abs_err": max(errs), "fwd_ms": ms_f,
+            "bwd_ms": ms_fb - ms_f, "bwd_bound_ms": b_ms, "bwd_bound_by": b_by}
+
+
+def _flash_grad_check(b, s, s_kv, h, kv, d, mask, dtype_name, seed, dev):
+    """flash's Function on the card against ``attention_plain`` and its
+    autograd on the same inputs: the output (the kernel, one launch) at the
+    forward's tolerance ``FLASH_TOL`` (bf16: against the plain version in
+    fp32 rounded once, as the forward checks hold the kernel); dq, dk, dv
+    bit-equal to the plain autograd on the same inputs, since the
+    backward is that same recompute (this holds its wiring: the mask passed
+    through, the sum over each KV head's query group)."""
+    import torch
+    from repro_torch.kernels import seq_ops
+    dtype = getattr(torch, dtype_name)
+    q = _seq_inputs((b, s, h, d), dtype, seed, dev)
+    k = _seq_inputs((b, s_kv, kv, d), dtype, seed + 1, dev)
+    v = _seq_inputs((b, s_kv, kv, d), dtype, seed + 2, dev)
+    g = _seq_inputs((b, s, h, d), dtype, seed + 3, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = seq_ops.LAUNCHES["flash_attention"]
+    out = seq_ops.flash_attention(*leaves, **mask)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    if seq_ops.LAUNCHES["flash_attention"] - before != 1:
+        raise AssertionError("flash's Function did not launch the kernel once")
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_out = seq_ops.attention_plain(*plain, **mask)
+    want = torch.autograd.grad(want_out, plain, g)
+    name = (f"flash backward B={b} S={s} S_kv={s_kv} H={h} KV={kv} D={d} "
+            f"{ {k_: v_ for k_, v_ in mask.items() if v_} } {dtype_name}")
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            want_out = seq_ops.attention_plain(
+                q.float(), k.float(), v.float(), **mask).to(dtype)
+    _check_close(f"{name} output", out.float(), want_out.float(),
+                 **FLASH_TOL[dtype_name])
+    for which, a, w in zip("qkv", got, want):
+        if not torch.equal(a, w):
+            raise AssertionError(f"{name} d{which}: max abs "
+                                 f"{_max_err(a, w):.3e}, not bit-equal")
+    log(f"[train] {name}: output max abs {_max_err(out, want_out):.3e} vs "
+        f"the plain version, dq, dk, dv bit-equal to its autograd: ok")
+
+
+def phase_train(dev, card):
+    """The substrate's training path on the card: the four models of
+    ``TRAIN_RUNS`` at full width, one at a time (``_train_full``); each
+    reduced mixer kind card vs CPU (``_train_reduced``); the recurrence's
+    adjoint and flash's Function against autograd of their plain versions,
+    at the kernels' edges and every mask kind; flash forward and backward
+    at each model's attention shapes and the recurrence's adjoint at
+    recurrentgemma's, timed beside their bounds.  Returns the launches of
+    one train step of each model summed, and the timed readings."""
+    import torch
+    runs, launches = [], {}
+    flash_shapes = []
+    for arch, layers, batch, seq, why in TRAIN_RUNS:
+        cfg, want, run = _train_full(arch, layers, batch, seq, why, dev, card)
+        runs.append(run)
+        for k, n in want.items():
+            launches[k] = launches.get(k, 0) + n
+        attn = []
+        if cfg.encoder_layers:
+            frames = cfg.stub_frames
+            attn = [(batch, frames, frames, dict(causal=False)),
+                    (batch, seq, seq, dict(causal=True)),
+                    (batch, seq, frames, dict(causal=False))]
+        elif want["flash_attention"]:
+            window = cfg.window if "swa" in cfg.block_pattern else 0
+            attn = [(batch, seq, seq, dict(causal=True, window=window))]
+        for b, s, s_kv, mask in attn:
+            r = _flash_train_ms(b, s, s_kv, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.d_head, mask, dev)
+            r["arch"] = arch
+            flash_shapes.append(r)
+            log(f"[train] flash {arch} B={b} S={s} S_kv={s_kv} H="
+                f"{cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.d_head} "
+                f"{r['mask']} bf16: forward {r['fwd_ms']:.4f} ms (bound "
+                f"{r['fwd_bound_ms']:.6f}, {r['fwd_bound_by']}; "
+                f"{r['fwd_ms'] / r['fwd_bound_ms']:.2f}x), backward "
+                f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.6f}, "
+                f"{r['bwd_bound_by']}; {r['bwd_ms'] / r['bwd_bound_ms']:.2f}x"
+                f"); {card}")
+    worst = {kind: _train_reduced(kind, arch, dev)
+             for kind, arch in TRAIN_KINDS.items()}
+    linrec = _linrec_grad_check(2, 2048, 4096, "float32", dev, timed=True)
+    for b, s, c, dt in LINREC_GRAD_EDGES:
+        _linrec_grad_check(b, s, c, dt, dev)
+    for i, (b, s, s_kv, h, kv, d, mask) in enumerate(FLASH_GRAD_CASES):
+        for dt in ("bfloat16", "float32"):
+            _flash_grad_check(b, s, s_kv, h, kv, d, mask, dt, 170 + 4 * i,
+                              dev)
+    torch.cuda.empty_cache()
+    log(f"[train] {len(runs)} models trained, launches a step summed "
+        f"{launches}; reduced card vs cpu worst leaf "
+        f"{ {k: round(float(v), 4) for k, v in worst.items()} } of its "
+        f"bound; {card}")
+    return launches, {"runs": runs, "flash": flash_shapes,
+                      "linrec": linrec}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the kernel results as JSON")
@@ -4993,6 +5453,8 @@ def main(argv=None) -> int:
         "prefix-LM and MoE decoders", phase_vlm_moe, dev, card)
     encdec_launches, encdec_flash = phase(
         "xLSTM and encoder-decoder", phase_xlstm_encdec, dev, card)
+    train_launches, train = phase("train the substrate", phase_train, dev,
+                                  card)
 
     # the entries of local_sgd_step and flash_attention are the cluster
     # kernel and the tensor-core kernel
@@ -5030,7 +5492,8 @@ def main(argv=None) -> int:
                 "sweep_launches": sweep_launches.get(name, 0),
                 "dense_launches": dense_launches.get(name, 0),
                 "vlm_moe_launches": vlm_moe_launches.get(name, 0),
-                "encdec_launches": encdec_launches.get(name, 0)}
+                "encdec_launches": encdec_launches.get(name, 0),
+                "train_launches": train_launches.get(name, 0)}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)
@@ -5053,6 +5516,9 @@ def main(argv=None) -> int:
             kernels[-1]["dense_shapes"] = dense_flash
             kernels[-1]["vlm_moe_shapes"] = vlm_moe_flash
             kernels[-1]["encdec_shapes"] = encdec_flash
+            kernels[-1]["train_shapes"] = train["flash"]
+        if name == "linear_recurrence":
+            kernels[-1]["train_adjoint"] = train["linrec"]
     for name, (n_launch, (err, ms_k, ms_p, b_ms, b_by, lib_ms)) in \
             cand.items():
         kernels.append({"name": name, "route": "cuda",
@@ -5065,8 +5531,8 @@ def main(argv=None) -> int:
     result = {"kernels": kernels}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps({"card": card, **result},
-                                             indent=1))
+        Path(args.out).write_text(json.dumps(
+            {"card": card, **result, "train": train["runs"]}, indent=1))
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

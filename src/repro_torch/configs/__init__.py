@@ -8,6 +8,10 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape,
+                                      TensorSpec, input_specs,
+                                      shape_applicable)
+
 _REGISTRY: Dict[str, str] = {
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
@@ -22,6 +26,14 @@ _REGISTRY: Dict[str, str] = {
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
+
+# the 10 assigned architectures, in the reference's order (its registry
+# also holds qwen3-8b-sw4k, a serving variant, and hfl-mnist)
+ASSIGNED: List[str] = [
+    "recurrentgemma-9b", "grok-1-314b", "paligemma-3b", "xlstm-125m",
+    "stablelm-1.6b", "qwen1.5-110b", "qwen3-8b",
+    "llama4-maverick-400b-a17b", "yi-34b", "whisper-large-v3",
+]
 
 
 def get_config(name: str):

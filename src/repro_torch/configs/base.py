@@ -4,11 +4,15 @@
 field the reference package's ``configs/base.py::ArchConfig``; dtypes stay
 strings (hashable) and map to torch dtypes through the ``*_dtype``
 properties.  ``reduced()`` is the same smoke-test cut as the reference's.
+``input_specs`` gives the (shape, dtype) of every model input of an
+(arch × input shape) pair without allocating (the reference's
+``ShapeDtypeStruct`` stand-ins); ``param_count`` and
+``active_param_count`` are the analytic counts of ``_counting``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -100,6 +104,10 @@ class ArchConfig:
         return getattr(torch, self.compute_dtype_str)
 
     @property
+    def opt_dtype(self) -> torch.dtype:
+        return getattr(torch, self.opt_dtype_str)
+
+    @property
     def kv_cache_dtype(self) -> torch.dtype:
         return getattr(torch, self.kv_cache_dtype_str
                        or self.compute_dtype_str)
@@ -137,3 +145,68 @@ class ArchConfig:
                       moe_top_k=min(self.moe_top_k, 2),
                       moe_d_ff=min(self.moe_d_ff, 256))
         return self.replace(**kw)
+
+    # -- parameter accounting --------------------------------------------------
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (matches the built model)."""
+        from repro_torch.configs._counting import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: a MoE layer's top-k experts."""
+        from repro_torch.configs._counting import count_params
+        return count_params(self, active_only=True)
+
+
+class TensorSpec(NamedTuple):
+    """A model input's shape and dtype, allocated nowhere."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
+    """Model inputs for one (arch × input shape) as ``TensorSpec``s.
+
+    train/prefill: {"tokens", "labels"?, "embeddings"?}
+    decode:        {"token", "cache", "index"}, the cache a tree of specs
+    """
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs: Dict[str, Any] = {}
+        text_len = s
+        if cfg.prefix_tokens:                       # VLM: patches use positions
+            text_len = s - cfg.prefix_tokens
+            specs["embeddings"] = TensorSpec(
+                (b, cfg.prefix_tokens, cfg.d_model), cfg.compute_dtype)
+        if cfg.stub_frames:                         # audio: encoder frames
+            specs["embeddings"] = TensorSpec(
+                (b, cfg.stub_frames, cfg.d_model), cfg.compute_dtype)
+        specs["tokens"] = TensorSpec((b, text_len), torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, text_len), torch.int32)
+        return specs
+
+    # decode: the cache built on the meta device, which allocates nothing
+    from repro_torch.models import encdec, transformer
+    if cfg.encoder_layers:
+        cache = encdec.init_cache(cfg, b, s, cfg.stub_frames, "meta")
+    else:
+        cache = transformer.init_cache(cfg, b, s, "meta")
+    return {"token": TensorSpec((b, 1), torch.int32),
+            "cache": _specs(cache),
+            "index": TensorSpec((), torch.int32)}
+
+
+def _specs(tree):
+    if isinstance(tree, dict):
+        return {k: _specs(v) for k, v in tree.items()}
+    return TensorSpec(tuple(tree.shape), tree.dtype)
+
+
+def shape_applicable(cfg: ArchConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether an (arch × shape) pair runs, and the skip reason if not."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, cfg.long_context_note or \
+            "pure full-attention architecture: 500k context is quadratic"
+    return True, ""

@@ -13,7 +13,11 @@ agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
 ``params_from_numpy`` does the same for a substrate model's weights (a
 decoder or an encoder-decoder), ``cache_from_numpy`` for its decode
-cache, so both sides can decode from the same state.
+cache, so both sides can decode from the same state.  ``params_to_tree``
+and ``params_to_numpy`` go the other way: a model's named tensors
+(weights, gradients, Adam moments) in the reference's layout, so both
+sides' gradients and optimizer states compare leaf for leaf, and a
+checkpoint the port writes is one the reference reads.
 """
 from __future__ import annotations
 
@@ -201,6 +205,76 @@ def params_from_numpy(params_np: Mapping[str, Any], cfg,
         where = f"{where}/{name.replace('.', '/')}[{r}]"
         _fill(param, _leaf(tree, name, where)[r], where)
     return model
+
+
+def _reference_path(model: "Transformer | EncDecTransformer", name: str
+                    ) -> Tuple[Tuple[str, ...], "int | None"]:
+    """The reference key path of a port parameter name and its index along
+    the stacked repetitions (None for an unstacked leaf): the inverse of
+    ``params_from_numpy``'s walk."""
+    group, _, rest = name.partition(".")
+    if group == "blocks":
+        i, sub = rest.split(".", 1)
+        stage, r, pos = model.block_index[int(i)]
+        head: Tuple[str, ...] = (stage, pos)
+    elif group in ("encoder", "decoder"):
+        r, sub = rest.split(".", 1)
+        r, head = int(r), (group,)
+    else:
+        r, head = None, ()
+        sub = {"embedding": "embed.embedding",
+               "unembedding": "embed.unembedding"}.get(name, name)
+    return head + tuple(_JAX_NAME.get(p, p) for p in sub.split(".")), r
+
+
+def params_to_tree(model: "Transformer | EncDecTransformer",
+                   tensors: "Mapping[str, torch.Tensor] | None" = None
+                   ) -> "dict[str, Any]":
+    """``tensors`` -- a dict keyed by ``model``'s parameter names (its
+    gradients, an optimizer's moments; default the weights themselves) --
+    as a nested dict in the layout of the reference's ``init`` pytree:
+    ``embed/...``, ``final_norm/...``, a decoder's ``stage_<i>/<unit
+    position>/...`` stacked over the stage's repetitions, an
+    encoder-decoder's ``encoder/...`` and ``decoder/...`` stacked over the
+    layers and ``enc_norm/...``; each leaf detached, on its tensor's
+    device, in its dtype."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    reps: "dict[Tuple[str, ...], dict[int, torch.Tensor]]" = {}
+    tree: "dict[str, Any]" = {}
+    for name, _ in model.named_parameters():
+        path, r = _reference_path(model, name)
+        leaf = tensors[name].detach()
+        if r is None:
+            _put(tree, path, leaf)
+        else:
+            reps.setdefault(path, {})[r] = leaf
+    for path, by_r in reps.items():
+        if sorted(by_r) != list(range(len(by_r))):
+            raise ValueError(f"{'/'.join(path)}: repetitions {sorted(by_r)}")
+        _put(tree, path, torch.stack([by_r[r] for r in range(len(by_r))]))
+    return tree
+
+
+def _put(tree: "dict[str, Any]", path: Tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def params_to_numpy(model: "Transformer | EncDecTransformer",
+                    tensors: "Mapping[str, torch.Tensor] | None" = None
+                    ) -> "dict[str, Any]":
+    """``params_to_tree`` with numpy leaves on the host; bfloat16 (which
+    numpy lacks) becomes float32, which holds it exactly, so
+    ``params_from_numpy(params_to_numpy(m), cfg)`` rebuilds ``m`` bit for
+    bit."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        t = node.cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return host(params_to_tree(model, tensors))
 
 
 # the leaves of the reference's tuple caches (models/xlstm.py), in order

@@ -26,6 +26,22 @@ given CUDA tensors it launches the kernel or raises -- there is no
 fallback.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
 and nothing else; ``flash_attention_wgmma`` counts the flash launches that
 went to the tensor-core kernel (``flash_attention`` counts them all).
+
+Both wrappers are differentiable.  Given inputs that need a gradient
+(with grad mode on) they go through a ``torch.autograd.Function``, on the
+card and on the CPU alike; otherwise they launch as a server calls them,
+saving nothing.  Flash's backward recomputes through ``attention_plain``
+(one more forward's work, and the (B, KV, G, S, S_kv) float32 scores held
+for the step), as the reference's ``kernels/ops.py`` ``custom_vjp``
+recomputes through its oracle: the reference has no backward kernel.  The
+recurrence's backward is itself a linear recurrence, run backwards in
+time through the same kernel (a second launch); with a_t = exp(log_a_t)
+and the upstream gradient g,
+
+    λ_{S-1} = g_{S-1},  λ_t = g_t + a_{t+1}·λ_{t+1},
+    ∂x_t = λ_t,  ∂log_a_t = λ_t·a_t·h_{t-1}  (h_{-1} = 0),
+
+so a ``rec`` layer's train step launches it twice.
 """
 from __future__ import annotations
 
@@ -161,6 +177,31 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
     return "seq_flash_attention"
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward (the plain version on the CPU); the
+    backward recomputes the scores through ``attention_plain`` and takes
+    its gradient, summed over each KV head's query group."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len, chunk):
+        ctx.mask = dict(causal=causal, window=window, prefix_len=prefix_len,
+                        chunk=chunk)
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, **ctx.mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = attention_plain(*inputs, **ctx.mask)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, prefix_len: int = 0,
                     chunk: int = 0) -> torch.Tensor:
@@ -175,7 +216,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     own chunk of ``chunk`` positions (``check_mask`` says which of these
     combine).  Any S; D a multiple of 16 up to 256; float32 or bfloat16.
     On the card the kernel is chosen by ``flash_route`` and never on
-    failure: an error of either kernel raises."""
+    failure: an error of either kernel raises.  Differentiable in q, k and
+    v (``_FlashAttention``)."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, prefix_len,
+                                     chunk)
+    return _flash_forward(q, k, v, causal=causal, window=window,
+                          prefix_len=prefix_len, chunk=chunk)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int, prefix_len: int, chunk: int
+                   ) -> torch.Tensor:
+    """``flash_attention``'s forward: the kernel on the card, the plain
+    version on the CPU."""
     mask = dict(causal=causal, window=window, prefix_len=prefix_len,
                 chunk=chunk)
     if q.device.type == "cpu":
@@ -257,12 +311,48 @@ def linrec_vector_bytes(c: int, itemsize: int, *ptrs: int) -> int:
     return itemsize
 
 
+class _LinearRecurrence(torch.autograd.Function):
+    """The recurrence forward, and its adjoint as a second recurrence run
+    backwards in time through the same wrapper (the kernel on the card,
+    the plain version on the CPU), in float32; the gradients are cast to
+    the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, log_a, x):
+        h = _linrec_forward(log_a, x)
+        ctx.save_for_backward(log_a, h)
+        ctx.x_dtype = x.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        log_a, h = ctx.saved_tensors
+        la = log_a.float()
+        zero = torch.zeros_like(la[:, :1])
+        # λ_t = g_t + a_{t+1}·λ_{t+1}: a recurrence over reversed time whose
+        # decay at step t is log_a_{t+1} (0 past the end: λ_S = 0 anyway)
+        la_next = torch.cat([la[:, 1:], zero], dim=1)
+        lam = torch.flip(_linrec_forward(torch.flip(la_next, [1]),
+                                         torch.flip(g.float(), [1])), [1])
+        h_prev = torch.cat([zero, h[:, :-1]], dim=1)
+        d_log_a = lam * torch.exp(la) * h_prev
+        return d_log_a.to(log_a.dtype), lam.to(ctx.x_dtype)
+
+
 def linear_recurrence(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """log_a, x (B, S, C), both float32 or both bfloat16 -> h (B, S, C)
-    float32."""
+    float32.  Differentiable in both (``_LinearRecurrence``)."""
     if log_a.dtype != x.dtype:
         raise TypeError(f"linear_recurrence: log_a is {log_a.dtype}, x is "
                         f"{x.dtype}; they must match")
+    if _needs_grad(log_a, x):
+        return _LinearRecurrence.apply(log_a, x)
+    return _linrec_forward(log_a, x)
+
+
+def _linrec_forward(log_a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``linear_recurrence``'s forward: the kernel on the card, the plain
+    version on the CPU."""
     if x.device.type == "cpu":
         return linear_recurrence_plain(log_a, x)
     dev = x.device

@@ -46,6 +46,22 @@ def sinusoid_positions(positions: torch.Tensor, d_model: int
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
+def init_cache(cfg, batch: int, cache_len: int, n_frames: Optional[int],
+               device) -> Cache:
+    """``EncDecTransformer.init_cache`` for ``cfg`` on ``device`` (``meta``
+    gives the shapes and dtypes alone)."""
+    n_frames = n_frames or cfg.stub_frames
+    lead = (cfg.n_layers, batch)
+    tail = (cfg.n_kv_heads, cfg.d_head)
+
+    def zeros(length):
+        return torch.zeros(lead + (length,) + tail, dtype=cfg.compute_dtype,
+                           device=device)
+    return {"decoder": {"k": zeros(cache_len), "v": zeros(cache_len),
+                        "cross_k": zeros(n_frames),
+                        "cross_v": zeros(n_frames)}}
+
+
 def _norm(cfg, device, generator) -> layers.Norm:
     return layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype, device,
                        generator)
@@ -184,17 +200,7 @@ class EncDecTransformer(nn.Module):
         layers: self-attention ``k``/``v`` (L, B, cache_len, KV, Dh) and
         ``cross_k``/``cross_v`` (L, B, n_frames, KV, Dh); ``n_frames``
         defaults to the config's ``stub_frames``."""
-        cfg = self.cfg
-        n_frames = n_frames or cfg.stub_frames
-        lead = (cfg.n_layers, batch)
-        tail = (cfg.n_kv_heads, cfg.d_head)
-
-        def zeros(length):
-            return torch.zeros(lead + (length,) + tail,
-                               dtype=cfg.compute_dtype, device=self.device)
-        return {"decoder": {"k": zeros(cache_len), "v": zeros(cache_len),
-                            "cross_k": zeros(n_frames),
-                            "cross_v": zeros(n_frames)}}
+        return init_cache(self.cfg, batch, cache_len, n_frames, self.device)
 
     def prefill_cross(self, cache: Cache, frames: torch.Tensor) -> Cache:
         """Encode the frames (B, F, d) and write each decoder layer's

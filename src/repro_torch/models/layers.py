@@ -3,7 +3,8 @@
 The port of the reference's ``models/layers.py``: initialisers drawn from
 an explicit ``torch.Generator``, RMSNorm and LayerNorm computed in fp32,
 split-half RoPE, the MLP (gated or not, with or without biases) and the
-(tied or untied) embedding.  Parameters are held by the modules in
+(tied or untied) embedding, and the token-level cross entropy of the
+training loss.  Parameters are held by the modules in
 ``attention``, ``rglru``, ``xlstm``, ``moe``, ``transformer`` and
 ``encdec``, and by ``Norm`` here (a norm's scale and bias; the
 blocks' norms and attention's q/k norms are each one); weights are cast
@@ -63,7 +64,9 @@ def scaled_init(shape: Sequence[int], generator: torch.Generator,
 def param(shape: Sequence[int], dtype: torch.dtype, device,
           generator: Optional[torch.Generator], init) -> nn.Parameter:
     """A frozen parameter: ``init()`` (on the generator's device) when a
-    generator is given, else left unset on ``device`` for a loader."""
+    generator is given, else left unset on ``device`` for a loader.
+    Serving builds no graph; ``launch.steps.make_train_step`` turns the
+    model's parameters trainable (``requires_grad_``)."""
     w = init() if generator is not None else \
         torch.empty(tuple(shape), dtype=dtype, device=device)
     return nn.Parameter(w, requires_grad=False)
@@ -182,3 +185,23 @@ def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
 def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) against the (V, d) table -> (..., V) in x's dtype."""
     return x @ table.to(x.dtype).t()
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean token-level cross entropy: ``logits`` (..., V) in float32,
+    logsumexp minus the label's logit, ``labels`` (...,); with ``mask``
+    (...,) the masked mean, over at least one token."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

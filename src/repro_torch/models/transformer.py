@@ -52,6 +52,26 @@ def compute_stages(n_layers: int, pattern: Tuple
     return stages
 
 
+def init_cache(cfg, batch: int, cache_len: int, device) -> Cache:
+    """Zero decode caches of a decoder for ``cfg`` on ``device`` (``meta``
+    gives their shapes and dtypes alone): ``stage_<i>`` → unit position →
+    leaves stacked over the stage's repetitions."""
+    pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
+    cache: Cache = {}
+    for si, (unit, reps) in enumerate(compute_stages(cfg.n_layers, pat)):
+        unit_cache = {}
+        for i, (kind, _) in enumerate(unit):
+            one = (attention.init_cache(cfg, batch, cache_len,
+                                        MASK_FOR_KIND[kind], device)
+                   if kind in ATTENTION_KINDS
+                   else RECURRENT[kind][3](cfg, batch, device))
+            unit_cache[str(i)] = {
+                k: torch.zeros((reps,) + v.shape, dtype=v.dtype,
+                               device=device) for k, v in one.items()}
+        cache[f"stage_{si}"] = unit_cache
+    return cache
+
+
 class MLP(nn.Module):
     """w_in (d, d_ff), w_out (d_ff, d), with ``cfg.gated_mlp`` w_gate (d,
     d_ff), and with ``cfg.mlp_bias`` the zero biases b_in (d_ff,) and b_out
@@ -256,20 +276,7 @@ class Transformer(nn.Module):
     # -- decode ---------------------------------------------------------------
 
     def init_cache(self, batch: int, cache_len: int) -> Cache:
-        cfg, dev = self.cfg, self.device
-        cache: Cache = {}
-        for si, (unit, reps) in enumerate(self.stages):
-            unit_cache = {}
-            for i, (kind, _) in enumerate(unit):
-                one = (attention.init_cache(cfg, batch, cache_len,
-                                            MASK_FOR_KIND[kind], dev)
-                       if kind in ATTENTION_KINDS
-                       else RECURRENT[kind][3](cfg, batch, dev))
-                unit_cache[str(i)] = {
-                    k: torch.zeros((reps,) + v.shape, dtype=v.dtype,
-                                   device=dev) for k, v in one.items()}
-            cache[f"stage_{si}"] = unit_cache
-        return cache
+        return init_cache(self.cfg, batch, cache_len, self.device)
 
     def prefill_prefix(self, cache: Cache, embeddings: torch.Tensor
                        ) -> Cache:
@@ -318,3 +325,17 @@ class Transformer(nn.Module):
                     leaves[k][r].copy_(v)
             x, _ = blk.ffn(x + y, cfg)
         return self.unembed(self.final_norm(x)), cache
+
+
+def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Next-token cross entropy + the MoE aux loss, weighted by
+    ``cfg.moe_aux_weight`` (the reference's ``loss_fn``), of a
+    ``Transformer`` or an ``EncDecTransformer`` (whose aux is 0): ``batch``
+    holds ``tokens`` and ``labels`` (B, S), optionally ``embeddings`` (a
+    VLM's prefix or an encoder-decoder's frames) and ``loss_mask`` (B, S)."""
+    logits, aux = model.apply(batch["tokens"], batch.get("embeddings"),
+                              with_aux=True)
+    loss = layers.softmax_cross_entropy(logits, batch["labels"],
+                                        batch.get("loss_mask"))
+    return loss + model.cfg.moe_aux_weight * aux

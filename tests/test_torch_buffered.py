@@ -32,6 +32,7 @@ from test_torch_scenarios import _lane_draws, _round_draws
 from test_torch_scenarios import _start as _scenario_start
 from test_torch_engine import JSMALL, SMALL
 from test_torch_telemetry import _assert_trace
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPEC_KW = dict(policy="gcea", scheduler="fastest", engine_mode="buffered",
                n_tiers=2, retier_every=3, timeout_s=5.0, telemetry=True)

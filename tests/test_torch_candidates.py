@@ -32,6 +32,7 @@ from repro_torch.core import association, candidates, cost, engine, fuzzy, noma
 from repro_torch.kernels import hfl_ops
 from test_torch_engine import _replayed_draws, _start
 from test_torch_kernels import edge_case_gains
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCORE_TOL = dict(atol=2e-4, rtol=1e-5)
 

@@ -19,6 +19,7 @@ from repro_torch.checkpoint import store
 from repro_torch.core import engine
 from repro_torch.faults import FaultSpec, FaultState, run_scanned_resumable
 from test_torch_engine import SMALL
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 4
 SPEC_SYNC = engine.EngineSpec(policy="gcea", scheduler="fastest")

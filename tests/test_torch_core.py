@@ -29,6 +29,7 @@ from repro_torch.core import (aggregation, association, cost, engine, noma,
                               pdd, staleness)
 from repro_torch.data import federated
 from repro_torch.models import mlp
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SMALL_KW = dict(n_clients=16, n_edges=2, clients_per_edge=3, min_samples=60,
                 max_samples=120, hidden=32, input_dim=64)

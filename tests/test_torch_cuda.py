@@ -1274,3 +1274,134 @@ def test_xlstm_encdec_reduced_card_matches_cpu(cuda, arch, kv):
         before + (cfg.encoder_layers + 2 * cfg.n_layers
                   if cfg.encoder_layers else 0)
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+
+
+# -- training: the wrappers' Functions and the train step on the card ---------------
+
+def _cuda_normal(shape, seed, dev, dtype=torch.float32):
+    return torch.tensor(np.random.default_rng(seed).normal(size=shape)
+                        .astype(np.float32), device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,s,s_kv,h,kv,d,mask", [
+    (2, 300, 300, 8, 2, 64, dict(causal=True)),
+    (1, 333, 333, 4, 1, 256, dict(causal=True, window=100)),
+    (1, 200, 200, 4, 4, 64, dict(causal=False, window=50)),
+    (2, 300, 300, 8, 1, 128, dict(causal=True, prefix_len=77)),
+    (1, 333, 333, 10, 2, 128, dict(causal=True, chunk=100)),
+    (2, 448, 1500, 4, 4, 64, dict(causal=False))])
+def test_flash_function_gradient_matches_plain_autograd(cuda, b, s, s_kv, h,
+                                                        kv, d, mask, dtype):
+    """flash's Function on the card: one kernel launch forward, its output
+    against ``attention_plain`` at the forward's tolerance (fp32 2e-5;
+    bf16 one bf16 ulp from the plain version in fp32), and dq, dk, dv from the recompute through
+    ``attention_plain`` bit-equal to autograd of the plain version (the
+    same computation)."""
+    q = _cuda_normal((b, s, h, d), 1, cuda, dtype)
+    k = _cuda_normal((b, s_kv, kv, d), 2, cuda, dtype)
+    v = _cuda_normal((b, s_kv, kv, d), 3, cuda, dtype)
+    g = _cuda_normal((b, s, h, d), 4, cuda, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = seq_ops.LAUNCHES["flash_attention"]
+    out = seq_ops.flash_attention(*leaves, **mask)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention"] == before + 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_out = seq_ops.attention_plain(*plain, **mask)
+    want = torch.autograd.grad(want_out, plain, g)
+    if dtype == torch.bfloat16:     # as the forward tests hold the kernel
+        want_out = seq_ops.attention_plain(q.float(), k.float(), v.float(),
+                                           **mask).to(dtype)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               **FLASH_TOL[dtype])
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("b,s,c,dtype", [
+    (1, 77, 130, torch.float32), (2, 33, 13, torch.bfloat16),
+    (1, 300, 20, torch.float32), (3, 45, 7, torch.float32),
+    (2, 1, 96, torch.float32)])
+def test_linrec_adjoint_kernel_matches_plain_autograd(cuda, b, s, c, dtype):
+    """The recurrence's Function on the card launches the kernel twice (the
+    forward, then the adjoint over reversed time) and matches autograd
+    through the plain step loop: C odd and not a multiple of the block's
+    32 channels, S not a multiple of the 32-step tile, bf16, S = 1."""
+    log_a = (-0.1 * _cuda_normal((b, s, c), 5, cuda).abs()).to(dtype)
+    x = _cuda_normal((b, s, c), 6, cuda, dtype)
+    g = _cuda_normal((b, s, c), 7, cuda)
+    leaves = [log_a.clone().requires_grad_(), x.clone().requires_grad_()]
+    before = seq_ops.LAUNCHES["linear_recurrence"]
+    got = torch.autograd.grad(seq_ops.linear_recurrence(*leaves), leaves, g)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["linear_recurrence"] == before + 2
+    plain = [log_a.clone().requires_grad_(), x.clone().requires_grad_()]
+    want = torch.autograd.grad(seq_ops.linear_recurrence_plain(*plain),
+                               plain, g)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
+        else dict(rtol=2.0 ** -7, atol=1e-6)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "recurrentgemma-9b",
+                                  "xlstm-125m", "grok-1-314b",
+                                  "paligemma-3b", "whisper-large-v3"])
+def test_reduced_train_step_card_matches_cpu(cuda, arch):
+    """One reduced config per mixer kind in fp32, its constant leaves
+    redrawn: the card's loss and every gradient (the flash and recurrence
+    Functions, one flash forward an attention layer, two recurrence
+    launches a ``rec`` layer) against the CPU's at the CPU tests' bounds
+    (loss rtol 1e-5, a leaf 1e-4·max|g| + 1e-6), then one train step's
+    weights at lr 1e-2 within the reference's Adam-sign bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = build_model(cfg, device="cpu", generator=gen)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("scale", "bias", "bq", "bk", "bv",
+                                           "b_in", "b_out", "norm_scale",
+                                           "b_fgate", "b_gates"):
+                p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    card_model = build_model(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 96),
+                                     generator=gen, dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 96),
+                                     generator=gen, dtype=torch.int32)}
+    n = cfg.prefix_tokens or cfg.stub_frames
+    if n:
+        batch["embeddings"] = torch.randn((2, n, cfg.d_model), generator=gen)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+             for i in range(cfg.n_layers)]
+    flash = cfg.encoder_layers + 2 * cfg.n_layers if cfg.encoder_layers \
+        else sum(k in ("attn", "swa", "chunked") for k in kinds)
+    before = dict(seq_ops.LAUNCHES)
+    loss_card, g_card = steps.loss_and_grads(card_model, on_card)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention"] - \
+        before["flash_attention"] == flash
+    assert seq_ops.LAUNCHES["linear_recurrence"] - \
+        before["linear_recurrence"] == 2 * kinds.count("rec")
+    loss_cpu, g_cpu = steps.loss_and_grads(cpu_model, batch)
+    torch.testing.assert_close(loss_card.cpu(), loss_cpu, rtol=1e-5, atol=0.0)
+    for name, gc in g_cpu.items():
+        assert g_card[name] is not None, name
+        bound = 1e-4 * float(gc.abs().max()) + 1e-6
+        assert float((g_card[name].cpu() - gc).abs().max()) <= bound, name
+    for model, data in ((card_model, on_card), (cpu_model, batch)):
+        step_fn, _, opt = steps.make_train_step(cfg, lr=1e-2, model=model)
+        _, count, _ = step_fn(opt.init(dict(model.named_parameters())), 0,
+                              data)
+        assert count == 1
+    for pc, pg in zip(cpu_model.parameters(), card_model.parameters()):
+        d = (pg.detach().cpu() - pc.detach()).abs()
+        assert float(d.max()) <= 2.5e-2 and float(d.mean()) < 2e-3

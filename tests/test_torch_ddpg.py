@@ -42,6 +42,7 @@ from repro_torch.configs.hfl_mnist import CONFIG
 from repro_torch.core import ddpg, engine, env
 from repro_torch.core.hfl import HFLSimulation
 from test_torch_scenarios import _round_draws, _start
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's ``_sim_setup`` (tests/test_ddpg_env.py): 8 × 2
 SIM_KW = dict(n_clients=8, n_edges=2, clients_per_edge=3, min_samples=60,

@@ -26,6 +26,7 @@ from repro_torch.core import engine
 from repro_torch.core.hfl import HFLSimulation
 from repro_torch.faults import FaultSpec
 from repro_torch.kernels import hfl_ops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SMALL_KW = dict(n_clients=16, n_edges=2, clients_per_edge=3, min_samples=60,
                 max_samples=120, hidden=32, input_dim=64)

@@ -39,6 +39,7 @@ from test_torch_engine import JSMALL, SMALL
 from test_torch_scenarios import _round_draws
 from test_torch_scenarios import _start as _scenario_start
 from test_torch_telemetry import _assert_trace
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 4
 N, M = SMALL.n_clients, SMALL.n_edges

@@ -29,6 +29,7 @@ from repro_torch.faults import FaultSpec
 from repro_torch.kernels import _build, hfl_ops
 from repro_torch.models import mlp
 from test_torch_engine import JSMALL, SMALL, _replayed_draws, _start
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = (0, 1, 2)
 ROUNDS = 3

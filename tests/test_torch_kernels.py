@@ -21,6 +21,7 @@ from repro.models.mlp import MLPClassifier
 from repro_torch.core import fuzzy, noma
 from repro_torch.kernels import hfl_ops
 from repro_torch.models.mlp import PARAM_KEYS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCORE_TOL = dict(atol=2e-4, rtol=1e-5)
 SGD_TOL = dict(rtol=2e-5, atol=2e-6)

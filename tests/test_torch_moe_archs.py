@@ -38,6 +38,7 @@ from repro_torch.kernels import seq_ops
 from repro_torch.launch import serve, steps
 from repro_torch.models import moe
 from repro_torch.models.transformer import Transformer
+from _torch_threads import one_torch_thread  # noqa: F401
 
 MOD_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=2e-4, rtol=1e-3)

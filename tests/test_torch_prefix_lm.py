@@ -32,6 +32,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import seq_ops
 from repro_torch.launch import serve, steps
 from repro_torch.models import attention
+from _torch_threads import one_torch_thread  # noqa: F401
 
 MOD_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=2e-4, rtol=1e-3)

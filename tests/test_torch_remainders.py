@@ -23,6 +23,7 @@ from repro.core import fuzzy as jfuzzy
 from repro.core import noma as jnoma
 from repro_torch.core import association, fuzzy, noma
 from repro_torch.kernels import hfl_ops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCORE_TOL = dict(atol=2e-4, rtol=1e-5)
 B = 1e6

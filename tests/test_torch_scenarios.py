@@ -40,6 +40,7 @@ from repro_torch.configs.hfl_mnist import CONFIG
 from repro_torch.core import engine, env
 from repro_torch.core.hfl import HFLSimulation
 from test_torch_engine import JSMALL, SMALL, _replayed_draws
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 4
 N = SMALL.n_clients

@@ -22,6 +22,7 @@ import torch
 from repro.kernels import ops, ref
 from repro.models.rglru import rglru_scan
 from repro_torch.kernels import _build, seq_ops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ATTN_TOL = dict(atol=2e-5, rtol=2e-5)
 LINREC_TOL = dict(atol=1e-5, rtol=1e-4)

@@ -31,6 +31,7 @@ from repro_torch.core import ddpg, engine
 from repro_torch.sweeps import grid as sweep_grid
 from test_torch_engine import JSMALL, SMALL
 from test_torch_scenarios import _round_draws
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

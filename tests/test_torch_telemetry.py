@@ -28,6 +28,7 @@ from repro_torch.telemetry import trace
 from test_torch_engine import JSMALL, SMALL, _start
 from test_torch_scenarios import _lane_draws, _round_draws
 from test_torch_scenarios import _start as _scenario_start
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 3
 INT_LEAVES = sink.INT_FIELDS

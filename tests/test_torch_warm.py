@@ -26,6 +26,7 @@ from repro_torch import convert
 from repro_torch.core import association, candidates, engine
 from test_torch_engine import JSMALL, SMALL
 from test_torch_scenarios import _round_draws
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDS = 6
 WORLD = "random_waypoint"

@@ -25,6 +25,7 @@ from test_torch_scenarios import _round_draws
 from test_torch_scenarios import _start as _scenario_start
 from test_torch_warm import ROUNDS, WORLD, _check_round
 from test_torch_warm import fallback_flags  # noqa: F401  (a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 WARM_CASES = [
