@@ -113,8 +113,11 @@ and prints no result):
    many calls of each wrapper as its kernel's launches in that step, and
    no other launch) and held against their plain versions on its own
    inputs; the same for
-   ``CONFIG`` K = 2 (the frontier's score), 8 micro-steps; card vs CPU
-   over 8 (and 4) micro-steps from one state and the same draws (the
+   ``CONFIG`` K = 2 (the frontier's score), 8 micro-steps, and for
+   ``CONFIG`` at a buffer fill of 3 and a server step of 0.5, 64
+   micro-steps (a micro-step's launches unchanged, the merges beside the
+   default's); card vs CPU over 8 (and 4) micro-steps from one state and
+   the same draws (the
    buffer's integers and every decision exact, the clock and finish times
    rtol 1e-5; a disagreement prints each client's values and their gap
    in ulps); the reference's sync/buffered A/B
@@ -155,11 +158,13 @@ and prints no result):
    fastest, 16 rounds): median and mean sweeps cold and warm and the
    associate stage's ms a round in turns cold, warm, warm, cold;
 6j. the sweep runner (``[sweep]``), with the launch counters zeroed just
-   before its three grids and read just after and every kernel call held
+   before its four grids and read just after and every kernel call held
    against its plain version: the reference's ``--quick`` demo grid at
    its own config (32 x 4: 12 cells in 6 groups), its quick chaos grid
-   (buffered, telemetry, faults) and one ddpg group (fcea K = 2, 2 x 10
-   slots, an actor trained a cell), written to a temporary directory;
+   (buffered, telemetry, faults), one ddpg group (fcea K = 2, 2 x 10
+   slots, an actor trained a cell) and a quick buffered grid with
+   ``buffer_fill``, ``timeout_s``, ``n_tiers`` and ``retier_every`` off
+   their defaults, written to a temporary directory;
    each group's wall time; every cell against its own ``run_scanned`` on
    the card (decisions exact, every float bit-equal); the witness of why
    a fleet computes a seed at a time (seed 0 of a fleet vs its own run on
@@ -260,17 +265,28 @@ and prints no result):
    stablelm-1.6b at full size (2 x 2048), recurrentgemma-9b at full width
    and one (rec, rec, swa) unit (2 x 2048), xlstm-125m at full size (2 x
    128) and whisper-large-v3 at full size (2 x (1500 frames + 448
-   tokens)) -- a ``loss_and_grads`` call (every parameter's gradient
-   present and finite) and 4 train steps on one batch, each with the
-   launch counters zeroed just before and read just after (exactly one
-   flash forward an attention layer, all on the tensor-core kernel, and
-   two recurrence launches a ``rec`` layer, forward and adjoint), the
-   loss falling, ms a step, steps/s, tokens/s and the peak memory (≤ 80
-   GB) beside the card's name and power limit; flash forward and
-   backward ms at each model's attention shapes beside their bounds (4·D
-   and 10·D flops an allowed pair and head); each mixer kind reduced in
-   float32, card vs CPU: the loss, every gradient leaf and one step's
-   weights; the recurrence's adjoint kernel and flash's Function against
+   tokens)), each with its config's ``remat`` on (every unit through
+   ``torch.utils.checkpoint``, recomputed in the backward) -- a
+   ``loss_and_grads`` call (every parameter's gradient present and
+   finite) and 4 train steps (xLSTM 2) on one batch, each with the launch
+   counters zeroed just before and read just after (exactly two flash
+   forwards an attention layer, forward and recompute, all on the
+   tensor-core kernel, and three recurrence launches a ``rec`` layer, forward,
+   recompute and adjoint: stablelm 48, recurrentgemma's unit 2 + 6,
+   xLSTM none, whisper 192), the loss falling, ms a step, steps/s,
+   tokens/s, the ``loss_and_grads`` peak and the whole step's (≤ 80 GB)
+   beside the card's name and power limit; for stablelm and
+   recurrentgemma the same weights with remat off (``loss_and_grads``
+   and its peak, the gradients' max abs gap to remat on, steps in turns
+   off, off, on; ms and both peaks each way), then stablelm at 2 x 4096
+   with remat on (ms, both peaks) and remat off only where an estimate
+   made from the 2048 run leaves 10 GB of the card free; flash forward
+   and backward ms at each model's attention shapes beside their bounds
+   (4·D and 10·D flops an allowed pair and head); each mixer kind
+   reduced in float32 with remat on, card vs CPU: the loss, every
+   gradient leaf and one step's weights, and on the card its forward
+   run twice (bit-equal or not) and its gradients remat on vs off;
+   the recurrence's adjoint kernel and flash's Function against
    autograd of their plain versions (the recurrence's edges and
    recurrentgemma's shape, timed; every mask kind and two lengths, bf16
    and fp32);
@@ -285,11 +301,12 @@ and prints no result):
     ``faults_launches`` the ``CONFIG`` fcea + PDD chaos run's, 5 rounds,
     ``score_candidates`` its K = 2 dead-edge run's, ``warm_launches`` the
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
-    run's, ``sweep_launches`` the ``[sweep]`` phase's three grids, and
+    run's, ``sweep_launches`` the ``[sweep]`` phase's four grids, and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
-    ``train_launches`` the four models' train steps, one each, summed;
+    ``train_launches`` the four models' remat'd train steps, one each,
+    summed;
     the ``flash_attention`` entry's ``dense_shapes``, ``vlm_moe_shapes``
     and ``encdec_shapes`` hold its readings at their shapes,
     ``train_shapes`` its forward and backward at the training shapes, and
@@ -991,7 +1008,8 @@ def _check_bill(tag, g, c, n_test):
     worst = {}
     for key, rtol in (("cost", 1e-5), ("total_time_s", 1e-5),
                       ("total_energy_j", 1e-5), ("loss", 1e-4)):
-        worst[key] = abs(g[key] - c[key]) / abs(c[key])
+        # a buffered micro-step that lands nothing bills 0
+        worst[key] = abs(g[key] - c[key]) / max(abs(c[key]), 1e-30)
         if not math.isclose(g[key], c[key], rel_tol=rtol):
             raise AssertionError(f"{tag} {key}: {g[key]} vs {c[key]} "
                                  f"(rtol {rtol})")
@@ -2816,12 +2834,37 @@ def _buffered_async_ab(cfg, dev):
             f"{float(ms_b.n_available.float().mean()):.1f}")
 
 
+# FedBuff's buffer size and server step off their defaults (CONFIG's
+# automatic fill is 8, its server step 1)
+BUFFER_KNOBS = dict(buffer_fill=3, buffer_lr=0.5)
+
+
+def _buffered_knobs(cfg, dev, default_launches):
+    """``CONFIG`` fcea dense at ``BUFFER_KNOBS``: 64 micro-steps beside the
+    default run's (the same launches, more merges at the smaller fill),
+    then 8 micro-steps card vs CPU from its final state and the same
+    draws (the buffer's integers and every decision exact)."""
+    from repro_torch.core import engine
+    spec = engine.EngineSpec(engine_mode="buffered", **BUFFER_KNOBS)
+    if engine.buffer_fill_for(cfg, spec) != BUFFER_KNOBS["buffer_fill"]:
+        raise AssertionError(f"[buffered] knobs: fill "
+                             f"{engine.buffer_fill_for(cfg, spec)}")
+    label = "CONFIG fcea dense fill 3 lr 0.5"
+    launches, _, final = _drive_buffered(cfg, spec, 64, dev, label)
+    if launches != default_launches:
+        raise AssertionError(f"[buffered] {label}: launches {launches} != "
+                             f"the default run's {default_launches}")
+    _buffered_card_vs_cpu(cfg, spec, *final, label, steps=8)
+
+
 def phase_buffered(cfg, dev, static_steady):
     """The buffered engine: ``CONFIG`` fcea dense, 64 micro-steps beside
     the sync ``[main]`` round; ``CONFIG`` K = 2, 8 micro-steps (the
-    frontier's score); each run's kernel calls held against their plain
-    versions; card vs CPU over 8 micro-steps; the reference's async A/B
-    at 1024 x 16.  Returns the launches of the two ``CONFIG`` runs."""
+    frontier's score); ``CONFIG`` at a buffer fill of 3 and a server step
+    of 0.5 (``_buffered_knobs``); each run's kernel calls held against
+    their plain versions; card vs CPU over 8 micro-steps; the reference's
+    async A/B at 1024 x 16.  Returns the launches of the two default
+    ``CONFIG`` runs."""
     from repro_torch.core import engine
     spec = engine.EngineSpec(engine_mode="buffered")
     launches, steady, (state, bundle, gen) = _drive_buffered(
@@ -2834,6 +2877,7 @@ def phase_buffered(cfg, dev, static_steady):
     launches_k, _, final_k = _drive_buffered(cfg, spec_k, 8, dev,
                                              "CONFIG fcea K=2")
     _buffered_card_vs_cpu(cfg, spec_k, *final_k, "CONFIG fcea K=2", steps=4)
+    _buffered_knobs(cfg, dev, launches)
     _buffered_async_ab(cfg, dev)
     return {**launches,
             "score_candidates": launches_k["score_candidates"]}
@@ -3386,10 +3430,17 @@ def _sweep_cfg(cfg):
                                max_samples=120, hidden=32, input_dim=64)
 
 
+# the buffered engine's grid knobs off their defaults (at 32 x 4 the
+# automatic fill is 8, the tiers 4, the timeout 10 s, a retier every 8)
+SWEEP_KNOBS = dict(buffer_fill=3, timeout_s=2.0, n_tiers=2, retier_every=2)
+
+
 def _sweep_grids():
-    """The reference's ``--quick`` demo grid and quick chaos grid, and one
+    """The reference's ``--quick`` demo grid and quick chaos grid, one
     ddpg group (fcea at K = 2, 2 seeds, 2 episodes x 10 slots, each cell
-    trained on its own world)."""
+    trained on its own world), and a quick buffered grid with
+    ``SWEEP_KNOBS`` (gcea, static and markov_dropout, 2 seeds, 4
+    micro-steps)."""
     from repro_torch.faults import FaultSpec
     from repro_torch.sweeps import SweepGrid
     return [
@@ -3406,7 +3457,10 @@ def _sweep_grids():
         SweepGrid(name="ddpg", scenarios=("full_dynamic",),
                   policies=("fcea",), allocators=("ddpg",), seeds=(0, 1),
                   n_rounds=3, candidates_k=2, ddpg_episodes=2, ddpg_steps=10,
-                  ddpg_warmup=8, ddpg_hidden=64)]
+                  ddpg_warmup=8, ddpg_hidden=64),
+        SweepGrid(name="knobs", scenarios=("static", "markov_dropout"),
+                  policies=("gcea",), seeds=(0, 1), n_rounds=4,
+                  engine_modes=("buffered",), **SWEEP_KNOBS)]
 
 
 def _sweep_cell_vs_own(cfg, grid, rows, dev):
@@ -3646,10 +3700,12 @@ def _sweep_vs_run_fleet(cfg, config8, dev):
 
 def phase_sweep(cfg, dev):
     """The sweep runner on the card, the launch counters zeroed just
-    before the three grids and read just after, every kernel call held
+    before the four grids and read just after, every kernel call held
     against its plain version: the reference's quick demo grid (12 cells
-    in 6 groups), its quick chaos grid (buffered, telemetry, faults) and
-    one ddpg group, written to a temporary directory; each group's wall
+    in 6 groups), its quick chaos grid (buffered, telemetry, faults), one
+    ddpg group and a buffered grid with its four knobs off their defaults
+    (each group's spec holding them), written to a temporary directory;
+    each group's wall
     time; every cell against its own ``run_scanned``; the per-seed forms
     against the batched ones (``_fleet_witness``); a group against a
     plain ``run_fleet``.  Returns the phase's launches."""
@@ -3689,6 +3745,9 @@ def phase_sweep(cfg, dev):
                            f"{g['ddpg_actors']} actors)"
                            if 'ddpg_train_s' in g else "")
                         for g in s["groups"]))
+    for g in summaries[-1]["groups"]:
+        if {k: g["spec"][k] for k in SWEEP_KNOBS} != SWEEP_KNOBS:
+            raise AssertionError(f"[sweep] knobs: a group ran {g['spec']}")
     demo = summaries[0]
     if (demo["n_cells"], demo["n_compiles"], len(files)) != (12, 6, 13):
         raise AssertionError(f"[sweep] demo: {demo['n_cells']} cells, "
@@ -3698,8 +3757,8 @@ def phase_sweep(cfg, dev):
                                      "sic_rates", "local_sgd_step")):
         raise AssertionError(f"[sweep] a kernel of the path never launched: "
                              f"{launches}")
-    log(f"[sweep] launches of the phase (3 grids): {launches}")
-    _hold_recorded("[sweep] three grids", calls, launches)
+    log(f"[sweep] launches of the phase (4 grids): {launches}")
+    _hold_recorded("[sweep] four grids", calls, launches)
     clock = _PieceClock("sweep")
     for grid, s in zip(grids, summaries):
         n, worst = clock(f"{grid.name} cells vs own", _sweep_cell_vs_own,
@@ -4958,20 +5017,22 @@ def phase_xlstm_encdec(dev, card):
 # [train]: the substrate's training path
 # ---------------------------------------------------------------------------
 
-# (arch, layers kept (None: all), batch, text tokens, why): full width, one
-# model at a time; recurrentgemma's depth cut to one (rec, rec, swa) unit
-# (its 256,000-token table alone is 1.05 B parameters, 16.8 GB with
-# gradients and Adam), whisper's 448 tokens after 1500 stub frames;
-# xLSTM's host-bound step loop at 2 x 128 (a 2 x 256 step takes 4.6-7.0 s
-# of host time, which would put the script past its earlier high)
+# (arch, layers kept (None: all), batch, text tokens, train steps, why,
+# remat off beside on, a longer sequence): full width, one model at a
+# time, each with its config's remat on; recurrentgemma's depth cut to one
+# (rec, rec, swa) unit (its 256,000-token table alone is 1.05 B
+# parameters, 16.8 GB with gradients and Adam), whisper's 448 tokens
+# after 1500 stub frames; xLSTM's host-bound step loop at 2 x 128 and 2
+# steps (a remat'd 2 x 128 step takes 5.7-6.4 s of host time, the loop
+# run again in the recompute; more would put the script past 700 s)
 TRAIN_RUNS = [
-    ("stablelm-1.6b", None, 2, 2048, "full size"),
-    ("recurrentgemma-9b", 3, 2, 2048, "full width, one (rec, rec, swa) "
-                                      "unit of 38 layers"),
-    ("xlstm-125m", None, 2, 128, "full size"),
-    ("whisper-large-v3", None, 2, 448, "full size, 1500 frames"),
+    ("stablelm-1.6b", None, 2, 2048, 4, "full size", True, 4096),
+    ("recurrentgemma-9b", 3, 2, 2048, 4, "full width, one (rec, rec, swa) "
+                                         "unit of 38 layers", True, None),
+    ("xlstm-125m", None, 2, 128, 2, "full size", False, None),
+    ("whisper-large-v3", None, 2, 448, 4, "full size, 1500 frames", False,
+     None),
 ]
-TRAIN_STEPS = 4
 # AdamW's learning rate at full width: at the default 3e-4 the first steps
 # from random weights overshoot (stablelm-1.6b: 12.12, 14.53, 16.05, 12.99
 # on one repeated batch), far below it Adam's ~lr·sign(g) moves descend
@@ -5013,7 +5074,10 @@ def _train_want(cfg):
     """The exact launches of one train step: one flash forward an
     attention layer (an encoder-decoder: an encoder layer's one, a decoder
     layer's two), all on the tensor-core kernel in bf16 at its head dims,
-    and two recurrence launches a ``rec`` layer (forward and adjoint)."""
+    and a recurrence forward and its adjoint a ``rec`` layer; with
+    ``cfg.remat`` the backward recomputes each unit's forward, so every
+    forward launch happens twice (an attention layer 2 flash, a ``rec``
+    layer 3 recurrence launches)."""
     from repro_torch.kernels import seq_ops
     from repro_torch.models.transformer import ATTENTION_KINDS
     kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
@@ -5022,8 +5086,10 @@ def _train_want(cfg):
         else sum(k in ATTENTION_KINDS for k in kinds)
     wgmma = flash if seq_ops.flash_route(cfg.compute_dtype, cfg.d_head) \
         == "seq_flash_attention_wgmma" else 0
-    return {"flash_attention": flash, "flash_attention_wgmma": wgmma,
-            "linear_recurrence": 2 * kinds.count("rec")}
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * flash,
+            "flash_attention_wgmma": fwd * wgmma,
+            "linear_recurrence": (fwd + 1) * kinds.count("rec")}
 
 
 def _seq_launches():
@@ -5096,12 +5162,156 @@ def _flash_train_ms(b, s, s_kv, h, kv, d, mask, dev):
             "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1]}
 
 
-def _train_full(arch, layers, batch, seq, why, dev, card):
-    """One model at full width on the card: a ``loss_and_grads`` call and
-    ``TRAIN_STEPS`` train steps on one batch, each with the launch
-    counters zeroed just before and read just after (exactly
-    ``_train_want``); every parameter's gradient present and finite; the
-    loss falling; steps/s, tokens/s and the peak memory (≤ 80 GB)."""
+def _train_lg(model, data, dev, want, label):
+    """``loss_and_grads`` with the launch counters zeroed just before and
+    read just after (exactly ``want``) and the peak memory reset just
+    before and read just after: (loss, grads, peak GB, ms)."""
+    import torch
+    from repro_torch.launch import steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = steps.loss_and_grads(model, data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = _seq_launches()
+    if got != want:
+        raise AssertionError(f"{label}: loss_and_grads launched {got}, "
+                             f"expected {want}")
+    _finite_grads(label, grads)
+    return loss, grads, torch.cuda.max_memory_allocated(dev) / 1e9, ms
+
+
+def _train_step(step_fn, opt_state, step, data, dev, want, label):
+    """One train step with the launch counters zeroed just before and read
+    just after (exactly ``want``) and the peak memory reset just before:
+    (opt_state, step, loss, wall s, peak GB); the loss's ``float`` waits
+    for the whole step, the update included."""
+    import torch
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    opt_state, step, m = step_fn(opt_state, step, data)
+    loss = float(m["loss"])
+    wall = time.perf_counter() - t0
+    got = _seq_launches()
+    if got != want:
+        raise AssertionError(f"{label}: train step {step} launched {got}, "
+                             f"expected {want}")
+    return opt_state, step, loss, wall, \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _max_grad_gap(got, held):
+    """max |got - held| over every gradient."""
+    return max(float((got[k] - held[k]).abs().max()) for k in held)
+
+
+def _score_bytes(cfg, batch, seq):
+    """The float32 (B, H, S, S) tensors the plain flash backward holds at
+    once, counted as four (scores, probabilities and their gradients)."""
+    return 4.0 * batch * cfg.n_heads * seq * seq * 4
+
+
+def _remat_off_grads(cfg, model, data, dev, grads_on, base):
+    """The remat-off ``loss_and_grads`` on the same weights as the remat-on
+    call whose gradients ``grads_on`` it is given: (loss, peak GB, the
+    gradients' max abs gap to remat on, and, where there is a gap, remat
+    off run twice's own gap, telling the backward's spread from the
+    recompute's).  The held gradients stay on the card, so the peak
+    reported is the one read less the bytes allocated past ``base`` (GB,
+    read before the remat-on call) when the call starts: what the call
+    alone reaches.  ``model.cfg`` is swapped and restored."""
+    import torch
+    off = cfg.replace(remat=False)
+    want = _train_want(off)
+    held = torch.cuda.memory_allocated(dev) / 1e9 - base
+    model.cfg = off
+    try:
+        loss, grads, peak, _ = _train_lg(model, data, dev, want,
+                                         f"{cfg.name} remat off")
+        gap = _max_grad_gap(grads, grads_on)
+        repeat = None
+        if gap:
+            _, again, _, _ = _train_lg(model, data, dev, want,
+                                       f"{cfg.name} remat off again")
+            repeat = _max_grad_gap(again, grads)
+    finally:
+        model.cfg = cfg
+    return float(loss), peak - held, gap, repeat
+
+
+def _train_long(cfg, model, step_fn, opt_state, step, gen, batch, seq, seq2,
+                ab, dev, card):
+    """The same model at ``batch`` x ``seq2`` with remat on: its
+    ``loss_and_grads`` peak and two train steps (ms, whole-step peak).
+    The remat-off ``loss_and_grads`` peak there is estimated from the
+    ``seq`` A/B before the run -- the weights and moments, the
+    activations scaled by seq2 / seq, the plain flash backward's (B, H,
+    S, S) float32 tensors (``_score_bytes``) by its square -- and remat
+    off runs only if that estimate, or the remat-off whole-step peak at
+    ``seq`` if larger, leaves 10 GB of the card free."""
+    import torch
+    data = _train_batch(cfg, batch, seq2, 11, gen, dev)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    r = seq2 / seq
+    t_seq = _score_bytes(cfg, batch, seq) / 1e9
+    act = ab["lg_peak_off_gb"] - ab["base_gb"]
+    est = ab["base_gb"] + r * (act - t_seq) + r * r * t_seq
+    off_step = ab["step_peak_off_gb"]
+    need = max(est, off_step)
+    run_off = total - need >= 10.0
+    log(f"[train] {cfg.name} {batch} x {seq2}: estimated remat-off "
+        f"loss_and_grads peak {est:.2f} GB (weights and moments "
+        f"{ab['base_gb']:.2f} + {r:g} x {act - t_seq:.2f} GB of "
+        f"activations + {r * r:g} x {t_seq:.2f} GB of flash-backward "
+        f"scores, from the {batch} x {seq} run), remat-off whole step at "
+        f"{seq} {off_step:.2f} GB, card {total:.2f} GB: "
+        + ("remat off runs" if run_off else
+           "less than 10 GB free, remat off does not run"))
+    out = {"seq": seq2, "est_lg_peak_off_gb": est, "card_gb": total}
+    modes = ("on", "off") if run_off else ("on",)
+    off = cfg.replace(remat=False)
+    for mode in modes:
+        model.cfg = off if mode == "off" else cfg
+        try:
+            want = _train_want(model.cfg)
+            loss, grads, lg_peak, lg_ms = _train_lg(
+                model, data, dev, want, f"{cfg.name} {seq2} remat {mode}")
+            del grads
+            walls, peaks = [], []
+            for _ in range(2):
+                opt_state, step, _, wall, peak = _train_step(
+                    step_fn, opt_state, step, data, dev, want,
+                    f"{cfg.name} {seq2} remat {mode}")
+                walls.append(wall)
+                peaks.append(peak)
+        finally:
+            model.cfg = cfg
+        log(f"[train] {cfg.name} {batch} x {seq2} remat {mode}: launches a "
+            f"step {want}; loss {float(loss):.4f}; loss_and_grads "
+            f"{lg_ms:.1f} ms, peak {lg_peak:.2f} GB; train steps "
+            + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+            + f" ms, whole-step peak {max(peaks):.2f} GB; {card}")
+        out[mode] = {"lg_peak_gb": lg_peak, "lg_ms": lg_ms,
+                     "step_ms": [w * 1e3 for w in walls],
+                     "step_peak_gb": max(peaks)}
+    return out
+
+
+def _train_full(arch, layers, batch, seq, n_steps, why, dev, card,
+                ab=False, seq2=None):
+    """One model at full width on the card, with its config's remat on: a
+    ``loss_and_grads`` call and ``n_steps`` train steps on one batch,
+    each with the launch counters zeroed just before and read just after
+    (exactly ``_train_want``); every parameter's gradient present and
+    finite; the loss falling; steps/s, tokens/s and the peak memory (≤ 80
+    GB).  With ``ab`` also remat off on the same weights
+    (``_remat_off_grads``, before the steps) and train steps in turns
+    off, off, on after them: ms a step, the ``loss_and_grads`` peak and
+    the whole step's each way, and the gradients' gap; with ``seq2`` then
+    the longer sequence (``_train_long``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
@@ -5109,6 +5319,8 @@ def _train_full(arch, layers, batch, seq, why, dev, card):
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: the full config has remat off")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -5124,29 +5336,22 @@ def _train_full(arch, layers, batch, seq, why, dev, card):
     log(f"[train] {cfg.name} ({why}): {cfg.n_layers} layers, {n_params} "
         f"params ({n_params * 16 / 1e9:.2f} GB of fp32 weights, gradients "
         f"and Adam moments) built in {time.perf_counter() - t0:.2f} s; "
-        f"batch {batch} x {seq}")
+        f"batch {batch} x {seq}; remat on")
     want = _train_want(cfg)
-
-    _reset_launches()
-    loss0, grads = steps.loss_and_grads(model, data)
-    torch.cuda.synchronize()
-    got = _seq_launches()
-    if got != want:
-        raise AssertionError(f"{cfg.name}: loss_and_grads launched {got}, "
-                             f"expected {want}")
-    _finite_grads(cfg.name, grads)
+    base = torch.cuda.memory_allocated(dev) / 1e9
+    loss0, grads, lg_peak, lg_ms = _train_lg(model, data, dev, want,
+                                             cfg.name)
+    if ab:
+        loss_off, lg_off, gap, repeat = _remat_off_grads(cfg, model, data,
+                                                         dev, grads, base)
     del grads
-    losses, walls, step = [], [], 0
-    for i in range(TRAIN_STEPS):
-        _reset_launches()
-        t0 = time.perf_counter()
-        opt_state, step, m = step_fn(opt_state, step, data)
-        losses.append(float(m["loss"]))      # synchronises
-        walls.append(time.perf_counter() - t0)
-        got = _seq_launches()
-        if got != want:
-            raise AssertionError(f"{cfg.name}: train step {i} launched "
-                                 f"{got}, expected {want}")
+    losses, walls, peaks, step = [], [], [], 0
+    for i in range(n_steps):
+        opt_state, step, loss, wall, peak = _train_step(
+            step_fn, opt_state, step, data, dev, want, cfg.name)
+        losses.append(loss)
+        walls.append(wall)
+        peaks.append(peak)
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name}: losses {losses} (finite, falling "
@@ -5154,38 +5359,125 @@ def _train_full(arch, layers, batch, seq, why, dev, card):
     if abs(losses[0] - float(loss0)) > 1e-3 * abs(losses[0]):
         raise AssertionError(f"{cfg.name}: the first step's loss "
                              f"{losses[0]} is not loss_and_grads' {loss0}")
-    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak = max([lg_peak] + peaks)
     if peak > 80.0:
         raise AssertionError(f"{cfg.name}: peak {peak:.2f} GB > 80 GB")
     steady = walls[1:]
     step_s = sum(steady) / len(steady)
     log(f"[train] {cfg.name}: launches a step {want}; losses "
         f"{', '.join(f'{x:.4f}' for x in losses)}; {step_s * 1e3:.1f} ms a "
-        f"step (steps 2..{TRAIN_STEPS}: "
+        f"step (steps 2..{n_steps}: "
         f"{', '.join(f'{w * 1e3:.1f}' for w in steady)}; first "
         f"{walls[0] * 1e3:.1f}), {1.0 / step_s:.3f} steps/s, "
         f"{batch * seq / step_s:.1f} tokens/s"
         f"{' (text; the frames besides)' if cfg.encoder_layers else ''}; "
-        f"peak {peak:.2f} GB; {card}")
+        f"loss_and_grads peak {lg_peak:.2f} GB, whole-step peak "
+        f"{max(peaks):.2f} GB; {card}")
+    run = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "remat": True, "step_ms": step_s * 1e3,
+           "tokens_per_s": batch * seq / step_s, "peak_gb": peak,
+           "lg_peak_gb": lg_peak, "step_peak_gb": max(peaks),
+           "losses": losses}
+    if ab:
+        off = cfg.replace(remat=False)
+        turns = []
+        for mode in ("off", "off", "on"):
+            model.cfg = off if mode == "off" else cfg
+            try:
+                opt_state, step, _, wall, peak_ = _train_step(
+                    step_fn, opt_state, step, data, dev,
+                    _train_want(model.cfg), f"{cfg.name} remat {mode}")
+            finally:
+                model.cfg = cfg
+            turns.append((mode, wall * 1e3, peak_))
+        on_ms = [w * 1e3 for w in steady] + [w for m, w, _ in turns
+                                             if m == "on"]
+        off_ms = [w for m, w, _ in turns if m == "off"]
+        on_step_peak = max(peaks + [p for m, _, p in turns if m == "on"])
+        off_step_peak = max(p for m, _, p in turns if m == "off")
+        if gap == 0.0:
+            verdict = "bit-equal"
+        elif repeat:
+            verdict = (f"remat off run twice differs by {repeat:.3e} "
+                       f"itself: the backward is not deterministic on the "
+                       f"card")
+        else:
+            raise AssertionError(
+                f"{cfg.name}: remat on vs off gradients differ by {gap:.3e} "
+                f"while remat off run twice is bit-equal")
+        log(f"[train] {cfg.name} remat on vs off, {batch} x {seq}, turns "
+            f"on x{n_steps}, off, off, on: ms a step on "
+            f"{statistics.mean(on_ms):.1f} ("
+            + ", ".join(f"{w:.1f}" for w in on_ms) + f"), off "
+            f"{statistics.mean(off_ms):.1f} ("
+            + ", ".join(f"{w:.1f}" for w in off_ms) + f"); launches a step "
+            f"on {want}, off {_train_want(off)}; loss_and_grads peak on "
+            f"{lg_peak:.2f} GB, off {lg_off:.2f} GB ({lg_off - lg_peak:.2f}"
+            f" GB saved; weights and moments {base:.2f} GB); whole-step "
+            f"peak on {on_step_peak:.2f} GB, off {off_step_peak:.2f} GB; "
+            f"loss on vs off "
+            f"{'bit-equal' if loss_off == float(loss0) else 'differs'} "
+            f"({float(loss0)!r}, {loss_off!r}); gradients max abs diff on "
+            f"vs off {gap:.3e} ({verdict}); {card}")
+        run["remat_ab"] = {
+            "on_ms": on_ms, "off_ms": off_ms, "lg_peak_on_gb": lg_peak,
+            "lg_peak_off_gb": lg_off, "base_gb": base,
+            "step_peak_on_gb": on_step_peak, "step_peak_off_gb":
+            off_step_peak, "grad_gap": gap, "grad_gap_off_repeat": repeat}
+        if seq2:
+            run["long"] = _train_long(cfg, model, step_fn, opt_state, step,
+                                      gen, batch, seq, seq2,
+                                      run["remat_ab"], dev, card)
     del model, opt_state, step_fn, opt, data
     torch.cuda.empty_cache()
-    return cfg, want, {"arch": arch, "layers": cfg.n_layers, "batch": batch,
-                       "seq": seq, "step_ms": step_s * 1e3,
-                       "tokens_per_s": batch * seq / step_s,
-                       "peak_gb": peak, "losses": losses}
+    return cfg, want, run
+
+
+def _reduced_remat_gap(cfg, card_model, on_card, g_card):
+    """On the card, the reduced model's forward run twice (no gradient:
+    the same kernels as the recompute's) bit-equal or not, and its
+    gradients with remat off against ``g_card`` (remat on): 0 wherever
+    the forward and the backward are deterministic.  A gap while the
+    forward is bit-equal and remat off run twice is too fails.  Returns
+    (forward bit-equal, the gap, remat off run twice's gap or None)."""
+    import torch
+    from repro_torch.launch import steps
+    with torch.no_grad():
+        a = card_model.apply(on_card["tokens"], on_card.get("embeddings"))
+        b = card_model.apply(on_card["tokens"], on_card.get("embeddings"))
+    same_fwd = torch.equal(a, b)
+    del a, b
+    card_model.cfg = cfg.replace(remat=False)
+    try:
+        _, g_off = steps.loss_and_grads(card_model, on_card)
+        gap = max(float((g_off[k] - g_card[k]).abs().max()) for k in g_off)
+        repeat = None
+        if gap:
+            _, again = steps.loss_and_grads(card_model, on_card)
+            repeat = max(float((again[k] - g_off[k]).abs().max())
+                         for k in g_off)
+            if same_fwd and not repeat:
+                raise AssertionError(
+                    f"{cfg.name}: remat on vs off gradients differ by "
+                    f"{gap:.3e} on the card with a deterministic forward "
+                    f"and backward")
+    finally:
+        card_model.cfg = cfg
+    return same_fwd, gap, repeat
 
 
 def _train_reduced(kind, arch, dev):
-    """A reduced config in float32 from the same (perturbed) weights on the
-    card (kernels and their Functions) and the CPU (plain versions): the
-    loss and every gradient leaf, then one train step's weights (lr 1e-2),
-    at the CPU tests' bounds; the card's launches exactly
-    ``_train_want``."""
+    """A reduced config in float32 with remat on, from the same
+    (perturbed) weights on the card (kernels and their Functions) and the
+    CPU (plain versions): the loss and every gradient leaf, then one train
+    step's weights (lr 1e-2), at the CPU tests' bounds; the card's
+    launches exactly ``_train_want``; the card's remat on vs off
+    (``_reduced_remat_gap``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import build_model
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced().replace(remat=True)
     gen = torch.Generator(device="cpu").manual_seed(8)
     cpu_model = build_model(cfg, device="cpu", generator=gen)
     _perturb_constants(cpu_model, gen)
@@ -5213,6 +5505,8 @@ def _train_reduced(kind, arch, dev):
             raise AssertionError(f"{cfg.name}: gradient {name} card vs cpu "
                                  f"max abs {err:.3e} > {bound:.3e}")
         worst = max(worst, err / bound)
+    same_fwd, gap, repeat = _reduced_remat_gap(cfg, card_model, on_card,
+                                               g_card)
     steps_ = []
     for model, data in ((card_model, on_card), (cpu_model, batch)):
         step_fn, _, opt = steps.make_train_step(cfg, lr=1e-2, model=model)
@@ -5231,11 +5525,16 @@ def _train_reduced(kind, arch, dev):
         step_err = max(step_err, float(d.max()))
     if [count for count, _ in steps_] != [1, 1]:
         raise AssertionError(f"{cfg.name}: step counts {steps_}")
-    log(f"[train] reduced {kind} ({cfg.name}) fp32 card vs cpu: loss "
-        f"{float(loss_card):.6f} vs {float(loss_cpu):.6f}; every gradient "
-        f"leaf within its bound (worst {100 * worst:.1f}% of 1e-4·max|g| + "
-        f"1e-6); one step at lr 1e-2: weights max abs {step_err:.3e} (limit "
-        f"{TRAIN_STEP_ATOL}); launches {got}: ok")
+    log(f"[train] reduced {kind} ({cfg.name}) fp32 remat on, card vs cpu: "
+        f"loss {float(loss_card):.6f} vs {float(loss_cpu):.6f}; every "
+        f"gradient leaf within its bound (worst {100 * worst:.1f}% of "
+        f"1e-4·max|g| + 1e-6); one step at lr 1e-2: weights max abs "
+        f"{step_err:.3e} (limit {TRAIN_STEP_ATOL}); launches {got}; on the "
+        f"card the forward run twice "
+        f"{'bit-equal' if same_fwd else 'NOT bit-equal'}, gradients remat "
+        f"on vs off max abs {gap:.3e}"
+        + ("" if repeat is None else
+           f" (remat off run twice: {repeat:.3e})") + ": ok")
     return worst
 
 
@@ -5335,8 +5634,10 @@ def _flash_grad_check(b, s, s_kv, h, kv, d, mask, dtype_name, seed, dev):
 
 def phase_train(dev, card):
     """The substrate's training path on the card: the four models of
-    ``TRAIN_RUNS`` at full width, one at a time (``_train_full``); each
-    reduced mixer kind card vs CPU (``_train_reduced``); the recurrence's
+    ``TRAIN_RUNS`` at full width with remat on, one at a time
+    (``_train_full``; stablelm-1.6b and recurrentgemma's unit also remat
+    off beside it, stablelm also at 2 x 4096); each reduced mixer kind
+    with remat on, card vs CPU (``_train_reduced``); the recurrence's
     adjoint and flash's Function against autograd of their plain versions,
     at the kernels' edges and every mask kind; flash forward and backward
     at each model's attention shapes and the recurrence's adjoint at
@@ -5345,8 +5646,9 @@ def phase_train(dev, card):
     import torch
     runs, launches = [], {}
     flash_shapes = []
-    for arch, layers, batch, seq, why in TRAIN_RUNS:
-        cfg, want, run = _train_full(arch, layers, batch, seq, why, dev, card)
+    for arch, layers, batch, seq, n_steps, why, ab, seq2 in TRAIN_RUNS:
+        cfg, want, run = _train_full(arch, layers, batch, seq, n_steps, why,
+                                     dev, card, ab, seq2)
         runs.append(run)
         for k, n in want.items():
             launches[k] = launches.get(k, 0) + n
@@ -5382,8 +5684,8 @@ def phase_train(dev, card):
             _flash_grad_check(b, s, s_kv, h, kv, d, mask, dt, 170 + 4 * i,
                               dev)
     torch.cuda.empty_cache()
-    log(f"[train] {len(runs)} models trained, launches a step summed "
-        f"{launches}; reduced card vs cpu worst leaf "
+    log(f"[train] {len(runs)} models trained with remat on, launches a "
+        f"step summed {launches}; reduced card vs cpu worst leaf "
         f"{ {k: round(float(v), 4) for k, v in worst.items()} } of its "
         f"bound; {card}")
     return launches, {"runs": runs, "flash": flash_shapes,
@@ -5480,7 +5782,7 @@ def main(argv=None) -> int:
     # rounds (and the frontier's score from its K = 2 run, 5 rounds)
     warm_launches = {**warm_launches, "local_sgd_step":
                      warm_launches["local_sgd_step_cluster"]}
-    # the sweep runner's three grids at 32 x 4: local_sgd_step counts the
+    # the sweep runner's four grids at 32 x 4: local_sgd_step counts the
     # wrapper's launches, whichever route the lane count takes
 
     def phase_launches(name):

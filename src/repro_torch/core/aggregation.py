@@ -114,17 +114,19 @@ def buffer_accumulate(delta_sum: Params, weight_sum: torch.Tensor,
 
 
 def buffer_apply(global_params: Params, delta_sum: Params,
-                 weight_sum: torch.Tensor, apply_mask: torch.Tensor
-                 ) -> Params:
-    """The merge: global + Σw·Δ / Σw (the reference's at its default
-    server step 1) for each seed whose ``apply_mask`` (S,) is set and
-    whose buffer is not empty, else its global model unchanged.  The
-    division makes the effective weights w_n / Σw sum to 1."""
+                 weight_sum: torch.Tensor, apply_mask: torch.Tensor,
+                 lr: float = 1.0) -> Params:
+    """The merge: global + lr · Σw·Δ / Σw, rounded as the reference's
+    ``g + lr * d / denom`` (the product first, ``lr`` in the leaf's
+    dtype), for each seed whose ``apply_mask`` (S,) is set and whose
+    buffer is not empty, else its global model unchanged.  The division
+    makes the effective weights w_n / Σw sum to 1; at ``lr`` 1 the
+    product is exact, so the merge is bit-equal to global + Σw·Δ / Σw."""
     ok = apply_mask & (weight_sum > 0)
     denom = torch.clamp_min(weight_sum, 1e-12)
     out = {}
     for k, g in global_params.items():
         d = delta_sum[k]
         out[k] = torch.where(_col(ok, g).bool(),
-                             g + d / _col(denom, d), g)
+                             g + (d * lr) / _col(denom, d), g)
     return out

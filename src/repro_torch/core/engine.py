@@ -115,11 +115,12 @@ class EngineSpec:
 
     ``engine_mode`` "sync" is the paper's semi-synchronous round,
     "buffered" the semi-async micro-step, whose own switches follow it:
-    ``timeout_s`` (virtual seconds between forced merges), ``n_tiers``
-    (TiFL speed tiers) and ``retier_every`` (micro-steps between quantile
-    retiers).  The merge's fill target and server step are the
-    reference's defaults (its ``buffer_fill=0``, quota·M // 2 updates,
-    and ``buffer_lr=1``), not options here.
+    ``buffer_fill`` (the updates that fire a merge; 0, the default, is
+    half the admission capacity, quota·M // 2), ``timeout_s`` (virtual
+    seconds between forced merges), ``n_tiers`` (TiFL speed tiers),
+    ``retier_every`` (micro-steps between quantile retiers) and
+    ``buffer_lr`` (the server step on the merged mean delta).  The sync
+    round reads none of them.
     ``telemetry`` adds the ``RoundTrace`` to each step's output.
     ``faults`` (a ``FaultSpec``, or None for none) turns on the fault
     layer.  ``warm_start`` carries the previous round's matching in
@@ -136,9 +137,11 @@ class EngineSpec:
     candidates_k: Optional[int] = None
     telemetry: bool = False
     engine_mode: str = "sync"       # sync | buffered
+    buffer_fill: int = 0            # 0 = auto: (quota · M) // 2
     timeout_s: float = 10.0
     n_tiers: int = 4
     retier_every: int = 8
+    buffer_lr: float = 1.0
     faults: Optional[FaultSpec] = None
     warm_start: bool = False
 
@@ -279,9 +282,11 @@ def quota_for(cfg, spec: EngineSpec) -> int:
 
 
 def buffer_fill_for(cfg, spec: EngineSpec) -> int:
-    """The fill half of the fill-or-timeout trigger: half the
-    per-micro-step admission capacity (quota · M), the reference's
-    ``buffer_fill=0`` default."""
+    """The fill half of the fill-or-timeout trigger: ``spec.buffer_fill``
+    when it is above 0, else half the per-micro-step admission capacity
+    (quota · M)."""
+    if spec.buffer_fill > 0:
+        return int(spec.buffer_fill)
     return max(1, (quota_for(cfg, spec) * cfg.n_edges) // 2)
 
 
@@ -1035,8 +1040,9 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     3. advance the virtual clock to the next finish or the timeout
        deadline, and land every finished update in the buffer with the
        weight w(age) · D_n;
-    4. merge when the buffer holds ``buffer_fill_for`` updates or
-       ``timeout_s`` passed since the last trigger;
+    4. merge (a ``buffer_lr`` step on the weighted mean delta) when the
+       buffer holds ``buffer_fill_for`` updates or ``timeout_s`` passed
+       since the last trigger;
     5. every ``retier_every`` micro-steps, re-tier by the quantiles of
        the per-client duration EMA;
     6. Eq. 20 on the landed clients, and the ``cohort_cost`` bill.
@@ -1209,7 +1215,8 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
                 if fsp is not None else fired)
     applied = do_merge & (weight_sum > 0.0)
     global_params = aggregation.buffer_apply(
-        states.global_params, delta_sum, weight_sum, do_merge)
+        states.global_params, delta_sum, weight_sum, do_merge,
+        spec.buffer_lr)
     delta_sum = {k: torch.where(col(do_merge, d), 0.0, d)
                  for k, d in delta_sum.items()}
     weight_sum = torch.where(do_merge, 0.0, weight_sum)

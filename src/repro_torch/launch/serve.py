@@ -14,10 +14,11 @@ for ``stub_frames`` frames, seeded stub frames through
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
 
-``--arch`` takes any architecture of ``configs.list_archs()``:
-recurrentgemma-9b, yi-34b, qwen3-8b, qwen3-8b-sw4k, qwen1.5-110b,
-stablelm-1.6b, paligemma-3b, grok-1-314b, llama4-maverick-400b-a17b,
-xlstm-125m, whisper-large-v3.
+``--arch`` takes any architecture of ``configs.list_models()`` (the
+registry but ``hfl-mnist``, the HFL simulation's config):
+recurrentgemma-9b, grok-1-314b, paligemma-3b, xlstm-125m, stablelm-1.6b,
+qwen1.5-110b, qwen3-8b, qwen3-8b-sw4k, llama4-maverick-400b-a17b,
+yi-34b, whisper-large-v3.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_models
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import Model, make_serve_step
 
@@ -53,7 +54,7 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_models())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--tokens", type=int, default=16)

@@ -1,4 +1,5 @@
-"""Small-scale runnable trainer for any architecture of the registry.
+"""Small-scale runnable trainer for any architecture of the registry
+(``configs.list_models()``).
 
 The port of the reference's ``launch/train.py``: the ``reduced()`` variant
 of ``--arch`` (the full config with ``--full-config``) trained on
@@ -8,7 +9,9 @@ embeddings drawn from a ``torch.Generator`` seeded ``--seed`` on the
 chosen device.  Every ``--ckpt-every`` steps the weights go to
 ``--ckpt-dir`` through ``checkpoint.store.save_checkpoint``, in the
 reference's pytree layout (``convert.params_to_tree``), which the
-reference's ``load_checkpoint`` reads.
+reference's ``load_checkpoint`` reads.  A full config trains with its
+``remat`` (on: each unit recomputed in the backward); a reduced one
+without.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --device cpu
@@ -23,7 +26,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.checkpoint import store
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_models
 from repro_torch.data.tokens import token_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
@@ -31,7 +34,7 @@ from repro_torch.launch.steps import make_train_step
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_models())
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

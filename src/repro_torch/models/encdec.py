@@ -14,9 +14,13 @@ attention against its caches: per decoder layer the self-attention K/V
 encoder output by ``prefill_cross``.  The cache keeps the reference's
 layout, ``{"decoder": {"k", "v", "cross_k", "cross_v"}}`` with each leaf
 stacked over the decoder layers, and is updated in place.  The layers are
-``nn.Module``s in order; the reference's stacked-scan options
-(``scan_layers``, ``remat``) and its context parallelism
-(``attn_seq_shard``) mean nothing on one card and are not read.
+``nn.Module``s in order.  With ``cfg.remat`` and a gradient recorded,
+each encoder layer and each decoder layer runs through a non-reentrant
+``torch.utils.checkpoint``, as the reference's scan bodies run under
+``jax.checkpoint`` (``transformer.run_unit``).  The reference's
+``scan_layers`` (a compile-time device of XLA) and its context
+parallelism (``attn_seq_shard``) mean nothing in eager PyTorch on one
+card and are not read.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers
-from repro_torch.models.transformer import MLP
+from repro_torch.models.transformer import MLP, remat_active, run_unit
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -101,6 +105,15 @@ class DecoderLayer(nn.Module):
         self.norm3 = _norm(cfg, device, generator)
         self.mlp = MLP(cfg, device, generator)
 
+    def forward(self, x: torch.Tensor, enc: torch.Tensor,
+                positions: torch.Tensor, cfg) -> torch.Tensor:
+        x = x + attention.attention_apply(
+            self.self_attn, self.norm1(x), cfg, mask_kind="global",
+            positions=positions, use_rope=False)
+        x = x + attention.cross_attention_apply(self.cross_attn,
+                                                self.norm2(x), enc, cfg)
+        return x + self.mlp(self.norm3(x))
+
 
 class EncDecTransformer(nn.Module):
     """Encoder-decoder model with its weights on ``device``.
@@ -146,8 +159,9 @@ class EncDecTransformer(nn.Module):
         cfg = self.cfg
         x = frames.to(cfg.compute_dtype)
         x = self._positions(x, torch.arange(x.shape[1], device=x.device))
+        remat = remat_active(self)
         for lyr in self.encoder:
-            x = lyr(x, cfg)
+            x = run_unit(lyr, remat, x, cfg)
         return self.enc_norm(x)
 
     # -- decoder (teacher forcing) ---------------------------------------------
@@ -165,13 +179,9 @@ class EncDecTransformer(nn.Module):
         x = layers.embed_apply(self.embedding, tokens, cfg.compute_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         x = self._positions(x, positions)
+        remat = remat_active(self)
         for lyr in self.decoder:
-            x = x + attention.attention_apply(
-                lyr.self_attn, lyr.norm1(x), cfg, mask_kind="global",
-                positions=positions, use_rope=False)
-            x = x + attention.cross_attention_apply(
-                lyr.cross_attn, lyr.norm2(x), enc, cfg)
-            x = x + lyr.mlp(lyr.norm3(x))
+            x = run_unit(lyr, remat, x, enc, positions, cfg)
         return self.final_norm(x)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,12 +15,22 @@ decoder-only architecture of the reference runs.  The layers are
 layout (``stage_<i>`` → unit position → leaves stacked over the stage's
 repetitions), the xLSTM blocks' tuples as named leaves
 (``models/xlstm.py``).
+
+With ``cfg.remat`` (every full-size config; ``reduced()`` turns it off)
+and autograd recording a weight's gradient, each unit -- one repetition
+of a stage's pattern, the reference's scan body -- runs through a
+non-reentrant ``torch.utils.checkpoint``, as the reference wraps it in
+``jax.checkpoint(..., policy=nothing_saveable)``: only the unit
+boundaries are kept, and the backward recomputes each unit's forward, so
+a unit's kernel forwards launch twice a train step.  Serving (no
+gradient) runs as without.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -50,6 +60,23 @@ def compute_stages(n_layers: int, pattern: Tuple
     if rem:
         stages.append((pattern[:rem], 1))
     return stages
+
+
+def remat_active(model: nn.Module) -> bool:
+    """Whether ``model``'s forward checkpoints its units: ``cfg.remat`` set,
+    autograd recording, and some weight requiring a gradient."""
+    return (model.cfg.remat and torch.is_grad_enabled()
+            and any(p.requires_grad for p in model.parameters()))
+
+
+def run_unit(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` through a non-reentrant
+    ``torch.utils.checkpoint``, which keeps none of the unit's activations
+    and recomputes its forward in the backward."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def init_cache(cfg, batch: int, cache_len: int, device) -> Cache:
@@ -197,15 +224,18 @@ class Transformer(nn.Module):
                                        generator, cfg.param_dtype))
         self.final_norm = layers.Norm(cfg.norm, cfg.d_model,
                                       cfg.param_dtype, dev, generator)
-        blocks, where = [], []
+        blocks, where, spans = [], [], []
         for si, (unit, reps) in enumerate(self.stages):
             for r in range(reps):
+                spans.append((len(blocks), len(blocks) + len(unit)))
                 for i, (kind, ffn_kind) in enumerate(unit):
                     blocks.append(Block(cfg, kind, ffn_kind, dev, generator))
                     where.append((f"stage_{si}", r, str(i)))
         self.blocks = nn.ModuleList(blocks)
         # (stage key, repetition, unit position) of each block, in order
         self.block_index = where
+        # [start, end) of each unit's blocks, in order: what remat wraps
+        self.unit_spans = spans
         # sqrt(d) rounded to the compute dtype, as the reference's
         # jnp.asarray(d ** 0.5, x.dtype): a product with it is bit-equal to
         # one with that 0-d tensor, without a host-to-device copy a call
@@ -235,7 +265,19 @@ class Transformer(nn.Module):
             x = torch.cat([extra_embeddings.to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk in self.blocks:
+        remat = remat_active(self)
+        for start, end in self.unit_spans:
+            x, aux = run_unit(self._unit_apply, remat, start, end, x, aux,
+                              positions, prefix_len)
+        return self.final_norm(x)[:, prefix_len:], aux
+
+    def _unit_apply(self, start: int, end: int, x: torch.Tensor,
+                    aux: torch.Tensor, positions: torch.Tensor,
+                    prefix_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Blocks [start, end) over x, the MoE aux carried in and out as
+        the reference's scan carry (x, aux)."""
+        cfg = self.cfg
+        for blk in self.blocks[start:end]:
             h = blk.norm1(x)
             if blk.kind in ATTENTION_KINDS:
                 y = attention.attention_apply(
@@ -247,7 +289,7 @@ class Transformer(nn.Module):
             x, inc = blk.ffn(x + y, cfg)
             if inc is not None:
                 aux = aux + inc
-        return self.final_norm(x)[:, prefix_len:], aux
+        return x, aux
 
     def hidden(self, tokens: torch.Tensor,
                extra_embeddings: Optional[torch.Tensor] = None

@@ -45,15 +45,17 @@ trace leaf is copied to the host once a group, and a group's ``wall_s``
 is read after that copy.  A group that raises is recorded against each
 of its cells, and the sweep goes on.
 
+The buffered knobs ``buffer_fill``, ``timeout_s``, ``n_tiers`` and
+``retier_every`` go into every cell's ``EngineSpec``, as the
+reference's; like the reference's grid it has no ``buffer_lr``, so a
+sweep's server step is ``EngineSpec``'s default.
+
 Not carried over from the reference: ``mesh=`` (``run_fleet_sharded``,
-``--sharded``), since the port runs on one GPU; ``SweepGrid.sic_impl``,
+``--sharded``), since the port runs on one GPU; and ``SweepGrid.sic_impl``,
 since the port bills the dense path with one SIC formulation, the
-pairwise one; and the buffered engine's ``buffer_fill``, ``timeout_s``,
-``n_tiers`` and ``retier_every``, which no grid sets away from the
-defaults: a buffered cell runs ``EngineSpec``'s.  A written spec is the
-port's own ``EngineSpec``, so it lacks the reference's implementation
-switches (``resolver``, ``sic_impl``, ``pallas_score``, ``train_impl``)
-and its buffered constants (``buffer_fill``, ``buffer_lr``).
+pairwise one.  A written spec is the port's own ``EngineSpec``, so it
+lacks the reference's implementation switches (``resolver``,
+``sic_impl``, ``pallas_score``, ``train_impl``).
 
     PYTHONPATH=src python -m repro_torch.sweeps.grid --quick [--device cpu]
 """
@@ -119,8 +121,13 @@ class SweepGrid:
     candidates_k: "int | None" = None
     # every cell also writes its per-round RoundTrace
     telemetry: bool = False
-    # "sync" rounds and/or "buffered" micro-steps (n_rounds of them)
+    # "sync" rounds and/or "buffered" micro-steps (n_rounds of them); the
+    # next four fields set every buffered cell's trigger and tiers
     engine_modes: Sequence[str] = ("sync",)
+    buffer_fill: int = 0           # 0 = auto ((quota · M) // 2)
+    timeout_s: float = 10.0
+    n_tiers: int = 4
+    retier_every: int = 8
     # a FaultSpec makes every cell a chaos cell; None: the layer is off
     faults: "FaultSpec | None" = None
     # each ddpg cell's training budget (when no actor_params is given)
@@ -166,6 +173,10 @@ def _spec_for(cell: SweepCell, grid: SweepGrid) -> engine.EngineSpec:
                              candidates_k=grid.candidates_k,
                              telemetry=grid.telemetry,
                              engine_mode=cell.engine_mode,
+                             buffer_fill=grid.buffer_fill,
+                             timeout_s=grid.timeout_s,
+                             n_tiers=grid.n_tiers,
+                             retier_every=grid.retier_every,
                              faults=grid.faults)
 
 

@@ -172,17 +172,24 @@ BUFFERED_CASES = [
     # the timeout the port's trigger-reconstruction test uses: short
     # enough that the clock itself runs to the deadline
     pytest.param("static", dict(timeout_s=0.5), id="timeout-0.5"),
+    # FedBuff's buffer size and server step off their defaults (SMALL's
+    # automatic fill is 3; CONFIG's, 8, meets a fill of 3 below)
+    pytest.param("static", dict(buffer_fill=2), id="fill-2"),
+    pytest.param("static", dict(buffer_lr=0.5), id="lr-0.5"),
+    pytest.param("static", dict(buffer_fill=2, buffer_lr=0.5),
+                 id="fill-2-lr-0.5"),
 ]
 
 
 @pytest.mark.parametrize("world,kw", BUFFERED_CASES)
 def test_buffered_variants_match_reference(world, kw):
     """8 micro-steps of ``SPEC_BUF`` with another policy, the K = 2
-    frontier, rcea + rra (their uniforms replayed), a dropout world or a
-    0.5 s timeout.  With the short timeout the window must hold a timeout
+    frontier, rcea + rra (their uniforms replayed), a dropout world, a
+    0.5 s timeout, or a buffer fill of 2 and a server step of 0.5 alone
+    and together.  With the short timeout the window must hold a timeout
     merge that the clock reached by itself: the event clock jumps to the
     deadline (dt > 0) and the trigger compares the clock with it at the
-    edge."""
+    edge.  With the fill of 2 it must hold a fill merge."""
     kind = "static" if world == "static" else "dynamic"
     spec_kw = {**SPEC_KW, **kw, "scenario": kind}
     jspec = jengine.EngineSpec(**spec_kw)
@@ -195,6 +202,9 @@ def test_buffered_variants_match_reference(world, kw):
     if "timeout_s" in kw:
         assert any(c == 2 and dt > 0 for c, dt in zip(causes, advances)), \
             f"no timeout reached by the clock: {causes} {advances}"
+    if "buffer_fill" in kw:
+        assert engine.buffer_fill_for(SMALL, spec) == kw["buffer_fill"]
+        assert 1 in causes, f"no fill merge in the window: {causes}"
 
 
 def test_buffered_config_matches_reference():
@@ -206,6 +216,25 @@ def test_buffered_config_matches_reference():
     jstate, jbundle, state, bundle = _scenario_start(JCONFIG, 0, None)
     _run_both(JCONFIG, CONFIG, jspec, spec, jstate, jbundle, state, bundle, 6,
               "CONFIG")
+
+
+@pytest.mark.parametrize("kw", [dict(buffer_fill=3),
+                                dict(buffer_fill=3, buffer_lr=0.5)],
+                         ids=["fill-3", "fill-3-lr-0.5"])
+def test_buffered_config_knobs_match_reference(kw):
+    """6 fcea dense micro-steps at ``CONFIG`` with a buffer fill of 3 (its
+    automatic fill is 8), alone and with a server step of 0.5, against
+    the reference billed with ``sic_impl="pairwise"``: the fill merges
+    fire at 3 updates."""
+    kw = dict(engine_mode="buffered", telemetry=True, **kw)
+    jspec = jengine.EngineSpec(sic_impl="pairwise", **kw)
+    spec = engine.EngineSpec(**kw)
+    assert engine.buffer_fill_for(CONFIG, engine.EngineSpec()) == 8
+    assert engine.buffer_fill_for(CONFIG, spec) == 3
+    jstate, jbundle, state, bundle = _scenario_start(JCONFIG, 0, None)
+    _, _, causes, _ = _run_both(JCONFIG, CONFIG, jspec, spec, jstate,
+                                jbundle, state, bundle, 6, f"CONFIG {kw}")
+    assert 1 in causes, f"no fill merge: {causes}"
 
 
 def test_buffered_fleet_matches_reference_run_fleet():
@@ -491,6 +520,29 @@ def test_buffer_age_saturates_and_floors():
     big = torch.tensor(staleness.STALENESS_MAX + 7, dtype=torch.int32)
     assert int(staleness.buffer_age(big, torch.tensor(0))) \
         == staleness.STALENESS_MAX
+
+
+@pytest.mark.parametrize("lr", [1.0, 0.5, 0.1])
+def test_buffer_apply_server_step_matches_reference(lr):
+    """``buffer_apply`` with a server step against the reference's on the
+    same buffer, bit for bit; at lr 1 it is global + Σw·Δ / Σw exactly."""
+    from repro.core import aggregation as jagg
+    rng = np.random.default_rng(7)
+    g = {"w": rng.normal(size=(4, 3)).astype(np.float32),
+         "b": rng.normal(size=(3,)).astype(np.float32)}
+    ds = {k: (5.0 * rng.normal(size=v.shape)).astype(np.float32)
+          for k, v in g.items()}
+    ws = np.float32(3.7)
+    out = aggregation.buffer_apply(
+        {k: torch.tensor(v)[None] for k, v in g.items()},
+        {k: torch.tensor(v)[None] for k, v in ds.items()},
+        torch.tensor([ws]), torch.tensor([True]), lr)
+    jout = jagg.buffer_apply(g, ds, jnp.asarray(ws), lr, jnp.asarray(True))
+    for k in g:
+        np.testing.assert_array_equal(out[k][0].numpy(), np.asarray(jout[k]))
+        if lr == 1.0:
+            want = torch.tensor(g[k]) + torch.tensor(ds[k]) / torch.tensor(ws)
+            assert torch.equal(out[k][0], want)
 
 
 def test_buffer_algebra_matches_reference():

@@ -1405,3 +1405,42 @@ def test_reduced_train_step_card_matches_cpu(cuda, arch):
     for pc, pg in zip(cpu_model.parameters(), card_model.parameters()):
         d = (pg.detach().cpu() - pc.detach()).abs()
         assert float(d.max()) <= 2.5e-2 and float(d.mean()) < 2e-3
+
+
+def test_remat_train_step_bit_equal_on_the_card(cuda):
+    """A reduced attention model (stablelm-1.6b, fp32, two layers) with
+    ``remat`` on and off from the same weights: one ``loss_and_grads``
+    each, remat launching flash twice a layer (forward and the backward's
+    recompute) and off once, the loss and every gradient bit-equal; then
+    one train step each, the weights bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = get_config("stablelm-1.6b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    on = build_model(cfg.replace(remat=True), device=cuda, generator=gen)
+    off = build_model(cfg, device=cuda)
+    off.load_state_dict(on.state_dict())
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 96),
+                                     generator=gen, device=cuda,
+                                     dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 96),
+                                     generator=gen, device=cuda,
+                                     dtype=torch.int32)}
+    results = []
+    for model, per_layer in ((on, 2), (off, 1)):
+        before = seq_ops.LAUNCHES["flash_attention"]
+        results.append(steps.loss_and_grads(model, batch))
+        torch.cuda.synchronize()
+        assert seq_ops.LAUNCHES["flash_attention"] - before == \
+            per_layer * cfg.n_layers
+    (loss_on, g_on), (loss_off, g_off) = results
+    assert torch.equal(loss_on, loss_off)
+    for name, g in g_on.items():
+        assert torch.equal(g, g_off[name]), name
+    for model in (on, off):
+        step_fn, _, opt = steps.make_train_step(model.cfg, lr=1e-2,
+                                                model=model)
+        step_fn(opt.init(dict(model.named_parameters())), 0, batch)
+    for (name, a), b in zip(on.named_parameters(), off.parameters()):
+        assert torch.equal(a, b), name

@@ -123,11 +123,15 @@ def test_config_matches_reference(arch, form):
 
 @pytest.mark.parametrize("arch", LAST_PORTED)
 def test_every_reference_arch_is_ported(arch):
-    """The port's registry is the reference's less ``hfl-mnist`` (the
-    port keeps it as ``configs.hfl_mnist.CONFIG``), and each architecture
-    builds; an unknown name raises."""
-    assert sorted(list_archs()) == sorted(
-        a for a in jlist_archs() if a != "hfl-mnist")
+    """The port's registry is the reference's, ``hfl-mnist`` (the port's
+    ``configs.hfl_mnist.CONFIG``) included, ``list_models()`` all of it
+    but ``hfl-mnist``, and each architecture builds; an unknown name
+    raises."""
+    from repro_torch.configs import hfl_mnist, list_models
+    assert list_archs() == jlist_archs()
+    assert get_config("hfl-mnist") is hfl_mnist.CONFIG
+    assert list_models() == [a for a in jlist_archs() if a != "hfl-mnist"]
+    assert arch in list_models()
     cfg = get_config(arch).reduced()
     model = build_model(cfg, device="cpu")
     assert type(model).__name__ == ("EncDecTransformer" if cfg.encoder_layers

@@ -51,12 +51,15 @@ GRID_CASES = [
     pytest.param(lambda mod: dict(
         scenarios=("static", "full_dynamic", _blackout(mod)),
         schedulers=("pdd", "fastest"), noma=(True, False), seeds=(3,),
-        candidates_k=2), id="specs-noma-k2")]
+        candidates_k=2), id="specs-noma-k2"),
+    pytest.param(lambda mod: dict(
+        scenarios=("static", "random_waypoint"), policies=("fcea", "gcea"),
+        engine_modes=("sync", "buffered"), buffer_fill=2, timeout_s=2.0,
+        n_tiers=2, retier_every=3), id="buffered-knobs")]
 
-# the reference's implementation switches and buffered constants, which
-# the port's EngineSpec does not have, so its written specs lack them
-REFERENCE_ONLY_SPEC = {"resolver", "sic_impl", "pallas_score", "train_impl",
-                       "buffer_fill", "buffer_lr"}
+# the reference's implementation switches, which the port's EngineSpec
+# does not have, so its written specs lack them
+REFERENCE_ONLY_SPEC = {"resolver", "sic_impl", "pallas_score", "train_impl"}
 
 
 @pytest.mark.parametrize("case", GRID_CASES)
@@ -161,6 +164,55 @@ def test_small_grid_matches_reference_run_sweep(monkeypatch):
         assert np.max(np.abs(np.subtract(g["accuracy"], w["accuracy"]))
                       ) <= 2.0 / n_test, cid
     assert got["final"].keys() == want["final"].keys()
+
+
+# the buffered engine's four grid knobs off their defaults (SMALL's
+# automatic fill is 3, its tiers 4, its timeout 10 s, a retier every 8)
+KNOBS = dict(name="knobs", scenarios=("static",), policies=("fcea", "gcea"),
+             seeds=(0, 1), n_rounds=6, engine_modes=("buffered",),
+             buffer_fill=2, timeout_s=2.0, n_tiers=2, retier_every=3)
+
+
+def test_buffered_knob_grid_matches_reference_run_sweep(monkeypatch):
+    """fcea/gcea × 2 seeds, 6 buffered micro-steps, with ``buffer_fill``,
+    ``timeout_s``, ``n_tiers`` and ``retier_every`` off their defaults:
+    every group's spec and every cell's rows as the reference's
+    ``run_sweep`` gives them (the bill also within 1e-5 of the cell's
+    virtual clock, as ``test_torch_buffered.py`` holds it)."""
+    want = jsweeps.run_sweep(JSMALL, jsweeps.SweepGrid(**KNOBS),
+                             write_json=False)
+    n_test = int(engine.init_simulation(SMALL, seed=0, device="cpu")[1]
+                 .test_y.shape[0])
+    _replay_reference(monkeypatch)
+    got = sweeps.run_sweep(SMALL, sweeps.SweepGrid(**KNOBS),
+                           write_json=False, device="cpu")
+    assert got["n_cells"] == want["n_cells"] == 4
+    assert got["n_compiles"] == want["n_compiles"] == 2
+    assert not got["failed_cells"]
+    for g, w in zip(got["groups"], want["groups"]):
+        spec = {k: v for k, v in w["spec"].items()
+                if k not in REFERENCE_ONLY_SPEC}
+        assert g["spec"] == spec
+        assert (g["spec"]["buffer_fill"], g["spec"]["timeout_s"],
+                g["spec"]["n_tiers"], g["spec"]["retier_every"]) == \
+            (2, 2.0, 2, 3)
+    assert list(got["cells"]) == list(want["cells"])
+    for cid, w in want["cells"].items():
+        g = got["cells"][cid]
+        assert set(g) == set(w), cid
+        for k in ("round", "n_associated", "n_available", "z",
+                  "avg_staleness"):
+            assert g[k] == w[k], (cid, k)
+        clock = np.cumsum(w["total_time_s"])
+        for k, atol in (("total_energy_j", 0.0),
+                        ("total_time_s", 1e-5 * clock),
+                        ("cost", 1e-5 * clock * JSMALL.lambda_t)):
+            gap = np.abs(np.subtract(g[k], w[k]))
+            assert np.all(gap <= atol + 1e-5 * np.abs(w[k])), (cid, k, gap)
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4,
+                                   err_msg=cid)
+        assert np.max(np.abs(np.subtract(g["accuracy"], w["accuracy"]))
+                      ) <= 2.0 / n_test, cid
 
 
 def test_a_cell_equals_its_own_run_scanned():

@@ -35,7 +35,7 @@ from repro_torch import convert
 from repro_torch.checkpoint import store
 from repro_torch.configs import (ASSIGNED, INPUT_SHAPES, TensorSpec,
                                  get_config, input_specs, list_archs,
-                                 shape_applicable)
+                                 list_models, shape_applicable)
 from repro_torch.launch import steps, train
 from repro_torch.models import build_model
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -207,7 +207,7 @@ def test_assigned_and_registry_match_reference():
     assert set(ASSIGNED) <= set(list_archs())
 
 
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", list_models())
 def test_param_count_matches_built_model_and_reference(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert cfg.param_count() == jcfg.param_count()
