@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out PATH] [--profile]
+    python3 chip_smoke.py --only shard     # the build and [shard] alone
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -172,6 +173,22 @@ and prints no result):
    eval logits, the SGD's cluster size); a group's wall time against a
    plain ``run_fleet`` of the same fleet, and that fleet's SGD launched
    at the fleet-wide cluster size instead of one seed's, in turns;
+6k. the HFL engine across processes (``[shard]``): ``CONFIG`` fcea + PDD
+   at S = 8 on the seed axis (``run_fleet_sharded``) and 2048 clients ×
+   16 edges at ``CONFIG``'s widths (x 7.7 GB) on the client axis
+   (``run_scanned_client_sharded``), dense fcea + PDD and K = 4, 3 rounds
+   each, the worlds built once here and read by the ranks through CUDA
+   IPC: each job unsharded here first, then over W = min(cards, 4) NCCL
+   ranks (``core.mesh.spawn`` of this script's ``shard_rank``), or on
+   one card over NCCL alone (W = 1)
+   and then over two gloo ranks on that card (after a probe of which
+   collectives gloo takes on CUDA tensors); every leaf of every rank's
+   metrics, final state and generators bit-equal to the unsharded run's
+   (SHA-256 of the bytes), each rank's launches (a fleet rank a whole
+   fleet's; a client rank the unsharded score and SIC calls and its
+   share of the SGD), seed-rounds/s and s a round at W and unsharded,
+   each rank's peak device memory and resident host memory; the shared
+   worlds released after (the device memory held no more than before);
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
    recurrence) against their plain versions at recurrentgemma-9b's
@@ -301,7 +318,9 @@ and prints no result):
     ``faults_launches`` the ``CONFIG`` fcea + PDD chaos run's, 5 rounds,
     ``score_candidates`` its K = 2 dead-edge run's, ``warm_launches`` the
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
-    run's, ``sweep_launches`` the ``[sweep]`` phase's four grids, and
+    run's, ``sweep_launches`` the ``[sweep]`` phase's four grids,
+    ``shard_launches`` the ``[shard]`` phase's widest part, a rank each
+    (its three jobs summed), and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
@@ -318,7 +337,9 @@ It needs one CUDA device and imports nothing of the JAX reference.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -3778,6 +3799,322 @@ def phase_sweep(cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# [shard]: the HFL engine across processes
+# ---------------------------------------------------------------------------
+
+# the seed axis at CONFIG (fcea + PDD, S = 8) and the client axis at
+# 2048 x 16 at CONFIG's widths (x (2048, 1200, 784) float32, 7.7 GB),
+# dense fcea + PDD and K = 4, each SHARD_ROUNDS rounds
+SHARD_ROUNDS = 3
+SHARD_SEEDS = 8
+SHARD_WORLD = (2048, 16)
+SHARD_K = 4
+SHARD_KERNELS = ("score_matrix", "score_candidates", "sic_rates",
+                 "local_sgd_step")
+
+
+def _shard_jobs(cfg):
+    import dataclasses
+    from repro_torch.core import engine
+    from repro_torch.launch import sharded
+    big = dataclasses.replace(cfg, n_clients=SHARD_WORLD[0],
+                              n_edges=SHARD_WORLD[1])
+    return {
+        "fleet": sharded.Job("fleet", cfg, engine.EngineSpec(), SHARD_ROUNDS,
+                             tuple(range(SHARD_SEEDS))),
+        "clients-dense": sharded.Job("clients", big, engine.EngineSpec(),
+                                     SHARD_ROUNDS),
+        "clients-k4": sharded.Job("clients", big,
+                                  engine.EngineSpec(candidates_k=SHARD_K),
+                                  SHARD_ROUNDS)}
+
+
+def _host_peak_bytes() -> int:
+    """This process's peak resident host memory (``ru_maxrss``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _shard_world_on(world, job, device):
+    """A world as the parent hands it to the ranks (its tensors on the
+    card, reaching them through CUDA IPC; its generators as numpy
+    states), with the generators rebuilt on ``device``."""
+    import torch
+    states, bundles, gen_states = world
+
+    def gen(a):
+        return torch.Generator(device=device).set_state(torch.from_numpy(a))
+
+    if job.axis == "clients":
+        return states, bundles, gen(gen_states)
+    return states, bundles, [gen(a) for a in gen_states]
+
+
+def _probe_gloo_cuda(device):
+    """Which collectives the default (gloo) group takes on CUDA tensors
+    directly: "ok", or the first line of the error each raised (``Mesh``
+    stages gloo's tensors through the host either way)."""
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    t = torch.full((4,), float(dist.get_rank() + 1), device=device)
+    calls = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(device)
+            out[name] = "ok"
+        except Exception as exc:  # noqa: BLE001 -- the probe's answer
+            out[name] = (str(exc).strip().splitlines() or [repr(exc)])[0]
+    return out
+
+
+def _shard_part(jobs, worlds, solo=None, probe=False):
+    """One part of ``shard_rank``: each job through ``run_sharded`` on
+    the current process group, on its world (one a job, as
+    ``_shard_world_on`` takes it).  ``solo``: a backend ("nccl"); rank 0
+    runs the jobs alone over a group of its own of that backend (a world
+    of one whose collectives still go through it) while the others wait.
+    ``probe``: first ``_probe_gloo_cuda``, whose answer is the first
+    result.  Returns this rank's ``(outputs, stats)`` a job, as digests."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import Mesh, client_mesh, fleet_mesh, \
+        rank_device
+    from repro_torch.launch import sharded
+    results = []
+    dev = rank_device("cuda")
+    if probe:
+        results.append(_probe_gloo_cuda(dev))
+    if solo:
+        groups = [dist.new_group([r], backend=solo)
+                  for r in range(dist.get_world_size())]
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return results
+    for job, world in zip(jobs, worlds):
+        if solo:
+            mesh = Mesh(job.axis, groups[0], 0, 1, dev)
+        else:
+            mesh = fleet_mesh() if job.axis == "fleet" else client_mesh()
+        results.append(sharded.run_sharded(
+            job, mesh, _shard_world_on(world, job, dev), digest=True))
+    if solo:
+        dist.barrier()
+    return results
+
+
+def shard_rank(parts):
+    """The ranks' target (``core.mesh.spawn`` imports it from this
+    script): ``_shard_part(**part)`` for each part in turn (one spawn for
+    several meshes: a world of one over NCCL, then two gloo ranks).  Each
+    part is emptied after it ran: the worlds the parent shared through
+    CUDA IPC are released here, while the process lives, so that the
+    parent can free them (``torch.cuda.ipc_collect``) once every rank is
+    done."""
+    results = []
+    for part in parts:
+        results.append(_shard_part(**part))
+        part.clear()
+    gc.collect()
+    return results
+
+
+def _steady(stats) -> float:
+    """The median of a run's rounds after the first."""
+    return statistics.median(stats["seconds"][1:])
+
+
+def _shard_check(label, want, runs, index):
+    """Every rank's digests of job ``index`` of a part against the
+    unsharded run's: every leaf bit-equal (equal SHA-256 of its bytes)."""
+    for rank, results in enumerate(runs):
+        got = results[index][0]
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        if bad:
+            raise AssertionError(f"[shard] {label} rank {rank}: leaves "
+                                 f"differ from the unsharded run: {bad}")
+
+
+def _shard_launches(label, job, cfg_rounds_want, runs, index):
+    """Each rank's kernel launches of job ``index``: a fleet rank makes a
+    whole fleet's (one score and one SIC call a round, τ₂ SGD launches);
+    a client rank scores and bills the whole control plane (the
+    unsharded counts) and launches the SGD only on rounds where its rows
+    hold an admitted client."""
+    per_rank = [results[index][1]["launches"] for results in runs]
+    want = cfg_rounds_want
+    for rank, got in enumerate(per_rank):
+        for k in ("score_matrix", "score_candidates", "sic_rates"):
+            if got[k] != want[k]:
+                raise AssertionError(f"[shard] {label} rank {rank}: {k} "
+                                     f"{got[k]} != {want[k]}")
+        sgd = got["local_sgd_step"]
+        if (job.axis == "fleet" and sgd != want["local_sgd_step"]) or \
+                sgd > want["local_sgd_step"]:
+            raise AssertionError(f"[shard] {label} rank {rank}: SGD "
+                                 f"launches {sgd}, want "
+                                 f"{want['local_sgd_step']}")
+    if sum(r["local_sgd_step"] for r in per_rank) == 0:
+        raise AssertionError(f"[shard] {label}: no rank launched the SGD")
+    return per_rank
+
+
+def phase_shard(cfg, dev, card):
+    """The seed axis (``engine.run_fleet_sharded``) and the client axis
+    (``engine.run_scanned_client_sharded``) over W = min(cards, 4) NCCL
+    ranks, or, on one card, a world of one over NCCL and then two gloo
+    ranks on that card (with which collectives gloo takes on CUDA tensors
+    directly).  The worlds are built once, here, on the card; the ranks
+    (``core.mesh.spawn``) read them through CUDA IPC and copy only their
+    share.  Each job first runs unsharded here, then on the ranks (in
+    turns, never side by side); every leaf of every rank's metrics, final
+    state (the client rows gathered) and generator states is held bit for
+    bit to the unsharded run's (SHA-256 of the bytes).  Reports seed-rounds
+    a second and s a round at W and at 1, each rank's launches, peak
+    device memory and peak host memory.  Returns each kernel's launches
+    a rank of the widest part, summed over its jobs."""
+    import torch
+    from repro_torch.core.engine import quota_for
+    from repro_torch.core.mesh import spawn
+    from repro_torch.launch import sharded
+    jobs = _shard_jobs(cfg)
+    names = list(jobs)
+    cards = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # the fleet's worlds in a thread beside the client world's (numpy
+    # draws them without the GIL)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fleet_future = pool.submit(sharded.build_world, jobs["fleet"], dev)
+        client_world = sharded.build_world(jobs["clients-dense"], dev)
+        fleet_world = fleet_future.result()
+    del fleet_future
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    worlds = {
+        "fleet": (*fleet_world[:2],
+                  [g.get_state().numpy() for g in fleet_world[2]]),
+        "clients-dense": (*client_world[:2],
+                          client_world[2].get_state().numpy())}
+    worlds["clients-k4"] = worlds["clients-dense"]
+    x = client_world[1].x
+    log(f"[shard] worlds built once, on the card, in {build_s:.1f} s: "
+        f"CONFIG S={SHARD_SEEDS} and {SHARD_WORLD[0]}x{SHARD_WORLD[1]} at "
+        f"CONFIG's widths (x {tuple(x.shape)} float32, "
+        f"{x.numel() * 4 / 1e9:.2f} GB); this process's peak host memory "
+        f"so far {_host_peak_bytes() / 1e9:.2f} GB")
+    want = {}
+    for name, job in jobs.items():
+        world = _shard_world_on(worlds[name], job, dev)
+        want[name] = sharded.run_unsharded(job, 1, dev, world, digest=True)
+        del world
+    if cards >= 2:
+        w = min(cards, 4)
+        parts = [dict(jobs=list(jobs.values()),
+                      worlds=[worlds[n] for n in names])]
+        labels = [(f"W={w} nccl across {w} cards", w)]
+        t0 = time.perf_counter()
+        runs = spawn(shard_rank, w, backend="nccl", device="cuda",
+                     args=(parts,), timeout_s=400)
+        probe = None
+    else:
+        parts = [dict(jobs=list(jobs.values()),
+                      worlds=[worlds[n] for n in names], solo="nccl",
+                      probe=True),
+                 dict(jobs=list(jobs.values()),
+                      worlds=[worlds[n] for n in names])]
+        labels = [("W=1 nccl", 1), ("W=2 gloo on one card", 2)]
+        t0 = time.perf_counter()
+        runs = spawn(shard_rank, 2, backend="gloo", device="cuda",
+                     args=(parts,), timeout_s=400)
+        probe = runs[0][0][0]
+        log("[shard] one card: NCCL across cards did not run; gloo on "
+            "CUDA tensors directly: "
+            + ", ".join(f"{k} {v}" for k, v in probe.items())
+            + " (the mesh stages gloo's tensors through the host)")
+    spawn_s = time.perf_counter() - t0
+    per_rank_launches = None
+    for p, (label, w) in enumerate(labels):
+        # the rank results of part p; a solo part's only rank is rank 0,
+        # and the probe (if any) is its first result
+        part = [runs[r][p] for r in range(w)]
+        if probe is not None and p == 0:
+            part = [part[0][1:]]
+        launches = {}
+        for i, name in enumerate(names):
+            job = jobs[name]
+            ref_out, ref_stats = want[name]
+            _shard_check(f"{label} {name}", ref_out, part, i)
+            rounds_want = _want_launches(job.cfg, job.spec, SHARD_ROUNDS,
+                                         len(job.seeds) if job.axis ==
+                                         "fleet" else 1)
+            per = _shard_launches(f"{label} {name}", job, rounds_want,
+                                  part, i)
+            launches[name] = per
+            stats = [res[i][1] for res in part]
+            peaks = ", ".join(f"{s['peak_bytes'] / 1e9:.3f} (from "
+                              f"{s['start_bytes'] / 1e9:.3f})"
+                              for s in stats)
+            hosts = ", ".join(
+                "not measured" if s["host_resident_bytes"] is None
+                else f"{s['host_resident_bytes'] / 1e9:.2f}" for s in stats)
+            counts = "; ".join(
+                f"r{r} score {l['score_matrix'] + l['score_candidates']} "
+                f"SIC {l['sic_rates']} SGD {l['local_sgd_step']}"
+                for r, l in enumerate(per))
+            if job.axis == "fleet":
+                s_w, s_1 = _steady(stats[0]), _steady(ref_stats)
+                rate = (f"{SHARD_SEEDS / s_w:.2f} seed-rounds/s at W={w} "
+                        f"({s_w:.4f} s a round), "
+                        f"{SHARD_SEEDS / s_1:.2f} unsharded ({s_1:.4f})")
+            else:
+                k_lanes = min(job.cfg.n_clients,
+                              quota_for(job.cfg, job.spec)
+                              * job.cfg.n_edges)
+                rate = (f"{_steady(stats[0]):.4f} s a round at W={w}, "
+                        f"{_steady(ref_stats):.4f} unsharded; "
+                        f"{k_lanes} lanes, rows a rank "
+                        f"{stats[0]['client_rows']}")
+            log(f"[shard] {label} {name} {SHARD_ROUNDS} rounds: {rate}; "
+                f"launches {counts}; peak device GB a rank {peaks} "
+                f"(unsharded {ref_stats['peak_bytes'] / 1e9:.3f} from "
+                f"{ref_stats['start_bytes'] / 1e9:.3f}, its worlds "
+                f"included); host GB resident a rank after its run "
+                f"{hosts}; every leaf of "
+                f"every rank's "
+                f"metrics, final state and generators bit-equal to the "
+                f"unsharded run ({len(ref_out)} leaves): ok")
+        if w == max(lw for _, lw in labels):
+            per_rank_launches = [
+                {k: sum(launches[n][r][k] for n in names)
+                 for k in SHARD_KERNELS} for r in range(w)]
+    log(f"[shard] ranks' processes {spawn_s:.1f} s in all (start, CUDA "
+        f"context, runs)")
+    # the ranks dropped their handles before they exited
+    # (``shard_rank``); the parent's sent tensors go once its own
+    # references do
+    del worlds, fleet_world, client_world, x, want, parts
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    held_after = torch.cuda.memory_allocated()
+    log(f"[shard] device memory held before the phase "
+        f"{held_before / 1e9:.3f} GB, after {held_after / 1e9:.3f} GB")
+    if held_after > held_before + 2 ** 30:
+        raise AssertionError("[shard] the worlds shared with the ranks were "
+                             "not released")
+    return per_rank_launches
+
+
+# ---------------------------------------------------------------------------
 # The substrate: sequence kernels and recurrentgemma-9b serving
 # ---------------------------------------------------------------------------
 
@@ -5698,6 +6035,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one steady fcea round and a window "
                          "of DDPG slots (device idle share)")
+    ap.add_argument("--only", choices=("shard",),
+                    help="build the kernels and run this one phase, then "
+                         "stop: a partial check (e.g. [shard] on four "
+                         "cards) that prints no kernels line and no last "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -5723,6 +6065,13 @@ def main(argv=None) -> int:
         return out
 
     phase("build", phase_build)
+    if args.only == "shard":
+        launches = phase("hfl sharded drivers", phase_shard, CONFIG, dev,
+                         card)
+        log(f"[shard] launches a rank of the widest part, its jobs summed: "
+            f"{launches}; partial run, {time.perf_counter() - t_start:.1f} "
+            f"s")
+        return 0
     main_cmp = phase("hfl kernels vs plain", phase_compare, CONFIG, dev)
     runs = phase("hfl main path", phase_main_path, CONFIG, dev)
     sim = runs["fcea"][0]
@@ -5744,6 +6093,8 @@ def main(argv=None) -> int:
                            dev)
     warm_launches = phase("hfl warm start", phase_warm, CONFIG, dev)
     sweep_launches = phase("hfl sweep runner", phase_sweep, CONFIG, dev)
+    shard_launches = phase("hfl sharded drivers", phase_shard, CONFIG, dev,
+                           card)
     seq_cmp = phase("seq kernels vs plain", phase_seq_compare, dev)
     seq_launches = phase("serve recurrentgemma-9b", phase_serve, dev,
                          args.profile)
@@ -5795,7 +6146,9 @@ def main(argv=None) -> int:
                 "dense_launches": dense_launches.get(name, 0),
                 "vlm_moe_launches": vlm_moe_launches.get(name, 0),
                 "encdec_launches": encdec_launches.get(name, 0),
-                "train_launches": train_launches.get(name, 0)}
+                "train_launches": train_launches.get(name, 0),
+                "shard_launches": [rank.get(name, 0)
+                                   for rank in shard_launches]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)

@@ -74,6 +74,13 @@ still valid today, falling back to a cold resolution wherever the warm
 result admits a blocking pair (``core.association``).  The matching is
 the cold one; only the sweep counts differ.  Off, the leaf is absent.
 
+Across processes (``core.mesh``, one a card): ``run_fleet_sharded``
+splits a fleet's seed axis over the ranks, each seed bit-equal to
+``run_fleet``'s; ``run_scanned_client_sharded`` splits one simulation's
+client rows (``pad_clients``, ``shard_clients``), the control plane
+replicated and the trained lanes gathered, bit-equal to ``run_scanned``
+on the same padded world.
+
 The port covers the sync and the buffered engine on every scenario kind,
 dense or on the candidate frontier, with fcea, gcea or rcea, the
 ``mid``, ``rra``, ``fpa``, ``fca`` or ``ddpg`` allocator, PDD or fastest
@@ -92,6 +99,7 @@ import torch
 from repro_torch import scenarios
 from repro_torch.core import (aggregation, association, candidates, cost,
                               env, noma, pdd, staleness)
+from repro_torch.core.mesh import Mesh, PeerFailed, client_mesh, fleet_mesh
 from repro_torch.data import federated
 from repro_torch.device import resolve_device
 from repro_torch.faults import guard as fault_guard
@@ -643,7 +651,8 @@ def _schedule_traced(cfg, spec: EngineSpec, rc_all: cost.RoundCost
 
 def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
                   bundle: RoundBundle, assoc: torch.Tensor,
-                  batch_idx: torch.Tensor) -> Tuple[Params, Params]:
+                  batch_idx: torch.Tensor, mesh: Optional[Mesh] = None
+                  ) -> Tuple[Params, Params]:
     """τ₂ × (τ₁ local SGD + edge aggregation) (Eqs. 11, 13) on a compact
     cohort, for every seed of the fleet.  Returns ``(client_params,
     edge_params)``, (S, N, …) and (S, M, …).
@@ -660,6 +669,15 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
     bit.
 
     ``assoc`` (S, N, M); ``batch_idx`` (S, τ₂, τ₁, N, B).
+
+    On a client mesh of more than one rank (``run_scanned_client_sharded``,
+    S = 1) ``state.client_params``, ``bundle.x`` and ``bundle.y`` hold
+    only this rank's rows (``_lane_share``) and every other input is the
+    full, replicated one.  The rank trains its own lanes [a, b), still at
+    the cluster size of all K, the trained lanes are all-gathered in lane
+    order, and edge aggregation and the broadcast run replicated on the
+    unsharded stage's inputs: every lane, edge model and row keeps its
+    bits.  The rank scatters back only to its own rows.
     """
     seeds, n = assoc.shape[:2]
     k_sel = min(n, quota_for(cfg, spec) * cfg.n_edges)
@@ -671,7 +689,6 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
     safe = torch.clamp_max(sel_idx, n - 1)                         # (S, K)
     lane_ok = (sel_idx < n).to(assoc.dtype)
     sd = torch.arange(seeds, device=dev)[:, None]                  # (S, 1)
-    sel_x, sel_y = bundle.x[sd, safe], bundle.y[sd, safe]          # (S,K,…)
     sel_counts = torch.gather(bundle.counts, 1, safe)
     sel_assoc = assoc[sd, safe] * lane_ok[..., None]               # (S,K,M)
     # the lattice is a pure function of the global client id, so the
@@ -680,48 +697,105 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
     _, tau2, tau1, _, batch = batch_idx.shape
     idx = torch.gather(batch_idx, 3, safe[:, None, None, :, None].expand(
         seeds, tau2, tau1, k_sel, batch)).long().permute(1, 2, 0, 3, 4)
+    n_rows = next(iter(state.client_params.values())).shape[1]
+    a, b, lo, gather = _lane_share(mesh, safe, n, n_rows)
+    k_own = b - a
+    mine = safe[:, a:b] - lo if lo else safe[:, a:b]               # (S, k)
+    sel_x, sel_y = bundle.x[sd, mine], bundle.y[sd, mine]          # (S,k,…)
     sd4 = sd[None, :, :, None]
-    lane = torch.arange(k_sel, device=dev)[None, None, :, None]
+    lane = torch.arange(k_own, device=dev)[None, None, :, None]
 
-    # admitted lanes start from the global model
+    # admitted lanes start from the global model (the broadcast is
+    # lane-local: a one-hot row picks one edge model exactly)
     edge_params = aggregation.replicate(state.global_params, cfg.n_edges,
                                         lead=1)
-    lane_params = {k: v[sd, safe] for k, v in state.client_params.items()}
-    lane_params = aggregation.broadcast_to_clients(sel_assoc, edge_params,
-                                                   lane_params)
+    lane_params = {k: v[sd, mine] for k, v in state.client_params.items()}
+    lane_params = aggregation.broadcast_to_clients(sel_assoc[:, a:b],
+                                                   edge_params, lane_params)
     for t in range(cfg.tau2):
-        bx = sel_x[sd4, lane, idx[t]]                          # (τ₁,S,K,B,D)
-        by = sel_y[sd4, lane, idx[t]]                          # (τ₁,S,K,B)
-        folded = hfl_ops.local_sgd_step(
-            {k: v.reshape((seeds * k_sel,) + v.shape[2:])
-             for k, v in lane_params.items()},
-            bx.reshape((tau1, seeds * k_sel) + bx.shape[3:]),
-            by.reshape(tau1, seeds * k_sel, batch), lr=cfg.lr,
-            seeds=seeds)
-        lane_params = {k: v.reshape((seeds, k_sel) + v.shape[1:])
-                       for k, v in folded.items()}
-        edge_params = aggregation.edge_aggregate(lane_params, sel_assoc,
+        if k_own:
+            it = idx[t][:, :, a:b]
+            bx = sel_x[sd4, lane, it]                          # (τ₁,S,k,B,D)
+            by = sel_y[sd4, lane, it]                          # (τ₁,S,k,B)
+            folded = hfl_ops.local_sgd_step(
+                {k: v.reshape((seeds * k_own,) + v.shape[2:])
+                 for k, v in lane_params.items()},
+                bx.reshape((tau1, seeds * k_own) + bx.shape[3:]),
+                by.reshape(tau1, seeds * k_own, batch), lr=cfg.lr,
+                seeds=seeds, cluster_lanes=k_sel)
+            lane_params = {k: v.reshape((seeds, k_own) + v.shape[1:])
+                           for k, v in folded.items()}
+        all_lanes = gather(lane_params)
+        edge_params = aggregation.edge_aggregate(all_lanes, sel_assoc,
                                                  sel_counts)
-        lane_params = aggregation.broadcast_to_clients(sel_assoc, edge_params,
-                                                       lane_params)
-    # scatter back: pad lanes target each seed's scratch row n, dropped
-    rows = (sd * (n + 1) + sel_idx).reshape(-1)
+        all_lanes = aggregation.broadcast_to_clients(sel_assoc, edge_params,
+                                                     all_lanes)
+        lane_params = (all_lanes if k_own == k_sel
+                       else {k: v[:, a:b] for k, v in all_lanes.items()})
+    # scatter back to the rank's rows: pad lanes target each seed's scratch
+    # row n_rows, dropped
+    dest = sel_idx[:, a:b]
+    if n_rows != n:
+        dest = torch.where(dest < n, dest - lo, n_rows)
+    rows = (sd * (n_rows + 1) + dest).reshape(-1)
     client_params = {}
     for k, old in state.client_params.items():
         buf = torch.cat([old, old[:, :1]], dim=1)
-        buf.reshape((seeds * (n + 1),) + old.shape[2:]).index_copy_(
-            0, rows, lane_params[k].reshape((seeds * k_sel,) + old.shape[2:]))
-        client_params[k] = buf[:, :n]
+        buf.reshape((seeds * (n_rows + 1),) + old.shape[2:]).index_copy_(
+            0, rows, lane_params[k].reshape((seeds * k_own,) + old.shape[2:]))
+        client_params[k] = buf[:, :n_rows]
     return client_params, edge_params
 
 
+def _lane_share(mesh: Optional[Mesh], safe: torch.Tensor, n: int,
+                n_rows: int):
+    """This rank's share of the K lanes: ``(a, b, lo, gather)``.  On a
+    client mesh of W > 1 ranks the rank holds client rows [lo, lo + R),
+    R = N / W; the lanes are in ascending client order, so its lanes are
+    a contiguous range [a, b) (one host read a round finds the ranges),
+    and ``gather`` takes every rank's trained lanes (1, b − a, …) to all
+    K, (1, K, …), in lane order.  Otherwise every lane, lo = 0 and no
+    gather."""
+    k_sel = safe.shape[1]
+    if mesh is None or mesh.world == 1:
+        return 0, k_sel, 0, lambda lanes: lanes
+    if safe.shape[0] != 1:
+        raise ValueError("the client axis shards one simulation, not a "
+                         f"fleet of {safe.shape[0]}")
+    if n_rows * mesh.world != n:
+        raise ValueError(f"client_params hold {n_rows} rows a rank; {n} "
+                         f"clients over {mesh.world} ranks need "
+                         f"{n // mesh.world} (shard_clients)")
+    edges = torch.arange(mesh.world + 1, device=safe.device) * n_rows
+    bounds = torch.searchsorted(safe[0].contiguous(), edges).tolist()
+    counts = [b - a for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def gather(lanes: Params) -> Params:
+        # packed in one key order on every rank (a rank without lanes
+        # holds its dict in another order than one that trained)
+        keys = sorted(lanes)
+        flat = torch.cat([lanes[k][0].flatten(1) for k in keys], 1)
+        full = mesh.all_gather_ragged(flat, counts)                # (K, P)
+        out, at = {}, 0
+        for k in keys:
+            shape = tuple(lanes[k].shape[2:])
+            size = int(np.prod(shape, dtype=np.int64))
+            out[k] = full[:, at:at + size].reshape(
+                (1, k_sel) + shape).contiguous()
+            at += size
+        return {k: out[k] for k in lanes}
+
+    return (bounds[mesh.rank], bounds[mesh.rank + 1], mesh.rank * n_rows,
+            gather)
+
+
 def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
-           assoc: torch.Tensor, z: torch.Tensor, batch_idx: torch.Tensor
-           ) -> Tuple[Params, Params]:
+           assoc: torch.Tensor, z: torch.Tensor, batch_idx: torch.Tensor,
+           mesh: Optional[Mesh] = None) -> Tuple[Params, Params]:
     """``_train_cohort`` followed by the semi-synchronous cloud aggregation
     (Eq. 17) of each seed.  Returns ``(global_params, client_params)``."""
     client_params, edge_params = _train_cohort(cfg, spec, state, bundle,
-                                               assoc, batch_idx)
+                                               assoc, batch_idx, mesh)
     edge_data = torch.sum(assoc * bundle.counts[..., None], dim=-2)  # (S,M)
     z_eff = z * (edge_data > 0).to(z.dtype)
     agg = aggregation.cloud_aggregate(edge_params, z_eff, edge_data)
@@ -870,7 +944,8 @@ def _stage(timer, name: str, device: torch.device):
 
 def fleet_step(cfg, spec: EngineSpec, states: RoundState,
                bundles: RoundBundle, draws: RoundDraws,
-               actor_params: Optional[Params] = None, *, timer=None
+               actor_params: Optional[Params] = None, *, timer=None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[RoundState, RoundMetrics]:
     """One global round of S simulations at once: every leaf of
     ``states``, ``bundles`` and ``draws`` has a leading fleet axis S
@@ -899,7 +974,13 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     physical distances); a dead edge is taken out of z after scheduling
     (the trace's ``z_relaxed`` stays PDD's); training runs the fault
     gauntlet (``_train_faulty``) and Eq. 20 resets only the surviving
-    clients."""
+    clients.
+
+    ``mesh``: a client mesh (``run_scanned_client_sharded``), whose ranks
+    each hold a block of the client rows of ``client_params``, ``x`` and
+    ``y``; only the train stage reads it.  None: today's round."""
+    if mesh is not None and mesh.world > 1:
+        check_client_axis(spec)
     states = ensure_carry(cfg, spec, states)
     if spec.engine_mode == "buffered":
         return fleet_buffered_step(cfg, spec, states, bundles, draws,
@@ -969,7 +1050,7 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
                               draws.batch_idx, gains, edge_up, draws.faults)
         else:
             global_params, client_params = _train(
-                cfg, spec, states, bundles, assoc, z, draws.batch_idx)
+                cfg, spec, states, bundles, assoc, z, draws.batch_idx, mesh)
     # 6. staleness (Eq. 20): reset only for clients whose edge was selected
     #    (and, under faults, whose update survived to aggregation)
     selected = torch.sum(assoc, dim=-1) > 0
@@ -1296,15 +1377,18 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
 
 def round_step(cfg, spec: EngineSpec, state: RoundState,
                bundle: RoundBundle, draws: RoundDraws,
-               actor_params: Optional[Params] = None, *, timer=None
+               actor_params: Optional[Params] = None, *, timer=None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[RoundState, RoundMetrics]:
     """One global round (or buffered micro-step) of one simulation:
     ``fleet_step`` over a fleet of one (``actor_params``: one actor, as
     ``init_ddpg`` shapes it).  Its metrics are 0-d tensors, with
     ``sweeps`` an int; with ``spec.telemetry`` the output is the
-    ``(metrics, trace)`` pair, the trace's leaves without the seed axis."""
+    ``(metrics, trace)`` pair, the trace's leaves without the seed axis.
+    ``mesh``: a client mesh, as ``fleet_step`` takes it."""
     state, out = fleet_step(cfg, spec, _lift(state), _lift(bundle),
-                            _lift(draws), _lift(actor_params), timer=timer)
+                            _lift(draws), _lift(actor_params), timer=timer,
+                            mesh=mesh)
     metrics, tr = split_output(spec, select_seed(out, 0))
     metrics = metrics._replace(sweeps=int(metrics.sweeps))
     return select_seed(state, 0), (metrics if tr is None else (metrics, tr))
@@ -1364,19 +1448,22 @@ def stack_metrics(rows):
 
 def _drive(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
            n_rounds: int, generators, actor_params: Optional[Params], *,
-           fleet: bool, timer=None, on_round=None):
+           fleet: bool, timer=None, on_round=None,
+           mesh: Optional[Mesh] = None):
     """The drivers' loop: the carry normalised to the spec, then
     ``n_rounds`` steps, each on fresh draws (``fleet_draws`` and
     ``fleet_step`` for a fleet, else ``sample_draws`` and ``round_step``),
-    each step's output passed to ``on_round`` (if given) and stacked."""
+    each step's output passed to ``on_round`` (if given) and stacked.
+    ``mesh``, a client mesh, goes to ``round_step``."""
     draw, step = ((fleet_draws, fleet_step) if fleet
                   else (sample_draws, round_step))
     state = ensure_carry(cfg, spec, state)
     rows = []
+    kw = {} if mesh is None else {"mesh": mesh}
     for _ in range(n_rounds):
         draws = draw(cfg, bundle, generators, spec)
         state, out = step(cfg, spec, state, bundle, draws, actor_params,
-                          timer=timer)
+                          timer=timer, **kw)
         if on_round is not None:
             on_round(out)
         rows.append(out)
@@ -1386,30 +1473,36 @@ def _drive(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
 def run_scanned(cfg, spec: EngineSpec, state: RoundState,
                 bundle: RoundBundle, n_rounds: int,
                 generator: torch.Generator,
-                actor_params: Optional[Params] = None, *, timer=None
+                actor_params: Optional[Params] = None, *, timer=None,
+                on_round=None, mesh: Optional[Mesh] = None
                 ) -> Tuple[RoundState, RoundMetrics]:
     """``n_rounds`` rounds, each with fresh draws from ``generator``.
     Metrics leaves gain a leading (n_rounds,) axis (with ``telemetry``
     the output is the ``(metrics, trace)`` pair, see ``split_output``).
-    The carry is normalised to the spec first (``ensure_carry``)."""
+    The carry is normalised to the spec first (``ensure_carry``).
+    ``on_round`` (if given) gets each round's output as it ends.
+    ``mesh``: the client mesh of a state and bundle already split by
+    ``shard_clients`` (``run_scanned_client_sharded`` does both)."""
     return _drive(cfg, spec, state, bundle, n_rounds, generator,
-                  actor_params, fleet=False, timer=timer)
+                  actor_params, fleet=False, timer=timer, on_round=on_round,
+                  mesh=mesh)
 
 
 def run_fleet(cfg, spec: EngineSpec, states: RoundState,
               bundles: RoundBundle, n_rounds: int, generators,
               actor_params: Optional[Params] = None, *,
-              timer=None) -> Tuple[RoundState, RoundMetrics]:
+              timer=None, on_round=None) -> Tuple[RoundState, RoundMetrics]:
     """``n_rounds`` rounds of a fleet of S independent simulations
     (``stack_fleet``), one batched ``fleet_step`` a round -- the
     counterpart of the reference's ``vmap`` of its scanned driver.  Seed
     s draws from ``generators[s]``, so it follows the trajectory of its
     own ``run_scanned`` from that generator.  ``actor_params``: one actor
     that every seed deploys (expanded along the seed axis as a view).
-    Metrics leaves have shape (S, n_rounds, …)."""
+    Metrics leaves have shape (S, n_rounds, …); ``on_round`` as
+    ``run_scanned`` takes it."""
     return run_fleet_actors(cfg, spec, states, bundles, n_rounds, generators,
                             every_seed(actor_params, bundles.dist.shape[0]),
-                            timer=timer)
+                            timer=timer, on_round=on_round)
 
 
 def every_seed(actor_params: Optional[Params], seeds: int
@@ -1423,13 +1516,302 @@ def every_seed(actor_params: Optional[Params], seeds: int
 
 def run_fleet_actors(cfg, spec: EngineSpec, states: RoundState,
                      bundles: RoundBundle, n_rounds: int, generators,
-                     actor_params: Optional[Params], *, timer=None
-                     ) -> Tuple[RoundState, RoundMetrics]:
+                     actor_params: Optional[Params], *, timer=None,
+                     on_round=None) -> Tuple[RoundState, RoundMetrics]:
     """``run_fleet`` with one actor a seed: ``actor_params`` leaves (S, …),
     seed s billed by the actor trained on its own world (as
     ``ddpg.train_allocator_fleet`` returns them)."""
     return _drive(cfg, spec, states, bundles, n_rounds, generators,
-                  actor_params, fleet=True, timer=timer)
+                  actor_params, fleet=True, timer=timer, on_round=on_round)
+
+
+# ---------------------------------------------------------------------------
+# Sharding over a 1-D mesh of processes (``core.mesh``): the seed axis and
+# the client axis (the reference's DESIGN.md §8.3 and §9.3)
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    """The tensor leaves of a state, bundle, draws or metrics tree."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _seed_block(mesh: Mesh, seeds: int):
+    """Rank r's seeds of a fleet of ``seeds``: the contiguous block
+    [r·b, (r+1)·b) of b = ⌈S / W⌉, indices past the fleet clamped to its
+    last seed (a ragged fleet's pad replicates the last seed)."""
+    per = -(-seeds // mesh.world)
+    return [min(i, seeds - 1)
+            for i in range(mesh.rank * per, (mesh.rank + 1) * per)]
+
+
+def shard_fleet(tree, mesh: Optional[Mesh] = None):
+    """This rank's block of a stacked fleet (state, bundle, actors or any
+    tree whose tensor leaves lead with the seed axis S), on the rank's
+    device: ⌈S / W⌉ seeds, a ragged fleet padded by repeating its last
+    seed.  Only the block is copied to the card."""
+    mesh = fleet_mesh() if mesh is None else mesh
+    seeds = next(_leaves(tree)).shape[0]
+    block = _seed_block(mesh, seeds)
+    if block == list(range(seeds)):
+        return _map(lambda t: t.to(mesh.device), tree)
+    sel = torch.tensor(block)
+    return _map(lambda t: t.index_select(0, sel.to(t.device)).to(
+        mesh.device), tree)
+
+
+def _rank_generator(gen: torch.Generator, dev: torch.device
+                    ) -> torch.Generator:
+    """A generator on ``dev`` in ``gen``'s state: the same draws as
+    ``gen`` (a CUDA generator's state is its seed and offset, good on any
+    card)."""
+    if gen.device.type != dev.type:
+        raise ValueError(f"a {gen.device.type} generator cannot draw a "
+                         f"{dev.type} run's numbers")
+    return torch.Generator(device=dev).set_state(gen.get_state())
+
+
+def _gather_seeds(tree, mesh: Mesh, seeds: int):
+    """Every rank's block of a fleet tree gathered in seed order and cut
+    to the fleet's ``seeds`` (the pads dropped)."""
+    return _map(lambda t: mesh.all_gather(t)[:seeds], tree)
+
+
+def _sync_generators(generators, gens, mesh: Mesh) -> None:
+    """Leave each caller's generator where its seed's rank left its copy,
+    as ``run_fleet`` leaves them."""
+    states = mesh.all_gather(torch.stack([g.get_state() for g in gens]))
+    for s, gen in enumerate(generators):
+        gen.set_state(states[s].clone())
+
+
+def guarded(mesh: Mesh, fn):
+    """``fn()`` on this rank, then an ``all_ok`` flag on the mesh: a rank
+    that raised posts 0 and raises, every other rank raises
+    ``PeerFailed`` instead of waiting at the next gather."""
+    try:
+        out = fn()
+    except PeerFailed:
+        raise
+    except BaseException:
+        mesh.all_ok(False)
+        raise
+    if not mesh.all_ok(True):
+        raise PeerFailed(f"rank {mesh.rank}: another rank of the "
+                         f"{mesh.axis} mesh failed")
+    return out
+
+
+def run_fleet_sharded(cfg, spec: EngineSpec, states: RoundState,
+                      bundles: RoundBundle, n_rounds: int, generators,
+                      actor_params: Optional[Params] = None, *,
+                      mesh: Optional[Mesh] = None,
+                      per_sim_actors: bool = False,
+                      on_round=None) -> Tuple[RoundState, RoundMetrics]:
+    """``run_fleet`` (``run_fleet_actors`` with ``per_sim_actors``: the
+    actors' leaves lead with the seed axis) with the seed axis split over
+    ``mesh`` (default: ``fleet_mesh()``).
+
+    Rank r runs the contiguous block of ⌈S / W⌉ seeds ``shard_fleet``
+    gives it (only the block moves to its card; a ragged fleet is padded
+    by repeating its last seed, wasted work on the remainder only), each
+    seed drawing from a generator on the rank's card set to
+    ``generators[s]``'s state.  Then the final states and the per-round
+    output (metrics, and the trace with telemetry) are all-gathered in
+    seed order and the pads cut off, and each of ``generators`` is left
+    in its seed's final state.  A round has no collective and a fleet
+    computes each seed as its own run does, so every seed is bit-equal to
+    the unsharded ``run_fleet``'s, whatever the engine mode, fault spec,
+    scenario or allocator.  ``on_round`` gets this rank's block output of
+    each round (``sink.stream_fleet`` gathers and emits it).  A rank that
+    raises makes every rank raise (``PeerFailed``) before the gather."""
+    mesh = fleet_mesh() if mesh is None else mesh
+    seeds = bundles.dist.shape[0]
+    if len(generators) != seeds:
+        raise ValueError(f"run_fleet_sharded: {len(generators)} generators "
+                         f"for {seeds} seeds")
+    block = _seed_block(mesh, seeds)
+
+    def local():
+        st, bu = shard_fleet((states, bundles), mesh)
+        gens = [_rank_generator(generators[i], mesh.device) for i in block]
+        if per_sim_actors:
+            actors = shard_fleet(actor_params, mesh)
+        else:
+            actors = every_seed(_map(lambda t: t.to(mesh.device),
+                                     actor_params), len(block))
+        final, out = run_fleet_actors(cfg, spec, st, bu, n_rounds, gens,
+                                      actors, on_round=on_round)
+        return final, out, gens
+
+    final, out, gens = guarded(mesh, local)
+    _sync_generators(generators, gens, mesh)
+    return _gather_seeds(final, mesh, seeds), _gather_seeds(out, mesh, seeds)
+
+
+def check_client_axis(spec: EngineSpec) -> None:
+    """Raise for what the client axis does not carry yet: the buffered
+    engine's and the fault layer's per-client leaves (ROADMAP A19)."""
+    if spec.engine_mode == "buffered" or spec.faults is not None:
+        raise ValueError(
+            "the client axis (run_scanned_client_sharded) does not shard "
+            "the buffered engine or the fault layer yet: their per-client "
+            "leaves are the next slice of the client axis (ROADMAP A19); "
+            "run them unsharded or on the seed axis (run_fleet_sharded)")
+
+
+def pad_clients(cfg, state: RoundState, bundle: RoundBundle, multiple: int):
+    """Pad N up to a multiple of ``multiple`` with inert clients (the
+    reference's ``pad_clients``, leaf for leaf): parked at ``area_side_m ·
+    1e3`` (distances, positions and waypoints) with speed 0, unavailable
+    (``avail`` 0, ``p_drop`` 1, ``p_return`` 0), zero data counts,
+    staleness 0 and warm seed −1; the last client's row repeated for
+    ``f_max_hz``, ``p_max_w``, ``kappa``, ``client_params``, ``gains``,
+    ``x`` and ``y``; a buffer's per-client leaves idle and a fault
+    ledger's zero.  They never associate, so they never train into an
+    aggregate, earn a rate or bill a joule.  Returns ``(cfg', state',
+    bundle')`` with ``cfg.n_clients`` grown -- a padded world is another
+    experiment (the round's draws span N); what the client axis keeps is
+    sharded == unsharded on the same padded world."""
+    n = cfg.n_clients
+    pad = (-n) % int(multiple)
+    if pad == 0:
+        return cfg, state, bundle
+    far = cfg.area_side_m * 1e3
+
+    def rep_last(leaf):
+        return torch.cat([leaf, leaf[-1:].expand((pad,) + leaf.shape[1:])])
+
+    def const(leaf, value):
+        return torch.cat([leaf, torch.full((pad,) + leaf.shape[1:], value,
+                                           dtype=leaf.dtype,
+                                           device=leaf.device)])
+
+    scen = state.scenario
+    if scen is not None:
+        scen = scen._replace(
+            pos=const(scen.pos, far), waypoint=const(scen.waypoint, far),
+            speed=const(scen.speed, 0.0), avail=const(scen.avail, 0.0),
+            p_drop=const(scen.p_drop, 1.0),
+            p_return=const(scen.p_return, 0.0),
+            f_max_hz=rep_last(scen.f_max_hz), p_max_w=rep_last(scen.p_max_w),
+            kappa=rep_last(scen.kappa), dist=const(scen.dist, far))
+    state = state._replace(
+        client_params={k: rep_last(v) for k, v in state.client_params.items()},
+        gains=rep_last(state.gains), staleness=const(state.staleness, 0),
+        scenario=scen)
+    if state.buffer is not None:
+        buf = state.buffer
+        state = state._replace(buffer=buf._replace(
+            pending_delta={k: const(v, 0.0)
+                           for k, v in buf.pending_delta.items()},
+            finish_s=const(buf.finish_s, 0.0),
+            in_flight=const(buf.in_flight, False),
+            pulled_ver=const(buf.pulled_ver, 0), obs_s=const(buf.obs_s, 0.0),
+            tier=const(buf.tier, 0)))
+    if state.faults is not None:
+        state = state._replace(faults=state.faults._replace(
+            attempts=const(state.faults.attempts, 0)))
+    if state.warm is not None:
+        state = state._replace(warm=const(state.warm, -1))
+    bundle = bundle._replace(
+        dist=const(bundle.dist, far), x=rep_last(bundle.x),
+        y=rep_last(bundle.y), counts=const(bundle.counts, 0.0))
+    return dataclasses.replace(cfg, n_clients=n + pad), state, bundle
+
+
+def shard_clients(state: RoundState, bundle: RoundBundle,
+                  mesh: Optional[Mesh] = None
+                  ) -> Tuple[RoundState, RoundBundle]:
+    """One simulation split over the client mesh (default:
+    ``client_mesh()``): this rank's contiguous N / W rows of the heavy
+    per-client leaves -- ``client_params``, ``bundle.x`` and ``bundle.y``
+    -- copied to its card, and every other leaf replicated there (gains,
+    staleness, distances, counts, the scenario state, the warm seed, the
+    global model, the test set).  N must divide by W: pad a ragged N with
+    ``pad_clients`` first."""
+    mesh = client_mesh() if mesh is None else mesh
+    n = bundle.counts.shape[-1]
+    if n % mesh.world:
+        raise ValueError(f"shard_clients: {n} clients do not split over "
+                         f"{mesh.world} ranks; pad_clients first")
+    if state.buffer is not None or state.faults is not None:
+        raise ValueError("shard_clients: the buffered engine's and the "
+                         "fault layer's per-client leaves are not sharded "
+                         "yet (ROADMAP A19)")
+    dev = mesh.device
+    rows = n // mesh.world
+    lo = mesh.rank * rows
+
+    def own(t):
+        if mesh.world == 1:
+            return t.to(dev)
+        part = t[lo:lo + rows]
+        return part.clone() if part.device == dev else part.to(dev)
+
+    rep = lambda t: t.to(dev)                          # noqa: E731
+    state = _map(rep, state._replace(client_params=None))._replace(
+        client_params={k: own(v) for k, v in state.client_params.items()})
+    bundle = _map(rep, bundle._replace(x=None, y=None))._replace(
+        x=own(bundle.x), y=own(bundle.y))
+    return state, bundle
+
+
+def gather_clients(client_params: Params, mesh: Mesh) -> Params:
+    """Every rank's rows of ``client_params`` (leaves (N / W, …))
+    gathered into the whole (N, …) stack, on every rank."""
+    return {k: mesh.all_gather(v) for k, v in client_params.items()}
+
+
+def run_scanned_client_sharded(cfg, spec: EngineSpec, state: RoundState,
+                               bundle: RoundBundle, n_rounds: int,
+                               generator: torch.Generator,
+                               actor_params: Optional[Params] = None, *,
+                               mesh: Optional[Mesh] = None, on_round=None
+                               ) -> Tuple[RoundState, RoundMetrics]:
+    """``run_scanned`` with the client axis split over ``mesh`` (default:
+    ``client_mesh()``): ``pad_clients`` to a multiple of W, then
+    ``shard_clients``, then the round on every rank with the mesh threaded
+    to the train stage.
+
+    Every stage before training runs replicated on the full (N, M)
+    control plane -- fading, scoring, association (dense or on the
+    frontier), allocation, the Eq. 23a bill and PDD -- from the same
+    draws on every rank (a generator on the rank's card set to
+    ``generator``'s state).  This is where the reference's GSPMD puts its
+    small leaves apart (it shards the gains too), not what it computes:
+    those tensors are O(N·M), a few MB at N = 10⁴; a round is bound by
+    PDD's host launches; each sweep of the resolver would need a
+    collective; and every decision stays bit-equal to the unsharded run.
+    Training splits: each rank trains the lanes of its own rows and the
+    lanes are all-gathered after each τ₁ block (``_train_cohort``),
+    so the whole round is bit-equal to the unsharded one on the same
+    padded world.
+
+    Returns the padded world's final state and output, the state's
+    ``client_params`` this rank's rows (``gather_clients`` assembles
+    them); ``generator`` is left where the run left it; ``on_round``
+    gets each round's output (``sink.stream_scanned_client_sharded``
+    tees it).  The buffered engine and faults raise
+    (``check_client_axis``).  A rank that raises
+    stops inside a collective: the launcher (``torchrun``, ``mesh.spawn``)
+    ends the others."""
+    mesh = client_mesh() if mesh is None else mesh
+    check_client_axis(spec)
+    cfg, state, bundle = pad_clients(cfg, state, bundle, mesh.world)
+    state, bundle = shard_clients(state, bundle, mesh)
+    gen = _rank_generator(generator, mesh.device)
+    actors = _map(lambda t: t.to(mesh.device), actor_params)
+    final, out = run_scanned(cfg, spec, state, bundle, n_rounds, gen,
+                             actors, on_round=on_round, mesh=mesh)
+    generator.set_state(gen.get_state())
+    return final, out
 
 
 def split_output(spec: EngineSpec, out):

@@ -10,7 +10,9 @@ directory (which git ignores), named by a hash of all the sources and the
 flags, so an edited source never loads a stale build.  The C entry points
 take raw device pointers and the CUDA stream as ``c_void_p``, sizes as
 ``c_int`` and scalars as ``c_float``; each returns a CUDA error code
-(``cudaGetLastError()`` after a launch).
+(``cudaGetLastError()`` after a launch).  Processes that start
+together (the ranks of a mesh) take a file lock around the build, so one
+of them compiles and the others load its library.
 
 Also here, for the wrappers of every kernel module: ``ptr``, ``stream``,
 ``on``, ``require`` and the shared-memory limit ``MAX_SMEM_BYTES``.
@@ -20,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -53,6 +56,10 @@ _SIGNATURES = {
 }
 
 
+class BuildError(RuntimeError):
+    """The kernels did not build: no nvcc, or nvcc failed."""
+
+
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     path: Path          # the shared library
@@ -72,8 +79,8 @@ def _nvcc() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                       "machine with the CUDA toolkit (set CUDA_HOME)")
+    raise BuildError("nvcc not found: the CUDA kernels are built on a "
+                     "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
 def _run_all(cmds: list[list[str]]) -> str:
@@ -86,7 +93,7 @@ def _run_all(cmds: list[list[str]]) -> str:
     failed = [(c, p.returncode, out) for c, p, out in zip(cmds, procs, outs)
               if p.returncode != 0]
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
+        raise BuildError("nvcc failed:\n" + "\n".join(
             f"$ {' '.join(c)}\n(exit {rc})\n{out}" for c, rc, out in failed))
     return "".join(outs)
 
@@ -103,6 +110,14 @@ def build() -> BuildInfo:
     if target.exists():
         return BuildInfo(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f".lock-{digest}", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():         # another process built it meanwhile
+            return BuildInfo(target, 0.0, "")
+        return _compile(srcs, digest, target)
+
+
+def _compile(srcs: list[Path], digest: str, target: Path) -> BuildInfo:
     nvcc = _nvcc()
     tag = f"{digest}.{os.getpid()}"
     objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in srcs]

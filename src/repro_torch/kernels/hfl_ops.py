@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -424,7 +424,8 @@ def sgd_max_active_clusters(k: int, batch: int, d_in: int, hidden: int,
 
 
 def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
-                   by: torch.Tensor, *, lr: float, seeds: int = 1
+                   by: torch.Tensor, *, lr: float, seeds: int = 1,
+                   cluster_lanes: Optional[int] = None
                    ) -> Dict[str, torch.Tensor]:
     """τ₁ minibatch-SGD steps for every lane of the stacked K-lane cohort.
 
@@ -437,7 +438,9 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     lanes.  The cluster kernel takes the cluster size that one cohort
     takes alone: a lane's sums run in an order set by the cluster size, so
     this keeps each seed's result bit-equal to its own single run,
-    whatever fleet shares the launch.
+    whatever fleet shares the launch.  ``cluster_lanes`` overrides that
+    cohort size: a rank of a client mesh trains a share of one cohort's
+    lanes at the cluster size of all of them.
     """
     if seeds < 1 or bx.shape[1] % seeds:
         raise ValueError(f"local_sgd_step: {bx.shape[1]} lanes are not "
@@ -461,7 +464,8 @@ def local_sgd_step(params: Dict[str, torch.Tensor], bx: torch.Tensor,
     by = by.to(torch.int32).contiguous()
     _require(by, "by", dev, torch.int32, (tau1, k, batch))
     if cluster:
-        c = sgd_cluster_size(k // seeds, batch, d_in, hidden, n_classes)
+        c = sgd_cluster_size(cluster_lanes or k // seeds, batch, d_in,
+                             hidden, n_classes)
         smem = sgd_smem_bytes(batch, d_in, hidden, n_classes, c)
     else:
         smem = sgd_block_smem_bytes(batch, hidden, n_classes)

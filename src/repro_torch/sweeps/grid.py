@@ -50,14 +50,24 @@ The buffered knobs ``buffer_fill``, ``timeout_s``, ``n_tiers`` and
 reference's; like the reference's grid it has no ``buffer_lr``, so a
 sweep's server step is ``EngineSpec``'s default.
 
-Not carried over from the reference: ``mesh=`` (``run_fleet_sharded``,
-``--sharded``), since the port runs on one GPU; and ``SweepGrid.sic_impl``,
-since the port bills the dense path with one SIC formulation, the
-pairwise one.  A written spec is the port's own ``EngineSpec``, so it
-lacks the reference's implementation switches (``resolver``,
-``sic_impl``, ``pallas_score``, ``train_impl``).
+Sharded.  ``run_sweep(..., mesh=engine.fleet_mesh())`` splits each
+group's fleet over the mesh's ranks through ``engine.run_fleet_sharded``
+(``per_sim_actors`` for ddpg cells that train their own actors, which
+every rank trains, as the reference trains them before it shards); each
+rank builds the worlds on its own card, every cell is bit-equal to the
+unsharded sweep's, and only rank 0 writes files.  A group that fails on
+one rank fails on every rank (``engine.PeerFailed``), so the ranks record
+it alike and go on together; a failed collective or kernel build is
+raised, not recorded.
+
+Not carried over from the reference: ``SweepGrid.sic_impl``, since the
+port bills the dense path with one SIC formulation, the pairwise one.  A
+written spec is the port's own ``EngineSpec``, so it lacks the
+reference's implementation switches (``resolver``, ``sic_impl``,
+``pallas_score``, ``train_impl``).
 
     PYTHONPATH=src python -m repro_torch.sweeps.grid --quick [--device cpu]
+    torchrun --nproc_per_node=W -m repro_torch.sweeps.grid --quick --sharded
 """
 from __future__ import annotations
 
@@ -75,6 +85,7 @@ from repro_torch import scenarios
 from repro_torch.core import engine
 from repro_torch.device import resolve_device
 from repro_torch.faults import FaultSpec
+from repro_torch.kernels._build import BuildError
 
 DEFAULT_OUT = "results_torch"
 # the ddpg training generator of a cell is seeded with TRAIN_SEED_BASE + seed
@@ -226,15 +237,20 @@ def _dump(path: str, payload: Dict[str, Any]) -> None:
 
 def run_sweep(cfg, grid: SweepGrid, *, out_dir: str = DEFAULT_OUT,
               write_json: bool = True, actor_params=None,
-              device: "str | torch.device" = "cuda") -> Dict[str, Any]:
+              device: "str | torch.device" = "cuda",
+              mesh=None) -> Dict[str, Any]:
     """Run the grid on ``device``; returns (and, with ``write_json``,
     writes under ``<out_dir>/sweep_<name>/``) the summary, with the
     per-cell rows under ``"cells"``.
 
     One ``run_fleet`` call a group (``run_fleet_actors`` for ddpg cells
     trained per cell); ``actor_params`` is one shared, already trained
-    actor for every ddpg cell instead (see the module docstring)."""
-    dev = resolve_device(device)
+    actor for every ddpg cell instead (see the module docstring).
+    ``mesh`` (``engine.fleet_mesh()``): each group's fleet split over its
+    ranks by ``engine.run_fleet_sharded``, on the mesh's device (which
+    then overrides ``device``); only rank 0 writes."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    write_json = write_json and (mesh is None or mesh.rank == 0)
     cells = expand_grid(grid)
     ddpg_cells = [c for c in cells if c.allocator == "ddpg"]
     if ddpg_cells and actor_params is not None:
@@ -263,7 +279,7 @@ def run_sweep(cfg, grid: SweepGrid, *, out_dir: str = DEFAULT_OUT,
             worlds[key] = (state, bundle, aux["generator"].get_state())
         return worlds[key]
 
-    def run_group(spec: engine.EngineSpec, members: List[SweepCell]):
+    def prepare(spec: engine.EngineSpec, members: List[SweepCell]):
         built = [world(c) for c in members]
         states, bundles = engine.stack_fleet([(s, b) for s, b, _ in built])
         gens = [torch.Generator(device=dev).set_state(g) for _, _, g in built]
@@ -275,11 +291,25 @@ def run_sweep(cfg, grid: SweepGrid, *, out_dir: str = DEFAULT_OUT,
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             train_s = time.perf_counter() - t0
+        return states, bundles, gens, cell_actors, train_s
+
+    def run_group(spec: engine.EngineSpec, members: List[SweepCell]):
+        if mesh is None:
+            prepared = prepare(spec, members)
+        else:
+            # a rank that fails here stops every rank at the same point
+            prepared = engine.guarded(mesh, lambda: prepare(spec, members))
+        states, bundles, gens, cell_actors, train_s = prepared
         if dev.type == "cuda":
             # the stacking's copies still queued are not the group's run
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        if cell_actors is not None:
+        if mesh is not None:
+            _, out = engine.run_fleet_sharded(
+                cfg, spec, states, bundles, grid.n_rounds, gens,
+                cell_actors if cell_actors is not None else actor_params,
+                mesh=mesh, per_sim_actors=cell_actors is not None)
+        elif cell_actors is not None:
             _, out = engine.run_fleet_actors(cfg, spec, states, bundles,
                                              grid.n_rounds, gens,
                                              cell_actors)
@@ -320,6 +350,8 @@ def run_sweep(cfg, grid: SweepGrid, *, out_dir: str = DEFAULT_OUT,
         # card) is recorded against each of its cells; the rest goes on
         try:
             run_group(spec, members)
+        except (torch.distributed.DistError, BuildError):
+            raise
         except Exception as exc:  # noqa: BLE001
             traceback.print_exc()
             for cell in members:
@@ -373,6 +405,10 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split each group's fleet over the ranks of "
+                         "torchrun (one a card; gloo with --device cpu); "
+                         "rank 0 writes and prints")
     ap.add_argument("--candidates", type=int, default=None, metavar="K",
                     help="run every cell on the (N, K) candidate frontier")
     ap.add_argument("--telemetry", action="store_true",
@@ -413,7 +449,13 @@ def main(argv=None) -> None:
             telemetry=args.telemetry,
             engine_modes=("sync", "buffered") if args.buffered
             else ("sync",))
-    summary = run_sweep(cfg, grid, out_dir=args.out, device=args.device)
+    mesh = engine.fleet_mesh(args.device) if args.sharded else None
+    summary = run_sweep(cfg, grid, out_dir=args.out, device=args.device,
+                        mesh=mesh)
+    if mesh is not None and mesh.group is not None:
+        torch.distributed.destroy_process_group()
+    if mesh is not None and mesh.rank != 0:
+        return
     print(json.dumps({k: summary[k] for k in
                       ("name", "n_cells", "n_compiles", "groups")}, indent=1))
     for cid, row in summary["final"].items():

@@ -10,7 +10,9 @@ Two ways to consume a telemetry-enabled engine
   with a tee: after each round its trace moves to the host (one copy of
   all leaves) and goes to ``sink.emit``, a fleet's seed by seed within
   the round.  The stream is a tee, not another result: they return what
-  the collect helpers return.
+  the collect helpers return.  ``stream_scanned_client_sharded`` and
+  ``stream_fleet(..., mesh=)`` are the sharded drivers' tees; only rank 0
+  of the mesh emits, the same records in the same order as unsharded.
 
 Sinks are duck-typed objects with ``emit(trace)``: ``MemorySink`` keeps
 host (numpy) traces, ``JsonlSink`` appends one JSON object a round in the
@@ -196,20 +198,61 @@ def stream_scanned(cfg, spec, state, bundle, n_rounds: int, sink,
     return state, ms, trace
 
 
+def stream_scanned_client_sharded(cfg, spec, state, bundle, n_rounds: int,
+                                  sink, generator: torch.Generator,
+                                  actor_params=None, *, mesh=None):
+    """``engine.run_scanned_client_sharded`` (pad, shard, run) with each
+    round's trace teed to ``sink`` by rank 0 of the mesh (every rank holds
+    the same trace: the round's control plane is replicated).  Returns the
+    padded world's (final state, metrics, trace), the state's
+    ``client_params`` this rank's rows."""
+    _require_telemetry(spec)
+    mesh = engine.client_mesh() if mesh is None else mesh
+
+    def tee(out):
+        if mesh.rank == 0:
+            sink.emit(host_trace(out[1]))
+
+    state, (ms, trace) = engine.run_scanned_client_sharded(
+        cfg, spec, state, bundle, n_rounds, generator, actor_params,
+        mesh=mesh, on_round=tee)
+    return state, ms, trace
+
+
 def stream_fleet(cfg, spec, states, bundles, n_rounds: int, sink,
-                 generators, actor_params=None):
+                 generators, actor_params=None, *, mesh=None):
     """``engine.run_fleet`` with each round's traces teed to ``sink``
     after the round, seed by seed.  Returns (final states, metrics,
-    trace) as ``collect_fleet`` does."""
+    trace) as ``collect_fleet`` does.
+
+    With ``mesh`` (``engine.fleet_mesh()``) the seed axis is split as in
+    ``engine.run_fleet_sharded``: after each round the ranks' traces are
+    gathered in seed order (behind an ``all_ok`` flag, so that a rank
+    that raised stops every rank) and rank 0 emits them, seed by seed;
+    the other ranks emit nothing."""
     _require_telemetry(spec)
     seeds = bundles.dist.shape[0]
 
-    def tee(out):
-        host = host_trace(out[1])
+    def emit(host):
         for s in range(seeds):
             sink.emit(RoundTrace(*(l[s] for l in host)))
 
-    states, (ms, trace) = engine._drive(
-        cfg, spec, states, bundles, n_rounds, generators,
-        engine.every_seed(actor_params, seeds), fleet=True, on_round=tee)
+    if mesh is None:
+        states, (ms, trace) = engine._drive(
+            cfg, spec, states, bundles, n_rounds, generators,
+            engine.every_seed(actor_params, seeds), fleet=True,
+            on_round=lambda out: emit(host_trace(out[1])))
+        return states, ms, trace
+
+    def tee(out):
+        if not mesh.all_ok(True):
+            raise engine.PeerFailed(f"rank {mesh.rank}: another rank of "
+                                    f"the fleet mesh failed")
+        full = RoundTrace(*(mesh.all_gather(l)[:seeds] for l in out[1]))
+        if mesh.rank == 0:
+            emit(host_trace(full))
+
+    states, (ms, trace) = engine.run_fleet_sharded(
+        cfg, spec, states, bundles, n_rounds, generators, actor_params,
+        mesh=mesh, on_round=tee)
     return states, ms, trace
