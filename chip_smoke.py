@@ -177,7 +177,10 @@ and prints no result):
    at S = 8 on the seed axis (``run_fleet_sharded``) and 2048 clients ×
    16 edges at ``CONFIG``'s widths (x 7.7 GB) on the client axis
    (``run_scanned_client_sharded``), dense fcea + PDD and K = 4, 3 rounds
-   each, the worlds built once here and read by the ranks through CUDA
+   each, and on the same world the buffered engine (fcea dense, 8
+   micro-steps), fcea + PDD under chaos (3 rounds) and K = 4 buffered
+   under chaos (8 micro-steps), the worlds built once here and read by
+   the ranks through CUDA
    IPC: each job unsharded here first, then over W = min(cards, 4) NCCL
    ranks (``core.mesh.spawn`` of this script's ``shard_rank``), or on
    one card over NCCL alone (W = 1)
@@ -186,8 +189,10 @@ and prints no result):
    metrics, final state and generators bit-equal to the unsharded run's
    (SHA-256 of the bytes), each rank's launches (a fleet rank a whole
    fleet's; a client rank the unsharded score and SIC calls and its
-   share of the SGD), seed-rounds/s and s a round at W and unsharded,
-   each rank's peak device memory and resident host memory; the shared
+   share of the SGD), seed-rounds/s, s a round and micro-steps/s at W
+   and unsharded, each rank's rows of the client models and of the
+   buffer's pending deltas (N / W, or the phase fails), its peak device
+   memory and resident host memory; the shared
    worlds released after (the device memory held no more than before);
 7. hold the sequence kernels (flash attention: the tensor-core kernel for
    bf16 at d_head 64/128/256, the CUDA-core kernel otherwise; linear
@@ -320,7 +325,7 @@ and prints no result):
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
     run's, ``sweep_launches`` the ``[sweep]`` phase's four grids,
     ``shard_launches`` the ``[shard]`` phase's widest part, a rank each
-    (its three jobs summed), and
+    (its six jobs summed), and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
@@ -3803,9 +3808,12 @@ def phase_sweep(cfg, dev):
 # ---------------------------------------------------------------------------
 
 # the seed axis at CONFIG (fcea + PDD, S = 8) and the client axis at
-# 2048 x 16 at CONFIG's widths (x (2048, 1200, 784) float32, 7.7 GB),
-# dense fcea + PDD and K = 4, each SHARD_ROUNDS rounds
+# 2048 x 16 at CONFIG's widths (x (2048, 1200, 784) float32, 7.7 GB):
+# dense fcea + PDD, K = 4 and fcea + PDD under chaos, each SHARD_ROUNDS
+# rounds, the buffered engine (fcea dense) and K = 4 buffered under chaos,
+# each SHARD_STEPS micro-steps
 SHARD_ROUNDS = 3
+SHARD_STEPS = 8
 SHARD_SEEDS = 8
 SHARD_WORLD = (2048, 16)
 SHARD_K = 4
@@ -3816,9 +3824,11 @@ SHARD_KERNELS = ("score_matrix", "score_candidates", "sic_rates",
 def _shard_jobs(cfg):
     import dataclasses
     from repro_torch.core import engine
+    from repro_torch.faults import FaultSpec
     from repro_torch.launch import sharded
     big = dataclasses.replace(cfg, n_clients=SHARD_WORLD[0],
                               n_edges=SHARD_WORLD[1])
+    chaos = FaultSpec(**FAULT_CHAOS)
     return {
         "fleet": sharded.Job("fleet", cfg, engine.EngineSpec(), SHARD_ROUNDS,
                              tuple(range(SHARD_SEEDS))),
@@ -3826,7 +3836,16 @@ def _shard_jobs(cfg):
                                      SHARD_ROUNDS),
         "clients-k4": sharded.Job("clients", big,
                                   engine.EngineSpec(candidates_k=SHARD_K),
-                                  SHARD_ROUNDS)}
+                                  SHARD_ROUNDS),
+        "clients-buffered": sharded.Job(
+            "clients", big, engine.EngineSpec(engine_mode="buffered"),
+            SHARD_STEPS),
+        "clients-chaos": sharded.Job(
+            "clients", big, engine.EngineSpec(faults=chaos), SHARD_ROUNDS),
+        "clients-buffered-chaos": sharded.Job(
+            "clients", big, engine.EngineSpec(
+                candidates_k=SHARD_K, engine_mode="buffered", faults=chaos),
+            SHARD_STEPS)}
 
 
 def _host_peak_bytes() -> int:
@@ -3975,11 +3994,12 @@ def phase_shard(cfg, dev, card):
     (``core.mesh.spawn``) read them through CUDA IPC and copy only their
     share.  Each job first runs unsharded here, then on the ranks (in
     turns, never side by side); every leaf of every rank's metrics, final
-    state (the client rows gathered) and generator states is held bit for
-    bit to the unsharded run's (SHA-256 of the bytes).  Reports seed-rounds
-    a second and s a round at W and at 1, each rank's launches, peak
-    device memory and peak host memory.  Returns each kernel's launches
-    a rank of the widest part, summed over its jobs."""
+    state (the client rows and pending deltas gathered) and generator
+    states is held bit for bit to the unsharded run's (SHA-256 of the
+    bytes).  Reports seed-rounds a second, s a round and micro-steps a
+    second at W and at 1, each rank's launches, rows, peak device memory
+    and peak host memory.  Returns each kernel's launches a rank of the
+    widest part, summed over its jobs."""
     import torch
     from repro_torch.core.engine import quota_for
     from repro_torch.core.mesh import spawn
@@ -4004,7 +4024,8 @@ def phase_shard(cfg, dev, card):
                   [g.get_state().numpy() for g in fleet_world[2]]),
         "clients-dense": (*client_world[:2],
                           client_world[2].get_state().numpy())}
-    worlds["clients-k4"] = worlds["clients-dense"]
+    for name in names[2:]:                  # one client world for all
+        worlds[name] = worlds["clients-dense"]
     x = client_world[1].x
     log(f"[shard] worlds built once, on the card, in {build_s:.1f} s: "
         f"CONFIG S={SHARD_SEEDS} and {SHARD_WORLD[0]}x{SHARD_WORLD[1]} at "
@@ -4053,7 +4074,7 @@ def phase_shard(cfg, dev, card):
             job = jobs[name]
             ref_out, ref_stats = want[name]
             _shard_check(f"{label} {name}", ref_out, part, i)
-            rounds_want = _want_launches(job.cfg, job.spec, SHARD_ROUNDS,
+            rounds_want = _want_launches(job.cfg, job.spec, job.rounds,
                                          len(job.seeds) if job.axis ==
                                          "fleet" else 1)
             per = _shard_launches(f"{label} {name}", job, rounds_want,
@@ -4070,20 +4091,34 @@ def phase_shard(cfg, dev, card):
                 f"r{r} score {l['score_matrix'] + l['score_candidates']} "
                 f"SIC {l['sic_rates']} SGD {l['local_sgd_step']}"
                 for r, l in enumerate(per))
+            s_w, s_1 = _steady(stats[0]), _steady(ref_stats)
+            buffered = job.spec.engine_mode == "buffered"
             if job.axis == "fleet":
-                s_w, s_1 = _steady(stats[0]), _steady(ref_stats)
                 rate = (f"{SHARD_SEEDS / s_w:.2f} seed-rounds/s at W={w} "
                         f"({s_w:.4f} s a round), "
                         f"{SHARD_SEEDS / s_1:.2f} unsharded ({s_1:.4f})")
             else:
+                rows = job.cfg.n_clients // w
+                held = [(s["client_rows"],
+                         s["pending_rows"] if buffered else rows)
+                        for s in stats]
+                if any(h != (rows, rows) for h in held):
+                    raise AssertionError(
+                        f"[shard] {label} {name}: rows a rank (client "
+                        f"models, pending deltas) {held}, want {rows}")
                 k_lanes = min(job.cfg.n_clients,
                               quota_for(job.cfg, job.spec)
                               * job.cfg.n_edges)
-                rate = (f"{_steady(stats[0]):.4f} s a round at W={w}, "
-                        f"{_steady(ref_stats):.4f} unsharded; "
-                        f"{k_lanes} lanes, rows a rank "
-                        f"{stats[0]['client_rows']}")
-            log(f"[shard] {label} {name} {SHARD_ROUNDS} rounds: {rate}; "
+                rate = (f"{1 / s_w:.2f} micro-steps/s at W={w} ({s_w:.4f} "
+                        f"s each), {1 / s_1:.2f} unsharded ({s_1:.4f})"
+                        if buffered else
+                        f"{s_w:.4f} s a round at W={w}, {s_1:.4f} "
+                        f"unsharded")
+                rate += (f"; {k_lanes} lanes, rows a rank {rows}"
+                         + (" (client models and pending deltas)"
+                            if buffered else ""))
+            log(f"[shard] {label} {name} {job.rounds} "
+                f"{'micro-steps' if buffered else 'rounds'}: {rate}; "
                 f"launches {counts}; peak device GB a rank {peaks} "
                 f"(unsharded {ref_stats['peak_bytes'] / 1e9:.3f} from "
                 f"{ref_stats['start_bytes'] / 1e9:.3f}, its worlds "

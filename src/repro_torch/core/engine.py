@@ -77,9 +77,10 @@ the cold one; only the sweep counts differ.  Off, the leaf is absent.
 Across processes (``core.mesh``, one a card): ``run_fleet_sharded``
 splits a fleet's seed axis over the ranks, each seed bit-equal to
 ``run_fleet``'s; ``run_scanned_client_sharded`` splits one simulation's
-client rows (``pad_clients``, ``shard_clients``), the control plane
-replicated and the trained lanes gathered, bit-equal to ``run_scanned``
-on the same padded world.
+client rows (``pad_clients``, ``shard_clients``; the buffered engine's
+pending deltas too), the control plane replicated and the trained lanes
+and landed deltas gathered, bit-equal to ``run_scanned`` on the same
+padded world, sync or buffered, with or without faults.
 
 The port covers the sync and the buffered engine on every scenario kind,
 dense or on the candidate frontier, with fcea, gcea or rcea, the
@@ -652,10 +653,12 @@ def _schedule_traced(cfg, spec: EngineSpec, rc_all: cost.RoundCost
 def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
                   bundle: RoundBundle, assoc: torch.Tensor,
                   batch_idx: torch.Tensor, mesh: Optional[Mesh] = None
-                  ) -> Tuple[Params, Params]:
+                  ) -> Tuple[Params, Params, Tuple[torch.Tensor, Params]]:
     """τ₂ × (τ₁ local SGD + edge aggregation) (Eqs. 11, 13) on a compact
     cohort, for every seed of the fleet.  Returns ``(client_params,
-    edge_params)``, (S, N, …) and (S, M, …).
+    edge_params, (sel_idx, lanes))``, (S, N, …) and (S, M, …), and the
+    trained cohort: each lane's client (S, K), N for a pad lane, and
+    every lane's model (S, K, …).
 
     At most K = min(N, quota·M) clients of each seed are admitted, so they
     are gathered once into K lanes (ascending client index, then pad
@@ -677,7 +680,8 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
     the cluster size of all K, the trained lanes are all-gathered in lane
     order, and edge aggregation and the broadcast run replicated on the
     unsharded stage's inputs: every lane, edge model and row keeps its
-    bits.  The rank scatters back only to its own rows.
+    bits.  The rank scatters back only to its own rows; the trained lanes
+    it returns are all K, gathered.
     """
     seeds, n = assoc.shape[:2]
     k_sel = min(n, quota_for(cfg, spec) * cfg.n_edges)
@@ -712,6 +716,7 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
     lane_params = {k: v[sd, mine] for k, v in state.client_params.items()}
     lane_params = aggregation.broadcast_to_clients(sel_assoc[:, a:b],
                                                    edge_params, lane_params)
+    all_lanes = lane_params
     for t in range(cfg.tau2):
         if k_own:
             it = idx[t][:, :, a:b]
@@ -732,19 +737,27 @@ def _train_cohort(cfg, spec: EngineSpec, state: RoundState,
                                                      all_lanes)
         lane_params = (all_lanes if k_own == k_sel
                        else {k: v[:, a:b] for k, v in all_lanes.items()})
-    # scatter back to the rank's rows: pad lanes target each seed's scratch
-    # row n_rows, dropped
+    # scatter back to the rank's rows (a pad lane's n_rows is dropped)
     dest = sel_idx[:, a:b]
     if n_rows != n:
         dest = torch.where(dest < n, dest - lo, n_rows)
-    rows = (sd * (n_rows + 1) + dest).reshape(-1)
-    client_params = {}
-    for k, old in state.client_params.items():
-        buf = torch.cat([old, old[:, :1]], dim=1)
-        buf.reshape((seeds * (n_rows + 1),) + old.shape[2:]).index_copy_(
-            0, rows, lane_params[k].reshape((seeds * k_own,) + old.shape[2:]))
-        client_params[k] = buf[:, :n_rows]
-    return client_params, edge_params
+    client_params = {k: _scatter_rows(old, dest, lane_params[k])
+                     for k, old in state.client_params.items()}
+    return client_params, edge_params, (sel_idx, all_lanes)
+
+
+def _scatter_rows(base: torch.Tensor, dest: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """``base`` (S, n, …) with ``values`` (S, k, …) written at rows
+    ``dest`` (S, k): a destination of n (a pad lane) goes to each seed's
+    scratch row n, dropped."""
+    seeds, n = base.shape[:2]
+    sd = torch.arange(seeds, device=dest.device)[:, None]
+    rows = (sd * (n + 1) + dest).reshape(-1)
+    buf = torch.cat([base, base[:, :1]], dim=1)
+    buf.reshape((seeds * (n + 1),) + base.shape[2:]).index_copy_(
+        0, rows, values.reshape((rows.numel(),) + base.shape[2:]))
+    return buf[:, :n]
 
 
 def _lane_share(mesh: Optional[Mesh], safe: torch.Tensor, n: int,
@@ -757,7 +770,7 @@ def _lane_share(mesh: Optional[Mesh], safe: torch.Tensor, n: int,
     K, (1, K, …), in lane order.  Otherwise every lane, lo = 0 and no
     gather."""
     k_sel = safe.shape[1]
-    if mesh is None or mesh.world == 1:
+    if not _client_split(mesh):
         return 0, k_sel, 0, lambda lanes: lanes
     if safe.shape[0] != 1:
         raise ValueError("the client axis shards one simulation, not a "
@@ -771,22 +784,94 @@ def _lane_share(mesh: Optional[Mesh], safe: torch.Tensor, n: int,
     counts = [b - a for a, b in zip(bounds[:-1], bounds[1:])]
 
     def gather(lanes: Params) -> Params:
-        # packed in one key order on every rank (a rank without lanes
-        # holds its dict in another order than one that trained)
-        keys = sorted(lanes)
-        flat = torch.cat([lanes[k][0].flatten(1) for k in keys], 1)
-        full = mesh.all_gather_ragged(flat, counts)                # (K, P)
-        out, at = {}, 0
-        for k in keys:
-            shape = tuple(lanes[k].shape[2:])
-            size = int(np.prod(shape, dtype=np.int64))
-            out[k] = full[:, at:at + size].reshape(
-                (1, k_sel) + shape).contiguous()
-            at += size
-        return {k: out[k] for k in lanes}
+        full = _all_gather_rows(mesh, {k: v[0] for k, v in lanes.items()},
+                                counts)
+        return {k: v[None] for k, v in full.items()}
 
     return (bounds[mesh.rank], bounds[mesh.rank + 1], mesh.rank * n_rows,
             gather)
+
+
+def _client_split(mesh: Optional[Mesh]) -> bool:
+    """A client mesh of more than one rank: each holds a share of the
+    client rows."""
+    return mesh is not None and mesh.world > 1
+
+
+def _row_share(mesh: Optional[Mesh], n: int) -> Tuple[int, int]:
+    """``(lo, R)``: this rank's client rows [lo, lo + R) of N on a split
+    client axis, else all N."""
+    if not _client_split(mesh):
+        return 0, n
+    rows = n // mesh.world
+    return mesh.rank * rows, rows
+
+
+def _all_gather_rows(mesh: Mesh, rows: Params, counts) -> Params:
+    """Every rank's rows (leaves (counts[rank], …)) gathered in rank order,
+    leaves (Σ counts, …): the leaves packed into one flat gather, in one
+    key order on every rank (a rank without rows may hold its dict in
+    another order than one with)."""
+    keys = sorted(rows)
+    flat = torch.cat([rows[k].flatten(1) for k in keys], 1)
+    full = mesh.all_gather_ragged(flat, counts)                    # (L, P)
+    out, at = {}, 0
+    for k in keys:
+        shape = tuple(rows[k].shape[1:])
+        size = int(np.prod(shape, dtype=np.int64))
+        out[k] = full[:, at:at + size].reshape(
+            (full.shape[0],) + shape).contiguous()
+        at += size
+    return {k: out[k] for k in rows}
+
+
+def _trained_rows(global_params: Params, sel_idx: torch.Tensor,
+                  lanes: Params, n: int) -> Params:
+    """An (S, N, …) client stack with the trained ``lanes`` (S, K, …) at
+    their clients' rows ``sel_idx`` (S, K; a pad lane's N is dropped) and
+    the global model everywhere else."""
+    seeds = sel_idx.shape[0]
+    return {k: _scatter_rows(g[:, None].expand((seeds, n) + g.shape[1:]),
+                             sel_idx, lanes[k])
+            for k, g in global_params.items()}
+
+
+def _landed_sum(mesh: Mesh, delta_sum: Params, weight_sum: torch.Tensor,
+                land_tree: Params, w: torch.Tensor, landed: torch.Tensor,
+                n: int, finite: bool) -> Tuple[Params, torch.Tensor]:
+    """``aggregation.buffer_accumulate`` on a split client axis, bit-equal
+    to the whole stack's.  ``land_tree`` holds this rank's rows (1, R, …),
+    ``w`` and ``landed`` (1, N) are replicated.  The landed rows, and any
+    other row that is not finite (its zero-weight product is NaN in the
+    whole sum; the ranks' verdicts all-gathered, unless ``finite`` says
+    the tree is, as the quarantine's is), are gathered from every rank in
+    ascending client order, and each leaf's N-row stack -- those rows,
+    zeros elsewhere -- runs the unchanged accumulate, one leaf's stack at
+    a time.  A row left out enters the whole stack's sum as row · 0, ±0.0,
+    and here as +0.0: the two sums differ at most in a zero's sign, and
+    the accumulator (+0.0 at the start and after each merge, and never
+    −0.0 after, since x + (−x) is +0.0) adds either to the same bits."""
+    lo, rows = _row_share(mesh, n)
+    take = landed
+    if not finite:
+        take = landed | ~mesh.all_gather(
+            fault_guard.delta_finite(land_tree, 2)[0])[None]
+    idx = torch.nonzero(take[0]).flatten()
+    bounds = torch.searchsorted(idx, torch.arange(
+        mesh.world + 1, device=idx.device) * rows).tolist()
+    counts = [b - a for a, b in zip(bounds[:-1], bounds[1:])]
+    mine = idx[bounds[mesh.rank]:bounds[mesh.rank + 1]] - lo
+    full = _all_gather_rows(mesh, {k: v[0, mine]
+                                   for k, v in land_tree.items()}, counts)
+    out = {}
+    for k, acc in delta_sum.items():
+        stack = land_tree[k].new_zeros((1, n) + land_tree[k].shape[2:])
+        stack[0, idx] = full[k]
+        part, total = aggregation.buffer_accumulate(
+            {k: acc}, weight_sum, {k: stack}, w)
+        out[k] = part[k]
+        del stack
+    return out, total
 
 
 def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
@@ -794,8 +879,8 @@ def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
            mesh: Optional[Mesh] = None) -> Tuple[Params, Params]:
     """``_train_cohort`` followed by the semi-synchronous cloud aggregation
     (Eq. 17) of each seed.  Returns ``(global_params, client_params)``."""
-    client_params, edge_params = _train_cohort(cfg, spec, state, bundle,
-                                               assoc, batch_idx, mesh)
+    client_params, edge_params, _ = _train_cohort(cfg, spec, state, bundle,
+                                                  assoc, batch_idx, mesh)
     edge_data = torch.sum(assoc * bundle.counts[..., None], dim=-2)  # (S,M)
     z_eff = z * (edge_data > 0).to(z.dtype)
     agg = aggregation.cloud_aggregate(edge_params, z_eff, edge_data)
@@ -812,7 +897,8 @@ def _train(cfg, spec: EngineSpec, state: RoundState, bundle: RoundBundle,
 def _train_faulty(cfg, spec: EngineSpec, state: RoundState,
                   bundle: RoundBundle, assoc: torch.Tensor, z: torch.Tensor,
                   batch_idx: torch.Tensor, gains: torch.Tensor,
-                  edge_up: torch.Tensor, fd: FaultDraws):
+                  edge_up: torch.Tensor, fd: FaultDraws,
+                  mesh: Optional[Mesh] = None):
     """The sync training stage under faults (the reference's
     ``_train_faulty``): ``_train_cohort`` unchanged, then the cloud
     epilogue in delta space.  Each selected client's update (its trained
@@ -822,17 +908,29 @@ def _train_faulty(cfg, spec: EngineSpec, state: RoundState,
     the surviving, guard-cleaned deltas reach
     ``faulted_cloud_aggregate``.  Local params are never poisoned.
     Returns ``(global', client_params, (ok, crashed, lost, n_rejected))``,
-    ``ok`` (S, N) the surviving clients."""
+    ``ok`` (S, N) the surviving clients.
+
+    On a split client axis (``mesh``) a rank holds only its rows of
+    ``client_params``, so every rank forms the (S, N, …) deltas from the
+    K trained lanes ``_train_cohort`` gathered (``_trained_rows``; no
+    other collective), and the epilogue runs replicated on the whole
+    stack's shape.  Its rows differ from the unsharded stack's only where
+    a client was not trained (a zero delta here), and those are never
+    delivered: the quarantine turns them into zeros of weight 0, which
+    move the aggregate's sums at most in a zero's sign."""
     fsp = spec.faults
-    client_params, _ = _train_cohort(cfg, spec, state, bundle, assoc,
-                                     batch_idx)
+    client_params, _, (sel_idx, lanes) = _train_cohort(
+        cfg, spec, state, bundle, assoc, batch_idx, mesh)
     selected = torch.sum(assoc, dim=-1) > 0
     crashed = fault_inject.draw_crashes(fsp, fd.crash_u, selected)
     lost = fault_inject.draw_losses(fsp, fd.loss_u, gains, edge_up,
                                     selected & ~crashed)
     delivered = selected & ~crashed & ~lost
+    trained = (_trained_rows(state.global_params, sel_idx, lanes,
+                             cfg.n_clients)
+               if _client_split(mesh) else client_params)
     deltas = {k: c - state.global_params[k][:, None]
-              for k, c in client_params.items()}
+              for k, c in trained.items()}
     deltas, _ = fault_inject.poison_deltas(fsp, fd.poison_u, deltas,
                                            delivered)
     clean, ok, n_rej = fault_guard.quarantine(deltas, delivered,
@@ -977,14 +1075,14 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
     clients.
 
     ``mesh``: a client mesh (``run_scanned_client_sharded``), whose ranks
-    each hold a block of the client rows of ``client_params``, ``x`` and
-    ``y``; only the train stage reads it.  None: today's round."""
-    if mesh is not None and mesh.world > 1:
-        check_client_axis(spec)
+    each hold a block of the client rows of ``client_params``, ``x``, ``y``
+    and the buffer's ``pending_delta``; the train stage reads it, and the
+    fault epilogue and the buffered landing after it.  None: today's
+    round."""
     states = ensure_carry(cfg, spec, states)
     if spec.engine_mode == "buffered":
         return fleet_buffered_step(cfg, spec, states, bundles, draws,
-                                   actor_params, timer=timer)
+                                   actor_params, timer=timer, mesh=mesh)
     dev = bundles.dist.device
     stage = lambda name: _stage(timer, name, dev)        # noqa: E731
     seeds = bundles.dist.shape[0]
@@ -1047,7 +1145,8 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
         if fsp is not None:
             global_params, client_params, (ok, crashed, lost, n_rej) = \
                 _train_faulty(cfg, spec, states, bundles, assoc, z,
-                              draws.batch_idx, gains, edge_up, draws.faults)
+                              draws.batch_idx, gains, edge_up, draws.faults,
+                              mesh)
         else:
             global_params, client_params = _train(
                 cfg, spec, states, bundles, assoc, z, draws.batch_idx, mesh)
@@ -1107,7 +1206,7 @@ def fleet_step(cfg, spec: EngineSpec, states: RoundState,
 def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
                         bundles: RoundBundle, draws: RoundDraws,
                         actor_params: Optional[Params] = None, *,
-                        timer=None):
+                        timer=None, mesh: Optional[Mesh] = None):
     """One buffered micro-step of S simulations (the reference's
     ``_buffered_step``), from the same ``RoundDraws`` as a sync round;
     ``states.buffer`` must be attached (``fleet_step`` does so):
@@ -1142,11 +1241,25 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     a seed: Python floats would compare in float64.  Nothing is read back
     to the host but the resolver's sweeps, and no constant is copied to
     the card (``torch.tensor(v, device=...)`` is a blocking copy: each
-    scalar is a fill)."""
+    scalar is a fill).
+
+    On a split client axis (``mesh``, S = 1) a rank holds its rows [lo,
+    lo + R) of ``client_params`` and of ``buffer.pending_delta``, and
+    every other leaf whole.  It trains its lanes (``_train_cohort``) and
+    parks, poisons and quarantines its own rows, the quarantine's norms
+    taken inside an N-row stack (``fault_guard.quarantine(rows=)``); the
+    quarantine's per-row verdict is all-gathered (N flags), so every rank
+    holds the same ``landed``, and the landing gathers the landed rows
+    into the stack the whole sum reads (``_landed_sum``).  The clock, the
+    trigger, the retier and the bill run replicated, bit-equal to the
+    unsharded step on the same world."""
     dev = bundles.dist.device
     stage = lambda name: _stage(timer, name, dev)        # noqa: E731
     buf: BufferState = states.buffer
     n = cfg.n_clients
+    split = _client_split(mesh)
+    lo, n_rows = _row_share(mesh, n)
+    own = slice(lo, lo + n_rows)          # this rank's rows of (S, N) masks
     f32, i32 = torch.float32, torch.int32
     n_tiers = max(1, int(spec.n_tiers))
 
@@ -1218,15 +1331,16 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
     # 3. train the cohort from the current global model and park its
     #    deltas (trained minus the pulled global) in flight
     with stage("train"):
-        client_params, _ = _train_cohort(cfg, spec, states, bundles, assoc,
-                                         draws.batch_idx)
-    pending = {k: torch.where(col(flying, c), c - states.global_params[k][
+        client_params, _, _ = _train_cohort(cfg, spec, states, bundles,
+                                            assoc, draws.batch_idx, mesh)
+    flying_own = flying[:, own]
+    pending = {k: torch.where(col(flying_own, c), c - states.global_params[k][
         :, None], buf.pending_delta[k]) for k, c in client_params.items()}
     if fsp is not None:
         # poisoning corrupts the transmitted (in-flight) copy, never the
         # local params; a new upload resets its retry ledger
-        pending, _ = fault_inject.poison_deltas(fsp, fd.poison_u, pending,
-                                                flying)
+        pending, _ = fault_inject.poison_deltas(fsp, fd.poison_u[:, own],
+                                                pending, flying_own)
         attempts0 = torch.where(flying, 0, states.faults.attempts).to(i32)
     # modelled wall duration: τ₂ edge iterations + the edge→cloud hop
     dur = cfg.tau2 * rc_all.client_time_s \
@@ -1270,13 +1384,25 @@ def fleet_buffered_step(cfg, spec: EngineSpec, states: RoundState,
                              + fault_inject.backoff_s(fsp, attempts0),
                              finish)
         attempts = torch.where(can_retry, attempts0 + 1, attempts0)
-        land_tree, landed, n_rej = fault_guard.quarantine(
-            pending, landed_raw & ~lost, fsp.quarantine_clip)
+        produced = landed_raw & ~lost
+        if split:
+            land_tree, ok, _ = fault_guard.quarantine(
+                pending, produced[:, own], fsp.quarantine_clip, (n, lo))
+            landed = mesh.all_gather(ok[0])[None]
+            n_rej = torch.sum(produced & ~landed, dim=-1, dtype=i32)
+        else:
+            land_tree, landed, n_rej = fault_guard.quarantine(
+                pending, produced, fsp.quarantine_clip)
     age = staleness.buffer_age(buf.version[:, None], pulled)
     w = torch.where(landed, staleness.buffer_weight(age) * bundles.counts,
                     0.0)
-    delta_sum, weight_sum = aggregation.buffer_accumulate(
-        buf.delta_sum, buf.weight_sum, land_tree, w)
+    if split:
+        delta_sum, weight_sum = _landed_sum(
+            mesh, buf.delta_sum, buf.weight_sum, land_tree, w, landed, n,
+            finite=fsp is not None)
+    else:
+        delta_sum, weight_sum = aggregation.buffer_accumulate(
+            buf.delta_sum, buf.weight_sum, land_tree, w)
     fill = buf.fill + torch.sum(landed, dim=-1, dtype=i32)
     if fsp is not None:
         in_flight = (in_flight & ~landed_raw) | can_retry
@@ -1655,17 +1781,6 @@ def run_fleet_sharded(cfg, spec: EngineSpec, states: RoundState,
     return _gather_seeds(final, mesh, seeds), _gather_seeds(out, mesh, seeds)
 
 
-def check_client_axis(spec: EngineSpec) -> None:
-    """Raise for what the client axis does not carry yet: the buffered
-    engine's and the fault layer's per-client leaves (ROADMAP A19)."""
-    if spec.engine_mode == "buffered" or spec.faults is not None:
-        raise ValueError(
-            "the client axis (run_scanned_client_sharded) does not shard "
-            "the buffered engine or the fault layer yet: their per-client "
-            "leaves are the next slice of the client axis (ROADMAP A19); "
-            "run them unsharded or on the seed axis (run_fleet_sharded)")
-
-
 def pad_clients(cfg, state: RoundState, bundle: RoundBundle, multiple: int):
     """Pad N up to a multiple of ``multiple`` with inert clients (the
     reference's ``pad_clients``, leaf for leaf): parked at ``area_side_m ·
@@ -1731,20 +1846,24 @@ def shard_clients(state: RoundState, bundle: RoundBundle,
                   ) -> Tuple[RoundState, RoundBundle]:
     """One simulation split over the client mesh (default:
     ``client_mesh()``): this rank's contiguous N / W rows of the heavy
-    per-client leaves -- ``client_params``, ``bundle.x`` and ``bundle.y``
-    -- copied to its card, and every other leaf replicated there (gains,
-    staleness, distances, counts, the scenario state, the warm seed, the
-    global model, the test set).  N must divide by W: pad a ragged N with
+    per-client leaves -- ``client_params``, ``bundle.x``, ``bundle.y`` and
+    the buffered engine's ``buffer.pending_delta`` -- copied to its card,
+    and every other leaf replicated there (gains, staleness, distances,
+    counts, the scenario state, the warm seed, the global model, the test
+    set, the rest of the buffer and the whole ``FaultState``).  The
+    buffer's and the fault ledger's per-client scalars (``finish_s``,
+    ``in_flight``, ``pulled_ver``, ``obs_s``, ``tier``, ``attempts``) are
+    replicated like ``gains`` and ``staleness``, where the reference's
+    placement splits them: placement only, the round computes the same.
+    A buffer attached later (``ensure_carry``) shapes its
+    ``pending_delta`` from the rank's ``client_params``, so it holds the
+    rank's rows too.  N must divide by W: pad a ragged N with
     ``pad_clients`` first."""
     mesh = client_mesh() if mesh is None else mesh
     n = bundle.counts.shape[-1]
     if n % mesh.world:
         raise ValueError(f"shard_clients: {n} clients do not split over "
                          f"{mesh.world} ranks; pad_clients first")
-    if state.buffer is not None or state.faults is not None:
-        raise ValueError("shard_clients: the buffered engine's and the "
-                         "fault layer's per-client leaves are not sharded "
-                         "yet (ROADMAP A19)")
     dev = mesh.device
     rows = n // mesh.world
     lo = mesh.rank * rows
@@ -1756,17 +1875,31 @@ def shard_clients(state: RoundState, bundle: RoundBundle,
         return part.clone() if part.device == dev else part.to(dev)
 
     rep = lambda t: t.to(dev)                          # noqa: E731
-    state = _map(rep, state._replace(client_params=None))._replace(
+    buf = state.buffer
+    rest = state._replace(client_params=None, buffer=None if buf is None
+                          else buf._replace(pending_delta=None))
+    state = _map(rep, rest)._replace(
         client_params={k: own(v) for k, v in state.client_params.items()})
+    if buf is not None:
+        state = state._replace(buffer=state.buffer._replace(
+            pending_delta={k: own(v) for k, v in buf.pending_delta.items()}))
     bundle = _map(rep, bundle._replace(x=None, y=None))._replace(
         x=own(bundle.x), y=own(bundle.y))
     return state, bundle
 
 
-def gather_clients(client_params: Params, mesh: Mesh) -> Params:
-    """Every rank's rows of ``client_params`` (leaves (N / W, …))
-    gathered into the whole (N, …) stack, on every rank."""
-    return {k: mesh.all_gather(v) for k, v in client_params.items()}
+def gather_clients(state: RoundState, mesh: Mesh) -> RoundState:
+    """``state`` with every rank's rows of its split leaves (leaves (N / W,
+    …)) gathered into the whole (N, …) stacks, on every rank:
+    ``client_params`` and, with a buffer, ``buffer.pending_delta``."""
+    def whole(params):
+        return {k: mesh.all_gather(v) for k, v in params.items()}
+
+    state = state._replace(client_params=whole(state.client_params))
+    if state.buffer is not None:
+        state = state._replace(buffer=state.buffer._replace(
+            pending_delta=whole(state.buffer.pending_delta)))
+    return state
 
 
 def run_scanned_client_sharded(cfg, spec: EngineSpec, state: RoundState,
@@ -1792,18 +1925,19 @@ def run_scanned_client_sharded(cfg, spec: EngineSpec, state: RoundState,
     Training splits: each rank trains the lanes of its own rows and the
     lanes are all-gathered after each τ₁ block (``_train_cohort``),
     so the whole round is bit-equal to the unsharded one on the same
-    padded world.
+    padded world.  The buffered engine (``fleet_buffered_step``) keeps
+    its ``pending_delta`` rows on their rank and gathers only the landed
+    ones; the faulted sync round (``_train_faulty``) forms its deltas
+    from the gathered lanes: both bit-equal too.
 
     Returns the padded world's final state and output, the state's
-    ``client_params`` this rank's rows (``gather_clients`` assembles
-    them); ``generator`` is left where the run left it; ``on_round``
-    gets each round's output (``sink.stream_scanned_client_sharded``
-    tees it).  The buffered engine and faults raise
-    (``check_client_axis``).  A rank that raises
+    ``client_params`` and ``pending_delta`` this rank's rows
+    (``gather_clients`` assembles them); ``generator`` is left where the
+    run left it; ``on_round`` gets each round's output
+    (``sink.stream_scanned_client_sharded`` tees it).  A rank that raises
     stops inside a collective: the launcher (``torchrun``, ``mesh.spawn``)
     ends the others."""
     mesh = client_mesh() if mesh is None else mesh
-    check_client_axis(spec)
     cfg, state, bundle = pad_clients(cfg, state, bundle, mesh.world)
     state, bundle = shard_clients(state, bundle, mesh)
     gen = _rank_generator(generator, mesh.device)

@@ -4,13 +4,16 @@ them to the unsharded drivers.
   torchrun --nproc_per_node=W -m repro_torch.launch.sharded --axis fleet \\
       --seeds 8 --rounds 3
   torchrun --nproc_per_node=W -m repro_torch.launch.sharded --axis clients \\
-      --clients 2048 --edges 16 --rounds 3 [--candidates 4]
+      --clients 2048 --edges 16 --rounds 3 [--candidates 4] [--buffered] \\
+      [--faults]
 
 One process a card (NCCL); ``--device cpu`` runs gloo ranks on the host.
 Every rank builds the world (``engine.init_simulation``, one a seed, at
 ``CONFIG``'s widths with the given N and M) and runs its share: the seed
 axis through ``engine.run_fleet_sharded``, the client axis through
-``engine.run_scanned_client_sharded``.  Rank 0 prints each round's
+``engine.run_scanned_client_sharded``, sync or with ``--buffered`` the
+semi-async micro-step, under the sweep runner's chaos faults with
+``--faults`` (``sweeps.grid.CHAOS``).  Rank 0 prints each round's
 seconds, the steady rate (seed-rounds/s, or s a round) and the final
 accuracy and cost; each rank prints its launches and, on a card, its
 peak memory.  The whole world is built on the host of every rank, as the
@@ -24,10 +27,11 @@ runs it on a mesh and ``run_unsharded`` runs the same world (the client
 axis: padded to the mesh's world) through ``run_fleet`` or
 ``run_scanned``.  Both return ``(outputs, stats)``: ``outputs`` maps
 each leaf of the per-round output, the final state (the client axis's
-``client_params`` gathered whole) and the generators' states to a numpy
+``client_params`` and ``pending_delta`` gathered whole) and the generators' states to a numpy
 array, or, with ``digest=True``, to its dtype, shape and SHA-256
 (bit-equal ⇔ equal); ``stats`` holds each round's seconds, the launches
-and the peak memory.
+and the peak memory (and, on the client axis, the rows of
+``client_params`` and of the buffer's ``pending_delta`` a rank held).
 """
 from __future__ import annotations
 
@@ -228,8 +232,10 @@ def run_sharded(job: Job, mesh: Optional[Mesh] = None, world=None, *,
             mesh=mesh, on_round=clock)
     stats = {**_stats(clock, dev), "start_bytes": start,
              "client_rows": next(iter(final.client_params.values())).shape[0]}
-    final = final._replace(client_params=engine.gather_clients(
-        final.client_params, mesh))
+    if final.buffer is not None:
+        stats["pending_rows"] = next(iter(
+            final.buffer.pending_delta.values())).shape[0]
+    final = engine.gather_clients(final, mesh)
     return _outputs(job.spec, final, out, [gen], records, digest), stats
 
 
@@ -277,6 +283,7 @@ def run_unsharded(job: Job, world_size: int = 1,
 
 def main(argv=None) -> int:
     from repro_torch.configs.hfl_mnist import CONFIG
+    from repro_torch.sweeps.grid import CHAOS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--axis", choices=("fleet", "clients"), default="fleet")
@@ -289,6 +296,10 @@ def main(argv=None) -> int:
     ap.add_argument("--scheduler", default="pdd")
     ap.add_argument("--candidates", type=int, default=None, metavar="K")
     ap.add_argument("--scenario", default=None)
+    ap.add_argument("--buffered", action="store_true",
+                    help="the buffered engine's micro-steps (FedBuff)")
+    ap.add_argument("--faults", action="store_true",
+                    help="the sweep runner's chaos fault spec")
     ap.add_argument("--device", default="cuda",
                     help="cuda (NCCL, one rank a card) or cpu (gloo)")
     args = ap.parse_args(argv)
@@ -299,7 +310,9 @@ def main(argv=None) -> int:
         policy=args.policy, scheduler=args.scheduler,
         candidates_k=args.candidates,
         scenario=("static" if args.scenario in (None, "static")
-                  else "dynamic"))
+                  else "dynamic"),
+        engine_mode="buffered" if args.buffered else "sync",
+        faults=CHAOS if args.faults else None)
     job = Job(args.axis, cfg, spec, args.rounds,
               tuple(range(args.seeds)) if args.axis == "fleet" else (0,),
               args.scenario)
@@ -315,8 +328,9 @@ def main(argv=None) -> int:
           + ("" if peak is None else f", peak {peak / 1e9:.3f} GB"),
           flush=True)
     if mesh.rank == 0:
+        step = "micro-step" if args.buffered else "round"
         for r, s in enumerate(secs):
-            print(f"round {r + 1}: {s:.4f} s")
+            print(f"{step} {r + 1}: {s:.4f} s")
         acc = outputs["metrics.accuracy"]
         cost = outputs["metrics.cost"]
         if args.axis == "fleet":
@@ -326,7 +340,7 @@ def main(argv=None) -> int:
                   f"{cost[:, -1].mean():.4f}")
         else:
             print(f"{cfg.n_clients} x {cfg.n_edges} over {mesh.world} "
-                  f"ranks: {steady:.4f} s a round steady; final accuracy "
+                  f"ranks: {steady:.4f} s a {step} steady; final accuracy "
                   f"{acc[-1]:.4f}, cost {cost[-1]:.4f}")
     return 0
 

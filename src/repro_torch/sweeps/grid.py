@@ -90,6 +90,10 @@ from repro_torch.kernels._build import BuildError
 DEFAULT_OUT = "results_torch"
 # the ddpg training generator of a cell is seeded with TRAIN_SEED_BASE + seed
 TRAIN_SEED_BASE = 7919 << 32
+# the chaos grid's faults: the reference's chaos sweep cell (edge churn and
+# a lossy, channel-tied uplink)
+CHAOS = FaultSpec(edge_p_kill=0.2, edge_p_respawn=0.5, uplink_p_loss=0.1,
+                  uplink_loss_slope=0.2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -435,8 +439,7 @@ def main(argv=None) -> None:
             candidates_k=args.candidates,
             telemetry=True,
             engine_modes=("buffered",),
-            faults=FaultSpec(edge_p_kill=0.2, edge_p_respawn=0.5,
-                             uplink_p_loss=0.1, uplink_loss_slope=0.2))
+            faults=CHAOS)
     else:
         grid = SweepGrid(
             name="demo",

@@ -185,7 +185,7 @@ def test_train_cohort_with_pad_lanes_matches_reference():
     lattice = jengine._batch_index_lattice(
         key, JSMALL.tau2, JSMALL.tau1, jnp.arange(16, dtype=jnp.int32),
         jbundle.counts, JSMALL.local_batch)
-    clients, edge = engine._train_cohort(
+    clients, edge, _ = engine._train_cohort(
         SMALL, spec, engine._lift(state), engine._lift(bundle),
         torch.tensor(assoc)[None], torch.tensor(np.asarray(lattice))[None])
     clients, edge = (engine.select_seed(t, 0) for t in (clients, edge))

@@ -4,7 +4,11 @@ and the client axis (``pad_clients``, ``shard_clients``,
 streaming drivers and the sharded sweep runner, on the CPU.
 
 * A world of one (no process group): each sharded driver is its
-  unsharded driver, bit for bit.
+  unsharded driver, bit for bit, sync, buffered and under chaos.
+* ``shard_clients``'s placement: a rank holds N / W rows of
+  ``client_params`` and of the buffer's ``pending_delta``, every other
+  buffer and fault leaf whole; the quarantine of a rank's rows and the
+  landing's zero rows are bit-equal to the whole stack's.
 * ``pad_clients`` against the live reference's, every leaf exact
   (``SMALL`` 16 → multiple 5 → 20, and 18 → multiple 4 → 20, with the
   buffer, the fault ledger and the warm seed attached); the pads never
@@ -12,20 +16,24 @@ streaming drivers and the sharded sweep runner, on the CPU.
   round of the port against the reference's ``round_step`` with its
   draws replayed, at ``tests/test_torch_engine.py``'s tolerances.
 * Four gloo ranks (``core.mesh.spawn``, one spawn for the module): every
-  case's metrics, trace, stream, final state (the client axis's rows
-  gathered) and generator states on every rank bit-equal to the port's
-  unsharded run of the same (padded) world from the same generator
-  state.  No tolerance is needed: each lane is trained by one batched
-  call whatever the number of lanes beside it (the plain SGD's batched
-  matmuls, on one thread, give each lane the same bits), and everything
-  else is replicated from the same inputs.
+  case's metrics, trace, stream, final state (the client axis's rows of
+  ``client_params`` and ``pending_delta`` gathered) and generator states
+  on every rank bit-equal to the port's unsharded run of the same
+  (padded) world from the same generator state; the buffered and chaos
+  cases show the merges, retiers and fault events they claim.  No
+  tolerance is needed: each lane is trained by one batched call whatever
+  the number of lanes beside it (the plain SGD's batched matmuls, on one
+  thread, give each lane the same bits), every reduction over clients
+  runs on the unsharded stack's shape, and everything else is replicated
+  from the same inputs.
 * The same four ranks against the reference's own sharded drivers
   (``run_scanned_client_sharded`` and ``run_fleet_sharded`` on a forced
   4-device CPU mesh, in a child process as ``tests/test_client_sharding.py``
   runs them): the port's sharded stages on the reference's world, each
-  round's draws replayed from the reference's key chain, at
-  ``tests/test_torch_engine.py``'s tolerances, integers exactly.
-* The client axis refuses the buffered engine and the fault layer.
+  round's draws replayed from the reference's key chain (the fault
+  uniforms as ``tests/test_torch_faults.py`` replays them), at
+  ``tests/test_torch_engine.py``'s tolerances, integers, the buffer's
+  integers and every ``FaultState`` leaf exactly.
 
 The ranks run ``tests/_torch_sharding_ranks.py``'s ``rank_main``.
 """
@@ -45,25 +53,34 @@ import torch
 
 from repro.core import engine as jengine
 from repro.faults import FaultSpec as JFaultSpec
+from repro.faults import inject as jinject
 from repro_torch import convert
-from repro_torch.core import engine
-from repro_torch.core.mesh import client_mesh, fleet_mesh, make_mesh, spawn
-from repro_torch.faults import FaultSpec
+from repro_torch.core import aggregation, engine
+from repro_torch.core.mesh import (Mesh, client_mesh, fleet_mesh, make_mesh,
+                                   spawn)
+from repro_torch.faults import FaultSpec, FaultState, guard
 from repro_torch.launch import sharded
 from repro_torch.sweeps import SweepGrid, run_sweep
 from test_torch_engine import JSMALL, SMALL, _replayed_draws
-from _torch_sharding_ranks import rank_main
+from _torch_sharding_ranks import landed_inputs, rank_main
 from _torch_threads import one_torch_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 RANKS = 4
 ROUNDS = 2
-SPEC_BUF = engine.EngineSpec(policy="gcea", scheduler="fastest",
-                             engine_mode="buffered", n_tiers=2,
-                             retier_every=3, timeout_s=5.0, telemetry=True)
+BUF_KW = dict(policy="gcea", scheduler="fastest", engine_mode="buffered",
+              n_tiers=2, retier_every=3, timeout_s=5.0)
+SPEC_BUF = engine.EngineSpec(**BUF_KW, telemetry=True)
 RAGGED = dataclasses.replace(SMALL, n_clients=18)
 FLEET = tuple(range(6))          # ragged over 4 ranks: blocks of 2
+# chaos (``tests/test_torch_faults.py``'s) with NaN poisoning at 0.3, so
+# that the sync round's quarantine rejects some delta within 3 rounds
+CHAOS = dict(edge_p_kill=0.2, edge_p_respawn=0.5, uplink_p_loss=0.1,
+             uplink_loss_slope=0.2, client_p_crash=0.05, p_poison=0.3,
+             poison_nan=True)
+SPEC_CHAOS = engine.EngineSpec(policy="fcea", scheduler="fastest",
+                               faults=FaultSpec(**CHAOS), telemetry=True)
 
 JOBS = {
     "fleet-gcea-fastest": sharded.Job(
@@ -98,7 +115,23 @@ JOBS = {
         "clients", RAGGED, engine.EngineSpec(allocator="ddpg",
                                              noma_enabled=False), ROUNDS,
         actor_hidden=16),
+    "clients-buffered-streamed": sharded.Job(
+        "clients", SMALL, SPEC_BUF, 6, stream=True),
+    "clients-buffered-k2-markov-dropout": sharded.Job(
+        "clients", SMALL, engine.EngineSpec(
+            candidates_k=2, engine_mode="buffered", scenario="dynamic",
+            retier_every=3, telemetry=True), 6, (0,), "markov_dropout"),
+    "clients-chaos-sync": sharded.Job("clients", SMALL, SPEC_CHAOS, 3),
+    "clients-ragged-buffered-chaos": sharded.Job(
+        "clients", RAGGED, dataclasses.replace(SPEC_BUF,
+                                               faults=FaultSpec(**CHAOS)), 8),
 }
+# what each buffered or faulted job must show it ran: merges and retiers
+# (buffered), fault events (faults)
+EXERCISED = [name for name, job in JOBS.items()
+             if job.axis == "clients" and (job.spec.faults is not None
+                                           or job.spec.engine_mode
+                                           == "buffered")]
 SWEEP = dict(name="t", scenarios=("static", "markov_dropout"),
              policies=("gcea",), schedulers=("fastest",),
              allocators=("mid", "ddpg"), seeds=(0, 1, 2), n_rounds=2,
@@ -110,6 +143,7 @@ SWEEP = dict(name="t", scenarios=("static", "markov_dropout"),
 # the reference's world (16 clients, 18 → 20, and a fleet of FLEET seeds),
 # each round's draws replayed: axis, N, the spec's options
 REPLAY_ROUNDS = 2
+REPLAY_STEPS = {"clients-buffered": 6}      # others: REPLAY_ROUNDS
 REPLAYS = {
     "clients-fcea-fastest-k2": ("clients", 16, dict(scheduler="fastest",
                                                     candidates_k=2)),
@@ -120,7 +154,15 @@ REPLAYS = {
     "fleet-gcea-fastest": ("fleet", 16, dict(policy="gcea",
                                              scheduler="fastest")),
     "fleet-fcea-pdd": ("fleet", 16, {}),
+    "clients-buffered": ("clients", 16, BUF_KW),
+    "clients-chaos-sync": ("clients", 16, dict(scheduler="fastest",
+                                               faults=CHAOS)),
 }
+# the buffer's leaves held exactly, as ``tests/test_torch_buffered.py``
+# holds them
+BUFFER_EXACT = ("in_flight", "tier", "pulled_ver", "fill", "version", "step")
+# the buffered landing's sums on four ranks (``landed_sums``)
+LANDED_CASE = dict(n=16, seed=5)
 
 # run in a child process: the placeholder devices' XLA_FLAGS must be set
 # before jax imports and must not reach this process
@@ -132,6 +174,7 @@ import jax
 import numpy as np
 from repro.configs.hfl_mnist import CONFIG
 from repro.core import engine
+from repro.faults import FaultSpec
 
 assert len(jax.devices()) == 4
 args = json.loads(sys.argv[1])
@@ -139,8 +182,10 @@ small = dataclasses.replace(CONFIG, **args["small"])
 out = {}
 for name, (axis, n, kw) in args["cases"].items():
     cfg = dataclasses.replace(small, n_clients=n)
+    if "faults" in kw:
+        kw = dict(kw, faults=FaultSpec(**kw["faults"]))
     spec = engine.EngineSpec(**kw)
-    rounds = args["rounds"]
+    rounds = args["rounds"].get(name, args["default_rounds"])
     if axis == "clients":
         state, bundle, _ = engine.init_simulation(cfg, seed=0)
         final, ms = engine.run_scanned_client_sharded(cfg, spec, state,
@@ -155,9 +200,17 @@ for name, (axis, n, kw) in args["cases"].items():
         rows = [[engine.metrics_row(jax.tree.map(lambda a: a[s], ms), r)
                  for s in range(len(args["seeds"]))] for r in range(rounds)]
         bundle = bundles
+    extra = {}
+    if axis == "clients" and final.buffer is not None:
+        extra.update({f"buffer.{k}": np.asarray(getattr(final.buffer, k))
+                      for k in args["buffer_exact"]})
+    if axis == "clients" and final.faults is not None:
+        extra.update({f"faults.{k}": np.asarray(v) for k, v in
+                      zip(final.faults._fields, final.faults)})
     out[name] = (rows, {k: np.asarray(v)
                         for k, v in final.global_params.items()},
-                 np.asarray(final.staleness), int(bundle.test_y.shape[-1]))
+                 np.asarray(final.staleness), int(bundle.test_y.shape[-1]),
+                 extra)
 with open(args["out"], "wb") as fh:
     pickle.dump(out, fh)
 """
@@ -169,13 +222,33 @@ def _port_world(jstate, jbundle):
         jax.tree.map(np.asarray, jbundle), "cpu")
 
 
-def _replay_case(axis, n, kw):
+def _ref_fault_draws(jspec, key, n, m):
+    """The reference round's fault uniforms from its round key, as
+    ``tests/test_torch_faults.py`` replays them: ``split(fault_key(
+    k_fade), 4)``, each ``uniform(k, shape)``."""
+    k_fade = jengine.round_keys(jspec, key)[2]
+    ks = jax.random.split(jinject.fault_key(k_fade), 4)
+    return engine.FaultDraws(*(torch.tensor(np.asarray(
+        jax.random.uniform(k, (size,)))) for k, size in zip(ks,
+                                                            (m, n, n, n))))
+
+
+def _specs(kw):
+    """The reference's and the port's EngineSpec of a ``REPLAYS`` case
+    (its ``faults`` a dict of ``FaultSpec`` fields)."""
+    if "faults" not in kw:
+        return jengine.EngineSpec(**kw), engine.EngineSpec(**kw)
+    return (jengine.EngineSpec(**dict(kw, faults=JFaultSpec(**kw["faults"]))),
+            engine.EngineSpec(**dict(kw, faults=FaultSpec(**kw["faults"]))))
+
+
+def _replay_case(name, axis, n, kw):
     """The port's inputs of one ``REPLAYS`` case: the reference's world
     (a fleet's stacked) and each round's draws from its key chain (the
     client axis's for the world padded to a multiple of the ranks, as the
     reference's ``run_scanned_client_sharded`` pads it)."""
     jcfg = dataclasses.replace(JSMALL, n_clients=n)
-    jspec = jengine.EngineSpec(**kw)
+    jspec, spec = _specs(kw)
     starts = [jengine.init_simulation(jcfg, seed=s)[:2]
               for s in (FLEET if axis == "fleet" else (0,))]
     ports = [_port_world(*start) for start in starts]
@@ -184,17 +257,20 @@ def _replay_case(axis, n, kw):
         starts = [(jstate, jbundle)]
     keys = [jstate.key for jstate, _ in starts]
     draws = []
-    for _ in range(REPLAY_ROUNDS):
+    for _ in range(REPLAY_STEPS.get(name, REPLAY_ROUNDS)):
         rows = [_replayed_draws(jcfg, jspec, SimpleNamespace(key=k), jb)
                 for k, (_, jb) in zip(keys, starts)]
+        if jspec.faults is not None:
+            rows = [d._replace(faults=_ref_fault_draws(
+                jspec, k, jcfg.n_clients, jcfg.n_edges))
+                for d, k in zip(rows, keys)]
         keys = [jengine.round_keys(jspec, k)[0] for k in keys]
         draws.append(rows[0] if axis == "clients" else engine.RoundDraws(
             *(None if f[0] is None else torch.stack(f) for f in zip(*rows))))
     state, bundle = (ports[0] if axis == "clients"
                      else engine.stack_fleet(ports))
     return dict(axis=axis, cfg=dataclasses.replace(SMALL, n_clients=n),
-                spec=engine.EngineSpec(**kw), state=state, bundle=bundle,
-                draws=draws)
+                spec=spec, state=state, bundle=bundle, draws=draws)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -214,12 +290,13 @@ def _ranks_started(tmp_path_factory):
         path = out / f"reference-{axis}.pkl"
         references.append((subprocess.Popen(
             [sys.executable, "-c", _REFERENCE_SCRIPT, json.dumps(dict(
-                small=small, rounds=REPLAY_ROUNDS, seeds=FLEET,
+                small=small, default_rounds=REPLAY_ROUNDS,
+                rounds=REPLAY_STEPS, buffer_exact=BUFFER_EXACT, seeds=FLEET,
                 out=str(path), cases={k: v for k, v in REPLAYS.items()
                                       if v[0] == axis}))],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True), path))
-    replays = [_replay_case(*case) for case in REPLAYS.values()]
+    replays = [_replay_case(name, *case) for name, case in REPLAYS.items()]
     box = {}
 
     def run():
@@ -228,7 +305,7 @@ def _ranks_started(tmp_path_factory):
                 rank_main, RANKS, backend="gloo", device="cpu",
                 args=(list(JOBS.values()),
                       (SMALL, SweepGrid(**SWEEP), str(out / "sharded")),
-                      replays),
+                      replays, LANDED_CASE),
                 timeout_s=240)
         except BaseException as exc:  # noqa: BLE001 -- re-raised below
             box["error"] = exc
@@ -344,16 +421,138 @@ def test_a_rank_generator_draws_the_round_of_its_source():
         engine._rank_generator(gen, torch.device("meta"))
 
 
-def test_client_axis_refuses_buffered_and_faults():
+@pytest.mark.parametrize("spec", [
+    SPEC_BUF, SPEC_CHAOS,
+    dataclasses.replace(SPEC_BUF, faults=FaultSpec(**CHAOS))],
+    ids=["buffered", "chaos", "buffered-chaos"])
+def test_world_of_one_clients_buffered_and_chaos_are_run_scanned(spec):
     state, bundle, aux = engine.init_simulation(SMALL, seed=0, device="cpu")
-    mesh = client_mesh("cpu")
-    for spec in (SPEC_BUF, engine.EngineSpec(faults=FaultSpec())):
-        with pytest.raises(ValueError, match="ROADMAP A19"):
-            engine.run_scanned_client_sharded(SMALL, spec, state, bundle, 1,
-                                              aux["generator"], mesh=mesh)
-    with pytest.raises(ValueError, match="ROADMAP A19"):
-        engine.shard_clients(engine.ensure_carry(SMALL, SPEC_BUF, state),
-                             bundle, mesh)
+    gen = aux["generator"]
+    want_gen = torch.Generator().set_state(gen.get_state())
+    final, out = engine.run_scanned_client_sharded(
+        SMALL, spec, state, bundle, 6, gen, mesh=client_mesh("cpu"))
+    want_final, want_out = engine.run_scanned(SMALL, spec, state, bundle, 6,
+                                              want_gen)
+    got = sharded._outputs(spec, final, out, [gen], None, False)
+    want = sharded._outputs(spec, want_final, want_out, [want_gen], None,
+                            False)
+    _assert_outputs_equal(got, want, f"world of one, clients, {spec}")
+
+
+def _rank_mesh(rank, world):
+    """Rank ``rank`` of a client mesh of ``world`` without a process
+    group: ``shard_clients`` reads only its rank, world and device."""
+    return Mesh("clients", None, rank, world, torch.device("cpu"))
+
+
+def test_shard_clients_places_pending_delta_rows():
+    """A rank holds N / W rows of ``client_params`` and of the buffer's
+    ``pending_delta`` (its own block), every other buffer and fault leaf
+    whole; a buffer attached after the split shapes its ``pending_delta``
+    from the rank's rows."""
+    spec = dataclasses.replace(SPEC_BUF, faults=FaultSpec(**CHAOS))
+    state, bundle, _ = engine.init_simulation(SMALL, seed=0, device="cpu")
+    state = engine.ensure_carry(SMALL, spec, state)
+    pending = {k: torch.randn(v.shape, generator=torch.Generator()
+                              .manual_seed(i))
+               for i, (k, v) in enumerate(state.buffer.pending_delta.items())}
+    state = state._replace(buffer=state.buffer._replace(
+        pending_delta=pending))
+    n, world = SMALL.n_clients, 4
+    rows = n // world
+    for rank in range(world):
+        mine, _ = engine.shard_clients(state, bundle,
+                                       _rank_mesh(rank, world))
+        own = slice(rank * rows, (rank + 1) * rows)
+        for k, v in pending.items():
+            assert torch.equal(mine.buffer.pending_delta[k], v[own]), k
+            assert torch.equal(mine.client_params[k],
+                               state.client_params[k][own]), k
+        for name in engine.BufferState._fields:
+            if name != "pending_delta":
+                got, want = getattr(mine.buffer, name), \
+                    getattr(state.buffer, name)
+                for g, w in zip(engine._leaves(got), engine._leaves(want)):
+                    assert torch.equal(g, w), name
+        for name, g, w in zip(FaultState._fields, mine.faults, state.faults):
+            assert torch.equal(g, w), name
+        assert mine.buffer.finish_s.shape == (n,)
+        assert mine.faults.attempts.shape == (n,)
+        fresh = engine.ensure_carry(SMALL, spec, engine.shard_clients(
+            state._replace(buffer=None), bundle, _rank_mesh(rank, world))[0])
+        for v in fresh.buffer.pending_delta.values():
+            assert v.shape[0] == rows
+
+
+def test_quarantine_of_a_row_share_is_the_whole_stacks_rows():
+    """``guard.quarantine(rows=(n, lo))`` on rows [lo, lo + R) gives those
+    rows of the whole stack's quarantine, bit for bit (a NaN, an inf and
+    a clipped row among them)."""
+    rng = np.random.default_rng(3)
+    n, r = 12, 4
+    deltas = {"w": torch.tensor(rng.normal(0, 2, (1, n, 5, 3))
+                                .astype(np.float32)),
+              "b": torch.tensor(rng.normal(0, 2, (1, n, 7))
+                                .astype(np.float32))}
+    deltas["w"][0, 5, 2, 1] = float("nan")
+    deltas["b"][0, 9, 0] = float("-inf")
+    produced = torch.tensor(rng.uniform(size=(1, n)) < 0.7)
+    produced[0, 5] = produced[0, 9] = True
+    clean, ok, n_rej = guard.quarantine(deltas, produced, 2.0)
+    assert int(n_rej) == 2 and bool((clean["w"] != 0).any())
+    for lo in range(0, n, r):
+        own = slice(lo, lo + r)
+        got, got_ok, _ = guard.quarantine(
+            {k: v[:, own] for k, v in deltas.items()}, produced[:, own], 2.0,
+            (n, lo))
+        assert torch.equal(got_ok, ok[:, own])
+        for k in deltas:
+            assert got[k].numpy().tobytes() == \
+                clean[k][:, own].numpy().tobytes(), (lo, k)
+
+
+def test_left_out_rows_cannot_change_a_bit():
+    """The client axis's stacks put +0.0 where the whole stack has a row
+    that never lands or is never delivered: ``buffer_accumulate`` (from a
+    +0.0 accumulator and a drawn one) and ``faulted_cloud_aggregate`` give
+    the same bits as with the whole stack's rows, whose products with a
+    zero weight are -0.0 for a negative entry."""
+    rng = np.random.default_rng(11)
+    n, m = 10, 3
+    f32 = np.float32
+    rows = {"w": torch.tensor(-np.abs(rng.normal(size=(1, n, 4, 2)))
+                              .astype(f32)),
+            "b": torch.tensor(rng.normal(size=(1, n, 6)).astype(f32))}
+    keep = torch.tensor(rng.uniform(size=(1, n)) < 0.5)
+    keep[0, :2] = True
+    keep[0, 2:4] = False
+    zeroed = {k: torch.where(keep.reshape(keep.shape + (1,) * (v.dim() - 2)),
+                             v, 0.0) for k, v in rows.items()}
+    w = torch.where(keep, torch.tensor(rng.uniform(1, 2, (1, n))
+                                       .astype(f32)), 0.0)
+    for acc in ({k: torch.zeros_like(v[:, 0]) for k, v in rows.items()},
+                {k: torch.tensor(rng.normal(size=v[:, 0].shape).astype(f32))
+                 for k, v in rows.items()}):
+        want = aggregation.buffer_accumulate(acc, torch.zeros(1), rows, w)
+        got = aggregation.buffer_accumulate(acc, torch.zeros(1), zeroed, w)
+        for k in rows:
+            assert got[0][k].numpy().tobytes() == \
+                want[0][k].numpy().tobytes(), k
+    assoc = torch.nn.functional.one_hot(
+        torch.tensor(rng.integers(0, m, n)), m).float()[None]
+    glob = {k: torch.tensor(rng.normal(size=v[:, 0].shape).astype(f32))
+            for k, v in rows.items()}
+    counts = torch.tensor(rng.uniform(10, 20, (1, n)).astype(f32))
+    z = torch.ones((1, m))
+    clean, ok, _ = guard.quarantine(rows, keep, 5.0)
+    clean_z, _, _ = guard.quarantine(zeroed, keep, 5.0)
+    assoc_eff = assoc * ok.float()[..., None]
+    want = aggregation.faulted_cloud_aggregate(glob, clean, assoc_eff, counts,
+                                               z)
+    got = aggregation.faulted_cloud_aggregate(glob, clean_z, assoc_eff,
+                                              counts, z)
+    for k in rows:
+        assert got[k].numpy().tobytes() == want[k].numpy().tobytes(), k
 
 
 # ---------------------------------------------------------------------------
@@ -463,11 +662,58 @@ def test_four_ranks_bit_equal_to_unsharded(four_ranks, name):
         if job.axis == "clients":
             # each rank held its own rows only
             assert stats["client_rows"] == n_pad // RANKS, (name, rank)
+            if job.spec.engine_mode == "buffered":
+                assert stats["pending_rows"] == n_pad // RANKS, (name, rank)
     if name.startswith("clients-ragged"):
         assert want["state.gains"].shape[0] == 20
     if job.stream:
         assert want["stream.round"].shape[0] == \
             job.rounds * (len(job.seeds) if job.axis == "fleet" else 1)
+
+
+@pytest.mark.parametrize("name", EXERCISED)
+def test_four_ranks_exercise_the_buffer_and_the_faults(four_ranks, name):
+    """What each buffered or faulted client-axis job claims to run, on
+    rank 0's outputs (every rank's are bit-equal to the unsharded run's):
+    a merge that changed the model and a retier (the tiers are no longer
+    the round-robin start), and at least one crash, drop, retry or
+    quarantined delta under faults."""
+    results, _ = four_ranks
+    got = results[0][list(JOBS).index(name)][0]
+    job = JOBS[name]
+    if job.spec.engine_mode == "buffered":
+        assert got["metrics.z"].sum() >= 1 and got["state.buffer.version"] \
+            >= 1, name
+        start = np.arange(got["state.buffer.tier"].shape[0]) \
+            % job.spec.n_tiers
+        assert job.rounds >= job.spec.retier_every and \
+            (got["state.buffer.tier"] != start).any(), name
+    if job.spec.faults is not None:
+        events = sum(int(got[f"state.faults.{k}"]) for k in (
+            "n_crashed", "n_dropped", "n_retries", "n_quarantined"))
+        assert events > 0, name
+    if name == "clients-chaos-sync":
+        assert int(got["state.faults.n_quarantined"]) > 0
+
+
+def test_four_ranks_landed_sums_are_the_whole_stacks(four_ranks):
+    """``engine._landed_sum`` on each rank's rows against
+    ``buffer_accumulate`` on the whole stack, bit for bit: the NaN and the
+    inf of two rows that did not land reach the sums as the whole
+    stack's zero-weight products do."""
+    results, _ = four_ranks
+    tree, landed, w, accs = landed_inputs(**LANDED_CASE)
+    wants = [aggregation.buffer_accumulate(acc, torch.ones(1), tree, w)
+             for acc in accs]
+    assert np.isnan(wants[0][0]["w"].numpy()).any()
+    assert np.isnan(wants[0][0]["b"].numpy()).any()
+    for rank in range(RANKS):
+        for (got, total), (want, want_total) in zip(results[rank][-1],
+                                                    wants):
+            assert total.tobytes() == want_total.numpy().tobytes()
+            for k in tree:
+                assert got[k].tobytes() == want[k].numpy().tobytes(), \
+                    (rank, k)
 
 
 def test_four_ranks_sweep_writes_the_unsharded_files(four_ranks, tmp_path):
@@ -515,13 +761,19 @@ def test_four_ranks_match_reference_sharded_drivers(four_ranks,
     """Every rank's rounds on the reference's world and draws against the
     reference's ``run_scanned_client_sharded`` / ``run_fleet_sharded``
     on four devices: each round's metrics (each seed's), the final global
-    model at rtol 1e-4, atol 1e-5 and the staleness exactly."""
+    model at rtol 1e-4, atol 1e-5, the staleness, the buffer's integers
+    and every ``FaultState`` leaf exactly."""
     results, _ = four_ranks
     i = len(JOBS) + 1 + list(REPLAYS).index(name)
-    want_rows, want_params, want_stale, n_test = reference_sharded[name]
+    want_rows, want_params, want_stale, n_test, want_extra = \
+        reference_sharded[name]
     for rank in range(RANKS):
-        rows, params, stale = results[rank][i]
-        assert len(rows) == REPLAY_ROUNDS
+        rows, params, stale, extra = results[rank][i]
+        assert len(rows) == REPLAY_STEPS.get(name, REPLAY_ROUNDS)
+        assert sorted(extra) == sorted(want_extra), name
+        for k, leaf in want_extra.items():
+            assert extra[k].dtype == leaf.dtype, (name, k)
+            np.testing.assert_array_equal(extra[k], leaf, f"{name} {k}")
         for r, (got, want) in enumerate(zip(rows, want_rows)):
             pairs = zip(got, want) if REPLAYS[name][0] == "fleet" \
                 else [(got, want)]
