@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out PATH] [--profile]
     python3 chip_smoke.py --only shard     # the build and [shard] alone
+    python3 chip_smoke.py --only mesh      # the build and [mesh] alone
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -174,8 +175,8 @@ and prints no result):
    plain ``run_fleet`` of the same fleet, and that fleet's SGD launched
    at the fleet-wide cluster size instead of one seed's, in turns;
 6k. the HFL engine across processes (``[shard]``): ``CONFIG`` fcea + PDD
-   at S = 8 on the seed axis (``run_fleet_sharded``) and 2048 clients ×
-   16 edges at ``CONFIG``'s widths (x 7.7 GB) on the client axis
+   at S = 8 on the seed axis (``run_fleet_sharded``) and 1024 clients ×
+   16 edges at ``CONFIG``'s widths (x 3.9 GB) on the client axis
    (``run_scanned_client_sharded``), dense fcea + PDD and K = 4, 3 rounds
    each, and on the same world the buffered engine (fcea dense, 8
    micro-steps), fcea + PDD under chaos (3 rounds) and K = 4 buffered
@@ -312,6 +313,28 @@ and prints no result):
    autograd of their plain versions (the recurrence's edges and
    recurrentgemma's shape, timed; every mask kind and two lengths, bf16
    and fp32);
+9f. the attention decoders across ranks (``[mesh]``) on the reference's
+   ``("data", "model")`` mesh, weights drawn from ``MESH_SEED`` by every
+   rank (each keeps its blocks): the main flash shape timed; on one card
+   a mesh of one over an NCCL group of one (bit-equal to the unsharded
+   model), then ``MESH_ONE_CARD`` over gloo ranks on the card (yi-34b 8
+   layers and grok-1-314b 2 layers at model 2, yi-34b 4 layers
+   context-parallel at model 3); on four cards ``MESH_FOUR_CARDS`` over
+   NCCL (yi-34b at its full 60 layers and grok-1-314b at 16 at model 4,
+   yi-34b 12 layers context-parallel at model 3).  Per part: the
+   unsharded model first, streamed one block at a time from the same
+   draws (``_streamed_logits``), then the ranks (``mesh_rank``), in
+   turns: a prefill with the counters zeroed just before and read just
+   after (one tensor-core flash a layer a rank, nothing else), every
+   rank's last logits bit-equal and within ``PREFILL_DECODE_REL_RMS`` of
+   the unsharded prefill's, timed prefills, a context-parallel rank's
+   offset flash block held to the plain version at ``FLASH_TOL`` and
+   timed alone, a decode (the prompt token by token,
+   greedy tokens from ``make_serve_step``) held against the unsharded
+   model teacher-forced on its tokens (rel rms at the prompt's end, the
+   share of tokens alike; a MoE at its no-drop factor), each rank's ms,
+   tokens/s, peak device and host memory; each layout's reduced fp32
+   config against the card's unsharded run at ``SUBSTRATE_TOL``;
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
@@ -325,7 +348,8 @@ and prints no result):
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
     run's, ``sweep_launches`` the ``[sweep]`` phase's four grids,
     ``shard_launches`` the ``[shard]`` phase's widest part, a rank each
-    (its six jobs summed), and
+    (its six jobs summed), ``mesh_launches`` the ``[mesh]`` phase's
+    widest part's prefill, a rank each (flash alone launches there), and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
@@ -3808,14 +3832,15 @@ def phase_sweep(cfg, dev):
 # ---------------------------------------------------------------------------
 
 # the seed axis at CONFIG (fcea + PDD, S = 8) and the client axis at
-# 2048 x 16 at CONFIG's widths (x (2048, 1200, 784) float32, 7.7 GB):
+# 1024 x 16 at CONFIG's widths (x (1024, 1200, 784) float32, 3.9 GB; cut
+# from 2048 x 16 to keep the whole script inside half its time limit):
 # dense fcea + PDD, K = 4 and fcea + PDD under chaos, each SHARD_ROUNDS
 # rounds, the buffered engine (fcea dense) and K = 4 buffered under chaos,
 # each SHARD_STEPS micro-steps
 SHARD_ROUNDS = 3
 SHARD_STEPS = 8
 SHARD_SEEDS = 8
-SHARD_WORLD = (2048, 16)
+SHARD_WORLD = (1024, 16)
 SHARD_K = 4
 SHARD_KERNELS = ("score_matrix", "score_candidates", "sic_rates",
                  "local_sgd_step")
@@ -6064,17 +6089,441 @@ def phase_train(dev, card):
                       "linrec": linrec}
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the substrate across ranks on the ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# (label, arch, layers, model axis, batch, seq, prompt, greedy tokens): a
+# part with a prompt also decodes (the prompt token by token, then greedy
+# tokens, over a cache of ``seq`` slots); one without is prefill only (a
+# context-parallel run at a model axis of 3, whose cache would need a
+# length 3 divides)
+MESH_ONE_CARD = [
+    ("yi-34b 8 layers head-parallel", "yi-34b", 8, 2, 2, 1024, 16, 8),
+    ("grok-1-314b 2 layers expert-parallel", "grok-1-314b", 2, 2, 2, 1024,
+     16, 8),
+    ("yi-34b 4 layers context-parallel", "yi-34b", 4, 3, 2, 3072, 0, 0),
+]
+MESH_FOUR_CARDS = [
+    ("yi-34b full depth head-parallel", "yi-34b", 60, 4, 2, 4096, 64, 32),
+    ("grok-1-314b 16 layers expert-parallel", "grok-1-314b", 16, 4, 2,
+     4096, 64, 32),
+    ("yi-34b 12 layers context-parallel", "yi-34b", 12, 3, 2, 3072, 0, 0),
+]
+MESH_SEED = 11
+# the reduced fp32 check on each layout: a prompt's full logits and a
+# token-by-token decode of its first MESH_REDUCED_STEPS tokens (a cache of
+# 24 slots, which 2, 3 and 4 divide)
+MESH_REDUCED_SEQ = 60
+MESH_REDUCED_STEPS = 16
+MESH_REDUCED_CACHE = 24
+
+
+def _mesh_tokens(vocab, batch, seq, seed, dev):
+    """The part's prompt, the same on every rank and in the parent."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (batch, seq), generator=gen).to(dev)
+
+
+def _mesh_reduced(arch, mesh, dev):
+    """The reduced fp32 config of ``arch`` drawn from ``MESH_SEED`` on
+    ``mesh`` (None: unsharded): the full logits of a prompt and the logits
+    of a token-by-token decode of its first tokens, on the host."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device=dev, mesh=mesh, generator=torch.Generator(
+        device=dev).manual_seed(MESH_SEED))
+    toks = _mesh_tokens(cfg.vocab_size, 2, MESH_REDUCED_SEQ, MESH_SEED + 1,
+                        dev)
+    with torch.no_grad():
+        full = model.apply(toks)
+        cache = model.init_cache(2, MESH_REDUCED_CACHE)
+        steps = []
+        for i in range(MESH_REDUCED_STEPS):
+            lg, cache = model.decode_step(toks[:, i:i + 1], cache, i)
+            steps.append(lg[:, 0])
+    return full.float().cpu(), torch.stack(steps, 1).float().cpu()
+
+
+def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
+               new_tokens):
+    """One part on this rank: the model ``arch`` at ``layers`` layers on
+    ``make_host_mesh(model=n_model)`` drawn from ``MESH_SEED`` (each rank
+    draws every leaf whole and keeps its block), a prefill of batch x seq
+    with the launch counters zeroed just before and read just after, two
+    timed prefills, at a context-parallel rank its block's offset flash
+    call held to the plain version and timed alone, then a decode (a prompt token by token, greedy tokens
+    from ``make_serve_step``), peak device and host memory, and the
+    reduced fp32 config on the same mesh.  Returns numpy and numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import seq_ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import block, make_host_mesh
+    from repro_torch.models import build_model
+    mesh = make_host_mesh(model=n_model)
+    dev = mesh.device
+    cfg = get_config(arch).replace(n_layers=layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, mesh=mesh, generator=torch.Generator(
+        device=dev).manual_seed(MESH_SEED))
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    tokens = _mesh_tokens(cfg.vocab_size, batch, seq, MESH_SEED + 1, dev)
+    prefill, _ = steps.make_prefill_step(cfg, model=model)
+    _reset_launches()
+    t0 = time.perf_counter()
+    last = prefill({"tokens": tokens})
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        prefill({"tokens": tokens})
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    attn = model.blocks[0].attn
+    out = dict(label=label, coords=dict(mesh.coords), launches=launches,
+               last=last.float().cpu().numpy(), build_s=build_s,
+               weight_bytes=weight_bytes, first_ms=first_s * 1e3,
+               prefill_ms=[w * 1e3 for w in walls],
+               seq_parallel=bool(getattr(attn, "seq_parallel", False)),
+               head_parallel=bool(getattr(attn, "head_parallel", False)),
+               heads=getattr(attn, "heads", None),
+               moe_split=[getattr(b.moe, "split", None) for b in model.blocks
+                          if b.ffn_kind == "moe"][:1])
+    if out["seq_parallel"]:
+        # this rank's flash call of a context-parallel layer, alone
+        lo, hi = block(seq, n_model, mesh.coords["model"])
+        gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+        q, k, v = (torch.randn((batch, n, h, cfg.d_head), generator=gen,
+                               device=dev).to(cfg.compute_dtype)
+                   for n, h in ((hi - lo, cfg.n_heads),
+                                (seq, cfg.n_kv_heads), (seq, cfg.n_kv_heads)))
+        # held to the plain version in fp32 on the same (bf16) inputs,
+        # rounded once, at the forward's tolerance, as compare_flash holds
+        # the main shape
+        got = seq_ops.flash_attention(q, k, v, causal=True, q_offset=lo)
+        want = flash_plain(q.float(), k.float(), v.float(), causal=True,
+                           q_offset=lo).to(q.dtype)
+        name = (f"[mesh] {label} rank {dict(mesh.coords)}: flash block "
+                f"[{lo}, {hi}) at q_offset {lo}")
+        _check_close(name, got.float(), want.float(),
+                     **FLASH_TOL[str(q.dtype)[6:]])
+        err = _max_err(got, want)
+        del got, want
+        out["offset_flash"] = dict(lo=lo, hi=hi, max_abs_err=err, ms=time_ms(
+            lambda: seq_ops.flash_attention(q, k, v, causal=True,
+                                            q_offset=lo)))
+        del q, k, v
+    if prompt:
+        serve_step, _ = steps.make_serve_step(cfg, model=model)
+        cache = model.init_cache(batch, seq)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(prompt):
+                lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        torch.cuda.synchronize(dev)
+        feed_s = time.perf_counter() - t0
+        tok = torch.argmax(lg[:, -1, :], dim=-1,
+                           keepdim=True).to(torch.int32)
+        greedy, step_ms = [tok[:, 0]], []
+        for i in range(new_tokens - 1):
+            t0 = time.perf_counter()
+            tok, cache = serve_step(tok, cache, prompt + i)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            greedy.append(tok[:, 0])
+        out.update(prompt_logits=lg[:, -1].float().cpu().numpy(),
+                   feed_ms=feed_s * 1e3, step_ms=step_ms,
+                   greedy=torch.stack(greedy, 1).cpu().numpy(),
+                   cache_bytes=sum(t.numel() * t.element_size()
+                                   for st in cache.values()
+                                   for lv in st.values()
+                                   for t in lv.values()))
+        del cache
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["host_peak_bytes"] = _host_peak_bytes()
+    del model, prefill, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, dec = _mesh_reduced(arch, mesh, dev)
+    out.update(reduced_full=full.numpy(), reduced_decode=dec.numpy())
+    return out
+
+
+def mesh_rank(parts):
+    """The ranks' target (``core.mesh.spawn`` imports it from this
+    script): ``_mesh_part(**part)`` for each part in turn."""
+    return [_mesh_part(**part) for part in parts]
+
+
+def _streamed_logits(cfg, tokens, positions):
+    """The unsharded model of ``cfg`` drawn from ``MESH_SEED`` -- in
+    ``Transformer``'s draw order: the embedding, the untied output table,
+    then each block -- run one block at a time (each drawn, applied and
+    freed: yi-34b's 60 layers take 137.6 GB, more than a card), over
+    tokens (B, S); the float32 logits at ``positions``, on the host."""
+    import torch
+    from repro_torch.models import attention, layers
+    from repro_torch.models.transformer import Block, compute_stages
+    dev = tokens.device
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    table = (cfg.vocab_size, cfg.d_model)
+    emb = layers.normal_init(table, gen, cfg.param_dtype)
+    unemb = emb if cfg.tie_embeddings else \
+        layers.normal_init(table, gen, cfg.param_dtype)
+    final = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype, dev, gen)
+    pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
+    with torch.no_grad():
+        x = layers.embed_apply(emb, tokens, cfg.compute_dtype)
+        if cfg.embed_scale:
+            x = x * float(torch.tensor(cfg.d_model ** 0.5,
+                                       dtype=cfg.compute_dtype))
+        pos = torch.arange(tokens.shape[1], device=dev)
+        for unit, reps in compute_stages(cfg.n_layers, pat):
+            for _ in range(reps):
+                for kind, ffn_kind in unit:
+                    blk = Block(cfg, kind, ffn_kind, dev, gen)
+                    y = attention.attention_apply(
+                        blk.attn, blk.norm1(x), cfg,
+                        mask_kind=blk.mask_kind(0), positions=pos,
+                        use_rope=blk.use_rope(cfg))
+                    x, _ = blk.ffn(x + y, cfg)
+                    del blk, y
+        out = layers.unembed_apply(unemb, final(x)[:, positions]).float()
+    del emb, unemb, x
+    return out.cpu()
+
+
+def _mesh_want(parts, dev):
+    """Before the ranks: each part's unsharded prefill logits at the last
+    position (``_streamed_logits``) and the reduced config's unsharded
+    run on the card."""
+    from repro_torch.configs import get_config
+    want = []
+    for label, arch, layers, n_model, batch, seq, prompt, _ in parts:
+        cfg = get_config(arch).replace(n_layers=layers)
+        toks = _mesh_tokens(cfg.vocab_size, batch, seq, MESH_SEED + 1, dev)
+        t0 = time.perf_counter()
+        last = _streamed_logits(cfg, toks, [seq - 1])[:, 0]
+        want.append(dict(last=last, streamed_s=time.perf_counter() - t0,
+                         reduced=_mesh_reduced(arch, None, dev)))
+        del toks
+    return want
+
+
+def _mesh_check(parts, want, runs, dev, card):
+    """The ranks of a spawn against the unsharded runs: per part and rank
+    the launches (one tensor-core flash an attention layer, nothing else),
+    every rank's last logits alike and within ``PREFILL_DECODE_REL_RMS``
+    of the unsharded (streamed) prefill's, the reduced fp32 config at
+    ``SUBSTRATE_TOL``; after the decode the unsharded model teacher-forced
+    over the prompt and the greedy tokens: the decode's logits at the
+    prompt's end within the same rel rms, and the share of greedy tokens
+    alike.  Prints each rank's times, tokens/s and memory.  Returns each
+    rank's flash launches of the widest part."""
+    import torch
+    from repro_torch.configs import get_config
+    widest = None
+    for p, part in enumerate(parts):
+        label, arch, layers, n_model, batch, seq, prompt, new_tokens = part
+        cfg = get_config(arch).replace(n_layers=layers)
+        ranks = [r[p] for r in runs]
+        w = want[p]
+        flash = []
+        for rk in ranks:
+            got = {k: v for k, v in rk["launches"].items() if v}
+            exp = {"flash_attention": layers,
+                   "flash_attention_wgmma": layers}
+            if got != exp:
+                raise AssertionError(f"[mesh] {label} rank {rk['coords']}: "
+                                     f"prefill launches {got} != {exp}")
+            flash.append(rk["launches"].get("flash_attention_wgmma", 0))
+        last0 = torch.from_numpy(ranks[0]["last"])
+        for rk in ranks[1:]:
+            if not torch.equal(torch.from_numpy(rk["last"]), last0):
+                raise AssertionError(f"[mesh] {label}: ranks' logits differ")
+        rel = _rel_rms(last0, w["last"])
+        if not rel <= PREFILL_DECODE_REL_RMS:
+            raise AssertionError(f"[mesh] {label}: last logits rel rms "
+                                 f"{rel:.3e} against the unsharded prefill")
+        same_top = float((last0.argmax(-1) == w["last"].argmax(-1))
+                         .float().mean())
+        full_w, dec_w = w["reduced"]
+        worst = 0.0
+        for rk in ranks:
+            for got, ref in ((rk["reduced_full"], full_w),
+                             (rk["reduced_decode"], dec_w)):
+                got = torch.from_numpy(got)
+                torch.testing.assert_close(got, ref, **SUBSTRATE_TOL)
+                worst = max(worst, float((got - ref).abs().max()))
+        r0 = ranks[0]
+        kind = ("context-parallel" if r0["seq_parallel"] else
+                "head-parallel" if r0["head_parallel"] else "replicated")
+        log(f"[mesh] {label} ({cfg.n_layers} layers, model axis {n_model}, "
+            f"{kind}, q heads a rank {r0['heads']}, MoE split "
+            f"{r0['moe_split']}): weights a rank "
+            f"{r0['weight_bytes'] / 1e9:.2f} GB drawn in "
+            f"{r0['build_s']:.1f} s; prefill {batch} x {seq} last logits "
+            f"rel rms {rel:.3e} against the unsharded model (streamed one "
+            f"block at a time, {w['streamed_s']:.1f} s), top token alike "
+            f"{same_top:.3f}; reduced fp32 full and decode logits within "
+            f"atol 2e-4 rtol 1e-3 of the unsharded (worst {worst:.2e}); "
+            f"every rank's logits bit-equal")
+        for rk in ranks:
+            pre = statistics.median(rk["prefill_ms"])
+            line = (f"[mesh] {label} rank {rk['coords']}: flash launches "
+                    f"{rk['launches'].get('flash_attention_wgmma', 0)} "
+                    f"tensor-core of {rk['launches']['flash_attention']}; "
+                    f"prefill {pre:.2f} ms ({batch * seq / pre * 1e3:.1f} "
+                    f"tokens/s; runs {rk['prefill_ms'][0]:.2f}, "
+                    f"{rk['prefill_ms'][1]:.2f}; first "
+                    f"{rk['first_ms']:.2f})")
+            if "step_ms" in rk:
+                dec = statistics.median(rk["step_ms"])
+                line += (f"; decode {dec:.3f} ms a token "
+                         f"({batch / dec * 1e3:.1f} tokens/s; prompt of "
+                         f"{prompt} fed in {rk['feed_ms']:.1f} ms; cache "
+                         f"{rk['cache_bytes'] / 1e9:.3f} GB)")
+            if "offset_flash" in rk:
+                of = rk["offset_flash"]
+                line += (f"; its flash block [{of['lo']}, {of['hi']}) at "
+                         f"q_offset {of['lo']}: {of['ms']:.4f} ms, max abs "
+                         f"err {of['max_abs_err']:.3e} against the plain "
+                         f"version (bf16 tolerance atol "
+                         f"{FLASH_TOL['bfloat16']['atol']} rtol "
+                         f"{FLASH_TOL['bfloat16']['rtol']})")
+            line += (f"; peak device {rk['peak_bytes'] / 1e9:.2f} GB, host "
+                     f"resident peak {rk['host_peak_bytes'] / 1e9:.2f} GB")
+            log(line)
+            if rk["peak_bytes"] >= 80e9:
+                raise AssertionError(f"[mesh] {label}: peak memory")
+        if prompt:
+            seq_tok = torch.cat([
+                _mesh_tokens(cfg.vocab_size, batch, seq, MESH_SEED + 1,
+                             "cpu")[:, :prompt],
+                torch.from_numpy(r0["greedy"])], 1)
+            for rk in ranks[1:]:
+                if not (rk["greedy"] == r0["greedy"]).all():
+                    raise AssertionError(f"[mesh] {label}: ranks' tokens "
+                                         f"differ")
+            # a MoE decode never drops a pair (a group of B tokens): the
+            # unsharded model at the factor where nothing drops either
+            ref = _streamed_logits(_no_drop(cfg), seq_tok.to(dev),
+                                   list(range(prompt - 1,
+                                              prompt + new_tokens - 1)))
+            rel_d = _rel_rms(torch.from_numpy(r0["prompt_logits"]),
+                             ref[:, 0])
+            if not rel_d <= PREFILL_DECODE_REL_RMS:
+                raise AssertionError(f"[mesh] {label}: decode logits rel "
+                                     f"rms {rel_d:.3e}")
+            alike = float((ref.argmax(-1) == torch.from_numpy(r0["greedy"]))
+                          .float().mean())
+            log(f"[mesh] {label}: decode logits at the prompt's end rel rms "
+                f"{rel_d:.3e} against the unsharded model over the prompt"
+                f"{' (at the no-drop capacity factor)' if cfg.moe_experts else ''}; "
+                f"greedy tokens alike {alike:.3f} ({new_tokens} a request, "
+                f"the unsharded model teacher-forced on them); sample "
+                f"{r0['greedy'][0, :8].tolist()}")
+        if widest is None or len(flash) > len(widest):
+            widest = flash
+    return widest
+
+
+def phase_mesh(dev, card):
+    """The attention decoders across ranks: on one card the parts of
+    ``MESH_ONE_CARD`` over gloo ranks (model axis 2, then 3) after a mesh
+    of one over NCCL; on four cards ``MESH_FOUR_CARDS`` over NCCL ranks.
+    Each spawn's unsharded runs come first, here, then the ranks, in turns.
+    Times the main flash shape beside the offset blocks.  Returns the
+    flash launches a rank of the widest part."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.mesh import spawn
+    from repro_torch.kernels import seq_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    four = torch.cuda.device_count() >= 4
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((2, 4096, 16, 256), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((2, 4096, 1, 256), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    main_ms = time_ms(lambda: seq_ops.flash_attention(
+        q, k, v, causal=True, window=2048))
+    log(f"[mesh] flash main shape (bf16 B=2 S=4096 H=16 KV=1 D=256 "
+        f"causal window 2048, q_offset none): {main_ms:.4f} ms on {card}")
+    del q, k, v
+    if not four:
+        # a mesh of one over an NCCL group of one: today's path, bit for
+        # bit (no collective runs)
+        import tempfile
+        init = Path(tempfile.mkdtemp(prefix="repro-mesh-one-"))
+        dist.init_process_group("nccl",
+                                init_method=f"file://{init / 'rdv'}",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(model=1)
+            one = _mesh_reduced("yi-34b", mesh, dev)
+            none = _mesh_reduced("yi-34b", None, dev)
+            if mesh.size != 1 or not all(torch.equal(a, b) for a, b in
+                                         zip(one, none)):
+                raise AssertionError("[mesh] a mesh of one over NCCL is "
+                                     "not the unsharded path")
+        finally:
+            dist.destroy_process_group()
+            (init / "rdv").unlink(missing_ok=True)
+            init.rmdir()
+        log("[mesh] model=1 over an NCCL group of one: a mesh of one, "
+            "the reduced yi-34b's logits and decode bit-equal to the "
+            "unsharded model's")
+    if four:
+        spawns = [([p for p in MESH_FOUR_CARDS if p[3] == 4], 4, "nccl"),
+                  ([p for p in MESH_FOUR_CARDS if p[3] == 3], 3, "nccl")]
+    else:
+        spawns = [([p for p in MESH_ONE_CARD if p[3] == 2], 2, "gloo"),
+                  ([p for p in MESH_ONE_CARD if p[3] == 3], 3, "gloo")]
+    widest = None
+    for parts, world, backend in spawns:
+        t0 = time.perf_counter()
+        want = _mesh_want(parts, dev)
+        torch.cuda.empty_cache()
+        want_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keys = ("label", "arch", "layers", "n_model", "batch", "seq",
+                "prompt", "new_tokens")
+        runs = spawn(mesh_rank, world, backend=backend, device="cuda",
+                     args=([dict(zip(keys, p)) for p in parts],),
+                     timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+        log(f"[mesh] {world} {backend} ranks"
+            f"{' across cards' if four else ' on one card'}: unsharded "
+            f"runs {want_s:.1f} s, then the ranks {spawn_s:.1f} s (start, "
+            f"CUDA context, runs)")
+        flash = _mesh_check(parts, want, runs, dev, card)
+        if widest is None or len(flash) > len(widest):
+            widest = flash
+    return widest
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the kernel results as JSON")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one steady fcea round and a window "
                          "of DDPG slots (device idle share)")
-    ap.add_argument("--only", choices=("shard",),
+    ap.add_argument("--only", choices=("shard", "mesh"),
                     help="build the kernels and run this one phase, then "
-                         "stop: a partial check (e.g. [shard] on four "
-                         "cards) that prints no kernels line and no last "
-                         "line")
+                         "stop: a partial check (e.g. [shard] or [mesh] on "
+                         "four cards) that prints no kernels line and no "
+                         "last line")
     args = ap.parse_args(argv)
 
     import torch
@@ -6104,6 +6553,12 @@ def main(argv=None) -> int:
         launches = phase("hfl sharded drivers", phase_shard, CONFIG, dev,
                          card)
         log(f"[shard] launches a rank of the widest part, its jobs summed: "
+            f"{launches}; partial run, {time.perf_counter() - t_start:.1f} "
+            f"s")
+        return 0
+    if args.only == "mesh":
+        launches = phase("substrate across ranks", phase_mesh, dev, card)
+        log(f"[mesh] flash launches a rank of the widest part's prefill: "
             f"{launches}; partial run, {time.perf_counter() - t_start:.1f} "
             f"s")
         return 0
@@ -6143,6 +6598,7 @@ def main(argv=None) -> int:
         "xLSTM and encoder-decoder", phase_xlstm_encdec, dev, card)
     train_launches, train = phase("train the substrate", phase_train, dev,
                                   card)
+    mesh_launches = phase("substrate across ranks", phase_mesh, dev, card)
 
     # the entries of local_sgd_step and flash_attention are the cluster
     # kernel and the tensor-core kernel
@@ -6183,7 +6639,9 @@ def main(argv=None) -> int:
                 "encdec_launches": encdec_launches.get(name, 0),
                 "train_launches": train_launches.get(name, 0),
                 "shard_launches": [rank.get(name, 0)
-                                   for rank in shard_launches]}
+                                   for rank in shard_launches],
+                "mesh_launches": [n if name == "flash_attention" else 0
+                                  for n in mesh_launches]}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)

@@ -6,8 +6,10 @@ chunked-local layers (RoPE, chunk 8192) and 1 global layer without
 positional encoding (NoPE); every other layer's FFN is routed (MoE,
 expert d_ff 8192), the rest dense.  bf16 parameters, an untied output
 table.  The same numbers as the reference package's
-``configs/llama4_maverick_400b_a17b.py`` (``attn_seq_shard``, context
-parallelism over a TPU mesh, is carried and ignored on one card).
+``configs/llama4_maverick_400b_a17b.py``.  ``attn_seq_shard`` makes its
+attention context-parallel on a mesh whose model axis does not divide
+its 40 heads (``models/attention.py``); where it divides them the heads
+split instead.
 """
 from repro_torch.configs.base import ArchConfig
 

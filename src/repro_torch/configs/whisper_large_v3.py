@@ -4,9 +4,10 @@
 (kv=20: MHA) d_ff=5120 vocab=51866.  The mel-spectrogram and conv
 frontend is a stub: the encoder takes 1500 precomputed frame embeddings.
 LayerNorm, a non-gated GELU MLP with biases, QKV bias.  The same numbers
-as the reference package's ``configs/whisper_large_v3.py``
-(``attn_seq_shard``, its context parallelism over a TPU mesh, means
-nothing on one card).
+as the reference package's ``configs/whisper_large_v3.py``.
+``attn_seq_shard`` (context parallelism over the mesh's model axis) is
+not read yet: the encoder-decoder on a model axis is ROADMAP A22, and the
+port serves it on one card or across the data axis.
 """
 from repro_torch.configs.base import ArchConfig
 

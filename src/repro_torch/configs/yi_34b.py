@@ -2,7 +2,9 @@
 
 [arXiv:2403.04652] 60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000,
 an untied output table.  The same numbers as the reference package's
-``configs/yi_34b.py``.
+``configs/yi_34b.py``; ``attn_seq_shard`` makes its attention
+context-parallel on a mesh whose model axis does not divide its 56 heads
+(``models/attention.py``).
 """
 from repro_torch.configs.base import ArchConfig
 

@@ -13,7 +13,10 @@ agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
 ``params_from_numpy`` does the same for a substrate model's weights (a
 decoder or an encoder-decoder), ``cache_from_numpy`` for its decode
-cache, so both sides can decode from the same state.  ``params_to_tree``
+cache, so both sides can decode from the same state; given a
+``launch.mesh.Mesh2D`` it builds this rank's blocks of the weights
+(``sharding.rules``' placement), and ``params_to_numpy`` gathers a
+sharded model's back.  ``params_to_tree``
 and ``params_to_numpy`` go the other way: a model's named tensors
 (weights, gradients, Adam moments) in the reference's layout, so both
 sides' gradients and optimizer states compare leaf for leaf, and a
@@ -31,7 +34,7 @@ from repro_torch.core.engine import BufferState, RoundBundle, RoundState
 from repro_torch.device import resolve_device
 from repro_torch.faults.spec import FaultState
 from repro_torch.scenarios import ScenarioState
-from repro_torch.models import build_model
+from repro_torch.models import build_model, parallel
 from repro_torch.models.encdec import EncDecTransformer
 from repro_torch.models.transformer import Transformer
 
@@ -170,7 +173,7 @@ def _fill(param: torch.Tensor, src: np.ndarray, where: str) -> None:
 
 
 def params_from_numpy(params_np: Mapping[str, Any], cfg,
-                      device: "str | torch.device" = "cuda"
+                      device: "str | torch.device" = "cuda", mesh=None
                       ) -> "Transformer | EncDecTransformer":
     """The model ``build_model(cfg)`` on ``device`` holding the weights of
     a reference ``init`` pytree with numpy leaves.  Both kinds have
@@ -184,8 +187,10 @@ def params_from_numpy(params_np: Mapping[str, Any], cfg,
     ``slstm/...`` among them.  An encoder-decoder
     (``EncDecTransformer.init``) has ``encoder/...`` and ``decoder/...``
     stacked over the layers and ``enc_norm``.  Every parameter of the port
-    is filled; a missing key or a shape mismatch raises."""
-    model = build_model(cfg, device=device)
+    is filled; a missing key or a shape mismatch raises.  With a ``mesh``
+    (a ``launch.mesh.Mesh2D``), the model holds this rank's block of each
+    leaf, as ``sharding.rules`` places it."""
+    model = build_model(cfg, device=device, mesh=mesh)
     top = {"embedding": "embed.embedding",
            "unembedding": "embed.unembedding"}
     for name, param in model.named_parameters():
@@ -200,11 +205,23 @@ def params_from_numpy(params_np: Mapping[str, Any], cfg,
             tree, where = params_np[group], group
         else:
             path = top.get(name, name)
-            _fill(param, _leaf(params_np, path, path), path)
+            _fill(param, _block(param, _leaf(params_np, path, path), mesh),
+                  path)
             continue
         where = f"{where}/{name.replace('.', '/')}[{r}]"
-        _fill(param, _leaf(tree, name, where)[r], where)
+        _fill(param, _block(param, _leaf(tree, name, where)[r], mesh), where)
     return model
+
+
+def _block(param: torch.Tensor, src: np.ndarray, mesh) -> np.ndarray:
+    """This rank's block of a whole leaf, where the model axis splits
+    the parameter (``layers.param``'s ``model_split``)."""
+    dim = getattr(param, "model_split", None)
+    if dim is None:
+        return src
+    n = param.shape[dim]
+    lo = mesh.coords["model"] * n
+    return np.take(src, range(lo, lo + n), axis=dim)
 
 
 def _reference_path(model: "Transformer | EncDecTransformer", name: str
@@ -228,8 +245,8 @@ def _reference_path(model: "Transformer | EncDecTransformer", name: str
 
 
 def params_to_tree(model: "Transformer | EncDecTransformer",
-                   tensors: "Mapping[str, torch.Tensor] | None" = None
-                   ) -> "dict[str, Any]":
+                   tensors: "Mapping[str, torch.Tensor] | None" = None,
+                   mesh=None) -> "dict[str, Any]":
     """``tensors`` -- a dict keyed by ``model``'s parameter names (its
     gradients, an optimizer's moments; default the weights themselves) --
     as a nested dict in the layout of the reference's ``init`` pytree:
@@ -237,14 +254,20 @@ def params_to_tree(model: "Transformer | EncDecTransformer",
     position>/...`` stacked over the stage's repetitions, an
     encoder-decoder's ``encoder/...`` and ``decoder/...`` stacked over the
     layers and ``enc_norm/...``; each leaf detached, on its tensor's
-    device, in its dtype."""
+    device, in its dtype.  A model built on a ``mesh`` (default: its own)
+    has each split leaf gathered whole over ``model`` (every rank of the
+    mesh calls this)."""
     if tensors is None:
         tensors = dict(model.named_parameters())
+    mesh = getattr(model, "mesh", None) if mesh is None else mesh
     reps: "dict[Tuple[str, ...], dict[int, torch.Tensor]]" = {}
     tree: "dict[str, Any]" = {}
-    for name, _ in model.named_parameters():
+    for name, param in model.named_parameters():
         path, r = _reference_path(model, name)
         leaf = tensors[name].detach()
+        dim = getattr(param, "model_split", None)
+        if dim is not None and parallel.model_active(mesh):
+            leaf = mesh.all_gather(leaf, "model", dim=dim)
         if r is None:
             _put(tree, path, leaf)
         else:
@@ -263,18 +286,18 @@ def _put(tree: "dict[str, Any]", path: Tuple[str, ...], leaf) -> None:
 
 
 def params_to_numpy(model: "Transformer | EncDecTransformer",
-                    tensors: "Mapping[str, torch.Tensor] | None" = None
-                    ) -> "dict[str, Any]":
-    """``params_to_tree`` with numpy leaves on the host; bfloat16 (which
-    numpy lacks) becomes float32, which holds it exactly, so
-    ``params_from_numpy(params_to_numpy(m), cfg)`` rebuilds ``m`` bit for
-    bit."""
+                    tensors: "Mapping[str, torch.Tensor] | None" = None,
+                    mesh=None) -> "dict[str, Any]":
+    """``params_to_tree`` with numpy leaves on the host (a sharded model's
+    gathered whole); bfloat16 (which numpy lacks) becomes float32, which
+    holds it exactly, so ``params_from_numpy(params_to_numpy(m), cfg)``
+    rebuilds ``m`` bit for bit."""
     def host(node):
         if isinstance(node, dict):
             return {k: host(v) for k, v in node.items()}
         t = node.cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return host(params_to_tree(model, tensors))
+    return host(params_to_tree(model, tensors, mesh))
 
 
 # the leaves of the reference's tuple caches (models/xlstm.py), in order

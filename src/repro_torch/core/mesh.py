@@ -12,7 +12,9 @@ through to the unsharded ones.
 
 The drivers use two collectives, both here: ``all_gather`` of equal
 shapes (``all_gather_ragged`` pads to the longest rank's rows and cuts
-after) and ``all_ok``, an all-reduce of one flag.  Over gloo a CUDA
+after) and ``all_ok``, an all-reduce of one flag; the substrate's 2-D
+mesh (``launch.mesh.Mesh2D``, one ``Mesh`` an axis) also gathers along
+other dims and sums or maxes (``all_reduce``).  Over gloo a CUDA
 tensor goes through the host (gloo is a host transport; what it takes on
 CUDA tensors directly depends on the build).  A mesh with a group runs
 its collectives even for a world of one.
@@ -73,35 +75,51 @@ class Mesh:
             t = t.to(self.device)
         return t
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` (one shape on every rank) concatenated along
-        dim 0 in rank order, on ``t``'s device."""
+        ``dim`` in rank order, on ``t``'s device."""
         if self.group is None:
             return t
         src = self._staged(t)
         parts = [torch.empty_like(src) for _ in range(self.world)]
         dist.all_gather(parts, src, group=self.group)
-        out = torch.cat(parts, dim=0) if src.dim() else torch.stack(parts)
+        out = torch.cat(parts, dim=dim) if src.dim() else torch.stack(parts)
         if t.dtype == torch.bool:
             out = out.view(torch.bool)
         return out.to(t.device)
 
-    def all_gather_ragged(self, t: torch.Tensor, counts: Sequence[int]
-                          ) -> torch.Tensor:
-        """Rank r's ``t`` holds ``counts[r]`` rows (``counts`` the same
-        list on every rank): each is padded to the longest, gathered, cut
-        back and concatenated in rank order."""
+    def all_gather_ragged(self, t: torch.Tensor, counts: Sequence[int],
+                          dim: int = 0) -> torch.Tensor:
+        """Rank r's ``t`` holds ``counts[r]`` rows along ``dim``
+        (``counts`` the same list on every rank): each is padded to the
+        longest, gathered, cut back and concatenated in rank order."""
         if self.group is None:
             return t
         width = max(counts)
         if width == 0:
             return t
+        t = t.movedim(dim, 0)
         pad = width - t.shape[0]
         if pad:
             t = torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
         full = self.all_gather(t)
         return torch.cat([full[r * width:r * width + c]
-                          for r, c in enumerate(counts)])
+                          for r, c in enumerate(counts)]).movedim(0, dim)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The elementwise ``"sum"`` or ``"max"`` of every rank's ``t``
+        (one shape on every rank), on ``t``'s device; every rank gets the
+        same bits."""
+        if self.group is None:
+            return t
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        if op not in ops:
+            raise ValueError(f"all_reduce: unknown op {op!r}")
+        src = self._staged(t)
+        if src is t:
+            src = t.clone()
+        dist.all_reduce(src, op=ops[op], group=self.group)
+        return src.to(t.device)
 
     def all_ok(self, ok: bool) -> bool:
         """True when every rank passes True: the flag a driver posts

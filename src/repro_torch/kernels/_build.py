@@ -50,8 +50,8 @@ _SIGNATURES = {
                       _I, _F, _F, _I, _P],
     "hfl_local_sgd_cluster": [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P],
     "hfl_sgd_max_active_clusters": [_I] * 7 + [ctypes.POINTER(_I)],
-    "seq_flash_attention": [_P, _P, _P, _P] + [_I] * 10 + [_F, _I, _I, _P],
-    "seq_flash_attention_wgmma": [_P, _P, _P, _P] + [_I] * 10 + [_F, _I, _P],
+    "seq_flash_attention": [_P, _P, _P, _P] + [_I] * 11 + [_F, _I, _I, _P],
+    "seq_flash_attention_wgmma": [_P, _P, _P, _P] + [_I] * 11 + [_F, _I, _P],
     "seq_linear_recurrence": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

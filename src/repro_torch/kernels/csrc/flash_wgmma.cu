@@ -354,15 +354,22 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int s_kv,
 
 // kMasks: the prefix or chunked mask (``prefix`` or ``chunk`` > 0);
 // without it both are 0 and unread.  s_len: the queries' length; s_kv: the
-// keys' (equal but for full attention).
-template <int D, bool kMasks>
+// keys' (equal but for full attention, or for a block of queries).  q_off:
+// the absolute position of query row 0 (a rank's block of a
+// context-parallel prefill; 0 otherwise): every mask reads the absolute row
+// q_off + row, the loads and the store the block's own rows.  kOffset:
+// q_off is read (else it is 0, and the kernel compiles as it did before it
+// took one).
+template <int D, bool kMasks, bool kOffset>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int batch, int s_len,
                        int s_kv, int n_heads, int n_kv, int causal,
-                       int window, int prefix, int chunk, float scale_log2) {
+                       int window, int prefix, int chunk, int q_off_arg,
+                       float scale_log2) {
+  const int q_off = kOffset ? q_off_arg : 0;
   constexpr int kChunks = D / kBox;
   constexpr int kQBytes = kBQ * D * 2;
   constexpr int kTileBytes = kBK * D * 2;   // one K or one V tile
@@ -387,15 +394,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = static_cast<int>(blockIdx.x) % per_qt / n_heads;
   const int kvh = head / (n_heads / n_kv);
   const int q0 = qt * kBQ;
+  const int a0 = q_off + q0;   // the block's first row, absolute
 
   // the K/V tiles that can hold an allowed key for some row of the block
   int kt_hi = (s_kv - 1) / kBK;
   if (causal)
-    kt_hi = min(kt_hi, (max(min(q0 + kBQ, s_len), kMasks ? prefix : 0) - 1) /
-                           kBK);
+    kt_hi = min(kt_hi, (max(q_off + min(q0 + kBQ, s_len),
+                            kMasks ? prefix : 0) - 1) / kBK);
   int kt_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kBK;
-  if (kMasks && chunk > 0) kt_lo = q0 / chunk * chunk / kBK;
+  if (window > 0 && a0 - window + 1 > 0) kt_lo = (a0 - window + 1) / kBK;
+  if (kMasks && chunk > 0) kt_lo = a0 / chunk * chunk / kBK;
   const int n_tiles = kt_hi - kt_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -447,10 +455,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   // -- each warpgroup: 64 query rows ---------------------------------------
   const int tw = threadIdx.x % 128;
   const int warp = tw / 32, lane = tw % 32;
-  // this thread's accumulator rows (row, row + 8) and first column pair
+  // this thread's accumulator rows (row, row + 8) and first column pair;
+  // arow and the warpgroup's wq_lo, wq_hi are absolute
   const int row = q0 + 64 * wg + 16 * warp + lane / 4;
+  const int arow = q_off + row;
   const int col = 2 * (lane % 4);
-  const int wq_lo = q0 + 64 * wg, wq_hi = wq_lo + 63;
+  const int wq_lo = a0 + 64 * wg, wq_hi = wq_lo + 63;
   int w_lo = kt_lo, w_hi = kt_hi;
   if (causal) w_hi = min(w_hi, max(wq_hi, kMasks ? prefix - 1 : 0) / kBK);
   if (window > 0) w_lo = max(w_lo, max(wq_lo - window + 1, 0) / kBK);
@@ -463,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int k_lo[2], k_hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = row + 8 * r;
+    const int qpos = arow + 8 * r;
     k_lo[r] = window > 0 ? qpos - window + 1 : 0;
     k_hi[r] = causal ? qpos : s_kv - 1;
     if (chunk > 0) {
@@ -538,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int kpos = k0 + 8 * (i / 4) + col + i % 2;
         if (kMasks ? kpos >= s_kv || kpos < k_lo[r] ||
                          (kpos > k_hi[r] && kpos >= prefix)
-                   : !allowed(row + 8 * r, kpos, s_kv, causal, window))
+                   : !allowed(arow + 8 * r, kpos, s_kv, causal, window))
           x = -INFINITY;
       }
       sc[i] = x;
@@ -676,21 +686,23 @@ int encode_bshd(CUtensorMap* map, const void* ptr, int b, int s_len,
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D, bool kMasks>
+template <int D, bool kMasks, bool kOffset>
 int run_flash_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                     const CUtensorMap& tv, void* o, int b, int s_len,
                     int s_kv, int n_heads, int n_kv, int causal, int window,
-                    int prefix, int chunk, float scale, int smem_bytes,
-                    cudaStream_t stream) {
+                    int prefix, int chunk, int q_off, float scale,
+                    int smem_bytes, cudaStream_t stream) {
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D, kMasks>,
+      flash_wgmma_kernel<D, kMasks, kOffset>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const unsigned blocks =
       static_cast<unsigned>((s_len + kBQ - 1) / kBQ) * n_heads * b;
-  flash_wgmma_kernel<D, kMasks><<<blocks, kThreads, smem_bytes, stream>>>(
+  flash_wgmma_kernel<D, kMasks, kOffset>
+      <<<blocks, kThreads, smem_bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), b, s_len, s_kv, n_heads,
-      n_kv, causal, window, prefix, chunk, scale * 1.4426950408889634f);
+      n_kv, causal, window, prefix, chunk, q_off,
+      scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -698,7 +710,8 @@ template <int D>
 int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                        int b, int s_len, int s_kv, int n_heads, int n_kv,
                        int causal, int window, int prefix, int chunk,
-                       float scale, int smem_bytes, cudaStream_t stream) {
+                       int q_off, float scale, int smem_bytes,
+                       cudaStream_t stream) {
   if (smem_bytes < smem_bytes_for(D))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
@@ -706,13 +719,20 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err == 0) err = encode_bshd(&tk, k, b, s_kv, n_kv, D, kBK);
   if (err == 0) err = encode_bshd(&tv, v, b, s_kv, n_kv, D, kBK);
   if (err != 0) return err;
-  return prefix > 0 || chunk > 0
-             ? run_flash_wgmma<D, true>(tq, tk, tv, o, b, s_len, s_kv,
-                                        n_heads, n_kv, causal, window, prefix,
-                                        chunk, scale, smem_bytes, stream)
-             : run_flash_wgmma<D, false>(tq, tk, tv, o, b, s_len, s_kv,
-                                         n_heads, n_kv, causal, window, 0, 0,
-                                         scale, smem_bytes, stream);
+  const bool masks = prefix > 0 || chunk > 0;
+  if (q_off != 0)
+    return masks ? run_flash_wgmma<D, true, true>(
+                       tq, tk, tv, o, b, s_len, s_kv, n_heads, n_kv, causal,
+                       window, prefix, chunk, q_off, scale, smem_bytes, stream)
+                 : run_flash_wgmma<D, false, true>(
+                       tq, tk, tv, o, b, s_len, s_kv, n_heads, n_kv, causal,
+                       window, 0, 0, q_off, scale, smem_bytes, stream);
+  return masks ? run_flash_wgmma<D, true, false>(
+                     tq, tk, tv, o, b, s_len, s_kv, n_heads, n_kv, causal,
+                     window, prefix, chunk, 0, scale, smem_bytes, stream)
+               : run_flash_wgmma<D, false, false>(
+                     tq, tk, tv, o, b, s_len, s_kv, n_heads, n_kv, causal,
+                     window, 0, 0, 0, scale, smem_bytes, stream);
 }
 
 }  // namespace
@@ -723,26 +743,28 @@ extern "C" {
 // 128, 256}; 16-byte aligned pointers (TMA).  ``prefix`` and ``chunk`` are 0
 // when unused (kernels/seq_ops.py::check_mask: at most one of window, prefix
 // and chunk, the last two only with ``causal``, and S_kv != S only without
-// any of them).
+// any of them or for a block of queries).  ``q_off``: query row 0's
+// absolute position (q_off + S <= S_kv under a mask), 0 for a whole
+// sequence.
 int seq_flash_attention_wgmma(const void* q, const void* k, const void* v,
                               void* o, int b, int s_len, int s_kv,
                               int n_heads, int n_kv, int d, int causal,
-                              int window, int prefix, int chunk, float scale,
-                              int smem_bytes, void* stream) {
+                              int window, int prefix, int chunk, int q_off,
+                              float scale, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
       return launch_flash_wgmma<64>(q, k, v, o, b, s_len, s_kv, n_heads,
                                     n_kv, causal, window, prefix, chunk,
-                                    scale, smem_bytes, st);
+                                    q_off, scale, smem_bytes, st);
     case 128:
       return launch_flash_wgmma<128>(q, k, v, o, b, s_len, s_kv, n_heads,
                                      n_kv, causal, window, prefix, chunk,
-                                     scale, smem_bytes, st);
+                                     q_off, scale, smem_bytes, st);
     case 256:
       return launch_flash_wgmma<256>(q, k, v, o, b, s_len, s_kv, n_heads,
                                      n_kv, causal, window, prefix, chunk,
-                                     scale, smem_bytes, st);
+                                     q_off, scale, smem_bytes, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(kFlashThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int s_len,
                  int s_kv, int n_heads, int n_kv, int d, int causal,
-                 int window, int prefix, int chunk, float scale) {
+                 int window, int prefix, int chunk, int q_off, float scale) {
   extern __shared__ float smem[];
   const int ldq = d + 1;
   const int ldp = kFlashBK + 1;
@@ -139,21 +139,23 @@ __global__ void __launch_bounds__(kFlashThreads)
   int k_lo[kRowsPerThread], k_hi[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    flash_bounds(q0 + ty * kRowsPerThread + i, s_kv, causal, window, chunk,
-                 k_lo[i], k_hi[i]);
+    flash_bounds(q_off + q0 + ty * kRowsPerThread + i, s_kv, causal, window,
+                 chunk, k_lo[i], k_hi[i]);
     m_run[i] = kNegInf;
     l_run[i] = 0.0f;
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) acc[i][j] = 0.0f;
   }
 
-  // K/V tiles that can hold an allowed key for some row of this q-tile
+  // K/V tiles that can hold an allowed key for some row of this q-tile (its
+  // rows sit at the absolute positions a0 + row)
+  const int a0 = q_off + q0;
   int kt_lo = 0;
   int kt_hi = (s_kv - 1) / kFlashBK;
   if (causal)
-    kt_hi = min(kt_hi, max(q0 + kFlashBQ - 1, prefix - 1) / kFlashBK);
-  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kFlashBK;
-  if (chunk > 0) kt_lo = q0 / chunk * chunk / kFlashBK;
+    kt_hi = min(kt_hi, max(a0 + kFlashBQ - 1, prefix - 1) / kFlashBK);
+  if (window > 0 && a0 - window + 1 > 0) kt_lo = (a0 - window + 1) / kFlashBK;
+  if (chunk > 0) kt_lo = a0 / chunk * chunk / kFlashBK;
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kFlashBK;
@@ -258,8 +260,8 @@ __global__ void __launch_bounds__(kFlashThreads)
 template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
                  int s_len, int s_kv, int n_heads, int n_kv, int d,
-                 int causal, int window, int prefix, int chunk, float scale,
-                 int smem_bytes, cudaStream_t stream) {
+                 int causal, int window, int prefix, int chunk, int q_off,
+                 float scale, int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -268,7 +270,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
   flash_kernel<T><<<grid, kFlashThreads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s_len, s_kv, n_heads,
-      n_kv, d, causal, window, prefix, chunk, scale);
+      n_kv, d, causal, window, prefix, chunk, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,19 +493,22 @@ extern "C" {
 // q (B, S, H, D), k/v (B, S_kv, KV, D) -> o (B, S, H, D).  ``prefix`` and
 // ``chunk`` are 0 when unused; kernels/seq_ops.py::check_mask lets at most
 // one of window, prefix and chunk be set, the last two only with
-// ``causal``, and S_kv differ from S only without any of them.
+// ``causal``, and S_kv differ from S only without any of them or for a
+// block of queries; ``q_off`` is query row 0's absolute position (q_off + S
+// <= S_kv under a mask), 0 for a whole sequence.
 int seq_flash_attention(const void* q, const void* k, const void* v, void* o,
                         int b, int s_len, int s_kv, int n_heads, int n_kv,
                         int d, int causal, int window, int prefix, int chunk,
-                        float scale, int dtype, int smem_bytes, void* stream) {
+                        int q_off, float scale, int dtype, int smem_bytes,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_flash<__nv_bfloat16>(q, k, v, o, b, s_len, s_kv, n_heads,
                                        n_kv, d, causal, window, prefix, chunk,
-                                       scale, smem_bytes, st);
+                                       q_off, scale, smem_bytes, st);
   return launch_flash<float>(q, k, v, o, b, s_len, s_kv, n_heads, n_kv, d,
-                             causal, window, prefix, chunk, scale, smem_bytes,
-                             st);
+                             causal, window, prefix, chunk, q_off, scale,
+                             smem_bytes, st);
 }
 
 // log_a, x (B, S, C) float32 or bfloat16 -> out (B, S, C) float32; ``vec``

@@ -9,7 +9,10 @@ replaces one Pallas kernel of the reference:
   reference's ``models/attention.py::mask_logits``: causal, sliding
   window, prefix-LM and chunked (the Pallas kernel has only the first
   two; the reference computes the others in XLA), and full attention
-  over a key length of its own (whisper's cross-attention): for
+  over a key length of its own (whisper's cross-attention), and a
+  block of queries at an offset of the keys' sequence (``q_offset``: a
+  rank's block of a context-parallel prefill, every mask reading the
+  absolute position): for
   bf16 at d_head 64, 128 and 256 a tensor-core kernel (``wgmma``, a TMA
   K/V ring; ``csrc/flash_wgmma.cu``), otherwise a CUDA-core kernel
   (``csrc/seq_ops.cu``); ``flash_route`` says which;
@@ -85,20 +88,34 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 def check_mask(causal: bool, window: int, prefix_len: int, chunk: int,
-               s_q: int = 0, s_kv: int = 0) -> None:
+               s_q: int = 0, s_kv: int = 0,
+               q_offset: "int | None" = None) -> None:
     """The masks ``flash_attention`` computes are the reference's mask
     kinds: causal (``global``), causal with a window (``sliding``), causal
     or key < ``prefix_len`` (``prefix``), causal within a ``chunk``
     (``chunked``), and without ``causal`` full or windowed.  Queries and
     keys of two lengths (``s_q`` != ``s_kv``: cross-attention) take full
     attention alone -- no mask kind of the reference pairs a mask with a
-    second length.  Any other combination raises rather than compute
-    something untested."""
-    if s_q != s_kv and (causal or window or prefix_len or chunk):
-        raise ValueError(f"flash_attention: {s_q} queries over {s_kv} keys "
-                         f"take full attention only (causal {causal}, "
-                         f"window {window}, prefix_len {prefix_len}, chunk "
-                         f"{chunk})")
+    second length -- unless ``q_offset`` places the queries as a block of
+    the keys' sequence, query i at the absolute position ``q_offset + i``
+    (a rank's block of a context-parallel prefill): a masked block must
+    lie inside the keys (``q_offset + s_q <= s_kv``).  Any other
+    combination raises rather than compute something untested."""
+    masked = causal or window or prefix_len or chunk
+    if q_offset is None:
+        if s_q != s_kv and masked:
+            raise ValueError(f"flash_attention: {s_q} queries over {s_kv} "
+                             f"keys take full attention only (causal "
+                             f"{causal}, window {window}, prefix_len "
+                             f"{prefix_len}, chunk {chunk}) unless q_offset "
+                             f"places them as a block of the keys")
+    elif not masked:
+        raise ValueError(f"flash_attention: q_offset {q_offset} places "
+                         f"queries for a mask; full attention takes none")
+    elif q_offset < 0 or q_offset + s_q > s_kv:
+        raise ValueError(f"flash_attention: a block of {s_q} queries from "
+                         f"position {q_offset} must lie inside the {s_kv} "
+                         f"keys (0 <= q_offset, q_offset + S <= S_kv)")
     if min(window, prefix_len, chunk) < 0:
         raise ValueError(f"flash_attention: window {window}, prefix_len "
                          f"{prefix_len} and chunk {chunk} must be >= 0")
@@ -113,13 +130,15 @@ def check_mask(causal: bool, window: int, prefix_len: int, chunk: int,
 
 def attention_mask(s: int, device, *, causal: bool = True, window: int = 0,
                    prefix_len: int = 0, chunk: int = 0,
-                   s_kv: "int | None" = None) -> torch.Tensor:
-    """(S, S_kv) bool, query p may see key j: the reference's
-    ``mask_logits`` over query positions 0..S-1 and key positions
-    0..S_kv-1 (``s_kv`` defaults to S)."""
+                   s_kv: "int | None" = None,
+                   q_offset: "int | None" = None) -> torch.Tensor:
+    """(S, S_kv) bool, query i may see key j: the reference's
+    ``mask_logits`` over query positions q_offset..q_offset+S-1 (from 0
+    without an offset) and key positions 0..S_kv-1 (``s_kv`` defaults to
+    S)."""
     s_kv = s if s_kv is None else s_kv
-    check_mask(causal, window, prefix_len, chunk, s, s_kv)
-    qp = torch.arange(s, device=device)[:, None]
+    check_mask(causal, window, prefix_len, chunk, s, s_kv, q_offset)
+    qp = (q_offset or 0) + torch.arange(s, device=device)[:, None]
     kp = torch.arange(s_kv, device=device)[None, :]
     allowed = torch.ones((s, s_kv), dtype=torch.bool, device=device)
     if causal:
@@ -133,11 +152,13 @@ def attention_mask(s: int, device, *, causal: bool = True, window: int = 0,
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, prefix_len: int = 0,
-                    chunk: int = 0) -> torch.Tensor:
+                    chunk: int = 0, q_offset: "int | None" = None
+                    ) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S_kv, KV, D) -> (B, S, H, D): the full
     score matrix, masked and soft-maxed, as the reference's
     ``attention_ref`` computes it (scores in q's dtype, then fp32;
-    probabilities in v's), under ``attention_mask``."""
+    probabilities in v's), under ``attention_mask`` (query i at position
+    ``q_offset + i``)."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, d)
@@ -145,7 +166,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           k.to(q.dtype)).float()
     allowed = attention_mask(s, q.device, causal=causal, window=window,
                              prefix_len=prefix_len, chunk=chunk,
-                             s_kv=k.shape[1])
+                             s_kv=k.shape[1], q_offset=q_offset)
     logits = torch.where(allowed, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
@@ -187,9 +208,9 @@ class _FlashAttention(torch.autograd.Function):
     its gradient, summed over each KV head's query group."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, prefix_len, chunk):
+    def forward(ctx, q, k, v, causal, window, prefix_len, chunk, q_offset):
         ctx.mask = dict(causal=causal, window=window, prefix_len=prefix_len,
-                        chunk=chunk)
+                        chunk=chunk, q_offset=q_offset)
         ctx.save_for_backward(q, k, v)
         return _flash_forward(q, k, v, **ctx.mask)
 
@@ -199,16 +220,21 @@ class _FlashAttention(torch.autograd.Function):
             inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = attention_plain(*inputs, **ctx.mask)
             grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, prefix_len: int = 0,
-                    chunk: int = 0) -> torch.Tensor:
+                    chunk: int = 0, q_offset: "int | None" = None
+                    ) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S_kv, KV, D) -> (B, S, H, D) in q's dtype.
 
-    S_kv differs from S only under full attention (``causal=False``, no
-    window, prefix or chunk: whisper's cross-attention).  ``window`` > 0
+    With ``q_offset`` query i sits at the absolute position ``q_offset +
+    i`` and key j at j: a rank's block of queries of a context-parallel
+    prefill against the whole sequence's keys (``q_offset + S <= S_kv``).
+    Without it S_kv differs from S only under full attention
+    (``causal=False``, no window, prefix or chunk: whisper's
+    cross-attention).  ``window`` > 0
     lets query p see keys in (p - window, p] (with ``causal``) or
     (p - window, S) (without); ``prefix_len`` > 0 also lets
     every query see the keys before ``prefix_len`` (prefix-LM; a prefix of
@@ -220,24 +246,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v (``_FlashAttention``)."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, window, prefix_len,
-                                     chunk)
+                                     chunk, q_offset)
     return _flash_forward(q, k, v, causal=causal, window=window,
-                          prefix_len=prefix_len, chunk=chunk)
+                          prefix_len=prefix_len, chunk=chunk,
+                          q_offset=q_offset)
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool, window: int, prefix_len: int, chunk: int
-                   ) -> torch.Tensor:
+                   causal: bool, window: int, prefix_len: int, chunk: int,
+                   q_offset: "int | None" = None) -> torch.Tensor:
     """``flash_attention``'s forward: the kernel on the card, the plain
     version on the CPU."""
     mask = dict(causal=causal, window=window, prefix_len=prefix_len,
-                chunk=chunk)
+                chunk=chunk, q_offset=q_offset)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **mask)
     dev = q.device
     b, s, h, d = q.shape
     s_kv, kv = k.shape[1], k.shape[2]
-    check_mask(causal, window, prefix_len, chunk, s, s_kv)
+    check_mask(causal, window, prefix_len, chunk, s, s_kv, q_offset)
     if s_kv == 0:
         raise ValueError("flash_attention: no keys (S_kv = 0)")
     if q.dtype not in _DTYPE_CODE:
@@ -269,7 +296,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.library()
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             b, s, s_kv, h, kv, d, int(causal), int(window), int(prefix_len),
-            int(chunk), float(d ** -0.5))
+            int(chunk), int(q_offset or 0), float(d ** -0.5))
     with _build.on(dev):
         if wgmma:
             code = lib.seq_flash_attention_wgmma(*args, smem,

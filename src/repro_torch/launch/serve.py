@@ -14,6 +14,17 @@ for ``stub_frames`` frames, seeded stub frames through
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --device cpu
 
+Across ranks, one process a card (or gloo ranks on the CPU), on the
+``("data", "model")`` mesh of ``launch.mesh.make_host_mesh(model=M)``:
+
+  PYTHONPATH=src torchrun --nproc_per_node=4 -m repro_torch.launch.serve \
+      --arch yi-34b --mesh 1x4 [--full-config --layers 8] [--device cpu]
+
+``--mesh DxM`` must multiply to the processes; every rank draws the same
+weights and keeps its blocks, and rank 0 prints.  ``--full-config``
+serves the published widths (``--layers`` cuts the depth) instead of the
+reduced config.
+
 ``--arch`` takes any architecture of ``configs.list_models()`` (the
 registry but ``hfl-mnist``, the HFL simulation's config):
 recurrentgemma-9b, grok-1-314b, paligemma-3b, xlstm-125m, stablelm-1.6b,
@@ -29,6 +40,7 @@ import torch
 
 from repro_torch.configs import get_config, list_models
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import Model, make_serve_step
 
 
@@ -63,12 +75,33 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default; raises without a card) or "
                          "'cpu' (the kernels' plain versions)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve across a data x model mesh of D·M "
+                         "processes (under torchrun)")
+    ap.add_argument("--full-config", action="store_true",
+                    help="the published widths instead of the reduced "
+                         "config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    cfg = get_config(args.arch).reduced()
+    cfg = get_config(args.arch)
+    cfg = cfg if args.full_config else cfg.reduced()
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    mesh = None
+    if args.mesh:
+        n_data, n_model = (int(v) for v in args.mesh.lower().split("x"))
+        mesh = make_host_mesh(model=n_model, device=args.device)
+        if mesh.size != n_data * n_model:
+            raise SystemExit(f"--mesh {args.mesh} needs {n_data * n_model} "
+                             f"processes, there are {mesh.size}")
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    serve_step, model = make_serve_step(cfg, device=dev, generator=gen)
+    serve_step, model = make_serve_step(cfg, device=dev, generator=gen,
+                                        mesh=mesh)
     start = cfg.prefix_tokens
     if cfg.encoder_layers:
         cache = model.init_cache(args.batch, args.cache_len, cfg.stub_frames)
@@ -96,10 +129,12 @@ def main(argv=None) -> int:
         out.append(tok[:, 0])
     gen_tokens = torch.stack(out, dim=1).cpu()
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} device={dev} batch={args.batch} generated "
-          f"{gen_tokens.shape[1]} tokens/seq in {dt:.2f}s "
-          f"({args.tokens * args.batch / dt:.1f} tok/s)")
-    print("sample:", gen_tokens[0][:16].tolist())
+    if mesh is None or mesh.coords == {"data": 0, "model": 0}:
+        where = "" if mesh is None else f" mesh={args.mesh}"
+        print(f"arch={cfg.name} device={dev}{where} batch={args.batch} "
+              f"generated {gen_tokens.shape[1]} tokens/seq in {dt:.2f}s "
+              f"({args.tokens * args.batch / dt:.1f} tok/s)")
+        print("sample:", gen_tokens[0][:16].tolist())
     if not bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()):
         raise RuntimeError("generated tokens outside the vocabulary")
     return 0

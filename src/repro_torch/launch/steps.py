@@ -4,7 +4,10 @@ The port of the reference's ``launch/steps.py``.  The model owns its
 weights, so a step closes over the model instead of taking a params
 pytree: ``train_step(opt_state, step, batch) -> (opt_state, step + 1,
 metrics)`` updates the model's weights in place, ``prefill_step(batch)``
-and ``serve_step(token, cache, index)`` run under ``no_grad``.
+and ``serve_step(token, cache, index)`` run under ``no_grad``.  Given a
+``launch.mesh.Mesh2D`` (``mesh=``) the prefill and serve steps run the
+model across its ranks (``models/transformer.py``); every rank takes and
+returns the whole batch.
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ from repro_torch.optim import Optimizer, adamw, clip_by_global_norm
 Model = Union[Transformer, EncDecTransformer]
 
 
-def _model(cfg, model, device, generator) -> Model:
+def _model(cfg, model, device, generator, mesh=None) -> Model:
     return model if model is not None else build_model(
-        cfg, device=device, generator=generator)
+        cfg, device=device, generator=generator, mesh=mesh)
 
 
 def model_loss(model: Model, batch: Dict[str, torch.Tensor]
@@ -39,13 +42,24 @@ def loss_and_grads(model: Model, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
     """``model_loss`` (detached) and its gradient for every named parameter
     (None where the loss does not reach one), the model's weights made
-    trainable first."""
+    trainable first.  A model split over a mesh raises: gradients through
+    its collectives are not ported yet (ROADMAP A23)."""
+    _refuse_mesh(model)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     loss = model_loss(model, batch)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     return loss.detach(), dict(zip(params, grads))
+
+
+def _refuse_mesh(model: Model) -> None:
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{model.cfg.name}: training a model split over a "
+            f"{mesh.shape['data']} x {mesh.shape['model']} mesh is not "
+            f"ported yet (ROADMAP A23)")
 
 
 def make_train_step(cfg, *, lr: float = 3e-4, grad_clip: float = 1.0,
@@ -63,6 +77,7 @@ def make_train_step(cfg, *, lr: float = 3e-4, grad_clip: float = 1.0,
     ``grad_clip``, then ``adamw(lr)`` with moments in ``cfg.opt_dtype``,
     whose new weights are copied into the model under ``no_grad``."""
     model = _model(cfg, model, device, generator)
+    _refuse_mesh(model)
     model.requires_grad_(True)
     opt = adamw(lr, opt_dtype=cfg.opt_dtype_str)
     params = dict(model.named_parameters())
@@ -106,14 +121,15 @@ def make_train_step(cfg, *, lr: float = 3e-4, grad_clip: float = 1.0,
 
 def make_prefill_step(cfg, *, model: Optional[Model] = None,
                       device: "str | torch.device" = "cuda",
-                      generator: Optional[torch.Generator] = None
-                      ) -> Tuple[Callable, Model]:
+                      generator: Optional[torch.Generator] = None,
+                      mesh=None) -> Tuple[Callable, Model]:
     """``prefill_step(batch)``: {"tokens": (B, S)[, "embeddings": a VLM's
     prefix (B, P, d), or an encoder-decoder's frames (B, F, d)]} -> the
     last position's logits (B, V), what a server samples from.  Only that
     position is unembedded; the reference slices it from the full
-    logits."""
-    model = _model(cfg, model, device, generator)
+    logits.  ``mesh``: build the model across it (unless ``model`` is
+    given)."""
+    model = _model(cfg, model, device, generator, mesh)
 
     @torch.no_grad()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -126,12 +142,15 @@ def make_prefill_step(cfg, *, model: Optional[Model] = None,
 
 def make_serve_step(cfg, *, model: Optional[Model] = None,
                     device: "str | torch.device" = "cuda",
-                    generator: Optional[torch.Generator] = None
-                    ) -> Tuple[Callable, Model]:
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None) -> Tuple[Callable, Model]:
     """``serve_step(token (B, 1), cache, index)`` -> (the greedy next token
     (B, 1) int32, cache): one decode step, with ``prefix_len`` the config's
-    ``prefix_tokens`` as the reference's, and an argmax."""
-    model = _model(cfg, model, device, generator)
+    ``prefix_tokens`` as the reference's, and an argmax over the whole
+    vocabulary (on a mesh, the gathered logits), ties to the lowest index
+    as ``jnp.argmax``'s.  ``mesh``: build the model across it (unless
+    ``model`` is given)."""
+    model = _model(cfg, model, device, generator, mesh)
     prefix = cfg.prefix_tokens
 
     @torch.no_grad()

@@ -8,13 +8,15 @@ import torch
 
 
 def build_model(cfg, *, device: "str | torch.device" = "cuda",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None):
     """The model for an architecture config -- an ``EncDecTransformer``
     when it has encoder layers, else a ``Transformer`` -- with its weights
-    on ``device`` (drawn from ``generator``, or left for a loader)."""
+    on ``device`` (drawn from ``generator``, or left for a loader); with a
+    ``launch.mesh.Mesh2D``, this rank's blocks of them."""
     from repro_torch.models.encdec import EncDecTransformer
     from repro_torch.models.transformer import Transformer
 
     if cfg.encoder_layers > 0:
-        return EncDecTransformer(cfg, device=device, generator=generator)
-    return Transformer(cfg, device=device, generator=generator)
+        return EncDecTransformer(cfg, device=device, generator=generator,
+                                 mesh=mesh)
+    return Transformer(cfg, device=device, generator=generator, mesh=mesh)

@@ -16,8 +16,36 @@ against a KV cache, a ring for ``sliding`` and ``chunked`` layers.
 ``bidirectional_attention_apply`` and ``cross_attention_apply`` go through
 the flash kernel without a mask, the latter with a key length of its own
 (the frames); ``cross_decode`` is plain, over the frames' cached K/V.
-``cfg.attn_seq_shard`` (the reference's context parallelism over a TPU
-mesh) has no meaning on one card and is ignored.
+
+Across a ``launch.mesh.Mesh2D`` whose ``model`` axis has W > 1 ranks
+(``sharding.rules``' placement; the decoder's attention only):
+
+* head-parallel where W divides the heads H: rank r holds q heads
+  [r·H/W, (r+1)·H/W) of ``wq`` and ``wo`` and its KV heads of ``wk`` and
+  ``wv`` where W divides them; else ``wk`` and ``wv`` stay whole and the
+  rank projects the KV heads its q heads read (expanded to one a q head
+  where its q heads straddle two groups, since flash maps q head h to KV
+  head h // (H/KV) only for whole groups).  Biases and the q/k norms are
+  whole; one flash launch a layer on the rank's heads; ``wo`` is
+  row-parallel, its partials summed over ``model``.
+* context-parallel (the reference's ``attn_seq_shard``, A21) where the
+  config sets it and W does not divide H -- the case it is made for; where
+  the heads divide, head-parallel is the rules' placement and computes
+  the same function: every weight whole, each rank computes K/V for the
+  whole sequence (the reference's "full-seq K/V per device") and q for
+  its block [lo, hi) of ceil(S/W) positions, runs flash with
+  ``q_offset=lo``, projects its block and the blocks are all-gathered
+  along the sequence (ragged where W does not divide S).
+* otherwise every weight is whole and every rank computes the whole
+  attention.
+
+Decode places the cache as ``sharding.cache_spec`` does: rank r holds
+slots [r·size/W, (r+1)·size/W) of each layer's cache (its ring too);
+``attention_decode`` gathers the step's q and K/V heads, writes K/V on the
+slot's rank, computes each rank's partial softmax over its slots (each
+slot's position from its global index) and merges the partials in
+float32 over ``model`` -- the all-reduced max, then the rescaled sums of
+exp and exp·v -- before the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -27,7 +55,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import seq_ops
-from repro_torch.models import layers
+from repro_torch.launch.mesh import block
+from repro_torch.models import layers, parallel
 
 NEG_INF = -2.0e38
 MASK_KINDS = ("global", "sliding", "chunked", "prefix")
@@ -46,7 +75,8 @@ class Attention(nn.Module):
     ``cfg.qk_norm`` also ``q_norm`` and ``k_norm``, RMSNorms over Dh with
     a scale of ones -- none of them drawn, as in the reference."""
 
-    def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
+    def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
+                 mesh=None):
         super().__init__()
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         shapes = {"wq": ((d, h, dh), d), "wk": ((d, kv, dh), d),
@@ -55,7 +85,8 @@ class Attention(nn.Module):
             self.register_parameter(name, layers.param(
                 shape, cfg.param_dtype, device, generator,
                 lambda shape=shape, fan_in=fan_in: layers.scaled_init(
-                    shape, generator, cfg.param_dtype, fan_in=fan_in)))
+                    shape, generator, cfg.param_dtype, fan_in=fan_in),
+                name=name, mesh=mesh))
         self.qkv_bias, self.qk_norm = cfg.qkv_bias, cfg.qk_norm
         if cfg.qkv_bias:
             for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
@@ -68,6 +99,32 @@ class Attention(nn.Module):
                                       generator)
             self.k_norm = layers.Norm("rmsnorm", dh, cfg.param_dtype, device,
                                       generator)
+        self.mesh = mesh if parallel.model_active(mesh) else None
+        if self.mesh is not None:
+            self._plan(cfg)
+
+    def _plan(self, cfg) -> None:
+        """This rank's heads on the model axis (``sharding.rules``' split
+        of wq/wo over H and of wk/wv over KV, each where W divides it)."""
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        w, r = parallel.model_axis(self.mesh)
+        group = h // kv
+        self.head_parallel = h % w == 0
+        self.kv_split = kv % w == 0
+        self.seq_parallel = cfg.attn_seq_shard and not self.head_parallel
+        if self.head_parallel:
+            h0, h1 = r * h // w, (r + 1) * h // w
+            kv0, kv1 = h0 // group, (h1 - 1) // group + 1
+        else:
+            h0, h1, kv0, kv1 = 0, h, 0, kv
+        self.heads, self.kv_heads = (h0, h1), (kv0, kv1)
+        n, m = h1 - h0, kv1 - kv0
+        reads = [i // group - kv0 for i in range(h0, h1)]
+        whole_groups = n % m == 0 and reads == [j // (n // m)
+                                                for j in range(n)]
+        # the KV head each q head reads where the rank's q heads straddle
+        # two groups (K/V then expanded to one head a q head), else None
+        self.kv_expand = None if whole_groups else reads
 
 
 def _qkv(p: Attention, x: torch.Tensor
@@ -112,6 +169,114 @@ def _out(p: Attention, out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", out, p.wo.to(out.dtype))
 
 
+# -- the model axis -----------------------------------------------------------
+
+def _heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    y = torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _rope(t: torch.Tensor, positions: torch.Tensor, cfg,
+          use_rope: bool) -> torch.Tensor:
+    return layers.apply_rope(t, positions, cfg.rope_theta) if use_rope \
+        else t
+
+
+def _q_local(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """The rank's q heads of x (B, S, d), biased and normed."""
+    h0, h1 = p.heads
+    q = _heads(x, p.wq, p.bq[h0:h1] if p.qkv_bias else None)
+    return p.q_norm(q) if p.qk_norm else q
+
+
+def _kv_local(p: Attention, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KV heads [kv0, kv1) the rank's q heads read: from its block of
+    wk/wv where they are split, else from their columns of the whole
+    weights."""
+    kv0, kv1 = p.kv_heads
+    wk, wv = (p.wk, p.wv) if p.kv_split else (p.wk[:, kv0:kv1],
+                                              p.wv[:, kv0:kv1])
+    k = _heads(x, wk, p.bk[kv0:kv1] if p.qkv_bias else None)
+    v = _heads(x, wv, p.bv[kv0:kv1] if p.qkv_bias else None)
+    return (p.k_norm(k) if p.qk_norm else k), v
+
+
+def _kv_all(p: Attention, x: torch.Tensor, positions: torch.Tensor, cfg,
+            use_rope: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every KV head of x, post-RoPE, on every rank (what a cache holds):
+    the ranks' blocks all-gathered where wk/wv are split, else projected
+    from the whole weights."""
+    if p.kv_split:
+        k, v = _kv_local(p, x)
+        k = _rope(k, positions, cfg, use_rope)
+        return _gather_heads(p.mesh, k, v)
+    k = _heads(x, p.wk, p.bk if p.qkv_bias else None)
+    v = _heads(x, p.wv, p.bv if p.qkv_bias else None)
+    k = p.k_norm(k) if p.qk_norm else k
+    return _rope(k, positions, cfg, use_rope), v
+
+
+def _gather_heads(mesh, *parts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each of ``parts`` (B, S, n_i, Dh), a rank's block of heads, gathered
+    over ``model`` into every rank's blocks in rank order -- all in one
+    collective."""
+    w, _ = parallel.model_axis(mesh)
+    sizes = [t.shape[2] for t in parts]
+    both = mesh.all_gather(torch.cat(parts, dim=2), "model", dim=2)
+    b, s, _, dh = both.shape
+    both = both.reshape(b, s, w, sum(sizes), dh)
+    return tuple(t.reshape(b, s, w * n, dh)
+                 for t, n in zip(both.split(sizes, dim=3), sizes))
+
+
+def _expanded(p: Attention, k: torch.Tensor, v: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if p.kv_expand is None:
+        return k, v
+    return k[:, :, p.kv_expand], v[:, :, p.kv_expand]
+
+
+def _out_sharded(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """The rank's heads through its block of ``wo``, summed over
+    ``model`` (row-parallel); a whole ``wo`` needs no sum."""
+    y = _out(p, out)
+    return parallel.sum_model(p.mesh, y) if p.head_parallel else y
+
+
+def _mask_kw(mask_kind: str, cfg, prefix_len: int) -> dict:
+    return dict(causal=True,
+                window=cfg.window if mask_kind == "sliding" else 0,
+                prefix_len=prefix_len if mask_kind == "prefix" else 0,
+                chunk=cfg.attn_chunk if mask_kind == "chunked" else 0)
+
+
+def _apply_sharded(p: Attention, x: torch.Tensor, cfg, mask: dict,
+                   positions: Optional[torch.Tensor],
+                   use_rope: bool) -> torch.Tensor:
+    """``attention_apply`` on the model axis: head-parallel, or
+    context-parallel (see the module's docstring).  One flash launch."""
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    if p.seq_parallel:
+        w, _ = parallel.model_axis(p.mesh)
+        blocks = [block(s, w, i) for i in range(w)]
+        lo, hi = blocks[p.mesh.coords["model"]]
+        q = _rope(_q_local(p, x[:, lo:hi]), positions[lo:hi], cfg, use_rope)
+        k, v = _kv_local(p, x)
+        k = _rope(k, positions, cfg, use_rope)
+        out = seq_ops.flash_attention(q, k, v, q_offset=lo, **mask)
+        return p.mesh.all_gather_ragged(_out(p, out),
+                                        [b - a for a, b in blocks], "model",
+                                        dim=1)
+    q = _rope(_q_local(p, x), positions, cfg, use_rope)
+    k, v = _kv_local(p, x)
+    k, v = _expanded(p, _rope(k, positions, cfg, use_rope), v)
+    return _out_sharded(p, seq_ops.flash_attention(q, k, v, **mask))
+
+
 def _rotated_qkv(p: Attention, x: torch.Tensor, cfg,
                  positions: Optional[torch.Tensor], use_rope: bool
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -134,6 +299,9 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *, mask_kind: str,
     ``prefix`` mask only, ``cfg.window`` by ``sliding``, ``cfg.attn_chunk``
     by ``chunked``."""
     _check_kind(mask_kind)
+    if p.mesh is not None:
+        return _apply_sharded(p, x, cfg, _mask_kw(mask_kind, cfg, prefix_len),
+                              positions, use_rope)
     q, k, v = _rotated_qkv(p, x, cfg, positions, use_rope)
     out = seq_ops.flash_attention(
         q, k, v, causal=True,
@@ -149,8 +317,12 @@ def attention_prefill_cache(p: Attention, x: torch.Tensor, cfg,
     """A multimodal prefix x (B, P, d) through the ``prefix`` mask over
     itself (full attention) in the flash kernel, its post-RoPE K/V written
     into cache slots [0, P) in place: the attention of the reference's
-    ``Transformer.prefill_prefix``.  Returns (B, P, d)."""
+    ``Transformer.prefill_prefix``.  Returns (B, P, d).  On the model axis
+    a rank writes the part of [0, P) that lies in its slots and runs flash
+    on its heads (every head where they stay whole)."""
     p_len = x.shape[1]
+    if p.mesh is not None:
+        return _prefill_cache_sharded(p, x, cfg, cache, use_rope)
     q, k, v = _rotated_qkv(p, x, cfg, None, use_rope)
     cache["k"][:, :p_len] = k.to(cache["k"].dtype)
     cache["v"][:, :p_len] = v.to(cache["v"].dtype)
@@ -158,12 +330,36 @@ def attention_prefill_cache(p: Attention, x: torch.Tensor, cfg,
     return _out(p, out)
 
 
+def _prefill_cache_sharded(p: Attention, x: torch.Tensor, cfg,
+                           cache: Dict[str, torch.Tensor],
+                           use_rope: bool) -> torch.Tensor:
+    p_len = x.shape[1]
+    positions = torch.arange(p_len, device=x.device)
+    k_all, v_all = _kv_all(p, x, positions, cfg, use_rope)
+    size_l = cache["k"].shape[1]
+    c0 = p.mesh.coords["model"] * size_l
+    a, b = min(max(c0, 0), p_len), min(c0 + size_l, p_len)
+    if b > a:
+        cache["k"][:, a - c0:b - c0] = k_all[:, a:b].to(cache["k"].dtype)
+        cache["v"][:, a - c0:b - c0] = v_all[:, a:b].to(cache["v"].dtype)
+    q = _rope(_q_local(p, x), positions, cfg, use_rope)
+    if p.head_parallel:
+        k, v = _kv_local(p, x)
+        k, v = _expanded(p, _rope(k, positions, cfg, use_rope), v)
+    else:
+        k, v = k_all, v_all
+    out = seq_ops.flash_attention(q, k, v, causal=True, prefix_len=p_len)
+    return _out_sharded(p, out)
+
+
 def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
-               device) -> Dict[str, torch.Tensor]:
+               device, mesh=None) -> Dict[str, torch.Tensor]:
     """A decode KV cache for one layer: a ring buffer of ``window`` slots
     for ``sliding`` layers and of ``attn_chunk`` for ``chunked`` ones (at
     most ``cache_len``), ``cache_len`` slots for ``global`` and ``prefix``
-    ones."""
+    ones.  With a ``mesh`` whose model axis has W > 1 ranks, this rank's
+    block of size / W slots (``sharding.cache_spec``'s sequence split; a
+    size W does not divide raises, naming it)."""
     _check_kind(mask_kind)
     if mask_kind == "sliding":
         size = min(cfg.window, cache_len)
@@ -171,7 +367,13 @@ def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
         size = min(cfg.attn_chunk, cache_len)
     else:
         size = cache_len
-    shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
+    w, _ = parallel.model_axis(mesh)
+    if size % w:
+        raise ValueError(f"{cfg.name}: a {mask_kind} layer's cache of "
+                         f"{size} slots does not split over the model axis "
+                         f"of {w} ranks (sharding.cache_spec would not "
+                         f"take its sequence)")
+    shape = (batch, size // w, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device)}
 
@@ -186,6 +388,9 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg,
     place (saving a copy of the cache a step) and returns the cache.
     ``prefix_len`` is read by the ``prefix`` mask only."""
     _check_kind(mask_kind)
+    if p.mesh is not None:
+        return _decode_sharded(p, x, cfg, cache, index, mask_kind, use_rope,
+                               prefix_len)
     dev = x.device
     q, k, v = _qkv(p, x)
     pos = torch.full((1,), index, dtype=torch.int64, device=dev)
@@ -196,26 +401,81 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg,
     slot = index % size
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    # keys are cached post-RoPE; each slot's absolute position
-    slots = torch.arange(size, device=dev)
+    k_pos, k_valid = _slot_positions(torch.arange(size, device=dev), size,
+                                     index, mask_kind, cfg)
+    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), pos,
+                k_pos, k_valid,
+                prefix_len if mask_kind == "prefix" else 0)
+    return _out(p, out), cache
+
+
+def _slot_positions(slots: torch.Tensor, size: int, index: int,
+                    mask_kind: str, cfg
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The absolute position each cache slot (a global slot index of a
+    cache of ``size``) holds at step ``index``, and whether it is visible:
+    keys are cached post-RoPE."""
     k_valid = slots < min(index + 1, size)
     if mask_kind == "chunked":
         # a ring of the chunk's size: only the current chunk's slots are
         # visible (the reference takes the ring's size as the chunk)
         slot_pos = (index // size) * size + slots
-        k_valid = k_valid & (slot_pos <= index)
-        k_pos = slot_pos
-    elif mask_kind == "sliding":
+        return slot_pos, k_valid & (slot_pos <= index)
+    if mask_kind == "sliding":
         # slot holds the absolute position p with p % size == slot, p <= index
         cand = (index // size) * size + slots
         k_pos = torch.where(cand <= index, cand, cand - size)
-        k_valid = k_valid & (k_pos > index - cfg.window) & (k_pos >= 0)
+        return k_pos, k_valid & (k_pos > index - cfg.window) & (k_pos >= 0)
+    return slots, k_valid
+
+
+def _decode_sharded(p: Attention, x: torch.Tensor, cfg,
+                    cache: Dict[str, torch.Tensor], index: int,
+                    mask_kind: str, use_rope: bool, prefix_len: int
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``attention_decode`` on the model axis over this rank's slots."""
+    mesh, dev = p.mesh, x.device
+    w, r = parallel.model_axis(mesh)
+    pos = torch.full((1,), index, dtype=torch.int64, device=dev)
+    q = _rope(_q_local(p, x), pos, cfg, use_rope)
+    if p.kv_split:        # (W divides KV, so it divides H): one gather
+        k, v = _kv_local(p, x)
+        q, k, v = _gather_heads(mesh, q, _rope(k, pos, cfg, use_rope), v)
     else:
-        k_pos = slots
-    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), pos,
-                k_pos, k_valid,
-                prefix_len if mask_kind == "prefix" else 0)
-    return _out(p, out), cache
+        if p.head_parallel:
+            q = mesh.all_gather(q, "model", dim=2)
+        k, v = _kv_all(p, x, pos, cfg, use_rope)
+    size_l = cache["k"].shape[1]
+    size = size_l * w
+    slot = index % size
+    if slot // size_l == r:
+        cache["k"][:, slot - r * size_l] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - r * size_l] = v[:, 0].to(cache["v"].dtype)
+    k_pos, k_valid = _slot_positions(
+        r * size_l + torch.arange(size_l, device=dev), size, index,
+        mask_kind, cfg)
+    plen = prefix_len if mask_kind == "prefix" else 0
+    allowed = ((k_pos[None, :] <= pos[:, None]) | (k_pos[None, :] < plen)) \
+        & k_valid[None, :]
+    b, qlen, h, dh = q.shape
+    kv = cache["k"].shape[2]
+    qg = q.reshape(b, qlen, kv, h // kv, dh)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5,
+                          cache["k"].to(q.dtype)).float()
+    masked = torch.where(allowed, logits, NEG_INF)
+    # the partial softmax over this rank's slots, merged over `model` in
+    # float32: the max, then the rescaled sums of exp and exp·v (a rank
+    # without a visible slot adds exact zeros)
+    m = mesh.all_reduce(masked.amax(dim=-1, keepdim=True), "model", "max")
+    e = torch.where(allowed, torch.exp(masked - m), 0.0)
+    o = torch.einsum("bhgqs,bshk->bhgqk", e, cache["v"].float())
+    sums = mesh.all_reduce(torch.cat([o, e.sum(dim=-1, keepdim=True)], -1),
+                           "model")
+    out = (sums[..., :dh] / sums[..., dh:]).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, qlen, h, dh)
+    if p.head_parallel:
+        out = out[:, :, p.heads[0]:p.heads[1]]
+    return _out_sharded(p, out), cache
 
 
 def bidirectional_attention_apply(p: Attention, x: torch.Tensor, cfg, *,

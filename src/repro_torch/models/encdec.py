@@ -18,9 +18,13 @@ stacked over the decoder layers, and is updated in place.  The layers are
 each encoder layer and each decoder layer runs through a non-reentrant
 ``torch.utils.checkpoint``, as the reference's scan bodies run under
 ``jax.checkpoint`` (``transformer.run_unit``).  The reference's
-``scan_layers`` (a compile-time device of XLA) and its context
-parallelism (``attn_seq_shard``) mean nothing in eager PyTorch on one
-card and are not read.
+``scan_layers`` (a compile-time device of XLA) means nothing in eager
+PyTorch and is not read.  Across a ``launch.mesh.Mesh2D`` the data axis
+splits the batch (each data rank runs its rows; ``hidden``, ``apply`` and
+``decode_step`` return the whole batch); the model axis -- the
+reference's tensor parallelism and its context parallelism
+(``attn_seq_shard``) for whisper -- is not ported yet (ROADMAP A22): a
+model axis of more than one rank raises.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, parallel
 from repro_torch.models.transformer import MLP, remat_active, run_unit
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -51,9 +55,12 @@ def sinusoid_positions(positions: torch.Tensor, d_model: int
 
 
 def init_cache(cfg, batch: int, cache_len: int, n_frames: Optional[int],
-               device) -> Cache:
+               device, mesh=None) -> Cache:
     """``EncDecTransformer.init_cache`` for ``cfg`` on ``device`` (``meta``
-    gives the shapes and dtypes alone)."""
+    gives the shapes and dtypes alone); with a ``mesh``, this data rank's
+    rows of the batch."""
+    lo, hi = parallel.data_rows(mesh, batch)
+    batch = hi - lo
     n_frames = n_frames or cfg.stub_frames
     lead = (cfg.n_layers, batch)
     tail = (cfg.n_kv_heads, cfg.d_head)
@@ -124,14 +131,20 @@ class EncDecTransformer(nn.Module):
     """
 
     def __init__(self, cfg, *, device: "str | torch.device" = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         if generator is not None and generator.device.type != dev.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {dev}")
+        if parallel.model_active(mesh):
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder-decoder on a model axis of "
+                f"{mesh.shape['model']} ranks is not ported yet (ROADMAP "
+                f"A22); the data axis alone serves it")
         self.cfg = cfg
         self.device = dev
+        self.mesh = mesh if parallel.active(mesh) else None
         shape = (cfg.vocab_size, cfg.d_model)
         self.embedding = layers.param(
             shape, cfg.param_dtype, dev, generator,
@@ -171,6 +184,13 @@ class EncDecTransformer(nn.Module):
                ) -> torch.Tensor:
         """Decoder tokens (B, S) and the frames (B, F, d) -> the
         final-normed decoder hidden states (B, S, d)."""
+        mesh = self.mesh
+        x = self._hidden(parallel.rows(mesh, tokens),
+                         parallel.rows(mesh, extra_embeddings))
+        return parallel.unrows(mesh, x, tokens.shape[0])
+
+    def _hidden(self, tokens: torch.Tensor,
+                extra_embeddings: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         if extra_embeddings is None:
             raise ValueError(f"{cfg.name}: the encoder-decoder model needs "
@@ -196,7 +216,10 @@ class EncDecTransformer(nn.Module):
         """tokens (B, S) and frames (B, F, d) -> logits (B, S, V); with
         ``with_aux`` also a 0-d float32 zero, as the reference's ``apply``
         returns ``(logits, 0.0)``."""
-        logits = self.unembed(self.hidden(tokens, extra_embeddings))
+        mesh = self.mesh
+        logits = parallel.unrows(mesh, self.unembed(self._hidden(
+            parallel.rows(mesh, tokens),
+            parallel.rows(mesh, extra_embeddings))), tokens.shape[0])
         if not with_aux:
             return logits
         return logits, torch.zeros((), dtype=torch.float32,
@@ -210,13 +233,14 @@ class EncDecTransformer(nn.Module):
         layers: self-attention ``k``/``v`` (L, B, cache_len, KV, Dh) and
         ``cross_k``/``cross_v`` (L, B, n_frames, KV, Dh); ``n_frames``
         defaults to the config's ``stub_frames``."""
-        return init_cache(self.cfg, batch, cache_len, n_frames, self.device)
+        return init_cache(self.cfg, batch, cache_len, n_frames, self.device,
+                          self.mesh)
 
     def prefill_cross(self, cache: Cache, frames: torch.Tensor) -> Cache:
         """Encode the frames (B, F, d) and write each decoder layer's
         cross-attention K/V (with their biases) into the cache in place;
         returns the cache."""
-        enc = self.encode(frames)
+        enc = self.encode(parallel.rows(self.mesh, frames))
         dc = cache["decoder"]
         for i, lyr in enumerate(self.decoder):
             k, v = attention.cross_kv(lyr.cross_attn, enc, enc.dtype)
@@ -234,6 +258,8 @@ class EncDecTransformer(nn.Module):
         reference's signature)."""
         cfg = self.cfg
         index = int(index)
+        batch = token.shape[0]
+        token = parallel.rows(self.mesh, token)
         x = layers.embed_apply(self.embedding, token, cfg.compute_dtype)
         x = self._positions(x, torch.full((1,), index, device=x.device))
         dc = cache["decoder"]
@@ -247,4 +273,5 @@ class EncDecTransformer(nn.Module):
                                            dc["cross_k"][i],
                                            dc["cross_v"][i])
             x = x + lyr.mlp(lyr.norm3(x))
-        return self.unembed(self.final_norm(x)), cache
+        logits = self.unembed(self.final_norm(x))
+        return parallel.unrows(self.mesh, logits, batch), cache

@@ -62,14 +62,34 @@ def scaled_init(shape: Sequence[int], generator: torch.Generator,
 
 
 def param(shape: Sequence[int], dtype: torch.dtype, device,
-          generator: Optional[torch.Generator], init) -> nn.Parameter:
+          generator: Optional[torch.Generator], init, *,
+          name: Optional[str] = None, mesh=None) -> nn.Parameter:
     """A frozen parameter: ``init()`` (on the generator's device) when a
     generator is given, else left unset on ``device`` for a loader.
     Serving builds no graph; ``launch.steps.make_train_step`` turns the
-    model's parameters trainable (``requires_grad_``)."""
-    w = init() if generator is not None else \
-        torch.empty(tuple(shape), dtype=dtype, device=device)
-    return nn.Parameter(w, requires_grad=False)
+    model's parameters trainable (``requires_grad_``).
+
+    With a ``mesh`` whose model axis splits the weight ``name`` (its rule
+    in ``sharding.rules``), the parameter is this rank's block of it: the
+    whole leaf drawn (the unsharded model's draws), the block kept and
+    the rest freed; unset, the block's shape."""
+    from repro_torch.models import parallel
+    dim, lo, hi = parallel.local_block(name, tuple(shape), mesh) \
+        if name is not None else (None, 0, 0)
+    if dim is None:
+        w = init() if generator is not None else \
+            torch.empty(tuple(shape), dtype=dtype, device=device)
+    elif generator is not None:
+        whole = init()
+        w = whole.narrow(dim, lo, hi - lo).clone()
+        del whole
+    else:
+        local = list(shape)
+        local[dim] = hi - lo
+        w = torch.empty(tuple(local), dtype=dtype, device=device)
+    out = nn.Parameter(w, requires_grad=False)
+    out.model_split = dim      # the dim split over `model`, or None
+    return out
 
 
 # ---------------------------------------------------------------------------

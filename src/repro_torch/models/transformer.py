@@ -24,6 +24,23 @@ non-reentrant ``torch.utils.checkpoint``, as the reference wraps it in
 boundaries are kept, and the backward recomputes each unit's forward, so
 a unit's kernel forwards launch twice a train step.  Serving (no
 gradient) runs as without.
+
+With a ``launch.mesh.Mesh2D`` (``mesh=``) the decoder serves across ranks
+on the reference's ``("data", "model")`` partition (``sharding.rules``,
+placed with ``fsdp=False``): on the model axis attention is head- or
+context-parallel (``models/attention.py``), the MLP column-parallel over
+``d_ff`` (``w_in``, ``w_gate``, ``b_in``) and row-parallel (``w_out``,
+summed over ``model``, ``b_out`` added once after), the MoE
+expert-parallel or split over ``moe_d_ff`` (``models/moe.py``), the
+embedding and output tables split by vocab (a lookup's rows summed, the
+logits gathered) or by ``d_model`` (gathered, partial logits summed);
+norms are whole.  The data axis splits the batch: ``hidden``, ``apply``,
+``decode_step`` and ``prefill_prefix`` take the whole batch and return
+it, each data rank running its rows, and ``init_cache`` gives each rank
+its rows and slots.  A ``rec``, ``mlstm`` or ``slstm`` mixer on a model
+axis of more than one rank raises (ROADMAP A22); the data axis alone
+serves every architecture.  No mesh, or a mesh of one, runs the
+unsharded bodies.
 """
 from __future__ import annotations
 
@@ -34,7 +51,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, moe, rglru, xlstm
+from repro_torch.models import attention, layers, moe, parallel, rglru, \
+    xlstm
 
 Cache = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 
@@ -79,17 +97,23 @@ def run_unit(fn, remat: bool, *args):
     return fn(*args)
 
 
-def init_cache(cfg, batch: int, cache_len: int, device) -> Cache:
+def init_cache(cfg, batch: int, cache_len: int, device, mesh=None) -> Cache:
     """Zero decode caches of a decoder for ``cfg`` on ``device`` (``meta``
     gives their shapes and dtypes alone): ``stage_<i>`` → unit position →
-    leaves stacked over the stage's repetitions."""
+    leaves stacked over the stage's repetitions.  With a ``mesh``, this
+    rank's block of each leaf (``sharding.cache_spec``): its data rank's
+    rows of the batch, and of an attention cache its model rank's
+    slots."""
+    if parallel.active(mesh):
+        lo, hi = parallel.data_rows(mesh, batch)
+        batch = hi - lo
     pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
     cache: Cache = {}
     for si, (unit, reps) in enumerate(compute_stages(cfg.n_layers, pat)):
         unit_cache = {}
         for i, (kind, _) in enumerate(unit):
             one = (attention.init_cache(cfg, batch, cache_len,
-                                        MASK_FOR_KIND[kind], device)
+                                        MASK_FOR_KIND[kind], device, mesh)
                    if kind in ATTENTION_KINDS
                    else RECURRENT[kind][3](cfg, batch, device))
             unit_cache[str(i)] = {
@@ -104,7 +128,7 @@ class MLP(nn.Module):
     d_ff), and with ``cfg.mlp_bias`` the zero biases b_in (d_ff,) and b_out
     (d,): drawn in the reference's ``mlp_init`` order."""
 
-    def __init__(self, cfg, device, generator):
+    def __init__(self, cfg, device, generator, mesh=None):
         super().__init__()
         d, ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
         weights = [("w_in", (d, ff), d), ("w_out", (ff, d), ff)]
@@ -114,7 +138,8 @@ class MLP(nn.Module):
             self.register_parameter(name, layers.param(
                 shape, dt, device, generator,
                 lambda shape=shape, fan_in=fan_in: layers.scaled_init(
-                    shape, generator, dt, fan_in=fan_in)))
+                    shape, generator, dt, fan_in=fan_in),
+                name=name, mesh=mesh))
         if not cfg.gated_mlp:
             self.w_gate = None
         for name, n in (("b_in", ff), ("b_out", d)):
@@ -124,8 +149,21 @@ class MLP(nn.Module):
                                         device=generator.device))
                 if cfg.mlp_bias else None)
         self.activation = cfg.activation
+        # this rank's block of d_ff where the model axis splits it
+        dim, lo, hi = parallel.local_block("w_in", (d, ff), mesh)
+        self.mesh = mesh if dim is not None else None
+        self.ff_block = (lo, hi)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            lo, hi = self.ff_block
+            part = layers.mlp_apply(
+                self.w_in, self.w_gate, self.w_out, x,
+                activation=self.activation,
+                b_in=None if self.b_in is None else self.b_in[lo:hi])
+            out = parallel.sum_model(self.mesh, part)
+            return out if self.b_out is None else \
+                out + self.b_out.to(out.dtype)
         return layers.mlp_apply(self.w_in, self.w_gate, self.w_out, x,
                                 activation=self.activation, b_in=self.b_in,
                                 b_out=self.b_out)
@@ -136,18 +174,24 @@ class Block(nn.Module):
     residual → norm2 → FFN (the MLP, or the MoE for a ``moe`` ffn kind) →
     residual; a ``none`` ffn kind has neither norm2 nor FFN."""
 
-    def __init__(self, cfg, kind: str, ffn_kind: str, device, generator):
+    def __init__(self, cfg, kind: str, ffn_kind: str, device, generator,
+                 mesh=None):
         super().__init__()
         if kind not in ATTENTION_KINDS and kind not in RECURRENT:
             raise ValueError(f"unknown sequence mixer {kind!r}")
         if ffn_kind not in FFN_KINDS:
             raise ValueError(f"unknown ffn kind {ffn_kind!r}")
+        if kind in RECURRENT and parallel.model_active(mesh):
+            raise NotImplementedError(
+                f"{cfg.name}: a {kind!r} mixer on a model axis of "
+                f"{mesh.shape['model']} ranks is not ported yet (ROADMAP "
+                f"A22); the data axis alone serves it")
         self.kind, self.ffn_kind = kind, ffn_kind
         self.norm1 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
         if kind in ATTENTION_KINDS:
             self.attn = attention.Attention(cfg, device=device,
-                                            generator=generator)
+                                            generator=generator, mesh=mesh)
         else:
             # named as the reference's pytree: rec, mlstm or slstm
             self.add_module(kind, RECURRENT[kind][0](
@@ -157,9 +201,10 @@ class Block(nn.Module):
         self.norm2 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
         if ffn_kind == "moe":
-            self.moe = moe.MoE(cfg, device=device, generator=generator)
+            self.moe = moe.MoE(cfg, device=device, generator=generator,
+                               mesh=mesh)
         else:
-            self.mlp = MLP(cfg, device, generator)
+            self.mlp = MLP(cfg, device, generator, mesh)
 
     def mixer(self, h: torch.Tensor) -> torch.Tensor:
         """A recurrent mixer's full-sequence forward."""
@@ -170,15 +215,16 @@ class Block(nn.Module):
         """A recurrent mixer's decode step: (y, its new cache leaves)."""
         return RECURRENT[self.kind][2](getattr(self, self.kind), h, cache)
 
-    def ffn(self, x: torch.Tensor, cfg
+    def ffn(self, x: torch.Tensor, cfg, batch: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x + FFN(norm2(x)), and the MoE aux (None for a dense FFN); x
-        itself for a ``none`` FFN."""
+        itself for a ``none`` FFN.  ``batch``: the whole batch's rows when
+        x holds a data rank's (the MoE routes the whole batch)."""
         if self.ffn_kind == "none":
             return x, None
         h = self.norm2(x)
         if self.ffn_kind == "moe":
-            y, aux = self.moe(h, cfg)
+            y, aux = self.moe(h, cfg, batch)
             return x + y, aux
         return x + self.mlp(h), None
 
@@ -199,10 +245,13 @@ class Transformer(nn.Module):
     ``generator``: draw the weights from it (on its device, which must be
     ``device``) with the reference's init distributions; ``None`` leaves
     them unset for ``convert.params_from_numpy`` or ``load_state_dict``.
+    ``mesh``: a ``launch.mesh.Mesh2D`` to serve across (this rank's blocks
+    of the weights; see the module's docstring); None or a mesh of one is
+    the unsharded model.
     """
 
     def __init__(self, cfg, *, device: "str | torch.device" = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         if generator is not None and generator.device.type != dev.type:
@@ -210,18 +259,24 @@ class Transformer(nn.Module):
                              f"on {dev}")
         self.cfg = cfg
         self.device = dev
+        mesh = mesh if parallel.active(mesh) else None
+        self.mesh = mesh
         pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
         self.stages = compute_stages(cfg.n_layers, pat)
+        table = (cfg.vocab_size, cfg.d_model)
         self.embedding = layers.param(
-            (cfg.vocab_size, cfg.d_model), cfg.param_dtype, dev, generator,
-            lambda: layers.normal_init((cfg.vocab_size, cfg.d_model),
-                                       generator, cfg.param_dtype))
+            table, cfg.param_dtype, dev, generator,
+            lambda: layers.normal_init(table, generator, cfg.param_dtype),
+            name="embedding", mesh=mesh)
         # an untied output table, drawn after the input one (the reference
         # draws it from the embedding key's second split)
         self.unembedding = None if cfg.tie_embeddings else layers.param(
-            (cfg.vocab_size, cfg.d_model), cfg.param_dtype, dev, generator,
-            lambda: layers.normal_init((cfg.vocab_size, cfg.d_model),
-                                       generator, cfg.param_dtype))
+            table, cfg.param_dtype, dev, generator,
+            lambda: layers.normal_init(table, generator, cfg.param_dtype),
+            name="unembedding", mesh=mesh)
+        # the tables' split over `model` (both take the same rule): 0 by
+        # vocab, 1 by d_model, None whole
+        self.table_split = parallel.split_dim("embedding", table, mesh)
         self.final_norm = layers.Norm(cfg.norm, cfg.d_model,
                                       cfg.param_dtype, dev, generator)
         blocks, where, spans = [], [], []
@@ -229,7 +284,8 @@ class Transformer(nn.Module):
             for r in range(reps):
                 spans.append((len(blocks), len(blocks) + len(unit)))
                 for i, (kind, ffn_kind) in enumerate(unit):
-                    blocks.append(Block(cfg, kind, ffn_kind, dev, generator))
+                    blocks.append(Block(cfg, kind, ffn_kind, dev, generator,
+                                        mesh))
                     where.append((f"stage_{si}", r, str(i)))
         self.blocks = nn.ModuleList(blocks)
         # (stage key, repetition, unit position) of each block, in order
@@ -246,16 +302,39 @@ class Transformer(nn.Module):
     # -- forward (train / prefill) -------------------------------------------
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = layers.embed_apply(self.embedding, tokens, self.cfg.compute_dtype)
+        if self.table_split is None:
+            x = layers.embed_apply(self.embedding, tokens,
+                                   self.cfg.compute_dtype)
+        else:
+            x = self._embed_sharded(tokens)
         if self.embed_scale is not None:
             x = x * self.embed_scale
         return x
 
+    def _embed_sharded(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The lookup of a table split over `model`: by vocab, the rank's
+        rows (zero for tokens outside its range) summed over `model` -- one
+        rank adds a value, the others +0.0, so the sum is exact; by
+        d_model, the rank's columns gathered."""
+        dt, mesh = self.cfg.compute_dtype, self.mesh
+        table = self.embedding
+        if self.table_split == 1:
+            return mesh.all_gather(layers.embed_apply(table, tokens, dt),
+                                   "model", dim=-1)
+        n = table.shape[0]
+        local = tokens - mesh.coords["model"] * n
+        inside = (local >= 0) & (local < n)
+        part = torch.where(inside[..., None],
+                           table[local.clamp(0, n - 1)], 0.0)
+        return mesh.all_reduce(part, "model").to(dt)
+
     def _forward(self, tokens: torch.Tensor,
-                 extra_embeddings: Optional[torch.Tensor]
+                 extra_embeddings: Optional[torch.Tensor],
+                 batch: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The final-normed hidden states of the text positions and the sum
-        of the MoE layers' aux (0 without one)."""
+        of the MoE layers' aux (0 without one); ``tokens`` this rank's
+        rows of a batch of ``batch`` rows (default: all of them)."""
         cfg = self.cfg
         x = self._embed(tokens)
         prefix_len = 0
@@ -268,12 +347,13 @@ class Transformer(nn.Module):
         remat = remat_active(self)
         for start, end in self.unit_spans:
             x, aux = run_unit(self._unit_apply, remat, start, end, x, aux,
-                              positions, prefix_len)
+                              positions, prefix_len, batch)
         return self.final_norm(x)[:, prefix_len:], aux
 
     def _unit_apply(self, start: int, end: int, x: torch.Tensor,
                     aux: torch.Tensor, positions: torch.Tensor,
-                    prefix_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    prefix_len: int, batch: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Blocks [start, end) over x, the MoE aux carried in and out as
         the reference's scan carry (x, aux)."""
         cfg = self.cfg
@@ -286,7 +366,7 @@ class Transformer(nn.Module):
                     prefix_len=prefix_len)
             else:
                 y = blk.mixer(h)
-            x, inc = blk.ffn(x + y, cfg)
+            x, inc = blk.ffn(x + y, cfg, batch)
             if inc is not None:
                 aux = aux + inc
         return x, aux
@@ -296,12 +376,27 @@ class Transformer(nn.Module):
                ) -> torch.Tensor:
         """tokens (B, S) [+ a prefix of embeddings (B, P, d)] -> the
         final-normed hidden states of the text positions (B, S, d)."""
-        return self._forward(tokens, extra_embeddings)[0]
+        mesh, batch = self.mesh, tokens.shape[0]
+        parallel.posted(mesh, "hidden", lambda: _check_tokens(tokens))
+        x = self._forward(parallel.rows(mesh, tokens),
+                          parallel.rows(mesh, extra_embeddings), batch)[0]
+        return parallel.unrows(mesh, x, batch)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., d) -> logits (..., V), every vocab entry on every rank:
+        a vocab-split table's logits gathered over `model`, a
+        d_model-split one's partial logits summed."""
         table = self.embedding if self.unembedding is None \
             else self.unembedding
-        return layers.unembed_apply(table, x)
+        if self.table_split is None:
+            return layers.unembed_apply(table, x)
+        if self.table_split == 0:
+            return self.mesh.all_gather(layers.unembed_apply(table, x),
+                                        "model", dim=-1)
+        n = table.shape[1]
+        lo = self.mesh.coords["model"] * n
+        return parallel.sum_model(
+            self.mesh, layers.unembed_apply(table, x[..., lo:lo + n]))
 
     def apply(self, tokens: torch.Tensor,
               extra_embeddings: Optional[torch.Tensor] = None, *,
@@ -311,14 +406,19 @@ class Transformer(nn.Module):
         prefix-LM mask] -> logits (B, S, V) of the text positions; with
         ``with_aux`` also the MoE aux loss (a 0-d float32), as the
         reference's ``apply`` returns it."""
-        x, aux = self._forward(tokens, extra_embeddings)
-        logits = self.unembed(x)
+        mesh, batch = self.mesh, tokens.shape[0]
+        parallel.posted(mesh, "apply", lambda: _check_tokens(tokens))
+        x, aux = self._forward(parallel.rows(mesh, tokens),
+                               parallel.rows(mesh, extra_embeddings), batch)
+        logits = parallel.unrows(mesh, self.unembed(x), batch)
         return (logits, aux) if with_aux else logits
 
     # -- decode ---------------------------------------------------------------
 
     def init_cache(self, batch: int, cache_len: int) -> Cache:
-        return init_cache(self.cfg, batch, cache_len, self.device)
+        """Zero decode caches for ``batch`` requests of ``cache_len``
+        positions; with a mesh, this rank's block of them."""
+        return init_cache(self.cfg, batch, cache_len, self.device, self.mesh)
 
     def prefill_prefix(self, cache: Cache, embeddings: torch.Tensor
                        ) -> Cache:
@@ -329,7 +429,10 @@ class Transformer(nn.Module):
         with ``prefix_len=P``.  Attention mixers only, as the reference's
         (the VLM config has no other)."""
         cfg = self.cfg
-        x = embeddings.to(cfg.compute_dtype)
+        batch = embeddings.shape[0]
+        parallel.posted(self.mesh, "prefill_prefix",
+                        lambda: _check_cache(self, cache, batch))
+        x = parallel.rows(self.mesh, embeddings).to(cfg.compute_dtype)
         for blk, (stage, r, pos) in zip(self.blocks, self.block_index):
             if blk.kind not in ATTENTION_KINDS:
                 raise ValueError(f"{cfg.name}: prefix prefill takes "
@@ -339,7 +442,7 @@ class Transformer(nn.Module):
                 blk.attn, blk.norm1(x), cfg,
                 {k: v[r] for k, v in leaves.items()},
                 use_rope=blk.use_rope(cfg))
-            x, _ = blk.ffn(x + y, cfg)
+            x, _ = blk.ffn(x + y, cfg, batch)
         return cache
 
     def decode_step(self, token: torch.Tensor, cache: Cache,
@@ -351,7 +454,13 @@ class Transformer(nn.Module):
         step) and returned."""
         cfg = self.cfg
         index = int(index)
-        x = self._embed(token)
+        batch = token.shape[0]
+
+        def check():
+            _check_tokens(token)
+            _check_cache(self, cache, batch)
+        parallel.posted(self.mesh, "decode_step", check)
+        x = self._embed(parallel.rows(self.mesh, token))
         for blk, (stage, r, pos) in zip(self.blocks, self.block_index):
             leaves = cache[stage][pos]
             layer_cache = {k: v[r] for k, v in leaves.items()}
@@ -365,8 +474,27 @@ class Transformer(nn.Module):
                 y, new = blk.mixer_decode(h, layer_cache)
                 for k, v in new.items():
                     leaves[k][r].copy_(v)
-            x, _ = blk.ffn(x + y, cfg)
-        return self.unembed(self.final_norm(x)), cache
+            x, _ = blk.ffn(x + y, cfg, batch)
+        logits = self.unembed(self.final_norm(x))
+        return parallel.unrows(self.mesh, logits, batch), cache
+
+
+def _check_tokens(tokens: torch.Tensor) -> None:
+    if tokens.dim() != 2 or tokens.is_floating_point():
+        raise ValueError(f"tokens must be (B, S) integers, got "
+                         f"{tuple(tokens.shape)} {tokens.dtype}")
+
+
+def _check_cache(model: "Transformer", cache: Cache, batch: int) -> None:
+    """A cache of ``model.init_cache(batch, ...)``'s rows on this rank."""
+    lo, hi = parallel.data_rows(model.mesh, batch)
+    for stage in cache.values():
+        for leaves in stage.values():
+            for name, leaf in leaves.items():
+                if leaf.shape[1] != hi - lo:
+                    raise ValueError(f"a cache of {leaf.shape[1]} rows "
+                                     f"({name}) for {hi - lo} of a batch of "
+                                     f"{batch}")
 
 
 def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor]

@@ -1042,6 +1042,48 @@ def test_flash_cuda_core_prefix_and_chunk_match_plain(cuda, b, s, h, kv, d,
                                **FLASH_TOL[torch.float32])
 
 
+# A block of queries at an offset (a rank's block of a context-parallel
+# prefill) against the whole sequence's keys, on both kernels: (S, the
+# block [lo, hi), H, KV, D, mask) -- offsets that are and are not
+# multiples of the tiles (64; 128 for the tensor-core kernel's q-tile), a
+# rank-0 block, a block through the end, a window whose first rows' start
+# before 0, every mask kind, and yi-34b's context-parallel shape
+OFFSET_EDGES = [
+    (300, 0, 75, 6, 2, 128, dict(causal=True)),
+    (300, 128, 256, 6, 2, 128, dict(causal=True)),
+    (300, 64, 200, 4, 1, 256, dict(causal=True, window=100)),
+    (300, 30, 97, 4, 4, 64, dict(causal=True, window=100)),
+    (400, 77, 400, 10, 2, 128, dict(causal=True, chunk=96)),
+    (333, 100, 333, 8, 1, 256, dict(causal=True, prefix_len=150)),
+    (333, 200, 260, 8, 1, 64, dict(causal=True, prefix_len=150)),
+    (3072, 1024, 2048, 56, 8, 128, dict(causal=True)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("s,lo,hi,h,kv,d,mask", OFFSET_EDGES)
+def test_flash_query_offset_matches_plain(cuda, s, lo, hi, h, kv, d, mask,
+                                          dtype):
+    """bf16 on the tensor-core kernel, fp32 on the CUDA-core one, each at
+    the forward's tolerance against the plain version's block."""
+    rng = np.random.default_rng(s + lo + hi + d)
+    q, k, v = (torch.tensor(rng.normal(size=(1, n, m, d)).astype(np.float32),
+                            device=cuda).to(dtype)
+               for n, m in ((hi - lo, h), (s, kv), (s, kv)))
+    before = dict(seq_ops.LAUNCHES)
+    got = seq_ops.flash_attention(q, k, v, q_offset=lo, **mask)
+    torch.cuda.synchronize()
+    assert seq_ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert seq_ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + int(dtype == torch.bfloat16)
+    want = _plain_by_kv_head(q.float(), k.float(), v.float(), q_offset=lo,
+                             **mask)
+    torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                               **FLASH_TOL[dtype])
+
+
 def test_flash_rejects_mask_combinations_on_the_card(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
     before = dict(seq_ops.LAUNCHES)

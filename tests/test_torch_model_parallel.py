@@ -1,0 +1,359 @@
+"""The substrate across ranks on the reference's ``("data", "model")``
+mesh, on the CPU: the attention decoders served on four gloo ranks at
+meshes 1 x 4 and 2 x 2, and the architectures that only the data axis
+splits at 4 x 1, held to the reference's unsharded ``apply`` and
+``decode_step`` and to the port's unsharded run.
+
+The cases (reduced fp32 configs; weights drawn from a seed in the
+reference's layout, ``convert.params_to_numpy`` of a port model drawn
+from a generator -- the reference's own ``init`` takes a second a config
+eagerly -- with the constant leaves and the untied table redrawn, as
+``tests/test_torch_dense_archs.py`` redraws them, then carried into both
+packages):
+
+* yi-34b, head-parallel; and with 6 heads over 2 KV heads of 32, which
+  the model axis of 4 does not divide: context-parallel at 1 x 4 over
+  S = 30, blocks of 8, 8, 8 and 6 (head-parallel at 2 x 2);
+* qwen3-8b (q/k norm); with 12 heads over 3 KV heads, whose rank blocks
+  straddle two KV groups (K/V expanded);
+* qwen1.5-110b (QKV bias, 2 KV heads); stablelm-1.6b (LayerNorm, a tied
+  table), and with a vocab of 510, which 4 does not divide: the tables
+  split by d_model at 1 x 4, by vocab at 2 x 2;
+* paligemma-3b (MQA: ``wk``/``wv`` whole, the prefix through
+  ``prefill_prefix``); qwen3-8b-sw4k at a window of 8 (the ring of 8
+  slots split over the ranks, wrapping during the decode);
+* grok-1-314b (expert-parallel: 4 experts); with 6 experts at a capacity
+  factor of 0.5, which 4 does not divide: ``moe_d_ff`` split at 1 x 4,
+  expert-parallel at 2 x 2, pairs dropped;
+* llama4-maverick (chunked layers at a chunk of 8 and a NoPE global one,
+  dense and MoE FFNs);
+* at 4 x 1 only, one row of the batch a rank: recurrentgemma-9b (RG-LRU
+  and local attention: data-row recurrent and ring caches), xlstm-125m
+  (mLSTM and sLSTM) and whisper-large-v3 (the encoder-decoder: the frames
+  through ``prefill_cross``), whose model axis is ROADMAP A22.
+
+Each case: the full logits (B = 4, S = 30) and the MoE aux, the prefill
+step's last logits, a prompt of 4 decoded token by token (each step's
+logits; a VLM's from index P after its prefix), then 8 greedy tokens from
+``make_serve_step``; every rank's, against the reference's at the
+substrate's tolerances (atol 2e-4, rtol 1e-3; tokens exact) and against
+the port's unsharded run at atol 1e-5; each MoE layer's routing (experts,
+slots, kept pairs, so the dropped pairs) exactly as the unsharded
+port's, the gates at 1e-5 (which ``tests/test_torch_moe_archs.py`` holds to the
+reference's).  The weights gathered back by ``convert.params_to_numpy``
+are the weights given, and each parameter's local shape is the rules'
+block.  A mesh of one runs today's unsharded path bit for bit, and
+``rec``, ``mlstm``, ``slstm`` and the encoder-decoder raise on a model
+axis of more than one rank.
+
+The ranks run ``tests/_torch_model_parallel_ranks.py``'s ``rank_main``,
+spawned once for the module in a thread while the reference's programs
+(each jitted once) run here.
+"""
+import threading
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import build_model as jbuild_model
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.core.mesh import spawn
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import block, make_host_mesh
+from repro_torch.models import build_model, moe, parallel
+from repro_torch.sharding import spec_for_param, model_dim
+from _torch_model_parallel_ranks import (ALL_CASES, B, CACHE, CASES,
+                                        DATA_CASES, PROMPT, S, STEPS,
+                                        make_case, rank_main, serve_case)
+from _torch_threads import one_torch_thread  # noqa: F401
+
+MODEL_TOL = dict(atol=2e-4, rtol=1e-3)
+PORT_TOL = dict(atol=1e-5, rtol=0)
+RANKS = 4
+LAYOUTS = (4, 2)                  # model-axis sizes: meshes 1 x 4, 2 x 2
+IDS = list(CASES)
+DATA_IDS = list(DATA_CASES)       # at model-axis size 1: mesh 4 x 1
+PLAN = {**{m: IDS for m in LAYOUTS}, 1: DATA_IDS}
+PAIRS = [(c, m) for c in IDS for m in LAYOUTS]
+SERVED = PAIRS + [(c, 1) for c in DATA_IDS]
+SERVED_IDS = [f"{c}-{RANKS // m}x{m}" for c, m in SERVED]
+
+
+def _case(name):
+    """``make_case`` and the reference's model of its config."""
+    case = make_case(name)
+    arch, kw = ALL_CASES[name]
+    case["jmodel"] = jbuild_model(jget_config(arch).reduced().replace(**kw))
+    return case
+
+
+def _for_ranks(case):
+    return {k: case[k] for k in ("cfg", "params", "tokens", "extra",
+                                 "prompt_len", "steps", "cache_len")}
+
+
+def _reference(case):
+    """The reference's outputs of one case: its ``apply`` (jitted once)
+    and its ``decode_step`` (jitted once) over the prompt and the greedy
+    steps."""
+    jmodel, cfg = case["jmodel"], case["cfg"]
+    params = jax.tree.map(jnp.asarray, case["params"])
+    toks = jnp.asarray(case["tokens"], jnp.int32)
+    extra = None if case["extra"] is None else jnp.asarray(case["extra"])
+    logits, aux = jax.jit(lambda p, t, e: jmodel.apply(
+        p, t, extra_embeddings=e))(params, toks, extra)
+    cache = jmodel.init_cache(B, CACHE)
+    start = 0
+    if cfg.encoder_layers:
+        cache = jax.jit(jmodel.prefill_cross)(params, cache, extra)
+    elif extra is not None:
+        cache = jax.jit(jmodel.prefill_prefix)(params, cache, extra)
+        start = cfg.prefix_tokens
+    dec = jax.jit(lambda p, t, c, i: jmodel.decode_step(
+        p, t, c, i, prefix_len=cfg.prefix_tokens))
+    steps = []
+    for i in range(PROMPT):
+        lg, cache = dec(params, toks[:, i:i + 1], cache,
+                        jnp.asarray(start + i, jnp.int32))
+        steps.append(np.asarray(lg[:, 0], np.float32))
+    tok, greedy = toks[:, PROMPT - 1:PROMPT], []
+    for i in range(STEPS):
+        lg, cache = dec(params, tok, cache,
+                        jnp.asarray(start + PROMPT + i, jnp.int32))
+        tok = jnp.argmax(lg[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        greedy.append(np.asarray(tok[:, 0]))
+    logits = np.asarray(logits, np.float32)
+    return dict(logits=logits, aux=float(aux), last=logits[:, -1],
+                decode=np.stack(steps, 1), greedy=np.stack(greedy, 1))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _ranks_started():
+    """The cases, the ranks spawned in a thread, and meanwhile the
+    reference's and the unsharded port's runs here."""
+    cases = {name: _case(name) for name in IDS + DATA_IDS}
+    box = {}
+
+    def run():
+        try:
+            box["results"] = spawn(
+                rank_main, RANKS, backend="gloo", device="cpu",
+                args=(PLAN,),
+                timeout_s=300)
+        except BaseException as exc:  # noqa: BLE001 -- re-raised below
+            box["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    refs = {name: _reference(case) for name, case in cases.items()}
+    ports = {}
+    for name, case in cases.items():
+        ports[name] = serve_case(_for_ranks(case), None)
+        ports[name]["routes"] = (_unsharded_routes(case) if name in CASES
+                                 else [])
+    yield dict(thread=thread, box=box, cases=cases, refs=refs, ports=ports)
+    thread.join()
+
+
+def _unsharded_routes(case):
+    """Each MoE layer's ``moe.route`` of the unsharded port's forward."""
+    model = convert.params_from_numpy(case["params"], case["cfg"], "cpu")
+    calls = []
+    for blk in model.blocks:
+        if blk.ffn_kind == "moe":
+            blk.moe.register_forward_hook(lambda m, args, out: calls.append(
+                moe.route(m.router, args[0], args[1])))
+    extra = None if case["extra"] is None else torch.from_numpy(case["extra"])
+    with torch.no_grad():
+        model.apply(torch.from_numpy(case["tokens"]), extra)
+    return [(r.idx.numpy(), r.pos.numpy(), r.keep.numpy(), r.gate.numpy())
+            for r in calls]
+
+
+@pytest.fixture(scope="module")
+def runs(_ranks_started):
+    ctx = _ranks_started
+    ctx["thread"].join()
+    if "error" in ctx["box"]:
+        raise ctx["box"]["error"]
+    return ctx
+
+
+def _rank_outputs(runs, name, n_model):
+    return [(res[n_model][0], res[n_model][1][name])
+            for res in runs["box"]["results"]]
+
+
+# -- against the reference and the unsharded port -----------------------------
+
+@pytest.mark.parametrize("name,n_model", SERVED, ids=SERVED_IDS)
+def test_sharded_prefill_matches_reference(runs, name, n_model):
+    """Full logits, the prefill step's last logits and the aux on every
+    rank, against the reference's and the unsharded port's."""
+    want, port = runs["refs"][name], runs["ports"][name]
+    for coords, got in _rank_outputs(runs, name, n_model):
+        msg = f"{name} at model={n_model}, rank {coords}"
+        for key in ("logits", "last"):
+            np.testing.assert_allclose(got[key], want[key], err_msg=msg,
+                                       **MODEL_TOL)
+            np.testing.assert_allclose(got[key], port[key], err_msg=msg,
+                                       **PORT_TOL)
+        np.testing.assert_allclose(got["aux"], want["aux"], err_msg=msg,
+                                   **MODEL_TOL)
+        np.testing.assert_allclose(got["aux"], port["aux"], err_msg=msg,
+                                   **PORT_TOL)
+
+
+@pytest.mark.parametrize("name,n_model", SERVED, ids=SERVED_IDS)
+def test_sharded_decode_matches_reference(runs, name, n_model):
+    """The prompt's step logits against the reference's ``decode_step``
+    and the unsharded port's; the greedy tokens exact against both."""
+    want, port = runs["refs"][name], runs["ports"][name]
+    for coords, got in _rank_outputs(runs, name, n_model):
+        msg = f"{name} at model={n_model}, rank {coords}"
+        np.testing.assert_allclose(got["decode"], want["decode"],
+                                   err_msg=msg, **MODEL_TOL)
+        np.testing.assert_allclose(got["decode"], port["decode"],
+                                   err_msg=msg, **PORT_TOL)
+        np.testing.assert_array_equal(got["greedy"], want["greedy"], msg)
+        np.testing.assert_array_equal(got["greedy"], port["greedy"], msg)
+
+
+MOE_PAIRS = [(c, m) for c, m in PAIRS if CASES[c][0] in (
+    "grok-1-314b", "llama4-maverick-400b-a17b")]
+
+
+@pytest.mark.parametrize("name,n_model", MOE_PAIRS,
+                         ids=[f"{c}-{RANKS // m}x{m}" for c, m in MOE_PAIRS])
+def test_routing_and_dropped_pairs_exact(runs, name, n_model):
+    port = runs["ports"][name]["routes"]
+    assert port
+    for coords, got in _rank_outputs(runs, name, n_model):
+        assert len(got["routes"]) == len(port)
+        for layer, (g, w) in enumerate(zip(got["routes"], port)):
+            msg = f"{name} model={n_model} {coords} layer {layer}"
+            for a, b, what in zip(g[:3], w[:3], ("idx", "pos", "keep")):
+                np.testing.assert_array_equal(a, b, f"{msg} {what}")
+            np.testing.assert_allclose(g[3], w[3], err_msg=f"{msg} gate",
+                                       **PORT_TOL)
+    if name == "grok-e6":
+        assert sum(int((~r[2]).sum()) for r in port) > 0
+
+
+# -- placement -----------------------------------------------------------------
+
+@pytest.mark.parametrize("n_model", LAYOUTS)
+def test_ranks_hold_the_rules_blocks(runs, n_model):
+    """Each parameter's local shape is its rule's block on the model axis;
+    the weights gathered back are the weights given; the mesh's
+    coordinates are row-major."""
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": RANKS // n_model, "model": n_model})
+    for g, res in enumerate(runs["box"]["results"]):
+        coords, outs = res[n_model]
+        assert coords == {"data": g // n_model, "model": g % n_model}
+        for name, out in outs.items():
+            assert out["round_trip"], name
+            full = runs["ports"][name]["shapes"]
+            split = 0
+            for pname, shape in out["shapes"].items():
+                leaf = pname.rsplit(".", 1)[-1]
+                dim = model_dim(spec_for_param(leaf, full[pname], mesh,
+                                               fsdp=False))
+                want = list(full[pname])
+                if dim is not None:
+                    want[dim] //= n_model
+                    split += 1
+                assert shape == tuple(want), (name, pname)
+            assert split > 0, name
+
+
+def test_data_axis_holds_every_weight_whole(runs):
+    """At 4 x 1 each rank serves its row of the batch with every weight
+    whole: the recurrent mixers and the encoder-decoder on the data axis."""
+    for g, res in enumerate(runs["box"]["results"]):
+        coords, outs = res[1]
+        assert coords == {"data": g, "model": 0}
+        assert set(outs) == set(DATA_IDS)
+        for name, out in outs.items():
+            assert out["round_trip"], name
+            assert out["shapes"] == runs["ports"][name]["shapes"], name
+
+
+def test_context_parallel_blocks_are_ragged():
+    """yi-cp's 6 heads do not divide 4: its attention is context-parallel
+    at 1 x 4 over S = 30 in blocks of 8, 8, 8 and 6, head-parallel at 2 x 2;
+    yi's 4 heads divide both."""
+    cfg = get_config("yi-34b").reduced().replace(**CASES["yi-cp"][1])
+    assert cfg.attn_seq_shard and cfg.n_heads % 4 and not cfg.n_heads % 2
+    assert [block(S, 4, r) for r in range(4)] == [(0, 8), (8, 16), (16, 24),
+                                                  (24, 30)]
+    for w, seq in ((4, True), (2, False)):
+        mesh = SimpleNamespace(axis_names=("data", "model"), size=4,
+                               shape={"data": 4 // w, "model": w},
+                               coords={"data": 0, "model": 1})
+        attn = build_model(cfg, device="meta", mesh=mesh).blocks[0].attn
+        assert (attn.seq_parallel, attn.head_parallel) == (seq, not seq)
+    straddle = get_config("qwen3-8b").reduced().replace(
+        **CASES["qwen3-straddle"][1])
+    mesh = SimpleNamespace(axis_names=("data", "model"), size=4,
+                           shape={"data": 1, "model": 4},
+                           coords={"data": 0, "model": 1})
+    attn = build_model(straddle, device="meta", mesh=mesh).blocks[0].attn
+    assert attn.heads == (3, 6) and attn.kv_heads == (0, 2)
+    assert attn.kv_expand == [0, 1, 1]
+
+
+def test_mesh_of_one_is_the_unsharded_path(runs):
+    """Without a process group ``make_host_mesh()`` is 1 x 1 and runs no
+    collective; a model built on it computes today's unsharded outputs
+    bit for bit."""
+    mesh = make_host_mesh(device="cpu")
+    assert (mesh.shape, mesh.coords, mesh.world) == (
+        {"data": 1, "model": 1}, {"data": 0, "model": 0}, None)
+    t = torch.arange(6.0).reshape(2, 3)
+    assert mesh.all_gather(t, "model", dim=1) is t
+    assert mesh.all_reduce(t, "data") is t and mesh.all_ok(True)
+    assert not parallel.active(mesh)
+    for name in ("grok", "paligemma"):
+        case = runs["cases"][name]
+        got = serve_case(_for_ranks(case), mesh)
+        want = serve_case(_for_ranks(case), None)
+        for key in ("logits", "last", "decode", "greedy"):
+            np.testing.assert_array_equal(got[key], want[key], name)
+        assert got["aux"] == want["aux"]
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        make_host_mesh(model=2, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ("recurrentgemma-9b", "xlstm-125m",
+                                  "whisper-large-v3"))
+def test_model_axis_refuses_unported_mixers(arch):
+    """``rec``, ``mlstm``/``slstm`` and the encoder-decoder raise on a model
+    axis of 2 (ROADMAP A22), before any collective; the data axis alone
+    builds them; a cache whose length the model axis does not divide
+    raises naming it, and training a split model raises (A23)."""
+    cfg = get_config(arch).reduced()
+    mesh = SimpleNamespace(axis_names=("data", "model"), size=2,
+                           shape={"data": 1, "model": 2},
+                           coords={"data": 0, "model": 0})
+    with pytest.raises(NotImplementedError, match="A22"):
+        build_model(cfg, device="meta", mesh=mesh)
+    data = SimpleNamespace(axis_names=("data", "model"), size=2,
+                           shape={"data": 2, "model": 1},
+                           coords={"data": 1, "model": 0})
+    model = build_model(cfg, device="meta", mesh=data)
+    assert model.mesh is data
+    yi = build_model(get_config("yi-34b").reduced(), device="meta",
+                     mesh=mesh)
+    with pytest.raises(NotImplementedError, match="A23"):
+        steps.make_train_step(yi.cfg, model=yi)
+    with pytest.raises(ValueError, match="cache of 15 slots"):
+        yi.init_cache(2, 15)
+    assert yi.init_cache(4, 16)["stage_0"]["0"]["k"].shape[1:3] == (4, 8)

@@ -227,3 +227,73 @@ def test_linrec_ring_matches_the_source():
 ])
 def test_linrec_copy_width(c, itemsize, ptrs, vec):
     assert seq_ops.linrec_vector_bytes(c, itemsize, *ptrs) == vec
+
+
+# -- a block of queries at an offset (context parallelism) -----------------
+
+# (mask kind, its keyword, the block [lo, hi) of S = 300 positions): a
+# rank-0 block, blocks at multiples of both kernels' tiles (64, 128), at a
+# multiple of 64 alone and at neither, the last one through the end, and a
+# window block whose first rows' windows start before position 0
+OFFSET_MASKS = {"global": dict(causal=True),
+                "sliding": dict(causal=True, window=100),
+                "chunked": dict(causal=True, chunk=96),
+                "prefix": dict(causal=True, prefix_len=150)}
+OFFSET_BLOCKS = [(0, 75), (128, 256), (64, 200), (77, 300), (30, 97)]
+OFFSET_CASES = [(m, lo, hi) for m in OFFSET_MASKS
+                for lo, hi in OFFSET_BLOCKS]
+
+
+@pytest.mark.parametrize("kind,lo,hi", OFFSET_CASES,
+                         ids=[f"{m}-{lo}-{hi}" for m, lo, hi in OFFSET_CASES])
+def test_flash_plain_query_block_at_offset(kind, lo, hi):
+    """``attention_plain(q[:, lo:hi], k, v, q_offset=lo)`` is rows [lo, hi)
+    of the whole sequence's plain attention (bit for bit: the same scores
+    of the same rows), and the reference's ``_sdpa`` with ``q_pos = lo +
+    arange``; the wrapper on the CPU runs it without a launch."""
+    from repro.models import attention as jattention
+    s, mask = 300, OFFSET_MASKS[kind]
+    q, k, v = _qkv(lo + hi, 2, s, 6, 2, 32)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    whole = seq_ops.attention_plain(tq, tk, tv, **mask)
+    got = seq_ops.attention_plain(tq[:, lo:hi], tk, tv, q_offset=lo, **mask)
+    np.testing.assert_array_equal(got.numpy(), whole[:, lo:hi].numpy())
+    before = dict(seq_ops.LAUNCHES)
+    np.testing.assert_array_equal(
+        seq_ops.flash_attention(tq[:, lo:hi], tk, tv, q_offset=lo,
+                                **mask).numpy(), got.numpy())
+    assert seq_ops.LAUNCHES == before
+    want = jattention._sdpa(jnp.asarray(q[:, lo:hi]), jnp.asarray(k),
+                            jnp.asarray(v), jnp.arange(lo, hi),
+                            jnp.arange(s), kind,
+                            window=mask.get("window", 0),
+                            chunk=mask.get("chunk", 0),
+                            prefix_len=mask.get("prefix_len", 0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def test_flash_query_offset_refusals():
+    """A block must lie inside the keys and take a mask; without an offset
+    two lengths still take full attention only; the backward recomputes
+    the block through the plain version."""
+    q = torch.zeros((1, 8, 2, 16))
+    k = torch.zeros((1, 20, 2, 16))
+    for off in (-1, 13):
+        with pytest.raises(ValueError, match="must lie inside"):
+            seq_ops.flash_attention(q, k, k, q_offset=off)
+    with pytest.raises(ValueError, match="full attention takes none"):
+        seq_ops.flash_attention(q, k, k, causal=False, q_offset=4)
+    with pytest.raises(ValueError, match="full attention only"):
+        seq_ops.flash_attention(q, k, k)
+    seq_ops.check_mask(True, 0, 0, 0, 8, 20, 12)
+    rng = np.random.default_rng(5)
+    tq, tk, tv = (torch.tensor(rng.normal(size=(1, n, 2, 16)),
+                               dtype=torch.float32, requires_grad=True)
+                  for n in (8, 20, 20))
+    out = seq_ops.flash_attention(tq, tk, tv, window=6, q_offset=7)
+    grads = torch.autograd.grad(out.sum(), (tq, tk, tv))
+    leaves = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    want = torch.autograd.grad(seq_ops.attention_plain(
+        *leaves, window=6, q_offset=7).sum(), leaves)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
