@@ -47,9 +47,10 @@ and prints no result):
    ``stack_fleet``, one batched round for all seeds, with the launch
    counters zeroed just before and read just after (one fused-score call,
    one SIC call and τ₂ SGD launches a round, whatever the number of
-   seeds): ``CONFIG`` fcea + PDD, 3 rounds at S = 1 and at S = 8 (seeds
-   0-7) in turns S = 1, 8, 8, 1, each timed by round and stage with its
-   seed-rounds per second;
+   seeds): ``CONFIG`` fcea + PDD, 3 rounds at S = 1, 4 and 8 (seeds
+   0-7) in turns S = 1, 4, 8, 8, 4, 1, each timed by round and stage with
+   its seed-rounds per second (each seed's world built once for the
+   phase and copied into every fleet and own run);
    with ``--profile``, one steady S = 8 round profiled; every seed against
    its own ``run_scanned`` (decisions exact, bill rtol 1e-5, loss rtol
    1e-4); the fused score and the SIC at S = 8 against S = 1 in turns,
@@ -230,7 +231,9 @@ and prints no result):
    tokens (no kernel launch), the prefill's last logits against the
    decode's, the peak memory beside the card's name and power limit; each
    config reduced, MHA and with 2 KV heads, card vs CPU in float32 and
-   prefill vs decode in bfloat16; the flash kernel at each run's prefill
+   prefill vs decode in bfloat16; reduced qwen3-8b decoding 12 steps
+   with a float8 (e4m3fn) KV cache, card vs CPU (``FP8_CACHE_REL``) and
+   beside its float32 cache; the flash kernel at each run's prefill
    shape (GQA groups 4, 7 and 8 at D = 128, MHA at D = 64, a 4096
    window) timed beside its bound and SDPA;
 9c. the prefix-LM and MoE decoders (``[vlm-moe]``), one model at a time,
@@ -313,26 +316,33 @@ and prints no result):
    autograd of their plain versions (the recurrence's edges and
    recurrentgemma's shape, timed; every mask kind and two lengths, bf16
    and fp32);
-9f. the attention decoders across ranks (``[mesh]``) on the reference's
+9f. the substrate across ranks (``[mesh]``) on the reference's
    ``("data", "model")`` mesh, weights drawn from ``MESH_SEED`` by every
    rank (each keeps its blocks): the main flash shape timed; on one card
    a mesh of one over an NCCL group of one (bit-equal to the unsharded
-   model), then ``MESH_ONE_CARD`` over gloo ranks on the card (yi-34b 8
-   layers and grok-1-314b 2 layers at model 2, yi-34b 4 layers
-   context-parallel at model 3); on four cards ``MESH_FOUR_CARDS`` over
-   NCCL (yi-34b at its full 60 layers and grok-1-314b at 16 at model 4,
-   yi-34b 12 layers context-parallel at model 3).  Per part: the
-   unsharded model first, streamed one block at a time from the same
-   draws (``_streamed_logits``), then the ranks (``mesh_rank``), in
-   turns: a prefill with the counters zeroed just before and read just
-   after (one tensor-core flash a layer a rank, nothing else), every
-   rank's last logits bit-equal and within ``PREFILL_DECODE_REL_RMS`` of
-   the unsharded prefill's, timed prefills, a context-parallel rank's
-   offset flash block held to the plain version at ``FLASH_TOL`` and
-   timed alone, a decode (the prompt token by token,
-   greedy tokens from ``make_serve_step``) held against the unsharded
-   model teacher-forced on its tokens (rel rms at the prompt's end, the
-   share of tokens alike; a MoE at its no-drop factor), each rank's ms,
+   model), then ``MESH_ONE_CARD`` over gloo ranks on the card (model 2:
+   yi-34b 8 layers, grok-1-314b 2, recurrentgemma-9b one unit, xlstm-125m
+   whole, whisper-large-v3 4 + 4 layers; model 3: yi-34b 4 layers and
+   whisper 4 + 4 context-parallel, xlstm-125m with its heads whole and
+   ``r_gates`` split on dh, recurrentgemma-9b one unit with ``rec``
+   whole); on four cards ``MESH_FOUR_CARDS`` over NCCL (model 4: yi-34b
+   at its full 60 layers, grok-1-314b at 16, recurrentgemma-9b at 38,
+   whisper-large-v3 at 32 + 32 and xlstm-125m; model 3: yi-34b 12 layers
+   and whisper 32 + 32 context-parallel).  Per part: the unsharded model
+   first (``_unsharded_logits``: streamed one block at a time from the
+   same draws for an attention decoder, built whole for the others),
+   then the ranks (``mesh_rank``), in turns: a prefill with the counters
+   zeroed just before and read just after (one tensor-core flash an
+   attention call and one recurrence a ``rec`` layer a rank, nothing
+   else), every rank's last logits bit-equal and within
+   ``PREFILL_DECODE_REL_RMS`` of the unsharded prefill's, timed
+   prefills, a context-parallel rank's offset flash block held to the
+   plain version at ``FLASH_TOL`` and timed alone, a ``rec`` rank's
+   recurrence at its channels held bit for bit and timed, a decode (the
+   prompt token by token, greedy tokens from ``make_serve_step``; whisper
+   after ``prefill_cross``) held against the unsharded model
+   teacher-forced on its tokens (rel rms at the prompt's end, the share
+   of tokens alike; a MoE at its no-drop factor), each rank's ms,
    tokens/s, peak device and host memory; each layout's reduced fp32
    config against the card's unsharded run at ``SUBSTRATE_TOL``;
 10. print the per-kernel JSON line (six entries, the kernels the paths
@@ -348,8 +358,9 @@ and prints no result):
     warm ``CONFIG`` fcea + PDD dense run's, ``score_candidates`` its K = 2
     run's, ``sweep_launches`` the ``[sweep]`` phase's four grids,
     ``shard_launches`` the ``[shard]`` phase's widest part, a rank each
-    (its six jobs summed), ``mesh_launches`` the ``[mesh]`` phase's
-    widest part's prefill, a rank each (flash alone launches there), and
+    (its six jobs summed), ``mesh_launches`` the ``[mesh]`` part's
+    prefill that launched the most of the kernel, a rank each (flash and
+    the recurrence), and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
@@ -1374,16 +1385,50 @@ FLEET_SEEDS = (8, 4)
 FLEET_ROUNDS = 3
 
 
+# the worlds ``_world`` has built, by (config, seed, scenario, device):
+# (state, bundle, the generator's state after init_simulation)
+WORLDS = {}
+
+
+def _clone(obj):
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_clone(v) for v in obj))
+    return obj
+
+
+def _world(cfg, seed, dev, world=None):
+    """``init_simulation(cfg, seed=seed, scenario=world)``'s (state,
+    bundle, generator), built once a phase (``WORLDS``, emptied after
+    each; ~1.8 s a seed at ``CONFIG``) and handed out as fresh copies: a copy and its generator
+    are what a new build gives, bit for bit."""
+    import torch
+    from repro_torch.core import engine
+    key = (cfg, seed, world, str(dev))
+    if key not in WORLDS:
+        state, bundle, aux = engine.init_simulation(
+            cfg, seed=seed, device=dev, scenario=world)
+        WORLDS[key] = (state, bundle, aux["generator"].get_state())
+    state, bundle, gen_state = WORLDS[key]
+    gen = torch.Generator(device=dev)
+    gen.set_state(gen_state)
+    return _clone(state), _clone(bundle), gen
+
+
 def _fleet(cfg, seeds, dev, worlds=None):
     """``stack_fleet`` of ``init_simulation`` at each seed (in its scenario
-    of ``worlds``, if given), and the seeds' generators."""
+    of ``worlds``, if given; ``_world``), and the seeds' generators."""
     from repro_torch.core import engine
     pairs, gens = [], []
     for i, s in enumerate(seeds):
-        state, bundle, aux = engine.init_simulation(
-            cfg, seed=s, device=dev, scenario=worlds[i] if worlds else None)
+        state, bundle, gen = _world(cfg, s, dev,
+                                    worlds[i] if worlds else None)
         pairs.append((state, bundle))
-        gens.append(aux["generator"])
+        gens.append(gen)
     return (*engine.stack_fleet(pairs), gens)
 
 
@@ -1465,10 +1510,9 @@ def _fleet_vs_own(cfg, spec, seeds, members, fm, final, dev, label,
     for s in members:
         world = worlds[s] if worlds else None
         if (seeds[s], world) not in own:
-            state, bundle, aux = engine.init_simulation(
-                cfg, seed=seeds[s], device=dev, scenario=world)
+            state, bundle, gen = _world(cfg, seeds[s], dev, world)
             o_state, om = engine.run_scanned(
-                cfg, spec, state, bundle, rounds, aux["generator"],
+                cfg, spec, state, bundle, rounds, gen,
                 None if actors is None else engine.select_seed(actors, s))
             own[seeds[s], world] = (o_state, engine.RoundMetrics(
                 *(v.cpu() for v in om)), bundle.test_y.shape[0])
@@ -1645,7 +1689,8 @@ def _fleet_frontier_score(cfg, states, bundles, k):
 def phase_fleet(cfg, dev, profile=False):
     """The fleet path.  ``CONFIG`` fcea + PDD, ``FLEET_ROUNDS`` rounds of
     ``run_fleet`` at S = 1, the reference's S = 4 and S = 8 (seeds 0-7) in
-    turns 1, 4, 8, 8, 4, 1; every seed of the S = 8 and S = 4 fleets
+    turns 1, 4, 8, 8, 4, 1, each seed's world built once for the phase
+    (``_world``); every seed of the S = 8 and S = 4 fleets
     against its own ``run_scanned``; the score and SIC calls at S = 8
     against their plain versions and S = 1; a round at S = 2 card against
     CPU.  Then the bench
@@ -4990,12 +5035,60 @@ def _reduced_bf16(tag, cfg, dev, seq):
                        patches, cfg.prefix_tokens + seq)
 
 
+# a float8 KV cache decode, card against CPU: each step's max abs gap
+# over its largest logit (tests/test_torch_fp8_cache.py's bound against
+# the reference: an fp8 rounding boundary can flip one cached value)
+FP8_CACHE_REL = 2e-3
+
+
+def _fp8_cache_card_vs_cpu(tag, dev, steps=12):
+    """Reduced qwen3-8b with ``kv_cache_dtype_str="float8_e4m3fn"``: the
+    same weights decode ``steps`` tokens on the card and on the CPU (an
+    fp8 cache on both); each step's logits within ``FP8_CACHE_REL`` of its
+    largest, and against the card's own compute-dtype cache."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+    base = get_config("qwen3-8b").reduced()
+    cfg = base.replace(kv_cache_dtype_str="float8_e4m3fn")
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    cpu_model = Transformer(cfg, device="cpu", generator=gen)
+    _perturb_constants(cpu_model, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen)
+    out = {}
+    for name, c, d in (("cpu", cfg, "cpu"), ("card", cfg, dev),
+                       ("card-f32", base, dev)):
+        model = Transformer(c, device=d)
+        model.load_state_dict(cpu_model.state_dict())
+        cache = model.init_cache(2, steps)
+        if cache["stage_0"]["0"]["k"].dtype != c.kv_cache_dtype:
+            raise AssertionError(f"[{tag}] {name}: cache dtype")
+        with torch.no_grad():
+            out[name] = torch.stack([
+                model.decode_step(tokens[:, i:i + 1].to(d), cache, i)[0][:, 0]
+                .float().cpu() for i in range(steps)])
+    gap = (out["card"] - out["cpu"]).abs().flatten(1).amax(1)
+    rel = gap / out["cpu"].abs().flatten(1).amax(1)
+    if not float(rel.max()) <= FP8_CACHE_REL:
+        raise AssertionError(f"[{tag}] fp8 cache card vs cpu: {rel}")
+    far = float((out["card"] - out["card-f32"]).abs().mean()
+                / out["card-f32"].abs().mean())
+    alike = float((out["card"].argmax(-1) == out["cpu"].argmax(-1))
+                  .float().mean())
+    log(f"[{tag}] {cfg.name} fp8 (e4m3fn) KV cache, {steps} decode steps: "
+        f"card vs cpu worst step max abs / largest logit {float(rel.max()):.3e}"
+        f" (bound {FP8_CACHE_REL}), greedy tokens alike {alike:.3f}; against "
+        f"the card's float32 cache mean rel gap {far:.3e} (the reference's "
+        f"bound 0.15)")
+
+
 def phase_dense(dev, card):
     """The five dense decoders: each at full width (full depth, or the
     depth that fits 80 GB of fp32 weights) served on the card, one model
     at a time; then each reduced config, MHA and GQA (2 KV heads), card
-    vs CPU in fp32 and prefill vs decode in bf16; then the flash kernel
-    at each run's prefill shape, timed beside its bound and SDPA."""
+    vs CPU in fp32 and prefill vs decode in bf16, and reduced qwen3-8b's
+    decode with a float8 KV cache card vs CPU; then the flash kernel at
+    each run's prefill shape, timed beside its bound and SDPA."""
     import torch
     from repro_torch.configs import get_config
     runs = {}
@@ -5012,6 +5105,7 @@ def phase_dense(dev, card):
             _reduced_card_vs_cpu("dense", cfg, dev, 300)
         _reduced_bf16("dense", get_config(arch).reduced().replace(
             n_kv_heads=2), dev, 300)
+    _fp8_cache_card_vs_cpu("dense", dev)
     shapes = []
     for i, shape in enumerate(DENSE_FLASH):
         err, ms_k, ms_p, b_ms, b_by, lib_ms = compare_flash(
@@ -6095,28 +6189,64 @@ def phase_train(dev, card):
 
 # (label, arch, layers, model axis, batch, seq, prompt, greedy tokens): a
 # part with a prompt also decodes (the prompt token by token, then greedy
-# tokens, over a cache of ``seq`` slots); one without is prefill only (a
-# context-parallel run at a model axis of 3, whose cache would need a
-# length 3 divides)
+# tokens, over a cache of ``seq`` slots; whisper's cross cache holds the
+# config's 1500 frames, written by ``prefill_cross``); one without is
+# prefill only (yi context-parallel at a model axis of 3, whose cache
+# would need a length 3 divides).  ``layers`` is whisper's encoder and
+# decoder depth each.
 MESH_ONE_CARD = [
     ("yi-34b 8 layers head-parallel", "yi-34b", 8, 2, 2, 1024, 16, 8),
     ("grok-1-314b 2 layers expert-parallel", "grok-1-314b", 2, 2, 2, 1024,
      16, 8),
+    ("recurrentgemma-9b 1 unit channel-parallel", "recurrentgemma-9b", 3, 2,
+     2, 1024, 16, 8),
+    ("xlstm-125m whole, heads split", "xlstm-125m", 12, 2, 2, 128, 16, 8),
+    ("whisper-large-v3 4 + 4 layers head-parallel", "whisper-large-v3", 4,
+     2, 2, 448, 16, 8),
     ("yi-34b 4 layers context-parallel", "yi-34b", 4, 3, 2, 3072, 0, 0),
+    ("whisper-large-v3 4 + 4 layers context-parallel, self cache whole",
+     "whisper-large-v3", 4, 3, 2, 448, 16, 8),
+    ("xlstm-125m whole, heads whole, r_gates on dh", "xlstm-125m", 12, 3, 2,
+     128, 16, 8),
+    ("recurrentgemma-9b 1 unit, rec whole", "recurrentgemma-9b", 3, 3, 2,
+     1024, 16, 8),
 ]
 MESH_FOUR_CARDS = [
     ("yi-34b full depth head-parallel", "yi-34b", 60, 4, 2, 4096, 64, 32),
     ("grok-1-314b 16 layers expert-parallel", "grok-1-314b", 16, 4, 2,
      4096, 64, 32),
+    ("recurrentgemma-9b full depth channel-parallel", "recurrentgemma-9b",
+     38, 4, 2, 4096, 64, 32),
+    ("whisper-large-v3 full depth head-parallel", "whisper-large-v3", 32, 4,
+     2, 448, 64, 32),
+    ("xlstm-125m whole, heads split", "xlstm-125m", 12, 4, 2, 256, 64, 32),
     ("yi-34b 12 layers context-parallel", "yi-34b", 12, 3, 2, 3072, 0, 0),
+    ("whisper-large-v3 full depth context-parallel, self cache whole",
+     "whisper-large-v3", 32, 3, 2, 448, 64, 32),
 ]
 MESH_SEED = 11
 # the reduced fp32 check on each layout: a prompt's full logits and a
 # token-by-token decode of its first MESH_REDUCED_STEPS tokens (a cache of
-# 24 slots, which 2, 3 and 4 divide)
+# 24 slots, which 2, 3 and 4 divide; whisper's 16 frames, which 3 does
+# not: its cross cache whole at 3)
 MESH_REDUCED_SEQ = 60
 MESH_REDUCED_STEPS = 16
 MESH_REDUCED_CACHE = 24
+
+
+def _mesh_cfg(arch, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(n_layers=layers)
+    return cfg.replace(encoder_layers=layers) if cfg.encoder_layers else cfg
+
+
+def _streamed(cfg) -> bool:
+    """Whether the unsharded reference of ``cfg`` streams one block at a
+    time (the attention decoders, whose full depth passes a card) or
+    builds the model whole (the recurrent and encoder-decoder ones fit)."""
+    from repro_torch.models.transformer import ATTENTION_KINDS
+    return not cfg.encoder_layers and all(k in ATTENTION_KINDS
+                                          for k in cfg.block_pattern)
 
 
 def _mesh_tokens(vocab, batch, seq, seed, dev):
@@ -6124,6 +6254,36 @@ def _mesh_tokens(vocab, batch, seq, seed, dev):
     import torch
     gen = torch.Generator().manual_seed(seed)
     return torch.randint(0, vocab, (batch, seq), generator=gen).to(dev)
+
+
+def _mesh_frames(cfg, batch, dev):
+    """An encoder-decoder's stub frames (B, F, d) in the compute dtype,
+    the same on every rank and in the parent; None for a decoder."""
+    import torch
+    if not cfg.encoder_layers:
+        return None
+    gen = torch.Generator().manual_seed(MESH_SEED + 4)
+    return torch.randn((batch, cfg.stub_frames, cfg.d_model),
+                       generator=gen).to(dev).to(cfg.compute_dtype)
+
+
+def _decode_feed(model, tokens, frames, cache_len, steps):
+    """A cache of ``cache_len`` slots (after ``prefill_cross`` of the
+    frames), the first ``steps`` tokens decoded one at a time: (each
+    step's logits (B, steps, V), the cache)."""
+    import torch
+    b = tokens.shape[0]
+    with torch.no_grad():
+        if frames is None:
+            cache = model.init_cache(b, cache_len)
+        else:
+            cache = model.prefill_cross(
+                model.init_cache(b, cache_len, frames.shape[1]), frames)
+        out = []
+        for i in range(steps):
+            lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+            out.append(lg[:, 0])
+    return torch.stack(out, 1), cache
 
 
 def _mesh_reduced(arch, mesh, dev):
@@ -6138,14 +6298,71 @@ def _mesh_reduced(arch, mesh, dev):
         device=dev).manual_seed(MESH_SEED))
     toks = _mesh_tokens(cfg.vocab_size, 2, MESH_REDUCED_SEQ, MESH_SEED + 1,
                         dev)
+    frames = _mesh_frames(cfg, 2, dev)
     with torch.no_grad():
-        full = model.apply(toks)
-        cache = model.init_cache(2, MESH_REDUCED_CACHE)
-        steps = []
-        for i in range(MESH_REDUCED_STEPS):
-            lg, cache = model.decode_step(toks[:, i:i + 1], cache, i)
-            steps.append(lg[:, 0])
-    return full.float().cpu(), torch.stack(steps, 1).float().cpu()
+        full = model.apply(toks, frames)
+    dec, _ = _decode_feed(model, toks, frames, MESH_REDUCED_CACHE,
+                          MESH_REDUCED_STEPS)
+    return full.float().cpu(), dec.float().cpu()
+
+
+def _mesh_expected(cfg):
+    """The launches of one prefill a rank: a tensor-core flash an
+    attention call (whisper's encoder layer one, its decoder layer two),
+    a recurrence a ``rec`` layer."""
+    from repro_torch.models.transformer import ATTENTION_KINDS
+    if cfg.encoder_layers:
+        n_flash, n_rec = cfg.encoder_layers + 2 * cfg.n_layers, 0
+    else:
+        kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+                 for i in range(cfg.n_layers)]
+        n_flash = sum(k in ATTENTION_KINDS for k in kinds)
+        n_rec = kinds.count("rec")
+    want = {"flash_attention": n_flash, "flash_attention_wgmma": n_flash,
+            "linear_recurrence": n_rec}
+    return {k: v for k, v in want.items() if v}
+
+
+def _layout(model):
+    """How the model axis splits the part's mixers on this rank."""
+    if hasattr(model, "decoder"):
+        sa, enc = model.decoder[0].self_attn, model.encoder[0].attn
+        kind = ("context-parallel" if sa.seq_parallel else "head-parallel"
+                if sa.head_parallel else "replicated")
+        cache = model.init_cache(1, 448)["decoder"]
+        return (f"decoder self-attention {kind} (q heads {sa.heads}), "
+                f"encoder and cross-attention "
+                f"{'head-parallel' if enc.head_parallel else 'whole'}, "
+                f"self cache of 448 slots "
+                f"{'whole' if cache['k'].model_split is None else 'split'} "
+                f"({cache['k'].shape[2]} a rank), cross cache "
+                f"{cache['cross_k'].shape[2]} frames a rank, table split "
+                f"{model.table_split}")
+    parts = []
+    for blk in model.blocks:
+        if blk.kind == "rec" and "rec" not in str(parts):
+            parts.append(f"rec channels {blk.rec.channels or 'whole'}")
+        if blk.kind == "mlstm" and "mLSTM" not in str(parts):
+            m = blk.mlstm
+            parts.append(f"mLSTM heads {m.heads} channels {m.channels}")
+        if blk.kind == "slstm" and "sLSTM" not in str(parts):
+            s = blk.slstm
+            parts.append(f"sLSTM units {s.units}, w_gates columns "
+                         f"{s.gate_cols}, r_gates split dim {s.r_split}, "
+                         f"post-projection {s.ff}")
+        if blk.kind in ("attn", "swa", "chunked") and "attention" not in \
+                str(parts):
+            a = blk.attn
+            parts.append(f"attention "
+                         f"{'context' if a.seq_parallel else 'head' if a.head_parallel else 'no'}"
+                         f"-parallel (q heads {a.heads})")
+    return "; ".join(parts) + f"; table split {model.table_split}"
+
+
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
@@ -6153,20 +6370,22 @@ def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
     """One part on this rank: the model ``arch`` at ``layers`` layers on
     ``make_host_mesh(model=n_model)`` drawn from ``MESH_SEED`` (each rank
     draws every leaf whole and keeps its block), a prefill of batch x seq
-    with the launch counters zeroed just before and read just after, two
-    timed prefills, at a context-parallel rank its block's offset flash
-    call held to the plain version and timed alone, then a decode (a prompt token by token, greedy tokens
-    from ``make_serve_step``), peak device and host memory, and the
-    reduced fp32 config on the same mesh.  Returns numpy and numbers."""
+    (whisper's after its 1500 frames) with the launch counters zeroed just
+    before and read just after, two timed prefills, at a context-parallel
+    rank its block's offset flash call held to the plain version and timed
+    alone, at a ``rec`` layer's rank the recurrence at the rank's channels
+    held to the plain version and timed, then a decode (a prompt token by
+    token, greedy tokens from ``make_serve_step``), peak device and host
+    memory, and the reduced fp32 config on the same mesh.  Returns numpy
+    and numbers."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import seq_ops
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import block, make_host_mesh
     from repro_torch.models import build_model
     mesh = make_host_mesh(model=n_model)
     dev = mesh.device
-    cfg = get_config(arch).replace(n_layers=layers)
+    cfg = _mesh_cfg(arch, layers)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, mesh=mesh, generator=torch.Generator(
@@ -6176,28 +6395,31 @@ def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     tokens = _mesh_tokens(cfg.vocab_size, batch, seq, MESH_SEED + 1, dev)
+    frames = _mesh_frames(cfg, batch, dev)
+    batch_in = {"tokens": tokens} if frames is None else \
+        {"tokens": tokens, "embeddings": frames}
     prefill, _ = steps.make_prefill_step(cfg, model=model)
     _reset_launches()
     t0 = time.perf_counter()
-    last = prefill({"tokens": tokens})
+    last = prefill(batch_in)
     torch.cuda.synchronize(dev)
     first_s = time.perf_counter() - t0
     launches = _launch_counts()
     walls = []
     for _ in range(2):
         t0 = time.perf_counter()
-        prefill({"tokens": tokens})
+        prefill(batch_in)
         torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - t0)
-    attn = model.blocks[0].attn
+    attn = model.decoder[0].self_attn if hasattr(model, "decoder") else \
+        next((b.attn for b in model.blocks if hasattr(b, "attn")), None)
     out = dict(label=label, coords=dict(mesh.coords), launches=launches,
                last=last.float().cpu().numpy(), build_s=build_s,
                weight_bytes=weight_bytes, first_ms=first_s * 1e3,
-               prefill_ms=[w * 1e3 for w in walls],
+               prefill_ms=[w * 1e3 for w in walls], layout=_layout(model),
                seq_parallel=bool(getattr(attn, "seq_parallel", False)),
-               head_parallel=bool(getattr(attn, "head_parallel", False)),
-               heads=getattr(attn, "heads", None),
-               moe_split=[getattr(b.moe, "split", None) for b in model.blocks
+               moe_split=[getattr(b.moe, "split", None) for b in
+                          getattr(model, "blocks", ())
                           if b.ffn_kind == "moe"][:1])
     if out["seq_parallel"]:
         # this rank's flash call of a context-parallel layer, alone
@@ -6223,13 +6445,21 @@ def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
             lambda: seq_ops.flash_attention(q, k, v, causal=True,
                                             q_offset=lo)))
         del q, k, v
+    rec = next((b.rec for b in getattr(model, "blocks", ())
+                if b.kind == "rec"), None)
+    if rec is not None:
+        # the recurrence at this rank's channels and the prefill's shape,
+        # bit-equal to its plain version (compare_linrec), timed alone
+        c = ((cfg.rnn_width or cfg.d_model) if rec.channels is None
+             else rec.channels[1] - rec.channels[0])
+        err, ms_k, ms_p, b_ms, _, _ = compare_linrec(
+            batch, seq, c, torch.float32, MESH_SEED + 3, dev)
+        out["linrec"] = dict(c=c, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=b_ms)
     if prompt:
         serve_step, _ = steps.make_serve_step(cfg, model=model)
-        cache = model.init_cache(batch, seq)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            for i in range(prompt):
-                lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        lg, cache = _decode_feed(model, tokens, frames, seq, prompt)
         torch.cuda.synchronize(dev)
         feed_s = time.perf_counter() - t0
         tok = torch.argmax(lg[:, -1, :], dim=-1,
@@ -6244,10 +6474,7 @@ def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
         out.update(prompt_logits=lg[:, -1].float().cpu().numpy(),
                    feed_ms=feed_s * 1e3, step_ms=step_ms,
                    greedy=torch.stack(greedy, 1).cpu().numpy(),
-                   cache_bytes=sum(t.numel() * t.element_size()
-                                   for st in cache.values()
-                                   for lv in st.values()
-                                   for t in lv.values()))
+                   cache_bytes=_tensor_bytes(cache))
         del cache
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["host_peak_bytes"] = _host_peak_bytes()
@@ -6303,17 +6530,37 @@ def _streamed_logits(cfg, tokens, positions):
     return out.cpu()
 
 
+def _unsharded_logits(cfg, tokens, positions):
+    """The unsharded model's float32 logits at ``positions`` over tokens
+    (B, S) (after an encoder-decoder's frames), on the host: streamed
+    (``_streamed_logits``) or the model built whole on the card from the
+    same draws, run, and freed."""
+    import torch
+    from repro_torch.models import build_model
+    if _streamed(cfg):
+        return _streamed_logits(cfg, tokens, positions)
+    dev = tokens.device
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(MESH_SEED))
+    with torch.no_grad():
+        h = model.hidden(tokens, _mesh_frames(cfg, tokens.shape[0], dev))
+        out = model.unembed(h[:, positions]).float().cpu()
+    del model, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_want(parts, dev):
     """Before the ranks: each part's unsharded prefill logits at the last
-    position (``_streamed_logits``) and the reduced config's unsharded
+    position (``_unsharded_logits``) and the reduced config's unsharded
     run on the card."""
-    from repro_torch.configs import get_config
     want = []
     for label, arch, layers, n_model, batch, seq, prompt, _ in parts:
-        cfg = get_config(arch).replace(n_layers=layers)
+        cfg = _mesh_cfg(arch, layers)
         toks = _mesh_tokens(cfg.vocab_size, batch, seq, MESH_SEED + 1, dev)
         t0 = time.perf_counter()
-        last = _streamed_logits(cfg, toks, [seq - 1])[:, 0]
+        last = _unsharded_logits(cfg, toks, [seq - 1])[:, 0]
         want.append(dict(last=last, streamed_s=time.perf_counter() - t0,
                          reduced=_mesh_reduced(arch, None, dev)))
         del toks
@@ -6322,31 +6569,32 @@ def _mesh_want(parts, dev):
 
 def _mesh_check(parts, want, runs, dev, card):
     """The ranks of a spawn against the unsharded runs: per part and rank
-    the launches (one tensor-core flash an attention layer, nothing else),
-    every rank's last logits alike and within ``PREFILL_DECODE_REL_RMS``
-    of the unsharded (streamed) prefill's, the reduced fp32 config at
-    ``SUBSTRATE_TOL``; after the decode the unsharded model teacher-forced
-    over the prompt and the greedy tokens: the decode's logits at the
-    prompt's end within the same rel rms, and the share of greedy tokens
-    alike.  Prints each rank's times, tokens/s and memory.  Returns each
-    rank's flash launches of the widest part."""
+    the launches (one tensor-core flash an attention call, one recurrence
+    a ``rec`` layer, nothing else), every rank's last logits alike and
+    within ``PREFILL_DECODE_REL_RMS`` of the unsharded prefill's, the
+    reduced fp32 config at ``SUBSTRATE_TOL``; after the decode the
+    unsharded model teacher-forced over the prompt and the greedy tokens:
+    the decode's logits at the prompt's end within the same rel rms, and
+    the share of greedy tokens alike.  Prints each rank's times, tokens/s
+    and memory.  Returns {kernel: each rank's launches} of the part that
+    launched the most of each."""
     import torch
-    from repro_torch.configs import get_config
-    widest = None
+    widest = {}
     for p, part in enumerate(parts):
         label, arch, layers, n_model, batch, seq, prompt, new_tokens = part
-        cfg = get_config(arch).replace(n_layers=layers)
+        cfg = _mesh_cfg(arch, layers)
         ranks = [r[p] for r in runs]
         w = want[p]
-        flash = []
+        exp = _mesh_expected(cfg)
         for rk in ranks:
             got = {k: v for k, v in rk["launches"].items() if v}
-            exp = {"flash_attention": layers,
-                   "flash_attention_wgmma": layers}
             if got != exp:
                 raise AssertionError(f"[mesh] {label} rank {rk['coords']}: "
                                      f"prefill launches {got} != {exp}")
-            flash.append(rk["launches"].get("flash_attention_wgmma", 0))
+        for name in ("flash_attention_wgmma", "linear_recurrence"):
+            mine = [rk["launches"].get(name, 0) for rk in ranks]
+            if sum(mine) > sum(widest.get(name, [])):
+                widest[name] = mine
         last0 = torch.from_numpy(ranks[0]["last"])
         for rk in ranks[1:]:
             if not torch.equal(torch.from_numpy(rk["last"]), last0):
@@ -6366,23 +6614,27 @@ def _mesh_check(parts, want, runs, dev, card):
                 torch.testing.assert_close(got, ref, **SUBSTRATE_TOL)
                 worst = max(worst, float((got - ref).abs().max()))
         r0 = ranks[0]
-        kind = ("context-parallel" if r0["seq_parallel"] else
-                "head-parallel" if r0["head_parallel"] else "replicated")
-        log(f"[mesh] {label} ({cfg.n_layers} layers, model axis {n_model}, "
-            f"{kind}, q heads a rank {r0['heads']}, MoE split "
+        how = "streamed one block at a time" if _streamed(cfg) else \
+            "built whole"
+        log(f"[mesh] {label} ({cfg.n_layers} layers"
+            f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}"
+            f", model axis {n_model}; {r0['layout']}; MoE split "
             f"{r0['moe_split']}): weights a rank "
             f"{r0['weight_bytes'] / 1e9:.2f} GB drawn in "
-            f"{r0['build_s']:.1f} s; prefill {batch} x {seq} last logits "
-            f"rel rms {rel:.3e} against the unsharded model (streamed one "
-            f"block at a time, {w['streamed_s']:.1f} s), top token alike "
+            f"{r0['build_s']:.1f} s; prefill {batch} x {seq}"
+            f"{f' after {cfg.stub_frames} frames' if cfg.encoder_layers else ''}"
+            f" last logits rel rms {rel:.3e} against the unsharded model "
+            f"({how}, {w['streamed_s']:.1f} s), top token alike "
             f"{same_top:.3f}; reduced fp32 full and decode logits within "
             f"atol 2e-4 rtol 1e-3 of the unsharded (worst {worst:.2e}); "
-            f"every rank's logits bit-equal")
+            f"every rank's logits bit-equal; launches a rank {exp}")
         for rk in ranks:
             pre = statistics.median(rk["prefill_ms"])
             line = (f"[mesh] {label} rank {rk['coords']}: flash launches "
                     f"{rk['launches'].get('flash_attention_wgmma', 0)} "
-                    f"tensor-core of {rk['launches']['flash_attention']}; "
+                    f"tensor-core of "
+                    f"{rk['launches'].get('flash_attention', 0)}, linrec "
+                    f"{rk['launches'].get('linear_recurrence', 0)}; "
                     f"prefill {pre:.2f} ms ({batch * seq / pre * 1e3:.1f} "
                     f"tokens/s; runs {rk['prefill_ms'][0]:.2f}, "
                     f"{rk['prefill_ms'][1]:.2f}; first "
@@ -6401,6 +6653,13 @@ def _mesh_check(parts, want, runs, dev, card):
                          f"version (bf16 tolerance atol "
                          f"{FLASH_TOL['bfloat16']['atol']} rtol "
                          f"{FLASH_TOL['bfloat16']['rtol']})")
+            if "linrec" in rk:
+                lr = rk["linrec"]
+                line += (f"; linrec at its shape ({batch}, {seq}, "
+                         f"{lr['c']}) fp32 bit-equal to the plain version "
+                         f"(max abs err {lr['max_abs_err']:.3e}): "
+                         f"{lr['ms']:.4f} ms, plain {lr['plain_ms']:.4f} "
+                         f"ms, bound {lr['bound_ms']:.6f} ms")
             line += (f"; peak device {rk['peak_bytes'] / 1e9:.2f} GB, host "
                      f"resident peak {rk['host_peak_bytes'] / 1e9:.2f} GB")
             log(line)
@@ -6417,9 +6676,9 @@ def _mesh_check(parts, want, runs, dev, card):
                                          f"differ")
             # a MoE decode never drops a pair (a group of B tokens): the
             # unsharded model at the factor where nothing drops either
-            ref = _streamed_logits(_no_drop(cfg), seq_tok.to(dev),
-                                   list(range(prompt - 1,
-                                              prompt + new_tokens - 1)))
+            ref = _unsharded_logits(_no_drop(cfg), seq_tok.to(dev),
+                                    list(range(prompt - 1,
+                                               prompt + new_tokens - 1)))
             rel_d = _rel_rms(torch.from_numpy(r0["prompt_logits"]),
                              ref[:, 0])
             if not rel_d <= PREFILL_DECODE_REL_RMS:
@@ -6433,18 +6692,16 @@ def _mesh_check(parts, want, runs, dev, card):
                 f"greedy tokens alike {alike:.3f} ({new_tokens} a request, "
                 f"the unsharded model teacher-forced on them); sample "
                 f"{r0['greedy'][0, :8].tolist()}")
-        if widest is None or len(flash) > len(widest):
-            widest = flash
     return widest
 
 
 def phase_mesh(dev, card):
-    """The attention decoders across ranks: on one card the parts of
+    """The substrate across ranks: on one card the parts of
     ``MESH_ONE_CARD`` over gloo ranks (model axis 2, then 3) after a mesh
     of one over NCCL; on four cards ``MESH_FOUR_CARDS`` over NCCL ranks.
     Each spawn's unsharded runs come first, here, then the ranks, in turns.
-    Times the main flash shape beside the offset blocks.  Returns the
-    flash launches a rank of the widest part."""
+    Times the main flash shape beside the offset blocks.  Returns {kernel:
+    each rank's launches} of the part that launched the most of it."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.mesh import spawn
@@ -6490,7 +6747,7 @@ def phase_mesh(dev, card):
     else:
         spawns = [([p for p in MESH_ONE_CARD if p[3] == 2], 2, "gloo"),
                   ([p for p in MESH_ONE_CARD if p[3] == 3], 3, "gloo")]
-    widest = None
+    widest = {}
     for parts, world, backend in spawns:
         t0 = time.perf_counter()
         want = _mesh_want(parts, dev)
@@ -6507,9 +6764,9 @@ def phase_mesh(dev, card):
             f"{' across cards' if four else ' on one card'}: unsharded "
             f"runs {want_s:.1f} s, then the ranks {spawn_s:.1f} s (start, "
             f"CUDA context, runs)")
-        flash = _mesh_check(parts, want, runs, dev, card)
-        if widest is None or len(flash) > len(widest):
-            widest = flash
+        for name, mine in _mesh_check(parts, want, runs, dev, card).items():
+            if sum(mine) > sum(widest.get(name, [])):
+                widest[name] = mine
     return widest
 
 
@@ -6545,6 +6802,7 @@ def main(argv=None) -> int:
     def phase(name, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
+        WORLDS.clear()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
@@ -6558,7 +6816,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "mesh":
         launches = phase("substrate across ranks", phase_mesh, dev, card)
-        log(f"[mesh] flash launches a rank of the widest part's prefill: "
+        log(f"[mesh] launches a rank of the widest part's prefill: "
             f"{launches}; partial run, {time.perf_counter() - t_start:.1f} "
             f"s")
         return 0
@@ -6640,8 +6898,9 @@ def main(argv=None) -> int:
                 "train_launches": train_launches.get(name, 0),
                 "shard_launches": [rank.get(name, 0)
                                    for rank in shard_launches],
-                "mesh_launches": [n if name == "flash_attention" else 0
-                                  for n in mesh_launches]}
+                "mesh_launches": mesh_launches.get(
+                    {"flash_attention": "flash_attention_wgmma"}.get(
+                        name, name), [])}
     kernels = []
     for name, (err, ms_k, ms_p, work) in main_cmp.items():
         b_ms, b_by = bound_ms(*work)

@@ -13,7 +13,9 @@ agent (networks, targets, Adam moments, replay ring and counters) or a
 bare actor, so both sides can train or deploy from the same networks.
 ``params_from_numpy`` does the same for a substrate model's weights (a
 decoder or an encoder-decoder), ``cache_from_numpy`` for its decode
-cache, so both sides can decode from the same state; given a
+cache, so both sides can decode from the same state, and
+``cache_to_numpy`` gathers a (sharded) decode cache back into the
+reference's layout; given a
 ``launch.mesh.Mesh2D`` it builds this rank's blocks of the weights
 (``sharding.rules``' placement), and ``params_to_numpy`` gathers a
 sharded model's back.  ``params_to_tree``
@@ -327,3 +329,39 @@ def cache_from_numpy(cache_np: Mapping[str, Any],
             stage[str(i)] = _tensors(leaves, dev)
         cache[f"stage_{si}"] = stage
     return cache
+
+
+def cache_to_numpy(cache: Mapping[str, Any],
+                   model: "Transformer | EncDecTransformer", batch: int
+                   ) -> "dict[str, Any]":
+    """``model``'s decode cache for a batch of ``batch`` rows in the
+    reference's layout with numpy leaves (``cache_from_numpy``'s inverse;
+    bf16 leaves as float32): on a mesh each leaf gathered over ``model``
+    along its ``model_split`` tag and over ``data`` along its rows -- a
+    collective every rank of the mesh calls --; the xLSTM blocks' named
+    leaves become the reference's tuples."""
+    mesh = model.mesh
+
+    def host(leaf: torch.Tensor) -> np.ndarray:
+        split = getattr(leaf, "model_split", None)
+        if split is not None and parallel.model_active(mesh):
+            leaf = mesh.all_gather(leaf.contiguous(), "model", dim=split)
+        if parallel.data_rows(mesh, batch) != (0, batch):
+            leaf = mesh.all_gather(leaf.contiguous(), "data", dim=1)
+        if leaf.dtype not in (torch.float32, torch.int32, torch.int64):
+            leaf = leaf.float()
+        return leaf.cpu().numpy()
+
+    if isinstance(model, EncDecTransformer):
+        return {"decoder": {k: host(v)
+                            for k, v in cache["decoder"].items()}}
+    out = {}
+    for si, (unit, _) in enumerate(model.stages):
+        stage = {}
+        for i, (kind, _) in enumerate(unit):
+            leaves = {k: host(v) for k, v in
+                      cache[f"stage_{si}"][str(i)].items()}
+            stage[str(i)] = (tuple(leaves[k] for k in _TUPLE_CACHE[kind])
+                             if kind in _TUPLE_CACHE else leaves)
+        out[f"stage_{si}"] = stage
+    return out

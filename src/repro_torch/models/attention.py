@@ -18,7 +18,7 @@ the flash kernel without a mask, the latter with a key length of its own
 (the frames); ``cross_decode`` is plain, over the frames' cached K/V.
 
 Across a ``launch.mesh.Mesh2D`` whose ``model`` axis has W > 1 ranks
-(``sharding.rules``' placement; the decoder's attention only):
+(``sharding.rules``' placement):
 
 * head-parallel where W divides the heads H: rank r holds q heads
   [r·H/W, (r+1)·H/W) of ``wq`` and ``wo`` and its KV heads of ``wk`` and
@@ -39,13 +39,23 @@ Across a ``launch.mesh.Mesh2D`` whose ``model`` axis has W > 1 ranks
 * otherwise every weight is whole and every rank computes the whole
   attention.
 
-Decode places the cache as ``sharding.cache_spec`` does: rank r holds
-slots [r·size/W, (r+1)·size/W) of each layer's cache (its ring too);
-``attention_decode`` gathers the step's q and K/V heads, writes K/V on the
-slot's rank, computes each rank's partial softmax over its slots (each
-slot's position from its global index) and merges the partials in
-float32 over ``model`` -- the all-reduced max, then the rescaled sums of
-exp and exp·v -- before the row-parallel ``wo``.
+The bidirectional and the cross-attention (whisper) are head-parallel
+where W divides the heads and whole otherwise: the reference applies
+context parallelism in ``attention_apply`` alone.
+
+Decode places the cache as ``sharding.cache_spec`` does where W divides
+its slots: rank r holds slots [r·size/W, (r+1)·size/W) of each layer's
+cache (its ring too); ``attention_decode`` gathers the step's q and K/V
+heads, writes K/V on the slot's rank, computes each rank's partial
+softmax over its slots (each slot's position from its global index) and
+merges the partials in float32 over ``model`` -- the all-reduced max,
+then the rescaled sums of exp and exp·v -- before the row-parallel
+``wo``.  Where W divides neither the slots, dh nor the KV heads, every
+rank holds the whole cache and runs the unsharded decode attention (the
+leaf's ``model_split`` tag is None); ``cache_spec``'s dh and heads
+placements are not ported and raise.  ``cross_decode`` merges the ranks'
+partial softmax over their blocks of the frames' cached K/V the same
+way.
 """
 from __future__ import annotations
 
@@ -190,16 +200,22 @@ def _q_local(p: Attention, x: torch.Tensor) -> torch.Tensor:
     return p.q_norm(q) if p.qk_norm else q
 
 
-def _kv_local(p: Attention, x: torch.Tensor
+def _kv_heads(p: Attention, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The KV heads [kv0, kv1) the rank's q heads read: from its block of
-    wk/wv where they are split, else from their columns of the whole
-    weights."""
+    """k and v of the KV heads [kv0, kv1) the rank's q heads read, with
+    their biases: from its block of wk/wv where they are split, else from
+    their columns of the whole weights."""
     kv0, kv1 = p.kv_heads
     wk, wv = (p.wk, p.wv) if p.kv_split else (p.wk[:, kv0:kv1],
                                               p.wv[:, kv0:kv1])
-    k = _heads(x, wk, p.bk[kv0:kv1] if p.qkv_bias else None)
-    v = _heads(x, wv, p.bv[kv0:kv1] if p.qkv_bias else None)
+    return (_heads(x, wk, p.bk[kv0:kv1] if p.qkv_bias else None),
+            _heads(x, wv, p.bv[kv0:kv1] if p.qkv_bias else None))
+
+
+def _kv_local(p: Attention, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_kv_heads`` with the k norm."""
+    k, v = _kv_heads(p, x)
     return (p.k_norm(k) if p.qk_norm else k), v
 
 
@@ -220,15 +236,8 @@ def _kv_all(p: Attention, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 def _gather_heads(mesh, *parts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Each of ``parts`` (B, S, n_i, Dh), a rank's block of heads, gathered
-    over ``model`` into every rank's blocks in rank order -- all in one
-    collective."""
-    w, _ = parallel.model_axis(mesh)
-    sizes = [t.shape[2] for t in parts]
-    both = mesh.all_gather(torch.cat(parts, dim=2), "model", dim=2)
-    b, s, _, dh = both.shape
-    both = both.reshape(b, s, w, sum(sizes), dh)
-    return tuple(t.reshape(b, s, w * n, dh)
-                 for t, n in zip(both.split(sizes, dim=3), sizes))
+    over ``model`` in one collective."""
+    return parallel.gather_blocks(mesh, *parts, dim=2)
 
 
 def _expanded(p: Attention, k: torch.Tensor, v: torch.Tensor
@@ -337,7 +346,7 @@ def _prefill_cache_sharded(p: Attention, x: torch.Tensor, cfg,
     positions = torch.arange(p_len, device=x.device)
     k_all, v_all = _kv_all(p, x, positions, cfg, use_rope)
     size_l = cache["k"].shape[1]
-    c0 = p.mesh.coords["model"] * size_l
+    c0 = 0 if _whole_slots(cache["k"]) else p.mesh.coords["model"] * size_l
     a, b = min(max(c0, 0), p_len), min(c0 + size_l, p_len)
     if b > a:
         cache["k"][:, a - c0:b - c0] = k_all[:, a:b].to(cache["k"].dtype)
@@ -352,14 +361,31 @@ def _prefill_cache_sharded(p: Attention, x: torch.Tensor, cfg,
     return _out_sharded(p, out)
 
 
+def cache_slots(cfg, size: int, mesh, what: str) -> int:
+    """This rank's slots of a K/V cache of ``size`` slots: size / W where
+    the model axis of W ranks divides it (``sharding.cache_spec``'s
+    sequence split), else all of them where W divides neither dh nor the
+    KV heads (the placement ``cache_spec`` falls through to); its dh and
+    heads placements raise, naming them."""
+    w, _ = parallel.model_axis(mesh)
+    if size % w == 0:
+        return size // w
+    for dim, n in (("dh", cfg.d_head), ("heads", cfg.n_kv_heads)):
+        if n % w == 0:
+            raise ValueError(
+                f"{cfg.name}: {what} of {size} slots does not split over "
+                f"the model axis of {w} ranks; sharding.cache_spec would "
+                f"split its {dim} ({n}), which is not ported")
+    return size
+
+
 def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
                device, mesh=None) -> Dict[str, torch.Tensor]:
     """A decode KV cache for one layer: a ring buffer of ``window`` slots
     for ``sliding`` layers and of ``attn_chunk`` for ``chunked`` ones (at
     most ``cache_len``), ``cache_len`` slots for ``global`` and ``prefix``
     ones.  With a ``mesh`` whose model axis has W > 1 ranks, this rank's
-    block of size / W slots (``sharding.cache_spec``'s sequence split; a
-    size W does not divide raises, naming it)."""
+    slots (``cache_slots``)."""
     _check_kind(mask_kind)
     if mask_kind == "sliding":
         size = min(cfg.window, cache_len)
@@ -367,15 +393,16 @@ def init_cache(cfg, batch: int, cache_len: int, mask_kind: str,
         size = min(cfg.attn_chunk, cache_len)
     else:
         size = cache_len
-    w, _ = parallel.model_axis(mesh)
-    if size % w:
-        raise ValueError(f"{cfg.name}: a {mask_kind} layer's cache of "
-                         f"{size} slots does not split over the model axis "
-                         f"of {w} ranks (sharding.cache_spec would not "
-                         f"take its sequence)")
-    shape = (batch, size // w, cfg.n_kv_heads, cfg.d_head)
+    shape = (batch, cache_slots(cfg, size, mesh, f"a {mask_kind} layer's "
+                                "cache"), cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device)}
+
+
+def _whole_slots(leaf: torch.Tensor) -> bool:
+    """Whether a layer's cache leaf is whole on every model rank (its
+    ``model_split`` tag None; an untagged leaf is split by slots)."""
+    return getattr(leaf, "model_split", 1) is None
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg,
@@ -446,43 +473,55 @@ def _decode_sharded(p: Attention, x: torch.Tensor, cfg,
             q = mesh.all_gather(q, "model", dim=2)
         k, v = _kv_all(p, x, pos, cfg, use_rope)
     size_l = cache["k"].shape[1]
-    size = size_l * w
+    whole = _whole_slots(cache["k"])
+    size, c0 = (size_l, 0) if whole else (size_l * w, r * size_l)
     slot = index % size
-    if slot // size_l == r:
-        cache["k"][:, slot - r * size_l] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot - r * size_l] = v[:, 0].to(cache["v"].dtype)
+    if c0 <= slot < c0 + size_l:
+        cache["k"][:, slot - c0] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - c0] = v[:, 0].to(cache["v"].dtype)
     k_pos, k_valid = _slot_positions(
-        r * size_l + torch.arange(size_l, device=dev), size, index,
-        mask_kind, cfg)
+        c0 + torch.arange(size_l, device=dev), size, index, mask_kind, cfg)
     plen = prefix_len if mask_kind == "prefix" else 0
-    allowed = ((k_pos[None, :] <= pos[:, None]) | (k_pos[None, :] < plen)) \
-        & k_valid[None, :]
-    b, qlen, h, dh = q.shape
-    kv = cache["k"].shape[2]
-    qg = q.reshape(b, qlen, kv, h // kv, dh)
-    logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5,
-                          cache["k"].to(q.dtype)).float()
-    masked = torch.where(allowed, logits, NEG_INF)
-    # the partial softmax over this rank's slots, merged over `model` in
-    # float32: the max, then the rescaled sums of exp and exp·v (a rank
-    # without a visible slot adds exact zeros)
-    m = mesh.all_reduce(masked.amax(dim=-1, keepdim=True), "model", "max")
-    e = torch.where(allowed, torch.exp(masked - m), 0.0)
-    o = torch.einsum("bhgqs,bshk->bhgqk", e, cache["v"].float())
-    sums = mesh.all_reduce(torch.cat([o, e.sum(dim=-1, keepdim=True)], -1),
-                           "model")
-    out = (sums[..., :dh] / sums[..., dh:]).to(q.dtype)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, qlen, h, dh)
+    if whole:
+        out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), pos,
+                    k_pos, k_valid, plen)
+    else:
+        allowed = ((k_pos[None, :] <= pos[:, None])
+                   | (k_pos[None, :] < plen)) & k_valid[None, :]
+        out = _merged(mesh, q, cache["k"], cache["v"], allowed)
     if p.head_parallel:
         out = out[:, :, p.heads[0]:p.heads[1]]
     return _out_sharded(p, out), cache
+
+
+def _merged(mesh, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            allowed: torch.Tensor) -> torch.Tensor:
+    """q (B, Q, H, Dh) over this rank's block of slots k/v (B, n, KV, Dh)
+    where ``allowed`` (Q, n): the partial softmax merged over `model` in
+    float32 -- the all-reduced max, then the rescaled sums of exp and
+    exp·v (a rank without a visible slot adds exact zeros)."""
+    b, qlen, h, dh = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, qlen, kv, h // kv, dh)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5,
+                          k.to(q.dtype)).float()
+    masked = torch.where(allowed, logits, NEG_INF)
+    m = mesh.all_reduce(masked.amax(dim=-1, keepdim=True), "model", "max")
+    e = torch.where(allowed, torch.exp(masked - m), 0.0)
+    o = torch.einsum("bhgqs,bshk->bhgqk", e, v.float())
+    sums = mesh.all_reduce(torch.cat([o, e.sum(dim=-1, keepdim=True)], -1),
+                           "model")
+    out = (sums[..., :dh] / sums[..., dh:]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, qlen, h, dh)
 
 
 def bidirectional_attention_apply(p: Attention, x: torch.Tensor, cfg, *,
                                   use_rope: bool = True) -> torch.Tensor:
     """Unmasked self-attention (whisper's encoder, which passes
     ``use_rope=False``) through the flash kernel.  x (B, S, d) ->
-    (B, S, d)."""
+    (B, S, d); head-parallel on a model axis that divides the heads."""
+    if p.mesh is not None and p.head_parallel:
+        return _apply_sharded(p, x, cfg, dict(causal=False), None, use_rope)
     q, k, v = _rotated_qkv(p, x, cfg, None, use_rope)
     return _out(p, seq_ops.flash_attention(q, k, v, causal=False))
 
@@ -491,17 +530,20 @@ def cross_kv(p: Attention, kv_src: torch.Tensor, dtype: torch.dtype
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder output (B, F, d), in ``dtype``, projected to k and v (B,
     F, KV, Dh), each with its bias: what ``cross_attention_apply`` attends
-    to and what a decode cache holds."""
+    to and what a decode cache holds.  On a model axis every KV head on
+    every rank (the ranks' heads gathered where wk/wv are split)."""
     src = kv_src.to(dtype)
-    k = torch.einsum("bsd,dhk->bshk", src, p.wk.to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", src, p.wv.to(dtype))
-    if p.qkv_bias:
-        k = k + p.bk.to(dtype)
-        v = v + p.bv.to(dtype)
-    return k, v
+    if p.mesh is not None and p.kv_split:
+        return _gather_heads(p.mesh, *_kv_heads(p, src))
+    return (_heads(src, p.wk, p.bk if p.qkv_bias else None),
+            _heads(src, p.wv, p.bv if p.qkv_bias else None))
 
 
 def _cross_q(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """The q heads of x: the rank's on a head-parallel model axis."""
+    if p.mesh is not None and p.head_parallel:
+        h0, h1 = p.heads
+        return _heads(x, p.wq, p.bq[h0:h1] if p.qkv_bias else None)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
     return q + p.bq.to(x.dtype) if p.qkv_bias else q
 
@@ -511,8 +553,13 @@ def cross_attention_apply(p: Attention, x: torch.Tensor,
     """Encoder-decoder cross-attention (whisper): queries from x (B, S, d),
     keys and values from the encoder output (B, F, d), no mask, no RoPE, no
     q/k norm, through the flash kernel with F keys.  -> (B, S, d); the
-    output projection has no bias.  ``cfg`` is unread (the reference's
-    signature)."""
+    output projection has no bias.  Head-parallel on a model axis that
+    divides the heads (the rank's q and KV heads, ``wo`` row-parallel).
+    ``cfg`` is unread (the reference's signature)."""
+    if p.mesh is not None and p.head_parallel:
+        k, v = _expanded(p, *_kv_heads(p, kv_src.to(x.dtype)))
+        out = seq_ops.flash_attention(_cross_q(p, x), k, v, causal=False)
+        return _out_sharded(p, out)
     k, v = cross_kv(p, kv_src, x.dtype)
     out = seq_ops.flash_attention(_cross_q(p, x), k, v, causal=False)
     return _out(p, out)
@@ -522,13 +569,34 @@ def cross_decode(p: Attention, x: torch.Tensor, ck: torch.Tensor,
                  cv: torch.Tensor) -> torch.Tensor:
     """One decode step's cross-attention over the cached frames' K/V (B, F,
     KV, Dh), plain, as the reference's ``encdec._cross_decode``: x (B, 1,
-    d) -> (B, 1, d)."""
+    d) -> (B, 1, d).  On a model axis the step's q heads are gathered and
+    each rank's block of the frames (unless the cache is whole) gives a
+    partial softmax merged over `model`; the rank's heads go through its
+    block of ``wo``."""
     q = _cross_q(p, x)
+    if p.mesh is not None:
+        if p.head_parallel:
+            q = p.mesh.all_gather(q, "model", dim=2)
+        if _whole_slots(ck):
+            out = _cross_sdpa(q, ck, cv)
+        else:
+            allowed = torch.ones((q.shape[1], ck.shape[1]), dtype=torch.bool,
+                                 device=x.device)
+            out = _merged(p.mesh, q, ck, cv, allowed)
+        if p.head_parallel:
+            out = out[:, :, p.heads[0]:p.heads[1]]
+        return _out_sharded(p, out)
+    return _out(p, _cross_sdpa(q, ck, cv))
+
+
+def _cross_sdpa(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
+                ) -> torch.Tensor:
+    """q (B, S, H, Dh) over every cached frame, unmasked, plain."""
     b, s, h, dh = q.shape
     kvh = ck.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, dh)
     logits = torch.einsum("bqhgk,bshk->bhgqs", qg * dh ** -0.5,
-                          ck.to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqs,bshk->bqhgk", probs, cv.to(x.dtype))
-    return _out(p, out.reshape(b, s, h, dh))
+                          ck.to(q.dtype)).float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, cv.to(q.dtype))
+    return out.reshape(b, s, h, dh)

@@ -21,10 +21,19 @@ each encoder layer and each decoder layer runs through a non-reentrant
 ``scan_layers`` (a compile-time device of XLA) means nothing in eager
 PyTorch and is not read.  Across a ``launch.mesh.Mesh2D`` the data axis
 splits the batch (each data rank runs its rows; ``hidden``, ``apply`` and
-``decode_step`` return the whole batch); the model axis -- the
-reference's tensor parallelism and its context parallelism
-(``attn_seq_shard``) for whisper -- is not ported yet (ROADMAP A22): a
-model axis of more than one rank raises.
+``decode_step`` return the whole batch); on the model axis each weight
+is its rule's block (``sharding.rules``): every attention head-parallel
+where the axis divides the heads, and where it does not the decoder's
+self-attention context-parallel (``attn_seq_shard``, as the reference
+applies it in ``attention_apply`` alone) and the encoder's and the
+cross-attention whole on every rank (``models/attention.py``); the MLPs
+column- and row-parallel over ``d_ff``; the tied table split by vocab
+or by ``d_model`` (``parallel.embed``/``unembed``).  The self cache's
+slots and the cross cache's frames split over ``model`` as
+``sharding.cache_spec`` places them (whole where W divides neither them,
+dh nor the heads: ``attention.cache_slots``); ``prefill_cross`` writes
+the rank's block of the frames, and decode merges the ranks' partial
+softmax over them.
 """
 from __future__ import annotations
 
@@ -58,19 +67,24 @@ def init_cache(cfg, batch: int, cache_len: int, n_frames: Optional[int],
                device, mesh=None) -> Cache:
     """``EncDecTransformer.init_cache`` for ``cfg`` on ``device`` (``meta``
     gives the shapes and dtypes alone); with a ``mesh``, this data rank's
-    rows of the batch."""
+    rows of the batch and this model rank's slots and frames
+    (``attention.cache_slots``), each leaf tagged with its
+    ``model_split``."""
     lo, hi = parallel.data_rows(mesh, batch)
     batch = hi - lo
     n_frames = n_frames or cfg.stub_frames
     lead = (cfg.n_layers, batch)
     tail = (cfg.n_kv_heads, cfg.d_head)
 
-    def zeros(length):
-        return torch.zeros(lead + (length,) + tail, dtype=cfg.compute_dtype,
-                           device=device)
-    return {"decoder": {"k": zeros(cache_len), "v": zeros(cache_len),
-                        "cross_k": zeros(n_frames),
-                        "cross_v": zeros(n_frames)}}
+    def zeros(length, what):
+        local = attention.cache_slots(cfg, length, mesh, what)
+        return parallel.tagged(
+            torch.zeros(lead + (local,) + tail, dtype=cfg.compute_dtype,
+                        device=device), (length,), (local,), lead=2)
+    return {"decoder": {"k": zeros(cache_len, "the self-attention cache"),
+                        "v": zeros(cache_len, "the self-attention cache"),
+                        "cross_k": zeros(n_frames, "the cross cache"),
+                        "cross_v": zeros(n_frames, "the cross cache")}}
 
 
 def _norm(cfg, device, generator) -> layers.Norm:
@@ -82,13 +96,13 @@ class EncoderLayer(nn.Module):
     """norm1 → bidirectional attention → residual → norm2 → MLP →
     residual."""
 
-    def __init__(self, cfg, device, generator):
+    def __init__(self, cfg, device, generator, mesh=None):
         super().__init__()
         self.norm1 = _norm(cfg, device, generator)
         self.attn = attention.Attention(cfg, device=device,
-                                        generator=generator)
+                                        generator=generator, mesh=mesh)
         self.norm2 = _norm(cfg, device, generator)
-        self.mlp = MLP(cfg, device, generator)
+        self.mlp = MLP(cfg, device, generator, mesh)
 
     def forward(self, x: torch.Tensor, cfg) -> torch.Tensor:
         x = x + attention.bidirectional_attention_apply(
@@ -101,16 +115,16 @@ class DecoderLayer(nn.Module):
     cross-attention over the encoder output → residual → norm3 → MLP →
     residual."""
 
-    def __init__(self, cfg, device, generator):
+    def __init__(self, cfg, device, generator, mesh=None):
         super().__init__()
         self.norm1 = _norm(cfg, device, generator)
         self.self_attn = attention.Attention(cfg, device=device,
-                                             generator=generator)
+                                             generator=generator, mesh=mesh)
         self.norm2 = _norm(cfg, device, generator)
         self.cross_attn = attention.Attention(cfg, device=device,
-                                              generator=generator)
+                                              generator=generator, mesh=mesh)
         self.norm3 = _norm(cfg, device, generator)
-        self.mlp = MLP(cfg, device, generator)
+        self.mlp = MLP(cfg, device, generator, mesh)
 
     def forward(self, x: torch.Tensor, enc: torch.Tensor,
                 positions: torch.Tensor, cfg) -> torch.Tensor:
@@ -128,6 +142,8 @@ class EncDecTransformer(nn.Module):
     ``generator``: draw the weights from it (on its device, which must be
     ``device``) with the reference's init distributions; ``None`` leaves
     them unset for ``convert.params_from_numpy`` or ``load_state_dict``.
+    ``mesh``: a ``launch.mesh.Mesh2D`` to serve across (this rank's blocks
+    of the weights; see the module's docstring).
     """
 
     def __init__(self, cfg, *, device: "str | torch.device" = "cuda",
@@ -137,25 +153,25 @@ class EncDecTransformer(nn.Module):
         if generator is not None and generator.device.type != dev.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {dev}")
-        if parallel.model_active(mesh):
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder on a model axis of "
-                f"{mesh.shape['model']} ranks is not ported yet (ROADMAP "
-                f"A22); the data axis alone serves it")
         self.cfg = cfg
         self.device = dev
-        self.mesh = mesh if parallel.active(mesh) else None
+        mesh = mesh if parallel.active(mesh) else None
+        self.mesh = mesh
         shape = (cfg.vocab_size, cfg.d_model)
         self.embedding = layers.param(
             shape, cfg.param_dtype, dev, generator,
-            lambda: layers.normal_init(shape, generator, cfg.param_dtype))
+            lambda: layers.normal_init(shape, generator, cfg.param_dtype),
+            name="embedding", mesh=mesh)
         self.unembedding = None if cfg.tie_embeddings else layers.param(
             shape, cfg.param_dtype, dev, generator,
-            lambda: layers.normal_init(shape, generator, cfg.param_dtype))
-        self.encoder = nn.ModuleList(EncoderLayer(cfg, dev, generator)
+            lambda: layers.normal_init(shape, generator, cfg.param_dtype),
+            name="unembedding", mesh=mesh)
+        # the tables' split over `model`: 0 by vocab, 1 by d_model
+        self.table_split = parallel.split_dim("embedding", shape, mesh)
+        self.encoder = nn.ModuleList(EncoderLayer(cfg, dev, generator, mesh)
                                      for _ in range(cfg.encoder_layers))
         self.enc_norm = _norm(cfg, dev, generator)
-        self.decoder = nn.ModuleList(DecoderLayer(cfg, dev, generator)
+        self.decoder = nn.ModuleList(DecoderLayer(cfg, dev, generator, mesh)
                                      for _ in range(cfg.n_layers))
         self.final_norm = _norm(cfg, dev, generator)
 
@@ -196,7 +212,7 @@ class EncDecTransformer(nn.Module):
             raise ValueError(f"{cfg.name}: the encoder-decoder model needs "
                              f"the frames (extra_embeddings)")
         enc = self.encode(extra_embeddings)
-        x = layers.embed_apply(self.embedding, tokens, cfg.compute_dtype)
+        x = self._embed(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
         x = self._positions(x, positions)
         remat = remat_active(self)
@@ -204,10 +220,16 @@ class EncDecTransformer(nn.Module):
             x = run_unit(lyr, remat, x, enc, positions, cfg)
         return self.final_norm(x)
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return parallel.embed(self.embedding, self.table_split, self.mesh,
+                              tokens, self.cfg.compute_dtype)
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., d) -> logits (..., V), every vocab entry on every rank
+        (``parallel.unembed``)."""
         table = self.embedding if self.unembedding is None \
             else self.unembedding
-        return layers.unembed_apply(table, x)
+        return parallel.unembed(table, self.table_split, self.mesh, x)
 
     def apply(self, tokens: torch.Tensor,
               extra_embeddings: Optional[torch.Tensor] = None, *,
@@ -238,14 +260,18 @@ class EncDecTransformer(nn.Module):
 
     def prefill_cross(self, cache: Cache, frames: torch.Tensor) -> Cache:
         """Encode the frames (B, F, d) and write each decoder layer's
-        cross-attention K/V (with their biases) into the cache in place;
+        cross-attention K/V (with their biases) into the cache in place --
+        on a model axis the rank's block of the frames, every KV head --;
         returns the cache."""
         enc = self.encode(parallel.rows(self.mesh, frames))
         dc = cache["decoder"]
+        n = dc["cross_k"].shape[2]
+        f0 = 0 if getattr(dc["cross_k"], "model_split", None) is None \
+            else self.mesh.coords["model"] * n
         for i, lyr in enumerate(self.decoder):
             k, v = attention.cross_kv(lyr.cross_attn, enc, enc.dtype)
-            dc["cross_k"][i].copy_(k)
-            dc["cross_v"][i].copy_(v)
+            dc["cross_k"][i].copy_(k[:, f0:f0 + n])
+            dc["cross_v"][i].copy_(v[:, f0:f0 + n])
         return cache
 
     def decode_step(self, token: torch.Tensor, cache: Cache,
@@ -260,9 +286,10 @@ class EncDecTransformer(nn.Module):
         index = int(index)
         batch = token.shape[0]
         token = parallel.rows(self.mesh, token)
-        x = layers.embed_apply(self.embedding, token, cfg.compute_dtype)
+        x = self._embed(token)
         x = self._positions(x, torch.full((1,), index, device=x.device))
-        dc = cache["decoder"]
+        dc = {k: [parallel.layer_view(v, i) for i in range(v.shape[0])]
+              for k, v in cache["decoder"].items()}
         for i, lyr in enumerate(self.decoder):
             y, _ = attention.attention_decode(
                 lyr.self_attn, lyr.norm1(x), cfg,

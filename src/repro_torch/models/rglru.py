@@ -10,6 +10,18 @@ The port of the reference's ``models/rglru.py`` (arXiv:2402.19427):
 The full-sequence scan goes through the linear-recurrence kernel
 (``kernels.seq_ops.linear_recurrence``); the one-token decode is a plain
 update.
+
+On a model axis of W ranks that divides the rnn width ``dr``
+(``sharding.rules``: ``w_in``, ``w_gate_branch``, ``conv_w``, ``w_a`` and
+``w_x`` split on their last dim, ``w_out`` on its first) rank r holds
+channels [r·dr/W, (r+1)·dr/W): its branches and conv run on them; the
+conv's output is all-gathered over ``model`` once a call, since ``w_a``
+and ``w_x`` contract over every channel; the gates, the recurrence (one
+kernel launch) and the state are the rank's channels; ``w_out`` is
+row-parallel, its partials summed over ``model``.  ``b_a``, ``b_x``,
+``lam`` and ``conv_b`` have no rule: whole, sliced at use.  Where W does
+not divide ``dr`` every weight is whole and the layer runs unsharded on
+every rank.
 """
 from __future__ import annotations
 
@@ -19,7 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import seq_ops
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 
 _C = 8.0  # temperature of the decay exponent (Griffin appendix)
 _CONV_WIDTH = 4
@@ -27,9 +39,11 @@ _CONV_WIDTH = 4
 
 class RGLRU(nn.Module):
     """The block's parameters, named as the reference's pytree except Λ
-    (``lam``: ``lambda`` is a Python keyword)."""
+    (``lam``: ``lambda`` is a Python keyword); with a ``mesh``, this
+    rank's blocks (the module's docstring)."""
 
-    def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
+    def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
+                 mesh=None):
         super().__init__()
         d = cfg.d_model
         dr = cfg.rnn_width or d
@@ -40,32 +54,44 @@ class RGLRU(nn.Module):
                   "w_a": ((dr, dr), pd), "b_a": ((dr,), f32),
                   "w_x": ((dr, dr), pd), "b_x": ((dr,), f32),
                   "lam": ((dr,), f32), "w_out": ((dr, d), pd)}
-        for name, (shape, dtype) in shapes.items():
-            if generator is None:
-                w = torch.empty(shape, dtype=dtype, device=device)
-            elif name in ("conv_b", "b_a", "b_x"):
-                w = torch.zeros(shape, dtype=dtype, device=generator.device)
-            elif name == "conv_w":
-                w = layers.normal_init(shape, generator, dtype)
-            elif name == "lam":
+
+        def draw(name, shape, dtype):
+            dev = generator.device
+            if name in ("conv_b", "b_a", "b_x"):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+            if name == "conv_w":
+                return layers.normal_init(shape, generator, dtype)
+            if name == "lam":
                 # a = sigmoid(Λ)^(1/c) uniform in [0.9, 0.999]
-                u = torch.rand(shape, generator=generator,
-                               device=generator.device, dtype=f32)
+                u = torch.rand(shape, generator=generator, device=dev,
+                               dtype=f32)
                 u = 0.9 + 0.099 * u
-                w = torch.log(u ** _C / (1.0 - u ** _C))
-            else:
-                w = layers.scaled_init(shape, generator, dtype,
-                                       fan_in=shape[0])
-            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+                return torch.log(u ** _C / (1.0 - u ** _C))
+            return layers.scaled_init(shape, generator, dtype,
+                                      fan_in=shape[0])
+        for name, (shape, dtype) in shapes.items():
+            self.register_parameter(name, layers.param(
+                shape, dtype, device, generator,
+                lambda name=name, shape=shape, dtype=dtype: draw(
+                    name, shape, dtype),
+                name=name, mesh=mesh))
+        # this rank's channels where the model axis splits dr, else None
+        self.channels = parallel.span("w_in", (d, dr), mesh)
+        self.mesh = mesh if self.channels is not None else None
 
 
 def _gates(p: RGLRU, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(log_a, gated input), both (..., dr), computed in fp32."""
+    """(log_a, gated input), both (..., dr) -- the rank's channels on a
+    model axis, whose conv output ``x`` is gathered here -- computed in
+    fp32."""
+    xs = x if p.mesh is None else p.mesh.all_gather(x, "model", dim=-1)
     xf = x.float()
-    r = torch.sigmoid(xf @ p.w_a.float() + p.b_a)
-    i = torch.sigmoid(xf @ p.w_x.float() + p.b_x)
+    xsf = xs.float()
+    r = torch.sigmoid(xsf @ p.w_a.float() + parallel.part(p.channels, p.b_a))
+    i = torch.sigmoid(xsf @ p.w_x.float() + parallel.part(p.channels, p.b_x))
     # log sigmoid(Λ)^(c·r), softplus as jax.nn.softplus: logaddexp(x, 0)
-    softplus = torch.logaddexp(-p.lam, torch.zeros_like(p.lam))
+    lam = parallel.part(p.channels, p.lam)
+    softplus = torch.logaddexp(-lam, torch.zeros_like(lam))
     log_a = -_C * r * softplus
     a_sq = torch.exp(2.0 * log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a_sq, min=1e-12)) * (i * xf)
@@ -82,7 +108,7 @@ def _causal_conv(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
     out = xp[:, 0:s] * w[0]
     for i in range(1, _CONV_WIDTH):
         out = out + xp[:, i:i + s] * w[i]
-    return out + p.conv_b.to(x.dtype)
+    return out + parallel.part(p.channels, p.conv_b).to(x.dtype)
 
 
 def _branches(p: RGLRU, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,11 +123,18 @@ def rglru_block_apply(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
     main, gate_branch = _branches(p, x)
     log_a, gated = _gates(p, _causal_conv(p, main))
     h = seq_ops.linear_recurrence(log_a, gated).to(x.dtype)
-    return (h * gate_branch) @ p.w_out.to(x.dtype)
+    return parallel.sum_model(p.mesh, (h * gate_branch) @ p.w_out.to(x.dtype))
 
 
-def init_cache(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+def init_cache(cfg, batch: int, device, mesh=None) -> Dict[str, torch.Tensor]:
+    """The recurrent state ``h`` (B, dr) and the conv's last 3 inputs
+    ``conv`` (B, 3, dr): on a model axis that splits ``dr``, the rank's
+    channels (``sharding.cache_spec``'s split of ``h``; of ``conv`` too
+    where W does not divide its 3 taps)."""
     dr = cfg.rnn_width or cfg.d_model
+    channels = parallel.span("w_in", (cfg.d_model, dr), mesh)
+    if channels is not None:
+        dr = channels[1] - channels[0]
     return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, _CONV_WIDTH - 1, dr),
                                 dtype=cfg.compute_dtype, device=device)}
@@ -115,9 +148,9 @@ def rglru_block_decode(p: RGLRU, x: torch.Tensor,
     main, gate_branch = _branches(p, x)
     conv_in = torch.cat([cache["conv"].to(dt), main], dim=1)   # (B, W, dr)
     conv_out = torch.einsum("bwr,wr->br", conv_in, p.conv_w.to(dt))[:, None] \
-        + p.conv_b.to(dt)
+        + parallel.part(p.channels, p.conv_b).to(dt)
     log_a, gated = _gates(p, conv_out)
     h = torch.exp(log_a[:, 0]) * cache["h"] + gated[:, 0]
     y = h[:, None, :].to(dt) * gate_branch
-    out = y @ p.w_out.to(dt)
+    out = parallel.sum_model(p.mesh, y @ p.w_out.to(dt))
     return out, {"h": h, "conv": conv_in[:, 1:].to(cache["conv"].dtype)}

@@ -37,10 +37,9 @@ logits gathered) or by ``d_model`` (gathered, partial logits summed);
 norms are whole.  The data axis splits the batch: ``hidden``, ``apply``,
 ``decode_step`` and ``prefill_prefix`` take the whole batch and return
 it, each data rank running its rows, and ``init_cache`` gives each rank
-its rows and slots.  A ``rec``, ``mlstm`` or ``slstm`` mixer on a model
-axis of more than one rank raises (ROADMAP A22); the data axis alone
-serves every architecture.  No mesh, or a mesh of one, runs the
-unsharded bodies.
+its rows and slots.  The recurrent mixers split as ``models/rglru.py``
+and ``models/xlstm.py`` say, and their caches hold what the mixer holds
+on the rank.  No mesh, or a mesh of one, runs the unsharded bodies.
 """
 from __future__ import annotations
 
@@ -101,9 +100,11 @@ def init_cache(cfg, batch: int, cache_len: int, device, mesh=None) -> Cache:
     """Zero decode caches of a decoder for ``cfg`` on ``device`` (``meta``
     gives their shapes and dtypes alone): ``stage_<i>`` → unit position →
     leaves stacked over the stage's repetitions.  With a ``mesh``, this
-    rank's block of each leaf (``sharding.cache_spec``): its data rank's
-    rows of the batch, and of an attention cache its model rank's
-    slots."""
+    rank's block of each leaf: its data rank's rows of the batch, of an
+    attention cache its model rank's slots (``sharding.cache_spec``), of
+    a recurrent one what the mixer holds on the rank (its channels or
+    heads).  Each leaf's ``model_split`` names the dim the model axis
+    splits, or None."""
     if parallel.active(mesh):
         lo, hi = parallel.data_rows(mesh, batch)
         batch = hi - lo
@@ -115,10 +116,16 @@ def init_cache(cfg, batch: int, cache_len: int, device, mesh=None) -> Cache:
             one = (attention.init_cache(cfg, batch, cache_len,
                                         MASK_FOR_KIND[kind], device, mesh)
                    if kind in ATTENTION_KINDS
-                   else RECURRENT[kind][3](cfg, batch, device))
+                   else RECURRENT[kind][3](cfg, batch, device, mesh))
+            whole = (attention.init_cache(cfg, batch, cache_len,
+                                          MASK_FOR_KIND[kind], "meta")
+                     if kind in ATTENTION_KINDS
+                     else RECURRENT[kind][3](cfg, batch, "meta"))
             unit_cache[str(i)] = {
-                k: torch.zeros((reps,) + v.shape, dtype=v.dtype,
-                               device=device) for k, v in one.items()}
+                k: parallel.tagged(torch.zeros(
+                    (reps,) + v.shape, dtype=v.dtype, device=device),
+                    whole[k].shape, v.shape, lead=1)
+                for k, v in one.items()}
         cache[f"stage_{si}"] = unit_cache
     return cache
 
@@ -181,11 +188,6 @@ class Block(nn.Module):
             raise ValueError(f"unknown sequence mixer {kind!r}")
         if ffn_kind not in FFN_KINDS:
             raise ValueError(f"unknown ffn kind {ffn_kind!r}")
-        if kind in RECURRENT and parallel.model_active(mesh):
-            raise NotImplementedError(
-                f"{cfg.name}: a {kind!r} mixer on a model axis of "
-                f"{mesh.shape['model']} ranks is not ported yet (ROADMAP "
-                f"A22); the data axis alone serves it")
         self.kind, self.ffn_kind = kind, ffn_kind
         self.norm1 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
                                  device, generator)
@@ -195,7 +197,7 @@ class Block(nn.Module):
         else:
             # named as the reference's pytree: rec, mlstm or slstm
             self.add_module(kind, RECURRENT[kind][0](
-                cfg, device=device, generator=generator))
+                cfg, device=device, generator=generator, mesh=mesh))
         if ffn_kind == "none":
             return
         self.norm2 = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype,
@@ -302,31 +304,11 @@ class Transformer(nn.Module):
     # -- forward (train / prefill) -------------------------------------------
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        if self.table_split is None:
-            x = layers.embed_apply(self.embedding, tokens,
-                                   self.cfg.compute_dtype)
-        else:
-            x = self._embed_sharded(tokens)
+        x = parallel.embed(self.embedding, self.table_split, self.mesh,
+                           tokens, self.cfg.compute_dtype)
         if self.embed_scale is not None:
             x = x * self.embed_scale
         return x
-
-    def _embed_sharded(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The lookup of a table split over `model`: by vocab, the rank's
-        rows (zero for tokens outside its range) summed over `model` -- one
-        rank adds a value, the others +0.0, so the sum is exact; by
-        d_model, the rank's columns gathered."""
-        dt, mesh = self.cfg.compute_dtype, self.mesh
-        table = self.embedding
-        if self.table_split == 1:
-            return mesh.all_gather(layers.embed_apply(table, tokens, dt),
-                                   "model", dim=-1)
-        n = table.shape[0]
-        local = tokens - mesh.coords["model"] * n
-        inside = (local >= 0) & (local < n)
-        part = torch.where(inside[..., None],
-                           table[local.clamp(0, n - 1)], 0.0)
-        return mesh.all_reduce(part, "model").to(dt)
 
     def _forward(self, tokens: torch.Tensor,
                  extra_embeddings: Optional[torch.Tensor],
@@ -383,20 +365,11 @@ class Transformer(nn.Module):
         return parallel.unrows(mesh, x, batch)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., d) -> logits (..., V), every vocab entry on every rank:
-        a vocab-split table's logits gathered over `model`, a
-        d_model-split one's partial logits summed."""
+        """x (..., d) -> logits (..., V), every vocab entry on every rank
+        (``parallel.unembed``)."""
         table = self.embedding if self.unembedding is None \
             else self.unembedding
-        if self.table_split is None:
-            return layers.unembed_apply(table, x)
-        if self.table_split == 0:
-            return self.mesh.all_gather(layers.unembed_apply(table, x),
-                                        "model", dim=-1)
-        n = table.shape[1]
-        lo = self.mesh.coords["model"] * n
-        return parallel.sum_model(
-            self.mesh, layers.unembed_apply(table, x[..., lo:lo + n]))
+        return parallel.unembed(table, self.table_split, self.mesh, x)
 
     def apply(self, tokens: torch.Tensor,
               extra_embeddings: Optional[torch.Tensor] = None, *,
@@ -440,7 +413,7 @@ class Transformer(nn.Module):
             leaves = cache[stage][pos]
             y = attention.attention_prefill_cache(
                 blk.attn, blk.norm1(x), cfg,
-                {k: v[r] for k, v in leaves.items()},
+                {k: parallel.layer_view(v, r) for k, v in leaves.items()},
                 use_rope=blk.use_rope(cfg))
             x, _ = blk.ffn(x + y, cfg, batch)
         return cache
@@ -463,7 +436,8 @@ class Transformer(nn.Module):
         x = self._embed(parallel.rows(self.mesh, token))
         for blk, (stage, r, pos) in zip(self.blocks, self.block_index):
             leaves = cache[stage][pos]
-            layer_cache = {k: v[r] for k, v in leaves.items()}
+            layer_cache = {k: parallel.layer_view(v, r)
+                           for k, v in leaves.items()}
             h = blk.norm1(x)
             if blk.kind in ATTENTION_KINDS:
                 y, _ = attention.attention_decode(

@@ -20,6 +20,34 @@ one body (``_mlstm_inner``, ``_slstm_inner``); decode passes the cache, a
 dict of named leaves where the reference keeps a tuple: ``c``, ``n``,
 ``m``, ``conv`` (mLSTM) and ``c``, ``n``, ``h``, ``m``, ``conv`` (sLSTM).
 ``conv`` holds the last 3 inputs of the causal conv before it is applied.
+
+On a model axis of W > 1 ranks each weight is the block of its rule
+(``sharding.rules``; the rule-less biases, ``w_igate``/``w_fgate`` and
+the norm scales whole, sliced at use), each split independently where W
+divides its dimension:
+
+* mLSTM: ``w_up_main``, ``w_up_gate`` and the conv split ``di`` (the
+  rank's channels); ``q``, ``k`` and ``v`` contract over all of ``di``, so
+  the conv'd and the plain branch are all-gathered once a call (one
+  collective) and projected onto the heads ``wq`` places on the rank (all
+  of them where W does not divide the heads); ``log_i``/``log_f`` come
+  from the whole gate weights, sliced to those heads; the cell runs on
+  them; the norm spans all of ``di``, so the heads' ``h`` are gathered
+  before it; then the rank's ``di`` block meets its ``gate`` and the
+  row-parallel ``w_down`` (summed over ``model``).
+* sLSTM: the conv runs on the rank's channels of x and is gathered;
+  ``w_gates``' columns are gate-major (i, f, z, o), so a rank's block is
+  whole gates, not its heads': the rank computes its block of ``pre``,
+  which is all-gathered in fp32, and takes each gate's slice of its
+  heads.  Where ``r_gates`` splits by heads the cell loop is the rank's
+  heads, with no collective inside it; where it splits on ``dh`` (the
+  output dim) it is gathered once a call and every rank runs the whole
+  recurrence.  The norm spans all of ``d`` (the heads' ``h`` gathered);
+  ``w_up``/``w_up_gate`` are column-parallel and ``w_down`` row-parallel
+  where W divides their width, else whole.
+
+The caches hold what the mixer holds: the conv's state the rank's
+channels, the cell's state its heads (whole where the heads are).
 """
 from __future__ import annotations
 
@@ -29,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 
 Cache = Dict[str, torch.Tensor]
 
@@ -40,11 +68,11 @@ _F_BIAS = 3.0            # forget-gate bias at init: gates open
 
 
 def _register(module: nn.Module, specs, device,
-              generator: Optional[torch.Generator]) -> None:
+              generator: Optional[torch.Generator], mesh=None) -> None:
     """Register each (name, shape, dtype, init) of ``specs`` as a frozen
     parameter; ``init`` is ("scaled", fan_in), ("normal",) or ("fill",
     value), drawn in ``specs`` order from ``generator`` (None: left unset
-    for a loader)."""
+    for a loader); with a ``mesh``, this rank's block of each."""
     for name, shape, dtype, init in specs:
         def draw(shape=shape, dtype=dtype, init=init):
             if init[0] == "scaled":
@@ -54,8 +82,8 @@ def _register(module: nn.Module, specs, device,
                 return layers.normal_init(shape, generator, dtype)
             return torch.full(shape, init[1], dtype=dtype,
                               device=generator.device)
-        module.register_parameter(name, layers.param(shape, dtype, device,
-                                                     generator, draw))
+        module.register_parameter(name, layers.param(
+            shape, dtype, device, generator, draw, name=name, mesh=mesh))
 
 
 class MLSTM(nn.Module):
@@ -64,7 +92,8 @@ class MLSTM(nn.Module):
     size, not ``cfg.d_head``); the gate weights and biases and the norm
     scale are float32 under any ``param_dtype``, as in the reference."""
 
-    def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
+    def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
+                 mesh=None):
         super().__init__()
         d, nh, pd = cfg.d_model, cfg.n_heads, cfg.param_dtype
         di = int(_PF_MLSTM * d)
@@ -85,7 +114,13 @@ class MLSTM(nn.Module):
             ("b_fgate", (nh,), f32, ("fill", _F_BIAS)),
             ("norm_scale", (nh, dh), f32, ("fill", 1.0)),
             ("w_down", (di, d), pd, ("scaled", di)),
-        ), device, generator)
+        ), device, generator, mesh)
+        self.mesh = mesh if parallel.model_active(mesh) else None
+        # the rank's di channels (None: whole) and its heads
+        self.channels = parallel.span("w_up_main", (d, di), mesh)
+        heads = parallel.span("wq", (di, nh, dh), mesh)
+        self.heads_split = heads is not None
+        self.heads = heads or (0, nh)
 
 
 class SLSTM(nn.Module):
@@ -95,7 +130,8 @@ class SLSTM(nn.Module):
     recurrent weights ``r_gates`` (4, H, dh, dh), float32; the
     post-projection is ``int(4/3 · d_model)`` wide (1024 at full size)."""
 
-    def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
+    def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
+                 mesh=None):
         super().__init__()
         d, nh, pd = cfg.d_model, cfg.n_heads, cfg.param_dtype
         dh = d // nh
@@ -112,10 +148,20 @@ class SLSTM(nn.Module):
             ("w_up_gate", (d, dff), pd, ("scaled", d)),
             ("w_up", (d, dff), pd, ("scaled", d)),
             ("w_down", (dff, d), pd, ("scaled", dff)),
-        ), device, generator)
+        ), device, generator, mesh)
         if generator is not None:
             with torch.no_grad():
                 self.b_gates[d:2 * d] = _F_BIAS
+        self.mesh = mesh if parallel.model_active(mesh) else None
+        # the rank's conv channels, w_gates columns and post-projection
+        # width (None: whole); r_gates' split dim: 1 its heads, 3 dh
+        self.channels = parallel.span("conv_w", (_CONV_WIDTH, d), mesh)
+        self.gate_cols = parallel.span("w_gates", (d, 4 * d), mesh)
+        self.ff = parallel.span("w_up", (d, dff), mesh)
+        self.r_split = parallel.split_dim("r_gates", (4, nh, dh, dh), mesh)
+        h0, h1 = (0, nh) if self.r_split != 1 else \
+            parallel.span("r_gates", (4, nh, dh, dh), mesh)
+        self.units = (h0 * dh, h1 * dh)      # the cell's channels
 
 
 def causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -165,21 +211,27 @@ def _mlstm_inner(p: MLSTM, x: torch.Tensor, state: Optional[Cache] = None
                  ) -> Tuple[torch.Tensor, Cache]:
     """x (B, S, d) -> (y (B, S, d), the state after the last step)."""
     b, s, _ = x.shape
-    nh, dt = p.n_heads, x.dtype
+    dt = x.dtype
     main = x @ p.w_up_main.to(dt)
     gate = F.silu(x @ p.w_up_gate.to(dt))
     conv_state = None if state is None else state["conv"]
-    cm = F.silu(causal_conv(p.conv_w, p.conv_b, main, conv_state))
-    di = main.shape[-1]
-    dh = di // nh
+    cm = F.silu(causal_conv(p.conv_w, parallel.part(p.channels, p.conv_b),
+                            main, conv_state))
+    cm_all, main_all = (cm, main) if p.channels is None else \
+        parallel.gather_blocks(p.mesh, cm, main)
+    di = cm_all.shape[-1]
+    dh = di // p.n_heads
+    h0, h1 = p.heads
+    nh = h1 - h0
     # q and k from the conv'd branch, k scaled after its projection; v from
     # the branch before the conv
-    q = torch.einsum("bsi,ihk->bshk", cm, p.wq.to(dt))
-    k = torch.einsum("bsi,ihk->bshk", cm, p.wk.to(dt)) * dh ** -0.5
-    v = torch.einsum("bsi,ihk->bshk", main, p.wv.to(dt))
-    cmf = cm.float()
-    log_i = cmf @ p.w_igate + p.b_igate              # the raw pre-activation
-    log_f = F.logsigmoid(cmf @ p.w_fgate + p.b_fgate)
+    q = torch.einsum("bsi,ihk->bshk", cm_all, p.wq.to(dt))
+    k = torch.einsum("bsi,ihk->bshk", cm_all, p.wk.to(dt)) * dh ** -0.5
+    v = torch.einsum("bsi,ihk->bshk", main_all, p.wv.to(dt))
+    cmf = cm_all.float()
+    # the raw pre-activation
+    log_i = (cmf @ p.w_igate + p.b_igate)[..., h0:h1]
+    log_f = F.logsigmoid(cmf @ p.w_fgate + p.b_fgate)[..., h0:h1]
     if state is None:
         c = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
         n = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
@@ -192,9 +244,13 @@ def _mlstm_inner(p: MLSTM, x: torch.Tensor, state: Optional[Cache] = None
         c, n, m, h = _mlstm_cell(c, n, m, qf[:, t], kf[:, t], vf[:, t],
                                  log_i[:, t], log_f[:, t])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, s, di)      # (B, S, H·dh)
+    h = torch.stack(hs, dim=1).reshape(b, s, nh * dh)   # (B, S, H·dh)
+    if p.heads_split:
+        h, = parallel.gather_blocks(p.mesh, h)
     h = layers.rmsnorm_apply(p.norm_scale.reshape(-1), h).to(dt)
-    out = (h * gate) @ p.w_down.to(dt)
+    out = (parallel.part(p.channels, h) * gate) @ p.w_down.to(dt)
+    if p.channels is not None:
+        out = parallel.sum_model(p.mesh, out)
     return out, {"c": c, "n": n, "m": m, "conv": _conv_state(main,
                                                              conv_state)}
 
@@ -204,11 +260,17 @@ def mlstm_block_apply(p: MLSTM, x: torch.Tensor) -> torch.Tensor:
     return _mlstm_inner(p, x)[0]
 
 
-def mlstm_init_cache(cfg, batch: int, device) -> Cache:
+def mlstm_init_cache(cfg, batch: int, device, mesh=None) -> Cache:
+    """The cell's ``c``, ``n``, ``m`` over the heads the mixer runs on this
+    rank and the conv's state over its channels."""
     d, nh = cfg.d_model, cfg.n_heads
     di = int(_PF_MLSTM * d)
     dh = di // nh
     f32 = torch.float32
+    heads = parallel.span("wq", (di, nh, dh), mesh)
+    channels = parallel.span("w_up_main", (d, di), mesh)
+    nh = nh if heads is None else heads[1] - heads[0]
+    di = di if channels is None else channels[1] - channels[0]
     return {"c": torch.zeros((batch, nh, dh, dh), dtype=f32, device=device),
             "n": torch.zeros((batch, nh, dh), dtype=f32, device=device),
             "m": torch.zeros((batch, nh), dtype=f32, device=device),
@@ -252,23 +314,43 @@ def _slstm_inner(p: SLSTM, x: torch.Tensor, state: Optional[Cache] = None
     b, s, d = x.shape
     dt = x.dtype
     conv_state = None if state is None else state["conv"]
-    cx = F.silu(causal_conv(p.conv_w, p.conv_b, x, conv_state))
-    pre = (cx @ p.w_gates.to(dt)).float() + p.b_gates
+    xc = parallel.part(p.channels, x)
+    cx = F.silu(causal_conv(p.conv_w, parallel.part(p.channels, p.conv_b),
+                            xc, conv_state))
+    if p.channels is not None:
+        cx, = parallel.gather_blocks(p.mesh, cx)
+    pre = (cx @ p.w_gates.to(dt)).float() \
+        + parallel.part(p.gate_cols, p.b_gates)
+    if p.gate_cols is not None:
+        pre, = parallel.gather_blocks(p.mesh, pre)
+    r = p.r_gates
+    if p.r_split == 3:
+        r, = parallel.gather_blocks(p.mesh, r)
+    u0, u1 = p.units
+    if u1 - u0 < d:
+        # each gate's slice of the rank's heads, still gate-major
+        pre = pre.reshape(b, s, 4, d)[..., u0:u1].reshape(b, s, 4 * (u1 - u0))
     if state is None:
-        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        zeros = torch.zeros((b, u1 - u0), dtype=torch.float32,
+                            device=x.device)
         c = n = h = m = zeros
     else:
         c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
     for t in range(s):
-        c, n, h, m = _slstm_cell(p.r_gates, c, n, h, m, pre[:, t])
+        c, n, h, m = _slstm_cell(r, c, n, h, m, pre[:, t])
         hs.append(h)
-    y = layers.rmsnorm_apply(p.norm_scale, torch.stack(hs, dim=1)).to(dt)
+    hs = torch.stack(hs, dim=1)
+    if u1 - u0 < d:
+        hs, = parallel.gather_blocks(p.mesh, hs)
+    y = layers.rmsnorm_apply(p.norm_scale, hs).to(dt)
     up = y @ p.w_up.to(dt)
     gate = layers.gelu(y @ p.w_up_gate.to(dt))
     out = (up * gate) @ p.w_down.to(dt)
+    if p.ff is not None:
+        out = parallel.sum_model(p.mesh, out)
     return out, {"c": c, "n": n, "h": h, "m": m,
-                 "conv": _conv_state(x, conv_state)}
+                 "conv": _conv_state(xc, conv_state)}
 
 
 def slstm_block_apply(p: SLSTM, x: torch.Tensor) -> torch.Tensor:
@@ -276,10 +358,20 @@ def slstm_block_apply(p: SLSTM, x: torch.Tensor) -> torch.Tensor:
     return _slstm_inner(p, x)[0]
 
 
-def slstm_init_cache(cfg, batch: int, device) -> Cache:
-    d = cfg.d_model
-    cache = {k: torch.zeros((batch, d), dtype=torch.float32, device=device)
+def slstm_init_cache(cfg, batch: int, device, mesh=None) -> Cache:
+    """The cell's ``c``, ``n``, ``h``, ``m`` over the units the mixer runs
+    on this rank (its heads' where ``r_gates`` splits by heads, else all)
+    and the conv's state over its channels."""
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    units = d
+    if parallel.split_dim("r_gates", (4, nh, dh, dh), mesh) == 1:
+        units = d // parallel.model_axis(mesh)[0]
+    channels = parallel.span("conv_w", (_CONV_WIDTH, d), mesh)
+    cache = {k: torch.zeros((batch, units), dtype=torch.float32,
+                            device=device)
              for k in ("c", "n", "h", "m")}
+    d = d if channels is None else channels[1] - channels[0]
     cache["conv"] = torch.zeros((batch, _CONV_WIDTH - 1, d),
                                 dtype=cfg.compute_dtype, device=device)
     return cache

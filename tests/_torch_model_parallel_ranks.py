@@ -1,9 +1,9 @@
 """The ranks' target of ``tests/test_torch_model_parallel.py``: each case
 served across a ``data x model`` mesh of gloo ranks on the CPU.
 
-``make_case(name)`` builds a case of ``CASES`` or ``DATA_CASES`` from
-its seed alone, so the ranks build their own inputs (sending them would
-pickle ~90 MB of weights to each).  ``rank_main(plan)`` runs on every rank
+``make_case(name)`` builds a case of ``CASES`` from its seed alone, so
+the ranks build their own inputs (sending them would pickle ~90 MB of
+weights to each).  ``rank_main(plan)`` runs on every rank
 (``core.mesh.spawn``): for each model-axis size M of ``plan`` it builds
 ``launch.mesh.make_host_mesh(model=M, device="cpu")`` over the four
 ranks, and for each of M's cases the port's model on that mesh from the
@@ -12,7 +12,8 @@ full logits and the MoE aux (``apply``), the prefill step's last logits
 (``steps.make_prefill_step``), a VLM's prefix through ``prefill_prefix``
 or an encoder-decoder's frames through ``prefill_cross``, the prompt
 decoded token by token (``decode_step``, each step's logits kept) and
-greedy tokens from ``steps.make_serve_step``.
+greedy tokens from ``steps.make_serve_step``, and the cache after them
+gathered by ``convert.cache_to_numpy``.
 Each MoE layer's routing of the forward is recorded as
 ``moe.route`` returns it.  Also returned: each parameter's local
 shape, the weights gathered back by ``convert.params_to_numpy`` (checked
@@ -45,15 +46,22 @@ CASES = {
     "grok-e6": ("grok-1-314b", dict(moe_experts=6,
                                     moe_capacity_factor=0.5)),
     "llama4": ("llama4-maverick-400b-a17b", dict(attn_chunk=8)),
-}
-# the architectures that only the data axis splits (a model axis > 1 is
-# ROADMAP A22): the recurrent mixers and the encoder-decoder
-DATA_CASES = {
     "recurrentgemma": ("recurrentgemma-9b", {}),
     "xlstm": ("xlstm-125m", {}),
     "whisper": ("whisper-large-v3", {}),
+    "xlstm-h2": ("xlstm-125m", dict(n_heads=2, n_kv_heads=2)),
+    "whisper-cp": ("whisper-large-v3", dict(n_heads=6, n_kv_heads=6,
+                                            d_head=32)),
+    "whisper-whole": ("whisper-large-v3", dict(n_heads=6, n_kv_heads=6,
+                                               d_head=30)),
 }
-ALL_CASES = {**CASES, **DATA_CASES}
+# a case's own cache length: at 1 x 4 the model axis divides neither
+# whisper-whole's 26 slots, its dh of 30 nor its 6 heads, so every rank
+# holds the whole self cache (its 16 frames still split)
+CACHE_LENS = {"whisper-whole": 26}
+# one case of each recurrent or encoder-decoder family on the data axis
+# alone (4 x 1)
+DATA_CASES = ("recurrentgemma", "xlstm", "whisper")
 
 
 def _perturb(tree, rng):
@@ -80,8 +88,8 @@ def make_case(name: str) -> dict:
     reference's layout (a port model drawn from a generator, through
     ``convert.params_to_numpy``, its constant leaves redrawn), B x S
     tokens, and a VLM's prefix embeddings or an encoder-decoder's frames."""
-    i = list(ALL_CASES).index(name)
-    arch, kw = ALL_CASES[name]
+    i = list(CASES).index(name)
+    arch, kw = CASES[name]
     cfg = get_config(arch).reduced().replace(**kw)
     raw = convert.params_to_numpy(build_model(
         cfg, device="cpu", generator=torch.Generator().manual_seed(i)))
@@ -92,7 +100,8 @@ def make_case(name: str) -> dict:
     extra = (rng.normal(size=(B, n_extra, cfg.d_model)).astype(np.float32)
              if n_extra else None)
     return dict(name=name, cfg=cfg, params=params, tokens=tokens,
-                extra=extra, prompt_len=PROMPT, steps=STEPS, cache_len=CACHE)
+                extra=extra, prompt_len=PROMPT, steps=STEPS,
+                cache_len=CACHE_LENS.get(name, CACHE))
 
 
 def serve_case(case, mesh):
@@ -139,12 +148,14 @@ def serve_case(case, mesh):
         tok, cache = serve_step(tok, cache, start + case["prompt_len"] + i)
         greedy.append(tok[:, 0])
     gathered = convert.params_to_numpy(model)
+    whole_cache = convert.cache_to_numpy(cache, model, b)
     return dict(
         logits=logits.numpy(), aux=float(aux), last=last.numpy(),
         decode=torch.stack(steps_logits, 1).numpy(),
         greedy=torch.stack(greedy, 1).numpy(),
         routes=[(r.idx.numpy(), r.pos.numpy(), r.keep.numpy(),
                  r.gate.numpy()) for r in routes],
+        cache=whole_cache,
         shapes={n: tuple(p.shape) for n, p in model.named_parameters()},
         round_trip=_same_tree(gathered, case["params"]))
 

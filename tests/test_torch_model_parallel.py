@@ -1,8 +1,9 @@
 """The substrate across ranks on the reference's ``("data", "model")``
-mesh, on the CPU: the attention decoders served on four gloo ranks at
-meshes 1 x 4 and 2 x 2, and the architectures that only the data axis
-splits at 4 x 1, held to the reference's unsharded ``apply`` and
-``decode_step`` and to the port's unsharded run.
+mesh, on the CPU: every architecture served on four gloo ranks at
+meshes 1 x 4 and 2 x 2, and one of each recurrent or encoder-decoder
+family on the data axis alone at 4 x 1, held to the reference's
+unsharded ``apply`` and ``decode_step`` and to the port's unsharded
+run.
 
 The cases (reduced fp32 configs; weights drawn from a seed in the
 reference's layout, ``convert.params_to_numpy`` of a port model drawn
@@ -27,24 +28,38 @@ packages):
   expert-parallel at 2 x 2, pairs dropped;
 * llama4-maverick (chunked layers at a chunk of 8 and a NoPE global one,
   dense and MoE FFNs);
-* at 4 x 1 only, one row of the batch a rank: recurrentgemma-9b (RG-LRU
-  and local attention: data-row recurrent and ring caches), xlstm-125m
-  (mLSTM and sLSTM) and whisper-large-v3 (the encoder-decoder: the frames
-  through ``prefill_cross``), whose model axis is ROADMAP A22.
+* recurrentgemma-9b (RG-LRU on the rank's channels, the conv's output
+  gathered, one recurrence a rank, and local attention on its ring);
+  xlstm-125m (the mLSTM on its heads and channels, the sLSTM with one
+  gate of ``w_gates`` a rank at 1 x 4); and with 2 heads, which 4 does
+  not divide: at 1 x 4 ``wq`` whole, ``r_gates`` split on dh (gathered
+  once a call) and every rank running the whole cells;
+* whisper-large-v3 (the encoder-decoder, head-parallel, the frames
+  through ``prefill_cross`` into the ranks' blocks of the cross cache);
+  and with 6 heads of 32: context-parallel self-attention at 1 x 4 (the
+  encoder and the cross-attention whole on every rank), head-parallel at
+  2 x 2; and with 6 heads of 30 and a cache of 26 slots, which 4 divides
+  in neither slots, dh nor heads: the self cache whole on every rank at
+  1 x 4 (its decode the unsharded attention), split at 2 x 2;
+* at 4 x 1, one row of the batch a rank: recurrentgemma, xlstm and
+  whisper on the data axis alone.
 
 Each case: the full logits (B = 4, S = 30) and the MoE aux, the prefill
 step's last logits, a prompt of 4 decoded token by token (each step's
 logits; a VLM's from index P after its prefix), then 8 greedy tokens from
-``make_serve_step``; every rank's, against the reference's at the
+``make_serve_step``, and the cache after them gathered over the ranks;
+every rank's, against the reference's at the
 substrate's tolerances (atol 2e-4, rtol 1e-3; tokens exact) and against
 the port's unsharded run at atol 1e-5; each MoE layer's routing (experts,
 slots, kept pairs, so the dropped pairs) exactly as the unsharded
 port's, the gates at 1e-5 (which ``tests/test_torch_moe_archs.py`` holds to the
 reference's).  The weights gathered back by ``convert.params_to_numpy``
 are the weights given, and each parameter's local shape is the rules'
-block.  A mesh of one runs today's unsharded path bit for bit, and
-``rec``, ``mlstm``, ``slstm`` and the encoder-decoder raise on a model
-axis of more than one rank.
+block.  A mesh of one runs today's unsharded path bit for bit.  On
+stand-in meshes of 2, 3 and 4 model ranks (meta tensors), the full-size
+recurrentgemma-9b, xlstm-125m and whisper-large-v3 hold the rules'
+blocks and their caches ``cache_spec``'s placement but for the departures
+ROADMAP lists (the recurrent states held as the mixer holds them).
 
 The ranks run ``tests/_torch_model_parallel_ranks.py``'s ``rank_main``,
 spawned once for the module in a thread while the reference's programs
@@ -67,8 +82,8 @@ from repro_torch.core.mesh import spawn
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import block, make_host_mesh
 from repro_torch.models import build_model, moe, parallel
-from repro_torch.sharding import spec_for_param, model_dim
-from _torch_model_parallel_ranks import (ALL_CASES, B, CACHE, CASES,
+from repro_torch.sharding import cache_spec, model_dim, spec_for_param
+from _torch_model_parallel_ranks import (B, CASES,
                                         DATA_CASES, PROMPT, S, STEPS,
                                         make_case, rank_main, serve_case)
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -88,7 +103,7 @@ SERVED_IDS = [f"{c}-{RANKS // m}x{m}" for c, m in SERVED]
 def _case(name):
     """``make_case`` and the reference's model of its config."""
     case = make_case(name)
-    arch, kw = ALL_CASES[name]
+    arch, kw = CASES[name]
     case["jmodel"] = jbuild_model(jget_config(arch).reduced().replace(**kw))
     return case
 
@@ -108,7 +123,7 @@ def _reference(case):
     extra = None if case["extra"] is None else jnp.asarray(case["extra"])
     logits, aux = jax.jit(lambda p, t, e: jmodel.apply(
         p, t, extra_embeddings=e))(params, toks, extra)
-    cache = jmodel.init_cache(B, CACHE)
+    cache = jmodel.init_cache(B, case["cache_len"])
     start = 0
     if cfg.encoder_layers:
         cache = jax.jit(jmodel.prefill_cross)(params, cache, extra)
@@ -130,14 +145,16 @@ def _reference(case):
         greedy.append(np.asarray(tok[:, 0]))
     logits = np.asarray(logits, np.float32)
     return dict(logits=logits, aux=float(aux), last=logits[:, -1],
-                decode=np.stack(steps, 1), greedy=np.stack(greedy, 1))
+                decode=np.stack(steps, 1), greedy=np.stack(greedy, 1),
+                cache=jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                   cache))
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _ranks_started():
     """The cases, the ranks spawned in a thread, and meanwhile the
     reference's and the unsharded port's runs here."""
-    cases = {name: _case(name) for name in IDS + DATA_IDS}
+    cases = {name: _case(name) for name in IDS}
     box = {}
 
     def run():
@@ -155,8 +172,8 @@ def _ranks_started():
     ports = {}
     for name, case in cases.items():
         ports[name] = serve_case(_for_ranks(case), None)
-        ports[name]["routes"] = (_unsharded_routes(case) if name in CASES
-                                 else [])
+        ports[name]["routes"] = (_unsharded_routes(case)
+                                 if case["cfg"].moe_experts else [])
     yield dict(thread=thread, box=box, cases=cases, refs=refs, ports=ports)
     thread.join()
 
@@ -223,6 +240,31 @@ def test_sharded_decode_matches_reference(runs, name, n_model):
                                    err_msg=msg, **PORT_TOL)
         np.testing.assert_array_equal(got["greedy"], want["greedy"], msg)
         np.testing.assert_array_equal(got["greedy"], port["greedy"], msg)
+
+
+def _close_tree(got, want, msg, tol):
+    if isinstance(want, dict):
+        assert set(got) == set(want), msg
+        for k in want:
+            _close_tree(got[k], want[k], f"{msg}/{k}", tol)
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want), msg
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close_tree(g, w, f"{msg}/{i}", tol)
+    else:
+        np.testing.assert_allclose(got, want, err_msg=msg, **tol)
+
+
+@pytest.mark.parametrize("name,n_model", SERVED, ids=SERVED_IDS)
+def test_sharded_cache_matches_reference(runs, name, n_model):
+    """The decode cache after the prompt and the greedy steps, gathered
+    over the ranks (``convert.cache_to_numpy``), leaf for leaf against the
+    reference's and the unsharded port's."""
+    want, port = runs["refs"][name], runs["ports"][name]
+    for coords, got in _rank_outputs(runs, name, n_model):
+        msg = f"{name} at model={n_model}, rank {coords}"
+        _close_tree(got["cache"], want["cache"], msg, MODEL_TOL)
+        _close_tree(got["cache"], port["cache"], msg, PORT_TOL)
 
 
 MOE_PAIRS = [(c, m) for c, m in PAIRS if CASES[c][0] in (
@@ -310,6 +352,27 @@ def test_context_parallel_blocks_are_ragged():
     assert attn.kv_expand == [0, 1, 1]
 
 
+def test_whole_cache_fall_through():
+    """whisper-whole at 1 x 4: 26 slots, dh 30 and 6 heads, none of which
+    4 divides, so ``cache_spec`` leaves the self cache whole and every
+    rank holds it (tag None); its 16 frames split (4 a rank); at 2 x 2
+    both split.  ``cache_spec`` agrees on each leaf."""
+    name = "whisper-whole"
+    cfg = get_config(CASES[name][0]).reduced().replace(**CASES[name][1])
+    for w, slots in ((4, 26), (2, 13)):
+        mesh = _stand_in(w)
+        cache = build_model(cfg, device="meta", mesh=mesh).init_cache(
+            B, 26)["decoder"]
+        assert cache["k"].shape[2] == slots
+        assert cache["k"].model_split == (None if w == 4 else 2)
+        assert cache["cross_k"].shape[2] == 16 // w
+        assert cache["cross_k"].model_split == 2
+        for leaf, n in (("k", 26), ("cross_k", 16)):
+            shape = (cfg.n_layers, B, n, cfg.n_kv_heads, cfg.d_head)
+            assert model_dim(cache_spec(shape, mesh, None)) == \
+                cache[leaf].model_split
+
+
 def test_mesh_of_one_is_the_unsharded_path(runs):
     """Without a process group ``make_host_mesh()`` is 1 x 1 and runs no
     collective; a model built on it computes today's unsharded outputs
@@ -332,28 +395,130 @@ def test_mesh_of_one_is_the_unsharded_path(runs):
         make_host_mesh(model=2, device="cpu")
 
 
+def _stand_in(n_model, rank=1, n_data=1):
+    return SimpleNamespace(axis_names=("data", "model"),
+                           size=n_data * n_model,
+                           shape={"data": n_data, "model": n_model},
+                           coords={"data": 0, "model": rank})
+
+
 @pytest.mark.parametrize("arch", ("recurrentgemma-9b", "xlstm-125m",
                                   "whisper-large-v3"))
 def test_model_axis_refuses_unported_mixers(arch):
-    """``rec``, ``mlstm``/``slstm`` and the encoder-decoder raise on a model
-    axis of 2 (ROADMAP A22), before any collective; the data axis alone
-    builds them; a cache whose length the model axis does not divide
-    raises naming it, and training a split model raises (A23)."""
+    """What the model axis still refuses, before any collective: training
+    a split model (ROADMAP A23) and a decode cache whose slots it does not
+    divide where ``cache_spec`` would split its dh or its heads (only the
+    whole fall-through is ported).  ``rec``, ``mlstm``/``slstm`` and the
+    encoder-decoder build on a model axis of 2 with some weight split; the
+    data axis alone builds them whole."""
     cfg = get_config(arch).reduced()
-    mesh = SimpleNamespace(axis_names=("data", "model"), size=2,
-                           shape={"data": 1, "model": 2},
-                           coords={"data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="A22"):
-        build_model(cfg, device="meta", mesh=mesh)
+    mesh = _stand_in(2, rank=0)
+    model = build_model(cfg, device="meta", mesh=mesh)
+    assert model.mesh is mesh
+    assert any(getattr(p, "model_split", None) is not None
+               for p in model.parameters())
+    with pytest.raises(NotImplementedError, match="A23"):
+        steps.make_train_step(model.cfg, model=model)
     data = SimpleNamespace(axis_names=("data", "model"), size=2,
                            shape={"data": 2, "model": 1},
                            coords={"data": 1, "model": 0})
     model = build_model(cfg, device="meta", mesh=data)
     assert model.mesh is data
+    assert all(getattr(p, "model_split", None) is None
+               for p in model.parameters())
     yi = build_model(get_config("yi-34b").reduced(), device="meta",
                      mesh=mesh)
     with pytest.raises(NotImplementedError, match="A23"):
         steps.make_train_step(yi.cfg, model=yi)
-    with pytest.raises(ValueError, match="cache of 15 slots"):
+    with pytest.raises(ValueError, match="cache of 15 slots.*its dh"):
         yi.init_cache(2, 15)
     assert yi.init_cache(4, 16)["stage_0"]["0"]["k"].shape[1:3] == (4, 8)
+
+
+# the cache leaves the mixer holds otherwise than cache_spec places them
+# (ROADMAP "Accepted departures"): (mixer, leaf) -> {model-axis size:
+# (cache_spec's dim, the mixer's dim or None for whole)}, dims of the
+# stacked leaf (L, B, ...)
+DEPARTURES = {
+    # mLSTM n (L, B, heads, dh): cache_spec dh; the mixer its heads, or
+    # all of them where the model axis does not divide the heads
+    ("mlstm", "n"): {2: (3, 2), 3: (3, None), 4: (3, 2)},
+    # mLSTM c (L, B, heads, dh, dv) at 3: cache_spec dv; the heads whole
+    ("mlstm", "c"): {3: (4, None)},
+    # RG-LRU conv (L, B, 3 taps, dr) at 3: cache_spec the taps; the layer
+    # whole (3 does not divide 4096)
+    ("rec", "conv"): {3: (2, None)},
+    # sLSTM states (L, B, d) at 3: cache_spec the channels; r_gates splits
+    # on dh, so every rank runs the whole recurrence
+    **{("slstm", k): {3: (2, None)} for k in ("c", "n", "h", "m")},
+}
+
+
+@pytest.mark.parametrize("n_model", (2, 3, 4))
+@pytest.mark.parametrize("arch", ("recurrentgemma-9b", "xlstm-125m",
+                                  "whisper-large-v3"))
+def test_full_size_blocks_and_cache_departures(arch, n_model):
+    """At full size on a stand-in model axis of 2, 3 and 4 ranks (meta
+    tensors, no process): each parameter's local shape is its rule's
+    block (``spec_for_param(..., fsdp=False)``); each leaf of a 448-slot
+    decode cache (whisper's 1500 frames too) is ``cache_spec``'s block
+    but for ``DEPARTURES``.  At 3 the rules leave every ``rec`` weight,
+    the mLSTM's heads and whisper's heads whole and split ``r_gates`` on
+    dh; whisper's 448 slots stay whole (the fall-through), its frames
+    split and its decoder's self-attention is context-parallel."""
+    cfg = get_config(arch)
+    mesh = _stand_in(n_model)
+    model = build_model(cfg, device="meta", mesh=mesh)
+    whole = build_model(cfg, device="meta")
+    full = {n: tuple(p.shape) for n, p in whole.named_parameters()}
+    split = {}
+    for pname, p in model.named_parameters():
+        leaf = pname.rsplit(".", 1)[-1]
+        dim = model_dim(spec_for_param(leaf, full[pname], mesh, fsdp=False))
+        want = list(full[pname])
+        if dim is not None:
+            want[dim] //= n_model
+        assert tuple(p.shape) == tuple(want), pname
+        assert p.model_split == dim, pname
+        split[leaf] = split.get(leaf, False) or dim is not None
+    cache, wcache = model.init_cache(2, 448), whole.init_cache(2, 448)
+    if arch == "whisper-large-v3":
+        # one layer-stacked cache: (kind, its leaves, the unsharded ones)
+        layers = [("attn", cache["decoder"], wcache["decoder"])]
+    else:
+        layers = [(unit[int(pos)][0], leaves, wcache[stage][pos])
+                  for (unit, _), (stage, sub) in zip(model.stages,
+                                                     cache.items())
+                  for pos, leaves in sub.items()]
+    seen = set()
+    for kind, leaves, wleaves in layers:
+        for name, got in leaves.items():
+            want = list(wleaves[name].shape)
+            spec_dim = model_dim(cache_spec(want, mesh, None))
+            dep = DEPARTURES.get((kind, name), {}).get(n_model)
+            if dep is None:
+                assert got.model_split == spec_dim, (kind, name)
+            else:
+                assert (spec_dim, got.model_split) == dep, (kind, name)
+                seen.add((kind, name))
+            if got.model_split is not None:
+                want[got.model_split] //= n_model
+            assert tuple(got.shape) == tuple(want), (kind, name)
+    kinds = {"recurrentgemma-9b": ("rec",), "xlstm-125m": ("mlstm", "slstm"),
+             "whisper-large-v3": ()}[arch]
+    assert seen == {k for k, v in DEPARTURES.items()
+                    if n_model in v and k[0] in kinds}
+    if n_model == 3:
+        if arch == "recurrentgemma-9b":
+            rec = next(b.rec for b in model.blocks if b.kind == "rec")
+            assert all(p.model_split is None for p in rec.parameters())
+            assert split["w_in"]            # the MLP's, over d_ff
+        if arch == "xlstm-125m":
+            assert not split["wq"] and split["r_gates"]
+            slstm = next(b.slstm for b in model.blocks if b.kind == "slstm")
+            assert slstm.r_split == 3
+        if arch == "whisper-large-v3":
+            assert not split["wq"]
+            assert cache["decoder"]["k"].model_split is None
+            assert cache["decoder"]["cross_k"].shape[2] == 500
+            assert model.decoder[0].self_attn.seq_parallel
