@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--out PATH] [--profile]
     python3 chip_smoke.py --only shard     # the build and [shard] alone
     python3 chip_smoke.py --only mesh      # the build and [mesh] alone
+    python3 chip_smoke.py --only mesh-train  # [mesh]'s training parts
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -176,8 +177,8 @@ and prints no result):
    plain ``run_fleet`` of the same fleet, and that fleet's SGD launched
    at the fleet-wide cluster size instead of one seed's, in turns;
 6k. the HFL engine across processes (``[shard]``): ``CONFIG`` fcea + PDD
-   at S = 8 on the seed axis (``run_fleet_sharded``) and 1024 clients ×
-   16 edges at ``CONFIG``'s widths (x 3.9 GB) on the client axis
+   at S = 8 on the seed axis (``run_fleet_sharded``) and 512 clients ×
+   16 edges at ``CONFIG``'s widths (x 1.9 GB) on the client axis
    (``run_scanned_client_sharded``), dense fcea + PDD and K = 4, 3 rounds
    each, and on the same world the buffered engine (fcea dense, 8
    micro-steps), fcea + PDD under chaos (3 rounds) and K = 4 buffered
@@ -185,8 +186,8 @@ and prints no result):
    the ranks through CUDA
    IPC: each job unsharded here first, then over W = min(cards, 4) NCCL
    ranks (``core.mesh.spawn`` of this script's ``shard_rank``), or on
-   one card over NCCL alone (W = 1)
-   and then over two gloo ranks on that card (after a probe of which
+   one card over NCCL alone (W = 1) and then over two gloo ranks on
+   that card (after a probe of which
    collectives gloo takes on CUDA tensors); every leaf of every rank's
    metrics, final state and generators bit-equal to the unsharded run's
    (SHA-256 of the bytes), each rank's launches (a fleet rank a whole
@@ -321,9 +322,9 @@ and prints no result):
    rank (each keeps its blocks): the main flash shape timed; on one card
    a mesh of one over an NCCL group of one (bit-equal to the unsharded
    model), then ``MESH_ONE_CARD`` over gloo ranks on the card (model 2:
-   yi-34b 8 layers, grok-1-314b 2, recurrentgemma-9b one unit, xlstm-125m
-   whole, whisper-large-v3 4 + 4 layers; model 3: yi-34b 4 layers and
-   whisper 4 + 4 context-parallel, xlstm-125m with its heads whole and
+   yi-34b 2 layers, grok-1-314b 2, recurrentgemma-9b one unit, xlstm-125m
+   3 layers, whisper-large-v3 1 + 1 layers; model 3: yi-34b 2 layers and
+   whisper 1 + 1 context-parallel, xlstm-125m with its heads whole and
    ``r_gates`` split on dh, recurrentgemma-9b one unit with ``rec``
    whole); on four cards ``MESH_FOUR_CARDS`` over NCCL (model 4: yi-34b
    at its full 60 layers, grok-1-314b at 16, recurrentgemma-9b at 38,
@@ -344,7 +345,25 @@ and prints no result):
    teacher-forced on its tokens (rel rms at the prompt's end, the share
    of tokens alike; a MoE at its no-drop factor), each rank's ms,
    tokens/s, peak device and host memory; each layout's reduced fp32
-   config against the card's unsharded run at ``SUBSTRATE_TOL``;
+   config against the card's unsharded run at ``SUBSTRATE_TOL``.  Then
+   training on the mesh with the training placement (FSDP over
+   ``data``), remat on: on one card in the model-2 spawn
+   ``MESH_TRAIN_ONE_CARD`` (stablelm-1.6b 2 layers at 1 x 2 and 2 x 1,
+   recurrentgemma-9b one unit at 1 x 2, each rank's first Adam moments
+   after one step held to its blocks of its own unsharded step's at
+   ``PREFILL_DECODE_REL_RMS``), on
+   four cards ``MESH_TRAIN_FOUR_CARDS`` over NCCL (qwen3-8b whole at 2 x 2
+   and 4 x 1, grok-1-314b 4 layers at 1 x 4, each loss held to the
+   unsharded model streamed one block at a time; qwen3-8b 8 layers at 4 x
+   1, every step's loss and the first moments held to the unsharded
+   train step on each rank's card; remat on vs off): ``loss_and_grads`` and
+   ``MESH_TRAIN_STEPS`` steps on one batch, every rank's losses
+   bit-equal, the loss falling, each call's launches exactly
+   ``_train_want`` a rank (two tensor-core flash launches an attention
+   layer, three recurrence launches a ``rec`` layer), ms a step,
+   tokens/s, the peak a rank and the state's bytes a rank; and each
+   mixer kind's reduced fp32 config (``MESH_TRAIN_KINDS``) on each layout
+   against the rank's own unsharded step at the CPU tests' tolerances;
 10. print the per-kernel JSON line (six entries, the kernels the paths
     launch: ``score_matrix`` and ``score_candidates`` are the fused score
     on the two paths; the rows-only ``score_rows``, which only the unfused
@@ -360,7 +379,8 @@ and prints no result):
     ``shard_launches`` the ``[shard]`` phase's widest part, a rank each
     (its six jobs summed), ``mesh_launches`` the ``[mesh]`` part's
     prefill that launched the most of the kernel, a rank each (flash and
-    the recurrence), and
+    the recurrence), ``mesh_train_launches`` the same of a ``[mesh]``
+    training part's train step, and
     ``dense_launches`` the five dense prefills', ``vlm_moe_launches`` the
     three prefix-LM and MoE prefills', ``encdec_launches`` whisper's
     teacher-forced ``apply`` (xLSTM's prefill launches none); the
@@ -3877,15 +3897,16 @@ def phase_sweep(cfg, dev):
 # ---------------------------------------------------------------------------
 
 # the seed axis at CONFIG (fcea + PDD, S = 8) and the client axis at
-# 1024 x 16 at CONFIG's widths (x (1024, 1200, 784) float32, 3.9 GB; cut
-# from 2048 x 16 to keep the whole script inside half its time limit):
+# 512 x 16 at CONFIG's widths (x (512, 1200, 784) float32, 1.9 GB; cut
+# from 2048 x 16, then 1024 x 16, to keep the whole script inside its
+# budget):
 # dense fcea + PDD, K = 4 and fcea + PDD under chaos, each SHARD_ROUNDS
 # rounds, the buffered engine (fcea dense) and K = 4 buffered under chaos,
 # each SHARD_STEPS micro-steps
 SHARD_ROUNDS = 3
 SHARD_STEPS = 8
 SHARD_SEEDS = 8
-SHARD_WORLD = (1024, 16)
+SHARD_WORLD = (512, 16)
 SHARD_K = 4
 SHARD_KERNELS = ("score_matrix", "score_candidates", "sic_rates",
                  "local_sgd_step")
@@ -6194,20 +6215,23 @@ def phase_train(dev, card):
 # prefill only (yi context-parallel at a model axis of 3, whose cache
 # would need a length 3 divides).  ``layers`` is whisper's encoder and
 # decoder depth each.
+# (yi-34b cut from 8 layers to 2 (4 to 2 context-parallel), xlstm-125m
+# from 12 to 3 and whisper from 4 + 4 to 1 + 1 here, paying for the
+# training parts)
 MESH_ONE_CARD = [
-    ("yi-34b 8 layers head-parallel", "yi-34b", 8, 2, 2, 1024, 16, 8),
+    ("yi-34b 2 layers head-parallel", "yi-34b", 2, 2, 2, 1024, 16, 8),
     ("grok-1-314b 2 layers expert-parallel", "grok-1-314b", 2, 2, 2, 1024,
      16, 8),
     ("recurrentgemma-9b 1 unit channel-parallel", "recurrentgemma-9b", 3, 2,
      2, 1024, 16, 8),
-    ("xlstm-125m whole, heads split", "xlstm-125m", 12, 2, 2, 128, 16, 8),
-    ("whisper-large-v3 4 + 4 layers head-parallel", "whisper-large-v3", 4,
+    ("xlstm-125m 3 layers, heads split", "xlstm-125m", 3, 2, 2, 128, 16, 8),
+    ("whisper-large-v3 1 + 1 layers head-parallel", "whisper-large-v3", 1,
      2, 2, 448, 16, 8),
-    ("yi-34b 4 layers context-parallel", "yi-34b", 4, 3, 2, 3072, 0, 0),
-    ("whisper-large-v3 4 + 4 layers context-parallel, self cache whole",
-     "whisper-large-v3", 4, 3, 2, 448, 16, 8),
-    ("xlstm-125m whole, heads whole, r_gates on dh", "xlstm-125m", 12, 3, 2,
-     128, 16, 8),
+    ("yi-34b 2 layers context-parallel", "yi-34b", 2, 3, 2, 3072, 0, 0),
+    ("whisper-large-v3 1 + 1 layers context-parallel, self cache whole",
+     "whisper-large-v3", 1, 3, 2, 448, 16, 8),
+    ("xlstm-125m 3 layers, heads whole, r_gates on dh", "xlstm-125m", 3, 3,
+     2, 128, 16, 8),
     ("recurrentgemma-9b 1 unit, rec whole", "recurrentgemma-9b", 3, 3, 2,
      1024, 16, 8),
 ]
@@ -6488,16 +6512,30 @@ def _mesh_part(label, arch, layers, n_model, batch, seq, prompt,
 
 def mesh_rank(parts):
     """The ranks' target (``core.mesh.spawn`` imports it from this
-    script): ``_mesh_part(**part)`` for each part in turn."""
-    return [_mesh_part(**part) for part in parts]
+    script): each part in turn, by its ``kind``: a serving part
+    (``_mesh_part``), a full-width training part (``_mesh_train_part``) or
+    a reduced one (``_mesh_train_reduced``)."""
+    out = []
+    for part in parts:
+        part = dict(part)
+        kind = part.pop("kind", "serve")
+        if kind == "serve":
+            out.append(_mesh_part(**part))
+        elif kind == "train":
+            out.append(_mesh_train_part(**part))
+        else:
+            out.append(_mesh_train_reduced(part["k"], part["arch"],
+                                           part["n_data"], part["n_model"]))
+    return out
 
 
-def _streamed_logits(cfg, tokens, positions):
+def _streamed_hidden(cfg, tokens):
     """The unsharded model of ``cfg`` drawn from ``MESH_SEED`` -- in
     ``Transformer``'s draw order: the embedding, the untied output table,
     then each block -- run one block at a time (each drawn, applied and
     freed: yi-34b's 60 layers take 137.6 GB, more than a card), over
-    tokens (B, S); the float32 logits at ``positions``, on the host."""
+    tokens (B, S): the final-normed hidden states, the output table and
+    the MoE layers' aux summed."""
     import torch
     from repro_torch.models import attention, layers
     from repro_torch.models.transformer import Block, compute_stages
@@ -6509,8 +6547,10 @@ def _streamed_logits(cfg, tokens, positions):
         layers.normal_init(table, gen, cfg.param_dtype)
     final = layers.Norm(cfg.norm, cfg.d_model, cfg.param_dtype, dev, gen)
     pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     with torch.no_grad():
         x = layers.embed_apply(emb, tokens, cfg.compute_dtype)
+        del emb
         if cfg.embed_scale:
             x = x * float(torch.tensor(cfg.d_model ** 0.5,
                                        dtype=cfg.compute_dtype))
@@ -6523,11 +6563,38 @@ def _streamed_logits(cfg, tokens, positions):
                         blk.attn, blk.norm1(x), cfg,
                         mask_kind=blk.mask_kind(0), positions=pos,
                         use_rope=blk.use_rope(cfg))
-                    x, _ = blk.ffn(x + y, cfg)
+                    x, inc = blk.ffn(x + y, cfg)
+                    if inc is not None:
+                        aux = aux + inc
                     del blk, y
-        out = layers.unembed_apply(unemb, final(x)[:, positions]).float()
-    del emb, unemb, x
+        x = final(x)
+    return x, unemb, aux
+
+
+def _streamed_logits(cfg, tokens, positions):
+    """``_streamed_hidden``'s float32 logits at ``positions``, on the
+    host."""
+    from repro_torch.models import layers
+    x, unemb, _ = _streamed_hidden(cfg, tokens)
+    out = layers.unembed_apply(unemb, x[:, positions]).float()
+    del x, unemb
     return out.cpu()
+
+
+def _streamed_loss(cfg, data):
+    """The training loss of ``data`` (tokens and labels) on the unsharded
+    model streamed one block at a time (``_streamed_hidden``): the cross
+    entropy of its logits, one row at a time, plus the MoE aux."""
+    import torch
+    from repro_torch.models import layers
+    x, unemb, aux = _streamed_hidden(cfg, data["tokens"])
+    with torch.no_grad():
+        nll = torch.stack([layers.token_nll(
+            layers.unembed_apply(unemb, x[i]), data["labels"][i]).sum()
+            for i in range(x.shape[0])])
+    loss = nll.sum() / data["labels"].numel() + cfg.moe_aux_weight * aux
+    del x, unemb
+    return float(loss)
 
 
 def _unsharded_logits(cfg, tokens, positions):
@@ -6695,29 +6762,448 @@ def _mesh_check(parts, want, runs, dev, card):
     return widest
 
 
-def phase_mesh(dev, card):
+# -- [mesh] training: the train step on the ("data", "model") mesh ----------
+
+# (label, arch, layers, data axis, model axis, batch, seq, held[, remat
+# A/B]): full-width parts trained with the training placement (FSDP over
+# ``data``) and remat on, ``MESH_TRAIN_STEPS`` steps on one batch.  On one
+# card they run in the two-rank gloo spawn of ``MESH_ONE_CARD``
+# (stablelm-1.6b at 1 x 2 and 2 x 1 -- four gloo ranks would need a spawn
+# of their own --, at 2 of its 24 layers: gloo stages every collective
+# through the host, and 2 x 1 moves the 822 MB tied table's gradient and
+# each layer's weights a step).  On four cards over NCCL: qwen3-8b whole,
+# whose 131 GB of fp32 state no card holds, and grok-1-314b at 4 layers,
+# each held to the unsharded loss streamed one block at a time and its
+# gradients through the reduced configs; qwen3-8b at 8 layers (45 GB of
+# fp32 state unsharded) held to the unsharded train step on each rank's
+# own card, at S = 1024 so that step's logits fit beside its state; and
+# at 8 layers and S = 4096 remat on against off.  ``held``: how
+# ``_mesh_train_part`` holds the part ("unsharded", "streamed" or
+# "stepped").
+MESH_TRAIN_ONE_CARD = [
+    ("stablelm-1.6b 2 layers tensor-parallel", "stablelm-1.6b", 2, 1, 2, 4,
+     1024, "unsharded"),
+    ("stablelm-1.6b 2 layers FSDP", "stablelm-1.6b", 2, 2, 1, 4, 1024,
+     "unsharded"),
+    ("recurrentgemma-9b 1 unit channel-parallel", "recurrentgemma-9b", 3, 1,
+     2, 2, 1024, "unsharded"),
+]
+MESH_TRAIN_FOUR_CARDS = [
+    ("qwen3-8b whole FSDP and tensor-parallel", "qwen3-8b", 36, 2, 2, 4,
+     4096, "streamed"),
+    ("qwen3-8b whole FSDP", "qwen3-8b", 36, 4, 1, 4, 4096, "streamed"),
+    ("grok-1-314b 4 layers expert-parallel", "grok-1-314b", 4, 1, 4, 4,
+     4096, "streamed"),
+    ("qwen3-8b 8 layers FSDP against the unsharded step", "qwen3-8b", 8, 4,
+     1, 4, 1024, "stepped"),
+    # remat on against off on the same weights (whole, remat off would
+    # keep every layer's gathered weights past a card)
+    ("qwen3-8b 8 layers FSDP, remat on vs off", "qwen3-8b", 8, 4, 1, 4,
+     4096, "streamed", True),
+]
+# the reduced fp32 config of each mixer kind, trained on its spawn's
+# layouts: on one card each kind on one of 1 x 2 and 2 x 1 in turn (the
+# CPU tests hold every kind on every layout); on four cards each on
+# 2 x 2, 4 x 1 and 1 x 4
+MESH_TRAIN_KINDS = {"attention": "yi-34b", "moe": "grok-1-314b",
+                    "rec": "recurrentgemma-9b", "xlstm": "xlstm-125m",
+                    "encoder-decoder": "whisper-large-v3"}
+MESH_TRAIN_LAYOUTS = {2: [(2, 1), (1, 2)], 4: [(2, 2), (4, 1), (1, 4)]}
+MESH_TRAIN_STEPS = 4
+# a full-width part's loss against the unsharded one (bf16 compute: the
+# partials' sums run in another order), relative
+MESH_TRAIN_LOSS_REL = 1e-2
+
+
+def _train_seeds(cfg, batch, seq, dev):
+    """A part's batch, the same on every rank and in the parent."""
+    import torch
+    return _train_batch(cfg, batch, seq, MESH_SEED + 5, torch.Generator(
+        device=dev).manual_seed(MESH_SEED + 6), dev)
+
+
+def _rank_block(whole, p, mesh):
+    """This rank's block of a whole tensor shaped as parameter ``p``'s
+    leaf: narrowed along its ``model_split`` and ``data_split``."""
+    for axis in ("model", "data"):
+        dim = getattr(p, f"{axis}_split", None)
+        if dim is not None:
+            n = p.shape[dim]
+            whole = whole.narrow(dim, mesh.coords[axis] * n, n)
+    return whole
+
+
+def _mesh_train_part(label, arch, layers, n_data, n_model, batch, seq,
+                     held, ab=False):
+    """One full-width training part on this rank: ``make_train_step`` on
+    ``make_host_mesh(model=n_model)`` (weights drawn from ``MESH_SEED``,
+    each rank keeping its blocks), ``MESH_TRAIN_STEPS`` steps on one
+    batch, each with the launch counters zeroed just before and read just
+    after and the peak memory reset just before.  With ``held ==
+    "unsharded"`` the rank first runs ``loss_and_grads`` of its own
+    unsharded model from the same draws, and the first Adam moment its
+    step would take ((1 - b1) × the clipped gradient), this rank's
+    blocks, is held against the split step's after its first step (the
+    rel rms; the moments in float32, one rounding apart at most: the
+    unsharded Adam state of two ranks sharing a card would not fit
+    beside theirs).  With ``"stepped"`` the rank first runs the
+    unsharded ``make_train_step`` from the same draws for
+    ``MESH_TRAIN_STEPS`` steps on its own card: each step's loss, and
+    this rank's blocks of its first moments after one step, held against
+    the split step's, and its peak.  With ``"streamed"`` (the loss held
+    to the unsharded model streamed in the parent) a ``loss_and_grads``
+    comes before the steps (with ``ab`` again with remat off on the same
+    weights: its ms, peak and launches, and the gradients' max abs gap to
+    remat on)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import clip_scale
+    mesh = make_host_mesh(model=n_model)
+    if mesh.shape["data"] != n_data:
+        raise AssertionError(f"[mesh] {label}: a mesh of {mesh.shape}")
+    dev = mesh.device
+    cfg = _mesh_cfg(arch, layers)
+    torch.cuda.empty_cache()
+    data = _train_seeds(cfg, batch, seq, dev)
+    blocks = None
+    if held == "unsharded":
+        ref = build_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(MESH_SEED))
+        ref_loss, ref_grads = steps.loss_and_grads(ref, data)
+        ref_loss = float(ref_loss)
+        scale = clip_scale(ref_grads, 1.0)
+        del ref
+    if held == "stepped":
+        layout = dict(build_model(cfg, device="meta", mesh=mesh,
+                                  fsdp=True).named_parameters())
+        ref_fn, ref, ref_opt = steps.make_train_step(
+            cfg, lr=TRAIN_LR, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(MESH_SEED))
+        ref_state = ref_opt.init(dict(ref.named_parameters()))
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref_losses = []
+        for i in range(MESH_TRAIN_STEPS):
+            ref_state, _, m = ref_fn(ref_state, i, data)
+            ref_losses.append(float(m["loss"]))
+            if i == 0:
+                blocks = {k: _rank_block(t, layout[k], mesh).float().clone()
+                          for k, t in ref_state["m"].items()}
+        ref_loss = ref_losses[0]
+        ref_peak = torch.cuda.max_memory_allocated(dev)
+        del ref_fn, ref, ref_opt, ref_state, layout
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_fn, model, opt = steps.make_train_step(
+        cfg, lr=TRAIN_LR, device=dev, mesh=mesh,
+        generator=torch.Generator(device=dev).manual_seed(MESH_SEED))
+    params = dict(model.named_parameters())
+    opt_state = opt.init(params)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    if held == "unsharded":
+        # the first moment of AdamW's first step (b1 = 0.9)
+        blocks = {k: (1 - 0.9) * _rank_block(
+            ref_grads[k] * scale.to(ref_grads[k].dtype), params[k],
+            mesh).float() for k in params}
+        del ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    out = dict(label=label, coords=dict(mesh.coords), build_s=build_s,
+               weight_bytes=nbytes, state_bytes=2 * nbytes + sum(
+                   t.numel() * t.element_size() for k in ("m", "v")
+                   for t in opt_state[k].values()),
+               fsdp_leaves=sum(p.data_split is not None
+                               for p in params.values()))
+    want = _train_want(cfg)
+    if held == "stepped":
+        out.update(ref_losses=ref_losses, ref_peak_bytes=ref_peak)
+    if held == "streamed":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        _, grads = steps.loss_and_grads(model, data)
+        torch.cuda.synchronize(dev)
+        out.update(lg_ms=(time.perf_counter() - t0) * 1e3,
+                   lg_launches=_seq_launches(),
+                   lg_peak_bytes=torch.cuda.max_memory_allocated(dev))
+        _finite_grads(f"[mesh] {label}", grads)
+        if ab:
+            model.cfg = cfg.replace(remat=False)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_launches()
+            t0 = time.perf_counter()
+            _, off = steps.loss_and_grads(model, data)
+            torch.cuda.synchronize(dev)
+            out.update(off_ms=(time.perf_counter() - t0) * 1e3,
+                       off_launches=_seq_launches(),
+                       off_want=_train_want(model.cfg),
+                       off_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       off_gap=max(float((off[k] - grads[k]).abs().max())
+                                   for k in params))
+            model.cfg = cfg
+            del off
+            # remat on again, warm (the first call set up the groups'
+            # links)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            steps.loss_and_grads(model, data)
+            torch.cuda.synchronize(dev)
+            out.update(on_ms=(time.perf_counter() - t0) * 1e3,
+                       on_peak_bytes=torch.cuda.max_memory_allocated(dev))
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses, walls, peaks, launches = [], [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        opt_state, _, m = step_fn(opt_state, i, data)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        launches.append(_seq_launches())
+        if blocks is not None:
+            got = opt_state["m"]
+            num = sum(float((got[k].float() - blocks[k].float()).square()
+                            .sum()) for k in params)
+            den = sum(float(blocks[k].float().square().sum())
+                      for k in params)
+            out.update(m_rel_rms=(num / den) ** 0.5, ref_loss=ref_loss)
+            blocks = None
+    out.update(loss=losses[0], losses=losses, step_ms=walls,
+               step_peak_bytes=peaks, step_launches=launches, want=want)
+    del model, step_fn, opt_state, params, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_reduced(kind, arch, n_data, n_model):
+    """The reduced fp32 config of ``arch`` on this rank, with the training
+    placement on ``make_host_mesh(model=n_model)`` and unsharded, both from
+    ``MESH_SEED``: the loss and each gradient leaf of the first (the
+    rank's blocks) against the second's at the CPU tests' tolerances
+    (rtol 1e-5; 1e-5 of the leaf's largest + 1e-8), then one train step
+    each: the weights within the Adam-sign bound (max 2.5e-2, mean
+    2e-3)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    mesh = make_host_mesh(model=n_model)
+    dev = mesh.device
+    cfg = get_config(arch).reduced()
+    models = [build_model(cfg, device=dev, mesh=m, fsdp=True,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              MESH_SEED)) for m in (mesh, None)]
+    data = _train_seeds(cfg, 4, 32, dev)
+    (loss, grads), (rloss, rgrads) = (steps.loss_and_grads(m, data)
+                                      for m in models)
+    params = dict(models[0].named_parameters())
+    worst = 0.0
+    for k, p in params.items():
+        bound = 1e-5 * float(rgrads[k].abs().max()) + 1e-8
+        gap = float((grads[k] - _rank_block(rgrads[k], p, mesh)).abs().max())
+        worst = max(worst, gap / bound)
+    losses = []
+    for m in models:
+        step_fn, _, opt = steps.make_train_step(cfg, lr=1e-2, model=m)
+        losses.append(float(step_fn(opt.init(dict(m.named_parameters())), 0,
+                                    data)[2]["loss"]))
+    ref = dict(models[1].named_parameters())
+    gaps = [(params[k] - _rank_block(ref[k], p, mesh)).detach().abs()
+            for k, p in params.items()]
+    return dict(kind=kind, arch=arch, coords=dict(mesh.coords),
+                layout=(n_data, n_model), loss=float(loss),
+                ref_loss=float(rloss), step_loss=losses[0],
+                worst=worst, step_max=max(float(g.max()) for g in gaps),
+                step_mean=max(float(g.mean()) for g in gaps))
+
+
+def _mesh_train_parts(parts, world):
+    """The rank dicts of a spawn of ``world`` ranks: each full-width part
+    of ``parts`` and each reduced mixer kind on each layout of the
+    spawn."""
+    keys = ("label", "arch", "layers", "n_data", "n_model", "batch", "seq",
+            "held", "ab")
+    out = [dict(zip(keys, p), kind="train") for p in parts]
+    layouts = MESH_TRAIN_LAYOUTS[world]
+    for i, (k, a) in enumerate(MESH_TRAIN_KINDS.items()):
+        mine = layouts if world == 4 else [layouts[i % len(layouts)]]
+        out += [dict(kind="train-reduced", k=k, arch=a, n_data=n_data,
+                     n_model=n_model) for n_data, n_model in mine]
+    return out
+
+
+def _mesh_train_check(parts, runs, streamed, card):
+    """Every rank's training results: the loss and each step's bit-equal
+    on every rank; against the unsharded step (its gradients' rel rms and
+    loss, or the streamed unsharded loss); the losses falling; each
+    ``loss_and_grads`` and step launching exactly ``_train_want`` a rank;
+    the reduced kinds within the CPU tolerances.  Prints ms a step,
+    tokens/s, the peak a rank and the state's bytes a rank.  Returns
+    {kernel: each rank's launches of a step} of the part that launched
+    the most."""
+    widest = {}
+    for p, part in enumerate(parts):
+        ranks = [r[p] for r in runs]
+        if part["kind"] == "train-reduced":
+            tag = (f"[mesh] train reduced {part['arch']} ({part['k']}) at "
+                   f"{part['n_data']} x {part['n_model']}")
+            for rk in ranks:
+                if not (abs(rk["loss"] - rk["ref_loss"])
+                        <= 1e-5 * abs(rk["ref_loss"]) and rk["worst"] <= 1
+                        and rk["step_max"] <= 2.5e-2
+                        and rk["step_mean"] < 2e-3):
+                    raise AssertionError(f"{tag} rank {rk['coords']}: {rk}")
+            if len({(rk["loss"], rk["step_loss"]) for rk in ranks}) != 1:
+                raise AssertionError(f"{tag}: the ranks' losses differ")
+            log(f"{tag}: loss {ranks[0]['loss']:.6f} on every rank, "
+                f"unsharded {ranks[0]['ref_loss']:.6f}; worst gradient leaf "
+                f"{max(rk['worst'] for rk in ranks):.3f} of its bound "
+                f"(1e-5 of its largest + 1e-8); one step's weights within "
+                f"{max(rk['step_max'] for rk in ranks):.2e} (mean "
+                f"{max(rk['step_mean'] for rk in ranks):.2e}) of the "
+                f"unsharded step's: ok")
+            continue
+        label = part["label"]
+        tag = (f"[mesh] train {label} ({part['n_data']} x "
+               f"{part['n_model']})")
+        r0 = ranks[0]
+        for rk in ranks:
+            if (rk["loss"], rk["losses"]) != (r0["loss"], r0["losses"]):
+                seen = [(r["loss"], r["losses"]) for r in ranks]
+                raise AssertionError(f"{tag}: the ranks' losses differ: "
+                                     f"{seen}")
+            for got in rk["step_launches"] + [rk.get("lg_launches",
+                                                     rk["want"])]:
+                if {k: v for k, v in got.items() if v} != \
+                        {k: v for k, v in rk["want"].items() if v}:
+                    raise AssertionError(f"{tag} rank {rk['coords']}: "
+                                         f"launched {got}, want "
+                                         f"{rk['want']}")
+            if max(rk["step_peak_bytes"] + [rk.get("lg_peak_bytes", 0)]) \
+                    >= 80e9:
+                raise AssertionError(f"{tag}: peak memory")
+        if not r0["losses"][-1] < r0["losses"][0]:
+            raise AssertionError(f"{tag}: the loss did not fall: "
+                                 f"{r0['losses']}")
+        if part["held"] in ("unsharded", "stepped"):
+            ref_loss = r0["ref_loss"]
+            rel = max(rk["m_rel_rms"] for rk in ranks)
+            if not rel <= PREFILL_DECODE_REL_RMS:
+                raise AssertionError(f"{tag}: first moments rel rms "
+                                     f"{rel:.3e} against the unsharded step")
+            what = "" if part["held"] == "stepped" else \
+                "(0.1 x the clipped gradients) "
+            held = (f"the first step's Adam first moments {what}"
+                    f"rel rms {rel:.3e} (worst rank) "
+                    f"against each rank's blocks of the unsharded step's, "
+                    f"loss")
+        else:
+            ref_loss = streamed[p]
+            held = "loss against the unsharded model streamed one block " \
+                   "at a time:"
+        rel_loss = abs(r0["loss"] - ref_loss) / abs(ref_loss)
+        if not rel_loss <= MESH_TRAIN_LOSS_REL:
+            raise AssertionError(f"{tag}: loss {r0['loss']} against the "
+                                 f"unsharded {ref_loss}")
+        if part["held"] == "stepped":
+            # every step's loss against the unsharded step's
+            rels = [abs(a - b) / abs(b) for a, b in
+                    zip(r0["losses"], r0["ref_losses"])]
+            if not max(rels) <= MESH_TRAIN_LOSS_REL:
+                raise AssertionError(f"{tag}: losses {r0['losses']} against "
+                                     f"the unsharded steps' "
+                                     f"{r0['ref_losses']}")
+            log(f"{tag}: the unsharded train step on each rank's card "
+                f"(peak {r0['ref_peak_bytes'] / 1e9:.2f} GB), losses over "
+                f"{MESH_TRAIN_STEPS} steps "
+                f"{[round(x, 6) for x in r0['ref_losses']]}, the split "
+                f"step's within rel {max(rels):.2e} of them")
+        tokens = part["batch"] * part["seq"]
+        log(f"{tag}: remat on, batch {part['batch']} x {part['seq']}; "
+            f"state a rank {r0['state_bytes'] / 1e9:.2f} GB (weights "
+            f"{r0['weight_bytes'] / 1e9:.2f} GB, {r0['fsdp_leaves']} leaves "
+            f"split over data) drawn in {r0['build_s']:.1f} s; loss "
+            f"{r0['loss']:.6f} bit-equal on every rank; {held} "
+            f"{ref_loss:.6f} (rel {rel_loss:.2e}); losses over "
+            f"{MESH_TRAIN_STEPS} steps on one batch "
+            f"{[round(x, 6) for x in r0['losses']]}, every step's bit-equal "
+            f"on every rank; launches a rank a step {r0['want']}; {card}")
+        if "off_ms" in r0:
+            for rk in ranks:
+                if rk["off_launches"] != rk["off_want"]:
+                    raise AssertionError(f"{tag} rank {rk['coords']}: remat "
+                                         f"off launched {rk['off_launches']}"
+                                         f", want {rk['off_want']}")
+            log(f"{tag}: remat off on the same weights, loss_and_grads "
+                f"{r0['off_ms']:.1f} ms against {r0['on_ms']:.1f} on (run "
+                f"after it), peak a rank "
+                f"{max(rk['off_peak_bytes'] for rk in ranks) / 1e9:.2f} GB "
+                f"against {max(rk['on_peak_bytes'] for rk in ranks) / 1e9:.2f}"
+                f" on "
+                f"(off keeps every layer's gathered weights for the "
+                f"backward); gradients' max abs gap to remat on "
+                f"{max(rk['off_gap'] for rk in ranks):.3e}; launches "
+                f"{r0['off_want']}")
+        for rk in ranks:
+            ms = statistics.median(rk["step_ms"][1:])
+            lg = (f", loss_and_grads {rk['lg_ms']:.1f} ms (first call) at "
+                  f"{rk['lg_peak_bytes'] / 1e9:.2f} GB" if "lg_ms" in rk
+                  else "")
+            log(f"{tag} rank {rk['coords']}: step {ms:.1f} ms (median of "
+                f"steps 2-{MESH_TRAIN_STEPS}; first {rk['step_ms'][0]:.1f}; "
+                f"{tokens / ms * 1e3:.1f} tokens/s for the mesh); peak "
+                f"device a rank {max(rk['step_peak_bytes']) / 1e9:.2f} GB a "
+                f"step{lg}")
+        for name in ("flash_attention_wgmma", "linear_recurrence"):
+            mine = [rk["step_launches"][-1].get(name, 0) for rk in ranks]
+            if sum(mine) > sum(widest.get(name, [])):
+                widest[name] = mine
+    return widest
+
+
+def phase_mesh(dev, card, serve=True, train=True):
     """The substrate across ranks: on one card the parts of
     ``MESH_ONE_CARD`` over gloo ranks (model axis 2, then 3) after a mesh
-    of one over NCCL; on four cards ``MESH_FOUR_CARDS`` over NCCL ranks.
-    Each spawn's unsharded runs come first, here, then the ranks, in turns.
-    Times the main flash shape beside the offset blocks.  Returns {kernel:
-    each rank's launches} of the part that launched the most of it."""
+    of one over NCCL, the training parts (``MESH_TRAIN_ONE_CARD`` and the
+    reduced kinds, ``_mesh_train_parts``) in the model-2 spawn; on four
+    cards ``MESH_FOUR_CARDS`` over NCCL ranks, then a spawn of four NCCL
+    ranks for ``MESH_TRAIN_FOUR_CARDS``.  ``serve``/``train``: run those
+    parts (``--only mesh-train``: the training ones alone).  Each spawn's
+    unsharded runs come first, here, then the ranks, in turns.  Times the
+    main flash shape beside the offset blocks.  Returns ({kernel: each
+    rank's launches} of the serving part that launched the most of it,
+    the same of a training step)."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.mesh import spawn
     from repro_torch.kernels import seq_ops
     from repro_torch.launch.mesh import make_host_mesh
     four = torch.cuda.device_count() >= 4
-    gen = torch.Generator(device=dev).manual_seed(3)
-    q = torch.randn((2, 4096, 16, 256), generator=gen, device=dev
-                    ).to(torch.bfloat16)
-    k, v = (torch.randn((2, 4096, 1, 256), generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    main_ms = time_ms(lambda: seq_ops.flash_attention(
-        q, k, v, causal=True, window=2048))
-    log(f"[mesh] flash main shape (bf16 B=2 S=4096 H=16 KV=1 D=256 "
-        f"causal window 2048, q_offset none): {main_ms:.4f} ms on {card}")
-    del q, k, v
+    if serve:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q = torch.randn((2, 4096, 16, 256), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((2, 4096, 1, 256), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        main_ms = time_ms(lambda: seq_ops.flash_attention(
+            q, k, v, causal=True, window=2048))
+        log(f"[mesh] flash main shape (bf16 B=2 S=4096 H=16 KV=1 D=256 "
+            f"causal window 2048, q_offset none): {main_ms:.4f} ms on "
+            f"{card}")
+        del q, k, v
     if not four:
         # a mesh of one over an NCCL group of one: today's path, bit for
         # bit (no collective runs)
@@ -6741,33 +7227,65 @@ def phase_mesh(dev, card):
         log("[mesh] model=1 over an NCCL group of one: a mesh of one, "
             "the reduced yi-34b's logits and decode bit-equal to the "
             "unsharded model's")
+    # (serving parts, training parts, world, backend)
     if four:
-        spawns = [([p for p in MESH_FOUR_CARDS if p[3] == 4], 4, "nccl"),
-                  ([p for p in MESH_FOUR_CARDS if p[3] == 3], 3, "nccl")]
+        spawns = [([p for p in MESH_FOUR_CARDS if p[3] == 4], [], 4, "nccl"),
+                  ([p for p in MESH_FOUR_CARDS if p[3] == 3], [], 3, "nccl"),
+                  ([], _mesh_train_parts(MESH_TRAIN_FOUR_CARDS, 4), 4,
+                   "nccl")]
     else:
-        spawns = [([p for p in MESH_ONE_CARD if p[3] == 2], 2, "gloo"),
-                  ([p for p in MESH_ONE_CARD if p[3] == 3], 3, "gloo")]
-    widest = {}
-    for parts, world, backend in spawns:
+        spawns = [([p for p in MESH_ONE_CARD if p[3] == 2],
+                   _mesh_train_parts(MESH_TRAIN_ONE_CARD, 2),
+                   2, "gloo"),
+                  ([p for p in MESH_ONE_CARD if p[3] == 3], [], 3, "gloo")]
+    widest, train_widest = {}, {}
+    for parts, train_parts, world, backend in spawns:
+        parts = parts if serve else []
+        train_parts = train_parts if train else []
+        if not parts and not train_parts:
+            continue
         t0 = time.perf_counter()
         want = _mesh_want(parts, dev)
+        # the unsharded loss of each streamed part (one a config and batch)
+        losses = {}
+        for p in train_parts:
+            key = tuple(p.get(k) for k in ("arch", "layers", "batch", "seq"))
+            if p.get("held") == "streamed" and key not in losses:
+                cfg = _mesh_cfg(p["arch"], p["layers"])
+                losses[key] = _streamed_loss(cfg, _train_seeds(
+                    cfg, p["batch"], p["seq"], dev))
+        streamed = [losses.get(tuple(p.get(k) for k in
+                                     ("arch", "layers", "batch", "seq")))
+                    for p in train_parts]
+        gc.collect()
         torch.cuda.empty_cache()
         want_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         keys = ("label", "arch", "layers", "n_model", "batch", "seq",
                 "prompt", "new_tokens")
         runs = spawn(mesh_rank, world, backend=backend, device="cuda",
-                     args=([dict(zip(keys, p)) for p in parts],),
+                     args=([dict(zip(keys, p)) for p in parts]
+                           + train_parts,),
                      timeout_s=900)
         spawn_s = time.perf_counter() - t0
         log(f"[mesh] {world} {backend} ranks"
             f"{' across cards' if four else ' on one card'}: unsharded "
             f"runs {want_s:.1f} s, then the ranks {spawn_s:.1f} s (start, "
-            f"CUDA context, runs)")
-        for name, mine in _mesh_check(parts, want, runs, dev, card).items():
-            if sum(mine) > sum(widest.get(name, [])):
-                widest[name] = mine
-    return widest
+            f"CUDA context, runs; {len(parts)} serving parts, "
+            f"{len(train_parts)} training parts)")
+        n = len(parts)
+        if parts:
+            for name, mine in _mesh_check(parts, want, [r[:n] for r in runs],
+                                          dev, card).items():
+                if sum(mine) > sum(widest.get(name, [])):
+                    widest[name] = mine
+        if train_parts:
+            for name, mine in _mesh_train_check(
+                    train_parts, [r[n:] for r in runs], streamed,
+                    card).items():
+                if sum(mine) > sum(train_widest.get(name, [])):
+                    train_widest[name] = mine
+    return widest, train_widest
 
 
 def main(argv=None) -> int:
@@ -6776,11 +7294,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one steady fcea round and a window "
                          "of DDPG slots (device idle share)")
-    ap.add_argument("--only", choices=("shard", "mesh"),
+    ap.add_argument("--only", choices=("shard", "mesh", "mesh-train"),
                     help="build the kernels and run this one phase, then "
                          "stop: a partial check (e.g. [shard] or [mesh] on "
-                         "four cards) that prints no kernels line and no "
-                         "last line")
+                         "four cards; mesh-train: [mesh]'s training parts "
+                         "alone) that prints no kernels line and no last "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -6814,11 +7333,14 @@ def main(argv=None) -> int:
             f"{launches}; partial run, {time.perf_counter() - t_start:.1f} "
             f"s")
         return 0
-    if args.only == "mesh":
-        launches = phase("substrate across ranks", phase_mesh, dev, card)
+    if args.only in ("mesh", "mesh-train"):
+        launches, train_launches = phase(
+            "substrate across ranks", phase_mesh, dev, card,
+            args.only == "mesh")
         log(f"[mesh] launches a rank of the widest part's prefill: "
-            f"{launches}; partial run, {time.perf_counter() - t_start:.1f} "
-            f"s")
+            f"{launches}; of the widest training part's step: "
+            f"{train_launches}; partial run, "
+            f"{time.perf_counter() - t_start:.1f} s")
         return 0
     main_cmp = phase("hfl kernels vs plain", phase_compare, CONFIG, dev)
     runs = phase("hfl main path", phase_main_path, CONFIG, dev)
@@ -6856,7 +7378,8 @@ def main(argv=None) -> int:
         "xLSTM and encoder-decoder", phase_xlstm_encdec, dev, card)
     train_launches, train = phase("train the substrate", phase_train, dev,
                                   card)
-    mesh_launches = phase("substrate across ranks", phase_mesh, dev, card)
+    mesh_launches, mesh_train_launches = phase(
+        "substrate across ranks", phase_mesh, dev, card)
 
     # the entries of local_sgd_step and flash_attention are the cluster
     # kernel and the tensor-core kernel
@@ -6899,6 +7422,9 @@ def main(argv=None) -> int:
                 "shard_launches": [rank.get(name, 0)
                                    for rank in shard_launches],
                 "mesh_launches": mesh_launches.get(
+                    {"flash_attention": "flash_attention_wgmma"}.get(
+                        name, name), []),
+                "mesh_train_launches": mesh_train_launches.get(
                     {"flash_attention": "flash_attention_wgmma"}.get(
                         name, name), [])}
     kernels = []

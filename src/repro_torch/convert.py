@@ -17,9 +17,10 @@ cache, so both sides can decode from the same state, and
 ``cache_to_numpy`` gathers a (sharded) decode cache back into the
 reference's layout; given a
 ``launch.mesh.Mesh2D`` it builds this rank's blocks of the weights
-(``sharding.rules``' placement), and ``params_to_numpy`` gathers a
-sharded model's back.  ``params_to_tree``
-and ``params_to_numpy`` go the other way: a model's named tensors
+(``sharding.rules``' placement; with ``fsdp=True`` the training one,
+split over ``data`` too), and ``params_to_numpy`` gathers a sharded
+model's back, as ``opt_state_to_numpy`` gathers its Adam moments.
+``params_to_tree`` and ``params_to_numpy`` go the other way: a model's named tensors
 (weights, gradients, Adam moments) in the reference's layout, so both
 sides' gradients and optimizer states compare leaf for leaf, and a
 checkpoint the port writes is one the reference reads.
@@ -175,7 +176,8 @@ def _fill(param: torch.Tensor, src: np.ndarray, where: str) -> None:
 
 
 def params_from_numpy(params_np: Mapping[str, Any], cfg,
-                      device: "str | torch.device" = "cuda", mesh=None
+                      device: "str | torch.device" = "cuda", mesh=None,
+                      fsdp: bool = False
                       ) -> "Transformer | EncDecTransformer":
     """The model ``build_model(cfg)`` on ``device`` holding the weights of
     a reference ``init`` pytree with numpy leaves.  Both kinds have
@@ -191,8 +193,9 @@ def params_from_numpy(params_np: Mapping[str, Any], cfg,
     stacked over the layers and ``enc_norm``.  Every parameter of the port
     is filled; a missing key or a shape mismatch raises.  With a ``mesh``
     (a ``launch.mesh.Mesh2D``), the model holds this rank's block of each
-    leaf, as ``sharding.rules`` places it."""
-    model = build_model(cfg, device=device, mesh=mesh)
+    leaf, as ``sharding.rules`` places it (``fsdp``: the training
+    placement, each leaf's FSDP dim split over ``data`` too)."""
+    model = build_model(cfg, device=device, mesh=mesh, fsdp=fsdp)
     top = {"embedding": "embed.embedding",
            "unembedding": "embed.unembedding"}
     for name, param in model.named_parameters():
@@ -216,14 +219,16 @@ def params_from_numpy(params_np: Mapping[str, Any], cfg,
 
 
 def _block(param: torch.Tensor, src: np.ndarray, mesh) -> np.ndarray:
-    """This rank's block of a whole leaf, where the model axis splits
-    the parameter (``layers.param``'s ``model_split``)."""
-    dim = getattr(param, "model_split", None)
-    if dim is None:
-        return src
-    n = param.shape[dim]
-    lo = mesh.coords["model"] * n
-    return np.take(src, range(lo, lo + n), axis=dim)
+    """This rank's block of a whole leaf, where the model axis (and, on a
+    training mesh, the data axis) splits the parameter (``layers.param``'s
+    ``model_split`` and ``data_split``)."""
+    for axis in ("model", "data"):
+        dim = getattr(param, f"{axis}_split", None)
+        if dim is not None:
+            n = param.shape[dim]
+            lo = mesh.coords[axis] * n
+            src = np.take(src, range(lo, lo + n), axis=dim)
+    return src
 
 
 def _reference_path(model: "Transformer | EncDecTransformer", name: str
@@ -257,19 +262,23 @@ def params_to_tree(model: "Transformer | EncDecTransformer",
     encoder-decoder's ``encoder/...`` and ``decoder/...`` stacked over the
     layers and ``enc_norm/...``; each leaf detached, on its tensor's
     device, in its dtype.  A model built on a ``mesh`` (default: its own)
-    has each split leaf gathered whole over ``model`` (every rank of the
-    mesh calls this)."""
+    has each split leaf gathered whole, over ``data`` along its
+    ``data_split``, then over ``model`` (every rank of the mesh calls
+    this)."""
     if tensors is None:
         tensors = dict(model.named_parameters())
     mesh = getattr(model, "mesh", None) if mesh is None else mesh
+    params = dict(model.named_parameters())
+    leaves = [tensors[name].detach() for name in params]
+    if mesh is not None:
+        for axis in ("data", "model"):
+            leaves = parallel.gather_leaves(
+                mesh, axis, leaves, [getattr(p, f"{axis}_split", None)
+                                     for p in params.values()])
     reps: "dict[Tuple[str, ...], dict[int, torch.Tensor]]" = {}
     tree: "dict[str, Any]" = {}
-    for name, param in model.named_parameters():
+    for name, leaf in zip(params, leaves):
         path, r = _reference_path(model, name)
-        leaf = tensors[name].detach()
-        dim = getattr(param, "model_split", None)
-        if dim is not None and parallel.model_active(mesh):
-            leaf = mesh.all_gather(leaf, "model", dim=dim)
         if r is None:
             _put(tree, path, leaf)
         else:
@@ -294,12 +303,53 @@ def params_to_numpy(model: "Transformer | EncDecTransformer",
     gathered whole); bfloat16 (which numpy lacks) becomes float32, which
     holds it exactly, so ``params_from_numpy(params_to_numpy(m), cfg)``
     rebuilds ``m`` bit for bit."""
-    def host(node):
-        if isinstance(node, dict):
-            return {k: host(v) for k, v in node.items()}
-        t = node.cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return host(params_to_tree(model, tensors, mesh))
+    return host_tree(params_to_tree(model, tensors, mesh))
+
+
+def host_tree(tree) -> "dict[str, Any]":
+    """A nested dict of tensors with numpy leaves on the host, bfloat16 as
+    float32 (which holds it exactly); each leaf a copy, never a view of a
+    tensor the train step goes on to update in place."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    t = tree.detach().to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def opt_state_to_numpy(model: "Transformer | EncDecTransformer",
+                       opt_state: Mapping[str, Mapping[str, torch.Tensor]]
+                       ) -> "dict[str, Any]":
+    """An Adam state of ``model``'s parameters (``{"m": ..., "v": ...}``,
+    each rank's blocks on a mesh) in the reference's layout, each moment
+    gathered whole as ``params_to_numpy`` gathers the weights (a
+    collective every rank of the mesh calls)."""
+    return {k: params_to_numpy(model, opt_state[k]) for k in ("m", "v")}
+
+
+def opt_state_from_numpy(model: "Transformer | EncDecTransformer",
+                         state_np: Mapping[str, Any],
+                         opt_state: Mapping[str, Mapping[str, torch.Tensor]]
+                         ) -> Mapping[str, Mapping[str, torch.Tensor]]:
+    """``opt_state`` (``{"m": ..., "v": ...}`` keyed by ``model``'s
+    parameter names, as the optimizer's ``init`` makes it) filled from an
+    Adam state in the reference's layout with numpy leaves
+    (``opt_state_to_numpy``'s), each moment this rank's block where
+    ``model`` is split (``layers.param``'s ``model_split`` and
+    ``data_split``), in its own dtype.  A missing key or a shape mismatch
+    raises.  Returns ``opt_state``."""
+    for name, param in model.named_parameters():
+        path, r = _reference_path(model, name)
+        where = "/".join(path) + ("" if r is None else f"[{r}]")
+        for k in ("m", "v"):
+            leaf = state_np[k]
+            for key in path:
+                if key not in leaf:
+                    raise KeyError(f"{k}: missing {where}")
+                leaf = leaf[key]
+            leaf = np.asarray(leaf if r is None else leaf[r])
+            _fill(opt_state[k][name], _block(param, leaf, model.mesh),
+                  f"{k} {where}")
+    return opt_state
 
 
 # the leaves of the reference's tuple caches (models/xlstm.py), in order

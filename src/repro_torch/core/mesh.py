@@ -14,9 +14,10 @@ The drivers use two collectives, both here: ``all_gather`` of equal
 shapes (``all_gather_ragged`` pads to the longest rank's rows and cuts
 after) and ``all_ok``, an all-reduce of one flag; the substrate's 2-D
 mesh (``launch.mesh.Mesh2D``, one ``Mesh`` an axis) also gathers along
-other dims and sums or maxes (``all_reduce``).  Over gloo a CUDA
-tensor goes through the host (gloo is a host transport; what it takes on
-CUDA tensors directly depends on the build).  A mesh with a group runs
+other dims, sums or maxes (``all_reduce``) and sums and scatters
+(``reduce_scatter``: a gather's adjoint, which training runs).  Over
+gloo a CUDA tensor goes through the host (gloo is a host transport;
+what it takes on CUDA tensors directly depends on the build).  A mesh with a group runs
 its collectives even for a world of one.
 
 ``spawn`` runs a function in ``world`` fresh processes joined by a
@@ -35,7 +36,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -106,6 +107,35 @@ class Mesh:
         return torch.cat([full[r * width:r * width + c]
                           for r, c in enumerate(counts)]).movedim(0, dim)
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0,
+                       counts: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
+        """This rank's block along ``dim`` of the elementwise sum of every
+        rank's ``t`` (one shape on every rank): ``counts[r]`` rows for rank
+        r (the same list on every rank), by default ``block``'s ceil(n /
+        world) rows a rank, the last ones shorter.  NCCL sums and scatters
+        equal blocks in one ``reduce_scatter_tensor``; gloo, and ragged
+        blocks, sum whole (``all_reduce``) and cut."""
+        if self.group is None:
+            return t
+        dim = dim % t.dim()
+        n = t.shape[dim]
+        if counts is None:
+            counts = [hi - lo for lo, hi in (block(n, self.world, r)
+                                             for r in range(self.world))]
+        lo = sum(counts[:self.rank])
+        if self.backend == "nccl" and len(set(counts)) == 1:
+            src = self._staged(t.movedim(dim, 0))
+            out = src.new_empty((counts[0],) + src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=self.group)
+            return out.movedim(0, dim).to(t.device)
+        src = self._staged(t)
+        if src is t:
+            src = t.clone()
+        dist.all_reduce(src, group=self.group)
+        # the block cut on the host: only it goes back to a card
+        return src.narrow(dim, lo, counts[self.rank]).to(t.device)
+
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The elementwise ``"sum"`` or ``"max"`` of every rank's ``t``
         (one shape on every rank), on ``t``'s device; every rank gets the
@@ -132,6 +162,14 @@ class Mesh:
             flag = flag.to(self.device)
         dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
         return bool(flag.item())
+
+
+def block(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """[lo, hi) of block ``index`` when ``n`` items go in ``parts`` blocks
+    of ceil(n / parts), the last ones shorter (or empty)."""
+    size = -(-n // parts)
+    lo = min(n, index * size)
+    return lo, min(n, lo + size)
 
 
 def _local_rank() -> int:

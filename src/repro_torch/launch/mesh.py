@@ -9,8 +9,9 @@ rank's coordinates and, for each axis, a 1-D ``core.mesh.Mesh`` over the
 sub-group of the ranks that share its other coordinate (one
 ``dist.new_group`` a row and a column, made by every rank in the same
 order); its collectives run over one axis: ``all_reduce`` (sum, max),
-``all_gather(dim=)`` and ``all_gather_ragged`` -- staged for gloo or NCCL
-as ``core.mesh.Mesh`` stages them -- and ``all_ok`` over the whole world.
+``all_gather(dim=)``, ``all_gather_ragged`` and ``reduce_scatter(dim=)``
+-- staged for gloo or NCCL as ``core.mesh.Mesh`` stages them -- and
+``all_ok`` over the whole world.
 An axis of size 1 runs no collective, so without a process group
 ``make_host_mesh()`` is a 1 x 1 mesh that runs none.
 
@@ -20,13 +21,13 @@ pod shapes, which only its dry-run lowers) is not carried.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.mesh import Mesh, PeerFailed, _init_from_env, \
-    rank_device
+    block, rank_device  # noqa: F401 (block: re-exported)
 
 AXES = ("data", "model")
 
@@ -61,6 +62,11 @@ class Mesh2D:
                           axis: str, dim: int = 0) -> torch.Tensor:
         return self.axes[axis].all_gather_ragged(t, counts, dim)
 
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int = 0,
+                       counts: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
+        return self.axes[axis].reduce_scatter(t, dim, counts)
+
     def all_ok(self, ok: bool) -> bool:
         """True when every rank of the mesh passes True (an all-reduce of
         one flag over the whole world)."""
@@ -78,14 +84,6 @@ class Mesh2D:
         raises its own error)."""
         if not self.all_ok(ok) and ok:
             raise PeerFailed(f"{what}: another rank of the mesh failed")
-
-
-def block(n: int, parts: int, index: int) -> Tuple[int, int]:
-    """[lo, hi) of block ``index`` when ``n`` items go in ``parts`` blocks
-    of ceil(n / parts), the last ones shorter (or empty)."""
-    size = -(-n // parts)
-    lo = min(n, index * size)
-    return lo, min(n, lo + size)
 
 
 def make_host_mesh(model: int = 1, device: "str | torch.device | None" = None

@@ -277,9 +277,9 @@ def _apply_sharded(p: Attention, x: torch.Tensor, cfg, mask: dict,
         k, v = _kv_local(p, x)
         k = _rope(k, positions, cfg, use_rope)
         out = seq_ops.flash_attention(q, k, v, q_offset=lo, **mask)
-        return p.mesh.all_gather_ragged(_out(p, out),
-                                        [b - a for a, b in blocks], "model",
-                                        dim=1)
+        return parallel.all_gather_ragged(p.mesh, _out(p, out),
+                                          [b - a for a, b in blocks],
+                                          "model", dim=1)
     q = _rope(_q_local(p, x), positions, cfg, use_rope)
     k, v = _kv_local(p, x)
     k, v = _expanded(p, _rope(k, positions, cfg, use_rope), v)

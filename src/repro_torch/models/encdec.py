@@ -33,7 +33,9 @@ slots and the cross cache's frames split over ``model`` as
 ``sharding.cache_spec`` places them (whole where W divides neither them,
 dh nor the heads: ``attention.cache_slots``); ``prefill_cross`` writes
 the rank's block of the frames, and decode merges the ranks' partial
-softmax over them.
+softmax over them.  Built for training (``fsdp=True``) each layer also
+holds its weights' FSDP blocks and gathers them over ``data`` at its
+entry (``parallel.gathered``).
 """
 from __future__ import annotations
 
@@ -98,6 +100,7 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, cfg, device, generator, mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.norm1 = _norm(cfg, device, generator)
         self.attn = attention.Attention(cfg, device=device,
                                         generator=generator, mesh=mesh)
@@ -105,9 +108,10 @@ class EncoderLayer(nn.Module):
         self.mlp = MLP(cfg, device, generator, mesh)
 
     def forward(self, x: torch.Tensor, cfg) -> torch.Tensor:
-        x = x + attention.bidirectional_attention_apply(
-            self.attn, self.norm1(x), cfg, use_rope=False)
-        return x + self.mlp(self.norm2(x))
+        with parallel.gathered(self.mesh, self):
+            x = x + attention.bidirectional_attention_apply(
+                self.attn, self.norm1(x), cfg, use_rope=False)
+            return x + self.mlp(self.norm2(x))
 
 
 class DecoderLayer(nn.Module):
@@ -117,6 +121,7 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, cfg, device, generator, mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.norm1 = _norm(cfg, device, generator)
         self.self_attn = attention.Attention(cfg, device=device,
                                              generator=generator, mesh=mesh)
@@ -128,12 +133,13 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, enc: torch.Tensor,
                 positions: torch.Tensor, cfg) -> torch.Tensor:
-        x = x + attention.attention_apply(
-            self.self_attn, self.norm1(x), cfg, mask_kind="global",
-            positions=positions, use_rope=False)
-        x = x + attention.cross_attention_apply(self.cross_attn,
-                                                self.norm2(x), enc, cfg)
-        return x + self.mlp(self.norm3(x))
+        with parallel.gathered(self.mesh, self):
+            x = x + attention.attention_apply(
+                self.self_attn, self.norm1(x), cfg, mask_kind="global",
+                positions=positions, use_rope=False)
+            x = x + attention.cross_attention_apply(self.cross_attn,
+                                                    self.norm2(x), enc, cfg)
+            return x + self.mlp(self.norm3(x))
 
 
 class EncDecTransformer(nn.Module):
@@ -143,11 +149,13 @@ class EncDecTransformer(nn.Module):
     ``device``) with the reference's init distributions; ``None`` leaves
     them unset for ``convert.params_from_numpy`` or ``load_state_dict``.
     ``mesh``: a ``launch.mesh.Mesh2D`` to serve across (this rank's blocks
-    of the weights; see the module's docstring).
+    of the weights; see the module's docstring); ``fsdp``: place them for
+    training.
     """
 
     def __init__(self, cfg, *, device: "str | torch.device" = "cuda",
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 fsdp: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if generator is not None and generator.device.type != dev.type:
@@ -155,7 +163,7 @@ class EncDecTransformer(nn.Module):
                              f"on {dev}")
         self.cfg = cfg
         self.device = dev
-        mesh = mesh if parallel.active(mesh) else None
+        mesh = parallel.placed(mesh if parallel.active(mesh) else None, fsdp)
         self.mesh = mesh
         shape = (cfg.vocab_size, cfg.d_model)
         self.embedding = layers.param(
@@ -200,10 +208,8 @@ class EncDecTransformer(nn.Module):
                ) -> torch.Tensor:
         """Decoder tokens (B, S) and the frames (B, F, d) -> the
         final-normed decoder hidden states (B, S, d)."""
-        mesh = self.mesh
-        x = self._hidden(parallel.rows(mesh, tokens),
-                         parallel.rows(mesh, extra_embeddings))
-        return parallel.unrows(mesh, x, tokens.shape[0])
+        x = self.local_hidden(tokens, extra_embeddings)[0]
+        return parallel.unrows(self.mesh, x, tokens.shape[0])
 
     def _hidden(self, tokens: torch.Tensor,
                 extra_embeddings: Optional[torch.Tensor]) -> torch.Tensor:
@@ -227,9 +233,8 @@ class EncDecTransformer(nn.Module):
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., d) -> logits (..., V), every vocab entry on every rank
         (``parallel.unembed``)."""
-        table = self.embedding if self.unembedding is None \
-            else self.unembedding
-        return parallel.unembed(table, self.table_split, self.mesh, x)
+        return parallel.unembed(self.output_table, self.table_split,
+                                self.mesh, x)
 
     def apply(self, tokens: torch.Tensor,
               extra_embeddings: Optional[torch.Tensor] = None, *,
@@ -238,14 +243,27 @@ class EncDecTransformer(nn.Module):
         """tokens (B, S) and frames (B, F, d) -> logits (B, S, V); with
         ``with_aux`` also a 0-d float32 zero, as the reference's ``apply``
         returns ``(logits, 0.0)``."""
+        x, aux = self.local_hidden(tokens, extra_embeddings)
+        logits = parallel.unrows(self.mesh, self.unembed(x), tokens.shape[0])
+        return (logits, aux) if with_aux else logits
+
+    def local_hidden(self, tokens: torch.Tensor,
+                     extra_embeddings: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed decoder hidden states of this rank's rows of
+        the batch (all of them without a mesh, or where the data axis does
+        not divide it) and the aux, a 0-d float32 zero."""
         mesh = self.mesh
-        logits = parallel.unrows(mesh, self.unembed(self._hidden(
-            parallel.rows(mesh, tokens),
-            parallel.rows(mesh, extra_embeddings))), tokens.shape[0])
-        if not with_aux:
-            return logits
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=logits.device)
+        x = self._hidden(parallel.rows(mesh, tokens),
+                         parallel.rows(mesh, extra_embeddings))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    @property
+    def output_table(self) -> torch.Tensor:
+        """The (V, d) table the logits are taken against: this rank's
+        block."""
+        return self.embedding if self.unembedding is None \
+            else self.unembedding
 
     # -- decode ---------------------------------------------------------------
 
@@ -269,7 +287,8 @@ class EncDecTransformer(nn.Module):
         f0 = 0 if getattr(dc["cross_k"], "model_split", None) is None \
             else self.mesh.coords["model"] * n
         for i, lyr in enumerate(self.decoder):
-            k, v = attention.cross_kv(lyr.cross_attn, enc, enc.dtype)
+            with parallel.gathered(self.mesh, lyr):
+                k, v = attention.cross_kv(lyr.cross_attn, enc, enc.dtype)
             dc["cross_k"][i].copy_(k[:, f0:f0 + n])
             dc["cross_v"][i].copy_(v[:, f0:f0 + n])
         return cache
@@ -291,14 +310,15 @@ class EncDecTransformer(nn.Module):
         dc = {k: [parallel.layer_view(v, i) for i in range(v.shape[0])]
               for k, v in cache["decoder"].items()}
         for i, lyr in enumerate(self.decoder):
-            y, _ = attention.attention_decode(
-                lyr.self_attn, lyr.norm1(x), cfg,
-                {"k": dc["k"][i], "v": dc["v"][i]}, index,
-                mask_kind="global", use_rope=False)
-            x = x + y
-            x = x + attention.cross_decode(lyr.cross_attn, lyr.norm2(x),
-                                           dc["cross_k"][i],
-                                           dc["cross_v"][i])
-            x = x + lyr.mlp(lyr.norm3(x))
+            with parallel.gathered(self.mesh, lyr):
+                y, _ = attention.attention_decode(
+                    lyr.self_attn, lyr.norm1(x), cfg,
+                    {"k": dc["k"][i], "v": dc["v"][i]}, index,
+                    mask_kind="global", use_rope=False)
+                x = x + y
+                x = x + attention.cross_decode(
+                    lyr.cross_attn, lyr.norm2(x), dc["cross_k"][i],
+                    dc["cross_v"][i])
+                x = x + lyr.mlp(lyr.norm3(x))
         logits = self.unembed(self.final_norm(x))
         return parallel.unrows(self.mesh, logits, batch), cache

@@ -70,25 +70,34 @@ def param(shape: Sequence[int], dtype: torch.dtype, device,
     model's parameters trainable (``requires_grad_``).
 
     With a ``mesh`` whose model axis splits the weight ``name`` (its rule
-    in ``sharding.rules``), the parameter is this rank's block of it: the
-    whole leaf drawn (the unsharded model's draws), the block kept and
-    the rest freed; unset, the block's shape."""
+    in ``sharding.rules``), the parameter is this rank's block of it, and
+    on a training mesh (``parallel.placed(mesh, fsdp=True)``) its data
+    rank's block of that along the rule's FSDP dim: the whole leaf drawn
+    (the unsharded model's draws), the block kept and the rest freed;
+    unset, the block's shape."""
     from repro_torch.models import parallel
-    dim, lo, hi = parallel.local_block(name, tuple(shape), mesh) \
-        if name is not None else (None, 0, 0)
-    if dim is None:
+    shape = tuple(shape)
+    whole = (None, 0, 0)
+    model_b, data_b = (parallel.local_block(name, shape, mesh),
+                       parallel.data_block(name, shape, mesh)) \
+        if name is not None else (whole, whole)
+    blocks = [b for b in (model_b, data_b) if b[0] is not None]
+    if not blocks:
         w = init() if generator is not None else \
-            torch.empty(tuple(shape), dtype=dtype, device=device)
+            torch.empty(shape, dtype=dtype, device=device)
     elif generator is not None:
-        whole = init()
-        w = whole.narrow(dim, lo, hi - lo).clone()
-        del whole
+        w = init()
+        for dim, lo, hi in blocks:
+            w = w.narrow(dim, lo, hi - lo)
+        w = w.clone()
     else:
         local = list(shape)
-        local[dim] = hi - lo
+        for dim, lo, hi in blocks:
+            local[dim] = hi - lo
         w = torch.empty(tuple(local), dtype=dtype, device=device)
     out = nn.Parameter(w, requires_grad=False)
-    out.model_split = dim      # the dim split over `model`, or None
+    # the dims split over `model` and over `data` (FSDP), or None
+    out.model_split, out.data_split = model_b[0], data_b[0]
     return out
 
 
@@ -211,16 +220,22 @@ def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # Loss
 # ---------------------------------------------------------------------------
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's cross entropy in float32: ``logits`` (..., V)'s
+    logsumexp minus the label's logit, (...,)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - ll
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Mean token-level cross entropy: ``logits`` (..., V) in float32,
     logsumexp minus the label's logit, ``labels`` (...,); with ``mask``
     (...,) the masked mean, over at least one token."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
+    nll = token_nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -195,5 +195,5 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, batch: Optional[int] = None
     terms = gate.to(dt).float()[..., None] * picked.float()
     y = torch.where(send[..., None], terms, 0.0).sum(dim=1)
     if dim is not None:
-        y = mesh.all_reduce(y, "model")
+        y = parallel.all_reduce(mesh, y, "model")
     return y.to(dt).reshape(b, s, d), r.aux

@@ -84,7 +84,8 @@ def _gates(p: RGLRU, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(log_a, gated input), both (..., dr) -- the rank's channels on a
     model axis, whose conv output ``x`` is gathered here -- computed in
     fp32."""
-    xs = x if p.mesh is None else p.mesh.all_gather(x, "model", dim=-1)
+    xs = x if p.mesh is None else parallel.all_gather(p.mesh, x, "model",
+                                                      dim=-1)
     xf = x.float()
     xsf = xs.float()
     r = torch.sigmoid(xsf @ p.w_a.float() + parallel.part(p.channels, p.b_a))

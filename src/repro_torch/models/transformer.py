@@ -37,9 +37,13 @@ logits gathered) or by ``d_model`` (gathered, partial logits summed);
 norms are whole.  The data axis splits the batch: ``hidden``, ``apply``,
 ``decode_step`` and ``prefill_prefix`` take the whole batch and return
 it, each data rank running its rows, and ``init_cache`` gives each rank
-its rows and slots.  The recurrent mixers split as ``models/rglru.py``
-and ``models/xlstm.py`` say, and their caches hold what the mixer holds
-on the rank.  No mesh, or a mesh of one, runs the unsharded bodies.
+its rows and slots.  A model built for training (``fsdp=True``) holds
+each weight's FSDP block too and gathers a block's weights over
+``data`` at its entry (``parallel.gathered``); ``loss_fn`` reduces the
+ranks' rows' cross entropy over ``data`` without gathering the logits.
+The recurrent mixers split as ``models/rglru.py`` and
+``models/xlstm.py`` say, and their caches hold what the mixer holds on
+the rank.  No mesh, or a mesh of one, runs the unsharded bodies.
 """
 from __future__ import annotations
 
@@ -249,11 +253,13 @@ class Transformer(nn.Module):
     them unset for ``convert.params_from_numpy`` or ``load_state_dict``.
     ``mesh``: a ``launch.mesh.Mesh2D`` to serve across (this rank's blocks
     of the weights; see the module's docstring); None or a mesh of one is
-    the unsharded model.
+    the unsharded model.  ``fsdp``: place the weights for training (each
+    also split over ``data`` by its rule's FSDP dim).
     """
 
     def __init__(self, cfg, *, device: "str | torch.device" = "cuda",
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 fsdp: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if generator is not None and generator.device.type != dev.type:
@@ -261,7 +267,7 @@ class Transformer(nn.Module):
                              f"on {dev}")
         self.cfg = cfg
         self.device = dev
-        mesh = mesh if parallel.active(mesh) else None
+        mesh = parallel.placed(mesh if parallel.active(mesh) else None, fsdp)
         self.mesh = mesh
         pat = tuple(zip(cfg.block_pattern, cfg.ffn_pattern))
         self.stages = compute_stages(cfg.n_layers, pat)
@@ -340,15 +346,16 @@ class Transformer(nn.Module):
         the reference's scan carry (x, aux)."""
         cfg = self.cfg
         for blk in self.blocks[start:end]:
-            h = blk.norm1(x)
-            if blk.kind in ATTENTION_KINDS:
-                y = attention.attention_apply(
-                    blk.attn, h, cfg, mask_kind=blk.mask_kind(prefix_len),
-                    positions=positions, use_rope=blk.use_rope(cfg),
-                    prefix_len=prefix_len)
-            else:
-                y = blk.mixer(h)
-            x, inc = blk.ffn(x + y, cfg, batch)
+            with parallel.gathered(self.mesh, blk):
+                h = blk.norm1(x)
+                if blk.kind in ATTENTION_KINDS:
+                    y = attention.attention_apply(
+                        blk.attn, h, cfg, mask_kind=blk.mask_kind(prefix_len),
+                        positions=positions, use_rope=blk.use_rope(cfg),
+                        prefix_len=prefix_len)
+                else:
+                    y = blk.mixer(h)
+                x, inc = blk.ffn(x + y, cfg, batch)
             if inc is not None:
                 aux = aux + inc
         return x, aux
@@ -360,16 +367,14 @@ class Transformer(nn.Module):
         final-normed hidden states of the text positions (B, S, d)."""
         mesh, batch = self.mesh, tokens.shape[0]
         parallel.posted(mesh, "hidden", lambda: _check_tokens(tokens))
-        x = self._forward(parallel.rows(mesh, tokens),
-                          parallel.rows(mesh, extra_embeddings), batch)[0]
+        x = self.local_hidden(tokens, extra_embeddings)[0]
         return parallel.unrows(mesh, x, batch)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., d) -> logits (..., V), every vocab entry on every rank
         (``parallel.unembed``)."""
-        table = self.embedding if self.unembedding is None \
-            else self.unembedding
-        return parallel.unembed(table, self.table_split, self.mesh, x)
+        return parallel.unembed(self.output_table, self.table_split,
+                                self.mesh, x)
 
     def apply(self, tokens: torch.Tensor,
               extra_embeddings: Optional[torch.Tensor] = None, *,
@@ -381,10 +386,27 @@ class Transformer(nn.Module):
         reference's ``apply`` returns it."""
         mesh, batch = self.mesh, tokens.shape[0]
         parallel.posted(mesh, "apply", lambda: _check_tokens(tokens))
-        x, aux = self._forward(parallel.rows(mesh, tokens),
-                               parallel.rows(mesh, extra_embeddings), batch)
+        x, aux = self.local_hidden(tokens, extra_embeddings)
         logits = parallel.unrows(mesh, self.unembed(x), batch)
         return (logits, aux) if with_aux else logits
+
+    def local_hidden(self, tokens: torch.Tensor,
+                     extra_embeddings: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed hidden states of this rank's rows of the batch
+        (all of them without a mesh, or where the data axis does not
+        divide it) and the whole batch's MoE aux; the inputs are not
+        checked."""
+        mesh, batch = self.mesh, tokens.shape[0]
+        return self._forward(parallel.rows(mesh, tokens),
+                             parallel.rows(mesh, extra_embeddings), batch)
+
+    @property
+    def output_table(self) -> torch.Tensor:
+        """The (V, d) table the logits are taken against (the tied
+        embedding or the untied output table): this rank's block."""
+        return self.embedding if self.unembedding is None \
+            else self.unembedding
 
     # -- decode ---------------------------------------------------------------
 
@@ -411,11 +433,12 @@ class Transformer(nn.Module):
                 raise ValueError(f"{cfg.name}: prefix prefill takes "
                                  f"attention mixers only, not {blk.kind!r}")
             leaves = cache[stage][pos]
-            y = attention.attention_prefill_cache(
-                blk.attn, blk.norm1(x), cfg,
-                {k: parallel.layer_view(v, r) for k, v in leaves.items()},
-                use_rope=blk.use_rope(cfg))
-            x, _ = blk.ffn(x + y, cfg, batch)
+            with parallel.gathered(self.mesh, blk):
+                y = attention.attention_prefill_cache(
+                    blk.attn, blk.norm1(x), cfg,
+                    {k: parallel.layer_view(v, r) for k, v in leaves.items()},
+                    use_rope=blk.use_rope(cfg))
+                x, _ = blk.ffn(x + y, cfg, batch)
         return cache
 
     def decode_step(self, token: torch.Tensor, cache: Cache,
@@ -438,17 +461,18 @@ class Transformer(nn.Module):
             leaves = cache[stage][pos]
             layer_cache = {k: parallel.layer_view(v, r)
                            for k, v in leaves.items()}
-            h = blk.norm1(x)
-            if blk.kind in ATTENTION_KINDS:
-                y, _ = attention.attention_decode(
-                    blk.attn, h, cfg, layer_cache, index,
-                    mask_kind=blk.mask_kind(prefix_len),
-                    use_rope=blk.use_rope(cfg), prefix_len=prefix_len)
-            else:
-                y, new = blk.mixer_decode(h, layer_cache)
-                for k, v in new.items():
-                    leaves[k][r].copy_(v)
-            x, _ = blk.ffn(x + y, cfg, batch)
+            with parallel.gathered(self.mesh, blk):
+                h = blk.norm1(x)
+                if blk.kind in ATTENTION_KINDS:
+                    y, _ = attention.attention_decode(
+                        blk.attn, h, cfg, layer_cache, index,
+                        mask_kind=blk.mask_kind(prefix_len),
+                        use_rope=blk.use_rope(cfg), prefix_len=prefix_len)
+                else:
+                    y, new = blk.mixer_decode(h, layer_cache)
+                    for k, v in new.items():
+                        leaves[k][r].copy_(v)
+                x, _ = blk.ffn(x + y, cfg, batch)
         logits = self.unembed(self.final_norm(x))
         return parallel.unrows(self.mesh, logits, batch), cache
 
@@ -477,9 +501,31 @@ def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor]
     ``cfg.moe_aux_weight`` (the reference's ``loss_fn``), of a
     ``Transformer`` or an ``EncDecTransformer`` (whose aux is 0): ``batch``
     holds ``tokens`` and ``labels`` (B, S), optionally ``embeddings`` (a
-    VLM's prefix or an encoder-decoder's frames) and ``loss_mask`` (B, S)."""
-    logits, aux = model.apply(batch["tokens"], batch.get("embeddings"),
-                              with_aux=True)
-    loss = layers.softmax_cross_entropy(logits, batch["labels"],
-                                        batch.get("loss_mask"))
+    VLM's prefix or an encoder-decoder's frames) and ``loss_mask`` (B, S).
+
+    On a mesh each rank takes the cross entropy of its rows only, and of
+    a table split by vocab without gathering the logits
+    (``parallel.vocab_nll``): the masked sum of its rows' token losses is
+    summed over ``data`` (where the data axis splits the batch;
+    differentiable), then divided by the mask's count summed the same way
+    (a constant); the whole batch's aux is added once.  Every rank
+    returns the same loss, bit for bit."""
+    mesh = model.mesh
+    if mesh is None:
+        logits, aux = model.apply(batch["tokens"], batch.get("embeddings"),
+                                  with_aux=True)
+        loss = layers.softmax_cross_entropy(logits, batch["labels"],
+                                            batch.get("loss_mask"))
+        return loss + model.cfg.moe_aux_weight * aux
+    rows = batch["tokens"].shape[0]
+    x, aux = model.local_hidden(batch["tokens"], batch.get("embeddings"))
+    nll = parallel.vocab_nll(model.output_table, model.table_split, mesh, x,
+                             parallel.rows(mesh, batch["labels"]))
+    mask = parallel.rows(mesh, batch.get("loss_mask"))
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    if parallel.data_rows(mesh, rows) != (0, rows):
+        total = parallel.all_reduce(mesh, total, "data")
+        count = mesh.all_reduce(count.detach(), "data")
+    loss = total / torch.clamp(count, min=1.0)
     return loss + model.cfg.moe_aux_weight * aux

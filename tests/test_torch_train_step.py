@@ -16,6 +16,7 @@ mean 1.9e-4; losses within 1.3e-5).
 """
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -192,6 +193,60 @@ def test_train_cli_writes_a_checkpoint_the_reference_reads(tmp_path, capsys):
     for (path, leaf), m in zip(flat, mine):
         np.testing.assert_array_equal(np.asarray(leaf), m,
                                       err_msg=jax.tree_util.keystr(path))
+
+
+def test_train_cli_resumes_and_takes_a_mesh_of_one(tmp_path, capsys):
+    """``--resume DIR`` starts from the latest checkpoint's weights, Adam
+    moments and step: two steps and a resumed third write the checkpoint
+    of three uninterrupted steps, weights and moments bit for bit (a
+    checkpoint without moments restarts them and Adam's count);
+    ``--mesh 1x1`` without a process group is the unsharded run, bit for
+    bit; a mesh the processes do not fill, or not DxM, raises."""
+    base = ["--arch", "stablelm-1.6b", "--batch", "2", "--seq", "16",
+            "--device", "cpu"]
+    first = str(tmp_path / "first")
+    assert train.main(base + ["--steps", "2", "--ckpt-dir", first,
+                              "--ckpt-every", "2"]) == 0
+    capsys.readouterr()
+    again = str(tmp_path / "again")
+    assert train.main(base + ["--steps", "1", "--resume", first,
+                              "--ckpt-dir", again, "--ckpt-every", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed at step 2" in out and "step    2 loss" in out
+    cfg = get_config("stablelm-1.6b").reduced()
+    template = convert.params_to_tree(build_model(cfg, device="cpu"))
+    tree, step, _ = store.load_checkpoint(again, template)
+    before, _, _ = store.load_checkpoint(first, template)
+    assert step == 3
+    changed = [not torch.equal(a, b) for a, b in
+               zip(jax.tree.leaves(tree), jax.tree.leaves(before))]
+    assert any(changed)
+    whole = str(tmp_path / "whole")
+    assert train.main(base + ["--steps", "3", "--ckpt-dir", whole,
+                              "--ckpt-every", "3"]) == 0
+    for sub, like in (("", template), ("adam", {"m": template,
+                                                "v": template})):
+        got, _, _ = store.load_checkpoint(os.path.join(again, sub), like)
+        want, step, _ = store.load_checkpoint(os.path.join(whole, sub), like)
+        assert step == 3
+        assert all(torch.equal(a, b) for a, b in
+                   zip(jax.tree.leaves(got), jax.tree.leaves(want))), sub
+    shutil.rmtree(os.path.join(first, "adam"))
+    capsys.readouterr()
+    assert train.main(base + ["--steps", "1", "--resume", first]) == 0
+    assert "no Adam moments" in capsys.readouterr().out
+    runs = []
+    for mesh in ([], ["--mesh", "1x1"]):
+        assert train.main(base + ["--steps", "2"] + mesh) == 0
+        runs.append([line.split("(")[0] for line in
+                     capsys.readouterr().out.splitlines()
+                     if line.startswith("step")])
+    assert runs[0] == runs[1] and len(runs[0]) == 2
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        train.main(base + ["--mesh", "1x2"])
+    with pytest.raises(ValueError, match="DxM"):
+        train.parse_mesh("2by2")
+    assert train.parse_mesh("2x2") == (2, 2)
 
 
 def test_train_cli_embeds_the_vlm_prefix(capsys):
